@@ -10,26 +10,39 @@ its public functions.
 
 Weights and compute dtype:
 
-* Every parameter is created in fp32. That fp32 copy is the master a
-  training port will update, and the copy ``save_model_dir`` writes.
-* Convolutions and linear layers compute in the dtype of their weights with
-  fp32 accumulation, casting their input to it. For bf16 serving,
+* Every parameter is created in fp32. That fp32 copy is the master the
+  training step updates, and the copy ``save_model_dir`` writes.
+* Training: ``AutoencoderKL(dtype=torch.bfloat16)`` sets a compute dtype on
+  every conv and linear layer. Each casts its input and its fp32 weight and
+  bias to that dtype at use, as the JAX model's ``kernel.astype(self.dtype)``
+  does (JAX ``models/vae.py:259-267``), and autograd carries the gradient
+  back to the fp32 master.
+* Serving: with no compute dtype, a layer computes in its weights' dtype;
   :meth:`AutoencoderKL.cast_compute_dtype_` converts every conv and linear
-  weight and bias in place to the compute dtype, once, at load: the serving
-  wrapper keeps only that compute-dtype copy, since it never updates weights.
+  weight and bias in place, once, at load, since a server never updates
+  weights.
 * GroupNorm affine parameters stay fp32 in both cases, and the statistics
   are taken in fp32 (``ops/group_norm.py``); the output is cast back to the
-  input dtype.
+  input dtype. ``impl`` selects the plain GroupNorm (``auto``/``xla``) or
+  the CUDA kernels (``pallas``).
 
-Not in this port yet: capture taps, rematerialisation, the fused-resnet and
-spatial-conv branches of the JAX model.
+Capture taps (JAX ``models/vae.py:149-177``): ``capture`` is a table of
+``(layer_name, capture_point, metrics)`` entries, ``layer_name`` being the
+module's path in this model (the diffusers name without ``vae.``). Conv2d
+and Linear tap their input and output, GroupNorm its input and its output,
+at exactly the JAX model's sites, and ``forward`` returns the values as a
+flat ``"stats"`` dict ``{"<layer>.<point>.<metric>": tensor}``. An empty
+table taps nothing.
+
+Not in this port yet: rematerialisation, the fused-resnet and spatial-conv
+branches of the JAX model.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -37,8 +50,14 @@ from torch import nn
 
 from ..ops import flash_attention as flash_ops
 from ..ops.attention import chunked_attention, naive_attention, resolve_impl
-from ..ops.group_norm import group_norm
+from ..ops import group_norm_kernel
+from ..ops.group_norm import group_norm, silu
+from ..ops.stats import channel_stats
 from .distributions import DiagonalGaussianDistribution
+
+# (layer_name, capture_point, metrics), layer_name without the "vae." prefix
+CaptureSpec = Tuple[str, str, Tuple[str, ...]]
+CaptureTable = Tuple[CaptureSpec, ...]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,14 +113,48 @@ class VAEConfig:
 # --------------------------------------------------------------------------- #
 # Leaf modules
 # --------------------------------------------------------------------------- #
-class Conv2d(nn.Module):
-    """2-D convolution (OIHW weight) computing in its weight's dtype."""
+class TapModule(nn.Module):
+    """A module with activation taps. :meth:`AutoencoderKL.set_capture`
+    gives it its ``full_name`` (its path in the model), the capture specs
+    that name it, and the model's stats dict, where the taps of one forward
+    put their values."""
+
+    full_name: str = ""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._specs: Dict[str, Tuple[CaptureSpec, ...]] = {}
+        self._sink: Optional[Dict[str, torch.Tensor]] = None
+
+    def _specs_for(self, point: str) -> Tuple[CaptureSpec, ...]:
+        return self._specs.get(point, ())
+
+    def emit(self, key: str, value: torch.Tensor) -> None:
+        if self._sink is not None:
+            self._sink[key] = value
+
+    def tap(self, x: torch.Tensor, point: str) -> None:
+        for layer_name, pt, metrics in self._specs_for(point):
+            for metric, value in channel_stats(x, tuple(metrics)).items():
+                self.emit(f"{layer_name}.{pt}.{metric}", value)
+
+
+class Conv2d(TapModule):
+    """2-D convolution (OIHW weight) with input and output taps.
+
+    ``padding`` is symmetric (an int) or an explicit ``(left, right, top,
+    bottom)`` zero pad applied after the input tap, so that the tap sees the
+    unpadded input as in the JAX model. The conv computes in
+    ``compute_dtype`` when set, else in its weight's dtype."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 stride: int = 1, padding: int = 1, device=None):
+                 stride: int = 1, padding: Union[int, Tuple[int, int, int, int]] = 1,
+                 device=None):
         super().__init__()
         self.stride = stride
-        self.padding = padding
+        self.pad = padding if isinstance(padding, tuple) else None
+        self.padding = 0 if self.pad is not None else padding
+        self.compute_dtype: Optional[torch.dtype] = None
         self.weight = nn.Parameter(torch.empty(
             out_channels, in_channels, kernel_size, kernel_size, device=device))
         self.bias = nn.Parameter(torch.empty(out_channels, device=device))
@@ -114,15 +167,23 @@ class Conv2d(nn.Module):
         self.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight
-        return F.conv2d(x.to(w.dtype), w, self.bias, self.stride, self.padding)
+        self.tap(x, "input")
+        dt = self.compute_dtype or self.weight.dtype
+        x = x.to(dt)
+        if self.pad is not None:
+            x = F.pad(x, self.pad)
+        y = F.conv2d(x, self.weight.to(dt), self.bias.to(dt), self.stride, self.padding)
+        self.tap(y, "output")
+        return y
 
 
-class Linear(nn.Module):
-    """Linear layer ((out, in) weight) computing in its weight's dtype."""
+class Linear(TapModule):
+    """Linear layer ((out, in) weight) with input and output taps, computing
+    in ``compute_dtype`` when set, else in its weight's dtype."""
 
     def __init__(self, in_features: int, out_features: int, device=None):
         super().__init__()
+        self.compute_dtype: Optional[torch.dtype] = None
         self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device))
         self.bias = nn.Parameter(torch.empty(out_features, device=device))
 
@@ -132,19 +193,29 @@ class Linear(nn.Module):
         self.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight
-        return F.linear(x.to(w.dtype), w, self.bias)
+        self.tap(x, "input")
+        dt = self.compute_dtype or self.weight.dtype
+        y = F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        self.tap(y, "output")
+        return y
 
 
-class GroupNorm(nn.Module):
-    """GroupNorm with optional fused SiLU; fp32 affine and statistics."""
+class GroupNorm(TapModule):
+    """GroupNorm with optional fused SiLU; fp32 affine and statistics.
+
+    Three branches, as the JAX ``VGroupNorm`` (JAX ``models/vae.py:
+    318-362``): with no output tap, the norm and SiLU in one op; with
+    ``impl="pallas"`` and only ``mean_abs_activation_per_channel`` output
+    taps, the kernel's own |z| side output, SiLU still fused; otherwise the
+    norm, the tap on its output, then a separate SiLU."""
 
     def __init__(self, num_groups: int, channels: int, eps: float = 1e-6,
-                 fuse_silu: bool = False, device=None):
+                 fuse_silu: bool = False, impl: str = "auto", device=None):
         super().__init__()
         self.num_groups = num_groups
         self.eps = eps
         self.fuse_silu = fuse_silu
+        self.impl = impl
         self.weight = nn.Parameter(torch.empty(channels, device=device))
         self.bias = nn.Parameter(torch.empty(channels, device=device))
 
@@ -152,9 +223,31 @@ class GroupNorm(nn.Module):
         nn.init.ones_(self.weight)
         nn.init.zeros_(self.bias)
 
+    def _kernel_stats_ok(self, x: torch.Tensor, out_specs) -> bool:
+        if self.impl != "pallas" or not out_specs:
+            return False
+        if any(set(m) != {"mean_abs_activation_per_channel"} for _, _, m in out_specs):
+            return False
+        return group_norm_kernel.eligible(x, self.num_groups)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps,
-                          fuse_silu=self.fuse_silu)
+        self.tap(x, "input")
+        out_specs = self._specs_for("output")
+        if self.fuse_silu and not out_specs:
+            return group_norm(x, self.weight, self.bias, self.num_groups, self.eps,
+                              fuse_silu=True, impl=self.impl)
+        if self._kernel_stats_ok(x, out_specs):
+            y, mean_abs = group_norm_kernel.group_norm_silu_with_stats(
+                x, self.weight, self.bias, self.num_groups, self.eps,
+                fuse_silu=self.fuse_silu,
+            )
+            self.emit(f"{self.full_name}.output.mean_abs_activation_per_channel",
+                      mean_abs)
+            return y
+        y = group_norm(x, self.weight, self.bias, self.num_groups, self.eps,
+                       fuse_silu=False, impl=self.impl)
+        self.tap(y, "output")
+        return silu(y) if self.fuse_silu else y
 
 
 # --------------------------------------------------------------------------- #
@@ -224,10 +317,11 @@ class Downsample2D(nn.Module):
 
     def __init__(self, channels: int, device=None):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, stride=2, padding=0, device=device)
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=(0, 1, 0, 1),
+                           device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.pad(x, (0, 1, 0, 1)))
+        return self.conv(x)
 
 
 class Upsample2D(nn.Module):
@@ -362,10 +456,17 @@ class Decoder(nn.Module):
 class AutoencoderKL(nn.Module):
     """The full VAE over NCHW tensors. ``forward(pixel_values,
     sample_posterior, generator, noise)`` returns reconstruction, latent_dist
-    and latents_sampled (no scaling_factor applied), like the JAX model."""
+    and latents_sampled (no scaling_factor applied), like the JAX model, and
+    the taps' values under ``"stats"``.
+
+    ``impl`` is the GroupNorm impl of every norm, ``dtype`` the compute dtype
+    of every conv and linear layer (None: their weights' dtype), ``capture``
+    the tap table; :meth:`set_impl`, :meth:`set_compute_dtype` and
+    :meth:`set_capture` change them on a built model."""
 
     def __init__(self, config: Optional[VAEConfig] = None, attn_impl: str = "auto",
-                 device=None):
+                 device=None, impl: str = "auto", dtype: Optional[torch.dtype] = None,
+                 capture: CaptureTable = ()):
         super().__init__()
         self.config = cfg = config or VAEConfig.sdxl()
         self.encoder = Encoder(cfg, attn_impl, device=device)
@@ -374,6 +475,10 @@ class AutoencoderKL(nn.Module):
                                  padding=0, device=device)
         self.post_quant_conv = Conv2d(cfg.latent_channels, cfg.latent_channels, 1,
                                       padding=0, device=device)
+        self._stats: Dict[str, torch.Tensor] = {}
+        self.set_impl(impl)
+        self.set_compute_dtype(dtype)
+        self.set_capture(capture)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -391,6 +496,37 @@ class AutoencoderKL(nn.Module):
                 module.to(dtype)
         return self
 
+    def set_impl(self, impl: str) -> "AutoencoderKL":
+        """The GroupNorm impl of every norm (``ops.group_norm``)."""
+        self.impl = impl
+        for module in self.modules():
+            if isinstance(module, GroupNorm):
+                module.impl = impl
+        return self
+
+    def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> "AutoencoderKL":
+        """The dtype every conv and linear layer computes in; the fp32
+        parameters are cast at use. None computes in the weights' dtype."""
+        self.dtype = dtype
+        for module in self.modules():
+            if isinstance(module, (Conv2d, Linear)):
+                module.compute_dtype = dtype
+        return self
+
+    def set_capture(self, capture: CaptureTable) -> "AutoencoderKL":
+        """Install a capture table: each tap module gets the specs that name
+        it by its path in this model."""
+        self.capture = tuple((n, p, tuple(m)) for n, p, m in capture)
+        for name, module in self.named_modules():
+            if isinstance(module, TapModule):
+                module.full_name = name
+                module._sink = self._stats
+                module._specs = {
+                    point: tuple(s for s in self.capture if s[0] == name and s[1] == point)
+                    for point in ("input", "output")
+                }
+        return self
+
     def encode(self, x: torch.Tensor) -> DiagonalGaussianDistribution:
         return DiagonalGaussianDistribution.from_moments(
             self.quant_conv(self.encoder(x)), dim=1)
@@ -405,13 +541,18 @@ class AutoencoderKL(nn.Module):
         generator: Optional[torch.Generator] = None,
         noise: Optional[torch.Tensor] = None,
     ) -> Dict[str, Any]:
+        self._stats.clear()
         latent_dist = self.encode(pixel_values)
         if sample_posterior:
             latents = latent_dist.sample(generator=generator, noise=noise)
         else:
             latents = latent_dist.mode()
+        reconstruction = self.decode(latents)
+        stats = dict(self._stats)
+        self._stats.clear()
         return {
-            "reconstruction": self.decode(latents),
+            "reconstruction": reconstruction,
             "latent_dist": latent_dist,
             "latents_sampled": latents,
+            "stats": stats,
         }

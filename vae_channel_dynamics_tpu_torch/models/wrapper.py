@@ -8,12 +8,19 @@ in NCHW on ``device``; every call runs under ``torch.inference_mode``.
 
 Like the JAX wrapper, a sampling call without a ``generator`` uses a fixed
 seed (0), so repeated calls give the same result; pass a generator for
-fresh noise. Tiling, slicing and activation hooks are not ported yet.
+fresh noise. ``impl`` is the GroupNorm impl (``auto``/``xla`` plain,
+``pallas`` the CUDA kernels). Tiling, slicing and activation hooks
+(``add_hooks``) are not ported yet.
+
+:func:`forward_with_stats` is the capture forward of the training step (the
+JAX package's ``training/step.py::_forward_with_stats``): the model's
+forward, with autograd, returning its outputs and the taps' flat stats
+dict.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -33,6 +40,21 @@ def resolve_device(device: Any) -> torch.device:
     return dev
 
 
+def forward_with_stats(
+    model: AutoencoderKL,
+    pixel_values: torch.Tensor,
+    sample_posterior: bool = True,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+    """Run ``model`` on NCHW pixels and split off the taps' stats dict
+    ``{"<layer>.<point>.<metric>": tensor}``; ``noise`` is NCHW standard
+    normal noise that replaces the generator's draw."""
+    out = model(pixel_values, sample_posterior=sample_posterior,
+                generator=generator, noise=noise)
+    return out, out.pop("stats")
+
+
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2).contiguous()
 
@@ -50,13 +72,16 @@ class SDXLVAEWrapper:
         seed: int = 0,
         attn_impl: str = "auto",
         device: Any = "cuda",
+        impl: str = "auto",
     ):
         self.config = config or VAEConfig.sdxl()
         self.dtype = dtype
         self.attn_impl = attn_impl
+        self.impl = impl
         self.device = resolve_device(device)
         self.scaling_factor = self.config.scaling_factor
-        model = AutoencoderKL(self.config, attn_impl=attn_impl, device=self.device)
+        model = AutoencoderKL(self.config, attn_impl=attn_impl, device=self.device,
+                              impl=impl)
         if state_dict is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             model.init_weights(gen)

@@ -31,7 +31,9 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+# one lock per library, so that two libraries build at the same time
+_locks: Dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 # seconds each library took to build in this process (0.0 when it was found
 # already built) and nvcc's output when it was built, for chip_smoke.py
@@ -85,8 +87,11 @@ def _build(name: str, out: str) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    with _lock:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed.
+    Different libraries may be loaded from different threads at once."""
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib: Optional[ctypes.CDLL] = _loaded.get(name)
         if lib is not None:
             return lib

@@ -1,17 +1,28 @@
-"""GroupNorm (+ optional fused SiLU) for NCHW tensors, as plain tensor ops.
+"""GroupNorm (+ optional fused SiLU) for NCHW tensors.
 
-Counterpart of ``vae_channel_dynamics_tpu/ops/group_norm.py``. Only its
-plain path (``_group_norm_xla``) is ported: fp32 sum and sum of squares per
-(sample, group) over (H, W, C/G), biased variance, ``rsqrt(var + eps)``,
-folded with the affine into per-(sample, channel) ``a``, ``b`` so that
-``y = x*a + b``, then the optional SiLU, cast back to the input dtype. It
-deliberately avoids ``F.group_norm``: the GroupNorm kernels still to be
-ported are held against this exact function.
+Counterpart of ``vae_channel_dynamics_tpu/ops/group_norm.py``: the single
+entry point the model uses. ``impl`` selects
+
+* ``auto`` and ``xla``: :func:`group_norm_reference`, the plain path (the
+  JAX package's ``_group_norm_xla``): fp32 sum and sum of squares per
+  (sample, group) over (H, W, C/G), biased variance, ``rsqrt(var + eps)``,
+  folded with the affine into per-(sample, channel) ``a``, ``b`` so that
+  ``y = x*a + b``, then the optional SiLU, cast back to the input dtype. It
+  deliberately avoids ``F.group_norm``: the kernels are held against this
+  exact function. ``auto`` stays the plain path, as in the JAX package;
+  whether it should pick the kernels on the H100 waits for a measurement.
+* ``pallas``: the hand-written CUDA kernels of ``ops/group_norm_kernel.py``
+  (the port of the JAX package's Pallas GroupNorm) with their autograd
+  backward. It raises where the JAX kernels' ``eligible`` refuses the shape,
+  so both packages accept the same configurations.
+* ``fused``: the fused GroupNorm+SiLU+conv resnet kernels, not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import group_norm_kernel
 
 
 def group_norm_reference(
@@ -54,21 +65,37 @@ def group_norm(
     fuse_silu: bool = False,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """GroupNorm over an NCHW tensor, optionally fused with SiLU.
-
-    ``impl`` takes ``auto`` and ``xla`` (both the plain path, the JAX
-    package's serving choice); ``pallas`` and ``fused`` name kernels that are
-    not ported yet and raise rather than run another path."""
-    if impl in ("pallas", "fused"):
+    """GroupNorm over an NCHW tensor, optionally fused with SiLU; ``impl``
+    is ``auto``, ``xla``, ``pallas`` or ``fused`` (see the module
+    docstring)."""
+    if impl == "pallas":
+        if not group_norm_kernel.eligible(x, num_groups):
+            raise RuntimeError(
+                "group_norm impl 'pallas' requested for an ineligible shape "
+                f"{tuple(x.shape)} with {num_groups} groups: the kernels take "
+                f"channels that are a multiple of {group_norm_kernel.CHANNEL_MULTIPLE} "
+                f"and of the group count, and H*W a multiple of "
+                f"{group_norm_kernel.HW_MULTIPLE} (the JAX kernels' rule)"
+            )
+        return group_norm_kernel.group_norm_silu(
+            x, scale, bias, num_groups=num_groups, eps=eps, fuse_silu=fuse_silu
+        )
+    if impl == "fused":
         raise NotImplementedError(
-            f"group_norm impl {impl!r} is not yet ported to PyTorch/CUDA; "
-            "use 'auto' or 'xla'"
+            "group_norm impl 'fused' (the fused GroupNorm+SiLU+conv resnet "
+            "kernels, ROADMAP Q2 item 4) is not yet ported to PyTorch/CUDA; "
+            "use 'auto', 'xla' or 'pallas'"
         )
     if impl not in ("auto", "xla"):
         raise ValueError(
-            f"Unknown group_norm impl {impl!r}; expected 'auto' or 'xla'."
+            f"Unknown group_norm impl {impl!r}; expected 'auto', 'xla', "
+            "'pallas' or 'fused'."
         )
     return group_norm_reference(x, scale, bias, num_groups, eps, fuse_silu)
 
 
-__all__ = ["group_norm", "group_norm_reference"]
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+__all__ = ["group_norm", "group_norm_reference", "silu"]
