@@ -7,13 +7,23 @@ Run from the repository root. Phases, each printing what it found; any
 failure exits non-zero without the final ``ok`` line:
 
 1. device: the card's name, and name plus power limit from nvidia-smi;
-2. build: both kernel libraries, ``vae_channel_dynamics_tpu_torch/csrc/
-   flash_attention_fwd.cu`` and ``csrc/group_norm.cu`` (nvcc, sm_90a, one
-   nvcc each, started together), and the seconds each took;
+2. build: the three kernel libraries, ``vae_channel_dynamics_tpu_torch/csrc/
+   flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu`` and
+   ``csrc/group_norm.cu`` (nvcc, sm_90a, one nvcc each, started together),
+   the seconds each took, and ptxas's registers and spills;
 3. flash kernel vs plain: bf16 q/k/v from a seed at the serving shapes, the
    kernel's max abs and relative L2 error against
    ``flash_attention_reference`` (and proof that the bound rejects a kernel
    that drops one key tile), and both times from CUDA events;
+3'. flash training kernels vs plain at (1, 16384, 512) and (4, 4096, 512):
+   the LSE forward's lse, and dQ, dK, dV from the two backward kernels,
+   against their plain versions, each bound shown to reject a planted fault
+   (one query tile left out of dK/dV, delta left out of dS, the row max in
+   place of lse); kernel, plain and library (``scaled_dot_product_attention``
+   forward and backward, the backend named) times from CUDA events; and one
+   mid-block ``AttentionBlock`` forward and backward on the card, flash
+   against naive, every parameter gradient non-zero and within the naive
+   path's own bf16-vs-fp32 difference;
 4. serving slice: a full-width SDXL VAE with seeded random weights is written
    with the port's ``save_model_dir`` and served by the port's server at 512px
    (``attention_impl=auto``, ``max_batch`` 4, an ephemeral port). A
@@ -22,8 +32,9 @@ failure exits non-zero without the final ``ok`` line:
    a ``/decode``. Every answer must be 200 with finite values of the right
    shape, and the flash kernel must have been launched while serving them;
    one batch's forward with the flash kernel is held against the naive path;
-5. GroupNorm kernels vs plain, bf16, at the training slice's largest and
-   smallest norm shapes, with SiLU and the |z| tap: each of the four kernels
+5. GroupNorm kernels vs plain, bf16, at the 128-channel full-resolution
+   norm and the mid-block norm of both training paths (256px batch 16 and
+   1024px batch 1), with SiLU and the |z| tap: each of the four kernels
    against its plain version, then the autograd op (y, the tap, dx, dgamma,
    dbeta) against the plain GroupNorm; every bound is also shown to reject a
    planted fault; forward and backward times from CUDA events;
@@ -38,10 +49,27 @@ failure exits non-zero without the final ``ok`` line:
 7. one step on the kernel path against one on the plain path (the same
    weights, batch and noise), held to the plain path's own bf16-vs-fp32
    difference on that step; then 10 steps of each path in turns, timed, and
-   a torch.profiler breakdown of one kernel-path step.
+   a torch.profiler breakdown of one kernel-path step;
+8. the 1024px Trainer slice: ``configs/experiment_1024_stretch.yaml`` with
+   ``attention_impl: flash``, ``kernel_impl: pallas``, a seeded full-width
+   SDXL model dir with planted channels, 20 steps and a checkpoint every 10,
+   run in-process through ``vae_channel_dynamics_tpu_torch.train.main``;
+   then again from ``chkpt-10`` into a second directory, and for two steps
+   from a copy of ``chkpt-10`` with AdamW's moments zeroed. The resumed steps
+   11-20 must match the uninterrupted ones within a bound that the zeroed
+   moments exceed, every step must launch each
+   flash training kernel twice and the GroupNorm kernels as many times as
+   the model has norms (and their recompute under ``remat: full``), the
+   serving forward never; the control loop's CSVs, the final model and
+   ms/step, img/s and peak memory over steps 11-20;
+9. one 1024px step with flash against one with naive attention (the same
+   weights, batch and noise, ``remat: none``), held to naive bf16's own
+   difference from naive fp32 on that step; 10 timed steps each of naive,
+   flash, and flash with ``remat: full``, in turns, with their peak memory;
+   a torch.profiler breakdown of a flash step.
 
-The last lines are a JSON object describing the five kernels, the nvidia-smi
-line, and ``{"ok": true, "device": {...}}``. Imports no jax.
+The last lines are a JSON object describing the eight kernels, the
+nvidia-smi line, and ``{"ok": true, "device": {...}}``. Imports no jax.
 """
 
 from __future__ import annotations
@@ -52,12 +80,15 @@ import json
 import math
 import os
 import gc
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 SEED = 0
@@ -92,16 +123,80 @@ N_ENCODE = 4
 N_DECODE = 2
 # the card the slice runs on; a CPU rehearsal of the script's logic swaps it
 DEVICE = "cuda"
-KERNEL_SOURCE = "vae_channel_dynamics_tpu_torch/csrc/flash_attention_fwd.cu"
-KERNEL_REPLACES = "vae_channel_dynamics_tpu/ops/pallas_attention.py:136"
+FLASH_FWD_SOURCE = "vae_channel_dynamics_tpu_torch/csrc/flash_attention_fwd.cu"
+FLASH_BWD_SOURCE = "vae_channel_dynamics_tpu_torch/csrc/flash_attention_bwd.cu"
+FLASH_SOURCES = {
+    "flash_attention_fwd": FLASH_FWD_SOURCE,
+    "flash_attention_fwd_lse": FLASH_FWD_SOURCE,
+    "flash_attention_bwd_dkv": FLASH_BWD_SOURCE,
+    "flash_attention_bwd_dq": FLASH_BWD_SOURCE,
+}
+FLASH_REPLACES = {
+    "flash_attention_fwd": "vae_channel_dynamics_tpu/ops/pallas_attention.py:136",
+    "flash_attention_fwd_lse": "vae_channel_dynamics_tpu/ops/pallas_attention.py:177",
+    "flash_attention_bwd_dkv": "vae_channel_dynamics_tpu/ops/pallas_attention.py:304",
+    "flash_attention_bwd_dq": "vae_channel_dynamics_tpu/ops/pallas_attention.py:284",
+}
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
+# each kernel's bound is the larger of its FLOPs over the bf16 tensor-core
+# rate and its bytes (each input read once, each output written once) over
+# the memory rate.
+PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores: the GroupNorm kernels' math
+PEAK_BYTES_PER_S = 3.35e12
 
-# GroupNorm kernels vs plain, bf16: the training slice's largest norm input
-# (decoder up block 3 and encoder down block 0 at 256px, batch 16) and its
-# smallest (the 32x32 mid block). y and dx are bf16 outputs held to
-# GN_ULPS bf16 ulps of max|plain|, like the flash kernel; the fp32 sums (the
-# reduce outputs, the |z| tap, dgamma, dbeta) to GN_SUM_REL of max|plain|:
-# the summation order differs and gives about 1e-5.
-GN_SHAPES = ((16, 128, 256, 256), (16, 512, 32, 32))
+# Flash training kernels vs plain, bf16, at the 1024px mid block's shape
+# (the Trainer slice's) and the 512px one at batch 4. dQ, dK and dV are bf16
+# sums of N fp32 products in another order than the plain matmul's, and P
+# and dS round to bf16 the other way where exp differs in its last bit:
+# max|kernel - plain| <= GRAD_MAX_REL max|plain| (4 bf16 ulps at the top of
+# its binade) and relative L2 <= KERNEL_REL_L2. One 32-query tile left out of
+# dK/dV costs about sqrt(32/N) in relative L2 (0.044 at N = 16384). lse is
+# fp32: LSE_MAX_REL of max|plain|.
+BWD_SHAPES = ((1, 16384, 512), (4, 4096, 512))
+GRAD_MAX_REL = 2.0 ** -6
+LSE_MAX_REL = 1e-5
+FAULT_QUERIES = 32
+BWD_ITERS = 10
+# the AttentionBlock check: flash vs naive (bf16) within this many times
+# naive bf16 vs naive fp32, plus a floor, per parameter gradient
+BLOCK_CONTROL_RATIO = 1.25
+BLOCK_FLOOR = 1e-3
+BLOCK_SHAPE = (1, 512, 128, 128)  # the 1024px mid block's input, NCHW
+
+# The 1024px Trainer slice (configs/experiment_1024_stretch.yaml, derived).
+TRAINER_CONFIG = "configs/experiment_1024_stretch.yaml"
+TRAINER_STEPS = 20
+TRAINER_SAVE = 10
+TRAINER_PROFILE_STEP = 5  # of the uninterrupted run, before the timed steps
+# The resumed run repeats steps 11-20 from the same state and data. Every
+# kernel of the path is free of atomics and the losses have matched bit for
+# bit on an H100, so the bound is a few fp32 ulps (relative), which leaves
+# room only for a backward convolution that sums in another order. Every run
+# also resumes from the step-10 checkpoint with AdamW's moments zeroed, for
+# FAULTY_STEPS steps, and checks that the bound rejects it.
+RESUME_LOSS_REL = 1e-6
+FAULTY_STEPS = 2
+TRAINER_PLANTED_NORM = "encoder.down_blocks.0.resnets.0.norm1"
+CSV_COLUMNS = ["global_step", "layer_identifier", "original_metric_name", "metric_type",
+               "metric_value"]
+# The SDXL VAE: 52 GroupNorms a forward, 48 of them in the resnets that
+# remat: full runs again in the backward; 2 mid-block attentions.
+SDXL_NORMS, SDXL_RESNET_NORMS, SDXL_ATTENTIONS = 52, 48, 2
+FLASH_STEP_RES = 1024
+FLASH_TIMED_STEPS = 5  # per block: naive, flash, flash, naive
+
+# GroupNorm kernels vs plain, bf16, at both training paths' 128-channel
+# full-resolution norm input (encoder down block 0, decoder up block 3) and
+# their mid-block norm: the 256px batch-16 slice's, then the 1024px batch-1
+# Trainer's, where one block per (sample, channel) plane gives 128 blocks of
+# 1M elements each. The kernels line reports GN_ROW_SHAPE, the Trainer's,
+# whose launches it counts. y and dx are bf16 outputs held to GN_ULPS bf16
+# ulps of max|plain|, like the flash kernel; the fp32 sums (the reduce
+# outputs, the |z| tap, dgamma, dbeta) to GN_SUM_REL of max|plain|: the
+# summation order differs and gives about 1e-6.
+GN_SHAPES = ((16, 128, 256, 256), (16, 512, 32, 32), (1, 128, 1024, 1024), (1, 512, 128, 128))
+GN_ROW_SHAPE = (1, 128, 1024, 1024)
 GN_GROUPS = 32
 GN_EPS = 1e-6
 GN_ULPS = 4
@@ -114,6 +209,11 @@ GN_REPLACES = {
     "gn_bwd_dx": "vae_channel_dynamics_tpu/ops/pallas_group_norm.py:245",
 }
 GN_ITERS = 20
+# fp32 operations per element of each GroupNorm kernel, for its bound: the
+# sums (2: x, x^2); the affine and SiLU (8: fma, exp, add, divide, multiply,
+# |z| add); SiLU' and the two sums (12); SiLU' and the dx combination (14).
+# Every one of them is bound by its bytes by a factor of ten or more.
+GN_OPS = {"gn_fwd_reduce": 2, "gn_fwd_normalize": 8, "gn_bwd_reduce": 12, "gn_bwd_dx": 14}
 # The training slice: bench.py's four norm1 taps (bench.py:78-104), AdamW as
 # configs/bench_256px.yaml (lr 5e-5, warmup 10, clip 1.0, kl 1e-6), and the
 # control loop of configs/base_tpu.yaml (threshold 0.2; gentle nudge 1.1,
@@ -218,7 +318,8 @@ def phase_build():
     from vae_channel_dynamics_tpu_torch.ops import group_norm_kernel as gnk
 
     # one nvcc per library, started together
-    builds = {KERNEL_SOURCE: (flash_attention.KERNEL_NAME, flash_attention.build),
+    builds = {FLASH_FWD_SOURCE: (flash_attention.FWD_LIBRARY, flash_attention.build_forward),
+              FLASH_BWD_SOURCE: (flash_attention.BWD_LIBRARY, flash_attention.build_backward),
               GN_SOURCE: (gnk.LIBRARY, gnk.build)}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
@@ -226,12 +327,23 @@ def phase_build():
             fut.result()
     wall = time.perf_counter() - t0
     for source, (lib, _fn) in builds.items():
-        regs = [line.split(":", 1)[1].strip()
-                for line in _cuda_build.build_logs.get(lib, "").splitlines()
-                if "Used" in line and "registers" in line]
+        # ptxas -v: "Compiling entry function '<mangled>'", then the spill
+        # line, then "Used N registers"
+        entries, kernel, spills = [], "?", "?"
+        for line in _cuda_build.build_logs.get(lib, "").splitlines():
+            if "Compiling entry function" in line:
+                mangled = line.split("'")[1]
+                m = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", mangled)
+                kernel = (mangled if m is None
+                          else m.group(1) + (f"<{m.group(2)}>" if m.group(2) else ""))
+            elif "spill stores" in line:
+                spills = line.strip()
+            elif "Used" in line and "registers" in line:
+                regs = line.split("Used", 1)[1].split(",")[0].strip()
+                entries.append(f"{kernel}: {regs}, {spills}")
         log(f"[build] {source}: nvcc {_cuda_build.build_seconds.get(lib, 0.0):.2f} s; "
-            f"ptxas per instantiation: {regs}")
-    log(f"[build] both libraries built and loaded in {wall:.2f} s")
+            f"ptxas per instantiation: {entries}")
+    log(f"[build] {len(builds)} libraries built and loaded in {wall:.2f} s")
 
 
 def phase_kernel():
@@ -272,19 +384,296 @@ def phase_kernel():
         k2 = cuda_ms(kernel, iters)
         p2 = cuda_ms(plain, iters)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        backend, lib = sdpa_times(q, k, v, None, scale, iters)
+        bound_ms, bound_by = flash_bounds(b, n, c)["flash_attention_fwd"]
         flops = 4 * b * n * n * c
         log(f"[kernel] (B={b}, N={n}, C={c}) max_abs_err {err:.6g} (tol {atol:.6g}, "
             f"{KERNEL_ULPS} bf16 ulps of max|plain|), rel L2 {rel:.6g} (tol {KERNEL_REL_L2}); "
             f"one dropped {FAULT_TILE}-key tile: max abs {fault_err:.6g}, rel L2 "
             f"{fault_rel:.6g}; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s) "
-            f"[{k1:.4f}, {k2:.4f}], plain {plain_ms:.4f} ms [{p1:.4f}, {p2:.4f}]")
+            f"[{k1:.4f}, {k2:.4f}], plain {plain_ms:.4f} ms [{p1:.4f}, {p2:.4f}], "
+            f"bound {bound_ms:.4f} ms ({bound_by}), SDPA forward ({backend}) "
+            f"{lib['fwd']:.4f} ms")
         check(err <= atol and rel <= KERNEL_REL_L2,
               f"kernel disagrees with plain at {(b, n, c)}: max abs {err}, rel L2 {rel}")
         check(fault_err > atol or fault_rel > KERNEL_REL_L2,
               f"the kernel bound at {(b, n, c)} does not reject a dropped key tile")
-        results[(b, n, c)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        results[(b, n, c)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": bound_ms, "bound_by": bound_by,
+                              "library_ms": lib["fwd"]}
         del q, k, v, out, ref
     return results
+
+
+def roofline(flops: float, nbytes: float, rate: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the operations
+    over their peak rate (the bf16 tensor cores' by default) and the bytes
+    over the memory rate, and which of the two it is."""
+    t_ops = flops / rate * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def flash_bounds(b: int, n: int, c: int) -> dict:
+    """Each flash kernel's bound at (B, N, C): FLOPs of its products, and
+    bytes of its bf16 (B, N, C) operands and fp32 (B, N) row vectors."""
+    t, r = 2 * b * n * c, 4 * b * n
+    return {
+        "flash_attention_fwd": roofline(4 * b * n * n * c, 4 * t),
+        "flash_attention_fwd_lse": roofline(4 * b * n * n * c, 4 * t + r),
+        "flash_attention_bwd_dkv": roofline(8 * b * n * n * c, 6 * t + 2 * r),
+        "flash_attention_bwd_dq": roofline(6 * b * n * n * c, 5 * t + 2 * r),
+    }
+
+
+_SDPA_BACKEND = []
+
+
+def sdpa_backend():
+    """The first of PyTorch's SDPA backends that runs a bf16 forward and
+    backward at head dim 512 on this card (the library yardstick; the port
+    never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    if not _SDPA_BACKEND:
+        x = torch.randn(1, 1, 256, 512, device=DEVICE, dtype=torch.bfloat16,
+                        requires_grad=True)
+        for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                        SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+            try:
+                # a refusing backend warns its reasons before it raises
+                with sdpa_kernel([backend]), warnings.catch_warnings():
+                    warnings.simplefilter("ignore", UserWarning)
+                    F.scaled_dot_product_attention(x, x, x).sum().backward()
+                sync()
+            except RuntimeError as e:
+                log(f"[sdpa] {backend.name} refuses head dim 512: {str(e).splitlines()[0][:120]}")
+                continue
+            _SDPA_BACKEND.append(backend)
+            break
+        check(bool(_SDPA_BACKEND), "no SDPA backend runs at head dim 512")
+    return _SDPA_BACKEND[0]
+
+
+def sdpa_times(q, k, v, do, scale: float, iters: int) -> tuple[str, dict]:
+    """CUDA-event ms of ``scaled_dot_product_attention`` on (B, N, C) as one
+    head: the forward without autograd; with ``do``, also the forward that
+    keeps what its backward needs and that backward (dQ, dK, dV)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    backend = sdpa_backend()
+    q4, k4, v4 = (t.unsqueeze(1) for t in (q, k, v))
+    out = {}
+    with sdpa_kernel([backend]):
+        def fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+
+        out["fwd"] = cuda_ms(fwd, iters)
+        if do is not None:
+            leaves = [t.detach().requires_grad_(True) for t in (q4, k4, v4)]
+            out["fwd_grad"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(*leaves, scale=scale), iters)
+            o = F.scaled_dot_product_attention(*leaves, scale=scale)
+            g = do.unsqueeze(1)
+            out["bwd"] = cuda_ms(
+                lambda: torch.autograd.grad(o, leaves, g, retain_graph=True), iters)
+            del o, leaves
+    return backend.name, out
+
+
+def rel_errors(out, ref) -> tuple[float, float, float]:
+    """max|out - ref| / max|ref|, relative L2 error, and max|out - ref|."""
+    d = out.float() - ref.float()
+    r = ref.float()
+    return ((d.abs().max() / r.abs().max()).item(), (d.norm() / r.norm()).item(),
+            d.abs().max().item())
+
+
+def phase_flash_bwd():
+    """The flash training kernels against their plain versions at
+    BWD_SHAPES, with planted faults, CUDA-event times and the SDPA
+    yardstick; then one AttentionBlock forward and backward on the card."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+
+    names = ("flash_attention_fwd_lse", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    results = {name: {"max_abs_err": 0.0} for name in names}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    for shape in BWD_SHAPES:
+        b, n, c = shape
+        q, k, v, do = (torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+                       for _ in range(4))
+        scale = c ** -0.5
+        lines = []
+
+        def held(name, what, errs, fault_errs, max_rel_bound, rel_l2_bound=KERNEL_REL_L2):
+            max_rel, rel_l2, abs_err = errs
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], abs_err)
+            lines.append(f"{what}: max rel {max_rel:.3g} (bound {max_rel_bound:.3g}), rel L2 "
+                         f"{rel_l2:.3g} (bound {rel_l2_bound:.3g}); "
+                         + ", ".join(f"{fault}: max rel {f[0]:.3g}, rel L2 {f[1]:.3g}"
+                                     for fault, f in fault_errs.items()))
+            check(max_rel <= max_rel_bound and rel_l2 <= rel_l2_bound,
+                  f"{what} disagrees with plain at {shape}: {errs}")
+            for fault, f in fault_errs.items():
+                check(f[0] > max_rel_bound or f[1] > rel_l2_bound,
+                      f"the {what} bound at {shape} does not reject {fault}")
+
+        # the training forward: o and lse; fault: the row max m in place of lse
+        o, lse = fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=torch.bfloat16)
+        sync()
+        po, plse = fa.flash_attention_fwd_lse_reference(q, k, v, scale, torch.bfloat16)
+        row_max = (torch.matmul(q.float(), k.float().transpose(1, 2)) * scale).amax(dim=-1)
+        held("flash_attention_fwd_lse", "lse", rel_errors(lse, plse),
+             {"m in place of lse": rel_errors(row_max, plse)}, LSE_MAX_REL, LSE_MAX_REL)
+        max_rel, rel_l2, abs_err = rel_errors(o, po)
+        lines.append(f"o: max rel {max_rel:.3g}, rel L2 {rel_l2:.3g}")
+        check(rel_l2 <= KERNEL_REL_L2 and max_rel <= GRAD_MAX_REL,
+              f"the LSE forward's o disagrees with plain at {shape}")
+
+        # the backward kernels on the kernel's own lse and delta
+        delta = (do.float() * o.float()).sum(-1)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=scale)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale)
+        sync()
+        pdq, pdk, pdv = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
+        # faults: one query tile left out of dK/dV; delta left out of dS; m
+        # in place of lse
+        fs = FAULT_QUERIES
+        _, tile_dk, tile_dv = fa.flash_attention_bwd_reference(
+            q[:, fs:], k, v, do[:, fs:], lse[:, fs:], delta[:, fs:], scale)
+        nod_dq, nod_dk, _ = fa.flash_attention_bwd_reference(
+            q, k, v, do, lse, torch.zeros_like(delta), scale)
+        m_dq, m_dk, m_dv = fa.flash_attention_bwd_reference(q, k, v, do, row_max, delta, scale)
+        held("flash_attention_bwd_dkv", "dK", rel_errors(dk, pdk),
+             {"a query tile left out": rel_errors(tile_dk, pdk),
+              "delta left out": rel_errors(nod_dk, pdk), "m for lse": rel_errors(m_dk, pdk)},
+             GRAD_MAX_REL)
+        held("flash_attention_bwd_dkv", "dV", rel_errors(dv, pdv),
+             {"a query tile left out": rel_errors(tile_dv, pdv),
+              "m for lse": rel_errors(m_dv, pdv)}, GRAD_MAX_REL)
+        held("flash_attention_bwd_dq", "dQ", rel_errors(dq, pdq),
+             {"delta left out": rel_errors(nod_dq, pdq), "m for lse": rel_errors(m_dq, pdq)},
+             GRAD_MAX_REL)
+        del po, plse, row_max, pdq, pdk, pdv, tile_dk, tile_dv, nod_dq, nod_dk, m_dq, m_dk, m_dv
+        release()
+
+        # times, in turns: plain, kernel, kernel, plain
+        times = {
+            "flash_attention_fwd_lse": timed_pair(
+                lambda: fa.flash_attention_fwd_lse(q, k, v, scale=scale,
+                                                   out_dtype=torch.bfloat16),
+                lambda: fa.flash_attention_fwd_lse_reference(q, k, v, scale, torch.bfloat16),
+                BWD_ITERS),
+            "flash_attention_bwd_dkv": timed_pair(
+                lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=scale),
+                lambda: fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale),
+                BWD_ITERS),
+            "flash_attention_bwd_dq": timed_pair(
+                lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale),
+                lambda: fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, scale),
+                BWD_ITERS),
+        }
+        backend, lib = sdpa_times(q, k, v, do, scale, BWD_ITERS)
+        bounds = flash_bounds(b, n, c)
+        # SDPA's backward gives dQ, dK and dV in one call, so it stands beside
+        # both backward kernels and is compared with their sum
+        both = "flash_attention_bwd_dkv + flash_attention_bwd_dq"
+        library = {"flash_attention_fwd_lse": (lib["fwd_grad"], "flash_attention_fwd_lse"),
+                   "flash_attention_bwd_dkv": (lib["bwd"], both),
+                   "flash_attention_bwd_dq": (lib["bwd"], both)}
+        if shape == BWD_SHAPES[0]:
+            for name in names:
+                results[name].update(shape=list(shape), ms=times[name][0],
+                                     plain_ms=times[name][1], bound_ms=bounds[name][0],
+                                     bound_by=bounds[name][1], library_ms=library[name][0],
+                                     library_covers=library[name][1])
+        log(f"[flash-bwd] {shape} bf16: " + "; ".join(lines))
+        log(f"[flash-bwd] {shape} ms kernel/plain/bound (CUDA events, {BWD_ITERS} calls, in "
+            "turns): " + ", ".join(
+                f"{name} {times[name][0]:.4f}/{times[name][1]:.4f}/{bounds[name][0]:.4f} "
+                f"({100 * bounds[name][0] / times[name][0]:.1f}% of bound)" for name in names)
+            + f"; SDPA ({backend}) forward {lib['fwd']:.4f}, forward for backward "
+            f"{lib['fwd_grad']:.4f}, backward {lib['bwd']:.4f}, forward+backward "
+            f"{lib['fwd_grad'] + lib['bwd']:.4f}; kernels forward+backward "
+            f"{sum(times[name][0] for name in names):.4f}")
+        del q, k, v, do, o, lse, delta, dq, dk, dv
+        release()
+    phase_attention_block()
+    return results
+
+
+def set_attention(model, impl: str):
+    from vae_channel_dynamics_tpu_torch.models.vae import AttentionBlock
+
+    for module in model.modules():
+        if isinstance(module, AttentionBlock):
+            module.attn_impl = impl
+    return model
+
+
+def phase_attention_block():
+    """One mid-block AttentionBlock (C=512, 128x128 tokens: the 1024px mid
+    block) forward and backward, bf16, flash against naive on the same
+    weights and input; the control is naive bf16 against naive fp32."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.models.vae import AttentionBlock, Linear
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+
+    channels = BLOCK_SHAPE[1]
+    blk = AttentionBlock(channels, 32, 1e-6, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    with torch.no_grad():
+        for module in blk.modules():
+            if hasattr(module, "init_weights"):
+                module.init_weights(gen)
+        blk.group_norm.weight.add_(0.1 * torch.randn(channels, generator=gen, device=DEVICE))
+    x = torch.randn(BLOCK_SHAPE, generator=gen, device=DEVICE)
+    g = torch.randn(x.shape, generator=gen, device=DEVICE)
+
+    def run(impl, dtype):
+        blk.attn_impl = impl
+        for module in blk.modules():
+            if isinstance(module, Linear):
+                module.compute_dtype = dtype
+        blk.zero_grad(set_to_none=True)
+        xx = x.to(dtype).requires_grad_(True)
+        out = blk(xx)
+        out.backward(g.to(out.dtype))
+        sync()
+        grads = {name: p.grad.float().clone() for name, p in blk.named_parameters()}
+        grads["input"] = xx.grad.float()
+        return grads
+
+    before = dict(fa.launches)
+    flash = run("flash", torch.bfloat16)
+    counts = {k: fa.launches[k] - before[k] for k in fa.launches}
+    naive = run("naive", torch.bfloat16)
+    fp32 = run("naive", torch.float32)
+    check(counts == {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 1,
+                     "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1},
+          f"the AttentionBlock's flash step launched {counts}")
+    rows = []
+    for name in flash:
+        d = ((flash[name] - naive[name]).norm() / naive[name].norm()).item()
+        control = ((naive[name] - fp32[name]).norm() / fp32[name].norm()).item()
+        nonzero = flash[name].abs().max().item()
+        rows.append(f"{name} {d:.3g} (control {control:.3g})")
+        check(nonzero > 0, f"the flash AttentionBlock's {name} gradient is zero")
+        check(d <= BLOCK_CONTROL_RATIO * control + BLOCK_FLOOR,
+              f"the flash AttentionBlock's {name} gradient is {d} from naive, control {control}")
+    log(f"[attention-block] 1024px mid block {BLOCK_SHAPE} bf16, flash vs naive "
+        f"gradients, rel L2 (control naive bf16 vs fp32; bound {BLOCK_CONTROL_RATIO} x control "
+        f"+ {BLOCK_FLOOR}); launches {counts}: " + ", ".join(rows))
+    del blk, x, g, flash, naive, fp32
+    release()
 
 
 def _post(port: int, path: str, body: bytes):
@@ -360,7 +749,8 @@ def phase_slice(tmp: str):
             return arr
 
         # ---- the main path: counts reset, requests served, counts read ----
-        fa.launches = 0
+        for name in fa.launches:
+            fa.launches[name] = 0
         # a sustained closed-loop window: each client sends its next
         # /reconstruct as soon as the last one is answered, until the window
         # closes; every request started in the window is counted
@@ -408,7 +798,9 @@ def phase_slice(tmp: str):
                 img = server.batcher.submit("decode", z)
                 check(img.shape == (RESOLUTION, RESOLUTION, 3) and np.isfinite(img).all(),
                       f"decode returned shape {img.shape} or non-finite values")
-        launches = fa.launches
+        counts = dict(fa.launches)
+        launches = counts.pop("flash_attention_fwd")
+        check(not any(counts.values()), f"serving launched training kernels: {counts}")
         with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/healthz",
                                     timeout=60) as resp:
             health = json.loads(resp.read())
@@ -507,10 +899,11 @@ def phase_gn_kernels():
             check(fault_err > bound, f"the {name} {what} bound at {shape} does not reject "
                                      f"its planted fault ({fault_err} <= {bound})")
 
-        # 1. fwd reduce; fault: one row of each plane left out
+        # 1. fwd reduce; fault: the last 1/128 of each plane's rows (at least
+        # one) left out
         ks, kq = gnk.fwd_reduce(x)
         sync()
-        fs, _fq = gnk.fwd_reduce_reference(x[:, :, :-1])
+        fs, _fq = gnk.fwd_reduce_reference(x[:, :, :-max(1, h // 128)])
         record("gn_fwd_reduce", max(sum_rel_err(ks, sums), sum_rel_err(kq, sqs)), GN_SUM_REL,
                sum_rel_err(fs, sums), "sum x, sum x^2 (rel)",
                max(max_abs_err(ks, sums), max_abs_err(kq, sqs)))
@@ -601,9 +994,25 @@ def phase_gn_kernels():
         }
         stats_ms = timed_pair(lambda: gnk.fwd_normalize(x, a, off, True, True),
                               lambda: gnk.fwd_normalize_reference(x, a, off, True, True))
-        if shape == GN_SHAPES[0]:
+        # the library yardstick: F.group_norm then F.silu, forward and
+        # backward; it leaves out the |z| tap and covers the (B, C) algebra
+        # between the kernels, so each forward kernel shows the forward's time
+        # and each backward kernel the backward's
+        lib_fwd, lib_bwd = library_group_norm(x, g, scale, bias)
+        elem, bc = x.numel(), b * c * 4
+        e = elem * x.element_size()
+        nbytes = {"gn_fwd_reduce": e + 2 * bc, "gn_fwd_normalize": 2 * e + 2 * bc,
+                  "gn_bwd_reduce": 2 * e + 4 * bc, "gn_bwd_dx": 3 * e + 5 * bc}
+        if shape == GN_ROW_SHAPE:
             for name, (ms, plain_ms) in times.items():
-                results[name].update(ms=ms, plain_ms=plain_ms)
+                bound_ms, bound_by = roofline(GN_OPS[name] * elem, nbytes[name],
+                                              PEAK_FP32_FLOPS)
+                fwd_kernel = "fwd" in name
+                results[name].update(
+                    shape=list(shape), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=lib_fwd if fwd_kernel else lib_bwd,
+                    library_covers=("gn_fwd_reduce + gn_fwd_normalize" if fwd_kernel
+                                    else "gn_bwd_reduce + gn_bwd_dx"))
 
         xr = x.detach().requires_grad_(True)
         sr = scale.detach().requires_grad_(True)
@@ -623,10 +1032,35 @@ def phase_gn_kernels():
             + f", gn_fwd_normalize with the tap {stats_ms[0]:.4f}/{stats_ms[1]:.4f}; "
             f"op forward {fwd[0]:.4f}/{fwd[1]:.4f}, op backward {bwd[0]:.4f}/{bwd[1]:.4f}; "
             f"x is {bytes_x / 1e6:.1f} MB, so the reduce kernel reads at "
-            f"{bytes_x / times['gn_fwd_reduce'][0] / 1e6:.0f} GB/s")
+            f"{bytes_x / times['gn_fwd_reduce'][0] / 1e6:.0f} GB/s; bounds (bytes at "
+            f"{PEAK_BYTES_PER_S / 1e12} TB/s) "
+            + ", ".join(f"{k} {nbytes[k] / PEAK_BYTES_PER_S * 1e3:.4f}" for k in nbytes)
+            + f"; F.group_norm + F.silu forward {lib_fwd:.4f}, backward {lib_bwd:.4f}")
         del x, g, a, off, ca, cb, cc
     release()
     return results
+
+
+def library_group_norm(x, g, scale, bias) -> tuple[float, float]:
+    """CUDA-event ms of ``F.silu(F.group_norm(x))`` forward and its
+    backward (dx, dgamma, dbeta) in x's dtype: the library yardstick of the
+    GroupNorm kernels, never on the port's path."""
+    import torch
+    import torch.nn.functional as F
+
+    w = scale.to(x.dtype).detach().requires_grad_(True)
+    bb = bias.to(x.dtype).detach().requires_grad_(True)
+    xr = x.detach().requires_grad_(True)
+
+    def fwd():
+        with torch.no_grad():
+            F.silu(F.group_norm(x, GN_GROUPS, w, bb, GN_EPS))
+
+    y = F.silu(F.group_norm(xr, GN_GROUPS, w, bb, GN_EPS))
+    fwd_ms = cuda_ms(fwd, GN_ITERS)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(y, (xr, w, bb), g, retain_graph=True),
+                     GN_ITERS)
+    return fwd_ms, bwd_ms
 
 
 def _train_setup():
@@ -846,6 +1280,7 @@ def _profile_breakdown(prof, wall_ms: float) -> None:
     from torch.autograd import DeviceType
 
     families = (
+        ("flash attention kernels (flash_*)", ("flash_fwd", "flash_bwd")),
         ("GroupNorm kernels (gn_*)", ("gn_fwd_", "gn_bwd_")),
         ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
         ("layout transposes", ("nchw", "nhwc", "transpose", "permute")),
@@ -928,6 +1363,382 @@ def phase_step_times(bundle):
     _profile_breakdown(prof, wall_ms)
 
 
+def write_planted_model_dir(path: str) -> None:
+    """A full-width SDXL model dir from the seed, with PLANTED_CHANNELS of
+    TRAINER_PLANTED_NORM at gamma PLANTED_GAMMA, for the control loop to
+    find."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.models import AutoencoderKL
+    from vae_channel_dynamics_tpu_torch.models import io as model_io
+
+    model = AutoencoderKL(train_config(), device=DEVICE)
+    model.init_weights(torch.Generator(device=DEVICE).manual_seed(SEED))
+    with torch.no_grad():
+        model.get_submodule(TRAINER_PLANTED_NORM).weight[list(PLANTED_CHANNELS)] = PLANTED_GAMMA
+    model_io.save_model_dir(path, model.config, model.state_dict())
+    del model
+    release()
+
+
+def phase_trainer_1024(tmp: str):
+    """The 1024px Trainer slice through the training CLI, uninterrupted for
+    TRAINER_STEPS steps, then resumed from its step-TRAINER_SAVE checkpoint;
+    see the module docstring (8)."""
+    import csv
+    import logging
+
+    import torch
+    import yaml
+
+    from vae_channel_dynamics_tpu_torch import train as train_cli
+    from vae_channel_dynamics_tpu_torch.models import io as model_io
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+    from vae_channel_dynamics_tpu_torch.ops import group_norm_kernel as gnk
+    from vae_channel_dynamics_tpu_torch.training import loop
+    from vae_channel_dynamics_tpu_torch.utils.config_utils import load_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    model_dir = os.path.join(tmp, "planted_sdxl_vae")
+    t0 = time.perf_counter()
+    write_planted_model_dir(model_dir)
+    cfg = load_config(os.path.join(root, TRAINER_CONFIG))
+    cfg["model"].update(attention_impl="flash", kernel_impl="pallas",
+                        pretrained_vae_name=model_dir)
+    cfg["training"]["stop_after_steps"] = TRAINER_STEPS
+    cfg["saving"]["save_interval_steps"] = TRAINER_SAVE
+    configs = {}
+    for run in ("uninterrupted", "resumed", "faulty"):
+        cfg["output_dir"] = os.path.join(tmp, run)
+        if run == "faulty":
+            cfg["training"]["stop_after_steps"] = TRAINER_SAVE + FAULTY_STEPS
+        configs[run] = os.path.join(tmp, f"{run}.yaml")
+        with open(configs[run], "w") as f:
+            yaml.safe_dump(cfg, f)
+    run_name = cfg["run_name"]
+    res, batch = int(cfg["data"]["resolution"]), int(cfg["data"]["batch_size"])
+    log(f"[trainer] {TRAINER_CONFIG} with attention_impl flash, kernel_impl pallas, remat "
+        f"{cfg['model']['remat']}, mixed_precision {cfg['training']['mixed_precision']}, "
+        f"{res}px batch {batch}, {TRAINER_STEPS} steps, a checkpoint every {TRAINER_SAVE}; "
+        f"planted model dir written in {time.perf_counter() - t0:.1f} s")
+
+    # per-step losses (device tensors, read after the run) and the host clock
+    # at the start of step TRAINER_SAVE + 1 and the end of step
+    # TRAINER_STEPS, synchronised, through a wrapper on the Trainer's steps
+    losses, marks, current = {}, {}, {}
+    make_train_step = loop.make_train_step
+
+    def timed_make_train_step(*args, **kwargs):
+        step_fn = make_train_step(*args, **kwargs)
+
+        def step(state, *a, **kw):
+            if state.step == TRAINER_SAVE:
+                sync()
+                marks[(current["run"], "start")] = time.perf_counter()
+            profiled = (current["run"] == "uninterrupted"
+                        and state.step == TRAINER_PROFILE_STEP - 1)
+            if profiled:
+                from torch.profiler import ProfilerActivity, profile
+
+                sync()
+                activities = [ProfilerActivity.CPU]
+                if DEVICE == "cuda":
+                    activities.append(ProfilerActivity.CUDA)
+                prof = profile(activities=activities)
+                prof.__enter__()
+                t0 = time.perf_counter()
+            out = step_fn(state, *a, **kw)
+            if profiled:
+                sync()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                prof.__exit__(None, None, None)
+                log(f"[profile] step {TRAINER_PROFILE_STEP} of the 1024px Trainer run "
+                    "(flash, pallas, remat full), inside the Trainer:")
+                _profile_breakdown(prof, wall_ms)
+            losses[(current["run"], out[0].step)] = out[1]["train_loss_step"]
+            if out[0].step == TRAINER_STEPS:
+                sync()
+                marks[(current["run"], "end")] = time.perf_counter()
+            return out
+
+        return step
+
+    package_logger = logging.getLogger("vae_channel_dynamics_tpu_torch")
+    level = package_logger.level
+    loop.make_train_step = timed_make_train_step
+    package_logger.setLevel(logging.WARNING)
+    try:
+        # ---- the main path: counts reset, the uninterrupted run, counts read ----
+        current["run"] = "uninterrupted"
+        sync()
+        reset_peak()
+        for counts in (fa.launches, gnk.launches):
+            for name in counts:
+                counts[name] = 0
+        t0 = time.perf_counter()
+        check(train_cli.main(["--config_path", configs["uninterrupted"],
+                              "--device", DEVICE]) == 0,
+              "the uninterrupted run failed")
+        wall = time.perf_counter() - t0
+        launches = {**fa.launches, **gnk.launches}
+        peak = peak_gb()
+        release()
+        current["run"] = "resumed"
+        run_dir = os.path.join(tmp, "uninterrupted", run_name)
+        ckpt = os.path.join(run_dir, f"chkpt-{TRAINER_SAVE}")
+        t1 = time.perf_counter()
+        check(train_cli.main(["--config_path", configs["resumed"], "--resume_from", ckpt,
+                              "--device", DEVICE]) == 0,
+              "the resumed run failed")
+        resumed_wall = time.perf_counter() - t1
+        release()
+        # the planted fault: chkpt-10 with AdamW's moments zeroed (the step
+        # count, the weights and the stream position kept), resumed for
+        # FAULTY_STEPS steps
+        faulty = os.path.join(tmp, "faulty_chkpt")
+        shutil.copytree(ckpt, faulty)
+        state_file = os.path.join(faulty, "state", "train_state.pt")
+        saved = torch.load(state_file, weights_only=True)
+        for moment in ("mu", "nu"):
+            saved["opt"][moment] = [torch.zeros_like(t) for t in saved["opt"][moment]]
+        torch.save(saved, state_file)
+        del saved
+        current["run"] = "faulty"
+        check(train_cli.main(["--config_path", configs["faulty"], "--resume_from", faulty,
+                              "--device", DEVICE]) == 0,
+              "the run resumed from the faulty checkpoint failed")
+        release()
+    finally:
+        loop.make_train_step = make_train_step
+        package_logger.setLevel(level)
+
+    per_step = {k: v / TRAINER_STEPS for k, v in launches.items()}
+    want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": SDXL_ATTENTIONS,
+            "flash_attention_bwd_dkv": SDXL_ATTENTIONS, "flash_attention_bwd_dq": SDXL_ATTENTIONS,
+            "gn_fwd_reduce": SDXL_NORMS + SDXL_RESNET_NORMS,
+            "gn_fwd_normalize": SDXL_NORMS + SDXL_RESNET_NORMS,
+            "gn_bwd_reduce": SDXL_NORMS, "gn_bwd_dx": SDXL_NORMS}
+    log(f"[trainer] kernel launches in the {TRAINER_STEPS}-step run: {launches}; per step "
+        f"{per_step}")
+    check(per_step == want, f"launches per step {per_step}, want {want}")
+
+    # the resumed run: from step TRAINER_SAVE at the same stream position, its
+    # losses those of the uninterrupted run
+    with open(os.path.join(ckpt, "resume_meta.json")) as f:
+        meta = json.load(f)
+    check(meta == {"micro_step": TRAINER_SAVE, "global_step": TRAINER_SAVE, "epoch": 0,
+                   "in_epoch_batches": TRAINER_SAVE}, f"chkpt-{TRAINER_SAVE} meta {meta}")
+    resumed_steps = sorted(s for r, s in losses if r == "resumed")
+    check(resumed_steps == list(range(TRAINER_SAVE + 1, TRAINER_STEPS + 1)),
+          f"the resumed run took steps {resumed_steps}")
+    rows, worst = [], 0.0
+    for s in resumed_steps:
+        a = float(losses[("uninterrupted", s)])
+        r = float(losses[("resumed", s)])
+        check(math.isfinite(a) and math.isfinite(r), f"step {s}: loss {a}, resumed {r}")
+        worst = max(worst, abs(r - a) / abs(a))
+        rows.append(f"{s}: {a!r}/{r!r}")
+    faulty_steps = sorted(s for r, s in losses if r == "faulty")
+    check(faulty_steps == list(range(TRAINER_SAVE + 1, TRAINER_SAVE + FAULTY_STEPS + 1)),
+          f"the faulty resume took steps {faulty_steps}")
+    fault = max(abs(float(losses[("faulty", s)]) - float(losses[("uninterrupted", s)]))
+                / abs(float(losses[("uninterrupted", s)])) for s in faulty_steps)
+    log(f"[trainer] losses uninterrupted/resumed, steps {TRAINER_SAVE + 1}-{TRAINER_STEPS}: "
+        + ", ".join(rows) + f"; max rel difference {worst!r} (bound {RESUME_LOSS_REL}); "
+        f"resumed with AdamW's moments zeroed, steps {faulty_steps}: "
+        + ", ".join(f"{s}: {float(losses[('faulty', s)])!r}" for s in faulty_steps)
+        + f", max rel difference {fault!r}")
+    check(worst <= RESUME_LOSS_REL, f"the resumed losses are {worst} from the uninterrupted")
+    check(fault > RESUME_LOSS_REL,
+          f"the resume bound does not reject zeroed AdamW moments ({fault})")
+
+    # the control loop's artifacts, in the JAX package's schema
+    with open(os.path.join(run_dir, "intervention_history.csv")) as f:
+        interventions = [row for row in csv.reader(f)]
+    check([row[0] for row in interventions] == [str(TRAINER_SAVE), str(TRAINER_STEPS)],
+          f"intervention_history.csv rows {interventions}")
+    check(all(int(row[1]) >= len(PLANTED_CHANNELS) and int(row[2]) > 0 for row in interventions),
+          f"the planted channels were not classified and nudged: {interventions}")
+    with open(os.path.join(run_dir, "tracked_activation_stats.csv")) as f:
+        stats_rows = list(csv.reader(f))
+    check(stats_rows[0] == CSV_COLUMNS, f"tracked_activation_stats.csv columns {stats_rows[0]}")
+    check({r[0] for r in stats_rows[1:]} == {str(TRAINER_SAVE), str(TRAINER_STEPS)},
+          "tracked_activation_stats.csv does not hold the interval steps")
+
+    # final_model/vae reloads in the port with the trained weights
+    final = os.path.join(run_dir, "final_model")
+    _cfg, weights = model_io.load_model_dir(os.path.join(final, "vae"))
+    trained = torch.load(os.path.join(final, "state", "train_state.pt"), weights_only=True)
+    check(weights.keys() == trained["params"].keys()
+          and all(torch.equal(weights[k], trained["params"][k]) for k in weights),
+          "final_model/vae does not hold the trained weights")
+    gamma = weights[f"{TRAINER_PLANTED_NORM}.weight"][list(PLANTED_CHANNELS)]
+    check(bool((gamma > PLANTED_GAMMA).all()), f"planted gamma not nudged: {gamma.tolist()}")
+
+    timed = {}
+    for run in ("uninterrupted", "resumed"):
+        sec = marks[(run, "end")] - marks[(run, "start")]
+        timed[run] = 1e3 * sec / (TRAINER_STEPS - TRAINER_SAVE)
+    log(f"[trainer] steps {TRAINER_SAVE + 1}-{TRAINER_STEPS} (host clock, synchronised at "
+        f"both ends): uninterrupted {timed['uninterrupted']:.2f} ms/step "
+        f"({batch * 1e3 / timed['uninterrupted']:.4f} img/s; the step-{TRAINER_SAVE} "
+        f"checkpoint's writer thread runs beside them), resumed {timed['resumed']:.2f} "
+        f"ms/step ({batch * 1e3 / timed['resumed']:.4f} img/s); peak device memory "
+        f"{peak:.2f} GB; whole runs {wall:.1f} s and {resumed_wall:.1f} s (model load, "
+        f"checkpoints, final model); interventions {interventions}; planted gamma now "
+        f"{gamma.tolist()[:2]}")
+    return {"launches": launches, "model_dir": model_dir}
+
+
+def phase_flash_step_1024(model_dir: str):
+    """One 1024px step with flash attention against one with naive, from the
+    same weights, batch and noise (remat none), held to naive bf16 against
+    naive fp32; then timed steps of both in turns and a profile of a flash
+    step. See the module docstring (9)."""
+    import numpy as np
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.models import AutoencoderKL
+    from vae_channel_dynamics_tpu_torch.models import io as model_io
+    from vae_channel_dynamics_tpu_torch.training import TrainState, build_optimizer
+    from vae_channel_dynamics_tpu_torch.training import make_train_step
+
+    config, weights = model_io.load_model_dir(model_dir)
+    model = AutoencoderKL(config, impl="pallas", dtype=torch.bfloat16, attn_impl="flash",
+                          device=DEVICE)
+    model.load_state_dict(weights)
+    del weights
+    res = FLASH_STEP_RES
+    rng = np.random.default_rng(SEED + 4)
+    batches = [torch.from_numpy(rng.integers(0, 256, (1, res, res, 3), dtype=np.uint8)).to(DEVICE)
+               for _ in range(2)]
+    mask = torch.ones(1, device=DEVICE)
+    latent = res // 2 ** (len(config.block_out_channels) - 1)
+    noise = torch.randn((1, latent, latent, 4), device=DEVICE,
+                        generator=torch.Generator(device=DEVICE).manual_seed(SEED + 5))
+    names = [f"{part}.mid_block.attentions.0.{leaf}" for part in ("encoder", "decoder")
+             for leaf in ("group_norm.weight", "to_q.weight", "to_k.weight", "to_v.weight",
+                          "to_out.0.weight", "to_out.0.bias")]
+
+    class GradCapture:
+        """Stands in for the optimizer: keeps the named gradients and
+        updates nothing."""
+
+        grads = {}
+
+        def init(self, params):
+            return None
+
+        def update(self, grads, opt_state, params):
+            self.grads = {n: grads[n].float().clone() for n in names}
+            return False
+
+    def one_step(impl, dtype):
+        set_attention(model, impl).set_compute_dtype(dtype)
+        tx = GradCapture()
+        step = make_train_step(model, tx, TRAIN_KL)
+        _state, metrics, _ = step(TrainState.create(model, tx), {"pixel_values": batches[0]},
+                                  mask, noise=noise)
+        out = {"loss": float(metrics["train_loss_step"]),
+               "grad_norm": float(metrics["grad_norm"]), **tx.grads}
+        release()
+        return out
+
+    runs = {"flash bf16": one_step("flash", torch.bfloat16),
+            "naive bf16": one_step("naive", torch.bfloat16),
+            "naive fp32": one_step("naive", torch.float32)}
+    f, n, c = runs["flash bf16"], runs["naive bf16"], runs["naive fp32"]
+
+    def rel(a, b):
+        if isinstance(a, float):
+            return abs(a - b) / abs(b)
+        return ((a - b).norm() / b.norm()).item()
+
+    rows = []
+    for key in ["loss", "grad_norm", *names]:
+        d, control = rel(f[key], n[key]), rel(n[key], c[key])
+        floor = STEP_SCALAR_FLOOR if key in ("loss", "grad_norm") else STEP_FLOOR
+        rows.append(f"{key} {d:.3g} (control {control:.3g})")
+        check(d <= STEP_CONTROL_RATIO * control + floor,
+              f"1024px step {key}: flash is {d} from naive, control {control}")
+    log(f"[flash-step] 1024px step, flash vs naive (bf16), relative (rel L2 for the mid-block "
+        f"attention gradients); control naive bf16 vs fp32; bound {STEP_CONTROL_RATIO} x "
+        f"control + floor: " + "; ".join(rows))
+    log(f"[flash-step] loss flash {f['loss']:.6g}, naive {n['loss']:.6g}, fp32 {c['loss']:.6g}; "
+        f"grad_norm {f['grad_norm']:.6g}, {n['grad_norm']:.6g}, {c['grad_norm']:.6g}")
+    del runs, f, n, c
+
+    # timed steps with AdamW from the same weights, in turns
+    set_attention(model, "flash").set_compute_dtype(torch.bfloat16)
+    tx, _ = build_optimizer(TRAIN_LR, TRAIN_WARMUP, 10_000, max_grad_norm=TRAIN_CLIP)
+    state = TrainState.create(model, tx)
+    step = make_train_step(model, tx, TRAIN_KL)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    peaks = {}
+
+    # the paths: attention impl and remat; "flash+remat" is the Trainer
+    # slice's step, here without the Trainer around it
+    paths = {"naive": ("naive", "none"), "flash": ("flash", "none"),
+             "flash+remat": ("flash", "full")}
+
+    def block(path, steps):
+        impl, remat = paths[path]
+        set_attention(model, impl).set_remat(remat)
+        sync()
+        reset_peak()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(state, {"pixel_values": batches[i % 2]}, mask, gen)
+        sync()
+        peaks[path] = max(peaks.get(path, 0.0), peak_gb())
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    for path in paths:  # warm-up of every path's allocations
+        block(path, 1)
+    peaks.clear()
+    order = ("naive", "flash", "flash+remat", "flash+remat", "flash", "naive")
+    times = {}
+    for path in order:
+        times.setdefault(path, []).append(block(path, FLASH_TIMED_STEPS))
+    log(f"[flash-step] 1024px batch 1 train step, {2 * FLASH_TIMED_STEPS} steps of each path "
+        f"in turns {order}: " + "; ".join(
+            f"{path} {sum(t) / 2:.2f} ms/step [{t[0]:.2f}, {t[1]:.2f}] "
+            f"({2e3 / sum(t):.4f} img/s), peak device memory {peaks[path]:.2f} GB"
+            for path, t in times.items()))
+
+    set_attention(model, "flash").set_remat("none")
+    step(state, {"pixel_values": batches[0]}, mask, gen)
+    sync()
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if DEVICE == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        step(state, {"pixel_values": batches[1]}, mask, gen)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log("[profile] one 1024px flash step (remat none):")
+    _profile_breakdown(prof, wall_ms)
+    del model, state, tx, batches
+    release()
+
+
+def reset_peak() -> None:
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gb() -> float:
+    """Peak device memory since :func:`reset_peak`, GB (0 off the card)."""
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else 0.0
+
+
 def release() -> None:
     import torch
 
@@ -952,15 +1763,19 @@ def main() -> int:
         name, smi = phase_device()
         phase_build()
         kernel_results = phase_kernel()
+        flash_results = phase_flash_bwd()
         gn_results = phase_gn_kernels()
         with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
-            launches = phase_slice(tmp)
+            serve_launches = phase_slice(tmp)
         release()
         bundle = phase_train()
         phase_step_compare(bundle)
         phase_step_times(bundle)
-        gn_launches = bundle["launches"]
         del bundle
+        release()
+        with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
+            trainer = phase_trainer_1024(tmp)
+            phase_flash_step_1024(trainer["model_dir"])
         check("jax" not in sys.modules, "jax was imported")
     except Exception as e:  # noqa: BLE001 — every phase failure fails the run
         import traceback
@@ -968,28 +1783,34 @@ def main() -> int:
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
-    main_shape = KERNEL_SHAPES[0]
-    res = kernel_results[main_shape]
+    # each kernel at the shape of its main path: the serving forward at
+    # 512px batch 4, the training kernels at the 1024px Trainer slice's
+    # shapes (the mid-block attention, the full-resolution 128-channel norm);
+    # the launches are the 1024px Trainer run's, the serving forward's the
+    # server's. A library call that computes more than one kernel's work
+    # says which kernels it covers.
+    serving = dict(kernel_results[KERNEL_SHAPES[0]], shape=list(KERNEL_SHAPES[0]),
+                   library_covers="flash_attention_fwd")
+    serving["max_abs_err"] = max(r["max_abs_err"] for r in kernel_results.values())
+    rows = {"flash_attention_fwd": serving, **flash_results, **gn_results}
+    launches = dict(trainer["launches"], flash_attention_fwd=serve_launches)
+    sources = dict(FLASH_SOURCES, **{k: GN_SOURCE for k in GN_REPLACES})
+    replaces = dict(FLASH_REPLACES, **GN_REPLACES)
     kernels = [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in kernel_results.values()),
-        "ms": res["ms"],
-        "plain_ms": res["plain_ms"],
-    }]
-    kernels += [{
         "name": kname,
         "route": "cuda",
-        "source": GN_SOURCE,
-        "replaces": GN_REPLACES[kname],
-        "launches": gn_launches[kname],
+        "source": sources[kname],
+        "replaces": replaces[kname],
+        "launches": launches[kname],
         "max_abs_err": r["max_abs_err"],
         "ms": r["ms"],
         "plain_ms": r["plain_ms"],
-    } for kname, r in gn_results.items()]
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
+        "library_covers": r["library_covers"],
+        "shape": r["shape"],
+    } for kname, r in rows.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -90,7 +90,7 @@ def test_flash_attention_on_cpu_matches_jax_pallas_interpret():
     scale = 1.0 / np.sqrt(128)
     ref = jflash.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                  scale=scale, out_dtype=jnp.float32, precision=HIGHEST)
-    before = tflash.launches
+    before = dict(tflash.launches)
     out = tflash.flash_attention(*map(torch.from_numpy, (q, k, v)), scale=scale,
                                  out_dtype=torch.float32)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)

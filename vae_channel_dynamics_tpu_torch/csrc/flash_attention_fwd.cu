@@ -1,11 +1,18 @@
 // Flash-attention forward for the VAE mid block, hand-written for Hopper (sm_90a).
 //
-// Replaces vae_channel_dynamics_tpu/ops/pallas_attention.py::_flash_kernel
-// (the forward without the log-sum-exp output). Same function:
+// Replaces vae_channel_dynamics_tpu/ops/pallas_attention.py::_flash_kernel,
+// both its serving variant and its training variant (with_lse=True). Same
+// function:
 //   S = Q K^T * scale, accumulated in fp32;
 //   online softmax with fp32 running max m and denominator l;
 //   P = exp(S - m) cast to bf16 before the P V product (fp32 accumulation);
-//   O = acc / l, written in bf16.
+//   O = acc / l, written in bf16;
+//   training only: lse = m + log(l) per query row, fp32 (B, N), which the
+//   backward kernels (flash_attention_bwd.cu) rebuild P from.
+// The LSE output is a null-or-not pointer, not a template flag: the row's
+// final m and l already sit in the softmax threads' registers, so it costs
+// one uniform branch and one store per row at the end, and the serving
+// entry point (lse = nullptr) keeps the same instantiations and code.
 //
 // What bounds it on the H100: at C = 512 the kernel does 4*B*N^2*C FLOPs
 // against about 8*B*N*C bytes of q/k/v/o traffic, i.e. N/2 FLOPs per byte
@@ -27,28 +34,28 @@
 //     the next tile's copy overlaps the current tile's math;
 //   * S (32x64 fp32) and P (32x64 bf16) pass through shared memory between
 //     the QK^T warps (each computes a 16x16 piece), the softmax threads (8 per
-//     row, which also keep that row's m and l in registers) and the PV warps.
+//     row, which also keep that row's m and l in registers) and the PV warps;
+//     with an LSE output, one of those 8 threads writes the row's m + log(l).
 // Shared memory at C = 512: 33,280 (Q) + 2 x 66,560 (K, V) + 8,704 (S)
 // + 4,608 (P) + 256 (row stats) = 179,968 bytes, above 48 KB, so the
-// launcher raises the kernel's dynamic shared-memory limit first.
+// launcher raises the kernel's dynamic shared-memory limit first. ptxas
+// (-Xptxas -v, sm_90a, CUDA 12.8): 202 registers at C = 512 (170,
+// 122, 82 at 384, 256, 128), no spills.
 //
 // Plain C interface for ctypes: pointers and the stream are void*, the
 // function returns cudaGetLastError() after the launch. It launches on the
 // caller's stream, allocates nothing and does not synchronise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_mma.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace vcd;
 
 constexpr int BQ = 32;               // query rows per block
 constexpr int BK = 64;               // keys per tile
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int PAD = 8;               // bf16 elements (16 bytes) of row padding
 constexpr float MASKED = -1e30f;     // finite stand-in for -inf, as in the TPU kernel
 
 template <int C>
@@ -64,61 +71,11 @@ struct Layout {
   static constexpr int BYTES = Q_BYTES + 2 * KV_BYTES + S_BYTES + P_BYTES + STAT_BYTES;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major); bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copy ROWS rows of C bf16 from device memory (row stride C) into a padded
-// shared-memory tile, 16 bytes per cp.async.
-template <int C, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int tid) {
-  constexpr int CHUNKS = C / 8;
-  static_assert((ROWS * CHUNKS) % THREADS == 0, "tile does not split evenly over the block");
-#pragma unroll
-  for (int it = 0; it < ROWS * CHUNKS / THREADS; ++it) {
-    const int i = it * THREADS + tid;
-    const int r = i / CHUNKS, ch = i % CHUNKS;
-    cp_async16(dst + r * Layout<C>::LD + ch * 8, src + static_cast<size_t>(r) * C + ch * 8);
-  }
-}
-
 template <int C>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int n, float scale) {
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int n, float scale) {
   using L = Layout<C>;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -139,10 +96,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   const bf16* vb = v + base;
 
   // cp.async groups, in order: [Q, K_0], [V_0], then per tile [K_j+1], [V_j+1].
-  load_tile<C, BQ>(sQ, q + base + static_cast<size_t>(q0) * C, tid);
-  load_tile<C, BK>(sK, kb, tid);
+  load_tile<C, BQ, THREADS>(sQ, q + base + static_cast<size_t>(q0) * C, tid);
+  load_tile<C, BK, THREADS>(sK, kb, tid);
   cp_async_commit();
-  load_tile<C, BK>(sV, vb, tid);
+  load_tile<C, BK, THREADS>(sV, vb, tid);
   cp_async_commit();
 
   // QK^T: warp -> one 16-row x 16-key piece of the 32x64 logits tile.
@@ -194,7 +151,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     // The K buffer is free: start the next key tile behind softmax and PV.
     // The group is committed even when empty so the wait counts stay uniform.
-    if (j + 1 < nk) load_tile<C, BK>(sK, kb + static_cast<size_t>(j + 1) * BK * C, tid);
+    if (j + 1 < nk) load_tile<C, BK, THREADS>(sK, kb + static_cast<size_t>(j + 1) * BK * C, tid);
     cp_async_commit();
 
     // ---- online softmax over this tile's 64 logits per row ----
@@ -266,11 +223,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     __syncthreads();
 
     // The V buffer is free: start the next value tile.
-    if (j + 1 < nk) load_tile<C, BK>(sV, vb + static_cast<size_t>(j + 1) * BK * C, tid);
+    if (j + 1 < nk) load_tile<C, BK, THREADS>(sV, vb + static_cast<size_t>(j + 1) * BK * C, tid);
     cp_async_commit();
   }
 
-  if ((tid & 7) == 0) sL[srow] = l_run;
+  if ((tid & 7) == 0) {
+    sL[srow] = l_run;
+    if (lse != nullptr) lse[static_cast<size_t>(blockIdx.y) * n + q0 + srow] = m_run + logf(l_run);
+  }
   __syncthreads();
 
   // ---- O = acc / l, bf16 ----
@@ -292,8 +252,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 template <int C>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int n,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                   int n, float scale, cudaStream_t stream) {
   const int bytes = Layout<C>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -301,8 +261,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, 
   const dim3 grid(n / BQ, b);
   flash_fwd_kernel<C><<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), n, scale);
+      static_cast<bf16*>(o), lse, n, scale);
   return cudaGetLastError();
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+             int n, int c, float scale, void* stream) {
+  if (b < 1 || b > 65535 || n < BK || n % BK != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (c) {
+    case 128: return static_cast<int>(launch<128>(q, k, v, o, lse, b, n, scale, s));
+    case 256: return static_cast<int>(launch<256>(q, k, v, o, lse, b, n, scale, s));
+    case 384: return static_cast<int>(launch<384>(q, k, v, o, lse, b, n, scale, s));
+    case 512: return static_cast<int>(launch<512>(q, k, v, o, lse, b, n, scale, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -313,15 +286,13 @@ extern "C" {
 // multiple of 64 (the key tile) and c one of 128, 256, 384, 512.
 int vcd_flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o, int b,
                                  int n, int c, float scale, void* stream) {
-  if (b < 1 || b > 65535 || n < BK || n % BK != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (c) {
-    case 128: return static_cast<int>(launch<128>(q, k, v, o, b, n, scale, s));
-    case 256: return static_cast<int>(launch<256>(q, k, v, o, b, n, scale, s));
-    case 384: return static_cast<int>(launch<384>(q, k, v, o, b, n, scale, s));
-    case 512: return static_cast<int>(launch<512>(q, k, v, o, b, n, scale, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch(q, k, v, o, nullptr, b, n, c, scale, stream);
+}
+
+// The training variant: also writes lse, contiguous (b, n) fp32.
+int vcd_flash_attention_fwd_lse_bf16(const void* q, const void* k, const void* v, void* o,
+                                     void* lse, int b, int n, int c, float scale, void* stream) {
+  return dispatch(q, k, v, o, static_cast<float*>(lse), b, n, c, scale, stream);
 }
 
 const char* vcd_cuda_error_string(int err) {

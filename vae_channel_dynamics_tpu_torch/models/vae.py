@@ -34,8 +34,15 @@ at exactly the JAX model's sites, and ``forward`` returns the values as a
 flat ``"stats"`` dict ``{"<layer>.<point>.<metric>": tensor}``. An empty
 table taps nothing.
 
-Not in this port yet: rematerialisation, the fused-resnet and spatial-conv
-branches of the JAX model.
+Rematerialisation (``remat``, JAX ``_resnet_remat_cls``): ``"none"``/False
+keeps every activation for the backward; ``"full"``/True wraps each
+``ResnetBlock2D`` in ``torch.utils.checkpoint`` (non-reentrant), so only a
+block's input is kept and its body runs again in the backward. The JAX model
+remats only the resnets, so the attention blocks are never recomputed. The
+recompute reports no taps: the forward's values stand.
+
+Not in this port yet: ``remat: conv`` and ``offload``, the fused-resnet and
+spatial-conv branches of the JAX model.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import flash_attention as flash_ops
 from ..ops.attention import chunked_attention, naive_attention, resolve_impl
@@ -134,6 +142,8 @@ class TapModule(nn.Module):
             self._sink[key] = value
 
     def tap(self, x: torch.Tensor, point: str) -> None:
+        if self._sink is None:
+            return
         for layer_name, pt, metrics in self._specs_for(point):
             for metric, value in channel_stats(x, tuple(metrics)).items():
                 self.emit(f"{layer_name}.{pt}.{metric}", value)
@@ -253,9 +263,30 @@ class GroupNorm(TapModule):
 # --------------------------------------------------------------------------- #
 # Blocks
 # --------------------------------------------------------------------------- #
+def remat_enabled(remat: Any) -> bool:
+    """Whether a ``model.remat`` value rematerialises the resnets:
+    False/``"none"`` no, True/``"full"`` yes. ``"conv"`` (save only the conv
+    outputs) and ``"offload"`` are not ported yet and raise."""
+    if not remat or remat == "none":
+        return False
+    if remat is True or remat == "full":
+        return True
+    if remat in ("conv", "offload"):
+        raise NotImplementedError(
+            f"model.remat {remat!r} is not yet ported to PyTorch (ROADMAP Q1 "
+            "item 1); use 'none' or 'full'"
+        )
+    raise ValueError(
+        f"remat must be one of False/'none'/True/'full'/'conv'/'offload', got {remat!r}"
+    )
+
+
 class ResnetBlock2D(nn.Module):
     """norm1+SiLU -> conv1 -> norm2+SiLU -> conv2, plus the input (through a
-    1x1 conv_shortcut when the channel counts differ)."""
+    1x1 conv_shortcut when the channel counts differ). With ``remat`` set
+    and autograd recording, the body runs under ``torch.utils.checkpoint``."""
+
+    remat: bool = False
 
     def __init__(self, in_channels: int, out_channels: int, num_groups: int,
                  eps: float, device=None):
@@ -269,20 +300,48 @@ class ResnetBlock2D(nn.Module):
             if in_channels != out_channels else None
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _body(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv1(self.norm1(x))
         h = self.conv2(self.norm2(h))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
 
+    def _recompute(self, x: torch.Tensor) -> torch.Tensor:
+        """The body with every tap muted: the backward's recompute must not
+        write into the stats dict the forward already reported to."""
+        taps = [(m, m._sink) for m in self.modules() if isinstance(m, TapModule)]
+        for m, _sink in taps:
+            m._sink = None
+        try:
+            return self._body(x)
+        finally:
+            for m, sink in taps:
+                m._sink = sink
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.remat and torch.is_grad_enabled()):
+            return self._body(x)
+        ran = []
+
+        def run(inp: torch.Tensor) -> torch.Tensor:
+            if ran:
+                return self._recompute(inp)
+            ran.append(True)
+            return self._body(inp)
+
+        # the body draws no random numbers, so no RNG state is stashed
+        return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
 
 class AttentionBlock(nn.Module):
     """Single-head self-attention over spatial positions (diffusers Attention
     in the VAE mid block): group_norm -> q/k/v -> softmax -> to_out ->
     residual. ``attn_impl`` is resolved per call by ``ops.attention
-    .resolve_impl``; ``flash`` that the kernel cannot take runs ``chunked``,
-    as in the JAX model."""
+    .resolve_impl``; ``flash`` that the kernels cannot take runs ``chunked``,
+    as in the JAX model. ``flash`` is differentiable: with autograd recording
+    it runs the LSE forward and the backward kernels
+    (``ops/flash_attention.py``)."""
 
     def __init__(self, channels: int, num_groups: int, eps: float,
                  attn_impl: str = "auto", device=None):
@@ -461,12 +520,13 @@ class AutoencoderKL(nn.Module):
 
     ``impl`` is the GroupNorm impl of every norm, ``dtype`` the compute dtype
     of every conv and linear layer (None: their weights' dtype), ``capture``
-    the tap table; :meth:`set_impl`, :meth:`set_compute_dtype` and
-    :meth:`set_capture` change them on a built model."""
+    the tap table, ``remat`` the resnets' rematerialisation
+    (:func:`remat_enabled`); :meth:`set_impl`, :meth:`set_compute_dtype`,
+    :meth:`set_capture` and :meth:`set_remat` change them on a built model."""
 
     def __init__(self, config: Optional[VAEConfig] = None, attn_impl: str = "auto",
                  device=None, impl: str = "auto", dtype: Optional[torch.dtype] = None,
-                 capture: CaptureTable = ()):
+                 capture: CaptureTable = (), remat: Any = False):
         super().__init__()
         self.config = cfg = config or VAEConfig.sdxl()
         self.encoder = Encoder(cfg, attn_impl, device=device)
@@ -479,6 +539,7 @@ class AutoencoderKL(nn.Module):
         self.set_impl(impl)
         self.set_compute_dtype(dtype)
         self.set_capture(capture)
+        self.set_remat(remat)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -511,6 +572,15 @@ class AutoencoderKL(nn.Module):
         for module in self.modules():
             if isinstance(module, (Conv2d, Linear)):
                 module.compute_dtype = dtype
+        return self
+
+    def set_remat(self, remat: Any) -> "AutoencoderKL":
+        """Rematerialise every ``ResnetBlock2D`` (``"full"``) or none."""
+        self.remat = remat
+        flag = remat_enabled(remat)
+        for module in self.modules():
+            if isinstance(module, ResnetBlock2D):
+                module.remat = flag
         return self
 
     def set_capture(self, capture: CaptureTable) -> "AutoencoderKL":

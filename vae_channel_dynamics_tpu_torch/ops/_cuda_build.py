@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. On first
+Each library is one ``csrc/<name>.cu`` file with a plain C interface (it may
+include the shared ``csrc/*.cuh`` headers). On first
 use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``build/torch_kernels/`` at the repository root and loaded with
 ``ctypes``. The library's file name carries a hash of the source, so an
@@ -62,9 +63,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to: the name carries a hash of the
+    source, of every shared header in ``csrc/`` and of the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

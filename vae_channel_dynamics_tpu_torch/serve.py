@@ -64,11 +64,7 @@ def _save_png(arr_hwc: np.ndarray, path: str) -> None:
 
 
 def main(argv=None) -> int:
-    from vae_channel_dynamics_tpu.data import (
-        create_dataloader,
-        load_and_preprocess_dataset,
-    )
-
+    from .data import create_dataloader, load_and_preprocess_dataset
     from .models import SDXLVAEWrapper
     from .models import io as model_io
     from .server import resolve_serving_attention_impl

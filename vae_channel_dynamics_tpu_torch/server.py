@@ -285,7 +285,7 @@ class VAEServer:
     def transform(self, body: bytes) -> np.ndarray:
         with self._lock:
             if self._transform is None:
-                from vae_channel_dynamics_tpu.data.pipeline import get_transform
+                from .data.pipeline import get_transform
 
                 self._transform = get_transform(self.resolution)
         return self._transform(body)
