@@ -7,10 +7,11 @@ Run from the repository root. Phases, each printing what it found; any
 failure exits non-zero without the final ``ok`` line:
 
 1. device: the card's name, and name plus power limit from nvidia-smi;
-2. build: the three kernel libraries, ``vae_channel_dynamics_tpu_torch/csrc/
-   flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu`` and
-   ``csrc/group_norm.cu`` (nvcc, sm_90a, one nvcc each, started together),
-   the seconds each took, and ptxas's registers and spills;
+2. build: the four kernel libraries, ``vae_channel_dynamics_tpu_torch/csrc/
+   flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``,
+   ``csrc/group_norm.cu`` and ``csrc/fused_resnet.cu`` (nvcc, sm_90a, one
+   nvcc each, started together), the seconds each took, and ptxas's
+   registers and spills;
 3. flash kernel vs plain: bf16 q/k/v from a seed at the serving shapes, the
    kernel's max abs and relative L2 error against
    ``flash_attention_reference`` (and proof that the bound rejects a kernel
@@ -38,6 +39,15 @@ failure exits non-zero without the final ``ok`` line:
    against its plain version, then the autograd op (y, the tap, dx, dgamma,
    dbeta) against the plain GroupNorm; every bound is also shown to reject a
    planted fault; forward and backward times from CUDA events;
+5'. the fused resnet kernels vs plain, bf16, at the 256px fused path's
+   (16, 512, 32, 32) -> 512 and at (16, 256, 64, 64) -> 512: #9 with and
+   without the residual, with the |z| tap and the moments, #10 on the
+   flipped weight, #11 (also bit-equal run to run), each bound shown to
+   reject a planted fault (the border mask skipped, the halo rows tapped,
+   the moments before the residual, the weight not flipped, the last pixel
+   chunk left out); kernel, plain, bound and cuDNN times; then the whole
+   fused op against the unfused sequence (pallas GroupNorm, cuDNN conv,
+   add), forward and forward+backward, at 32x32, 64x64 and 128x128;
 6. training slice: the full-width SDXL VAE (seeded fp32 master weights, bf16
    compute, GroupNorm ``impl="pallas"``) trains 30 steps at 256px, batch 16,
    on seeded uint8 batches, with bench.py's four norm1 taps, AdamW as
@@ -50,6 +60,18 @@ failure exits non-zero without the final ``ok`` line:
    weights, batch and noise), held to the plain path's own bf16-vs-fp32
    difference on that step; then 10 steps of each path in turns, timed, and
    a torch.profiler breakdown of one kernel-path step;
+7'. one 256px step with ``kernel_impl: fused`` against one with ``pallas``
+   (9 of the 24 resnets fused), held to the plain path's bf16-vs-fp32
+   difference on loss, grad_norm and four fused blocks' parameter
+   gradients; 10 steps of each in turns with their peak memory; a profile
+   of a fused step;
+7''. the fused Trainer slice: ``configs/bench_256px.yaml`` with
+   ``kernel_impl: fused`` through ``vae_channel_dynamics_tpu_torch.train.main``
+   for 20 steps, a seeded model dir with 8 channels of a fused block's
+   norm1 planted, taps on two fused blocks' norm outputs (kernel #9's side
+   output): every step launches #9, #10 and #11 18 times and #1, #4 and #5
+   for the fused convs only, 9 blocks fuse a step, the planted channels are
+   classified and nudged, the CSVs and the final model are written;
 8. the 1024px Trainer slice: ``configs/experiment_1024_stretch.yaml`` with
    ``attention_impl: flash``, ``kernel_impl: pallas``, a seeded full-width
    SDXL model dir with planted channels, 20 steps and a checkpoint every 10,
@@ -68,7 +90,7 @@ failure exits non-zero without the final ``ok`` line:
    flash, and flash with ``remat: full``, in turns, with their peak memory;
    a torch.profiler breakdown of a flash step.
 
-The last lines are a JSON object describing the eight kernels, the
+The last lines are a JSON object describing the eleven kernels, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``. Imports no jax.
 """
 
@@ -248,6 +270,40 @@ STEP_FLOOR = 1e-4
 STEP_SCALAR_FLOOR = 2.0 ** -8
 TIMED_STEPS = 5  # per block: plain, kernel, kernel, plain
 
+# The fused GroupNorm+SiLU+conv3x3 resnet kernels (#9-#11) against their plain
+# versions, bf16: the 256px fused path's shape (the nine 512-channel 32x32
+# resnets at batch 16) and an asymmetric one, 256 -> 512 channels at 64x64.
+# The bf16 outputs (y, ds) round the same fp32 sum, taken in another order:
+# at most FUSED_ULPS bf16 ulps of max|plain| and relative L2 FUSED_REL_L2; the
+# fp32 sums (the |z| tap, the moments, dW) FUSED_SUM_REL of max|plain|. Each
+# bound is shown to reject a planted fault: #9 with the border mask skipped
+# (out-of-image rows and columns enter the conv as silu(o)), the tap summed
+# over the halo rows too, the moments taken before the residual; #10 with
+# the weight not flipped; #11 with the last pixel chunk left out.
+FUSED_SOURCE = "vae_channel_dynamics_tpu_torch/csrc/fused_resnet.cu"
+FUSED_REPLACES = {
+    "fused_gn_silu_conv3x3": "vae_channel_dynamics_tpu/ops/pallas_resnet.py:173",
+    "conv3x3": "vae_channel_dynamics_tpu/ops/pallas_resnet.py:361",
+    "conv3x3_dw": "vae_channel_dynamics_tpu/ops/pallas_resnet.py:423",
+}
+FUSED_SHAPES = (((16, 512, 32, 32), 512), ((16, 256, 64, 64), 512))
+FUSED_ULPS = 4
+FUSED_REL_L2 = 1e-2
+FUSED_SUM_REL = 1e-3
+FUSED_ITERS = 10
+# the whole fused op against the unfused sequence (the pallas GroupNorm
+# kernels, cuDNN's conv, the residual add), C -> C channels
+FUSED_OP_SHAPES = ((16, 512, 32, 32), (16, 512, 64, 64), (16, 512, 128, 128))
+# The fused Trainer slice: configs/bench_256px.yaml with kernel_impl fused,
+# taps on two fused blocks' norm outputs, 8 channels of the first planted.
+FUSED_TRAINER_CONFIG = "configs/bench_256px.yaml"
+FUSED_TRAINER_STEPS = 20
+FUSED_TAPS = ("vae.decoder.up_blocks.0.resnets.0.norm1",
+              "vae.encoder.mid_block.resnets.1.norm2")
+FUSED_PLANTED_NORM = "decoder.up_blocks.0.resnets.0.norm1"
+# the SDXL VAE at 256px: 24 resnets, the nine 512-channel ones at 32x32 fuse
+SDXL_RESNETS, SDXL_FUSED_AT_256 = 24, 9
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -313,14 +369,29 @@ def phase_device():
     return name, smi
 
 
+def kernel_label(mangled: str) -> str:
+    """``name<arg>`` of a mangled ``*_kernel`` entry point (its name is the
+    ``<length><name>`` whose name ends in ``_kernel``), else the mangled
+    name."""
+    for m in re.finditer(r"(?=(\d+)([a-z_]\w*))", mangled):
+        size, rest = int(m.group(1)), m.group(2)
+        name = rest[:size]
+        if len(name) == size and name.endswith("_kernel"):
+            arg = re.match(r"IL[ib](\d+)E", rest[size:])
+            return name + (f"<{arg.group(1)}>" if arg else "")
+    return mangled
+
+
 def phase_build():
     from vae_channel_dynamics_tpu_torch.ops import _cuda_build, flash_attention
+    from vae_channel_dynamics_tpu_torch.ops import fused_resnet as fr
     from vae_channel_dynamics_tpu_torch.ops import group_norm_kernel as gnk
 
     # one nvcc per library, started together
     builds = {FLASH_FWD_SOURCE: (flash_attention.FWD_LIBRARY, flash_attention.build_forward),
               FLASH_BWD_SOURCE: (flash_attention.BWD_LIBRARY, flash_attention.build_backward),
-              GN_SOURCE: (gnk.LIBRARY, gnk.build)}
+              GN_SOURCE: (gnk.LIBRARY, gnk.build),
+              FUSED_SOURCE: (fr.LIBRARY, fr.build)}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         for fut in [pool.submit(fn) for _lib, fn in builds.values()]:
@@ -332,10 +403,7 @@ def phase_build():
         entries, kernel, spills = [], "?", "?"
         for line in _cuda_build.build_logs.get(lib, "").splitlines():
             if "Compiling entry function" in line:
-                mangled = line.split("'")[1]
-                m = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", mangled)
-                kernel = (mangled if m is None
-                          else m.group(1) + (f"<{m.group(2)}>" if m.group(2) else ""))
+                kernel = kernel_label(line.split("'")[1])
             elif "spill stores" in line:
                 spills = line.strip()
             elif "Used" in line and "registers" in line:
@@ -1063,6 +1131,255 @@ def library_group_norm(x, g, scale, bias) -> tuple[float, float]:
     return fwd_ms, bwd_ms
 
 
+def _fused_fwd_unmasked(x, a, o, w, bias, residual):
+    """The plain fused forward with the border mask skipped: the zero
+    padding is applied before the affine, so out-of-image rows and columns
+    enter the conv as silu(o) (the planted fault of #9)."""
+    import torch
+    import torch.nn.functional as F
+
+    xp = F.pad(x.float(), (1, 1, 1, 1))
+    z = xp * a[:, :, None, None] + o[:, :, None, None]
+    s = (z * torch.sigmoid(z)).to(x.dtype).float()
+    y = F.conv2d(s, w.float()) + bias[None, :, None, None] + residual.float()
+    return y.to(x.dtype)
+
+
+def _halo_tap(x, a, o, tap):
+    """The |z| tap with each 8-row tile's halo rows summed too: every row
+    next to a tile boundary counted twice (the planted fault of the tap)."""
+    from vae_channel_dynamics_tpu_torch.ops import fused_resnet as fr
+
+    h = x.shape[2]
+    rows = sorted({r for b in range(fr.TILE_ROWS, h, fr.TILE_ROWS) for r in (b - 1, b)})
+    z = x[:, :, rows].float() * a[:, :, None, None] + o[:, :, None, None]
+    return tap + z.abs().sum(dim=(2, 3))
+
+
+def _last_chunk_dropped(dy, n, cin, cout, h, w):
+    """dy with the pixels of conv3x3_dw's last pixel chunk zeroed: what a
+    kernel that left out its last split would sum (the planted fault of
+    #11). Chunk k covers tiles [k*T//S, (k+1)*T//S) of the T = N * tiles 8x16
+    tiles in order of (sample, tile row, tile column)."""
+    from vae_channel_dynamics_tpu_torch.ops import fused_resnet as fr
+
+    tiles = fr._tiles(h, w)
+    tiles_w = w // fr.TILE_COLS
+    splits = fr.dw_splits(n, cin, cout, h, w)
+    out = dy.clone()
+    for g in range((splits - 1) * n * tiles // splits, n * tiles):
+        nn_, t = divmod(g, tiles)
+        r0, c0 = (t // tiles_w) * fr.TILE_ROWS, (t % tiles_w) * fr.TILE_COLS
+        out[nn_, :, r0:r0 + fr.TILE_ROWS, c0:c0 + fr.TILE_COLS] = 0
+    return out
+
+
+def fused_bounds(n, cin, cout, h, w) -> dict:
+    """Each fused kernel's bound: 2 N H W 9 Cin Cout FLOPs, and the bytes of
+    its bf16 activations and weight and fp32 vectors, each read or written
+    once (#9 with the residual and the tap, as the path's conv2 runs it)."""
+    flops = 2 * n * h * w * 9 * cin * cout
+    act_in, act_out, wbytes = 2 * n * cin * h * w, 2 * n * cout * h * w, 2 * 9 * cin * cout
+    vec = 4 * n * cin
+    return {
+        "fused_gn_silu_conv3x3": roofline(flops, act_in + 2 * act_out + wbytes + 3 * vec
+                                          + 4 * cout),
+        "conv3x3": roofline(flops, act_out + act_in + wbytes),
+        "conv3x3_dw": roofline(flops, act_in + act_out + 2 * vec + 2 * wbytes),
+    }
+
+
+def phase_fused_kernels():
+    """The three fused resnet kernels against their plain versions at
+    FUSED_SHAPES, with planted faults, CUDA-event times beside their bound
+    and cuDNN's yardstick; then the whole fused op against the unfused
+    sequence, forward and forward+backward, at FUSED_OP_SHAPES."""
+    import torch
+    import torch.nn.functional as F
+
+    from vae_channel_dynamics_tpu_torch.ops import fused_resnet as fr
+    from vae_channel_dynamics_tpu_torch.ops import group_norm_kernel as gnk
+
+    torch.backends.cudnn.allow_tf32 = False
+    bf16 = torch.bfloat16
+    results = {name: {"max_abs_err": 0.0} for name in fr.KERNELS}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    for shape, cout in FUSED_SHAPES:
+        n, cin, h, w = shape
+        x = (randn(*shape) * 2.0 + 0.5).to(bf16)
+        gamma, beta = 1.0 + 0.1 * randn(cin), 0.1 * randn(cin)
+        wt = (randn(cout, cin, 3, 3) / math.sqrt(9 * cin)).to(bf16)
+        bias = 0.1 * randn(cout)
+        res, dy = randn(n, cout, h, w).to(bf16), randn(n, cout, h, w).to(bf16)
+        sums, sqs = gnk.fwd_reduce_reference(x)
+        mean, rstd = gnk._group_stats(sums, sqs, h * w, GN_GROUPS, GN_EPS)
+        a, o = gnk._affine_coeffs(mean, rstd, gamma, beta, GN_GROUPS)
+        lines = []
+
+        def held_bf16(name, what, out, ref, fault):
+            err, rel = kernel_errors(out, ref)
+            bound = FUSED_ULPS * bf16_ulp(ref.float().abs().max().item())
+            fault_err, fault_rel = kernel_errors(fault, ref)
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+            lines.append(f"{what}: max abs {err:.4g} (bound {bound:.4g}), rel L2 {rel:.3g} "
+                         f"(bound {FUSED_REL_L2}); planted fault max abs {fault_err:.4g}, "
+                         f"rel L2 {fault_rel:.3g}")
+            check(err <= bound and rel <= FUSED_REL_L2,
+                  f"{what} disagrees with plain at {shape} -> {cout}: {err}, {rel}")
+            check(fault_err > bound or fault_rel > FUSED_REL_L2,
+                  f"the {what} bound at {shape} -> {cout} does not reject its planted fault")
+
+        def held_sum(name, what, out, ref, fault):
+            err, fault_err = sum_rel_err(out, ref), sum_rel_err(fault, ref)
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                               max_abs_err(out, ref))
+            lines.append(f"{what}: rel {err:.3g} (bound {FUSED_SUM_REL}); planted fault "
+                         f"{fault_err:.3g}")
+            check(err <= FUSED_SUM_REL, f"{what} disagrees with plain at {shape}: {err}")
+            check(fault_err > FUSED_SUM_REL,
+                  f"the {what} bound at {shape} does not reject its planted fault")
+
+        # 9: without the residual (conv1), then with it, the tap and the moments
+        y0, _, _ = fr.fused_fwd(x, a, o, wt, bias)
+        y, tap, (ysum, ysq) = fr.fused_fwd(x, a, o, wt, bias, res, True, True)
+        sync()
+        py0, _, _ = fr.fused_fwd_reference(x, a, o, wt, bias)
+        held_bf16("fused_gn_silu_conv3x3", "#9 y", y0, py0,
+                  _fused_fwd_unmasked(x, a, o, wt, bias, torch.zeros_like(res)))
+        del y0, py0
+        py, ptap, (psum, psq) = fr.fused_fwd_reference(x, a, o, wt, bias, res, True, True)
+        held_bf16("fused_gn_silu_conv3x3", "#9 y + residual", y, py,
+                  _fused_fwd_unmasked(x, a, o, wt, bias, res))
+        held_sum("fused_gn_silu_conv3x3", "#9 sum |z| tap", tap, ptap, _halo_tap(x, a, o, ptap))
+        _, _, (fsum, fsq) = fr.fused_fwd_reference(x, a, o, wt, bias, None, False, True)
+        held_sum("fused_gn_silu_conv3x3", "#9 sum y", ysum, psum, fsum)
+        held_sum("fused_gn_silu_conv3x3", "#9 sum y^2", ysq, psq, fsq)
+        del y, tap, ysum, ysq, py, ptap, psum, psq, fsum, fsq
+        # 10: the backward's ds = conv3x3(dy, w flipped and channel-swapped)
+        wf = fr.flipped_weight(wt)
+        ds = fr.conv3x3(dy, wf)
+        sync()
+        held_bf16("conv3x3", "#10 ds", ds, fr.conv3x3_reference(dy, wf),
+                  fr.conv3x3_reference(dy, wt.transpose(0, 1)))
+        del ds
+        # 11: dW, s recomputed from x
+        dw = fr.conv_dw(x, a, o, dy)
+        dw2 = fr.conv_dw(x, a, o, dy)
+        sync()
+        check(torch.equal(dw, dw2), f"#11 dW differs between two runs at {shape}")
+        held_sum("conv3x3_dw", "#11 dW", dw, fr.conv_dw_reference(x, a, o, dy),
+                 fr.conv_dw_reference(x, a, o, _last_chunk_dropped(dy, n, cin, cout, h, w)))
+        del dw, dw2
+        release()
+
+        # times, in turns: plain, kernel, kernel, plain; the library yardsticks
+        # on the pre-normalised input s
+        z = x.float() * a[:, :, None, None] + o[:, :, None, None]
+        s = (z * torch.sigmoid(z)).to(bf16)
+        del z
+        bias16 = bias.to(bf16)
+        times = {
+            "fused_gn_silu_conv3x3": timed_pair(
+                lambda: fr.fused_fwd(x, a, o, wt, bias, res, True),
+                lambda: fr.fused_fwd_reference(x, a, o, wt, bias, res, True), FUSED_ITERS),
+            "conv3x3": timed_pair(lambda: fr.conv3x3(dy, wf),
+                                  lambda: fr.conv3x3_reference(dy, wf), FUSED_ITERS),
+            "conv3x3_dw": timed_pair(lambda: fr.conv_dw(x, a, o, dy),
+                                     lambda: fr.conv_dw_reference(x, a, o, dy), FUSED_ITERS),
+        }
+        library = {
+            "fused_gn_silu_conv3x3": (
+                cuda_ms(lambda: F.conv2d(s, wt, bias16, padding=1), FUSED_ITERS),
+                "F.conv2d on the pre-normalised input (the conv alone)"),
+            "conv3x3": (cuda_ms(lambda: torch.nn.grad.conv2d_input(x.shape, wt, dy, padding=1),
+                                FUSED_ITERS), "torch.nn.grad.conv2d_input"),
+            "conv3x3_dw": (cuda_ms(lambda: torch.nn.grad.conv2d_weight(s, wt.shape, dy,
+                                                                       padding=1),
+                                   FUSED_ITERS),
+                           "torch.nn.grad.conv2d_weight on the pre-normalised input"),
+        }
+        bounds = fused_bounds(n, cin, cout, h, w)
+        if (shape, cout) == FUSED_SHAPES[0]:
+            for name in fr.KERNELS:
+                results[name].update(
+                    shape=[*shape, cout], ms=times[name][0], plain_ms=times[name][1],
+                    bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                    library_ms=library[name][0], library_covers=library[name][1])
+        log(f"[fused] {shape} -> {cout} bf16: " + "; ".join(lines))
+        log(f"[fused] {shape} -> {cout} ms kernel/plain/bound/library (CUDA events, "
+            f"{FUSED_ITERS} calls, in turns): " + ", ".join(
+                f"{name} {times[name][0]:.4f}/{times[name][1]:.4f}/{bounds[name][0]:.4f}/"
+                f"{library[name][0]:.4f} ({100 * bounds[name][0] / times[name][0]:.1f}% of "
+                f"bound, {bounds[name][1]})" for name in fr.KERNELS))
+        del x, res, dy, s, wf, a, o
+        release()
+    phase_fused_op()
+    return results
+
+
+def phase_fused_op():
+    """The fused op (kernel #1, then #9; backward #10, #11, #4, #5) against
+    the unfused sequence it replaces (the pallas GroupNorm kernels with
+    SiLU, cuDNN's conv, the residual add), forward and forward+backward, at
+    FUSED_OP_SHAPES, C -> C channels."""
+    import torch
+    import torch.nn.functional as F
+
+    from vae_channel_dynamics_tpu_torch.ops import fused_resnet as fr
+    from vae_channel_dynamics_tpu_torch.ops import group_norm_kernel as gnk
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    rows = []
+    for shape in FUSED_OP_SHAPES:
+        c = shape[1]
+        x = torch.randn(shape, generator=gen, device=DEVICE).to(bf16)
+        res = torch.randn(shape, generator=gen, device=DEVICE).to(bf16)
+        dy = torch.randn(shape, generator=gen, device=DEVICE).to(bf16)
+        gamma = 1.0 + 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+        beta = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+        wt = torch.randn((c, c, 3, 3), generator=gen, device=DEVICE) / math.sqrt(9 * c)
+        bias = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+        leaves = [t.detach().requires_grad_(True) for t in (x, gamma, beta, wt, bias, res)]
+
+        def fused(xx, gg, bb, ww, bi, rr):
+            return fr.gn_silu_conv3x3(xx, gg, bb, ww, bi, num_groups=GN_GROUPS, eps=GN_EPS,
+                                      residual=rr)[0]
+
+        def unfused(xx, gg, bb, ww, bi, rr):
+            s = gnk.group_norm_silu(xx, gg, bb, GN_GROUPS, GN_EPS, True)
+            return F.conv2d(s, ww.to(bf16), bi.to(bf16), padding=1) + rr
+
+        with torch.no_grad():
+            yf, yu = fused(*leaves), unfused(*leaves)
+        _err, rel = kernel_errors(yf, yu)
+        check(rel <= FUSED_REL_L2, f"the fused op is {rel} (rel L2) from the unfused at {shape}")
+
+        def forward(op):
+            def run():
+                with torch.no_grad():
+                    op(*leaves)
+            return run
+
+        def forward_backward(op):
+            return lambda: torch.autograd.grad(op(*leaves), leaves, dy)
+
+        fwd = timed_pair(forward(fused), forward(unfused), FUSED_ITERS)
+        both = timed_pair(forward_backward(fused), forward_backward(unfused), FUSED_ITERS)
+        rows.append(f"{shape}: forward {fwd[0]:.4f} vs {fwd[1]:.4f} "
+                    f"({fwd[1] / fwd[0]:.2f}x), forward+backward {both[0]:.4f} vs "
+                    f"{both[1]:.4f} ({both[1] / both[0]:.2f}x); rel L2 {rel:.3g}")
+        del x, res, dy, leaves, yf, yu
+        release()
+    log(f"[fused-op] C -> C channels with the residual, ms fused vs unfused "
+        f"(pallas GroupNorm + SiLU, cuDNN conv, add; CUDA events, {FUSED_ITERS} calls, in "
+        "turns): " + "; ".join(rows))
+
+
 def _train_setup():
     """The full-width SDXL VAE for training with the monitor's taps, its
     optimizer state, and seeded uint8 batches on the device."""
@@ -1280,6 +1597,8 @@ def _profile_breakdown(prof, wall_ms: float) -> None:
     from torch.autograd import DeviceType
 
     families = (
+        ("fused resnet kernels (#9-#11)", ("conv3x3_kernel", "conv3x3_dw_kernel",
+                                           "sum_tiles_kernel", "sum_dw_kernel")),
         ("flash attention kernels (flash_*)", ("flash_fwd", "flash_bwd")),
         ("GroupNorm kernels (gn_*)", ("gn_fwd_", "gn_bwd_")),
         ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
@@ -1363,10 +1682,250 @@ def phase_step_times(bundle):
     _profile_breakdown(prof, wall_ms)
 
 
-def write_planted_model_dir(path: str) -> None:
+FUSED_GRAD_BLOCKS = ("encoder.down_blocks.3.resnets.0", "encoder.mid_block.resnets.1",
+                     "decoder.mid_block.resnets.0", "decoder.up_blocks.0.resnets.2")
+
+
+def phase_fused_step(bundle):
+    """One 256px step with ``impl="fused"`` against one with ``pallas`` (the
+    same weights, batch and noise), held to the plain path's own
+    bf16-vs-fp32 difference on that step: loss, grad_norm and the parameter
+    gradients of four of the nine fused blocks. Then steps of both paths in
+    turns, timed, with their peak memory, and a profile of a fused step."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.models import vae as tvae
+    from vae_channel_dynamics_tpu_torch.training import TrainState, make_train_step
+
+    model = bundle["model"]
+    snapshot = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    names = [n for n, _p in model.named_parameters()
+             if any(n.startswith(f"{b}.") for b in FUSED_GRAD_BLOCKS)]
+    batch = bundle["batches"][0]
+    latent = TRAIN_RES // 2 ** (len(train_config().block_out_channels) - 1)
+    noise = torch.randn((TRAIN_BATCH, latent, latent, 4), device=DEVICE,
+                        generator=torch.Generator(device=DEVICE).manual_seed(SEED + 7))
+
+    class GradCapture:
+        """Stands in for the optimizer: keeps the named gradients and
+        updates nothing."""
+
+        grads = {}
+
+        def init(self, params):
+            return None
+
+        def update(self, grads, opt_state, params):
+            self.grads = {n: grads[n].float().clone() for n in names}
+            return False
+
+    def one_step(impl, dtype):
+        model.load_state_dict(snapshot)
+        model.set_impl(impl).set_compute_dtype(dtype)
+        tx = GradCapture()
+        before = dict(tvae.fused_blocks)
+        _state, metrics, _ = make_train_step(model, tx, TRAIN_KL)(
+            TrainState.create(model, tx), {"pixel_values": batch}, bundle["mask"], noise=noise)
+        out = {"loss": float(metrics["train_loss_step"]),
+               "grad_norm": float(metrics["grad_norm"]), **tx.grads,
+               "blocks": {k: tvae.fused_blocks[k] - before[k] for k in before}}
+        release()
+        return out
+
+    runs = {"fused bf16": one_step("fused", torch.bfloat16),
+            "pallas bf16": one_step("pallas", torch.bfloat16),
+            "plain bf16": one_step("xla", torch.bfloat16),
+            "plain fp32": one_step("xla", torch.float32)}
+    f, k, p, c = (runs[r] for r in ("fused bf16", "pallas bf16", "plain bf16", "plain fp32"))
+    check(f["blocks"] == {"fused": SDXL_FUSED_AT_256, "unfused": SDXL_RESNETS - SDXL_FUSED_AT_256},
+          f"the fused step's resnets: {f['blocks']}")
+
+    def rel(a, b):
+        if isinstance(a, float):
+            return abs(a - b) / abs(b)
+        return ((a - b).norm() / b.norm()).item()
+
+    rows = []
+    for key in ["loss", "grad_norm", *names]:
+        d, control = rel(f[key], k[key]), rel(p[key], c[key])
+        floor = STEP_SCALAR_FLOOR if key in ("loss", "grad_norm") else STEP_FLOOR
+        rows.append(f"{key} {d:.3g} (control {control:.3g})")
+        check(f[key] if isinstance(f[key], float) else f[key].abs().max().item() > 0,
+              f"the fused step's {key} is zero")
+        check(d <= STEP_CONTROL_RATIO * control + floor,
+              f"256px step {key}: fused is {d} from pallas, control {control}")
+    log(f"[fused-step] 256px batch {TRAIN_BATCH} step, {f['blocks']['fused']} of "
+        f"{SDXL_RESNETS} resnets fused; fused vs pallas (bf16), relative (rel L2 for the "
+        f"gradients of {FUSED_GRAD_BLOCKS}); control plain bf16 vs fp32; bound "
+        f"{STEP_CONTROL_RATIO} x control + floor: " + "; ".join(rows))
+    log(f"[fused-step] loss fused {f['loss']:.6g}, pallas {k['loss']:.6g}, plain bf16 "
+        f"{p['loss']:.6g}, fp32 {c['loss']:.6g}; grad_norm {f['grad_norm']:.6g}, "
+        f"{k['grad_norm']:.6g}, {p['grad_norm']:.6g}, {c['grad_norm']:.6g}")
+    del runs, f, k, p, c
+    model.load_state_dict(snapshot)
+    del snapshot
+    model.set_compute_dtype(torch.bfloat16)
+
+    # timed steps with AdamW, in turns: pallas, fused, fused, pallas
+    state, step, batches, mask = bundle["state"], bundle["step"], bundle["batches"], bundle["mask"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    peaks = {}
+
+    def block(impl, n):
+        model.set_impl(impl)
+        sync()
+        reset_peak()
+        t0 = time.perf_counter()
+        for i in range(n):
+            step(state, {"pixel_values": batches[i % len(batches)]}, mask, gen)
+        sync()
+        peaks[impl] = max(peaks.get(impl, 0.0), peak_gb())
+        return (time.perf_counter() - t0) / n * 1e3
+
+    block("fused", 1)  # warm-up of the fused path's allocations
+    peaks.clear()
+    k1, f1, f2, k2 = (block(impl, TIMED_STEPS) for impl in ("pallas", "fused", "fused", "pallas"))
+    fused_ms, pallas_ms = (f1 + f2) / 2, (k1 + k2) / 2
+    log(f"[fused-step] train step at {TRAIN_RES}px batch {TRAIN_BATCH}, {2 * TIMED_STEPS} steps "
+        f"each, in turns: fused {fused_ms:.2f} ms/step [{f1:.2f}, {f2:.2f}] "
+        f"({TRAIN_BATCH * 1e3 / fused_ms:.2f} img/s), peak device memory {peaks['fused']:.2f} "
+        f"GB; pallas {pallas_ms:.2f} ms/step [{k1:.2f}, {k2:.2f}] "
+        f"({TRAIN_BATCH * 1e3 / pallas_ms:.2f} img/s), peak {peaks['pallas']:.2f} GB")
+
+    model.set_impl("fused")
+    step(state, {"pixel_values": batches[0]}, mask, gen)
+    sync()
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if DEVICE == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        step(state, {"pixel_values": batches[1]}, mask, gen)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log("[profile] one 256px fused step:")
+    _profile_breakdown(prof, wall_ms)
+    model.set_impl("pallas")
+
+
+def phase_fused_trainer(tmp: str):
+    """The fused Trainer slice: configs/bench_256px.yaml with ``kernel_impl:
+    fused``, a seeded full-width model dir with 8 planted channels in a fused
+    block's norm1, taps on two fused blocks' norm outputs (kernel #9's side
+    output), the control loop every 10 steps, FUSED_TRAINER_STEPS steps
+    through ``vae_channel_dynamics_tpu_torch.train.main``."""
+    import csv
+    import logging
+
+    import torch
+    import yaml
+
+    from vae_channel_dynamics_tpu_torch import train as train_cli
+    from vae_channel_dynamics_tpu_torch.models import io as model_io
+    from vae_channel_dynamics_tpu_torch.models import vae as tvae
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+    from vae_channel_dynamics_tpu_torch.ops import fused_resnet as fr
+    from vae_channel_dynamics_tpu_torch.ops import group_norm_kernel as gnk
+    from vae_channel_dynamics_tpu_torch.utils.config_utils import load_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    model_dir = os.path.join(tmp, "planted_fused_sdxl_vae")
+    t0 = time.perf_counter()
+    write_planted_model_dir(model_dir, FUSED_PLANTED_NORM)
+    cfg = load_config(os.path.join(root, FUSED_TRAINER_CONFIG))
+    cfg["output_dir"] = tmp
+    cfg["model"].update(kernel_impl="fused", pretrained_vae_name=model_dir, remat="none")
+    cfg["logit_lens"]["enabled"] = False
+    cfg["profiling"]["enabled"] = False
+    cfg["training"]["stop_after_steps"] = FUSED_TRAINER_STEPS
+    cfg["tracking"] = {"enabled": True, "track_interval": TRACK_INTERVAL, "target_layers": [
+        {"name": n, "capture_point": "output", "metrics": ["mean_abs_activation_per_channel"]}
+        for n in FUSED_TAPS]}
+    layer = f"vae.{FUSED_PLANTED_NORM}.output"
+    cfg["classification"] = {"enabled": True, "method": "threshold_groupnorm_activity",
+                             "threshold": CLASSIFY_THRESHOLD,
+                             "target_metric_key": "mean_abs_activation_per_channel",
+                             "layers_to_classify": [layer]}
+    cfg["intervention"] = {"enabled": True, "strategy": "gentle_nudge_groupnorm_scale",
+                           "nudge_factor": NUDGE_FACTOR, "max_scale_value": NUDGE_CAP,
+                           "intervention_interval": TRACK_INTERVAL}
+    path = os.path.join(tmp, "fused.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    res, batch = int(cfg["data"]["resolution"]), int(cfg["data"]["batch_size"])
+    log(f"[fused-trainer] {FUSED_TRAINER_CONFIG} with kernel_impl fused, remat none, "
+        f"mixed_precision {cfg['training']['mixed_precision']}, {res}px batch {batch}, "
+        f"{FUSED_TRAINER_STEPS} steps, taps {FUSED_TAPS}, gamma of {FUSED_PLANTED_NORM} "
+        f"channels {list(PLANTED_CHANNELS)} at {PLANTED_GAMMA}; planted model dir written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    package_logger = logging.getLogger("vae_channel_dynamics_tpu_torch")
+    level = package_logger.level
+    package_logger.setLevel(logging.WARNING)
+    try:
+        # ---- the main path: counts reset, the run, counts read ----
+        sync()
+        reset_peak()
+        for counts in (fa.launches, gnk.launches, fr.launches, tvae.fused_blocks):
+            for name in counts:
+                counts[name] = 0
+        t0 = time.perf_counter()
+        check(train_cli.main(["--config_path", path, "--device", DEVICE]) == 0,
+              "the fused Trainer run failed")
+        wall = time.perf_counter() - t0
+        launches = {**fa.launches, **gnk.launches, **fr.launches}
+        blocks = dict(tvae.fused_blocks)
+        peak = peak_gb()
+    finally:
+        package_logger.setLevel(level)
+    release()
+
+    fused_convs = 2 * SDXL_FUSED_AT_256
+    want = {name: fused_convs for name in fr.KERNELS}
+    want.update({"gn_fwd_reduce": fused_convs, "gn_fwd_normalize": 0,
+                 "gn_bwd_reduce": fused_convs, "gn_bwd_dx": fused_convs,
+                 **{name: 0 for name in fa.launches}})
+    per_step = {k: v / FUSED_TRAINER_STEPS for k, v in launches.items()}
+    log(f"[fused-trainer] kernel launches in the {FUSED_TRAINER_STEPS}-step run: {launches}; "
+        f"resnets fused/unfused {blocks}")
+    check(per_step == want, f"launches per step {per_step}, want {want}")
+    check(blocks == {"fused": SDXL_FUSED_AT_256 * FUSED_TRAINER_STEPS,
+                     "unfused": (SDXL_RESNETS - SDXL_FUSED_AT_256) * FUSED_TRAINER_STEPS},
+          f"resnets fused/unfused {blocks}")
+
+    run_dir = os.path.join(tmp, cfg["run_name"])
+    with open(os.path.join(run_dir, "intervention_history.csv")) as f:
+        interventions = [row for row in csv.reader(f)]
+    check([row[0] for row in interventions] == [str(TRACK_INTERVAL), str(FUSED_TRAINER_STEPS)],
+          f"intervention_history.csv rows {interventions}")
+    check(all(int(row[1]) >= len(PLANTED_CHANNELS) and int(row[2]) > 0 for row in interventions),
+          f"the planted channels were not classified and nudged: {interventions}")
+    with open(os.path.join(run_dir, "tracked_activation_stats.csv")) as f:
+        stats_rows = list(csv.reader(f))
+    check(stats_rows[0] == CSV_COLUMNS, f"tracked_activation_stats.csv columns {stats_rows[0]}")
+    tapped = {r[1] for r in stats_rows[1:]}
+    check({r[0] for r in stats_rows[1:]} == {str(TRACK_INTERVAL), str(FUSED_TRAINER_STEPS)}
+          and all(any(t in name for name in tapped) for t in FUSED_TAPS),
+          f"tracked_activation_stats.csv steps or layers: {tapped}")
+    final = os.path.join(run_dir, "final_model")
+    _cfg, weights = model_io.load_model_dir(os.path.join(final, "vae"))
+    trained = torch.load(os.path.join(final, "state", "train_state.pt"), weights_only=True)
+    check(weights.keys() == trained["params"].keys()
+          and all(torch.equal(weights[k], trained["params"][k]) for k in weights),
+          "final_model/vae does not hold the trained weights")
+    gamma = weights[f"{FUSED_PLANTED_NORM}.weight"][list(PLANTED_CHANNELS)]
+    check(bool((gamma > PLANTED_GAMMA).all()), f"planted gamma not nudged: {gamma.tolist()}")
+    log(f"[fused-trainer] {FUSED_TRAINER_STEPS} steps in {wall:.1f} s (model load, control loop "
+        f"and final model included); peak device memory {peak:.2f} GB; interventions "
+        f"{interventions}; planted gamma now {gamma.tolist()[:2]}")
+    return {"launches": launches}
+
+
+def write_planted_model_dir(path: str, planted_norm: str = TRAINER_PLANTED_NORM) -> None:
     """A full-width SDXL model dir from the seed, with PLANTED_CHANNELS of
-    TRAINER_PLANTED_NORM at gamma PLANTED_GAMMA, for the control loop to
-    find."""
+    ``planted_norm`` at gamma PLANTED_GAMMA, for the control loop to find."""
     import torch
 
     from vae_channel_dynamics_tpu_torch.models import AutoencoderKL
@@ -1375,7 +1934,7 @@ def write_planted_model_dir(path: str) -> None:
     model = AutoencoderKL(train_config(), device=DEVICE)
     model.init_weights(torch.Generator(device=DEVICE).manual_seed(SEED))
     with torch.no_grad():
-        model.get_submodule(TRAINER_PLANTED_NORM).weight[list(PLANTED_CHANNELS)] = PLANTED_GAMMA
+        model.get_submodule(planted_norm).weight[list(PLANTED_CHANNELS)] = PLANTED_GAMMA
     model_io.save_model_dir(path, model.config, model.state_dict())
     del model
     release()
@@ -1765,13 +2324,18 @@ def main() -> int:
         kernel_results = phase_kernel()
         flash_results = phase_flash_bwd()
         gn_results = phase_gn_kernels()
+        fused_results = phase_fused_kernels()
         with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
             serve_launches = phase_slice(tmp)
         release()
         bundle = phase_train()
         phase_step_compare(bundle)
         phase_step_times(bundle)
+        phase_fused_step(bundle)
         del bundle
+        release()
+        with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
+            fused_trainer = phase_fused_trainer(tmp)
         release()
         with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
             trainer = phase_trainer_1024(tmp)
@@ -1784,18 +2348,22 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     # each kernel at the shape of its main path: the serving forward at
-    # 512px batch 4, the training kernels at the 1024px Trainer slice's
-    # shapes (the mid-block attention, the full-resolution 128-channel norm);
-    # the launches are the 1024px Trainer run's, the serving forward's the
-    # server's. A library call that computes more than one kernel's work
-    # says which kernels it covers.
+    # 512px batch 4, the flash and GroupNorm training kernels at the 1024px
+    # Trainer slice's shapes (the mid-block attention, the full-resolution
+    # 128-channel norm), the fused resnet kernels at the 256px fused path's
+    # (16, 512, 32, 32) -> 512; the launches are the 1024px Trainer run's,
+    # the fused ones the fused Trainer run's, the serving forward's the
+    # server's. A library call that computes more or less than one kernel's
+    # work says what it covers.
     serving = dict(kernel_results[KERNEL_SHAPES[0]], shape=list(KERNEL_SHAPES[0]),
                    library_covers="flash_attention_fwd")
     serving["max_abs_err"] = max(r["max_abs_err"] for r in kernel_results.values())
-    rows = {"flash_attention_fwd": serving, **flash_results, **gn_results}
-    launches = dict(trainer["launches"], flash_attention_fwd=serve_launches)
-    sources = dict(FLASH_SOURCES, **{k: GN_SOURCE for k in GN_REPLACES})
-    replaces = dict(FLASH_REPLACES, **GN_REPLACES)
+    rows = {"flash_attention_fwd": serving, **flash_results, **gn_results, **fused_results}
+    launches = dict(trainer["launches"], flash_attention_fwd=serve_launches,
+                    **{k: fused_trainer["launches"][k] for k in FUSED_REPLACES})
+    sources = dict(FLASH_SOURCES, **{k: GN_SOURCE for k in GN_REPLACES},
+                   **{k: FUSED_SOURCE for k in FUSED_REPLACES})
+    replaces = dict(FLASH_REPLACES, **GN_REPLACES, **FUSED_REPLACES)
     kernels = [{
         "name": kname,
         "route": "cuda",

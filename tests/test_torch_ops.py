@@ -51,8 +51,9 @@ def test_group_norm_keeps_input_dtype_and_refuses_unported_impls():
     x = torch.randn(1, 16, 4, 4, dtype=torch.bfloat16)
     w, b = torch.ones(16), torch.zeros(16)
     assert group_norm(x, w, b, 4, impl="xla").dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        group_norm(x, w, b, 4, impl="fused")
+    # under "fused" a norm outside the fused resnets runs plain, as in JAX
+    assert torch.equal(group_norm(x, w, b, 4, fuse_silu=True, impl="fused"),
+                       group_norm(x, w, b, 4, fuse_silu=True, impl="xla"))
     # the GroupNorm kernels are ported; 16 channels is a shape they refuse,
     # as the JAX kernels do
     with pytest.raises(RuntimeError, match="ineligible"):

@@ -254,7 +254,7 @@ def test_gradient_accumulation_and_ema(tmp_path):
     ("profiling", "enabled", True),
     ("saving", "export_stablehlo", True),
     ("parallel", "spatial", 2),
-    ("model", "kernel_impl", "fused"),
+    ("model", "remat", "conv"),
 ])
 def test_unported_options_raise(tmp_path, section, key, value):
     cfg = _resume_cfg(tmp_path, "refused")

@@ -23,8 +23,11 @@ Weights and compute dtype:
   weights.
 * GroupNorm affine parameters stay fp32 in both cases, and the statistics
   are taken in fp32 (``ops/group_norm.py``); the output is cast back to the
-  input dtype. ``impl`` selects the plain GroupNorm (``auto``/``xla``) or
-  the CUDA kernels (``pallas``).
+  input dtype. ``impl`` selects the plain GroupNorm (``auto``/``xla``), the
+  CUDA GroupNorm kernels (``pallas``), or the fused resnet kernels
+  (``fused``): each ``ResnetBlock2D`` that the gate admits runs its two
+  norm+SiLU+conv pairs as ``ops.fused_resnet.gn_silu_conv3x3``, and every
+  other norm runs the plain GroupNorm, as in the JAX model.
 
 Capture taps (JAX ``models/vae.py:149-177``): ``capture`` is a table of
 ``(layer_name, capture_point, metrics)`` entries, ``layer_name`` being the
@@ -41,8 +44,8 @@ block's input is kept and its body runs again in the backward. The JAX model
 remats only the resnets, so the attention blocks are never recomputed. The
 recompute reports no taps: the forward's values stand.
 
-Not in this port yet: ``remat: conv`` and ``offload``, the fused-resnet and
-spatial-conv branches of the JAX model.
+Not in this port yet: ``remat: conv`` and ``offload``, and the spatial-conv
+branch of the JAX model.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import flash_attention as flash_ops
+from ..ops import fused_resnet
 from ..ops.attention import chunked_attention, naive_attention, resolve_impl
 from ..ops import group_norm_kernel
 from ..ops.group_norm import group_norm, silu
@@ -281,16 +285,42 @@ def remat_enabled(remat: Any) -> bool:
     )
 
 
+# the gn-output metric the fused kernel emits as a side output
+_FUSED_TAP_METRICS = frozenset({"mean_abs_activation_per_channel"})
+# what ResnetBlock2D's fused path materialises, so taps on it still see it
+_FUSED_MATERIALISED = frozenset({
+    ("norm1", "input"), ("norm2", "input"), ("conv1", "output"),
+    ("conv_shortcut", "input"), ("conv_shortcut", "output"),
+})
+
+# Blocks that ran with impl="fused" in this process, by the path the gate
+# chose: a block sent to the unfused path is counted, never hidden. The
+# recompute under remat is not counted again.
+fused_blocks: Dict[str, int] = {"fused": 0, "unfused": 0}
+
+
 class ResnetBlock2D(nn.Module):
     """norm1+SiLU -> conv1 -> norm2+SiLU -> conv2, plus the input (through a
     1x1 conv_shortcut when the channel counts differ). With ``remat`` set
-    and autograd recording, the body runs under ``torch.utils.checkpoint``."""
+    and autograd recording, the body runs under ``torch.utils.checkpoint``.
+
+    ``impl="fused"`` (JAX ``models/vae.py:427-613``): where :meth:`_fused_ok`
+    admits the block, each norm+SiLU+conv pair is one
+    ``ops.fused_resnet.gn_silu_conv3x3`` (the residual added in the second's
+    epilogue), and the norms' ``mean_abs_activation_per_channel`` output
+    taps come from the kernel's |z| side output; otherwise the block runs
+    unfused, with plain norms."""
 
     remat: bool = False
+    impl: str = "auto"
+    # fuse only up to 32x32, the JAX model's measured TPU crossover (JAX
+    # vae.py:523-531), kept so that both packages fuse the same blocks
+    _FUSED_MAX_HW = 1024
 
     def __init__(self, in_channels: int, out_channels: int, num_groups: int,
                  eps: float, device=None):
         super().__init__()
+        self.num_groups, self.eps = num_groups, eps
         self.norm1 = GroupNorm(num_groups, in_channels, eps, fuse_silu=True, device=device)
         self.conv1 = Conv2d(in_channels, out_channels, device=device)
         self.norm2 = GroupNorm(num_groups, out_channels, eps, fuse_silu=True, device=device)
@@ -299,6 +329,41 @@ class ResnetBlock2D(nn.Module):
             Conv2d(in_channels, out_channels, 1, padding=0, device=device)
             if in_channels != out_channels else None
         )
+        # the model's capture specs under this block, set by set_capture
+        self.full_name = ""
+        self._captures: CaptureTable = ()
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.conv1.compute_dtype or self.conv1.weight.dtype
+
+    def _fused_captures_ok(self) -> bool:
+        """Every capture under this block targets a tensor the fused path
+        materialises, or is a norm-output metric the kernel emits (JAX
+        vae.py:497-521)."""
+        prefix = f"{self.full_name}."
+        for layer, point, metrics in self._captures:
+            sub = layer[len(prefix):]
+            if (sub, point) in _FUSED_MATERIALISED:
+                continue
+            if sub in ("norm1", "norm2") and point == "output" and (
+                    set(metrics) <= _FUSED_TAP_METRICS):
+                continue
+            return False
+        return True
+
+    def _fused_ok(self, x: torch.Tensor) -> bool:
+        """The JAX gate (vae.py:533-548): impl fused, bf16 compute, H*W up
+        to _FUSED_MAX_HW, both convs eligible, every capture servable."""
+        if self.impl != "fused" or self.compute_dtype != torch.bfloat16:
+            return False
+        n, _c, h, w = x.shape
+        if h * w > self._FUSED_MAX_HW:
+            return False
+        cout = self.conv1.weight.shape[0]
+        return (fused_resnet.eligible(x, cout, self.num_groups)
+                and fused_resnet.eligible((n, cout, h, w), cout, self.num_groups)
+                and self._fused_captures_ok())
 
     def _body(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv1(self.norm1(x))
@@ -307,28 +372,57 @@ class ResnetBlock2D(nn.Module):
             x = self.conv_shortcut(x)
         return x + h
 
-    def _recompute(self, x: torch.Tensor) -> torch.Tensor:
+    def _fused_pair(self, x, norm: GroupNorm, conv: Conv2d, residual=None) -> torch.Tensor:
+        """conv(silu(norm(x))) (+ residual) through the fused kernels; the
+        norm's mean |z| output tap from the kernel's side output, weighted by
+        the tap mask, emitted through the norm (so a muted recompute emits
+        nothing)."""
+        emit = bool(norm._specs_for("output"))
+        y, tap, _moments = fused_resnet.gn_silu_conv3x3(
+            x, norm.weight, norm.bias, conv.weight, conv.bias, num_groups=self.num_groups,
+            eps=self.eps, residual=residual, emit_tap=emit)
+        if tap is not None:
+            norm.emit(f"{norm.full_name}.output.mean_abs_activation_per_channel",
+                      fused_resnet.mean_abs_from_tap(tap, x.shape[2] * x.shape[3]))
+        return y
+
+    def _fused_body(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.compute_dtype)
+        self.norm1.tap(x, "input")
+        h = self._fused_pair(x, self.norm1, self.conv1)
+        residual = self.conv_shortcut(x) if self.conv_shortcut is not None else x
+        self.conv1.tap(h, "output")
+        self.norm2.tap(h, "input")
+        return self._fused_pair(h, self.norm2, self.conv2, residual.to(self.compute_dtype))
+
+    def _recompute(self, body, x: torch.Tensor) -> torch.Tensor:
         """The body with every tap muted: the backward's recompute must not
         write into the stats dict the forward already reported to."""
         taps = [(m, m._sink) for m in self.modules() if isinstance(m, TapModule)]
         for m, _sink in taps:
             m._sink = None
         try:
-            return self._body(x)
+            return body(x)
         finally:
             for m, sink in taps:
                 m._sink = sink
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        body = self._body
+        if self.impl == "fused":
+            fused = self._fused_ok(x)
+            fused_blocks["fused" if fused else "unfused"] += 1
+            if fused:
+                body = self._fused_body
         if not (self.remat and torch.is_grad_enabled()):
-            return self._body(x)
+            return body(x)
         ran = []
 
         def run(inp: torch.Tensor) -> torch.Tensor:
             if ran:
-                return self._recompute(inp)
+                return self._recompute(body, inp)
             ran.append(True)
-            return self._body(inp)
+            return body(inp)
 
         # the body draws no random numbers, so no RNG state is stashed
         return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
@@ -518,8 +612,10 @@ class AutoencoderKL(nn.Module):
     and latents_sampled (no scaling_factor applied), like the JAX model, and
     the taps' values under ``"stats"``.
 
-    ``impl`` is the GroupNorm impl of every norm, ``dtype`` the compute dtype
-    of every conv and linear layer (None: their weights' dtype), ``capture``
+    ``impl`` is the GroupNorm impl of every norm and resnet (``fused``: the
+    resnets' fused kernels, plain norms elsewhere), ``dtype`` the compute
+    dtype of every conv and linear layer and so of the resnets' fused path
+    (None: their weights' dtype), ``capture``
     the tap table, ``remat`` the resnets' rematerialisation
     (:func:`remat_enabled`); :meth:`set_impl`, :meth:`set_compute_dtype`,
     :meth:`set_capture` and :meth:`set_remat` change them on a built model."""
@@ -558,10 +654,10 @@ class AutoencoderKL(nn.Module):
         return self
 
     def set_impl(self, impl: str) -> "AutoencoderKL":
-        """The GroupNorm impl of every norm (``ops.group_norm``)."""
+        """The impl of every norm (``ops.group_norm``) and resnet."""
         self.impl = impl
         for module in self.modules():
-            if isinstance(module, GroupNorm):
+            if isinstance(module, (GroupNorm, ResnetBlock2D)):
                 module.impl = impl
         return self
 
@@ -585,7 +681,8 @@ class AutoencoderKL(nn.Module):
 
     def set_capture(self, capture: CaptureTable) -> "AutoencoderKL":
         """Install a capture table: each tap module gets the specs that name
-        it by its path in this model."""
+        it by its path in this model, each resnet the specs under it (its
+        fused gate reads them)."""
         self.capture = tuple((n, p, tuple(m)) for n, p, m in capture)
         for name, module in self.named_modules():
             if isinstance(module, TapModule):
@@ -595,6 +692,10 @@ class AutoencoderKL(nn.Module):
                     point: tuple(s for s in self.capture if s[0] == name and s[1] == point)
                     for point in ("input", "output")
                 }
+            elif isinstance(module, ResnetBlock2D):
+                module.full_name = name
+                module._captures = tuple(s for s in self.capture
+                                         if s[0].startswith(f"{name}."))
         return self
 
     def encode(self, x: torch.Tensor) -> DiagonalGaussianDistribution:

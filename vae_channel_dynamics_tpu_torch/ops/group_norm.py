@@ -15,7 +15,10 @@ entry point the model uses. ``impl`` selects
   (the port of the JAX package's Pallas GroupNorm) with their autograd
   backward. It raises where the JAX kernels' ``eligible`` refuses the shape,
   so both packages accept the same configurations.
-* ``fused``: the fused GroupNorm+SiLU+conv resnet kernels, not ported yet.
+* ``fused``: the plain path, as in the JAX package: under ``fused`` the
+  resnets that the gate admits run their norms inside the fused
+  GroupNorm+SiLU+conv kernels (``ops/fused_resnet.py``, called from
+  ``models/vae.py``), and every other norm reaches here and runs plain.
 """
 
 from __future__ import annotations
@@ -80,13 +83,7 @@ def group_norm(
         return group_norm_kernel.group_norm_silu(
             x, scale, bias, num_groups=num_groups, eps=eps, fuse_silu=fuse_silu
         )
-    if impl == "fused":
-        raise NotImplementedError(
-            "group_norm impl 'fused' (the fused GroupNorm+SiLU+conv resnet "
-            "kernels, ROADMAP Q2 item 4) is not yet ported to PyTorch/CUDA; "
-            "use 'auto', 'xla' or 'pallas'"
-        )
-    if impl not in ("auto", "xla"):
+    if impl not in ("auto", "xla", "fused"):
         raise ValueError(
             f"Unknown group_norm impl {impl!r}; expected 'auto', 'xla', "
             "'pallas' or 'fused'."

@@ -16,9 +16,9 @@ with ``(seed, i)``, so a resumed run draws what the uninterrupted run drew.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
 skipped: ``parallel`` axes above 1 (ROADMAP Q1 item 7), ``logit_lens``
-(Q1 item 3), ``profiling`` (Q1 item 8), ``saving.export_stablehlo``, and
-``model.kernel_impl: fused`` (ROADMAP Q2, kernels #9-#11). The matplotlib
-plots are not drawn; the CSV and JSONL files they read are written.
+(Q1 item 3), ``profiling`` (Q1 item 8), and ``saving.export_stablehlo``.
+The matplotlib plots are not drawn; the CSV and JSONL files they read are
+written.
 """
 
 from __future__ import annotations
@@ -56,8 +56,8 @@ from .step import build_optimizer, make_eval_step, make_train_step
 logger = logging.getLogger(__name__)
 
 ATTENTION_IMPLS = ("auto", "naive", "chunked", "flash")
-# model.kernel_impl values ported: the GroupNorm impl of every norm
-KERNEL_IMPLS = ("auto", "xla", "pallas")
+# model.kernel_impl values: the impl of every norm and resnet
+KERNEL_IMPLS = ("auto", "xla", "pallas", "fused")
 
 
 def resolve_model(model_config: Dict[str, Any], dtype: torch.dtype,
@@ -68,17 +68,13 @@ def resolve_model(model_config: Dict[str, Any], dtype: torch.dtype,
     ``pretrained_vae_name`` naming a local model dir (written by either
     package, or a diffusers checkpoint) loads it; any other name (an HF Hub
     id: the port downloads nothing) warns and initialises ``architecture``
-    from ``init_seed``, with the JAX Trainer's warning. ``kernel_impl``: ``auto``/``xla`` the plain GroupNorm,
-    ``pallas`` the GroupNorm kernels; ``fused`` (kernels #9-#11) raises.
+    from ``init_seed``, with the JAX Trainer's warning. ``kernel_impl``:
+    ``auto``/``xla`` the plain GroupNorm, ``pallas`` the GroupNorm kernels,
+    ``fused`` the fused resnet kernels where the JAX gate admits a block
+    (bf16 compute, up to 32x32) and the plain GroupNorm elsewhere.
     ``attention_impl``: ``auto``, ``naive``, ``chunked`` or ``flash``,
     resolved per call as in the JAX model. ``remat``: ``none``/``full``."""
     impl = str(model_config.get("kernel_impl", "auto"))
-    if impl == "fused":
-        raise NotImplementedError(
-            "model.kernel_impl 'fused' (the fused GN+SiLU+conv resnet kernels "
-            "#9-#11) is not yet ported to PyTorch (ROADMAP Q2); use 'pallas' "
-            "or 'auto'"
-        )
     if impl not in KERNEL_IMPLS:
         raise ValueError(f"Unknown model.kernel_impl {impl!r}; expected "
                          "'auto', 'xla', 'pallas' or 'fused'.")
