@@ -7,11 +7,11 @@ Run from the repository root. Phases, each printing what it found; any
 failure exits non-zero without the final ``ok`` line:
 
 1. device: the card's name, and name plus power limit from nvidia-smi;
-2. build: the four kernel libraries, ``vae_channel_dynamics_tpu_torch/csrc/
+2. build: the five kernel libraries, ``vae_channel_dynamics_tpu_torch/csrc/
    flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``,
-   ``csrc/group_norm.cu`` and ``csrc/fused_resnet.cu`` (nvcc, sm_90a, one
-   nvcc each, started together), the seconds each took, and ptxas's
-   registers and spills;
+   ``csrc/group_norm.cu``, ``csrc/fused_resnet.cu`` and ``csrc/conv_nhwc.cu``
+   (nvcc, sm_90a, one nvcc each, started together), the seconds each took,
+   and ptxas's registers and spills;
 3. flash kernel vs plain: bf16 q/k/v from a seed at the serving shapes, the
    kernel's max abs and relative L2 error against
    ``flash_attention_reference`` (and proof that the bound rejects a kernel
@@ -90,7 +90,30 @@ failure exits non-zero without the final ``ok`` line:
    flash, and flash with ``remat: full``, in turns, with their peak memory;
    a torch.profiler breakdown of a flash step.
 
-The last lines are a JSON object describing the eleven kernels, the
+10. kernel #12, the NHWC conv3x3 with bias (``csrc/conv_nhwc.cu``), after
+   the fused resnet kernels: against its plain version at the conv bench's
+   shapes A-D, with its three planted faults (the halo's zero-fill skipped,
+   one tap's K chunk left out, the bias left out), bit-equal run to run,
+   kernel, plain, bound and cuDNN ``channels_last`` times; then the ported
+   conv bench (``experiments/conv_bench.py``) in-process, #12's main path;
+11. the fp32 flash forward against its plain version at (8, 4096, 512),
+   the fp32 evaluation's shape, TF32 off, with the dropped-tile fault, and its times beside plain and
+   SDPA at fp32;
+12. evaluation at full width, after the serving slice: the seeded SDXL VAE
+   written as a model dir, ``evaluate.main`` on 32 synthetic images at
+   512px, batch 8: bf16 with ``attention_impl: auto`` (the bf16 flash
+   forward in every forward) and the logit lens at its two default layers,
+   then bf16 naive, fp32 naive and fp32 auto (the fp32 flash forward, the
+   repaired fault); each metric held to fp32 naive (bf16 flash within the
+   bf16 naive control), the PNG pairs, ``out_*.png`` and the lens tree
+   present, images/s and peak memory;
+13. tiled inference: a 2048px image through the wrapper with
+   ``enable_tiling(512, 0.25)``, tiled encode and decode with the flash
+   forward once a tile, against naive within the naive bf16-vs-fp32
+   control; the tiled and untiled 2048px decode's peak memory; the serve CLI
+   with ``--tile_size 512`` at ``--resolution 1024``.
+
+The last lines are a JSON object describing the thirteen kernels, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``. Imports no jax.
 """
 
@@ -165,6 +188,7 @@ FLASH_REPLACES = {
 # the memory rate.
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12  # outside the tensor cores: the GroupNorm kernels' math
+PEAK_TF32_FLOPS = 495e12  # three TF32 products (3xTF32) give fp32 accuracy
 PEAK_BYTES_PER_S = 3.35e12
 
 # Flash training kernels vs plain, bf16, at the 1024px mid block's shape
@@ -304,6 +328,55 @@ FUSED_PLANTED_NORM = "decoder.up_blocks.0.resnets.0.norm1"
 # the SDXL VAE at 256px: 24 resnets, the nine 512-channel ones at 32x32 fuse
 SDXL_RESNETS, SDXL_FUSED_AT_256 = 24, 9
 
+# Kernel #12, the NHWC conv3x3 with bias (csrc/conv_nhwc.cu), against its
+# plain version (the nine shifted fp32 products) at the conv bench's four
+# shapes, Cout = Cin, bias 0.5 N(0, 1) so that leaving it out shows. y is
+# bf16, one rounding of an fp32 sum taken in another order: at most
+# CONV_ULPS bf16 ulps of max|plain| and relative L2 CONV_REL_L2. Three planted
+# faults must exceed that bound: the halo's zero-fill skipped (a shifted
+# column wraps into the neighbouring row), one tap's K chunk (tap (1, 1),
+# channels 0-31) left out, and the bias left out. Runs must be bit-equal.
+CONV_SOURCE = "vae_channel_dynamics_tpu_torch/csrc/conv_nhwc.cu"
+CONV_REPLACES = ("experiments/conv_bench.py:34 _conv_kernel_v9, "
+                 ":72 _conv_kernel_v3")
+CONV_SHAPES = ((8, 64, 64, 512), (8, 128, 128, 256), (8, 256, 256, 128), (8, 32, 32, 512))
+CONV_ULPS = 4
+CONV_REL_L2 = 1e-2
+CONV_ITERS = 10
+# Evaluation at full width: the seeded SDXL VAE on 32 synthetic images at
+# 512px, batch 8, four times through evaluate.main: bf16 with auto (the bf16
+# flash forward, every forward) and the logit lens at its two default
+# layers; bf16 naive; fp32 naive; fp32 auto (the fp32 flash forward, the
+# repaired fault). Each metric relative to fp32 naive: bf16 flash within
+# EVAL_CONTROL_RATIO x bf16 naive's own difference plus EVAL_FLOOR (one bf16
+# ulp, as the step checks' scalars); fp32 flash within EVAL_F32_REL.
+EVAL_RES = 512
+EVAL_IMAGES = 32
+EVAL_BATCH = 8
+EVAL_CONTROL_RATIO = 1.25
+EVAL_FLOOR = 2.0 ** -8
+EVAL_F32_REL = 1e-4
+EVAL_LENS_LAYERS = ("encoder.down_blocks.0.resnets.0.norm1",
+                    "encoder.down_blocks.1.resnets.0.conv_shortcut")
+# The fp32 flash forward (#6 at fp32) against its plain version at the shape
+# the fp32 `auto` evaluation gives it, the 512px mid block at EVAL_BATCH:
+# (8, 4096, 512), TF32 off. Both sum fp32 products in another order and the
+# kernel's online softmax rescales, about 2e-6 relative L2; one dropped
+# 64-key tile costs about 8/sqrt(N) (0.125).
+FLASH_F32_SHAPE = (EVAL_BATCH, 4096, 512)
+FLASH_F32_REL_L2 = 1e-5
+FLASH_F32_REPLACES = "vae_channel_dynamics_tpu/ops/pallas_attention.py:136 _flash_kernel (fp32)"
+FLASH_F32_ITERS = 5
+# Tiled inference at full width: a 2048px image through the wrapper with
+# enable_tiling(512, 0.25), bf16: 25 encoder and 25 decoder tiles, the flash
+# forward once a tile (4096 tokens); flash vs naive within the naive
+# bf16-vs-fp32 control (as MODEL_CONTROL_RATIO) plus TILE_FLOOR. Then the
+# serve CLI tiled at 1024px on SERVE_TILED_IMAGES images.
+TILE_RES, TILE_SIZE, TILE_OVERLAP = 2048, 512, 0.25
+TILE_COUNT = 25
+TILE_FLOOR = 1e-3
+SERVE_TILED_RES, SERVE_TILED_IMAGES = 1024, 4
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -384,6 +457,7 @@ def kernel_label(mangled: str) -> str:
 
 def phase_build():
     from vae_channel_dynamics_tpu_torch.ops import _cuda_build, flash_attention
+    from vae_channel_dynamics_tpu_torch.ops import conv_nhwc as cn
     from vae_channel_dynamics_tpu_torch.ops import fused_resnet as fr
     from vae_channel_dynamics_tpu_torch.ops import group_norm_kernel as gnk
 
@@ -391,7 +465,8 @@ def phase_build():
     builds = {FLASH_FWD_SOURCE: (flash_attention.FWD_LIBRARY, flash_attention.build_forward),
               FLASH_BWD_SOURCE: (flash_attention.BWD_LIBRARY, flash_attention.build_backward),
               GN_SOURCE: (gnk.LIBRARY, gnk.build),
-              FUSED_SOURCE: (fr.LIBRARY, fr.build)}
+              FUSED_SOURCE: (fr.LIBRARY, fr.build),
+              CONV_SOURCE: (cn.LIBRARY, cn.build)}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         for fut in [pool.submit(fn) for _lib, fn in builds.values()]:
@@ -725,8 +800,9 @@ def phase_attention_block():
     counts = {k: fa.launches[k] - before[k] for k in fa.launches}
     naive = run("naive", torch.bfloat16)
     fp32 = run("naive", torch.float32)
-    check(counts == {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 1,
-                     "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1},
+    check(counts == {"flash_attention_fwd": 0, "flash_attention_fwd_f32": 0,
+                     "flash_attention_fwd_lse": 1, "flash_attention_bwd_dkv": 1,
+                     "flash_attention_bwd_dq": 1},
           f"the AttentionBlock's flash step launched {counts}")
     rows = []
     for name in flash:
@@ -2072,7 +2148,8 @@ def phase_trainer_1024(tmp: str):
         package_logger.setLevel(level)
 
     per_step = {k: v / TRAINER_STEPS for k, v in launches.items()}
-    want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": SDXL_ATTENTIONS,
+    want = {"flash_attention_fwd": 0, "flash_attention_fwd_f32": 0,
+            "flash_attention_fwd_lse": SDXL_ATTENTIONS,
             "flash_attention_bwd_dkv": SDXL_ATTENTIONS, "flash_attention_bwd_dq": SDXL_ATTENTIONS,
             "gn_fwd_reduce": SDXL_NORMS + SDXL_RESNET_NORMS,
             "gn_fwd_normalize": SDXL_NORMS + SDXL_RESNET_NORMS,
@@ -2284,6 +2361,386 @@ def phase_flash_step_1024(model_dir: str):
     release()
 
 
+def _conv_halo_wrapped(x, w, bias):
+    """The plain conv with the halo's zero-fill skipped in W: each image's
+    rows laid end to end, so a column shifted past the edge reads the
+    neighbouring row's end pixel instead of a zero."""
+    import torch
+    import torch.nn.functional as F
+
+    n, h, wd, cin = x.shape
+    rows = F.pad(x.float(), (0, 0, 0, 0, 1, 1)).reshape(n, (h + 2) * wd, cin)
+    flat = F.pad(rows, (0, 0, 1, 1))
+    wf = w.float()
+    acc = torch.zeros((n, h * wd, w.shape[-1]), dtype=torch.float32, device=x.device)
+    for dy in range(3):
+        for dx in range(3):
+            acc += flat[:, dy * wd + dx:dy * wd + dx + h * wd] @ wf[dy, dx]
+    return (acc + bias.float()).reshape(n, h, wd, -1).to(x.dtype)
+
+
+def conv_bound(n, h, w, cin, cout) -> tuple[float, str]:
+    """#12's bound: 2 N H W 9 Cin Cout FLOPs; bytes of the bf16 input, weight
+    and output and the fp32 bias, each once."""
+    return roofline(2 * n * h * w * 9 * cin * cout,
+                    2 * n * h * w * (cin + cout) + 2 * 9 * cin * cout + 4 * cout)
+
+
+def phase_conv_nhwc():
+    """Kernel #12 against its plain version at CONV_SHAPES, with its three
+    planted faults, bit-equality run to run, and kernel, plain, bound and
+    cuDNN channels_last times; then the ported conv bench in-process, whose
+    launches are the main path's."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.experiments import conv_bench
+    from vae_channel_dynamics_tpu_torch.ops import conv_nhwc as cn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 30)
+    result = {"max_abs_err": 0.0}
+    for shape in CONV_SHAPES:
+        n, h, w, c = shape
+        x = torch.randn(shape, generator=gen, device=DEVICE).to(bf16)
+        wt = (torch.randn((3, 3, c, c), generator=gen, device=DEVICE) / math.sqrt(9 * c)).to(bf16)
+        bias = 0.5 * torch.randn(c, generator=gen, device=DEVICE)
+        y = cn.conv3x3_nhwc(x, wt, bias)
+        y2 = cn.conv3x3_nhwc(x, wt, bias)
+        sync()
+        check(torch.equal(y, y2), f"#12 differs between two runs at {shape}")
+        ref = cn.conv3x3_nhwc_reference(x, wt, bias)
+        check(bool(torch.isfinite(y.float()).all()), f"#12 output not finite at {shape}")
+        atol = CONV_ULPS * bf16_ulp(ref.float().abs().max().item())
+        err, rel = kernel_errors(y, ref)
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        dropped = wt.clone()
+        dropped[1, 1, :32] = 0
+        faults = {"halo zero-fill skipped": _conv_halo_wrapped(x, wt, bias),
+                  "tap (1, 1) K chunk 0-31 left out": cn.conv3x3_nhwc_reference(x, dropped, bias),
+                  "bias left out": cn.conv3x3_nhwc_reference(x, wt, None)}
+        fault_errs = {name: kernel_errors(f, ref) for name, f in faults.items()}
+        del y2, dropped, faults
+        check(err <= atol and rel <= CONV_REL_L2,
+              f"#12 disagrees with plain at {shape}: max abs {err}, rel L2 {rel}")
+        for name, (f_err, f_rel) in fault_errs.items():
+            check(f_err > atol or f_rel > CONV_REL_L2,
+                  f"the #12 bound at {shape} does not reject its planted fault: {name}")
+        bias16 = bias.to(bf16)
+        ms, plain_ms = timed_pair(lambda: cn.conv3x3_nhwc(x, wt, bias),
+                                  lambda: cn.conv3x3_nhwc_reference(x, wt, bias), CONV_ITERS)
+        lib_ms = cuda_ms(lambda: conv_bench.cudnn_conv3x3(x, wt, bias16), CONV_ITERS)
+        bound_ms, bound_by = conv_bound(n, h, w, c, c)
+        log(f"[conv-nhwc] {shape} -> {c} bf16: max abs {err:.4g} (bound {atol:.4g}, "
+            f"{CONV_ULPS} bf16 ulps of max|plain|), rel L2 {rel:.3g} (bound {CONV_REL_L2}); "
+            + ", ".join(f"{name}: max abs {f[0]:.4g}, rel L2 {f[1]:.3g}"
+                        for name, f in fault_errs.items())
+            + f"; bit-equal run to run; ms kernel {ms:.4f}, plain {plain_ms:.4f}, bound "
+            f"{bound_ms:.4f} ({bound_by}, {100 * bound_ms / ms:.1f}% of it), cuDNN "
+            f"channels_last {lib_ms:.4f}")
+        if shape == CONV_SHAPES[0]:
+            result.update(shape=[*shape, c], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=lib_ms,
+                          library_covers="F.conv2d on the channels_last view, with bias")
+        del x, wt, bias, bias16, y, ref
+        release()
+
+    # ---- the main path: counts reset, the conv bench, counts read ----
+    cn.launches["conv3x3_nhwc"] = 0
+    t0 = time.perf_counter()
+    check(conv_bench.main(["all", "--device", DEVICE]) == 0, "the conv bench failed")
+    result["launches"] = cn.launches["conv3x3_nhwc"]
+    log(f"[conv-nhwc] conv bench (all) in {time.perf_counter() - t0:.1f} s; "
+        f"#12 launches {result['launches']}")
+    check(result["launches"] > 0, "the conv bench did not launch #12")
+    release()
+    return result
+
+
+def sdpa_fp32_ms(q, k, v, scale: float, iters: int) -> tuple[str, float]:
+    """The first SDPA backend that runs an fp32 forward at head dim 512, and
+    its CUDA-event ms on (B, N, C) as one head (the yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q4, k4, v4 = (t.unsqueeze(1) for t in (q, k, v))
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings(), torch.no_grad():
+                warnings.simplefilter("ignore", UserWarning)
+                F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+                sync()
+        except RuntimeError as e:
+            log(f"[sdpa] {backend.name} refuses fp32 at head dim 512: "
+                f"{str(e).splitlines()[0][:120]}")
+            continue
+        with sdpa_kernel([backend]), torch.no_grad():
+            return backend.name, cuda_ms(
+                lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale), iters)
+    raise SmokeFailure("no SDPA backend runs fp32 at head dim 512")
+
+
+def phase_flash_f32():
+    """The fp32 flash forward against its plain version at FLASH_F32_SHAPE,
+    TF32 off, with the dropped-tile fault, and its times against plain and
+    SDPA at fp32."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, n, c = FLASH_F32_SHAPE
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 40)
+    q, k, v = (torch.randn(FLASH_F32_SHAPE, generator=gen, device=DEVICE) for _ in range(3))
+    scale = c ** -0.5
+    out = fa.flash_attention_fwd(q, k, v, scale=scale, out_dtype=torch.float32)
+    sync()
+    check(out.dtype == torch.float32 and bool(torch.isfinite(out).all()),
+          "the fp32 flash output is not finite fp32")
+    ref = fa.flash_attention_reference(q, k, v, scale, torch.float32)
+    err, rel = kernel_errors(out, ref)
+    fault = fa.flash_attention_reference(q, k[:, :-FAULT_TILE].contiguous(),
+                                         v[:, :-FAULT_TILE].contiguous(), scale, torch.float32)
+    fault_err, fault_rel = kernel_errors(fault, ref)
+    del fault
+    check(rel <= FLASH_F32_REL_L2, f"the fp32 flash forward is {rel} (rel L2) from plain")
+    check(fault_rel > FLASH_F32_REL_L2, "the fp32 flash bound does not reject a dropped key tile")
+    ms, plain_ms = timed_pair(
+        lambda: fa.flash_attention_fwd(q, k, v, scale=scale, out_dtype=torch.float32),
+        lambda: fa.flash_attention_reference(q, k, v, scale, torch.float32), FLASH_F32_ITERS)
+    backend, lib_ms = sdpa_fp32_ms(q, k, v, scale, FLASH_F32_ITERS)
+    flops = 4 * b * n * n * c
+    bound_ms, bound_by = roofline(flops, 4 * 4 * b * n * c, PEAK_FP32_FLOPS)
+    tf32x3_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    log(f"[flash-f32] {FLASH_F32_SHAPE} fp32, TF32 off: max abs {err:.4g}, rel L2 {rel:.4g} "
+        f"(bound {FLASH_F32_REL_L2}); one dropped {FAULT_TILE}-key tile: rel L2 "
+        f"{fault_rel:.4g}; ms kernel {ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s), "
+        f"plain {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}, fp32 at 67 TFLOP/s; "
+        f"{bound_ms / ms:.1%} of it), 3xTF32 bound {tf32x3_ms:.4f} (165 TFLOP/s; "
+        f"{tf32x3_ms / ms:.1%} of it), SDPA fp32 ({backend}) {lib_ms:.4f}")
+    del q, k, v, out, ref
+    release()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms,
+            "library_covers": f"scaled_dot_product_attention fp32 forward ({backend})",
+            "shape": list(FLASH_F32_SHAPE)}
+
+
+def write_seeded_model_dir(path: str) -> None:
+    """The full-width SDXL VAE from the seed, written as a model dir."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.models import AutoencoderKL, VAEConfig
+    from vae_channel_dynamics_tpu_torch.models import io as model_io
+
+    model = AutoencoderKL(VAEConfig.sdxl(), device=DEVICE)
+    model.init_weights(torch.Generator(device=DEVICE).manual_seed(SEED))
+    check(sum(p.numel() for p in model.parameters()) == SDXL_PARAMS,
+          "the seeded model is not the full-width SDXL VAE")
+    model_io.save_model_dir(path, model.config, model.state_dict())
+    del model
+    release()
+
+
+def phase_eval(tmp: str, model_dir: str) -> dict:
+    """The evaluation CLI in-process at full width (see EVAL_*): the bf16
+    auto run with the lens, then the bf16 naive, fp32 naive and fp32 auto
+    controls; metrics, launches, artifacts, images/s and peak memory."""
+    import logging
+
+    import yaml
+
+    from vae_channel_dynamics_tpu_torch import evaluate
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+
+    runs = {"bf16 auto": ("bf16", "auto", True), "bf16 naive": ("bf16", "naive", False),
+            "fp32 naive": ("no", "naive", False), "fp32 auto": ("no", "auto", False)}
+    package_logger = logging.getLogger("vae_channel_dynamics_tpu_torch")
+    level = package_logger.level
+    metrics, launches, rows = {}, {}, []
+    try:
+        for label, (precision, impl, lens) in runs.items():
+            tag = label.replace(" ", "_")
+            cfg_path = os.path.join(tmp, f"eval_{tag}.yaml")
+            with open(cfg_path, "w") as f:
+                yaml.safe_dump({
+                    "seed": SEED,
+                    "data": {"dataset_name": f"synthetic://shapes?num_samples={EVAL_IMAGES}",
+                             "resolution": EVAL_RES, "batch_size": EVAL_BATCH},
+                    "training": {"mixed_precision": precision},
+                    "model": {"attention_impl": impl},
+                }, f)
+            out_dir = os.path.join(tmp, f"eval_out_{tag}")
+            package_logger.setLevel(logging.WARNING)
+            sync()
+            reset_peak()
+            # ---- the main path: counts reset, one evaluation, counts read ----
+            for name in fa.launches:
+                fa.launches[name] = 0
+            t0 = time.perf_counter()
+            check(evaluate.main(["--config_path", cfg_path, "--checkpoint_path", model_dir,
+                                 "--output_dir", out_dir, "--eval_split", "test",
+                                 "--enable_logit_lens", str(lens).lower(),
+                                 "--device", DEVICE]) == 0, f"evaluate ({label}) failed")
+            sync()
+            wall = time.perf_counter() - t0
+            launches[label] = dict(fa.launches)
+            peak = peak_gb()
+            with open(os.path.join(out_dir, "eval_metrics.json")) as f:
+                metrics[label] = json.load(f)
+            m = metrics[label]
+            check(m["num_samples"] == EVAL_IMAGES, f"{label}: {m['num_samples']} samples")
+            check(all(math.isfinite(m[key]) for key in ("mse", "kl", "psnr", "ssim")),
+                  f"{label}: non-finite metrics {m}")
+            rows.append(f"{label}: mse {m['mse']:.6g}, kl {m['kl']:.6g}, psnr {m['psnr']:.6g}, "
+                        f"ssim {m['ssim']:.6g}; {wall:.2f} s ({EVAL_IMAGES / wall:.2f} images/s "
+                        f"with PNGs{' and the lens' if lens else ''}), peak {peak:.2f} GB; "
+                        f"flash launches {launches[label]}")
+            if lens:
+                files = set(os.listdir(out_dir))
+                check({f"sample_{i}_{kind}.png" for i in range(16)
+                       for kind in ("orig", "recon")} <= files, f"{label}: PNG pairs missing")
+                check({f"out_{i}.png" for i in range(EVAL_BATCH)} <= files,
+                      f"{label}: out_*.png missing")
+                lens_root = os.path.join(out_dir, "logit_lens_visualizations_eval", "step_0")
+                for layer in EVAL_LENS_LAYERS:
+                    png = os.path.join(lens_root, layer.replace(".", "_"), "logit_lens_projections",
+                                       "lens_sample_0_single_channel_projections_combined.png")
+                    check(os.path.isfile(png), f"{label}: the lens image {png} is missing")
+            shutil.rmtree(out_dir)
+            release()
+    finally:
+        package_logger.setLevel(level)
+    # every forward of the auto runs went through its flash kernel: two
+    # attentions a forward, four batches, and the lens's forward
+    batches = EVAL_IMAGES // EVAL_BATCH
+    check(launches["bf16 auto"]["flash_attention_fwd"] == SDXL_ATTENTIONS * (batches + 1)
+          and launches["bf16 auto"]["flash_attention_fwd_f32"] == 0,
+          f"bf16 auto launched {launches['bf16 auto']}")
+    check(launches["fp32 auto"]["flash_attention_fwd_f32"] == SDXL_ATTENTIONS * batches
+          and launches["fp32 auto"]["flash_attention_fwd"] == 0,
+          f"fp32 auto launched {launches['fp32 auto']}")
+    check(not any(launches["bf16 naive"].values()) and not any(launches["fp32 naive"].values()),
+          "a naive run launched a flash kernel")
+    ref = metrics["fp32 naive"]
+    diffs = []
+    for key in ("mse", "kl", "psnr", "ssim"):
+        def rel(label):
+            return abs(metrics[label][key] - ref[key]) / abs(ref[key])
+        flash, control, f32 = rel("bf16 auto"), rel("bf16 naive"), rel("fp32 auto")
+        diffs.append(f"{key} bf16 flash {flash:.3g} (control bf16 naive {control:.3g}), fp32 "
+                     f"flash {f32:.3g}")
+        check(flash <= EVAL_CONTROL_RATIO * control + EVAL_FLOOR,
+              f"bf16 flash {key} is {flash} from fp32 naive, control {control}")
+        check(f32 <= EVAL_F32_REL, f"fp32 flash {key} is {f32} from fp32 naive")
+    log(f"[eval] sdxl VAE, {EVAL_IMAGES} synthetic images at {EVAL_RES}px, batch {EVAL_BATCH}: "
+        + "; ".join(rows))
+    log(f"[eval] relative to fp32 naive (bounds {EVAL_CONTROL_RATIO} x control + {EVAL_FLOOR:.3g},"
+        f" fp32 {EVAL_F32_REL}): " + "; ".join(diffs))
+    return launches["fp32 auto"]["flash_attention_fwd_f32"]
+
+
+def phase_tiling(tmp: str, model_dir: str) -> None:
+    """Tiled encode and decode of a 2048px image through the wrapper, flash
+    against naive with the naive bf16-vs-fp32 control; peak memory of the
+    tiled and the untiled 2048px decode; then the serve CLI tiled at
+    1024px."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    from vae_channel_dynamics_tpu_torch import serve
+    from vae_channel_dynamics_tpu_torch.models import SDXLVAEWrapper
+    from vae_channel_dynamics_tpu_torch.models import io as model_io
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+    from vae_channel_dynamics_tpu_torch.server import resolve_serving_attention_impl
+
+    config, state_dict = model_io.load_model_dir(model_dir)
+    impl = resolve_serving_attention_impl("auto", TILE_SIZE, config)
+    check(impl == "flash", f"auto resolved to {impl!r} at tile {TILE_SIZE}")
+    rng = np.random.default_rng(SEED)
+    image = torch.from_numpy(rng.uniform(-1, 1, (1, TILE_RES, TILE_RES, 3)).astype(np.float32))
+    outs, peaks = {}, {}
+    for label, attn, dtype in (("flash bf16", "flash", torch.bfloat16),
+                               ("naive bf16", "naive", torch.bfloat16),
+                               ("naive fp32", "naive", torch.float32)):
+        wrapper = SDXLVAEWrapper(config, state_dict=state_dict, dtype=dtype, attn_impl=attn,
+                                 device=DEVICE)
+        wrapper.enable_tiling(TILE_SIZE, TILE_OVERLAP)
+        for name in fa.launches:
+            fa.launches[name] = 0
+        t0 = time.perf_counter()
+        z = wrapper.encode(image, deterministic=True)
+        sync()
+        reset_peak()
+        img = wrapper.decode(z)
+        sync()
+        wall = time.perf_counter() - t0
+        peaks[label] = peak_gb()
+        outs[label] = (z.float(), img.float())
+        log(f"[tiling] {label}: {TILE_RES}px encode+decode in {TILE_SIZE}px tiles, {wall:.2f} s, "
+            f"decode peak {peaks[label]:.2f} GB; flash launches {dict(fa.launches)}")
+        if label == "flash bf16":
+            check(fa.launches["flash_attention_fwd"] == 2 * TILE_COUNT,
+                  f"tiled flash launched {dict(fa.launches)}, want one a tile")
+            # the untiled decode of the same latents, for its peak memory
+            wrapper.disable_tiling()
+            release()
+            reset_peak()
+            untiled = wrapper.decode(z)
+            sync()
+            peaks["untiled"] = peak_gb()
+            check(bool(torch.isfinite(untiled.float()).all()), "untiled decode not finite")
+            del untiled
+        del wrapper, z, img
+        release()
+    for i, key in enumerate(("latents", "image")):
+        flash, naive, f32 = (outs[k][i] for k in ("flash bf16", "naive bf16", "naive fp32"))
+        check(bool(torch.isfinite(flash).all()), f"tiled flash {key} not finite")
+        d = ((flash - naive).norm() / naive.norm()).item()
+        control = ((naive - f32).norm() / f32.norm()).item()
+        log(f"[tiling] {key} {tuple(flash.shape)}: flash vs naive rel L2 {d:.4g} (control naive "
+            f"bf16 vs fp32 {control:.4g}; bound {MODEL_CONTROL_RATIO} x control + {TILE_FLOOR})")
+        check(d <= MODEL_CONTROL_RATIO * control + TILE_FLOOR,
+              f"tiled flash {key} is {d} from naive, control {control}")
+    log(f"[tiling] peak memory of the {TILE_RES}px decode: tiled {peaks['flash bf16']:.3f} GB, "
+        f"untiled {peaks['untiled']:.3f} GB")
+    check(peaks["flash bf16"] < peaks["untiled"], "the tiled decode's peak is not below the "
+          "untiled one's")
+    del outs
+    release()
+
+    out_dir = os.path.join(tmp, "serve_tiled")
+    package_logger = logging.getLogger("vae_channel_dynamics_tpu_torch")
+    level = package_logger.level
+    package_logger.setLevel(logging.WARNING)
+    try:
+        for name in fa.launches:
+            fa.launches[name] = 0
+        t0 = time.perf_counter()
+        check(serve.main(["--checkpoint_path", model_dir, "--output", out_dir,
+                          "--input", f"synthetic://shapes?num_samples={SERVE_TILED_IMAGES}",
+                          "--resolution", str(SERVE_TILED_RES), "--tile_size", str(TILE_SIZE),
+                          "--batch_size", "2", "--device", DEVICE]) == 0,
+              "the tiled serve CLI failed")
+        wall = time.perf_counter() - t0
+    finally:
+        package_logger.setLevel(level)
+    with open(os.path.join(out_dir, "serve_metrics.json")) as f:
+        served = json.load(f)
+    check(served["num_images"] == SERVE_TILED_IMAGES and math.isfinite(served["avg_mse"]),
+          f"serve_metrics {served}")
+    check(fa.launches["flash_attention_fwd"] > 0, "the tiled serve run did not launch flash")
+    log(f"[tiling] serve CLI --resolution {SERVE_TILED_RES} --tile_size {TILE_SIZE}: "
+        f"{served}, {wall:.2f} s, flash launches {dict(fa.launches)}")
+    release()
+
+
 def reset_peak() -> None:
     import torch
 
@@ -2325,8 +2782,16 @@ def main() -> int:
         flash_results = phase_flash_bwd()
         gn_results = phase_gn_kernels()
         fused_results = phase_fused_kernels()
+        conv_result = phase_conv_nhwc()
+        f32_result = phase_flash_f32()
         with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
             serve_launches = phase_slice(tmp)
+        release()
+        with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
+            model_dir = os.path.join(tmp, "sdxl_seeded")
+            write_seeded_model_dir(model_dir)
+            f32_result["launches"] = phase_eval(tmp, model_dir)
+            phase_tiling(tmp, model_dir)
         release()
         bundle = phase_train()
         phase_step_compare(bundle)
@@ -2351,19 +2816,26 @@ def main() -> int:
     # 512px batch 4, the flash and GroupNorm training kernels at the 1024px
     # Trainer slice's shapes (the mid-block attention, the full-resolution
     # 128-channel norm), the fused resnet kernels at the 256px fused path's
-    # (16, 512, 32, 32) -> 512; the launches are the 1024px Trainer run's,
-    # the fused ones the fused Trainer run's, the serving forward's the
-    # server's. A library call that computes more or less than one kernel's
+    # (16, 512, 32, 32) -> 512, #12 at the conv bench's shape A, the fp32
+    # forward at the 512px mid block's batch 4; the launches are the 1024px
+    # Trainer run's, the fused ones the fused Trainer run's, the serving
+    # forward's the server's, #12's the conv bench's, the fp32 forward's the
+    # fp32 auto evaluation's. A library call that computes more or less than one kernel's
     # work says what it covers.
     serving = dict(kernel_results[KERNEL_SHAPES[0]], shape=list(KERNEL_SHAPES[0]),
                    library_covers="flash_attention_fwd")
     serving["max_abs_err"] = max(r["max_abs_err"] for r in kernel_results.values())
-    rows = {"flash_attention_fwd": serving, **flash_results, **gn_results, **fused_results}
+    rows = {"flash_attention_fwd": serving, "flash_attention_fwd_f32": f32_result,
+            **flash_results, **gn_results, **fused_results, "conv3x3_nhwc": conv_result}
     launches = dict(trainer["launches"], flash_attention_fwd=serve_launches,
+                    flash_attention_fwd_f32=f32_result["launches"],
+                    conv3x3_nhwc=conv_result["launches"],
                     **{k: fused_trainer["launches"][k] for k in FUSED_REPLACES})
-    sources = dict(FLASH_SOURCES, **{k: GN_SOURCE for k in GN_REPLACES},
+    sources = dict(FLASH_SOURCES, flash_attention_fwd_f32=FLASH_FWD_SOURCE,
+                   conv3x3_nhwc=CONV_SOURCE, **{k: GN_SOURCE for k in GN_REPLACES},
                    **{k: FUSED_SOURCE for k in FUSED_REPLACES})
-    replaces = dict(FLASH_REPLACES, **GN_REPLACES, **FUSED_REPLACES)
+    replaces = dict(FLASH_REPLACES, flash_attention_fwd_f32=FLASH_F32_REPLACES,
+                    conv3x3_nhwc=CONV_REPLACES, **GN_REPLACES, **FUSED_REPLACES)
     kernels = [{
         "name": kname,
         "route": "cuda",

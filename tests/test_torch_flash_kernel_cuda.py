@@ -15,6 +15,10 @@ That absolute floor is loose for long sequences, whose outputs shrink like
 gives about 2.5e-3, and a kernel that skips one 64-key tile about 8/sqrt(N),
 0.0625 at N=16384.
 
+The fp32 serving forward (the evaluation CLI's fp32 path) sums fp32 FMAs in
+another order than the plain version's fp32 matmul (TF32 off): relative L2
+1e-5, about 2e-6 measured, where one dropped 64-key tile costs 8/sqrt(N).
+
 The backward's dQ, dK and dV are bf16 sums over N fp32 products of bf16
 operands, summed in another order than the plain version's matmul, and the
 bf16 P and dS may round the other way where exp differs in its last bit:
@@ -182,11 +186,46 @@ def test_kernel_handles_large_logits(cuda):
     torch.testing.assert_close(out.float(), ref.float(), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("shape", SHAPES[:5])
+def test_fp32_kernel_matches_plain(cuda, shape):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv(shape, cuda, seed=sum(shape) + 1, dtype=torch.float32)
+    scale = shape[-1] ** -0.5
+    before = dict(fa.launches)
+    out = fa.flash_attention(q, k, v, scale=scale, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention_fwd_f32"] == before["flash_attention_fwd_f32"] + 1
+    assert fa.launches["flash_attention_fwd"] == before["flash_attention_fwd"]
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    ref = fa.flash_attention_reference(q, k, v, scale, torch.float32)
+    assert ((out - ref).norm() / ref.norm()).item() <= 1e-5
+
+
+def test_fp32_kernel_handles_large_logits(cuda):
+    """Logits of several hundred: the running max keeps exp in range. Each
+    logit is a sum of 128 fp32 products taken in another order than the
+    plain matmul's, off by about |s| 2^-24 sqrt(C) (~5e-4 at |s| ~ 700),
+    and exp turns that into the probabilities' relative error, so the bound
+    here is 1e-4 relative L2 (1.6e-5 measured on an H100)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv((2, 256, 128), cuda, seed=1, dtype=torch.float32)
+    out = fa.flash_attention(q * 8, k * 8, v, scale=1.0, out_dtype=torch.float32)
+    ref = fa.flash_attention_reference(q * 8, k * 8, v, 1.0, torch.float32)
+    assert torch.isfinite(out).all()
+    assert ((out - ref).norm() / ref.norm()).item() <= 1e-4
+
+
 def test_fp32_input_raises(cuda):
+    """fp32 runs the serving forward only: the training kernels (LSE forward,
+    backward) and mixed dtypes raise."""
     q, k, v = _qkv((1, 128, 128), cuda, dtype=torch.float32)
     before = dict(fa.launches)
     with pytest.raises(NotImplementedError, match="bf16"):
-        fa.flash_attention(q, k, v, scale=1.0, out_dtype=torch.float32)
+        fa.flash_attention(*(t.requires_grad_(True) for t in (q, k, v)), scale=1.0,
+                           out_dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        fa.flash_attention_fwd(q.detach(), k.detach(), v.detach(), scale=1.0,
+                               out_dtype=torch.bfloat16)
     assert fa.launches == before
 
 

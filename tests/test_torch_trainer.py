@@ -1,7 +1,8 @@
 """The port's Trainer and training CLI against the JAX package's, on the CPU.
 
-- ``configs/smoke_synthetic.yaml`` with the logit lens off (not ported) runs
-  through both Trainers and leaves the same non-plot artifact tree: the same
+- ``configs/smoke_synthetic.yaml`` (with its logit lens) runs through both
+  Trainers and leaves the same non-plot artifact tree, and the same logit
+  lens image names: the same
   file names (a checkpoint's ``state/`` is compared as a directory: orbax
   and ``torch.save`` lay it out differently), the same CSV headers and the
   same JSONL keys, record by record. The JAX Trainer shards its batch over
@@ -66,7 +67,6 @@ def _jsonl_keys(path):
 @pytest.fixture(scope="module")
 def smoke_runs(tmp_path_factory):
     base = load_config(os.path.join(REPO, "configs", "smoke_synthetic.yaml"))
-    base["logit_lens"]["enabled"] = False
     shards = jax.device_count()
     out = {}
     for side in ("jax", "torch"):
@@ -94,6 +94,19 @@ def test_artifact_tree_matches_jax(smoke_runs):
                  "chkpt-5/state", "chkpt-5/resume_meta.json", "final_model/state",
                  "final_model/vae/config.json"):
         assert os.path.normpath(must) in tree, must
+
+
+def test_logit_lens_tree_matches_jax(smoke_runs):
+    """The lens ran at the same steps on the same layers: the same image
+    names under ``logit_lens_visualizations`` (the port draws with PIL)."""
+    trees = []
+    for side in ("jax", "torch"):
+        root = os.path.join(smoke_runs[side][0], "logit_lens_visualizations")
+        trees.append(sorted(os.path.relpath(os.path.join(r, f), root)
+                            for r, _d, fs in os.walk(root) for f in fs))
+    assert trees[0] == trees[1]
+    assert trees[1] and all(f.endswith("_single_channel_projections_combined.png")
+                            for f in trees[1])
 
 
 def test_csv_headers_and_jsonl_keys_match_jax(smoke_runs):
@@ -250,7 +263,7 @@ def test_gradient_accumulation_and_ema(tmp_path):
 
 
 @pytest.mark.parametrize("section,key,value", [
-    ("logit_lens", "enabled", True),
+    ("parallel", "tensor", 2),
     ("profiling", "enabled", True),
     ("saving", "export_stablehlo", True),
     ("parallel", "spatial", 2),

@@ -42,6 +42,22 @@
 // (-Xptxas -v, sm_90a, CUDA 12.8): 202 registers at C = 512 (170,
 // 122, 82 at 384, 256, 128), no spills.
 //
+// The fp32 serving forward (flash_fwd_f32_kernel, no LSE) replaces the same
+// TPU kernel run in fp32 at Precision.HIGHEST: fp32 q/k/v in, fp32 out, and
+// P kept in fp32 before the P V product. TF32 keeps 10 mantissa bits, too
+// few for that, so its products are plain fp32 FMAs on the SIMT units; at
+// 4*B*N^2*C FLOPs against the card's 67 TFLOP/s fp32 rate it is bound by
+// those operations. A block of 8 warps owns 32 query rows; each warp owns 4
+// of them end to end (logits, online softmax, output accumulator), so the
+// warps share only the K and V tiles (32 keys) and synchronise only around
+// their loads. Q K^T: each lane sums a 4-row x 8-key piece over its own
+// float4 columns, and a reduce-scatter over the warp's 32 lanes (31
+// shuffles for 32 sums) leaves lane l with logit (row l/8, key l%8); the 8
+// lanes of a row then hold its 32 logits for the softmax. P V: the lane
+// owns the output columns 4*lane + 128*j of its warp's 4 rows, reading P
+// rows broadcast from shared memory. Shared memory at C = 512: 65,536 (Q)
+// + 2 x 65,536 (K, V) + 4,096 (P) = 200,704 bytes.
+//
 // Plain C interface for ctypes: pointers and the stream are void*, the
 // function returns cudaGetLastError() after the launch. It launches on the
 // caller's stream, allocates nothing and does not synchronise.
@@ -265,6 +281,197 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// fp32 forward
+// ---------------------------------------------------------------------------
+constexpr int F32_ROWS = 4;                 // query rows per warp
+constexpr int F32_BQ = WARPS * F32_ROWS;    // 32 query rows per block
+constexpr int F32_BK = 32;                  // keys per tile
+
+template <int C>
+struct F32Layout {
+  static constexpr int Q_BYTES = F32_BQ * C * 4;
+  static constexpr int KV_BYTES = F32_BK * C * 4;
+  static constexpr int P_BYTES = F32_BQ * F32_BK * 4;
+  static constexpr int BYTES = Q_BYTES + 2 * KV_BYTES + P_BYTES;
+};
+
+// Copy ROWS rows of C fp32 (row stride C on both sides), 16 bytes per
+// cp.async, spread over the block.
+template <int C, int ROWS>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, int tid) {
+  constexpr int CHUNKS = C / 4;
+  static_assert((ROWS * CHUNKS) % THREADS == 0, "tile does not split evenly over the block");
+#pragma unroll
+  for (int it = 0; it < ROWS * CHUNKS / THREADS; ++it) {
+    const int i = it * THREADS + tid;
+    cp_async16(dst + i * 4, src + static_cast<size_t>(i) * 4);
+  }
+}
+
+// Sum each of the 32 values over the warp's 32 lanes; lane l returns the sum
+// of v[l]. Each step trades half of the values with the partner lane.
+__device__ __forceinline__ float reduce_scatter32(float (&v)[32], int lane) {
+#pragma unroll
+  for (int h = 16; h >= 1; h /= 2) {
+    const bool upper = (lane & h) != 0;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float send = upper ? v[i] : v[i + h];
+      const float keep = upper ? v[i + h] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, h);
+    }
+  }
+  return v[0];
+}
+
+template <int C>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o, int n,
+                         float scale) {
+  using L = F32Layout<C>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sK = reinterpret_cast<float*>(smem + L::Q_BYTES);
+  float* sV = reinterpret_cast<float*>(smem + L::Q_BYTES + L::KV_BYTES);
+  float* sP = reinterpret_cast<float*>(smem + L::Q_BYTES + 2 * L::KV_BYTES);
+
+  constexpr int J = C / 128;  // float4 columns per lane: 4*lane + 128*j
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q0 = blockIdx.x * F32_BQ;
+  const size_t base = static_cast<size_t>(blockIdx.y) * n * C;
+  const float* qw = sQ + warp * F32_ROWS * C;  // this warp's 4 query rows
+  float* pw = sP + warp * F32_ROWS * F32_BK;   // and their probabilities
+
+  load_rows_f32<C, F32_BQ>(sQ, q + base + static_cast<size_t>(q0) * C, tid);
+  cp_async_commit();
+
+  float acc[F32_ROWS][J][4];
+#pragma unroll
+  for (int r = 0; r < F32_ROWS; ++r)
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][j][e] = 0.f;
+  // the running max and denominator of row lane/8, kept by its 8 lanes
+  float m_run = MASKED, l_run = 0.f;
+
+  const int nk = n / F32_BK;
+  for (int t = 0; t < nk; ++t) {
+    __syncthreads();  // the previous tile's products are done with sK, sV
+    load_rows_f32<C, F32_BK>(sK, k + base + static_cast<size_t>(t) * F32_BK * C, tid);
+    load_rows_f32<C, F32_BK>(sV, v + base + static_cast<size_t>(t) * F32_BK * C, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // ---- S = Q K_t^T * scale: s[g] = S[row lane/8][key 8g + lane%8] ----
+    float s[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      float part[F32_ROWS * 8];  // [row][key], this lane's columns only
+#pragma unroll
+      for (int i = 0; i < F32_ROWS * 8; ++i) part[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int c = 4 * lane + 128 * j;
+        float4 qv[F32_ROWS];
+#pragma unroll
+        for (int r = 0; r < F32_ROWS; ++r) qv[r] = *reinterpret_cast<const float4*>(qw + r * C + c);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const float4 kv = *reinterpret_cast<const float4*>(sK + (8 * g + kk) * C + c);
+#pragma unroll
+          for (int r = 0; r < F32_ROWS; ++r) {
+            float p = part[r * 8 + kk];
+            p = fmaf(qv[r].x, kv.x, p);
+            p = fmaf(qv[r].y, kv.y, p);
+            p = fmaf(qv[r].z, kv.z, p);
+            p = fmaf(qv[r].w, kv.w, p);
+            part[r * 8 + kk] = p;
+          }
+        }
+      }
+      s[g] = reduce_scatter32(part, lane) * scale;
+    }
+
+    // ---- online softmax: row lane/8's 32 logits sit on its 8 lanes ----
+    float mx = fmaxf(fmaxf(s[0], s[1]), fmaxf(s[2], s[3]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+    const float m_new = fmaxf(m_run, mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const float p = expf(s[g] - m_new);
+      sum += p;
+      pw[(lane / 8) * F32_BK + 8 * g + lane % 8] = p;
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+    const float corr = expf(m_run - m_new);
+    l_run = l_run * corr + sum;
+    m_run = m_new;
+    __syncwarp();  // this warp's P rows are written
+
+    // ---- acc = acc * corr + P V_t over this lane's columns ----
+#pragma unroll
+    for (int r = 0; r < F32_ROWS; ++r) {
+      const float cr = __shfl_sync(0xffffffffu, corr, 8 * r);
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][j][e] *= cr;
+    }
+#pragma unroll 4
+    for (int kk = 0; kk < F32_BK; ++kk) {
+      float4 vv[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        vv[j] = *reinterpret_cast<const float4*>(sV + kk * C + 4 * lane + 128 * j);
+#pragma unroll
+      for (int r = 0; r < F32_ROWS; ++r) {
+        const float p = pw[r * F32_BK + kk];
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          acc[r][j][0] = fmaf(p, vv[j].x, acc[r][j][0]);
+          acc[r][j][1] = fmaf(p, vv[j].y, acc[r][j][1]);
+          acc[r][j][2] = fmaf(p, vv[j].z, acc[r][j][2]);
+          acc[r][j][3] = fmaf(p, vv[j].w, acc[r][j][3]);
+        }
+      }
+    }
+    __syncwarp();  // P is read before the next tile overwrites it
+  }
+
+  // ---- O = acc / l, fp32 ----
+#pragma unroll
+  for (int r = 0; r < F32_ROWS; ++r) {
+    const float l = __shfl_sync(0xffffffffu, l_run, 8 * r);
+    float* orow = o + base + static_cast<size_t>(q0 + warp * F32_ROWS + r) * C;
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      *reinterpret_cast<float4*>(orow + 4 * lane + 128 * j) =
+          make_float4(acc[r][j][0] / l, acc[r][j][1] / l, acc[r][j][2] / l, acc[r][j][3] / l);
+  }
+}
+
+template <int C>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int b, int n,
+                       float scale, cudaStream_t stream) {
+  const int bytes = F32Layout<C>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  flash_fwd_f32_kernel<C><<<dim3(n / F32_BQ, b), THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), n, scale);
+  return cudaGetLastError();
+}
+
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
              int n, int c, float scale, void* stream) {
   if (b < 1 || b > 65535 || n < BK || n % BK != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -293,6 +500,21 @@ int vcd_flash_attention_fwd_bf16(const void* q, const void* k, const void* v, vo
 int vcd_flash_attention_fwd_lse_bf16(const void* q, const void* k, const void* v, void* o,
                                      void* lse, int b, int n, int c, float scale, void* stream) {
   return dispatch(q, k, v, o, static_cast<float*>(lse), b, n, c, scale, stream);
+}
+
+// The fp32 serving forward: q, k, v, o contiguous (b, n, c) fp32; n a
+// multiple of 64 and c one of 128, 256, 384, 512, as above.
+int vcd_flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, int b,
+                                int n, int c, float scale, void* stream) {
+  if (b < 1 || b > 65535 || n < BK || n % BK != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (c) {
+    case 128: return static_cast<int>(launch_f32<128>(q, k, v, o, b, n, scale, s));
+    case 256: return static_cast<int>(launch_f32<256>(q, k, v, o, b, n, scale, s));
+    case 384: return static_cast<int>(launch_f32<384>(q, k, v, o, b, n, scale, s));
+    case 512: return static_cast<int>(launch_f32<512>(q, k, v, o, b, n, scale, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* vcd_cuda_error_string(int err) {

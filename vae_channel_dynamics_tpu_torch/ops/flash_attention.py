@@ -11,6 +11,9 @@ CUDA kernel (count key)      replaces
 ``flash_attention_fwd``      ``_flash_kernel`` (:136) without the log-sum-exp:
                              the serving forward (``csrc/flash_attention_fwd
                              .cu``)
+``flash_attention_fwd_f32``  the same kernel run in fp32 at
+                             ``Precision.HIGHEST``: fp32 q/k/v and output, P
+                             kept in fp32, plain fp32 FMAs (same file)
 ``flash_attention_fwd_lse``  the same kernel with ``with_lse=True``
                              (:177-178, :203-210): the training forward, which
                              also writes the fp32 per-row ``m + log l``
@@ -27,14 +30,19 @@ and dQ ``6*B*N^2*C``, against a few ``B*N*C`` bytes of device-memory
 traffic, N/2 FLOPs per byte or more: all four are tensor-core bound at every
 token count the model uses (N = 4096 at 512px, 16384 at 1024px). Each keeps
 its logits tile and fp32 accumulators on chip, so no O(N^2) buffer exists,
-and runs its products on bf16 tensor cores (``mma.sync``). The sources'
-header comments have the tile layouts.
+and runs its products on bf16 tensor cores (``mma.sync``); the fp32 forward
+runs them as fp32 FMAs (TF32 would keep too few bits), bound by the card's
+fp32 rate. The sources' header comments have the tile layouts.
 
 :func:`flash_attention` is the op the model calls. With autograd recording
 and an input that requires a gradient it runs :class:`_FlashAttention`,
 whose forward is the LSE kernel and whose backward is δ = rowsum(dO·O) in
 plain PyTorch (as the JAX package leaves it to XLA), then the dK/dV kernel,
-then the dQ kernel. Otherwise it runs the serving forward. On CPU tensors
+then the dQ kernel. Otherwise it runs the serving forward, bf16 or fp32 by
+the input's dtype (forward-only evaluation runs fp32 when
+``mixed_precision`` is ``no``). The LSE forward and the backward kernels
+take bf16 only and raise on fp32: fp32 training with ``flash`` is not
+ported (ROADMAP Q2). On CPU tensors
 each kernel's plain PyTorch version (``*_reference``) runs in its place; on
 a CUDA tensor the kernel launches or the call raises, and nothing falls
 back. ``launches`` counts kernel launches per kernel.
@@ -51,7 +59,7 @@ from . import _cuda_build
 
 FWD_LIBRARY = "flash_attention_fwd"
 BWD_LIBRARY = "flash_attention_bwd"
-KERNELS = ("flash_attention_fwd", "flash_attention_fwd_lse",
+KERNELS = ("flash_attention_fwd", "flash_attention_fwd_f32", "flash_attention_fwd_lse",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 # The kernels' channel widths: their accumulators live in registers, split
 # over 8 warps by columns, so each width is a compiled instantiation; 512 (the
@@ -68,6 +76,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SYMBOLS = {
     "flash_attention_fwd": (FWD_LIBRARY, "vcd_flash_attention_fwd_bf16",
                             [_P] * 4 + [_I, _I, _I, _F, _P]),
+    "flash_attention_fwd_f32": (FWD_LIBRARY, "vcd_flash_attention_fwd_f32",
+                                [_P] * 4 + [_I, _I, _I, _F, _P]),
     "flash_attention_fwd_lse": (FWD_LIBRARY, "vcd_flash_attention_fwd_lse_bf16",
                                 [_P] * 5 + [_I, _I, _I, _F, _P]),
     "flash_attention_bwd_dkv": (BWD_LIBRARY, "vcd_flash_attention_bwd_dkv_bf16",
@@ -190,6 +200,7 @@ def _fn(name: str):
 def build_forward() -> None:
     """Build (or find built) and load the forward library."""
     _fn("flash_attention_fwd")
+    _fn("flash_attention_fwd_f32")
     _fn("flash_attention_fwd_lse")
 
 
@@ -199,15 +210,20 @@ def build_backward() -> None:
     _fn("flash_attention_bwd_dq")
 
 
-def _check_cuda(*tensors: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16) -> None:
+def _check_cuda(*tensors: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16,
+                fp32_ok: bool = False) -> None:
+    """Raise unless the kernels take ``tensors``: bf16 in and out, or fp32 in
+    and out where ``fp32_ok`` (the serving forward)."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise RuntimeError(f"flash attention: unsupported device {q.device}")
-    if any(t.dtype != torch.bfloat16 for t in tensors) or out_dtype != torch.bfloat16:
+    dtypes = {t.dtype for t in tensors} | {out_dtype}
+    if dtypes != {torch.bfloat16} and not (fp32_ok and dtypes == {torch.float32}):
         raise NotImplementedError(
             "the CUDA flash-attention kernels take bf16 q/k/v (and dO) and give "
-            f"a bf16 output, got {[str(t.dtype) for t in tensors]} -> {out_dtype}; "
-            "use attn_impl='naive' or 'chunked' for fp32"
+            "a bf16 output (the serving forward also fp32 in and out), got "
+            f"{[str(t.dtype) for t in tensors]} -> {out_dtype}; fp32 training with "
+            "flash is not ported (ROADMAP Q2): use attn_impl='naive' or 'chunked'"
         )
     if q.dim() != 3 or any(t.shape != q.shape for t in tensors):
         raise ValueError(
@@ -244,9 +260,11 @@ def _launch(name: str, device: torch.device, *args) -> None:
 def flash_attention_fwd(q, k, v, *, scale: float, out_dtype: torch.dtype) -> torch.Tensor:
     """The serving forward: ``softmax(q k^T * scale) v`` over ``(B, N, C)``.
     CPU tensors go to :func:`flash_attention_reference`; CUDA tensors to the
-    kernel, which takes contiguous bf16 q/k/v of one :func:`eligible` shape
-    and a bf16 ``out_dtype``, or the call raises. A CUDA input that requires
-    a gradient raises too: this kernel leaves nothing for a backward."""
+    kernel, which takes contiguous q/k/v of one :func:`eligible` shape, all
+    bf16 with a bf16 ``out_dtype`` or all fp32 with an fp32 one (the
+    ``flash_attention_fwd_f32`` kernel), or the call raises. A CUDA input
+    that requires a gradient raises too: this kernel leaves nothing for a
+    backward."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale, out_dtype)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -255,11 +273,12 @@ def flash_attention_fwd(q, k, v, *, scale: float, out_dtype: torch.dtype) -> tor
             "gradient goes through flash_attention (the LSE forward and the "
             "backward kernels)"
         )
-    _check_cuda(q, k, v, out_dtype=out_dtype)
+    _check_cuda(q, k, v, out_dtype=out_dtype, fp32_ok=True)
     b, n, c = q.shape
     out = torch.empty_like(q)
-    _launch("flash_attention_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, n, c, float(scale))
+    name = "flash_attention_fwd_f32" if q.dtype == torch.float32 else "flash_attention_fwd"
+    _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, c,
+            float(scale))
     return out
 
 

@@ -9,9 +9,12 @@ wrapper, with the same modes:
 - ``encode``       images -> scaled latents (saved as .npy)
 - ``decode``       latents (.npy) -> PNGs
 
-Images come through the JAX package's numpy-only data pipeline
-(``vae_channel_dynamics_tpu.data``), which imports no jax. Not ported yet:
-``--tile_size``, ``--tile_overlap`` and ``--slicing`` (ROADMAP.md).
+Images come through the port's own data pipeline
+(``vae_channel_dynamics_tpu_torch.data``). ``--tile_size`` encodes and
+decodes in overlapping tiles (``wrapper.enable_tiling``, overlap
+``--tile_overlap``) and ``--slicing`` one image per pass; with either,
+reconstruct runs encode then decode, and the attention policy is resolved at
+the tile size.
 """
 
 from __future__ import annotations
@@ -50,6 +53,16 @@ def parse_args(argv=None):
                         "from 4096 tokens (512px) up when it fits the shape, "
                         "naive below; chunked is online softmax over key "
                         "chunks in plain PyTorch.")
+    p.add_argument("--tile_size", type=int, default=0,
+                   help="Enable tiled inference with this pixel tile size "
+                        "(diffusers enable_tiling): activations scale with "
+                        "the tile, so images too large to decode in one pass "
+                        "fit. 0 = off.")
+    p.add_argument("--tile_overlap", type=float, default=0.25,
+                   help="Tile overlap fraction for seam blending.")
+    p.add_argument("--slicing", action="store_true",
+                   help="Process one image per device pass (diffusers "
+                        "enable_slicing): batch memory at single-sample cost.")
     p.add_argument("--device", default="cuda",
                    help="Torch device; 'cuda' fails when no GPU is visible "
                         "(pass 'cpu' to run on the CPU).")
@@ -82,8 +95,9 @@ def main(argv=None) -> int:
     config, state_dict = model_io.load_model_dir(vae_dir)
 
     # decode mode: the mid-block token count comes from the LATENT geometry,
-    # not --resolution (which describes the encode-side resize)
-    effective_resolution = args.resolution
+    # not --resolution (which describes the encode-side resize); tiled, from
+    # the tile
+    effective_resolution = args.tile_size or args.resolution
     decode_latents = None
     if args.mode == "decode":
         decode_latents = np.load(args.input)
@@ -98,6 +112,13 @@ def main(argv=None) -> int:
         config=config, state_dict=state_dict, dtype=torch.bfloat16,
         attn_impl=attn_impl, device=args.device,
     )
+    if args.tile_size:
+        wrapper.enable_tiling(args.tile_size, args.tile_overlap)
+    if args.slicing:
+        wrapper.enable_slicing()
+    # tiling and slicing live on encode/decode: reconstruct then runs encode
+    # -> decode (forward()'s deterministic math plus decode's [-1, 1] clamp)
+    tiled_reconstruct = bool(args.tile_size or args.slicing)
 
     t0 = time.perf_counter()
     n_processed = 0
@@ -140,10 +161,15 @@ def main(argv=None) -> int:
                 np.save(os.path.join(args.output, f"latents_{bi:05d}.npy"), z)
                 n_processed += z.shape[0]
             else:  # reconstruct
-                recon = wrapper.forward(
-                    pixels, sample_posterior=not args.deterministic,
-                    generator=generator,
-                )["reconstruction"].float().cpu().numpy()
+                if tiled_reconstruct:
+                    recon_dev = wrapper.decode(wrapper.encode(
+                        pixels, deterministic=args.deterministic, generator=generator))
+                else:
+                    recon_dev = wrapper.forward(
+                        pixels, sample_posterior=not args.deterministic,
+                        generator=generator,
+                    )["reconstruction"]
+                recon = recon_dev.float().cpu().numpy()
                 mse_sum += float(np.mean((recon - px) ** 2)) * recon.shape[0]
                 for i in range(recon.shape[0]):
                     _save_png(

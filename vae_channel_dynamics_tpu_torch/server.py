@@ -2,7 +2,7 @@
 
 ``python -m vae_channel_dynamics_tpu_torch.server --checkpoint_path <dir>
 [--port 8400] [--resolution 256] [--max_batch 8] [--max_wait_ms 10]
-[--device cuda]``
+[--tile_size 0] [--tile_overlap 0.25] [--slicing] [--device cuda]``
 
 Counterpart of ``vae_channel_dynamics_tpu/server.py``. The batcher, the
 HTTP handler and the overload rules are the same framework-free code; only
@@ -25,8 +25,12 @@ Overload behaviour: bodies above ``--max_body_mb`` get 413 before they are
 read; beyond ``--max_queue`` waiting requests new ones get 503 +
 Retry-After; connections carry a ``--read_timeout_s`` socket timeout.
 
-Not ported yet: ``--tile_size``, ``--tile_overlap``, ``--slicing`` and
-``--exported_dir`` (ROADMAP.md).
+``--tile_size`` encodes and decodes in overlapping tiles of that many pixels
+(``wrapper.enable_tiling``), so activation memory follows the tile and not
+the resolution; ``--slicing`` runs one image per pass. With either,
+/reconstruct runs encode then decode (the tiled path) instead of the untiled
+forward, and the attention policy is resolved at the tile size. Not ported
+yet: ``--exported_dir`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -383,9 +387,15 @@ class VAEServer:
         elif op == "decode":
             y = self.wrapper.decode(x)
         elif op == "reconstruct":
-            y = self.wrapper.forward(
-                x, sample_posterior=not deterministic, generator=generator
-            )["reconstruction"]
+            if self.wrapper.use_tiling or self.wrapper.use_slicing:
+                # tiling and slicing live on encode/decode: the same
+                # deterministic math as forward(), plus decode's [-1, 1] clamp
+                y = self.wrapper.decode(self.wrapper.encode(
+                    x, deterministic=deterministic, generator=generator))
+            else:
+                y = self.wrapper.forward(
+                    x, sample_posterior=not deterministic, generator=generator
+                )["reconstruction"]
         else:
             raise ValueError(f"unknown op {op!r}")
         # slice the padding off on the device before the copy to the host
@@ -631,6 +641,17 @@ def parse_args(argv=None):
                         "from 4096 tokens (512px) up when it fits the shape, "
                         "naive below; chunked is online softmax over key "
                         "chunks in plain PyTorch.")
+    p.add_argument("--tile_size", type=int, default=0,
+                   help="Enable tiled inference with this pixel tile size "
+                        "(wrapper.enable_tiling): endpoint activation memory "
+                        "scales with the tile, so a high --resolution daemon "
+                        "fits on the card. 0 = off.")
+    p.add_argument("--tile_overlap", type=float, default=0.25,
+                   help="Tile overlap fraction for seam blending.")
+    p.add_argument("--slicing", action="store_true",
+                   help="Process one image per device pass "
+                        "(wrapper.enable_slicing): batched endpoints at "
+                        "single-sample activation cost.")
     p.add_argument("--device", default="cuda",
                    help="Torch device to serve on; 'cuda' fails when no GPU "
                         "is visible (pass 'cpu' to run on the CPU).")
@@ -639,18 +660,23 @@ def parse_args(argv=None):
 
 def build_server(args) -> VAEServer:
     """Load the model dir named by ``args`` and build the server ``main``
-    runs: bf16 compute, the serving attention policy, the batcher."""
+    runs: bf16 compute, the serving attention policy (at the tile size when
+    tiling), tiling and slicing as asked, the batcher."""
     vae_dir = os.path.join(args.checkpoint_path, "vae")
     if not os.path.isdir(vae_dir):
         vae_dir = args.checkpoint_path
     config, state_dict = model_io.load_model_dir(vae_dir)
     attn_impl = resolve_serving_attention_impl(
-        args.attention_impl, args.resolution, config, logger=logger,
+        args.attention_impl, args.tile_size or args.resolution, config, logger=logger,
     )
     wrapper = SDXLVAEWrapper(
         config=config, state_dict=state_dict, dtype=torch.bfloat16,
         attn_impl=attn_impl, device=args.device,
     )
+    if args.tile_size:
+        wrapper.enable_tiling(args.tile_size, args.tile_overlap)
+    if args.slicing:
+        wrapper.enable_slicing()
     return VAEServer(
         wrapper,
         resolution=args.resolution,

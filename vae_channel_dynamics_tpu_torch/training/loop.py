@@ -13,12 +13,14 @@ validation through :func:`make_eval_step`, and the final artifacts
 
 The posterior noise of micro-step ``i`` is drawn from a generator seeded
 with ``(seed, i)``, so a resumed run draws what the uninterrupted run drew.
+With ``logit_lens.enabled`` the lens runs every ``visualization_interval``
+steps on the monitor's data for that step, as in the JAX Trainer, drawn
+with PIL (``analysis/logit_lens.py``).
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-skipped: ``parallel`` axes above 1 (ROADMAP Q1 item 7), ``logit_lens``
-(Q1 item 3), ``profiling`` (Q1 item 8), and ``saving.export_stablehlo``.
-The matplotlib plots are not drawn; the CSV and JSONL files they read are
-written.
+skipped: ``parallel`` axes above 1 (ROADMAP Q1 item 7), ``profiling`` (Q1
+item 8), and ``saving.export_stablehlo``. The matplotlib plots are not
+drawn; the CSV and JSONL files they read are written.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 import yaml
 
+from ..analysis import VAELogitLens
 from ..classification import RegionClassifier
 from ..data import Prefetcher, create_dataloader, load_and_preprocess_dataset
 from ..intervention import InterventionHandler
@@ -125,11 +128,6 @@ def _refuse_unported(config: Dict[str, Any]) -> None:
                 f"parallel.{axis} > 1: multi-GPU training is not yet ported to "
                 "PyTorch (ROADMAP Q1 item 7)"
             )
-    if (config.get("logit_lens", {}) or {}).get("enabled", False):
-        raise NotImplementedError(
-            "logit_lens.enabled: the logit lens is not yet ported to PyTorch "
-            "(ROADMAP Q1 item 3); set it to false"
-        )
     if (config.get("profiling", {}) or {}).get("enabled", False):
         raise NotImplementedError(
             "profiling.enabled: trace capture is not yet ported to PyTorch "
@@ -288,6 +286,14 @@ class Trainer:
         handler = (InterventionHandler(intervention_config)
                    if intervention_config.get("enabled", False) else None)
         intervention_interval = as_int(intervention_config.get("intervention_interval"), 200)
+        ll_config = config.get("logit_lens", {}) or {}
+        logit_lens = None
+        ll_interval = 0
+        if ll_config.get("enabled", False):
+            logit_lens = VAELogitLens(logit_lens_config=ll_config,
+                                      main_experiment_output_dir=self.output_dir, seed=seed,
+                                      device=device)
+            ll_interval = as_int(ll_config.get("visualization_interval"), 1000)
 
         # ---------------- state and steps ---------------- #
         model.set_capture(monitor.scalar_capture_table)
@@ -511,6 +517,29 @@ class Trainer:
                         logger.info("step %d loss %.4e lr %.3e (%.1f img/s)", global_step,
                                     logs["train_loss_step"], logs["lr"],
                                     images_seen / max(time.time() - t_start, 1e-6))
+
+                    # --- logit lens ---
+                    if logit_lens is not None and ll_interval > 0 and (
+                            global_step % ll_interval == 0):
+                        current = monitor.get_data_for_step(global_step)
+                        if current:
+                            logit_lens.run_logit_lens_with_activations(
+                                global_step=global_step,
+                                activations_to_process=current,
+                                # an empty layers_to_analyze_direct falls
+                                # through to target_tracked_metrics (SURVEY.md
+                                # §5a-6)
+                                layers_to_analyze=(
+                                    ll_config.get("layers_to_analyze_direct")
+                                    or ll_config.get("target_tracked_metrics", [])),
+                                num_batch_samples_to_viz=ll_config.get(
+                                    "num_batch_samples_to_viz", 1),
+                                projection_type=ll_config.get(
+                                    "projection_type", "mini_decoder_single_channel"),
+                            )
+                        else:
+                            logger.warning("LogitLens: No activation data for step %d.",
+                                           global_step)
 
                     # --- dead-weight tracking ---
                     if dead_tracker is not None and dnt_interval > 0 and (
