@@ -11,7 +11,9 @@ failure exits non-zero without the final ``ok`` line:
    flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``,
    ``csrc/group_norm.cu``, ``csrc/fused_resnet.cu`` and ``csrc/conv_nhwc.cu``
    (nvcc, sm_90a, one nvcc each, started together), the seconds each took,
-   and ptxas's registers and spills;
+   and ptxas's registers and spills; for #11 and #12, on wgmma/TMA through
+   ``csrc/sm90_wgmma.cuh``, the HGMMA, UTMALDG and HMMA instructions in
+   their SASS (cuobjdump): HGMMA and UTMALDG present, no HMMA;
 3. flash kernel vs plain: bf16 q/k/v from a seed at the serving shapes, the
    kernel's max abs and relative L2 error against
    ``flash_attention_reference`` (and proof that the bound rejects a kernel
@@ -455,6 +457,32 @@ def kernel_label(mangled: str) -> str:
     return mangled
 
 
+# The kernels redesigned on wgmma/TMA (csrc/sm90_wgmma.cuh): their SASS must
+# hold warpgroup MMAs (HGMMA) and TMA loads (UTMALDG), and no mma.sync (HMMA).
+WGMMA_KERNELS = {"conv3x3_nhwc_kernel": "conv_nhwc", "conv3x3_dw_kernel": "fused_resnet"}
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def sass_counts(library: str) -> dict:
+    """{kernel label: {op: count}} of the built library's SASS, from
+    cuobjdump beside nvcc."""
+    from vae_channel_dynamics_tpu_torch.ops import _cuda_build
+
+    cuobjdump = os.path.join(os.path.dirname(_cuda_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", _cuda_build.library_path(library)],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    counts, label = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            label = kernel_label(m.group(1))
+            counts[label] = dict.fromkeys(SASS_OPS, 0)
+        elif label is not None:
+            for op in SASS_OPS:
+                counts[label][op] += len(re.findall(rf"\b{op}\b", line))
+    return counts
+
+
 def phase_build():
     from vae_channel_dynamics_tpu_torch.ops import _cuda_build, flash_attention
     from vae_channel_dynamics_tpu_torch.ops import conv_nhwc as cn
@@ -487,6 +515,14 @@ def phase_build():
         log(f"[build] {source}: nvcc {_cuda_build.build_seconds.get(lib, 0.0):.2f} s; "
             f"ptxas per instantiation: {entries}")
     log(f"[build] {len(builds)} libraries built and loaded in {wall:.2f} s")
+    for library in sorted(set(WGMMA_KERNELS.values())):
+        for label, ops in sass_counts(library).items():
+            base = label.split("<")[0]
+            if base not in WGMMA_KERNELS:
+                continue
+            log(f"[build] SASS {label}: " + ", ".join(f"{op} {ops[op]}" for op in SASS_OPS))
+            check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
+                  f"{label} is not on the wgmma/TMA path: {ops}")
 
 
 def phase_kernel():
@@ -1232,21 +1268,31 @@ def _halo_tap(x, a, o, tap):
     return tap + z.abs().sum(dim=(2, 3))
 
 
+def _dw_splits(n, cin, cout, h, w) -> int:
+    """conv3x3_dw's split count as its wrapper chooses it: from the clusters
+    this card holds at once (the default model off the card)."""
+    from vae_channel_dynamics_tpu_torch.ops import fused_resnet as fr
+
+    on_card = (lambda k: fr.dw_max_clusters(w, k)) if DEVICE == "cuda" else None
+    return fr.dw_splits(n, cin, cout, h, w, on_card)
+
+
 def _last_chunk_dropped(dy, n, cin, cout, h, w):
     """dy with the pixels of conv3x3_dw's last pixel chunk zeroed: what a
     kernel that left out its last split would sum (the planted fault of
-    #11). Chunk k covers tiles [k*T//S, (k+1)*T//S) of the T = N * tiles 8x16
-    tiles in order of (sample, tile row, tile column)."""
+    #11). Chunk k covers units [k*U//S, (k+1)*U//S) of the U = dw_units
+    rows x cols pixel units, in order of (sample, unit row, unit column)."""
     from vae_channel_dynamics_tpu_torch.ops import fused_resnet as fr
 
-    tiles = fr._tiles(h, w)
-    tiles_w = w // fr.TILE_COLS
-    splits = fr.dw_splits(n, cin, cout, h, w)
+    rows, cols = fr.dw_unit(w)
+    units = fr.dw_units(n, h, w)
+    per_image, units_w = units // n, w // cols
+    splits = _dw_splits(n, cin, cout, h, w)
     out = dy.clone()
-    for g in range((splits - 1) * n * tiles // splits, n * tiles):
-        nn_, t = divmod(g, tiles)
-        r0, c0 = (t // tiles_w) * fr.TILE_ROWS, (t % tiles_w) * fr.TILE_COLS
-        out[nn_, :, r0:r0 + fr.TILE_ROWS, c0:c0 + fr.TILE_COLS] = 0
+    for g in range((splits - 1) * units // splits, units):
+        nn_, u = divmod(g, per_image)
+        r0, c0 = (u // units_w) * rows, (u % units_w) * cols
+        out[nn_, :, r0:r0 + rows, c0:c0 + cols] = 0
     return out
 
 
@@ -1385,6 +1431,10 @@ def phase_fused_kernels():
                     shape=[*shape, cout], ms=times[name][0], plain_ms=times[name][1],
                     bound_ms=bounds[name][0], bound_by=bounds[name][1],
                     library_ms=library[name][0], library_covers=library[name][1])
+        held = ([fr.dw_max_clusters(w, k) for k in range(1, fr.DW_MAX_SPLITS + 1)]
+                if DEVICE == "cuda" else "not queried off the card")
+        lines.append(f"#11 splits {_dw_splits(n, cin, cout, h, w)} (clusters of 1-"
+                     f"{fr.DW_MAX_SPLITS} blocks the card holds at once: {held})")
         log(f"[fused] {shape} -> {cout} bf16: " + "; ".join(lines))
         log(f"[fused] {shape} -> {cout} ms kernel/plain/bound/library (CUDA events, "
             f"{FUSED_ITERS} calls, in turns): " + ", ".join(

@@ -128,6 +128,22 @@ def test_eligible(shape, cout, ok):
         assert cn.eligible(torch.empty(shape), cout) is ok
 
 
+@pytest.mark.parametrize("h,w,tile", [
+    (64, 64, (2, 64)), (32, 32, (4, 32)), (128, 128, (1, 128)), (256, 256, (1, 128)),
+    (1, 1, (1, 128)), (5, 7, (8, 16)), (9, 65, (1, 128)),
+])
+def test_pixel_tile_wastes_the_fewest_pixels(h, w, tile):
+    rows, cols = cn.pixel_tile(h, w)
+    assert (rows, cols) == tile
+    assert rows * cols == cn.TILE_PIXELS and cols & (cols - 1) == 0
+
+    def covered(r, c):
+        return -(-h // r) * r * -(-w // c) * c
+
+    assert all(covered(rows, cols) <= covered(cn.TILE_PIXELS // c, c)
+               for c in (1, 2, 4, 8, 16, 32, 64, 128))
+
+
 def test_ported_bench_runs_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(port_bench, "SHAPES", [("T 64ch@6x5px", (1, 6, 5, 64))])
     for which in ("v9", "all"):

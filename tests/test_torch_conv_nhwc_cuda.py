@@ -59,6 +59,10 @@ SHAPES = [
     ((2, 48, 8, 32), 192),      # Cout != Cin
     ((8, 32, 32, 512), 512),    # the bench's shape D
     ((2, 64, 64, 512), 512),    # shape A at batch 2
+    ((2, 9, 65, 64), 128),      # W one past the 64-pixel tile width: 1 x 128 tiles
+    ((2, 33, 40, 32), 128),     # Cin = 32 (the 64-byte swizzle) over several tiles
+    ((1, 3, 3, 96), 64),        # Cin = 96: 32-channel chunks, H*W below one tile
+    ((1, 128, 128, 256), 256),  # shape B at batch 1
 ]
 
 

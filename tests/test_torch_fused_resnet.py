@@ -233,12 +233,53 @@ def test_eligible_checks_backward_direction():
 def test_dw_splits_cover_every_tile_once():
     for n, cin, cout, h, w in ((16, 512, 512, 32, 32), (1, 128, 256, 12, 32),
                                (16, 256, 512, 64, 64), (2, 128, 128, 8, 16)):
-        tiles = n * fr._tiles(h, w)
+        tiles = fr.dw_units(n, h, w)
         splits = fr.dw_splits(n, cin, cout, h, w)
         assert 1 <= splits <= tiles
         bounds = [k * tiles // splits for k in range(splits + 1)]
         assert bounds[0] == 0 and bounds[-1] == tiles
         assert all(b1 > b0 for b0, b1 in zip(bounds, bounds[1:]))
+
+
+@pytest.mark.parametrize("w", [16, 32, 48, 64, 96, 128, 256])
+def test_dw_unit_is_the_widest_dividing_column_count(w):
+    rows, cols = fr.dw_unit(w)
+    assert rows * cols == fr.DW_UNIT_PIXELS and w % cols == 0
+    assert all(w % wider for wider in (16, 32, 64) if wider > cols)
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 12, 32), (1, 6, 48), (3, 32, 32), (1, 9, 128)])
+def test_dw_units_cover_every_pixel_once(n, h, w):
+    rows, cols = fr.dw_unit(w)
+    units = fr.dw_units(n, h, w)
+    per_image = units // n
+    seen = torch.zeros(n, h, w, dtype=torch.int32)
+    for g in range(units):
+        nn, u = divmod(g, per_image)
+        r0, c0 = (u // (w // cols)) * rows, (u % (w // cols)) * cols
+        seen[nn, r0:r0 + rows, c0:c0 + cols] += 1
+    assert torch.equal(seen, torch.ones_like(seen))
+
+
+@pytest.mark.parametrize("n,cin,cout,h,w,splits", [
+    (16, 512, 512, 32, 32, 2),   # the 256px step's fused shape: 128 blocks
+    (16, 256, 512, 64, 64, 4),   # 128 blocks
+    (1, 128, 256, 16, 16, 2),    # capped by its two units
+    (4, 128, 128, 64, 64, 8),    # capped by one cluster's 8 blocks
+])
+def test_dw_splits_fill_the_card(n, cin, cout, h, w, splits):
+    assert fr.dw_splits(n, cin, cout, h, w) == splits
+
+
+def test_dw_splits_follow_the_clusters_a_card_holds():
+    # a card whose GPCs hold only 30 clusters of 4 (not 33): 4 splits would
+    # run the 32 channel blocks of 256 -> 512 in two waves, 8 splits in two
+    # waves of half the units each
+    held = {1: 132, 2: 66, 3: 44, 4: 30, 5: 24, 6: 22, 7: 18, 8: 16}
+    assert fr.dw_splits(16, 256, 512, 64, 64) == 4
+    assert fr.dw_splits(16, 256, 512, 64, 64, held.__getitem__) == 8
+    # a card that holds no cluster of more than 2 blocks
+    assert fr.dw_splits(16, 256, 512, 64, 64, lambda s: 66 if s <= 2 else 0) == 2
 
 
 def test_wrappers_refuse_other_devices():

@@ -42,6 +42,9 @@ SHAPES = [
     ((2, 256, 6, 48), 128),    # H below one tile, three column tiles
 ]
 IDS = [f"{s}->{c}" for s, c in SHAPES]
+# conv3x3_dw also at H = 12 under its 4-row units of 32 columns, 128 -> 256
+DW_SHAPES = SHAPES + [((2, 128, 12, 32), 256)]
+DW_IDS = [f"{s}->{c}" for s, c in DW_SHAPES]
 
 
 @pytest.fixture
@@ -121,7 +124,7 @@ def test_conv3x3_matches_plain(cuda, shape, cout):
     _assert_bf16(fr.conv3x3(x, wt, bias), fr.conv3x3_reference(x, wt, bias))
 
 
-@pytest.mark.parametrize("shape,cout", SHAPES, ids=IDS)
+@pytest.mark.parametrize("shape,cout", DW_SHAPES, ids=DW_IDS)
 def test_conv_dw_matches_plain(cuda, shape, cout):
     x, _g, _b, _wt, _bias, _res, dy, a, o = _inputs(shape, cout, cuda, seed=2)
     before = fr.launches["conv3x3_dw"]
@@ -133,8 +136,9 @@ def test_conv_dw_matches_plain(cuda, shape, cout):
     assert ((dw - ref).norm() / ref.norm()).item() <= 1e-3
 
 
-def test_conv_dw_is_deterministic(cuda):
-    x, _g, _b, _wt, _bias, _res, dy, a, o = _inputs(*SHAPES[0], cuda, seed=3)
+@pytest.mark.parametrize("shape,cout", SHAPES[:2], ids=IDS[:2])
+def test_conv_dw_is_deterministic(cuda, shape, cout):
+    x, _g, _b, _wt, _bias, _res, dy, a, o = _inputs(shape, cout, cuda, seed=3)
     first = fr.conv_dw(x, a, o, dy)
     for _ in range(3):
         assert torch.equal(fr.conv_dw(x, a, o, dy), first)

@@ -9,34 +9,40 @@
 // GEMM over K = 9 * Cin in the order (dy, dx, ci) the two are one loop; which
 // one the TPU ran was a matter of its matrix unit's shape. The TPU's
 // first-tile realignment (:38-45, :76-83) works around a Mosaic padding
-// limit and has no counterpart: the halo is a predicated zero-fill load.
+// limit and has no counterpart: the halo is TMA's zero fill.
 //
-// x (N, H, W, Cin) bf16, w HWIO (3, 3, Cin, Cout) bf16, b (Cout) fp32,
-// y (N, H, W, Cout) bf16; fp32 accumulation, the bias added in the fp32
-// epilogue, y rounded once.
+// x (N, H, W, Cin) bf16, w HWIO (3, 3, Cin, Cout) bf16, b (Cout) fp32, y (N,
+// H, W, Cout) bf16; fp32 accumulation, the bias added in the fp32 epilogue,
+// y rounded once.
 //
 // What bounds it on the H100: 2*N*H*W*9*Cin*Cout FLOPs against
 // 2*N*H*W*(Cin + Cout) bytes of activations, 9*Cin/2 or more FLOPs a byte
 // (576 at Cin = 128): tensor-core bound at every shape of the bench (0.156
-// ms at 989 TFLOP/s for its shapes A-C). The design keeps both operands of
-// each product in shared memory and the accumulators in registers, and feeds
-// bf16 mma.sync (m16n8k16, fp32 accumulate) from ldmatrix loads, with the
-// next K chunk's copy in flight behind the current chunk's products
-// (cp.async, two stages); wgmma/TMA are later work.
+// ms at 989 TFLOP/s for its shapes A-C). Only wgmma reaches that rate; the
+// earlier mma.sync design (2 cp.async stages, every thread computing halo
+// addresses, 64 output channels a block) reached 15-20% of it.
 //
-// The implicit GEMM: M = 128 consecutive output pixels of one image (in
-// row-major (h, w) order, so any H and W work; pixels past H*W are masked),
-// N = 64 output channels, K in chunks of 32 input channels of one tap. Per
-// chunk a block of 4 warps
-//   1. copies the 128 x 32 input window for the tap, [pixel][channel], with
-//      16-byte cp.async along the contiguous Cin, zero-filled where the
-//      shifted pixel lies outside the image (the halo; the row never wraps
-//      into its neighbour) or past H*W;
-//   2. copies the 32 x 64 weight tile, [channel][out], along the contiguous
-//      Cout;
-//   3. runs 2 k-steps of 16 on the 4 warps, each 64 pixels x 32 channels
-//      (4 x 4 mma tiles, 64 fp32 accumulators a thread), A read with
-//      ldmatrix and B with ldmatrix.trans.
+// The design, an implicit GEMM with M = 128 output pixels, N = 128 output
+// channels, K = 9 taps x Cin in chunks of KC = 64 channels (32 where Cin is
+// no multiple of 64):
+//   - the M tile is a BH x BW = 128 rectangle of pixels of one image (the
+//     wrapper picks BW, a power of two, to waste the fewest pixels: 2 x 64
+//     at W = 64, 4 x 32 at W = 32, 1 x 128 at W >= 128);
+//   - one producer warp issues, for each (tap, channel chunk), one TMA box
+//     of x at (ci0, w0 + dx - 1, h0 + dy - 1, n), BH x BW pixels of KC
+//     channels; TMA zero-fills whatever lies outside the image, which is
+//     the halo and the ragged edge, 128- (or 64-) byte swizzled; and two
+//     boxes of the HWIO weight, KC input channels x 64 output channels
+//     each, 128-byte swizzled: Cout is contiguous, so the weight is an
+//     MN-major B operand that wgmma reads transposed, and no copy of it is
+//     made (past Cout it is zero-filled and never stored). A ring of STAGES
+//     stages with a full and an empty mbarrier each, two blocks an SM, so
+//     one block's prologue and epilogue overlap the other's products;
+//   - two consumer warpgroups, 64 pixels each, run wgmma m64n128k16 on the
+//     stage from shared memory (64 fp32 accumulators a thread), keep one
+//     commit group in flight, and release a stage once its group is done;
+//   - the epilogue adds the bias in fp32 and stores bf16 pairs, masked to
+//     the image and to Cout.
 // No atomics: each output is written once by one block, so runs are
 // bit-equal.
 //
@@ -44,153 +50,155 @@
 // function returns cudaGetLastError() after its launch. It launches on the
 // caller's stream, allocates nothing and does not synchronise.
 
-#include "sm90_mma.cuh"
+#include "sm90_wgmma.cuh"
 
 namespace {
 
-using namespace vcd;
+using namespace vcd::sm90;
+typedef __nv_bfloat16 bf16;
 
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int BM = 128;           // output pixels per block
-constexpr int BN = 64;            // output channels per block
-constexpr int KC = 32;            // input channels per K chunk
-constexpr int LDA = KC + PAD;     // window rows [pixel][channel]
-constexpr int LDB = BN + PAD;     // weight rows [channel][out]
-constexpr int A_ELEMS = BM * LDA;
-constexpr int B_ELEMS = KC * LDB;
+constexpr int BM = 128;                     // output pixels per block
+constexpr int BN = 128;                     // output channels per block
+constexpr int STAGES = 3;
+constexpr int CONSUMERS = 2;                // warpgroups, 64 pixels each
+constexpr int THREADS = CONSUMERS * 128 + 32;  // and one producer warp
+constexpr int STAGE_MAX = (BM + BN) * 64 * 2;  // bytes of one stage at KC = 64
+constexpr int SMEM = STAGES * STAGE_MAX + 1024 + 2 * STAGES * 8;
 
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-// Stage one K chunk (tap, ci0 .. ci0+31) into sA and sB.
-__device__ __forceinline__ void load_chunk(bf16* __restrict__ sA, bf16* __restrict__ sB,
-                                           const bf16* __restrict__ x,
-                                           const bf16* __restrict__ w, int n, int h, int wd,
-                                           int cin, int cout, int p0, int co0, int tap, int ci0,
-                                           int tid) {
-  const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-  const int hw = h * wd;
-  // the window: 128 pixels x 4 parts of 8 channels
-#pragma unroll
-  for (int it = 0; it < BM * (KC / 8) / THREADS; ++it) {
-    const int i = it * THREADS + tid;
-    const int px = i / (KC / 8), part = i % (KC / 8);
-    const int p = p0 + px;
-    const int row = p / wd + dy, col = p % wd + dx;
-    const bool ok = p < hw && row >= 0 && row < h && col >= 0 && col < wd;
-    const bf16* src =
-        ok ? x + ((static_cast<size_t>(n) * h + row) * wd + col) * cin + ci0 + part * 8 : x;
-    cp_async16_zfill(sA + px * LDA + part * 8, src, ok);
-  }
-  // the weight: 32 channels x 8 parts of 8 outputs
-#pragma unroll
-  for (int it = 0; it < KC * (BN / 8) / THREADS; ++it) {
-    const int i = it * THREADS + tid;
-    const int kr = i / (BN / 8), part = i % (BN / 8);
-    cp_async16(sB + kr * LDB + part * 8,
-               w + (static_cast<size_t>(tap) * cin + ci0 + kr) * cout + co0 + part * 8);
-  }
-}
-
-// Grid (ceil(H*W / BM), Cout / BN, N).
+// Grid (tiles_h * tiles_w, ceil(Cout / BN), N); KC = 64 or 32.
+template <int KC>
 __global__ void __launch_bounds__(THREADS, 2)
-    conv3x3_nhwc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                        const float* __restrict__ bias, bf16* __restrict__ y, int h, int wd,
-                        int cin, int cout) {
-  __shared__ __align__(16) bf16 sA[2][A_ELEMS];
-  __shared__ __align__(16) bf16 sB[2][B_ELEMS];
+    conv3x3_nhwc_kernel(const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap wmap, const float* __restrict__ bias,
+                        bf16* __restrict__ y, int h, int wd, int cin, int cout, int bw) {
+  constexpr int A_BYTES = BM * KC * 2, B_BYTES = BN * KC * 2, STAGE = A_BYTES + B_BYTES;
+  constexpr int SW = KC * 2;  // the swizzle: one row of KC channels
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int warp_m = warp / 2, warp_n = warp % 2;  // 64 pixels x 32 channels each
+  const int bh = BM / bw, tiles_w = (wd + bw - 1) / bw;
+  const int h0 = (blockIdx.x / tiles_w) * bh, w0 = (blockIdx.x % tiles_w) * bw;
+  const int co0 = blockIdx.y * BN, n = blockIdx.z;
+  const int chunks_per_tap = cin / KC, nchunks = 9 * chunks_per_tap;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS * 4) {
+    // ---- the producer warp: one thread keeps the ring full ----
+    if (lane == 0) {
+      for (int k = 0; k < nchunks; ++k) {
+        const int s = k % STAGES;
+        if (k >= STAGES) mbar_wait(&empty[s], ((k / STAGES) - 1) & 1);
+        const int tap = k / chunks_per_tap, ci0 = (k % chunks_per_tap) * KC;
+        uint8_t* st = smem + s * STAGE;
+        mbar_arrive_expect_tx(&full[s], STAGE);
+        tma_load_4d(st, &xmap, &full[s], ci0, w0 + tap % 3 - 1, h0 + tap / 3 - 1, n);
+        tma_load_3d(st + A_BYTES, &wmap, &full[s], co0, ci0, tap);
+        tma_load_3d(st + A_BYTES + KC * 128, &wmap, &full[s], co0 + 64, ci0, tap);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups ----
+  const int wg = warp / 4;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+  for (int k = 0; k < nchunks; ++k) {
+    const int s = k % STAGES;
+    mbar_wait(&full[s], (k / STAGES) & 1);
+    const uint8_t* st = smem + s * STAGE;
+    const uint64_t da = make_desc(st + wg * 64 * SW, SW);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk)
+      wgmma_ss_m64n128k16<1>(acc, da + 2 * kk,  // 32 bytes on in A's K; 16 rows in B's
+                             make_desc_mn(st + A_BYTES + kk * 16 * 128, KC * 128, 1024));
+    wgmma_commit();
+    // chunk k - 1's products are done: its stage goes back to the producer
+    wgmma_wait<1>();
+    fence_regs(acc);
+    if (k > 0 && lane == 0) mbar_arrive(&empty[(k - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // epilogue: bias in fp32, one bf16 rounding, masked to the image and Cout
   const int gid = lane / 4, tig = lane % 4;
-  const int p0 = blockIdx.x * BM, co0 = blockIdx.y * BN, n = blockIdx.z;
-  const int chunks_per_tap = cin / KC;
-  const int nchunks = 9 * chunks_per_tap;
-
-  float acc[4][4][4];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int half = 0; half < 2; ++half) {
+    const int m = wg * 64 + (warp % 4) * 16 + gid + half * 8;
+    const int ph = h0 + m / bw, pw = w0 + m % bw;
+    if (ph >= h || pw >= wd) continue;
+    bf16* yp = y + ((static_cast<size_t>(n) * h + ph) * wd + pw) * cout;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-
-  load_chunk(sA[0], sB[0], x, w, n, h, wd, cin, cout, p0, co0, 0, 0, tid);
-  cp_async_commit();
-  for (int kc = 0; kc < nchunks; ++kc) {
-    const int next = kc + 1;
-    if (next < nchunks)
-      load_chunk(sA[next & 1], sB[next & 1], x, w, n, h, wd, cin, cout, p0, co0,
-                 next / chunks_per_tap, (next % chunks_per_tap) * KC, tid);
-    cp_async_commit();  // committed even when empty, so the wait count stays uniform
-    cp_async_wait<1>();  // chunk kc has landed
-    __syncthreads();
-    const bf16* a = sA[kc & 1];
-    const bf16* b = sB[kc & 1];
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldmatrix_x4(af[mt], a + (warp_m * 64 + mt * 16 + (lane & 15)) * LDA + kk + (lane >> 4) * 8);
-      const int m = lane >> 3;
-#pragma unroll
-      for (int nt = 0; nt < 4; nt += 2) {
-        uint32_t bfr[4];
-        ldmatrix_x4_trans(
-            bfr, b + (kk + (lane & 7) + (m & 1) * 8) * LDB + warp_n * 32 + nt * 8 + (m >> 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          mma_bf16(acc[mt][nt], af[mt], bfr[0], bfr[1]);
-          mma_bf16(acc[mt][nt + 1], af[mt], bfr[2], bfr[3]);
-        }
-      }
-    }
-    __syncthreads();  // the stage is free for the chunk after next
-  }
-
-  // epilogue: bias in fp32, one bf16 rounding
-  const int hw = h * wd;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int co = co0 + warp_n * 32 + nt * 8 + 2 * tig;
-    const float b0 = bias[co], b1 = bias[co + 1];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int p = p0 + warp_m * 64 + mt * 16 + gid + half * 8;
-        if (p >= hw) continue;
-        const size_t off = (static_cast<size_t>(n) * hw + p) * cout + co;
-        *reinterpret_cast<__nv_bfloat162*>(y + off) =
-            __floats2bfloat162_rn(acc[mt][nt][2 * half] + b0, acc[mt][nt][2 * half + 1] + b1);
-      }
+    for (int j = 0; j < 16; ++j) {
+      const int co = co0 + 8 * j + 2 * tig;
+      if (co >= cout) continue;
+      *reinterpret_cast<__nv_bfloat162*>(yp + co) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * half] + bias[co], acc[4 * j + 2 * half + 1] + bias[co + 1]);
     }
   }
+}
+
+template <int KC>
+cudaError_t launch(const void* x, const void* w, const void* bias, void* y, int n, int h, int wd,
+                   int cin, int cout, int bw, cudaStream_t stream) {
+  const int bh = BM / bw;
+  CUtensorMap xmap, wmap;
+  const uint64_t xdims[4] = {static_cast<uint64_t>(cin), static_cast<uint64_t>(wd),
+                             static_cast<uint64_t>(h), static_cast<uint64_t>(n)};
+  const uint64_t xstrides[3] = {2ull * cin, 2ull * cin * wd, 2ull * cin * wd * h};
+  const uint32_t xbox[4] = {KC, static_cast<uint32_t>(bw), static_cast<uint32_t>(bh), 1};
+  cudaError_t err = make_tensor_map(&xmap, x, 4, xdims, xstrides, xbox, KC * 2);
+  if (err != cudaSuccess) return err;
+  const uint64_t wdims[3] = {static_cast<uint64_t>(cout), static_cast<uint64_t>(cin), 9};
+  const uint64_t wstrides[2] = {2ull * cout, 2ull * cout * cin};
+  const uint32_t wbox[3] = {64, KC, 1};
+  err = make_tensor_map(&wmap, w, 3, wdims, wstrides, wbox, 128);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(conv3x3_nhwc_kernel<KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM);
+  if (err != cudaSuccess) return err;
+  const long long tiles =
+      static_cast<long long>((h + bh - 1) / bh) * ((wd + bw - 1) / bw);
+  conv3x3_nhwc_kernel<KC><<<dim3(static_cast<unsigned>(tiles), (cout + BN - 1) / BN, n), THREADS,
+                            SMEM, stream>>>(xmap, wmap, static_cast<const float*>(bias),
+                                            static_cast<bf16*>(y), h, wd, cin, cout, bw);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (n, h, w, cin) bf16, w (3, 3, cin, cout) bf16, bias (cout) fp32, y (n, h,
-// w, cout) bf16, all contiguous and 16-byte aligned; cin a multiple of 32,
-// cout of 64, 1 <= n <= 65535.
+// x (n, h, w, cin) bf16, w (3, 3, cin, cout) bf16 (HWIO), bias (cout) fp32,
+// y (n, h, w, cout) bf16, all contiguous and 16-byte aligned; cin a multiple of 32, cout of 64,
+// 1 <= n <= 65535; bw the pixel tile's width, a power of two <= 128 (its
+// height is 128 / bw).
 int vcd_conv3x3_nhwc(const void* x, const void* w, const void* bias, void* y, int n, int h,
-                     int wd, int cin, int cout, void* stream) {
-  if (n < 1 || n > 65535 || h < 1 || wd < 1 || cin < KC || cin % KC != 0 || cout < BN ||
-      cout % BN != 0 || cout / BN > 65535)
+                     int wd, int cin, int cout, int bw, void* stream) {
+  if (n < 1 || n > 65535 || h < 1 || wd < 1 || cin < 32 || cin % 32 != 0 || cout < 64 ||
+      cout % 64 != 0 || bw < 1 || bw > BM || (bw & (bw - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks_m = (static_cast<long long>(h) * wd + BM - 1) / BM;
-  if (blocks_m > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  conv3x3_nhwc_kernel<<<dim3(static_cast<unsigned>(blocks_m), cout / BN, n), THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const float*>(bias),
-      static_cast<bf16*>(y), h, wd, cin, cout);
-  return static_cast<int>(cudaGetLastError());
+  const int bh = BM / bw;
+  const long long tiles = static_cast<long long>((h + bh - 1) / bh) * ((wd + bw - 1) / bw);
+  if (tiles > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(cin % 64 == 0 ? launch<64>(x, w, bias, y, n, h, wd, cin, cout, bw, s)
+                                        : launch<32>(x, w, bias, y, n, h, wd, cin, cout, bw, s));
 }
 
 const char* vcd_conv_nhwc_error_string(int err) {

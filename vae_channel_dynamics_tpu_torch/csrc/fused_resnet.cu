@@ -11,8 +11,8 @@
 //                            the backward runs on dy with the flipped,
 //                            channel-swapped weight (:348-358);
 //   conv3x3_dw            <- _dw_kernel (:423): dW = sum over N, H, W of
-//                            silu(a*x + o) shifted, times dy, with s recomputed
-//                            from x in the load.
+//                            silu(a*x + o) shifted, times dy, with s computed
+//                            from x by a pre-pass.
 //
 // What bounds them on the H100: at the 256px step's 32x32 mid-level resnets
 // (16, 512, 32, 32), each is 2*N*H*W*9*Cin*Cout = 77.3 GFLOP against about
@@ -20,7 +20,7 @@
 // ms at 989 TFLOP/s; the bytes need 0.016 ms). The design keeps every
 // operand of the products in shared memory and every accumulator in
 // registers, and feeds bf16 mma.sync (m16n8k16, fp32 accumulate) from
-// ldmatrix loads; wgmma/TMA and a pipelined K loop are later work.
+// ldmatrix loads (#9 and #10; #11 is on wgmma, below).
 //
 // The convolution is an implicit GEMM. Forward and input gradient: M = output
 // channels, N = a tile of output pixels, K = 9 * input channels. A block owns
@@ -43,13 +43,35 @@
 // atomics and a second kernel sums them over tiles in a fixed order.
 // conv3x3 is the same kernel with s = x (no affine, no SiLU).
 //
-// conv3x3_dw: M = output channels, N = 9 taps x input channels, K = pixels.
-// A block owns 64 output x 32 input channels for all 9 taps and loops over a
-// contiguous range of 8 x 16 pixel tiles (a split of N*tiles); per tile it
-// copies dy [channel][pixel] with cp.async (zero-filled past H), recomputes
-// the s window as above, and runs 8 k-steps of 16 pixels, B read with
-// ldmatrix.trans. Each split writes its fp32 dW partial; a second kernel sums
-// the splits in a fixed order into OIHW fp32. Two runs give the same bits.
+// conv3x3_dw (redesigned for wgmma/TMA; the mma.sync version ran at 14% of
+// its bound: one stage, s recomputed with one expf per element by each of
+// the Cout / 64 output-channel blocks, and 5 splits of fp32 partials, 47 MB
+// written and read again at the 256px step's shape). Now:
+//   1. silu_nhwc_kernel computes s = silu(a*x + o), rounded to bf16, once,
+//      into an NHWC scratch (N, H, W, Cin): 2 * N*H*W*Cin bytes written and
+//      read again, against 8 recomputations;
+//   2. the transposed product dW^T[ci][co] = sum over pixels of s * dy runs
+//      on wgmma with M = 64 input channels, N = 64 output channels, K =
+//      pixels, in units of 128 pixels (RS rows x BW columns, BW the widest of
+//      64, 32, 16 dividing W). Thread 0 issues per unit one TMA box
+//      of s, the unit's window with its one-pixel halo, (RS + 2) x (BW + 2)
+//      pixels of 64 channels at (ci0, w0 - 1, h0 - 1, n), zero-filled
+//      outside the image (the conv's padding of s), 128-byte swizzled; and
+//      RS boxes of NCHW dy, [64 co][BW pixels] each, swizzled by the row's
+//      BW * 2 bytes, the K-major B operand; 4 stages.
+//   3. The tap shifts are arbitrary pixel offsets that no swizzled wgmma
+//      descriptor expresses, so A comes from registers: three consumer
+//      warpgroups, warpgroup g the taps of kernel row g, load each 64 x 16
+//      fragment with ldmatrix.trans from the swizzled [pixel][channel]
+//      window at the tap's shift and run wgmma m64n64k16 (3 x 32 fp32
+//      accumulators a thread), two fragment sets in flight.
+//   4. Splits of the pixel units fill the card (at most 8, chosen by the
+//      wrapper from the clusters the card can hold at once, so that the
+//      grid runs in the fewest waves): the splits of one channel block form
+//      a thread-block cluster,
+//      and the first adds the others' sums through distributed shared
+//      memory in order of the split and writes dW (OIHW fp32). No partials
+//      in device memory, no atomics: two runs give the same bits.
 //
 // Plain C interface for ctypes: pointers and the stream are void*; every
 // activation is bf16 NCHW, a and o fp32 (N, Cin), bias fp32 or null. Each
@@ -57,10 +79,14 @@
 // caller's stream, allocates nothing and does not synchronise.
 
 #include "sm90_mma.cuh"
+#include "sm90_wgmma.cuh"
+
+#include <cooperative_groups.h>
 
 namespace {
 
 using namespace vcd;
+using namespace vcd::sm90;
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
@@ -78,21 +104,6 @@ constexpr int A_BYTES = 9 * BM * LDA * 2;
 constexpr int W_BYTES = WIN_PX * LDW * 2;
 constexpr int TAP_BYTES = WARPS * 32 * 4;
 constexpr int CONV_SMEM = A_BYTES + W_BYTES + TAP_BYTES;
-
-// weight gradient
-constexpr int DW_BM = 64;                 // output channels per block
-constexpr int LDD = TR * TC + PAD;        // dy tile [channel][pixel]
-
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
 
 __device__ __forceinline__ float sigmoid(float z) { return 1.0f / (1.0f + expf(-z)); }
 
@@ -309,97 +320,283 @@ __global__ void sum_tiles_kernel(const float* __restrict__ part, float* __restri
   out[idx] = s;
 }
 
-// dW partial of one split: part[split][co][tap][ci] = sum over the split's
-// pixel tiles of dy[co][p] * s[ci][p + tap shift]. Grid (Cin / KC,
-// Cout / DW_BM, splits).
-__global__ void __launch_bounds__(THREADS, 2)
-    conv3x3_dw_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
-                      const float* __restrict__ o, const bf16* __restrict__ dy,
-                      float* __restrict__ part, int n_batch, int cin, int cout, int h, int w) {
-  __shared__ __align__(16) bf16 sDy[DW_BM * LDD];
-  __shared__ __align__(16) bf16 sW[WIN_PX * LDW];
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int warp_m = warp / 4, warp_n = warp % 4;
-  const int gid = lane / 4, tig = lane % 4;
-  const int ci0 = blockIdx.x * KC, co0 = blockIdx.y * DW_BM;
-  const int tiles_w = w / TC, tiles = ((h + TR - 1) / TR) * tiles_w;
-  const int total = n_batch * tiles, splits = gridDim.z;
-  const int g_begin = static_cast<int>(static_cast<long long>(blockIdx.z) * total / splits);
-  const int g_end = static_cast<int>(static_cast<long long>(blockIdx.z + 1) * total / splits);
-
-  float acc[2][9][4];
+// ---- conv3x3_dw ------------------------------------------------------------ //
+// s (N, H, W, Cin) bf16 = silu(a*x + o) rounded, from x (N, Cin, H, W): the
+// weight gradient's input, computed once and laid out pixel-major so that
+// its window is one TMA box. A block transposes 64 channels x 64 pixels
+// through shared memory, 16 bytes a load and a store (H*W is a multiple of
+// 16). Grid (ceil(H*W / 64), Cin / 64, N).
+__global__ void __launch_bounds__(256)
+    silu_nhwc_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
+                     const float* __restrict__ o, bf16* __restrict__ s, int cin, int hw) {
+  __shared__ __align__(16) bf16 tile[64][64 + 8];
+  const int p0 = blockIdx.x * 64, c0 = blockIdx.y * 64, n = blockIdx.z;
+  for (int i = threadIdx.x; i < 64 * 8; i += 256) {
+    const int c = i / 8, pv = (i % 8) * 8;
+    const int plane = n * cin + c0 + c;
+    if (p0 + pv >= hw) continue;
+    const uint4 raw =
+        *reinterpret_cast<const uint4*>(x + static_cast<size_t>(plane) * hw + p0 + pv);
+    const bf16* v = reinterpret_cast<const bf16*>(&raw);
+    const float ap = a[plane], op = o[plane];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int j = 0; j < 9; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.0f;
-
-  for (int g = g_begin; g < g_end; ++g) {
-    const int nn = g / tiles, tile = g % tiles;
-    const int row0 = (tile / tiles_w) * TR, col0 = (tile % tiles_w) * TC;
-    __syncthreads();  // the previous tile's products are done with sDy, sW
-    // dy [co0 .. co0+63][8 rows x 16 columns], zero past H
-    for (int i = tid; i < DW_BM * TR * 2; i += THREADS) {
-      const int co = i / (TR * 2), r = (i / 2) % TR, part16 = i % 2;
-      const int row = row0 + r;
-      const bool ok = row < h;
-      const bf16* src =
-          dy + (static_cast<size_t>(nn * cout + co0 + co) * h + (ok ? row : 0)) * w + col0 +
-          part16 * 8;
-      cp_async16_zfill(sDy + co * LDD + r * TC + part16 * 8, src, ok);
-    }
-    cp_async_commit();
-    fill_window<true>(sW, x, a, o, nn * cin + ci0, h, w, row0, col0, tid);
-    cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll 1
-    for (int r = 0; r < TR; ++r) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldmatrix_x4(af[mt], sDy + (warp_m * 32 + mt * 16 + (lane & 15)) * LDD + r * TC +
-                                (lane >> 4) * 8);
-      // k = the 16 pixels of tile row r; lanes 0-7 pixels 0-7, 8-15 pixels 8-15
-      const int c = ((lane >> 3) & 1) * 8 + (lane & 7);
-#pragma unroll
-      for (int j = 0; j < 9; ++j) {
-        uint32_t bf[2];
-        ldmatrix_x2_trans(bf, sW + ((r + j / 3) * WC + c + j % 3) * LDW + warp_n * 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][j], af[mt], bf[0], bf[1]);
-      }
+    for (int j = 0; j < 8; ++j) {
+      const float z = affine(__bfloat162float(v[j]), ap, op);
+      tile[pv + j][c] = __float2bfloat16(z * sigmoid(z));
     }
   }
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int j = 0; j < 9; ++j)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int co = co0 + warp_m * 32 + mt * 16 + gid + half * 8;
-        const int ci = ci0 + warp_n * 8 + 2 * tig;
-        const size_t off = ((static_cast<size_t>(blockIdx.z) * cout + co) * 9 + j) * cin + ci;
-        *reinterpret_cast<float2*>(part + off) =
-            make_float2(acc[mt][j][2 * half], acc[mt][j][2 * half + 1]);
-      }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 64 * 8; i += 256) {
+    const int p = i / 8, cv = (i % 8) * 8;
+    if (p0 + p >= hw) continue;
+    *reinterpret_cast<uint4*>(s + (static_cast<size_t>(n) * hw + p0 + p) * cin + c0 + cv) =
+        *reinterpret_cast<const uint4*>(&tile[p][cv]);
+  }
 }
 
-// dw[co][ci][tap] (OIHW) = sum over splits of part[split][co][tap][ci], in
-// order of the split.
-__global__ void sum_dw_kernel(const float* __restrict__ part, float* __restrict__ dw,
-                              int splits, int cin, int cout) {
-  const size_t n_out = static_cast<size_t>(cout) * 9 * cin;
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n_out) return;
-  const int ci = static_cast<int>(idx % cin);
-  const int tap = static_cast<int>((idx / cin) % 9);
-  const int co = static_cast<int>(idx / (static_cast<size_t>(cin) * 9));
-  float s = 0.0f;
-  for (int k = 0; k < splits; ++k) s += part[k * n_out + idx];
-  dw[(static_cast<size_t>(co) * cin + ci) * 9 + tap] = s;
+constexpr int DW_CI = 64;              // input channels per block: wgmma's M
+constexpr int DW_CO = 64;              // output channels per block: wgmma's N
+constexpr int DW_PIX = 128;            // pixels per stage: RS rows x BW columns
+constexpr int DW_STAGES = 4;
+constexpr int DW_MAX_SPLITS = 8;        // the largest portable cluster
+constexpr int DW_THREADS = 3 * 128;  // 3 consumer warpgroups
+
+template <int BW>
+struct DwTile {
+  static constexpr int RS = DW_PIX / BW;             // rows per stage
+  static constexpr int WIN_PX = (RS + 2) * (BW + 2);  // the window, with its halo
+  static constexpr int WIN_BYTES = WIN_PX * DW_CI * 2;
+  static constexpr int WIN_ALIGNED = (WIN_BYTES + 1023) / 1024 * 1024;
+  static constexpr int SUB_BYTES = DW_CO * BW * 2;   // dy, one row: [co][BW pixels]
+  static constexpr int STAGE = WIN_ALIGNED + RS * SUB_BYTES;
+  static constexpr int SMEM = DW_STAGES * STAGE + 1024 + 2 * DW_STAGES * 8;
+  static_assert(DW_STAGES * STAGE >= 9 * DW_CI * DW_CO * 4, "the ring holds the split's sums");
+};
+
+// dw[co][ci][tap] (OIHW) = sum over the pixel units of dy[co][p] *
+// s[p + tap shift][ci]: each split of a cluster sums a contiguous range of
+// units, and the cluster adds the splits. Warpgroup g owns the taps of kernel
+// row g (dx = 0, 1, 2). Grid (Cin / 64, Cout / 64, splits), clusters (1, 1,
+// splits).
+template <int BW>
+__global__ void __launch_bounds__(DW_THREADS, 1)
+    conv3x3_dw_kernel(const __grid_constant__ CUtensorMap smap,
+                      const __grid_constant__ CUtensorMap dymap, float* __restrict__ dw,
+                      int n_batch, int cin, int cout, int h, int w) {
+  using T = DwTile<BW>;
+  constexpr int STEPS = T::RS * (BW / 16);  // k-steps of 16 pixels per stage: 8
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + DW_STAGES * T::STAGE);
+  uint64_t* empty = full + DW_STAGES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ci0 = blockIdx.x * DW_CI, co0 = blockIdx.y * DW_CO;
+  const int units_w = w / BW, units_img = ((h + T::RS - 1) / T::RS) * units_w;
+  const long long total = static_cast<long long>(n_batch) * units_img;
+  const int g_begin = static_cast<int>(blockIdx.z * total / gridDim.z);
+  const int g_end = static_cast<int>((blockIdx.z + 1) * total / gridDim.z);
+
+  if (tid == 0) {
+    for (int s = 0; s < DW_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 12);  // one arrival per warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Thread 0 is also the producer: it fills the ring, and refills each stage
+  // once every warp has released it. (A producer warp of its own would make
+  // 13 warps, 4 on one of the SM's register files, and cap every thread at
+  // 128 registers: the accumulators would spill.)
+  auto issue = [&](int g) {
+    const int k = g - g_begin, s = k % DW_STAGES;
+    const int nn = g / units_img, u = g % units_img;
+    const int h0 = (u / units_w) * T::RS, w0 = (u % units_w) * BW;
+    uint8_t* st = smem + s * T::STAGE;
+    mbar_arrive_expect_tx(&full[s], T::WIN_BYTES + T::RS * T::SUB_BYTES);
+    tma_load_4d(st, &smap, &full[s], ci0, w0 - 1, h0 - 1, nn);
+    for (int r = 0; r < T::RS; ++r)
+      tma_load_4d(st + T::WIN_ALIGNED + r * T::SUB_BYTES, &dymap, &full[s], w0, h0 + r, co0, nn);
+  };
+  if (tid == 0)
+    for (int g = g_begin; g < g_end && g < g_begin + DW_STAGES; ++g) issue(g);
+
+  // ---- the consumer warpgroups: M = 64 input channels, N = 64 outputs ----
+  const int wg = warp / 4, wq = warp % 4;
+  // this lane's ldmatrix.trans row: pixel (lane & 7) + 8 (lane >> 4) of the
+  // k-step, 16-byte channel chunk 2 wq + ((lane >> 3) & 1) of the window row
+  const int lane_px = (lane & 7) + ((lane >> 4) << 3);
+  const int chunk = wq * 2 + ((lane >> 3) & 1);
+  float acc[3][32];
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[dx][i] = 0.0f;
+  uint32_t af[2][3][4];
+
+  for (int g = g_begin; g < g_end; ++g) {
+    const int k = g - g_begin, s = k % DW_STAGES;
+    mbar_wait(&full[s], (k / DW_STAGES) & 1);
+    const uint8_t* win = smem + s * T::STAGE;
+    const uint8_t* dys = win + T::WIN_ALIGNED;
+#pragma unroll
+    for (int t = 0; t < STEPS; ++t) {
+      const int r = t / (BW / 16), kk = t % (BW / 16);
+      const uint64_t db = make_desc(dys + r * T::SUB_BYTES, BW * 2) + 2 * kk;
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const int p = (r + wg) * (BW + 2) + kk * 16 + dx + lane_px;
+        ldmatrix_x4_trans(af[t & 1][dx], win + p * 128 + ((chunk ^ (p & 7)) << 4));
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) wgmma_rs_m64n64k16(acc[dx], af[t & 1][dx], db);
+      wgmma_commit();
+      // step t - 1's products are done: its A registers may be loaded again
+      wgmma_wait<1>();
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) fence_regs(af[(t + 1) & 1][dx]);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      fence_regs(af[0][dx]);
+      fence_regs(af[1][dx]);
+    }
+    if (lane == 0) mbar_arrive(&empty[s]);  // the stage goes back to the producer
+    if (tid == 0 && g + DW_STAGES < g_end) {
+      mbar_wait(&empty[s], (k / DW_STAGES) & 1);
+      issue(g + DW_STAGES);
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) fence_regs(acc[dx]);
+
+  // The splits of one (ci, co) block form a thread-block cluster. Every
+  // split but the first stages its sums in its own shared memory (the ring
+  // is free: every unit has been consumed), and the first adds them to its
+  // own through distributed shared memory in order of the split, then
+  // writes dW. No partials in device memory, no atomics.
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int splits = static_cast<int>(cluster.num_blocks());
+  float* red = reinterpret_cast<float*>(smem);  // [tap][ci 64][co 64]
+  const int gid = lane / 4, tig = lane % 4;
+  __syncthreads();
+  if (rank != 0) {
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          red[((wg * 3 + dx) * DW_CI + wq * 16 + gid + (e >> 1) * 8) * DW_CO + 8 * j + 2 * tig +
+              (e & 1)] = acc[dx][4 * j + e];
+  }
+  cluster.sync();
+  if (rank == 0) {
+    for (int r = 1; r < splits; ++r) {
+      const float* remote = cluster.map_shared_rank(red, r);
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[dx][4 * j + e] += remote[((wg * 3 + dx) * DW_CI + wq * 16 + gid + (e >> 1) * 8) *
+                                             DW_CO + 8 * j + 2 * tig + (e & 1)];
+    }
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      const int tap = wg * 3 + dx;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ci = ci0 + wq * 16 + gid + (e >> 1) * 8;
+          const int co = co0 + 8 * j + 2 * tig + (e & 1);
+          dw[(static_cast<size_t>(co) * cin + ci) * 9 + tap] = acc[dx][4 * j + e];
+        }
+    }
+  }
+  cluster.sync();  // the other splits keep their shared memory until it is read
+}
+
+// The columns of one pixel unit of conv3x3_dw: the widest of 64, 32, 16
+// that divides W (a multiple of 16); the unit is 128 / cols rows tall.
+int dw_cols(int w) { return w % 64 == 0 ? 64 : w % 32 == 0 ? 32 : 16; }
+
+// How many clusters of `splits` conv3x3_dw blocks the card runs at once
+// (each block holds an SM; a cluster's blocks share one GPC, so fewer than
+// 132 / splits where a GPC's SMs do not divide by it), or -(CUDA error).
+template <int BW>
+int dw_max_clusters(int splits) {
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_dw_kernel<BW>, cudaFuncAttributeMaxDynamicSharedMemorySize, DwTile<BW>::SMEM);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, 1, splits);
+  cfg.blockDim = dim3(DW_THREADS);
+  cfg.dynamicSmemBytes = DwTile<BW>::SMEM;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = splits;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  int count = 0;
+  err = cudaOccupancyMaxActiveClusters(&count, conv3x3_dw_kernel<BW>, &cfg);
+  return err == cudaSuccess ? count : -static_cast<int>(err);
+}
+
+template <int BW>
+cudaError_t launch_dw(const void* x, const void* a, const void* o, const void* dy, void* s,
+                      void* dw, int n, int cin, int cout, int h, int w, int splits,
+                      cudaStream_t stream) {
+  using T = DwTile<BW>;
+  const int hw = h * w;
+  silu_nhwc_kernel<<<dim3((hw + 63) / 64, cin / 64, n), 256, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(a), static_cast<const float*>(o),
+      static_cast<bf16*>(s), cin, hw);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  CUtensorMap smap, dymap;
+  const uint64_t sdims[4] = {static_cast<uint64_t>(cin), static_cast<uint64_t>(w),
+                             static_cast<uint64_t>(h), static_cast<uint64_t>(n)};
+  const uint64_t sstrides[3] = {2ull * cin, 2ull * cin * w, 2ull * cin * hw};
+  const uint32_t sbox[4] = {DW_CI, BW + 2, T::RS + 2, 1};
+  err = make_tensor_map(&smap, s, 4, sdims, sstrides, sbox, 128);
+  if (err != cudaSuccess) return err;
+  const uint64_t ddims[4] = {static_cast<uint64_t>(w), static_cast<uint64_t>(h),
+                             static_cast<uint64_t>(cout), static_cast<uint64_t>(n)};
+  const uint64_t dstrides[3] = {2ull * w, 2ull * hw, 2ull * hw * cout};
+  const uint32_t dbox[4] = {BW, 1, DW_CO, 1};
+  err = make_tensor_map(&dymap, dy, 4, ddims, dstrides, dbox, BW * 2);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(conv3x3_dw_kernel<BW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             T::SMEM);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cin / DW_CI, cout / DW_CO, splits);
+  cfg.blockDim = dim3(DW_THREADS);
+  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = splits;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, conv3x3_dw_kernel<BW>, smap, dymap, static_cast<float*>(dw), n,
+                           cin, cout, h, w);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 bool conv_shape_ok(int n, int cin, int cout, int h, int w) {
@@ -482,22 +679,32 @@ int vcd_conv3x3(const void* x, const void* w9, const void* bias, void* y, int n,
 
 // dw (cout, cin, 3, 3) fp32 = sum over n, h, w of dy (n, cout, h, w) bf16
 // times silu(a*x + o) shifted, x (n, cin, h, w) bf16, a, o (n, cin) fp32;
-// part (splits, cout, 9, cin) fp32 scratch; 1 <= splits <= n * tiles.
-int vcd_conv3x3_dw(const void* x, const void* a, const void* o, const void* dy, void* part,
+// s (n, h, w, cin) bf16 scratch; 1 <= splits <= DW_MAX_SPLITS (a cluster)
+// and <= the pixel units, n * ceil(h / (128 / cols)) * (w / cols) with
+// cols = dw_cols(w).
+int vcd_conv3x3_dw(const void* x, const void* a, const void* o, const void* dy, void* s,
                    void* dw, int n, int cin, int cout, int h, int w, int splits, void* stream) {
-  if (!conv_shape_ok(n, cin, cout, h, w) || cout % DW_BM != 0 || splits < 1 ||
-      splits > n * tile_count(h, w) || splits > 65535)
+  if (!conv_shape_ok(n, cin, cout, h, w) || cin % DW_CI != 0 || cout % DW_CO != 0)
     return kInvalid;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  conv3x3_dw_kernel<<<dim3(cin / KC, cout / DW_BM, splits), THREADS, 0, s>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(a), static_cast<const float*>(o),
-      static_cast<const bf16*>(dy), static_cast<float*>(part), n, cin, cout, h, w);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t n_out = static_cast<size_t>(cout) * 9 * cin;
-  sum_dw_kernel<<<static_cast<unsigned>((n_out + THREADS - 1) / THREADS), THREADS, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(dw), splits, cin, cout);
-  return static_cast<int>(cudaGetLastError());
+  const int cols = dw_cols(w), rows = DW_PIX / cols;
+  const long long units = static_cast<long long>(n) * ((h + rows - 1) / rows) * (w / cols);
+  if (splits < 1 || splits > units || splits > DW_MAX_SPLITS) return kInvalid;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      cols == 64   ? launch_dw<64>(x, a, o, dy, s, dw, n, cin, cout, h, w, splits, st)
+      : cols == 32 ? launch_dw<32>(x, a, o, dy, s, dw, n, cin, cout, h, w, splits, st)
+                   : launch_dw<16>(x, a, o, dy, s, dw, n, cin, cout, h, w, splits, st);
+  return static_cast<int>(err);
+}
+
+// How many clusters of `splits` (1-8) blocks conv3x3_dw runs at once on the
+// current card at width w, or -(CUDA error).
+int vcd_conv3x3_dw_max_clusters(int w, int splits) {
+  if (w < 16 || w % 16 != 0 || splits < 1 || splits > DW_MAX_SPLITS) return -kInvalid;
+  const int cols = dw_cols(w);
+  return cols == 64 ? dw_max_clusters<64>(splits)
+         : cols == 32 ? dw_max_clusters<32>(splits)
+                      : dw_max_clusters<16>(splits);
 }
 
 const char* vcd_fused_error_string(int err) {

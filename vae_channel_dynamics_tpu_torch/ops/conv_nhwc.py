@@ -34,8 +34,9 @@ from . import _cuda_build
 
 LIBRARY = "conv_nhwc"
 KERNELS = ("conv3x3_nhwc",)
-CIN_MULTIPLE = 32   # the kernel's K chunk
-COUT_MULTIPLE = 64  # the kernel's output-channel tile
+CIN_MULTIPLE = 32   # the kernel's smallest K chunk
+COUT_MULTIPLE = 64  # half the kernel's output-channel tile, masked past Cout
+TILE_PIXELS = 128   # the kernel's M tile: a rectangle of 128 pixels of one image
 
 # kernel launches in this process; only the CUDA branch below adds to it
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -55,6 +56,19 @@ def eligible(x, cout: int) -> bool:
     return (1 <= n <= 65535 and h >= 1 and w >= 1 and cin >= CIN_MULTIPLE
             and cin % CIN_MULTIPLE == 0 and cout >= COUT_MULTIPLE
             and cout % COUT_MULTIPLE == 0)
+
+
+def pixel_tile(h: int, w: int) -> Tuple[int, int]:
+    """The kernel's pixel rectangle ``(rows, cols)`` for an H x W image:
+    cols a power of two, rows * cols = 128, the one that covers the image
+    with the fewest pixels (the widest among equals)."""
+    best = None
+    for cols in (128, 64, 32, 16, 8, 4, 2, 1):
+        rows = TILE_PIXELS // cols
+        covered = -(-h // rows) * rows * -(-w // cols) * cols
+        if best is None or covered < best[0]:
+            best = (covered, rows, cols)
+    return best[1], best[2]
 
 
 def conv3x3_nhwc_reference(x: torch.Tensor, w: torch.Tensor,
@@ -82,7 +96,7 @@ def _fn():
     if fn is None:
         lib = _cuda_build.load(LIBRARY)
         fn = lib.vcd_conv3x3_nhwc
-        fn.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+        fn.argtypes = [_P] * 4 + [_I] * 6 + [_P]
         fn.restype = ctypes.c_int
         lib.vcd_conv_nhwc_error_string.argtypes = [ctypes.c_int]
         lib.vcd_conv_nhwc_error_string.restype = ctypes.c_char_p
@@ -136,11 +150,12 @@ def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor,
     b32 = (torch.zeros(cout, dtype=torch.float32, device=x.device) if bias is None
            else bias.float().contiguous())
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
+    _rows, cols = pixel_tile(h, wd)
     fn = _fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), w.data_ptr(), b32.data_ptr(), y.data_ptr(), n, h, wd, cin, cout,
-                stream)
+                cols, stream)
     if rc != 0:
         msg = _cuda_build.load(LIBRARY).vcd_conv_nhwc_error_string(rc)
         raise RuntimeError(f"conv3x3_nhwc kernel launch failed: CUDA error {rc} "
@@ -156,4 +171,5 @@ __all__ = [
     "conv3x3_nhwc_reference",
     "eligible",
     "launches",
+    "pixel_tile",
 ]

@@ -50,7 +50,8 @@ On a CUDA tensor the plain versions' fp32 convolutions need TF32 off
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -64,8 +65,10 @@ KERNELS = ("fused_gn_silu_conv3x3", "conv3x3", "conv3x3_dw")
 LANE = 128  # the JAX kernels' channel multiple (pallas_group_norm.py:40)
 W_MULTIPLE = 16  # the JAX kernels' W rule; here also the CUDA pixel tile's width
 TILE_ROWS, TILE_COLS = 8, 16  # the CUDA kernels' output pixel tile
-DW_BLOCK_CHANNELS = (64, 32)  # conv3x3_dw's (out, in) channels per block
-DW_TARGET_BLOCKS = 528  # conv3x3_dw splits its pixels until about 4 blocks an SM
+DW_BLOCK_CHANNELS = (64, 64)  # conv3x3_dw's (out, in) channels per block
+DW_UNIT_PIXELS = 128  # conv3x3_dw's pixel unit: rows x cols of one image
+DW_TARGET_BLOCKS = 132  # the H100's SMs: conv3x3_dw holds one block on each
+DW_MAX_SPLITS = 8  # the splits of a channel block form one thread-block cluster
 
 # kernel launches in this process, per kernel; only the CUDA branches below
 # add to them
@@ -76,6 +79,7 @@ _SIGNATURES = {
     "fused_gn_silu_conv3x3": [_P] * 12 + [_I] * 5 + [_P],
     "conv3x3": [_P] * 4 + [_I] * 5 + [_P],
     "conv3x3_dw": [_P] * 6 + [_I] * 6 + [_P],
+    "conv3x3_dw_max_clusters": [_I, _I],
 }
 _fns: Dict[str, object] = {}  # ctypes functions, bound at first launch
 
@@ -201,7 +205,7 @@ def _fn(name: str):
 
 def build() -> None:
     """Build (or find built) and load the kernel library."""
-    for name in KERNELS:
+    for name in _SIGNATURES:
         _fn(name)
 
 
@@ -272,12 +276,55 @@ def _tiles(h: int, w: int) -> int:
     return -(-h // TILE_ROWS) * (w // TILE_COLS)
 
 
-def dw_splits(n: int, cin: int, cout: int, h: int, w: int) -> int:
-    """How many pixel chunks ``conv3x3_dw`` splits N*tiles into: enough
-    blocks for the card, at most one chunk per 8x16 tile. Chunk k covers
-    tiles [k*T//S, (k+1)*T//S) in order of (sample, tile row, tile column)."""
+def dw_unit(w: int) -> Tuple[int, int]:
+    """``conv3x3_dw``'s pixel unit ``(rows, cols)`` for width ``w`` (a
+    multiple of 16): cols the widest of 64, 32, 16 that divides it, rows *
+    cols = 128."""
+    cols = 64 if w % 64 == 0 else 32 if w % 32 == 0 else 16
+    return DW_UNIT_PIXELS // cols, cols
+
+
+def dw_units(n: int, h: int, w: int) -> int:
+    """The pixel units of ``conv3x3_dw`` over N images, in order of (sample,
+    unit row, unit column); the last unit row may lie partly below H."""
+    rows, cols = dw_unit(w)
+    return n * -(-h // rows) * (w // cols)
+
+
+def dw_splits(n: int, cin: int, cout: int, h: int, w: int,
+              max_clusters: Optional[Callable[[int], int]] = None) -> int:
+    """How many pixel chunks ``conv3x3_dw`` splits its units into. The S
+    splits of a channel block form one cluster of S blocks, each holding an
+    SM; ``max_clusters(S)`` is how many such clusters the card runs at once
+    (:func:`dw_max_clusters` on the card; ``DW_TARGET_BLOCKS // S``, an H100
+    whose every GPC divides by S, when not given). S, at most 8 and at most
+    one chunk per unit, minimises waves x units per block, the smaller S on
+    a tie. Chunk k covers units [k*U//S, (k+1)*U//S) of the U =
+    :func:`dw_units`."""
     out_blocks = (cout // DW_BLOCK_CHANNELS[0]) * (cin // DW_BLOCK_CHANNELS[1])
-    return max(1, min(n * _tiles(h, w), -(-DW_TARGET_BLOCKS // out_blocks)))
+    units = dw_units(n, h, w)
+    active = max_clusters or (lambda s: DW_TARGET_BLOCKS // s)
+    best, best_cost = 1, None
+    for s in range(1, min(units, DW_MAX_SPLITS) + 1):
+        clusters = active(s)
+        if clusters < 1:
+            continue
+        cost = -(-out_blocks // clusters) * -(-units // s)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def dw_max_clusters(w: int, splits: int) -> int:
+    """How many clusters of ``splits`` ``conv3x3_dw`` blocks the current card
+    runs at once at width ``w`` (``cudaOccupancyMaxActiveClusters``)."""
+    count = _fn("conv3x3_dw_max_clusters")(w, splits)
+    if count < 0:
+        msg = _cuda_build.load(LIBRARY).vcd_fused_error_string(-count)
+        raise RuntimeError(f"conv3x3_dw cluster query failed: CUDA error {-count} "
+                           f"({msg.decode() if msg else 'unknown'})")
+    return count
 
 
 def _launch(name: str, x: torch.Tensor, *args) -> None:
@@ -367,10 +414,11 @@ def conv_dw(x: torch.Tensor, a: torch.Tensor, o: torch.Tensor,
     _check_rule(name, x, cout)
     _check_vec(name, "a", a, (n, cin), dev)
     _check_vec(name, "o", o, (n, cin), dev)
-    splits = dw_splits(n, cin, cout, h, wd)
-    part = torch.empty((splits, cout, 9, cin), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        splits = dw_splits(n, cin, cout, h, wd, functools.partial(dw_max_clusters, wd))
+    s = torch.empty((n, h, wd, cin), dtype=x.dtype, device=dev)  # silu(a*x + o), NHWC
     dw = torch.empty((cout, cin, 3, 3), dtype=torch.float32, device=dev)
-    _launch(name, x, x.data_ptr(), a.data_ptr(), o.data_ptr(), dy.data_ptr(), part.data_ptr(),
+    _launch(name, x, x.data_ptr(), a.data_ptr(), o.data_ptr(), dy.data_ptr(), s.data_ptr(),
             dw.data_ptr(), n, cin, cout, h, wd, splits)
     return dw
 
@@ -459,7 +507,10 @@ __all__ = [
     "conv3x3_reference",
     "conv_dw",
     "conv_dw_reference",
+    "dw_max_clusters",
     "dw_splits",
+    "dw_unit",
+    "dw_units",
     "eligible",
     "flipped_weight",
     "fused_fwd",
