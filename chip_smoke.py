@@ -11,9 +11,12 @@ failure exits non-zero without the final ``ok`` line:
    flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``,
    ``csrc/group_norm.cu``, ``csrc/fused_resnet.cu`` and ``csrc/conv_nhwc.cu``
    (nvcc, sm_90a, one nvcc each, started together), the seconds each took,
-   and ptxas's registers and spills; for #11 and #12, on wgmma/TMA through
-   ``csrc/sm90_wgmma.cuh``, the HGMMA, UTMALDG and HMMA instructions in
-   their SASS (cuobjdump): HGMMA and UTMALDG present, no HMMA;
+   and ptxas's registers and spills (none, and no stack frame, in the fp32
+   flash forward); for the kernels on wgmma/TMA through
+   ``csrc/sm90_wgmma.cuh`` (the fp32 flash forward, #9 and #12 on the shared
+   loop of ``csrc/sm90_conv3x3.cuh``, #11), the HGMMA, UTMALDG and HMMA
+   instructions in their SASS (cuobjdump): HGMMA and UTMALDG present, no
+   HMMA;
 3. flash kernel vs plain: bf16 q/k/v from a seed at the serving shapes, the
    kernel's max abs and relative L2 error against
    ``flash_attention_reference`` (and proof that the bound rejects a kernel
@@ -43,8 +46,9 @@ failure exits non-zero without the final ``ok`` line:
    planted fault; forward and backward times from CUDA events;
 5'. the fused resnet kernels vs plain, bf16, at the 256px fused path's
    (16, 512, 32, 32) -> 512 and at (16, 256, 64, 64) -> 512: #9 with and
-   without the residual, with the |z| tap and the moments, #10 on the
-   flipped weight, #11 (also bit-equal run to run), each bound shown to
+   without the residual, with the |z| tap and the moments (also bit-equal
+   run to run), #10 on the flipped weight, #11 (also bit-equal run to run),
+   each bound shown to
    reject a planted fault (the border mask skipped, the halo rows tapped,
    the moments before the residual, the weight not flipped, the last pixel
    chunk left out); kernel, plain, bound and cuDNN times; then the whole
@@ -98,9 +102,12 @@ failure exits non-zero without the final ``ok`` line:
    one tap's K chunk left out, the bias left out), bit-equal run to run,
    kernel, plain, bound and cuDNN ``channels_last`` times; then the ported
    conv bench (``experiments/conv_bench.py``) in-process, #12's main path;
-11. the fp32 flash forward against its plain version at (8, 4096, 512),
-   the fp32 evaluation's shape, TF32 off, with the dropped-tile fault, and its times beside plain and
-   SDPA at fp32;
+11. the fp32 flash forward (3xTF32 on wgmma) against its plain version at
+   (8, 4096, 512), the fp32 evaluation's shape, TF32 off, bit-equal run to
+   run, with two planted faults (a dropped key tile, and the plain version
+   with TF32 on: one TF32 product, what the kernel would give without its lo
+   products), and its times beside plain, SDPA at fp32 and the 3xTF32
+   bound;
 12. evaluation at full width, after the serving slice: the seeded SDXL VAE
    written as a model dir, ``evaluate.main`` on 32 synthetic images at
    512px, batch 8: bf16 with ``attention_impl: auto`` (the bf16 flash
@@ -362,13 +369,25 @@ EVAL_LENS_LAYERS = ("encoder.down_blocks.0.resnets.0.norm1",
                     "encoder.down_blocks.1.resnets.0.conv_shortcut")
 # The fp32 flash forward (#6 at fp32) against its plain version at the shape
 # the fp32 `auto` evaluation gives it, the 512px mid block at EVAL_BATCH:
-# (8, 4096, 512), TF32 off. Both sum fp32 products in another order and the
-# kernel's online softmax rescales, about 2e-6 relative L2; one dropped
-# 64-key tile costs about 8/sqrt(N) (0.125).
+# (8, 4096, 512), TF32 off. The kernel takes each fp32 product as three TF32
+# products (3xTF32, about 2^-22 of the product) and sums in another order
+# than the plain matmul, about 1e-6 relative L2; two planted faults exceed
+# the bound: one dropped 64-key tile, about 8/sqrt(N) (0.125), and one TF32
+# product (the plain version with TF32 on), about 4e-4. Its bound is the
+# 3xTF32 one, three times the products at the TF32 rate; the fp32 SIMT rate's
+# is logged beside it.
 FLASH_F32_SHAPE = (EVAL_BATCH, 4096, 512)
 FLASH_F32_REL_L2 = 1e-5
 FLASH_F32_REPLACES = "vae_channel_dynamics_tpu/ops/pallas_attention.py:136 _flash_kernel (fp32)"
 FLASH_F32_ITERS = 5
+# The kernels this slice redesigned. The line carries only what this run
+# measured; the times before the redesign stay in PERF.md's table.
+REDESIGNED = {
+    "flash_attention_fwd_f32": "redesigned in this slice (3xTF32 on wgmma/TMA, "
+                               "was SIMT fp32)",
+    "fused_gn_silu_conv3x3": "redesigned in this slice (NHWC pre-pass and #12's "
+                             "wgmma/TMA loop, was mma.sync)",
+}
 # Tiled inference at full width: a 2048px image through the wrapper with
 # enable_tiling(512, 0.25), bf16: 25 encoder and 25 decoder tiles, the flash
 # forward once a tile (4096 tokens); flash vs naive within the naive
@@ -459,7 +478,12 @@ def kernel_label(mangled: str) -> str:
 
 # The kernels redesigned on wgmma/TMA (csrc/sm90_wgmma.cuh): their SASS must
 # hold warpgroup MMAs (HGMMA) and TMA loads (UTMALDG), and no mma.sync (HMMA).
-WGMMA_KERNELS = {"conv3x3_nhwc_kernel": "conv_nhwc", "conv3x3_dw_kernel": "fused_resnet"}
+WGMMA_KERNELS = {"conv3x3_nhwc_kernel": "conv_nhwc", "conv3x3_dw_kernel": "fused_resnet",
+                 "fused_gn_silu_conv3x3_kernel": "fused_resnet",
+                 "flash_fwd_f32_kernel": "flash_attention_fwd"}
+# ptxas must report no stack frame and no spills for these
+NO_STACK_KERNELS = ("flash_fwd_f32_kernel",)
+NO_STACK = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 
 
@@ -512,6 +536,8 @@ def phase_build():
             elif "Used" in line and "registers" in line:
                 regs = line.split("Used", 1)[1].split(",")[0].strip()
                 entries.append(f"{kernel}: {regs}, {spills}")
+                check(kernel.split("<")[0] not in NO_STACK_KERNELS or spills == NO_STACK,
+                      f"{kernel} has a stack frame or spills: {spills}")
         log(f"[build] {source}: nvcc {_cuda_build.build_seconds.get(lib, 0.0):.2f} s; "
             f"ptxas per instantiation: {entries}")
     log(f"[build] {len(builds)} libraries built and loaded in {wall:.2f} s")
@@ -1368,7 +1394,12 @@ def phase_fused_kernels():
         # 9: without the residual (conv1), then with it, the tap and the moments
         y0, _, _ = fr.fused_fwd(x, a, o, wt, bias)
         y, tap, (ysum, ysq) = fr.fused_fwd(x, a, o, wt, bias, res, True, True)
+        y2, tap2, (ysum2, ysq2) = fr.fused_fwd(x, a, o, wt, bias, res, True, True)
         sync()
+        check(all(torch.equal(u, w2) for u, w2 in ((y, y2), (tap, tap2), (ysum, ysum2),
+                                                    (ysq, ysq2))),
+              f"#9 differs between two runs at {shape} -> {cout}")
+        del y2, tap2, ysum2, ysq2
         py0, _, _ = fr.fused_fwd_reference(x, a, o, wt, bias)
         held_bf16("fused_gn_silu_conv3x3", "#9 y", y0, py0,
                   _fused_fwd_unmasked(x, a, o, wt, bias, torch.zeros_like(res)))
@@ -1433,6 +1464,7 @@ def phase_fused_kernels():
                     library_ms=library[name][0], library_covers=library[name][1])
         held = ([fr.dw_max_clusters(w, k) for k in range(1, fr.DW_MAX_SPLITS + 1)]
                 if DEVICE == "cuda" else "not queried off the card")
+        lines.append("#9 and #11 bit-equal run to run")
         lines.append(f"#11 splits {_dw_splits(n, cin, cout, h, w)} (clusters of 1-"
                      f"{fr.DW_MAX_SPLITS} blocks the card holds at once: {held})")
         log(f"[fused] {shape} -> {cout} bf16: " + "; ".join(lines))
@@ -2535,8 +2567,9 @@ def sdpa_fp32_ms(q, k, v, scale: float, iters: int) -> tuple[str, float]:
 
 def phase_flash_f32():
     """The fp32 flash forward against its plain version at FLASH_F32_SHAPE,
-    TF32 off, with the dropped-tile fault, and its times against plain and
-    SDPA at fp32."""
+    TF32 off, bit-equal run to run, with the dropped-tile and the one-TF32-
+    product faults, and its times against plain and SDPA at fp32 beside the
+    3xTF32 bound."""
     import torch
 
     from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
@@ -2548,30 +2581,43 @@ def phase_flash_f32():
     q, k, v = (torch.randn(FLASH_F32_SHAPE, generator=gen, device=DEVICE) for _ in range(3))
     scale = c ** -0.5
     out = fa.flash_attention_fwd(q, k, v, scale=scale, out_dtype=torch.float32)
+    out2 = fa.flash_attention_fwd(q, k, v, scale=scale, out_dtype=torch.float32)
     sync()
     check(out.dtype == torch.float32 and bool(torch.isfinite(out).all()),
           "the fp32 flash output is not finite fp32")
+    check(torch.equal(out, out2), "the fp32 flash forward differs between two runs")
+    del out2
     ref = fa.flash_attention_reference(q, k, v, scale, torch.float32)
     err, rel = kernel_errors(out, ref)
     fault = fa.flash_attention_reference(q, k[:, :-FAULT_TILE].contiguous(),
                                          v[:, :-FAULT_TILE].contiguous(), scale, torch.float32)
     fault_err, fault_rel = kernel_errors(fault, ref)
+    # one TF32 product, what the kernel would give without its lo products
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        fault = fa.flash_attention_reference(q, k, v, scale, torch.float32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    _, tf32_rel = kernel_errors(fault, ref)
     del fault
     check(rel <= FLASH_F32_REL_L2, f"the fp32 flash forward is {rel} (rel L2) from plain")
     check(fault_rel > FLASH_F32_REL_L2, "the fp32 flash bound does not reject a dropped key tile")
+    check(tf32_rel > FLASH_F32_REL_L2, "the fp32 flash bound does not reject one TF32 product")
     ms, plain_ms = timed_pair(
         lambda: fa.flash_attention_fwd(q, k, v, scale=scale, out_dtype=torch.float32),
         lambda: fa.flash_attention_reference(q, k, v, scale, torch.float32), FLASH_F32_ITERS)
     backend, lib_ms = sdpa_fp32_ms(q, k, v, scale, FLASH_F32_ITERS)
     flops = 4 * b * n * n * c
-    bound_ms, bound_by = roofline(flops, 4 * 4 * b * n * c, PEAK_FP32_FLOPS)
-    tf32x3_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    nbytes = 4 * 4 * b * n * c
+    bound_ms, bound_by = roofline(3 * flops, nbytes, PEAK_TF32_FLOPS)
+    simt_ms, _ = roofline(flops, nbytes, PEAK_FP32_FLOPS)
     log(f"[flash-f32] {FLASH_F32_SHAPE} fp32, TF32 off: max abs {err:.4g}, rel L2 {rel:.4g} "
-        f"(bound {FLASH_F32_REL_L2}); one dropped {FAULT_TILE}-key tile: rel L2 "
-        f"{fault_rel:.4g}; ms kernel {ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s), "
-        f"plain {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}, fp32 at 67 TFLOP/s; "
-        f"{bound_ms / ms:.1%} of it), 3xTF32 bound {tf32x3_ms:.4f} (165 TFLOP/s; "
-        f"{tf32x3_ms / ms:.1%} of it), SDPA fp32 ({backend}) {lib_ms:.4f}")
+        f"(bound {FLASH_F32_REL_L2}); bit-equal run to run; one dropped {FAULT_TILE}-key tile: "
+        f"rel L2 {fault_rel:.4g}; one TF32 product (plain, TF32 on): rel L2 {tf32_rel:.4g}; "
+        f"ms kernel {ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f}, "
+        f"3xTF32 bound {bound_ms:.4f} ({bound_by}, 3 x the products at 495 TFLOP/s; "
+        f"{bound_ms / ms:.1%} of it), fp32 SIMT bound {simt_ms:.4f} (67 TFLOP/s), SDPA fp32 "
+        f"({backend}) {lib_ms:.4f}")
     del q, k, v, out, ref
     release()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2900,6 +2946,7 @@ def main() -> int:
         "library_ms": r["library_ms"],
         "library_covers": r["library_covers"],
         "shape": r["shape"],
+        **({"note": REDESIGNED[kname]} if kname in REDESIGNED else {}),
     } for kname, r in rows.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -15,9 +15,12 @@ That absolute floor is loose for long sequences, whose outputs shrink like
 gives about 2.5e-3, and a kernel that skips one 64-key tile about 8/sqrt(N),
 0.0625 at N=16384.
 
-The fp32 serving forward (the evaluation CLI's fp32 path) sums fp32 FMAs in
+The fp32 serving forward (the evaluation CLI's fp32 path) takes each fp32
+product as three TF32 products (about 2^-22 of the product) and sums them in
 another order than the plain version's fp32 matmul (TF32 off): relative L2
-1e-5, about 2e-6 measured, where one dropped 64-key tile costs 8/sqrt(N).
+1e-5, 0.8e-6 to 2.1e-6 measured, where one dropped 64-key tile costs
+8/sqrt(N) and one TF32 product about 4e-4 (tests/test_torch_flash_tf32x3.py).
+Its sums have a fixed order, so two runs are bit-equal.
 
 The backward's dQ, dK and dV are bf16 sums over N fp32 products of bf16
 operands, summed in another order than the plain version's matmul, and the
@@ -201,12 +204,26 @@ def test_fp32_kernel_matches_plain(cuda, shape):
     assert ((out - ref).norm() / ref.norm()).item() <= 1e-5
 
 
+@pytest.mark.parametrize("c", fa.SUPPORTED_CHANNELS)
+def test_fp32_kernel_every_width_bit_equal(cuda, c):
+    """Every channel width the kernel takes (each warpgroup's half of C is
+    the N of its P V product), two runs bit-equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv((2, 256, c), cuda, seed=c, dtype=torch.float32)
+    scale = c ** -0.5
+    out = fa.flash_attention_fwd(q, k, v, scale=scale, out_dtype=torch.float32)
+    again = fa.flash_attention_fwd(q, k, v, scale=scale, out_dtype=torch.float32)
+    ref = fa.flash_attention_reference(q, k, v, scale, torch.float32)
+    assert torch.equal(out, again)
+    assert ((out - ref).norm() / ref.norm()).item() <= 1e-5
+
+
 def test_fp32_kernel_handles_large_logits(cuda):
     """Logits of several hundred: the running max keeps exp in range. Each
     logit is a sum of 128 fp32 products taken in another order than the
     plain matmul's, off by about |s| 2^-24 sqrt(C) (~5e-4 at |s| ~ 700),
     and exp turns that into the probabilities' relative error, so the bound
-    here is 1e-4 relative L2 (1.6e-5 measured on an H100)."""
+    here is 1e-4 relative L2 (1.7e-5 measured on an H100)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = _qkv((2, 256, 128), cuda, seed=1, dtype=torch.float32)
     out = fa.flash_attention(q * 8, k * 8, v, scale=1.0, out_dtype=torch.float32)

@@ -261,6 +261,46 @@ def test_dw_units_cover_every_pixel_once(n, h, w):
     assert torch.equal(seen, torch.ones_like(seen))
 
 
+def test_weight_hwio_is_the_permuted_weight():
+    """#9's weight: OIHW (Cout, Cin, 3, 3) as the contiguous HWIO (3, 3, Cin,
+    Cout) that kernel #12's loop reads."""
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.standard_normal((256, 128, 3, 3)).astype(np.float32))
+    w = w.to(torch.bfloat16)
+    hwio = fr.weight_hwio(w)
+    assert hwio.shape == (3, 3, 128, 256) and hwio.is_contiguous()
+    assert hwio.dtype == w.dtype
+    assert torch.equal(hwio, w.permute(2, 3, 1, 0))
+    assert torch.equal(hwio[1, 2, 5, 7], w[7, 5, 1, 2])  # tap (dy, dx), in, out
+
+
+@pytest.mark.parametrize("h,w", [(32, 32), (64, 64), (20, 16), (6, 48), (9, 128)])
+def test_tap_chunks_cover_every_pixel_once(h, w):
+    """#9's pre-pass writes its |z| partials over chunks of 64 flattened
+    pixels of each image: together they hold every pixel once."""
+    chunks = fr.tap_chunks(h, w)
+    seen = torch.zeros(h * w, dtype=torch.int32)
+    for k in range(chunks):
+        seen[k * fr.SILU_PIXELS:min((k + 1) * fr.SILU_PIXELS, h * w)] += 1
+    assert torch.equal(seen, torch.ones_like(seen))
+    assert (chunks - 1) * fr.SILU_PIXELS < h * w  # no chunk wholly outside the image
+
+
+@pytest.mark.parametrize("h,w", [(32, 32), (64, 64), (20, 16), (6, 48), (9, 128)])
+def test_fused_tiles_cover_every_pixel_once(h, w):
+    """#9's moment partials: one a pixel rectangle of conv_nhwc.pixel_tile,
+    in the kernel's grid order; the rectangles cover the image once (their
+    parts outside it are masked)."""
+    rows, cols = fr.pixel_tile(h, w)
+    tiles_w = -(-w // cols)
+    seen = torch.zeros(-(-h // rows) * rows, tiles_w * cols, dtype=torch.int32)
+    for t in range(fr.fused_tiles(h, w)):
+        r0, c0 = (t // tiles_w) * rows, (t % tiles_w) * cols
+        seen[r0:r0 + rows, c0:c0 + cols] += 1
+    assert torch.equal(seen, torch.ones_like(seen))
+    assert rows * cols == 128 and cols >= fr.W_MULTIPLE
+
+
 @pytest.mark.parametrize("n,cin,cout,h,w,splits", [
     (16, 512, 512, 32, 32, 2),   # the 256px step's fused shape: 128 blocks
     (16, 256, 512, 64, 64, 4),   # 128 blocks

@@ -8,8 +8,10 @@ Each of the three kernels (``fused_gn_silu_conv3x3``, ``conv3x3``,
 ``conv3x3_dw``) gets the same bf16 inputs as its plain version: at the 256px
 step's fused shape (16, 512, 32, 32) -> 512, at an asymmetric one
 (16, 256, 64, 64) -> 512, and at small odd ones (batch 1, 128 -> 256, H not a
-multiple of the kernels' 8-row tile). Then the autograd op against plain
-autograd of the same function, and the weight gradient bit-equal run to run.
+multiple of #10's 8-row tile or of #9's pixel rectangle). Then the autograd
+op against plain autograd of the same function, the fused forward and
+the weight gradient bit-equal run to run, and the fused forward refusing
+partial buffers of another size than its grid's.
 
 Bounds. The bf16 outputs (y, ds): kernel and plain round the same fp32 sum,
 taken in another order, so at most 4 bf16 ulps of max|plain| and relative L2
@@ -40,6 +42,7 @@ SHAPES = [
     ((1, 128, 16, 16), 256),   # batch 1, 128 -> 256
     ((3, 128, 12, 32), 128),   # H = 12: the last 8-row tile is half outside
     ((2, 256, 6, 48), 128),    # H below one tile, three column tiles
+    ((2, 128, 20, 16), 128),   # #9's 8 x 16 pixel rectangle: the last one half outside
 ]
 IDS = [f"{s}->{c}" for s, c in SHAPES]
 # conv3x3_dw also at H = 12 under its 4-row units of 32 columns, 128 -> 256
@@ -134,6 +137,51 @@ def test_conv_dw_matches_plain(cuda, shape, cout):
     ref = fr.conv_dw_reference(x, a, o, dy)
     _assert_sums(dw, ref)
     assert ((dw - ref).norm() / ref.norm()).item() <= 1e-3
+
+
+@pytest.mark.parametrize("shape,cout", SHAPES[:2], ids=IDS[:2])
+def test_fused_forward_is_deterministic(cuda, shape, cout):
+    """y, the tap and the moments: per-tile partials added in a fixed order,
+    no atomics."""
+    x, _g, _b, wt, bias, res, _dy, a, o = _inputs(shape, cout, cuda, seed=4)
+    first = fr.fused_fwd(x, a, o, wt, bias, res, True, True)
+    for _ in range(3):
+        y, tap, (ysum, ysq) = fr.fused_fwd(x, a, o, wt, bias, res, True, True)
+        assert torch.equal(y, first[0]) and torch.equal(tap, first[1])
+        assert torch.equal(ysum, first[2][0]) and torch.equal(ysq, first[2][1])
+
+
+def test_fused_rectangle_rows_do_not_divide_h(cuda):
+    """H = 20 under #9's 8-row x 16-column pixel rectangle: the last
+    rectangle's rows 20-23 lie outside the image, are zero-filled on the way
+    in and masked on the way out, and add nothing to the moments."""
+    shape, cout = (2, 128, 20, 16), 128
+    rows, cols = fr.pixel_tile(20, 16)
+    assert (rows, cols) == (8, 16) and 20 % rows
+    assert fr.eligible(shape, cout, GROUPS)
+    x, _g, _b, wt, bias, res, _dy, a, o = _inputs(shape, cout, cuda, seed=5)
+    y, tap, (ysum, ysq) = fr.fused_fwd(x, a, o, wt, bias, res, True, True)
+    py, ptap, (psum, psq) = fr.fused_fwd_reference(x, a, o, wt, bias, res, True, True)
+    _assert_bf16(y, py)
+    for out, ref in ((tap, ptap), (ysum, psum), (ysq, psq)):
+        _assert_sums(out, ref)
+
+
+@pytest.mark.parametrize("helper", ["tap_chunks", "fused_tiles"])
+@pytest.mark.parametrize("delta", [-1, 1])
+def test_fused_refuses_partials_of_another_size(cuda, monkeypatch, helper, delta):
+    """The wrapper sizes #9's tap and moment partials by ``tap_chunks`` and
+    ``fused_tiles``; the C entry holds those counts to its own grid, so a
+    wrapper whose count drifted is refused before any write, never run over
+    a buffer too small."""
+    shape, cout = (2, 128, 20, 16), 128
+    x, _g, _b, wt, bias, res, _dy, a, o = _inputs(shape, cout, cuda, seed=6)
+    count = getattr(fr, helper)
+    monkeypatch.setattr(fr, helper, lambda h, w: count(h, w) + delta)
+    before = fr.launches["fused_gn_silu_conv3x3"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fr.fused_fwd(x, a, o, wt, bias, res, True, True)
+    assert fr.launches["fused_gn_silu_conv3x3"] == before
 
 
 @pytest.mark.parametrize("shape,cout", SHAPES[:2], ids=IDS[:2])

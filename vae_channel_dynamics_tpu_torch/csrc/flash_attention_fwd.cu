@@ -43,30 +43,62 @@
 // 122, 82 at 384, 256, 128), no spills.
 //
 // The fp32 serving forward (flash_fwd_f32_kernel, no LSE) replaces the same
-// TPU kernel run in fp32 at Precision.HIGHEST: fp32 q/k/v in, fp32 out, and
-// P kept in fp32 before the P V product. TF32 keeps 10 mantissa bits, too
-// few for that, so its products are plain fp32 FMAs on the SIMT units; at
-// 4*B*N^2*C FLOPs against the card's 67 TFLOP/s fp32 rate it is bound by
-// those operations. A block of 8 warps owns 32 query rows; each warp owns 4
-// of them end to end (logits, online softmax, output accumulator), so the
-// warps share only the K and V tiles (32 keys) and synchronise only around
-// their loads. Q K^T: each lane sums a 4-row x 8-key piece over its own
-// float4 columns, and a reduce-scatter over the warp's 32 lanes (31
-// shuffles for 32 sums) leaves lane l with logit (row l/8, key l%8); the 8
-// lanes of a row then hold its 32 logits for the softmax. P V: the lane
-// owns the output columns 4*lane + 128*j of its warp's 4 rows, reading P
-// rows broadcast from shared memory. Shared memory at C = 512: 65,536 (Q)
-// + 2 x 65,536 (K, V) + 4,096 (P) = 200,704 bytes.
+// TPU kernel run in fp32 at Precision.HIGHEST: fp32 q/k/v in, fp32 out, P kept
+// in fp32 before the P V product. TF32 keeps 10 mantissa bits, too few alone,
+// so every product is three TF32 products (3xTF32): each fp32 operand x is
+// split into hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest by
+// cvt.rna, and x y is taken as hi hi + hi lo + lo hi on wgmma with fp32
+// accumulation, an error of about 2^-22 of each product against the 2^-24
+// that fp32 accumulation already costs. What bounds it on the H100: 3 x
+// 4*B*N^2*C FLOPs at the 495 TFLOP/s TF32 rate (1.666 ms at (8, 4096,
+// 512)); fp32 FMAs outside the tensor cores could not go below 4.10 ms at
+// 67 TFLOP/s.
+//
+// A block owns 64 query rows of one batch element. Two warpgroups each own
+// half of the channels, H = C/2, of both S's sum and O (H/2 fp32
+// accumulators a thread); thread 0 also keeps a ring of 6 stages of 16 KB
+// full by TMA, refilling a stage once every warp has read it (a producer
+// warp of its own would make 9 warps, 3 on one of the SM's four register
+// files, and cap every thread at 168 registers: O spilled). Per key tile of
+// 64:
+//   1. S units: 16 channels of Q and of K for each half (64 rows each,
+//      64-byte swizzled). Each warpgroup splits its half's raw tiles into
+//      hi and lo tiles at the same swizzled offsets in its own split buffer
+//      (two, alternating), releases the raw stage, and runs the three
+//      products on wgmma m64n64k8 into its partial S;
+//   2. the two partial S are added through shared memory, the same sum in
+//      both warpgroups, so that both hold S, m, l and P bit for bit; the
+//      online softmax in fp32; warpgroup 0 writes P's hi and warpgroup 1 its
+//      lo as the K-major A of P V (128-byte swizzled);
+//   3. V units: 16 keys x OC channels of raw V (not swizzled). wgmma's tf32
+//      B must be K-major, and P V sums over keys, so each warpgroup writes
+//      its channels' V^T (OC rows of 16 keys, 64-byte swizzled), split into
+//      hi and lo, and runs m64nOCk8 three times for each of the 2 k-steps.
+// The tensor cores truncate each fp32 accumulation (round toward zero), so
+// a sum held in a wgmma accumulator drifts low by about half an ulp a step:
+// over the 1,536 steps of O at N = 4096 it broke the 1e-5 bound on the H100
+// (tests/test_torch_flash_tf32x3.py models it).
+// So no wgmma accumulation is long: a tile's P V goes into fresh
+// accumulators (OC = 128 channels a pass at C = 512, 24 steps), added to O
+// in fp32 registers, and each warpgroup's S is two sums of H/2 channels
+// (48 steps each), added in fp32.
+// hi and lo live only in shared memory: device memory and L2 see raw fp32
+// q, k, v once per use (K and V once per 64-query block, Q once per key
+// tile), and no scratch or pre-pass is needed. Shared memory: 96 KB (ring)
+// + 64 KB (split buffers) + 32 KB (P) = 197,728 bytes with the barriers and
+// the alignment.
 //
 // Plain C interface for ctypes: pointers and the stream are void*, the
 // function returns cudaGetLastError() after the launch. It launches on the
 // caller's stream, allocates nothing and does not synchronise.
 
 #include "sm90_mma.cuh"
+#include "sm90_wgmma.cuh"
 
 namespace {
 
 using namespace vcd;
+using namespace vcd::sm90;
 
 constexpr int BQ = 32;               // query rows per block
 constexpr int BK = 64;               // keys per tile
@@ -282,193 +314,313 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 }
 
 // ---------------------------------------------------------------------------
-// fp32 forward
+// fp32 forward: 3xTF32 on wgmma (see the header)
 // ---------------------------------------------------------------------------
-constexpr int F32_ROWS = 4;                 // query rows per warp
-constexpr int F32_BQ = WARPS * F32_ROWS;    // 32 query rows per block
-constexpr int F32_BK = 32;                  // keys per tile
+constexpr int F32_BQ = 64;        // query rows per block: wgmma's M
+constexpr int F32_BK = 64;        // keys per tile: S's N
+constexpr int F32_KC = 16;        // channels per S unit: one 64-byte swizzle row of fp32
+constexpr int F32_VK = 16;        // keys per V unit: two tf32 k-steps, a 64-byte row
+constexpr int F32_STAGES = 6;
+constexpr int F32_THREADS = 256;  // two warpgroups, half the channels each
+constexpr int F32_UNIT = 16384;   // bytes of a ring stage and of a split buffer
+constexpr int F32_TILE = F32_BQ * F32_KC * 4;          // one 64 x 16 fp32 tile: 4 KB
+constexpr int F32_P = F32_BQ * F32_BK * 4;             // P's hi (or lo): 16 KB
+constexpr int F32_RING = F32_STAGES * F32_UNIT;
+constexpr int F32_SPLIT = F32_RING;                    // 2 warpgroups x 2 buffers
+constexpr int F32_PTILE = F32_SPLIT + 4 * F32_UNIT;    // P hi, then P lo
+constexpr int F32_BARS = F32_PTILE + 2 * F32_P;
+constexpr int F32_SMEM = F32_BARS + 2 * F32_STAGES * 8 + 1024;
 
 template <int C>
-struct F32Layout {
-  static constexpr int Q_BYTES = F32_BQ * C * 4;
-  static constexpr int KV_BYTES = F32_BK * C * 4;
-  static constexpr int P_BYTES = F32_BQ * F32_BK * 4;
-  static constexpr int BYTES = Q_BYTES + 2 * KV_BYTES + P_BYTES;
+struct F32Units {
+  static constexpr int H = C / 2;                        // channels of one warpgroup
+  static constexpr int NS = H / F32_KC;                  // S units per key tile
+  // O's channels per pass: a tile's P V goes into fresh accumulators of OC
+  // channels, then into O by an fp32 add (see the header)
+  static constexpr int OC = H <= 128 ? H : (H % 128 == 0 ? 128 : 64);
+  static constexpr int NP = H / OC;                      // passes
+  static constexpr int NV = F32_BK / F32_VK;             // V units per pass
+  static constexpr int UNITS = NS + NP * NV;
+  static constexpr int S_BYTES = 4 * F32_TILE;           // Q and K, both halves
+  static constexpr int V_HALF = F32_VK * OC * 4;         // 16 keys x OC channels
+  static_assert(NS % 2 == 0, "S is summed in two parts");
+  static_assert(2 * V_HALF <= F32_UNIT, "a V unit fits a stage and a split buffer");
 };
 
-// Copy ROWS rows of C fp32 (row stride C on both sides), 16 bytes per
-// cp.async, spread over the block.
-template <int C, int ROWS>
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, int tid) {
-  constexpr int CHUNKS = C / 4;
-  static_assert((ROWS * CHUNKS) % THREADS == 0, "tile does not split evenly over the block");
-#pragma unroll
-  for (int it = 0; it < ROWS * CHUNKS / THREADS; ++it) {
-    const int i = it * THREADS + tid;
-    cp_async16(dst + i * 4, src + static_cast<size_t>(i) * 4);
-  }
+__device__ __forceinline__ float4 tf32_hi(float4 x) {
+  return make_float4(to_tf32(x.x), to_tf32(x.y), to_tf32(x.z), to_tf32(x.w));
 }
 
-// Sum each of the 32 values over the warp's 32 lanes; lane l returns the sum
-// of v[l]. Each step trades half of the values with the partner lane.
-__device__ __forceinline__ float reduce_scatter32(float (&v)[32], int lane) {
-#pragma unroll
-  for (int h = 16; h >= 1; h /= 2) {
-    const bool upper = (lane & h) != 0;
-#pragma unroll
-    for (int i = 0; i < h; ++i) {
-      const float send = upper ? v[i] : v[i + h];
-      const float keep = upper ? v[i + h] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, h);
-    }
-  }
-  return v[0];
+__device__ __forceinline__ float4 tf32_lo(float4 x, float4 hi) {
+  return make_float4(to_tf32(x.x - hi.x), to_tf32(x.y - hi.y), to_tf32(x.z - hi.z),
+                     to_tf32(x.w - hi.w));
 }
 
+// O (B, N, C) fp32 = softmax(Q K^T * scale) V over fp32 q, k, v (B, N, C).
+// Grid (N / 64, B); two warpgroups, thread 0 also the producer.
 template <int C>
-__global__ void __launch_bounds__(THREADS, 1)
-    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o, int n,
+__global__ void __launch_bounds__(F32_THREADS, 1)
+    flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap, float* __restrict__ o, int n,
                          float scale) {
-  using L = F32Layout<C>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem);
-  float* sK = reinterpret_cast<float*>(smem + L::Q_BYTES);
-  float* sV = reinterpret_cast<float*>(smem + L::Q_BYTES + L::KV_BYTES);
-  float* sP = reinterpret_cast<float*>(smem + L::Q_BYTES + 2 * L::KV_BYTES);
+  using U = F32Units<C>;
+  constexpr int H = U::H, OC = U::OC;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = smem;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + F32_BARS);
+  uint64_t* empty = full + F32_STAGES;
 
-  constexpr int J = C / 128;  // float4 columns per lane: 4*lane + 128*j
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * F32_BQ;
-  const size_t base = static_cast<size_t>(blockIdx.y) * n * C;
-  const float* qw = sQ + warp * F32_ROWS * C;  // this warp's 4 query rows
-  float* pw = sP + warp * F32_ROWS * F32_BK;   // and their probabilities
+  const int q0 = blockIdx.x * F32_BQ, b = blockIdx.y;
+  const int units = (n / F32_BK) * U::UNITS;
 
-  load_rows_f32<C, F32_BQ>(sQ, q + base + static_cast<size_t>(q0) * C, tid);
-  cp_async_commit();
+  // Unit k of the stream, into its stage: per key tile, NS units of Q and K
+  // (16 channels of each half, 64 rows each, 64-byte swizzled), then for
+  // each pass NV units of V (8 keys x OC channels of each half, not
+  // swizzled).
+  auto issue = [&](int k) {
+    const int t = k / U::UNITS, u = k % U::UNITS, s = k % F32_STAGES;
+    uint8_t* st = ring + s * F32_UNIT;
+    if (u < U::NS) {
+      mbar_arrive_expect_tx(&full[s], U::S_BYTES);
+      for (int g = 0; g < 2; ++g) {
+        tma_load_3d(st + g * F32_TILE, &qmap, &full[s], g * H + u * F32_KC, q0, b);
+        tma_load_3d(st + (2 + g) * F32_TILE, &kmap, &full[s], g * H + u * F32_KC, t * F32_BK,
+                    b);
+      }
+    } else {
+      const int p = (u - U::NS) / U::NV, key = t * F32_BK + ((u - U::NS) % U::NV) * F32_VK;
+      mbar_arrive_expect_tx(&full[s], 2 * U::V_HALF);
+      for (int g = 0; g < 2; ++g)
+        tma_load_3d(st + g * U::V_HALF, &vmap, &full[s], g * H + p * OC, key, b);
+    }
+  };
 
-  float acc[F32_ROWS][J][4];
-#pragma unroll
-  for (int r = 0; r < F32_ROWS; ++r)
-#pragma unroll
-    for (int j = 0; j < J; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[r][j][e] = 0.f;
-  // the running max and denominator of row lane/8, kept by its 8 lanes
-  float m_run = MASKED, l_run = 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < F32_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], F32_THREADS / 32);  // one arrival per warp
+    }
+    mbar_init_fence();
+    for (int k = 0; k < units && k < F32_STAGES; ++k) issue(k);
+  }
+  __syncthreads();
 
-  const int nk = n / F32_BK;
-  for (int t = 0; t < nk; ++t) {
-    __syncthreads();  // the previous tile's products are done with sK, sV
-    load_rows_f32<C, F32_BK>(sK, k + base + static_cast<size_t>(t) * F32_BK * C, tid);
-    load_rows_f32<C, F32_BK>(sV, v + base + static_cast<size_t>(t) * F32_BK * C, tid);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
+  // Warpgroup g owns channels [g H, (g + 1) H) of S's sum and of O.
+  const int g = warp / 4, wt = tid % 128, gid = lane / 4, tig = lane % 4;
+  const int row0 = (warp % 4) * 16 + gid;  // this thread's rows: row0, row0 + 8
+  uint8_t* mine = smem + F32_SPLIT + g * 2 * F32_UNIT;       // my two split buffers
+  uint8_t* theirs = smem + F32_SPLIT + (1 - g) * 2 * F32_UNIT;
+  uint8_t* ptile = smem + F32_PTILE;
+  float oacc[H / 2];
+#pragma unroll
+  for (int i = 0; i < H / 2; ++i) oacc[i] = 0.f;
+  float m_run[2] = {MASKED, MASKED}, l_run[2] = {0.f, 0.f};  // l: this thread's columns
 
-    // ---- S = Q K_t^T * scale: s[g] = S[row lane/8][key 8g + lane%8] ----
-    float s[4];
+  // Unit k has been read from the ring: release its stage, and thread 0
+  // refills it with unit k + STAGES once every warp has released it. Then
+  // the split tiles this warpgroup wrote are made visible to its wgmma.
+  int k = 0;  // units consumed
+  auto release = [&]() {
+    const int s = k % F32_STAGES;
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (tid == 0 && k + F32_STAGES < units) {
+      mbar_wait(&empty[s], (k / F32_STAGES) & 1);
+      issue(k + F32_STAGES);
+    }
+    __syncwarp();
+    fence_proxy_async();
+    named_barrier(1 + g, 128);
+  };
+
+  // One S unit into acc: split this half's raw Q and K tiles into hi and lo
+  // tiles at the same swizzled offsets, then hi hi + hi lo + lo hi.
+  auto s_unit = [&](float (&acc)[32]) {
+    const int s = k % F32_STAGES;
+    mbar_wait(&full[s], (k / F32_STAGES) & 1);
+    const uint8_t* st = ring + s * F32_UNIT;
+    uint8_t* sp = mine + (k & 1) * F32_UNIT;  // [Q hi][Q lo][K hi][K lo]
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      float part[F32_ROWS * 8];  // [row][key], this lane's columns only
+    for (int i = 0; i < 4; ++i) {
+      const int idx = wt + 128 * i, which = idx / 256, off = (idx % 256) * 16;
+      const float4 x = *reinterpret_cast<const float4*>(st + (2 * which + g) * F32_TILE + off);
+      const float4 hi = tf32_hi(x);
+      *reinterpret_cast<float4*>(sp + 2 * which * F32_TILE + off) = hi;
+      *reinterpret_cast<float4*>(sp + (2 * which + 1) * F32_TILE + off) = tf32_lo(x, hi);
+    }
+    release();
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < F32_ROWS * 8; ++i) part[i] = 0.f;
+    for (int kk = 0; kk < F32_KC / 8; ++kk) {
+      const uint64_t qh = make_desc(sp, 64) + 2 * kk, ql = make_desc(sp + F32_TILE, 64) + 2 * kk;
+      const uint64_t kh = make_desc(sp + 2 * F32_TILE, 64) + 2 * kk;
+      const uint64_t kl = make_desc(sp + 3 * F32_TILE, 64) + 2 * kk;
+      wgmma_tf32<64>(acc, ql, kh);
+      wgmma_tf32<64>(acc, qh, kl);
+      wgmma_tf32<64>(acc, qh, kh);
+    }
+    wgmma_commit();
+    // unit k - 1's products are done: its split buffer may be written again
+    wgmma_wait<1>();
+    ++k;
+  };
+
+  for (int t = 0; t < n / F32_BK; ++t) {
+    // ---- S_g = Q[:, half g] K[:, half g]^T, 3xTF32, in two parts ----
+    float sacc[32], sacc2[32];
 #pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int c = 4 * lane + 128 * j;
-        float4 qv[F32_ROWS];
+    for (int i = 0; i < 32; ++i) sacc[i] = sacc2[i] = 0.f;
+    for (int u = 0; u < U::NS / 2; ++u) s_unit(sacc);
+    for (int u = 0; u < U::NS / 2; ++u) s_unit(sacc2);
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    fence_regs(sacc2);
 #pragma unroll
-        for (int r = 0; r < F32_ROWS; ++r) qv[r] = *reinterpret_cast<const float4*>(qw + r * C + c);
+    for (int i = 0; i < 32; ++i) sacc[i] += sacc2[i];
+
+    // ---- S = S_0 + S_1, through shared memory; both warpgroups then hold
+    // the same S, m, l and P, bit for bit ----
+    float* xmine = reinterpret_cast<float*>(mine);
+    const float* xtheirs = reinterpret_cast<const float*>(theirs);
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const float4 kv = *reinterpret_cast<const float4*>(sK + (8 * g + kk) * C + c);
+    for (int i = 0; i < 32; ++i) xmine[i * 128 + wt] = sacc[i];
+    named_barrier(3, F32_THREADS);
 #pragma unroll
-          for (int r = 0; r < F32_ROWS; ++r) {
-            float p = part[r * 8 + kk];
-            p = fmaf(qv[r].x, kv.x, p);
-            p = fmaf(qv[r].y, kv.y, p);
-            p = fmaf(qv[r].z, kv.z, p);
-            p = fmaf(qv[r].w, kv.w, p);
-            part[r * 8 + kk] = p;
+    for (int i = 0; i < 32; ++i) sacc[i] = (sacc[i] + xtheirs[i * 128 + wt]) * scale;
+
+    // ---- online softmax over the tile's 64 logits of rows row0, row0 + 8 ----
+    float mx[2] = {MASKED, MASKED};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      corr[r] = expf(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_run[r] *= corr[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sacc[i] = expf(sacc[i] - m_run[(i >> 1) & 1]);
+      l_run[(i >> 1) & 1] += sacc[i];
+    }
+#pragma unroll
+    for (int i = 0; i < H / 2; ++i) oacc[i] *= corr[(i >> 1) & 1];
+    // P's hi (warpgroup 0) or lo (warpgroup 1) as the K-major A of P V:
+    // two 128-byte swizzled blocks of 32 keys, 16-byte chunk c of row r at
+    // c ^ (r % 8)
+    uint8_t* pdst = ptile + g * F32_P;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + 8 * half, key = 8 * j + 2 * tig;
+        const float p0 = sacc[4 * j + 2 * half], p1 = sacc[4 * j + 2 * half + 1];
+        const float h0 = to_tf32(p0), h1 = to_tf32(p1);
+        const float2 val = g == 0 ? make_float2(h0, h1)
+                                  : make_float2(to_tf32(p0 - h0), to_tf32(p1 - h1));
+        *reinterpret_cast<float2*>(pdst + (key >> 5) * (F32_BQ * 128) + row * 128 +
+                                   ((((key & 31) >> 2) ^ (row & 7)) << 4) + (key & 3) * 4) = val;
+      }
+    }
+    fence_proxy_async();
+    named_barrier(3, F32_THREADS);  // P is written, and S_1-g is read
+
+    // ---- O_g += P V[:, half g], 3xTF32: per pass, OC channels into fresh
+    // accumulators over the tile's 64 keys, 16 a unit, then an fp32 add ----
+#pragma unroll
+    for (int p = 0; p < U::NP; ++p) {
+      float tacc[OC / 2];
+#pragma unroll
+      for (int i = 0; i < OC / 2; ++i) tacc[i] = 0.f;
+      for (int v = 0; v < U::NV; ++v) {
+        const int s = k % F32_STAGES;
+        mbar_wait(&full[s], (k / F32_STAGES) & 1);
+        const float* raw = reinterpret_cast<const float*>(ring + s * F32_UNIT + g * U::V_HALF);
+        uint8_t* sp = mine + (k & 1) * F32_UNIT;  // V^T hi, then lo: OC rows x 16 keys
+        // V^T as a K-major B, 64-byte swizzled: chunk c of row ch at c ^ ((ch / 2) % 4)
+#pragma unroll
+        for (int ch = wt; ch < OC; ch += 128) {
+          const int sw = (ch >> 1) & 3;
+          uint8_t* rowp = sp + ch * 64;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float4 x = make_float4(raw[(4 * c) * OC + ch], raw[(4 * c + 1) * OC + ch],
+                                         raw[(4 * c + 2) * OC + ch], raw[(4 * c + 3) * OC + ch]);
+            const float4 hi = tf32_hi(x);
+            *reinterpret_cast<float4*>(rowp + ((c ^ sw) << 4)) = hi;
+            *reinterpret_cast<float4*>(rowp + OC * 64 + ((c ^ sw) << 4)) = tf32_lo(x, hi);
           }
         }
-      }
-      s[g] = reduce_scatter32(part, lane) * scale;
-    }
-
-    // ---- online softmax: row lane/8's 32 logits sit on its 8 lanes ----
-    float mx = fmaxf(fmaxf(s[0], s[1]), fmaxf(s[2], s[3]));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-    const float m_new = fmaxf(m_run, mx);
-    float sum = 0.f;
+        release();
+        wgmma_fence();
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const float p = expf(s[g] - m_new);
-      sum += p;
-      pw[(lane / 8) * F32_BK + 8 * g + lane % 8] = p;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-    const float corr = expf(m_run - m_new);
-    l_run = l_run * corr + sum;
-    m_run = m_new;
-    __syncwarp();  // this warp's P rows are written
-
-    // ---- acc = acc * corr + P V_t over this lane's columns ----
-#pragma unroll
-    for (int r = 0; r < F32_ROWS; ++r) {
-      const float cr = __shfl_sync(0xffffffffu, corr, 8 * r);
-#pragma unroll
-      for (int j = 0; j < J; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[r][j][e] *= cr;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < F32_BK; ++kk) {
-      float4 vv[J];
-#pragma unroll
-      for (int j = 0; j < J; ++j)
-        vv[j] = *reinterpret_cast<const float4*>(sV + kk * C + 4 * lane + 128 * j);
-#pragma unroll
-      for (int r = 0; r < F32_ROWS; ++r) {
-        const float p = pw[r * F32_BK + kk];
-#pragma unroll
-        for (int j = 0; j < J; ++j) {
-          acc[r][j][0] = fmaf(p, vv[j].x, acc[r][j][0]);
-          acc[r][j][1] = fmaf(p, vv[j].y, acc[r][j][1]);
-          acc[r][j][2] = fmaf(p, vv[j].z, acc[r][j][2]);
-          acc[r][j][3] = fmaf(p, vv[j].w, acc[r][j][3]);
+        for (int kk = 0; kk < F32_VK / 8; ++kk) {
+          const int step = v * (F32_VK / 8) + kk;  // the k-step of P's 64 keys
+          const int pb = (step / 4) * (F32_BQ * 128);
+          const uint64_t ph = make_desc(ptile + pb, 128) + 2 * (step % 4);
+          const uint64_t pl = make_desc(ptile + F32_P + pb, 128) + 2 * (step % 4);
+          const uint64_t vh = make_desc(sp, 64) + 2 * kk, vl = make_desc(sp + OC * 64, 64) + 2 * kk;
+          wgmma_tf32<OC>(tacc, pl, vh);
+          wgmma_tf32<OC>(tacc, ph, vl);
+          wgmma_tf32<OC>(tacc, ph, vh);
         }
+        wgmma_commit();
+        wgmma_wait<1>();
+        ++k;
       }
+      wgmma_wait<0>();
+      fence_regs(tacc);
+#pragma unroll
+      for (int i = 0; i < OC / 2; ++i) oacc[p * (OC / 2) + i] += tacc[i];
     }
-    __syncwarp();  // P is read before the next tile overwrites it
   }
 
-  // ---- O = acc / l, fp32 ----
+  // ---- O = acc / l, fp32: this warpgroup's H columns of rows row0, row0 + 8 ----
 #pragma unroll
-  for (int r = 0; r < F32_ROWS; ++r) {
-    const float l = __shfl_sync(0xffffffffu, l_run, 8 * r);
-    float* orow = o + base + static_cast<size_t>(q0 + warp * F32_ROWS + r) * C;
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
 #pragma unroll
-    for (int j = 0; j < J; ++j)
-      *reinterpret_cast<float4*>(orow + 4 * lane + 128 * j) =
-          make_float4(acc[r][j][0] / l, acc[r][j][1] / l, acc[r][j][2] / l, acc[r][j][3] / l);
+  for (int half = 0; half < 2; ++half) {
+    float* orow = o + (static_cast<size_t>(b) * n + q0 + row0 + 8 * half) * C + g * H;
+#pragma unroll
+    for (int j = 0; j < H / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j + 2 * tig) =
+          make_float2(oacc[4 * j + 2 * half] / l_run[half],
+                      oacc[4 * j + 2 * half + 1] / l_run[half]);
   }
 }
 
 template <int C>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int b, int n,
                        float scale, cudaStream_t stream) {
-  const int bytes = F32Layout<C>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  CUtensorMap qmap, kmap, vmap;
+  const uint64_t dims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(n),
+                            static_cast<uint64_t>(b)};
+  const uint64_t strides[2] = {4ull * C, 4ull * C * n};
+  const uint32_t qkbox[3] = {F32_KC, F32_BQ, 1};
+  const uint32_t vbox[3] = {F32Units<C>::OC, F32_VK, 1};
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  cudaError_t err = make_tensor_map(&qmap, q, 3, dims, strides, qkbox, 64, f32);
+  if (err == cudaSuccess) err = make_tensor_map(&kmap, k, 3, dims, strides, qkbox, 64, f32);
+  if (err == cudaSuccess) err = make_tensor_map(&vmap, v, 3, dims, strides, vbox, 0, f32);
   if (err != cudaSuccess) return err;
-  flash_fwd_f32_kernel<C><<<dim3(n / F32_BQ, b), THREADS, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), n, scale);
+  err = cudaFuncSetAttribute(flash_fwd_f32_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             F32_SMEM);
+  if (err != cudaSuccess) return err;
+  flash_fwd_f32_kernel<C><<<dim3(n / F32_BQ, b), F32_THREADS, F32_SMEM, stream>>>(
+      qmap, kmap, vmap, static_cast<float*>(o), n, scale);
   return cudaGetLastError();
 }
 

@@ -1,11 +1,12 @@
 // The fused GroupNorm+SiLU+conv3x3 resnet kernels, hand-written for Hopper
-// (sm_90a), over NCHW tensors with no layout transposes.
+// (sm_90a), over NCHW tensors: no activation is transposed, and #9 and #11
+// write their conv input s = silu(a*x + o) once, pixel-major, into a scratch.
 //
 // Replaces the Pallas TPU kernels of vae_channel_dynamics_tpu/ops/
 // pallas_resnet.py:
 //   fused_gn_silu_conv3x3 <- _fused_fwd_kernel (:173): y = conv3x3(silu(a*x + o))
 //                            + bias (+ residual), the optional sum |z| tap over
-//                            the tile's own pixels and the optional sum y,
+//                            the image's own pixels and the optional sum y,
 //                            sum y^2 of the fp32 output;
 //   conv3x3               <- _plain_conv_kernel (:361): conv3x3(x) + bias, which
 //                            the backward runs on dy with the flipped,
@@ -17,31 +18,38 @@
 // What bounds them on the H100: at the 256px step's 32x32 mid-level resnets
 // (16, 512, 32, 32), each is 2*N*H*W*9*Cin*Cout = 77.3 GFLOP against about
 // 55 MB of device memory, some 1,400 FLOPs a byte: tensor-core bound (0.078
-// ms at 989 TFLOP/s; the bytes need 0.016 ms). The design keeps every
-// operand of the products in shared memory and every accumulator in
-// registers, and feeds bf16 mma.sync (m16n8k16, fp32 accumulate) from
-// ldmatrix loads (#9 and #10; #11 is on wgmma, below).
+// ms at 989 TFLOP/s; the bytes need 0.016 ms).
 //
-// The convolution is an implicit GEMM. Forward and input gradient: M = output
-// channels, N = a tile of output pixels, K = 9 * input channels. A block owns
-// 128 output channels of one sample and an 8-row by 16-column pixel tile, so
-// any W that is a multiple of 16 and any H work (rows past H are masked).
-// Per chunk of 32 input channels it
+// fused_gn_silu_conv3x3, on wgmma/TMA. s is computed once, not by each of
+// the Cout / 128 output-channel blocks over its tiles' halo windows, and the
+// products run from a ring of TMA stages:
+//   1. silu_nhwc_kernel computes s = silu(a*x + o), rounded to bf16, once,
+//      into an NHWC scratch (N, H, W, Cin), and, where asked, each block's
+//      sum |z| over its own 64 pixels for its 64 channels, added over the
+//      blocks in a fixed order by sum_tiles_kernel;
+//   2. kernel #12's loop (sm90_conv3x3.cuh) runs the conv on s and the HWIO
+//      weight; the conv's zero padding of s is TMA's zero fill, which is the
+//      JAX kernel's mask after the affine (a zero x never enters as silu(o));
+//   3. its epilogue stages acc + bias in fp32 in the free ring, then writes y
+//      NCHW, each output channel's row of the pixel rectangle in 16-byte
+//      stores masked to the image, adding the NCHW residual in fp32 first,
+//      and the tile's sum y and sum y^2 of the fp32 y as per-tile partials,
+//      which sum_tiles_kernel adds in a fixed order. No atomics.
+//
+// conv3x3 is an implicit GEMM on mma.sync: M = output channels, N = a tile of
+// output pixels, K = 9 * input channels. A block owns 128 output channels of
+// one sample and an 8-row by 16-column pixel tile, so any W that is a
+// multiple of 16 and any H work (rows past H are masked). Per chunk of 32
+// input channels it
 //   1. copies the weights, laid out [tap][out][in] by the wrapper, with
 //      cp.async into shared memory (9 x 128 x 32, rows padded to 40);
-//   2. reads the 10 x 18 halo window of x for those channels, applies
-//      z = a*x + o in fp32, zeroes the out-of-image rows and columns after the
-//      affine (a zero x would otherwise normalise to o), takes s = z*sigmoid(z),
-//      rounds s to bf16 and stores it pixel-major, [pixel][channel]: a shifted
-//      tap is then only another pixel row, so every ldmatrix address stays
+//   2. reads the 10 x 18 halo window of x for those channels, zero outside
+//      the image, and stores it pixel-major, [pixel][channel]: a shifted tap
+//      is then only another pixel row, so every ldmatrix address stays
 //      16-byte aligned whatever the shift;
 //   3. runs 9 taps x 2 k-steps of 16 on eight warps, each 64 channels x 32
 //      pixels (4 x 4 mma tiles, 64 fp32 accumulators a thread).
-// The epilogue adds bias and residual in fp32, stores bf16, and writes the
-// tile's sum y and sum y^2 per channel; the |z| tap sums only the tile's own
-// pixels, never the halo. Those per-tile partials are written without
-// atomics and a second kernel sums them over tiles in a fixed order.
-// conv3x3 is the same kernel with s = x (no affine, no SiLU).
+// The epilogue adds the bias in fp32 and stores bf16.
 //
 // conv3x3_dw (redesigned for wgmma/TMA; the mma.sync version ran at 14% of
 // its bound: one stage, s recomputed with one expf per element by each of
@@ -74,12 +82,13 @@
 //      in device memory, no atomics: two runs give the same bits.
 //
 // Plain C interface for ctypes: pointers and the stream are void*; every
-// activation is bf16 NCHW, a and o fp32 (N, Cin), bias fp32 or null. Each
+// activation is bf16 NCHW (the scratch s NHWC), a and o fp32 (N, Cin), bias
+// fp32 or null. Each
 // function returns cudaGetLastError() after its launches; it launches on the
 // caller's stream, allocates nothing and does not synchronise.
 
+#include "sm90_conv3x3.cuh"
 #include "sm90_mma.cuh"
-#include "sm90_wgmma.cuh"
 
 #include <cooperative_groups.h>
 
@@ -87,6 +96,7 @@ namespace {
 
 using namespace vcd;
 using namespace vcd::sm90;
+namespace c3 = vcd::conv3x3;
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
@@ -97,13 +107,12 @@ constexpr int KC = 32;                    // input channels per window
 constexpr int LDW = KC + PAD;             // window row stride: [pixel][channel]
 constexpr int WIN_ITEMS = WR * KC;        // (window row, channel) pairs
 
-// forward / input-gradient conv
+// input-gradient conv
 constexpr int BM = 128;                   // output channels per block
 constexpr int LDA = KC + PAD;             // weight rows [tap][out][in chunk]
 constexpr int A_BYTES = 9 * BM * LDA * 2;
 constexpr int W_BYTES = WIN_PX * LDW * 2;
-constexpr int TAP_BYTES = WARPS * 32 * 4;
-constexpr int CONV_SMEM = A_BYTES + W_BYTES + TAP_BYTES;
+constexpr int CONV_SMEM = A_BYTES + W_BYTES;
 
 __device__ __forceinline__ float sigmoid(float z) { return 1.0f / (1.0f + expf(-z)); }
 
@@ -114,83 +123,54 @@ __device__ __forceinline__ float affine(float x, float a, float o) {
 
 // Fills the [pixel][channel] halo window for KC channels starting at plane
 // `plane0` (= sample * C + first channel) around the tile whose top-left
-// output pixel is (row0, col0). With GN, s = silu(a*x + o) rounded to bf16,
-// zero outside the image; without, s = x, zero outside. Returns this thread's
-// sum |z| over the tile's own pixels of channel (tid % KC); KC = 32 and 256
-// threads put one channel on each lane.
-template <bool GN>
-__device__ __forceinline__ float fill_window(bf16* __restrict__ win, const bf16* __restrict__ x,
-                                             const float* __restrict__ a,
-                                             const float* __restrict__ o, int plane0, int h,
-                                             int w, int row0, int col0, int tid) {
-  float tap = 0.0f;
+// output pixel is (row0, col0): x, zero outside the image.
+__device__ __forceinline__ void fill_window(bf16* __restrict__ win, const bf16* __restrict__ x,
+                                            int plane0, int h, int w, int row0, int col0,
+                                            int tid) {
   for (int i = tid; i < WIN_ITEMS; i += THREADS) {
     const int ch = i % KC, wr = i / KC;
     const int row = row0 - 1 + wr;
     const bool row_ok = row >= 0 && row < h;
-    const bool left_ok = row_ok && col0 > 0;
-    const bool right_ok = row_ok && col0 + TC < w;
-    bf16 raw[WC];
-    const bf16 zero = __float2bfloat16(0.0f);
-    if (row_ok) {
-      const bf16* xp = x + (static_cast<size_t>(plane0 + ch) * h + row) * w + col0;
-      const uint4 lo = *reinterpret_cast<const uint4*>(xp);
-      const uint4 hi = *reinterpret_cast<const uint4*>(xp + 8);
-      const bf16* l8 = reinterpret_cast<const bf16*>(&lo);
-      const bf16* h8 = reinterpret_cast<const bf16*>(&hi);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        raw[1 + j] = l8[j];
-        raw[9 + j] = h8[j];
-      }
-      raw[0] = left_ok ? xp[-1] : zero;
-      raw[WC - 1] = right_ok ? xp[TC] : zero;
-    } else {
-#pragma unroll
-      for (int j = 0; j < WC; ++j) raw[j] = zero;
-    }
     bf16* dst = win + (wr * WC) * LDW + ch;
-    if (GN) {
-      const float ap = a[plane0 + ch], op = o[plane0 + ch];
-      const bool own = row_ok && wr >= 1 && wr <= TR;
+    const bf16 zero = __float2bfloat16(0.0f);
+    if (!row_ok) {
 #pragma unroll
-      for (int j = 0; j < WC; ++j) {
-        const bool ok = (j == 0) ? left_ok : (j == WC - 1) ? right_ok : row_ok;
-        const float z = ok ? affine(__bfloat162float(raw[j]), ap, op) : 0.0f;
-        if (own && j >= 1 && j <= TC) tap += fabsf(z);
-        dst[j * LDW] = __float2bfloat16(z * sigmoid(z));
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < WC; ++j) dst[j * LDW] = raw[j];
+      for (int j = 0; j < WC; ++j) dst[j * LDW] = zero;
+      continue;
     }
+    const bf16* xp = x + (static_cast<size_t>(plane0 + ch) * h + row) * w + col0;
+    const uint4 lo = *reinterpret_cast<const uint4*>(xp);
+    const uint4 hi = *reinterpret_cast<const uint4*>(xp + 8);
+    const bf16* l8 = reinterpret_cast<const bf16*>(&lo);
+    const bf16* h8 = reinterpret_cast<const bf16*>(&hi);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      dst[(1 + j) * LDW] = l8[j];
+      dst[(9 + j) * LDW] = h8[j];
+    }
+    dst[0] = col0 > 0 ? xp[-1] : zero;
+    dst[(WC - 1) * LDW] = col0 + TC < w ? xp[TC] : zero;
   }
-  return tap;
 }
 
-// y (N, Cout, H, W) = conv3x3(s) + bias (+ residual), s = silu(a*x + o) with
-// GN or x without; see the header. Grid (tiles, Cout / BM, N).
-template <bool GN>
+// y (N, Cout, H, W) = conv3x3(x) + bias; see the header. Grid (tiles, Cout /
+// BM, N).
 __global__ void __launch_bounds__(THREADS, 2)
-    conv3x3_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
-                   const float* __restrict__ o, const bf16* __restrict__ w9,
-                   const float* __restrict__ bias, const bf16* __restrict__ residual,
-                   bf16* __restrict__ y, float* __restrict__ tap_part,
-                   float* __restrict__ mom_part, int cin, int cout, int h, int w) {
+    conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w9,
+                   const float* __restrict__ bias, bf16* __restrict__ y, int cin, int cout, int h,
+                   int w) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sA = reinterpret_cast<bf16*>(smem);
   bf16* sW = reinterpret_cast<bf16*>(smem + A_BYTES);
-  float* sTap = reinterpret_cast<float*>(smem + A_BYTES + W_BYTES);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int warp_m = warp / 4, warp_n = warp % 4;
   const int gid = lane / 4, tig = lane % 4;
   const int tiles_w = w / TC;
-  const int tile = blockIdx.x, tiles = gridDim.x;
+  const int tile = blockIdx.x;
   const int row0 = (tile / tiles_w) * TR, col0 = (tile % tiles_w) * TC;
   const int co0 = blockIdx.y * BM;
   const int n = blockIdx.z;
-  const bool emit_tap = GN && tap_part != nullptr && blockIdx.y == 0;
 
   float acc[4][4][4];
 #pragma unroll
@@ -210,17 +190,10 @@ __global__ void __launch_bounds__(THREADS, 2)
                  w9 + (static_cast<size_t>(tap) * cout + co0 + co) * cin + ci0 + part * 8);
     }
     cp_async_commit();
-    // 2. the s window
-    const float tap = fill_window<GN>(sW, x, a, o, n * cin + ci0, h, w, row0, col0, tid);
-    if (emit_tap) sTap[tid] = tap;
+    // 2. the x window
+    fill_window(sW, x, n * cin + ci0, h, w, row0, col0, tid);
     cp_async_wait<0>();
     __syncthreads();
-    if (emit_tap && warp == 0) {
-      float t = 0.0f;
-#pragma unroll
-      for (int k = 0; k < WARPS; ++k) t += sTap[k * 32 + lane];
-      tap_part[(static_cast<size_t>(n) * tiles + tile) * cin + ci0 + lane] = t;
-    }
     // 3. the products: 9 taps x 2 k-steps
 #pragma unroll 1
     for (int tp = 0; tp < 9; ++tp) {
@@ -250,60 +223,22 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
   }
 
-  // epilogue: bias, residual, bf16 store, per-tile moments
-  const bool moments = mom_part != nullptr;
-  __syncthreads();  // sA is reused for the moments' cross-warp sums
-  float* sSum = reinterpret_cast<float*>(smem);
-  float* sSq = sSum + 4 * BM;
+  // epilogue: bias in fp32, bf16 store
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int cl = warp_m * 64 + mt * 16 + gid + half * 8;
-      const int co = co0 + cl;
+      const int co = co0 + warp_m * 64 + mt * 16 + gid + half * 8;
       const float bc = bias != nullptr ? bias[co] : 0.0f;
-      float msum = 0.0f, msq = 0.0f;
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const int row = row0 + 2 * warp_n + nt / 2;
         if (row >= h) continue;
         const int col = col0 + (nt % 2) * 8 + 2 * tig;
         const size_t off = (static_cast<size_t>(n * cout + co) * h + row) * w + col;
-        float y0 = acc[mt][nt][2 * half] + bc, y1 = acc[mt][nt][2 * half + 1] + bc;
-        if (residual != nullptr) {
-          const float2 rv =
-              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(residual + off));
-          y0 += rv.x;
-          y1 += rv.y;
-        }
-        msum += y0 + y1;
-        msq += y0 * y0 + y1 * y1;
-        *reinterpret_cast<__nv_bfloat162*>(y + off) = __floats2bfloat162_rn(y0, y1);
+        *reinterpret_cast<__nv_bfloat162*>(y + off) =
+            __floats2bfloat162_rn(acc[mt][nt][2 * half] + bc, acc[mt][nt][2 * half + 1] + bc);
       }
-      if (moments) {
-        msum += __shfl_xor_sync(0xffffffffu, msum, 1);
-        msum += __shfl_xor_sync(0xffffffffu, msum, 2);
-        msq += __shfl_xor_sync(0xffffffffu, msq, 1);
-        msq += __shfl_xor_sync(0xffffffffu, msq, 2);
-        if (tig == 0) {
-          sSum[warp_n * BM + cl] = msum;
-          sSq[warp_n * BM + cl] = msq;
-        }
-      }
-    }
-  }
-  if (moments) {
-    __syncthreads();
-    if (tid < BM) {
-      float s = 0.0f, q = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        s += sSum[k * BM + tid];
-        q += sSq[k * BM + tid];
-      }
-      const size_t off = (static_cast<size_t>(n) * tiles + tile) * cout + co0 + tid;
-      mom_part[off] = s;
-      mom_part[static_cast<size_t>(gridDim.z) * tiles * cout + off] = q;
     }
   }
 }
@@ -320,29 +255,46 @@ __global__ void sum_tiles_kernel(const float* __restrict__ part, float* __restri
   out[idx] = s;
 }
 
-// ---- conv3x3_dw ------------------------------------------------------------ //
+// ---- the NHWC pre-pass (#9 and #11) ---------------------------------------- //
 // s (N, H, W, Cin) bf16 = silu(a*x + o) rounded, from x (N, Cin, H, W): the
-// weight gradient's input, computed once and laid out pixel-major so that
-// its window is one TMA box. A block transposes 64 channels x 64 pixels
-// through shared memory, 16 bytes a load and a store (H*W is a multiple of
-// 16). Grid (ceil(H*W / 64), Cin / 64, N).
+// input of #9's conv and of the weight gradient, computed once and laid out
+// pixel-major so that a tap's operand is one TMA box. A block transposes 64
+// channels x 64 pixels through shared memory, 16 bytes a load and a store
+// (H*W is a multiple of 16). With tap_part, the block also writes its
+// channels' sum |z| over its own pixels to tap_part (N, blocks, Cin): each
+// thread sums its 8 pixels in order, then the channel's 8 threads (lanes 8q
+// .. 8q + 7) add theirs by shuffles in a fixed order. Grid (ceil(H*W / 64),
+// Cin / 64, N).
+constexpr int SILU_PIXELS = 64;  // pixels (and channels) of one pre-pass block
+
 __global__ void __launch_bounds__(256)
     silu_nhwc_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
-                     const float* __restrict__ o, bf16* __restrict__ s, int cin, int hw) {
+                     const float* __restrict__ o, bf16* __restrict__ s,
+                     float* __restrict__ tap_part, int cin, int hw) {
   __shared__ __align__(16) bf16 tile[64][64 + 8];
-  const int p0 = blockIdx.x * 64, c0 = blockIdx.y * 64, n = blockIdx.z;
-  for (int i = threadIdx.x; i < 64 * 8; i += 256) {
+  const int p0 = blockIdx.x * SILU_PIXELS, c0 = blockIdx.y * 64, n = blockIdx.z;
+  for (int i = threadIdx.x; i < 64 * 8; i += 256) {  // two rounds, every thread in both
     const int c = i / 8, pv = (i % 8) * 8;
     const int plane = n * cin + c0 + c;
-    if (p0 + pv >= hw) continue;
-    const uint4 raw =
-        *reinterpret_cast<const uint4*>(x + static_cast<size_t>(plane) * hw + p0 + pv);
-    const bf16* v = reinterpret_cast<const bf16*>(&raw);
-    const float ap = a[plane], op = o[plane];
+    float tap = 0.0f;
+    if (p0 + pv < hw) {
+      const uint4 raw =
+          *reinterpret_cast<const uint4*>(x + static_cast<size_t>(plane) * hw + p0 + pv);
+      const bf16* v = reinterpret_cast<const bf16*>(&raw);
+      const float ap = a[plane], op = o[plane];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float z = affine(__bfloat162float(v[j]), ap, op);
-      tile[pv + j][c] = __float2bfloat16(z * sigmoid(z));
+      for (int j = 0; j < 8; ++j) {
+        const float z = affine(__bfloat162float(v[j]), ap, op);
+        tap += fabsf(z);
+        tile[pv + j][c] = __float2bfloat16(z * sigmoid(z));
+      }
+    }
+    if (tap_part != nullptr) {
+      tap += __shfl_xor_sync(0xffffffffu, tap, 1);
+      tap += __shfl_xor_sync(0xffffffffu, tap, 2);
+      tap += __shfl_xor_sync(0xffffffffu, tap, 4);
+      if (i % 8 == 0)
+        tap_part[(static_cast<size_t>(n) * gridDim.x + blockIdx.x) * cin + c0 + c] = tap;
     }
   }
   __syncthreads();
@@ -352,6 +304,104 @@ __global__ void __launch_bounds__(256)
     *reinterpret_cast<uint4*>(s + (static_cast<size_t>(n) * hw + p0 + p) * cin + c0 + cv) =
         *reinterpret_cast<const uint4*>(&tile[p][cv]);
   }
+}
+
+// The pre-pass's blocks along the pixels of one image, and so its |z| partials.
+inline int silu_chunks(int hw) { return (hw + SILU_PIXELS - 1) / SILU_PIXELS; }
+
+cudaError_t silu_nhwc(const void* x, const void* a, const void* o, void* s, void* tap_part,
+                      int n, int cin, int hw, cudaStream_t stream) {
+  silu_nhwc_kernel<<<dim3(silu_chunks(hw), cin / 64, n), 256, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(a), static_cast<const float*>(o),
+      static_cast<bf16*>(s), static_cast<float*>(tap_part), cin, hw);
+  return cudaGetLastError();
+}
+
+// ---- fused_gn_silu_conv3x3 --------------------------------------------------- //
+// #9's epilogue on #12's loop: y (N, Cout, H, W) = acc + bias (+ residual), in
+// fp32, rounded once; per-tile sum y and sum y^2 of that fp32 y into mom_part
+// (2, N, tiles, Cout). acc + bias is staged [channel][pixel] in the free ring
+// (rows of 128 + 4 floats: the fragment's stores hit 32 banks), then each
+// consumer thread takes 8 pixels of one channel's row of the rectangle: a
+// 16-byte residual load and y store, masked to the image. bias and residual
+// are read with __ldg, so that they need not wait for the stores to y.
+struct NchwEpilogue {
+  const float* bias;
+  const bf16* residual;
+  bf16* y;
+  float* mom_part;
+  int h, wd, cout;
+
+  __device__ __forceinline__ void operator()(float (&acc)[64], uint8_t* smem, const c3::Tile& t,
+                                             int wg, int warp, int lane) const {
+    constexpr int LD = c3::BM + 4;
+    constexpr int SEGS = c3::BM / 8;  // 8-pixel segments of a channel's row
+    static_assert(c3::BN * LD * 4 <= c3::RING, "the staging fits the ring");
+    float* stage = reinterpret_cast<float*>(smem);
+    const int gid = lane / 4, tig = lane % 4;
+    c3::consumers_sync();  // every consumer's products are done with the ring
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = wg * 64 + (warp % 4) * 16 + gid + half * 8;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = 8 * j + 2 * tig;
+        const float b0 = bias != nullptr ? __ldg(bias + t.co0 + c) : 0.0f;
+        const float b1 = bias != nullptr ? __ldg(bias + t.co0 + c + 1) : 0.0f;
+        stage[c * LD + m] = acc[4 * j + 2 * half] + b0;
+        stage[(c + 1) * LD + m] = acc[4 * j + 2 * half + 1] + b1;
+      }
+    }
+    c3::consumers_sync();
+    const int ct = threadIdx.x, tiles = gridDim.x;
+#pragma unroll 1
+    for (int it = 0; it < c3::BN * SEGS / (c3::CONSUMERS * 128); ++it) {
+      const int item = it * c3::CONSUMERS * 128 + ct, c = item / SEGS, seg = item % SEGS;
+      const int px0 = seg * 8, ph = t.h0 + px0 / t.bw, pw = t.w0 + px0 % t.bw;
+      const float4 v0 = *reinterpret_cast<const float4*>(stage + c * LD + px0);
+      const float4 v1 = *reinterpret_cast<const float4*>(stage + c * LD + px0 + 4);
+      float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+      float sum = 0.0f, sq = 0.0f;
+      if (ph < h && pw < wd) {
+        const size_t off = (static_cast<size_t>(t.n * cout + t.co0 + c) * h + ph) * wd + pw;
+        if (residual != nullptr) {
+          const uint4 r = __ldg(reinterpret_cast<const uint4*>(residual + off));
+          const bf16* rb = reinterpret_cast<const bf16*>(&r);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] += __bfloat162float(rb[e]);
+        }
+        uint4 out;
+        bf16* ob = reinterpret_cast<bf16*>(&out);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          sum += v[e];
+          sq += v[e] * v[e];
+          ob[e] = __float2bfloat16(v[e]);
+        }
+        *reinterpret_cast<uint4*>(y + off) = out;
+      }
+      if (mom_part != nullptr) {
+        // the channel's 16 segments are lanes 16q .. 16q + 15: a fixed order
+#pragma unroll
+        for (int d = 1; d < SEGS; d *= 2) {
+          sum += __shfl_xor_sync(0xffffffffu, sum, d);
+          sq += __shfl_xor_sync(0xffffffffu, sq, d);
+        }
+        if (seg == 0) {
+          const size_t mo = (static_cast<size_t>(t.n) * tiles + blockIdx.x) * cout + t.co0 + c;
+          mom_part[mo] = sum;
+          mom_part[static_cast<size_t>(gridDim.z) * tiles * cout + mo] = sq;
+        }
+      }
+    }
+  }
+};
+
+__global__ void __launch_bounds__(c3::THREADS, 2)
+    fused_gn_silu_conv3x3_kernel(const __grid_constant__ CUtensorMap smap,
+                                 const __grid_constant__ CUtensorMap wmap,
+                                 const NchwEpilogue epi, int wd, int cin, int bw) {
+  c3::conv3x3_wgmma<64>(&smap, &wmap, wd, cin, bw, epi);
 }
 
 constexpr int DW_CI = 64;              // input channels per block: wgmma's M
@@ -560,10 +610,7 @@ cudaError_t launch_dw(const void* x, const void* a, const void* o, const void* d
                       cudaStream_t stream) {
   using T = DwTile<BW>;
   const int hw = h * w;
-  silu_nhwc_kernel<<<dim3((hw + 63) / 64, cin / 64, n), 256, 0, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(a), static_cast<const float*>(o),
-      static_cast<bf16*>(s), cin, hw);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = silu_nhwc(x, a, o, s, nullptr, n, cin, hw, stream);
   if (err != cudaSuccess) return err;
   CUtensorMap smap, dymap;
   const uint64_t sdims[4] = {static_cast<uint64_t>(cin), static_cast<uint64_t>(w),
@@ -614,19 +661,33 @@ cudaError_t sum_tiles(const float* part, float* out, int rows, int tiles, int c,
   return cudaGetLastError();
 }
 
-template <bool GN>
-cudaError_t launch_conv(const void* x, const void* a, const void* o, const void* w9,
-                        const void* bias, const void* residual, void* y, void* tap_part,
-                        void* mom_part, int n, int cin, int cout, int h, int w,
-                        cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(conv3x3_kernel<GN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, CONV_SMEM);
+cudaError_t launch_conv(const void* x, const void* w9, const void* bias, void* y, int n, int cin,
+                        int cout, int h, int w, cudaStream_t s) {
+  cudaError_t err =
+      cudaFuncSetAttribute(conv3x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, CONV_SMEM);
   if (err != cudaSuccess) return err;
-  conv3x3_kernel<GN><<<dim3(tile_count(h, w), cout / BM, n), THREADS, CONV_SMEM, s>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(a), static_cast<const float*>(o),
-      static_cast<const bf16*>(w9), static_cast<const float*>(bias),
-      static_cast<const bf16*>(residual), static_cast<bf16*>(y), static_cast<float*>(tap_part),
-      static_cast<float*>(mom_part), cin, cout, h, w);
+  conv3x3_kernel<<<dim3(tile_count(h, w), cout / BM, n), THREADS, CONV_SMEM, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w9), static_cast<const float*>(bias),
+      static_cast<bf16*>(y), cin, cout, h, w);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fused(const void* x, const void* a, const void* o, const void* w,
+                         const void* bias, const void* residual, void* y, void* s, void* tap_part,
+                         void* mom_part, int n, int cin, int cout, int h, int wd, int bw,
+                         cudaStream_t stream) {
+  cudaError_t err = silu_nhwc(x, a, o, s, tap_part, n, cin, h * wd, stream);
+  if (err != cudaSuccess) return err;
+  CUtensorMap smap, wmap;
+  err = c3::make_maps(&smap, &wmap, s, w, n, h, wd, cin, cout, bw, 64);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fused_gn_silu_conv3x3_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, c3::SMEM);
+  if (err != cudaSuccess) return err;
+  const NchwEpilogue epi = {static_cast<const float*>(bias), static_cast<const bf16*>(residual),
+                            static_cast<bf16*>(y), static_cast<float*>(mom_part), h, wd, cout};
+  fused_gn_silu_conv3x3_kernel<<<c3::grid(n, h, wd, cout, bw), c3::THREADS, c3::SMEM, stream>>>(
+      smap, wmap, epi, wd, cin, bw);
   return cudaGetLastError();
 }
 
@@ -636,45 +697,54 @@ constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 
 extern "C" {
 
-// x (n, cin, h, w) bf16; a, o (n, cin) fp32; w9 (9, cout, cin) bf16, the OIHW
-// weight as [kh*3 + kw][out][in]; bias (cout) fp32 or null; residual (n, cout,
-// h, w) bf16 or null; y (n, cout, h, w) bf16. For the |z| tap, tap_part
-// (n, tiles, cin) fp32 scratch and tap (n, cin) fp32, else both null; for the
-// moments, mom_part (2, n, tiles, cout) fp32 scratch and ysum, ysq (n, cout)
-// fp32, else all null. tiles = ceil(h / 8) * (w / 16).
-int vcd_fused_gn_silu_conv3x3(const void* x, const void* a, const void* o, const void* w9,
-                              const void* bias, const void* residual, void* y, void* tap_part,
-                              void* tap, void* mom_part, void* ysum, void* ysq, int n, int cin,
-                              int cout, int h, int w, void* stream) {
-  if (!conv_shape_ok(n, cin, cout, h, w)) return kInvalid;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_conv<true>(x, a, o, w9, bias, residual, y, tap_part, mom_part, n, cin,
-                                      cout, h, w, s);
+// x (n, cin, h, w) bf16; a, o (n, cin) fp32; w (3, 3, cin, cout) bf16, the
+// HWIO weight; bias (cout) fp32 or null; residual (n, cout, h, w) bf16 or
+// null; y (n, cout, h, w) bf16; s (n, h, w, cin) bf16 scratch. For the |z|
+// tap, tap_part (n, chunks, cin) fp32 scratch and tap (n, cin) fp32, else
+// both null; for the moments, mom_part (2, n, tiles, cout) fp32 scratch and
+// ysum, ysq (n, cout) fp32, else all null. chunks and tiles are the partial
+// counts the caller sized those buffers by; the call is refused unless they
+// are the kernels' own, chunks = ceil(h*w / 64) and tiles = ceil(h / (128 /
+// bw)) * ceil(w / bw). cin a multiple of 64, cout of 128, w of 16; bw the
+// pixel rectangle's width, a power of two from 16 to 128.
+int vcd_fused_gn_silu_conv3x3(const void* x, const void* a, const void* o, const void* w,
+                              const void* bias, const void* residual, void* y, void* s,
+                              void* tap_part, void* tap, void* mom_part, void* ysum, void* ysq,
+                              int n, int cin, int cout, int h, int wd, int bw, int chunks,
+                              int tiles, void* stream) {
+  if (!conv_shape_ok(n, cin, cout, h, wd) || cin % 64 != 0 || bw < 16 || bw > c3::BM ||
+      (bw & (bw - 1)) != 0)
+    return kInvalid;
+  if ((tap_part != nullptr && chunks != silu_chunks(h * wd)) ||
+      (mom_part != nullptr && tiles != static_cast<int>(c3::grid(n, h, wd, cout, bw).x)))
+    return kInvalid;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_fused(x, a, o, w, bias, residual, y, s, tap_part, mom_part, n, cin,
+                                 cout, h, wd, bw, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = tile_count(h, w);
   if (tap_part != nullptr) {
-    err = sum_tiles(static_cast<const float*>(tap_part), static_cast<float*>(tap), n, tiles, cin,
-                    s);
+    err = sum_tiles(static_cast<const float*>(tap_part), static_cast<float*>(tap), n, chunks, cin,
+                    st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (mom_part != nullptr) {
     const float* mp = static_cast<const float*>(mom_part);
     const size_t one = static_cast<size_t>(n) * tiles * cout;
-    err = sum_tiles(mp, static_cast<float*>(ysum), n, tiles, cout, s);
+    err = sum_tiles(mp, static_cast<float*>(ysum), n, tiles, cout, st);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = sum_tiles(mp + one, static_cast<float*>(ysq), n, tiles, cout, s);
+    err = sum_tiles(mp + one, static_cast<float*>(ysq), n, tiles, cout, st);
   }
   return static_cast<int>(err);
 }
 
-// y (n, cout, h, w) bf16 = conv3x3(x (n, cin, h, w) bf16) + bias; w9 and bias
-// as above.
+// y (n, cout, h, w) bf16 = conv3x3(x (n, cin, h, w) bf16) + bias; w9 (9,
+// cout, cin) bf16, the OIHW weight as [kh*3 + kw][out][in]; bias (cout) fp32
+// or null.
 int vcd_conv3x3(const void* x, const void* w9, const void* bias, void* y, int n, int cin,
                 int cout, int h, int w, void* stream) {
   if (!conv_shape_ok(n, cin, cout, h, w)) return kInvalid;
-  return static_cast<int>(launch_conv<false>(x, nullptr, nullptr, w9, bias, nullptr, y, nullptr,
-                                             nullptr, n, cin, cout, h, w,
-                                             static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(
+      launch_conv(x, w9, bias, y, n, cin, cout, h, w, static_cast<cudaStream_t>(stream)));
 }
 
 // dw (cout, cin, 3, 3) fp32 = sum over n, h, w of dy (n, cout, h, w) bf16

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the warpgroup-MMA kernels: mbarriers,
 // TMA tile loads, the wgmma shared-memory matrix descriptor, wgmma.mma_async
 // (bf16 -> fp32) with B from shared memory and A from shared memory or from
-// registers, and the host-side tensor-map encoder.
+// registers, the tf32 wgmma with both from shared memory and the rounding to
+// tf32, named barriers, and the host-side tensor-map encoder.
 //
 // Conventions. A tile loaded by TMA with a 128-, 64- or 32-byte swizzle sits
 // in shared memory as rows of exactly that many bytes (the box's inner
@@ -222,6 +223,91 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// ---- tf32 (the 3xTF32 products of the fp32 kernels) --------------------- //
+// x rounded to tf32 (10 mantissa bits) to nearest, ties away from zero, as
+// fp32 bits: the operands are rounded here and never left to the tensor
+// cores, which would drop the low 13 bits.
+__device__ __forceinline__ float to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// d (64 x N) += A (64 x 8) * B (N x 8), tf32 in, fp32 accumulate, both
+// K-major in shared memory (tf32 has no transposed operand). One k-step of 8
+// tf32 is 32 bytes, as one of 16 bf16 is, so make_desc() and its 32-byte
+// advance carry over. N = 64 or 128 (d[N / 2] a thread). The tensor cores
+// truncate each fp32 accumulation (round toward zero), so a long sum drifts
+// low: a kernel keeps each wgmma accumulation short and adds the partial
+// sums in fp32 registers.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                           int scale_d = 1);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        , "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        , "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        , "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        , "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        , "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        , "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+        , "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        , "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        , "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        , "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        , "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        , "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        , "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+        , "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        , "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+        , "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        , "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
+        , "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        , "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+        , "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+        , "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
+        , "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// Synchronises `count` threads (a multiple of 32) on named barrier `id`
+// (1-15; 0 is __syncthreads'), e.g. one warpgroup apart from the others.
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---- host: tensor maps ---------------------------------------------------- //
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -243,14 +329,16 @@ inline EncodeTiledFn lookup_encode_tiled() {
   return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(fn) : nullptr;
 }
 
-// A bf16 tensor map of `rank` dimensions, innermost first: dims[i]
-// elements, byte strides of dims 1.. in strides[0 .. rank-2], a box of
-// box[i] elements, swizzled by `swizzle_bytes` (128, 64 or 32; the box's
-// inner dimension must span exactly that many bytes), zero fill out of
-// bounds. Returns cudaErrorInvalidValue when the driver refuses it.
+// A bf16 (or `type`) tensor map of `rank` dimensions, innermost first:
+// dims[i] elements, byte strides of dims 1.. in strides[0 .. rank-2], a box
+// of box[i] elements, swizzled by `swizzle_bytes` (128, 64 or 32; the box's
+// inner dimension must span exactly that many bytes; 0: not swizzled), zero
+// fill out of bounds. Returns cudaErrorInvalidValue when the CUDA driver refuses
+// it.
 inline cudaError_t make_tensor_map(CUtensorMap* map, const void* base, int rank,
                                    const uint64_t* dims, const uint64_t* strides,
-                                   const uint32_t* box, int swizzle_bytes) {
+                                   const uint32_t* box, int swizzle_bytes,
+                                   CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   static const EncodeTiledFn encode = lookup_encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   cuuint64_t d[5], s[4];
@@ -263,8 +351,9 @@ inline cudaError_t make_tensor_map(CUtensorMap* map, const void* base, int rank,
   }
   const CUtensorMapSwizzle sw = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+                                : swizzle_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                      : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const CUresult r = encode(map, type, static_cast<cuuint32_t>(rank),
                             const_cast<void*>(base), d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -13,7 +13,8 @@ CUDA kernel (count key)      replaces
                              .cu``)
 ``flash_attention_fwd_f32``  the same kernel run in fp32 at
                              ``Precision.HIGHEST``: fp32 q/k/v and output, P
-                             kept in fp32, plain fp32 FMAs (same file)
+                             kept in fp32, each product as three TF32
+                             products on ``wgmma`` (same file)
 ``flash_attention_fwd_lse``  the same kernel with ``with_lse=True``
                              (:177-178, :203-210): the training forward, which
                              also writes the fp32 per-row ``m + log l``
@@ -31,8 +32,10 @@ traffic, N/2 FLOPs per byte or more: all four are tensor-core bound at every
 token count the model uses (N = 4096 at 512px, 16384 at 1024px). Each keeps
 its logits tile and fp32 accumulators on chip, so no O(N^2) buffer exists,
 and runs its products on bf16 tensor cores (``mma.sync``); the fp32 forward
-runs them as fp32 FMAs (TF32 would keep too few bits), bound by the card's
-fp32 rate. The sources' header comments have the tile layouts.
+runs each fp32 product as three TF32 ones (hi·hi + hi·lo + lo·hi, hi and lo
+the rounded split of each operand; one TF32 product keeps too few bits) on
+``wgmma`` with TMA loads, bound by the TF32 rate over three. The sources'
+header comments have the tile layouts.
 
 :func:`flash_attention` is the op the model calls. With autograd recording
 and an input that requires a gradient it runs :class:`_FlashAttention`,

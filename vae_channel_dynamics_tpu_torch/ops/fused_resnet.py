@@ -11,8 +11,10 @@ CUDA kernel (wrapper here)  replaces
 =========================  ====================================================
 ``fused_gn_silu_conv3x3``  ``_fused_fwd_kernel`` (:173): y = conv3x3(silu(a*x
                            + o)) + bias (+ residual), with the optional sum |z|
-                           tap of the tile's own pixels and the optional sum y,
-                           sum y^2 of the fp32 output, per (sample, channel)
+                           tap of the image's own pixels and the optional sum
+                           y, sum y^2 of the fp32 output, per (sample,
+                           channel); s computed once by an NHWC pre-pass, the
+                           conv on kernel #12's loop (``csrc/sm90_conv3x3.cuh``)
 ``conv3x3``                ``_plain_conv_kernel`` (:361): conv3x3(x) + bias; the
                            backward's ds = conv3x3(dy, w flipped and
                            transposed) (:348-358)
@@ -20,10 +22,13 @@ CUDA kernel (wrapper here)  replaces
                            silu(a*x + o) shifted times dy, s recomputed from x
 =========================  ====================================================
 
-The layout is the model's: NCHW activations and the OIHW weight; the
-wrappers lay the small weight out as ``[tap][out][in]`` for the kernels and
-never transpose an activation. All three are tensor-core bound on the H100
-(implicit GEMMs with K = 9 * channels); the source's header has the design.
+The layout is the model's: NCHW activations and the OIHW weight. The
+wrappers lay the small weight out for the kernels, HWIO ``(3, 3, Cin,
+Cout)`` for #9 (kernel #12's B operand) and ``[tap][out][in]`` for #10, and
+transpose no activation: #9 and #11 write s = silu(a*x + o) once into an
+NHWC scratch that the wrapper allocates. All three are tensor-core bound on
+the H100 (implicit GEMMs with K = 9 * channels); the source's header has the
+design.
 
 :func:`gn_silu_conv3x3` is the op the model calls: a
 ``torch.autograd.Function`` with the JAX custom VJP (pallas_resnet.py:
@@ -58,13 +63,15 @@ import torch.nn.functional as F
 
 from . import _cuda_build
 from . import group_norm_kernel as gnk
+from .conv_nhwc import pixel_tile
 from .stats import mask_for
 
 LIBRARY = "fused_resnet"
 KERNELS = ("fused_gn_silu_conv3x3", "conv3x3", "conv3x3_dw")
 LANE = 128  # the JAX kernels' channel multiple (pallas_group_norm.py:40)
 W_MULTIPLE = 16  # the JAX kernels' W rule; here also the CUDA pixel tile's width
-TILE_ROWS, TILE_COLS = 8, 16  # the CUDA kernels' output pixel tile
+TILE_ROWS = 8  # conv3x3's output pixel tile: 8 rows x W_MULTIPLE columns
+SILU_PIXELS = 64  # pixels of one block of the NHWC pre-pass (#9's tap partials)
 DW_BLOCK_CHANNELS = (64, 64)  # conv3x3_dw's (out, in) channels per block
 DW_UNIT_PIXELS = 128  # conv3x3_dw's pixel unit: rows x cols of one image
 DW_TARGET_BLOCKS = 132  # the H100's SMs: conv3x3_dw holds one block on each
@@ -76,7 +83,7 @@ launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "fused_gn_silu_conv3x3": [_P] * 12 + [_I] * 5 + [_P],
+    "fused_gn_silu_conv3x3": [_P] * 13 + [_I] * 8 + [_P],
     "conv3x3": [_P] * 4 + [_I] * 5 + [_P],
     "conv3x3_dw": [_P] * 6 + [_I] * 6 + [_P],
     "conv3x3_dw_max_clusters": [_I, _I],
@@ -261,19 +268,42 @@ def _check_rule(name: str, x: torch.Tensor, cout: int) -> None:
         raise ValueError(f"{name}: no row tile for {tuple(x.shape)} -> {cout} channels")
 
 
-def _weight9(name: str, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """The bf16 OIHW (Cout, Cin, 3, 3) weight over x's channels as the
-    kernels' (9, Cout, Cin)."""
+def _check_weight(name: str, w: torch.Tensor, x: torch.Tensor) -> None:
     if w.dim() != 4 or tuple(w.shape[1:]) != (x.shape[1], 3, 3) or w.device != x.device:
         raise ValueError(f"{name}: w must be an OIHW 3x3 weight over x's {x.shape[1]} "
                          f"channels on {x.device}, got {tuple(w.shape)} on {w.device}")
     _check_bf16(name, "w", w)
+
+
+def _weight9(name: str, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The bf16 OIHW (Cout, Cin, 3, 3) weight over x's channels as
+    ``conv3x3``'s (9, Cout, Cin)."""
+    _check_weight(name, w, x)
     cout, cin = w.shape[:2]
     return w.permute(2, 3, 0, 1).reshape(9, cout, cin).contiguous()
 
 
-def _tiles(h: int, w: int) -> int:
-    return -(-h // TILE_ROWS) * (w // TILE_COLS)
+def weight_hwio(w: torch.Tensor) -> torch.Tensor:
+    """The OIHW (Cout, Cin, 3, 3) weight as HWIO (3, 3, Cin, Cout),
+    contiguous: ``fused_gn_silu_conv3x3``'s weight, read by kernel #12's
+    loop as its MN-major B."""
+    return w.permute(2, 3, 1, 0).contiguous()
+
+
+def tap_chunks(h: int, w: int) -> int:
+    """The pre-pass's pixel chunks of one image, which ``fused_gn_silu_conv3x3``
+    writes its |z| partials over: chunk k is the flattened pixels [64k,
+    min(64k + 64, H*W)). The kernel refuses a call sized by any other
+    count."""
+    return -(-(h * w) // SILU_PIXELS)
+
+
+def fused_tiles(h: int, w: int) -> int:
+    """``fused_gn_silu_conv3x3``'s pixel rectangles of one image
+    (:func:`conv_nhwc.pixel_tile`), which it writes its moment partials
+    over. The kernel refuses a call sized by any other count."""
+    rows, cols = pixel_tile(h, w)
+    return -(-h // rows) * -(-w // cols)
 
 
 def dw_unit(w: int) -> Tuple[int, int]:
@@ -356,8 +386,8 @@ def fused_fwd(
     if _on_cpu(x, name):
         return fused_fwd_reference(x, a, o, w, bias, residual, emit_tap, emit_moments)
     n, cin, h, wd = _check_x(name, x)
-    w9 = _weight9(name, w, x)
-    cout = w9.shape[1]
+    _check_weight(name, w, x)
+    cout = w.shape[0]
     _check_rule(name, x, cout)
     dev = x.device
     _check_vec(name, "a", a, (n, cin), dev)
@@ -366,17 +396,21 @@ def fused_fwd(
         _check_vec(name, "bias", bias, (cout,), dev)
     if residual is not None:
         _check_act(name, "residual", residual, (n, cout, h, wd), dev)
+    w_hwio = weight_hwio(w)
     y = torch.empty((n, cout, h, wd), dtype=x.dtype, device=dev)
-    tiles = _tiles(h, wd)
+    s = torch.empty((n, h, wd, cin), dtype=x.dtype, device=dev)  # silu(a*x + o), NHWC
     f32 = dict(dtype=torch.float32, device=dev)
-    tap_part = torch.empty((n, tiles, cin), **f32) if emit_tap else None
+    # the partial counts the kernel is held to: it refuses other sizes
+    chunks, tiles = tap_chunks(h, wd), fused_tiles(h, wd)
+    tap_part = torch.empty((n, chunks, cin), **f32) if emit_tap else None
     tap = torch.empty((n, cin), **f32) if emit_tap else None
     mom_part = torch.empty((2, n, tiles, cout), **f32) if emit_moments else None
     ysum = torch.empty((n, cout), **f32) if emit_moments else None
     ysq = torch.empty((n, cout), **f32) if emit_moments else None
-    _launch(name, x, x.data_ptr(), a.data_ptr(), o.data_ptr(), w9.data_ptr(), _ptr(bias),
-            _ptr(residual), y.data_ptr(), _ptr(tap_part), _ptr(tap), _ptr(mom_part),
-            _ptr(ysum), _ptr(ysq), n, cin, cout, h, wd)
+    _rows, cols = pixel_tile(h, wd)
+    _launch(name, x, x.data_ptr(), a.data_ptr(), o.data_ptr(), w_hwio.data_ptr(), _ptr(bias),
+            _ptr(residual), y.data_ptr(), s.data_ptr(), _ptr(tap_part), _ptr(tap),
+            _ptr(mom_part), _ptr(ysum), _ptr(ysq), n, cin, cout, h, wd, cols, chunks, tiles)
     return y, tap, (ysum, ysq) if emit_moments else None
 
 
@@ -515,7 +549,10 @@ __all__ = [
     "flipped_weight",
     "fused_fwd",
     "fused_fwd_reference",
+    "fused_tiles",
     "gn_silu_conv3x3",
     "launches",
     "mean_abs_from_tap",
+    "tap_chunks",
+    "weight_hwio",
 ]
