@@ -13,10 +13,10 @@ failure exits non-zero without the final ``ok`` line:
    (nvcc, sm_90a, one nvcc each, started together), the seconds each took,
    and ptxas's registers and spills (none, and no stack frame, in the fp32
    flash forward); for the kernels on wgmma/TMA through
-   ``csrc/sm90_wgmma.cuh`` (the fp32 flash forward, #9 and #12 on the shared
-   loop of ``csrc/sm90_conv3x3.cuh``, #11), the HGMMA, UTMALDG and HMMA
-   instructions in their SASS (cuobjdump): HGMMA and UTMALDG present, no
-   HMMA;
+   ``csrc/sm90_wgmma.cuh`` (the fp32 flash forward, #9, #10 and #12 on the
+   shared loop of ``csrc/sm90_conv3x3.cuh``, #11), the HGMMA, UTMALDG and
+   HMMA instructions in their SASS (cuobjdump): HGMMA and UTMALDG present,
+   no HMMA;
 3. flash kernel vs plain: bf16 q/k/v from a seed at the serving shapes, the
    kernel's max abs and relative L2 error against
    ``flash_attention_reference`` (and proof that the bound rejects a kernel
@@ -43,17 +43,22 @@ failure exits non-zero without the final ``ok`` line:
    1024px batch 1), with SiLU and the |z| tap: each of the four kernels
    against its plain version, then the autograd op (y, the tap, dx, dgamma,
    dbeta) against the plain GroupNorm; every bound is also shown to reject a
-   planted fault; forward and backward times from CUDA events;
+   planted fault; the normalize kernel's split count S at each shape, its y
+   and tap bit-equal run to run, y without the SiLU bit-equal to plain, and
+   its tap's bound rejecting one split's partial left out; forward and
+   backward times from CUDA events;
 5'. the fused resnet kernels vs plain, bf16, at the 256px fused path's
    (16, 512, 32, 32) -> 512 and at (16, 256, 64, 64) -> 512: #9 with and
    without the residual, with the |z| tap and the moments (also bit-equal
-   run to run), #10 on the flipped weight, #11 (also bit-equal run to run),
-   each bound shown to
-   reject a planted fault (the border mask skipped, the halo rows tapped,
-   the moments before the residual, the weight not flipped, the last pixel
-   chunk left out); kernel, plain, bound and cuDNN times; then the whole
-   fused op against the unfused sequence (pallas GroupNorm, cuDNN conv,
-   add), forward and forward+backward, at 32x32, 64x64 and 128x128;
+   run to run), #10 on the flipped weight (also bit-equal run to run), #11
+   (also bit-equal run to run), each bound shown to reject a planted fault
+   (the border mask skipped, the halo rows tapped, the moments before the
+   residual, the weight not flipped, dy's last 64-channel K chunk left out,
+   the last pixel chunk left out); kernel, plain, bound and cuDNN times, and
+   #10's device time by kernel (torch.profiler: its NHWC copy of dy, its
+   loop); then the whole fused op against the unfused sequence (pallas
+   GroupNorm, cuDNN conv, add), forward and forward+backward, at 32x32,
+   64x64 and 128x128;
 6. training slice: the full-width SDXL VAE (seeded fp32 master weights, bf16
    compute, GroupNorm ``impl="pallas"``) trains 30 steps at 256px, batch 16,
    on seeded uint8 batches, with bench.py's four norm1 taps, AdamW as
@@ -249,7 +254,10 @@ FLASH_TIMED_STEPS = 5  # per block: naive, flash, flash, naive
 # whose launches it counts. y and dx are bf16 outputs held to GN_ULPS bf16
 # ulps of max|plain|, like the flash kernel; the fp32 sums (the reduce
 # outputs, the |z| tap, dgamma, dbeta) to GN_SUM_REL of max|plain|: the
-# summation order differs and gives about 1e-6.
+# summation order differs and gives about 1e-6. The normalize kernel splits
+# each plane over S blocks where the planes alone do not fill the card (S =
+# 16 and 2 at the 1024px shapes, 1 at the 256px ones); its tap's planted
+# fault leaves the last split's partial out.
 GN_SHAPES = ((16, 128, 256, 256), (16, 512, 32, 32), (1, 128, 1024, 1024), (1, 512, 128, 128))
 GN_ROW_SHAPE = (1, 128, 1024, 1024)
 GN_GROUPS = 32
@@ -312,7 +320,8 @@ TIMED_STEPS = 5  # per block: plain, kernel, kernel, plain
 # bound is shown to reject a planted fault: #9 with the border mask skipped
 # (out-of-image rows and columns enter the conv as silu(o)), the tap summed
 # over the halo rows too, the moments taken before the residual; #10 with
-# the weight not flipped; #11 with the last pixel chunk left out.
+# the weight not flipped, and with dy's last 64-channel K chunk left out; #11
+# with the last pixel chunk left out.
 FUSED_SOURCE = "vae_channel_dynamics_tpu_torch/csrc/fused_resnet.cu"
 FUSED_REPLACES = {
     "fused_gn_silu_conv3x3": "vae_channel_dynamics_tpu/ops/pallas_resnet.py:173",
@@ -383,10 +392,10 @@ FLASH_F32_ITERS = 5
 # The kernels this slice redesigned. The line carries only what this run
 # measured; the times before the redesign stay in PERF.md's table.
 REDESIGNED = {
-    "flash_attention_fwd_f32": "redesigned in this slice (3xTF32 on wgmma/TMA, "
-                               "was SIMT fp32)",
-    "fused_gn_silu_conv3x3": "redesigned in this slice (NHWC pre-pass and #12's "
-                             "wgmma/TMA loop, was mma.sync)",
+    "conv3x3": "redesigned in this slice (NHWC copy of dy and #12's wgmma/TMA loop, "
+               "was mma.sync)",
+    "gn_fwd_normalize": "redesigned in this slice (each plane split over S blocks where "
+                        "B x C is small, 4 loads in flight a thread, was one block a plane)",
 }
 # Tiled inference at full width: a 2048px image through the wrapper with
 # enable_tiling(512, 0.25), bf16: 25 encoder and 25 decoder tiles, the flash
@@ -480,6 +489,7 @@ def kernel_label(mangled: str) -> str:
 # hold warpgroup MMAs (HGMMA) and TMA loads (UTMALDG), and no mma.sync (HMMA).
 WGMMA_KERNELS = {"conv3x3_nhwc_kernel": "conv_nhwc", "conv3x3_dw_kernel": "fused_resnet",
                  "fused_gn_silu_conv3x3_kernel": "fused_resnet",
+                 "conv3x3_nchw_kernel": "fused_resnet",
                  "flash_fwd_f32_kernel": "flash_attention_fwd"}
 # ptxas must report no stack frame and no spills for these
 NO_STACK_KERNELS = ("flash_fwd_f32_kernel",)
@@ -1126,6 +1136,28 @@ def phase_gn_kernels():
         del z
         record("gn_fwd_normalize", sum_rel_err(kabs, pabs), GN_SUM_REL,
                sum_rel_err(fabs, pabs), "sum |z| tap (rel)", max_abs_err(kabs, pabs))
+        # the normalize kernel's split of each plane over S blocks: y and the
+        # tap bit-equal run to run (the partials are added in split order), y
+        # without the SiLU bit-equal to plain (x*a + b rounded as plain
+        # rounds it, then one cast); fault: the last split's partial left out
+        splits = gnk.normalize_splits(b * c, h * w, x.element_size())
+        ky2, kabs2 = gnk.fwd_normalize(x, a, off, True, True)
+        ky0, kabs0 = gnk.fwd_normalize(x, a, off, False, True)
+        sync()
+        check(torch.equal(ky, ky2) and torch.equal(kabs, kabs2),
+              f"gn_fwd_normalize differs between two runs at {shape}")
+        py0, pabs0 = gnk.fwd_normalize_reference(x, a, off, False, True)
+        check(torch.equal(ky0, py0),
+              f"gn_fwd_normalize without the SiLU is not bit-equal to plain at {shape}")
+        last = (splits - 1) * gnk.split_chunk(h * w, splits)
+        z = x.flatten(2)[:, :, last:].float() * a[:, :, None] + off[:, :, None]
+        record("gn_fwd_normalize", sum_rel_err(kabs0, pabs0), GN_SUM_REL,
+               sum_rel_err(pabs0 - z.abs().sum(dim=2), pabs0),
+               f"sum |z| tap without the SiLU (rel; fault: the last of S = {splits} splits' "
+               "partial left out)", max_abs_err(kabs0, pabs0))
+        lines.append(f"gn_fwd_normalize S = {splits} splits a plane, y and tap bit-equal run "
+                     "to run, y without the SiLU bit-equal to plain")
+        del z, ky2, kabs2, ky0, kabs0, py0, pabs0
         # 4. bwd reduce; fault: SiLU' left out of g_eff
         kg, kgx = gnk.bwd_reduce(x, g, a, off, True)
         sync()
@@ -1286,10 +1318,8 @@ def _fused_fwd_unmasked(x, a, o, w, bias, residual):
 def _halo_tap(x, a, o, tap):
     """The |z| tap with each 8-row tile's halo rows summed too: every row
     next to a tile boundary counted twice (the planted fault of the tap)."""
-    from vae_channel_dynamics_tpu_torch.ops import fused_resnet as fr
-
     h = x.shape[2]
-    rows = sorted({r for b in range(fr.TILE_ROWS, h, fr.TILE_ROWS) for r in (b - 1, b)})
+    rows = sorted({r for b in range(8, h, 8) for r in (b - 1, b)})
     z = x[:, :, rows].float() * a[:, :, None, None] + o[:, :, None, None]
     return tap + z.abs().sum(dim=(2, 3))
 
@@ -1335,6 +1365,38 @@ def fused_bounds(n, cin, cout, h, w) -> dict:
         "conv3x3": roofline(flops, act_out + act_in + wbytes),
         "conv3x3_dw": roofline(flops, act_in + act_out + 2 * vec + 2 * wbytes),
     }
+
+
+def device_ms_by_kernel(fn, iters: int) -> dict:
+    """{kernel: device ms per call of ``fn``} from torch.profiler, each
+    kernel named without its namespace and arguments; empty off the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if DEVICE != "cuda":
+        return {}
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        key = evt.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+        name = re.sub(r"^(\w+::)+", "", key.split("(")[0])
+        out[name] = out.get(name, 0.0) + _self_device_us(evt) / 1e3 / iters
+    return out
+
+
+def _self_device_us(evt) -> float:
+    """A profiler event's own device time, us (its attribute's name differs
+    between torch versions)."""
+    us = getattr(evt, "self_device_time_total", None)
+    return getattr(evt, "self_cuda_time_total", 0.0) if us is None else us
 
 
 def phase_fused_kernels():
@@ -1413,12 +1475,19 @@ def phase_fused_kernels():
         held_sum("fused_gn_silu_conv3x3", "#9 sum y^2", ysq, psq, fsq)
         del y, tap, ysum, ysq, py, ptap, psum, psq, fsum, fsq
         # 10: the backward's ds = conv3x3(dy, w flipped and channel-swapped)
+        # (faults: the weight not flipped; dy's last 64-channel K chunk left out)
         wf = fr.flipped_weight(wt)
         ds = fr.conv3x3(dy, wf)
+        ds2 = fr.conv3x3(dy, wf)
         sync()
-        held_bf16("conv3x3", "#10 ds", ds, fr.conv3x3_reference(dy, wf),
-                  fr.conv3x3_reference(dy, wt.transpose(0, 1)))
-        del ds
+        check(torch.equal(ds, ds2), f"#10 ds differs between two runs at {shape} -> {cout}")
+        pds = fr.conv3x3_reference(dy, wf)
+        held_bf16("conv3x3", "#10 ds", ds, pds, fr.conv3x3_reference(dy, wt.transpose(0, 1)))
+        dy_short = dy.clone()
+        dy_short[:, -64:] = 0
+        held_bf16("conv3x3", "#10 ds (fault: the last K chunk)", ds, pds,
+                  fr.conv3x3_reference(dy_short, wf))
+        del ds, ds2, pds, dy_short
         # 11: dW, s recomputed from x
         dw = fr.conv_dw(x, a, o, dy)
         dw2 = fr.conv_dw(x, a, o, dy)
@@ -1455,6 +1524,12 @@ def phase_fused_kernels():
                                    FUSED_ITERS),
                            "torch.nn.grad.conv2d_weight on the pre-normalised input"),
         }
+        # where #10's time goes: the weight copies, the NHWC copy of dy (the
+        # pre-pass in its identity mode) and the loop
+        by_kernel = device_ms_by_kernel(lambda: fr.conv3x3(dy, wf), FUSED_ITERS)
+        lines.append("#10 device ms a call by kernel (torch.profiler): " + (", ".join(
+            f"{k[:60]} {v:.4f}" for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1]))
+            or "not measured off the card"))
         bounds = fused_bounds(n, cin, cout, h, w)
         if (shape, cout) == FUSED_SHAPES[0]:
             for name in fr.KERNELS:
@@ -1464,7 +1539,7 @@ def phase_fused_kernels():
                     library_ms=library[name][0], library_covers=library[name][1])
         held = ([fr.dw_max_clusters(w, k) for k in range(1, fr.DW_MAX_SPLITS + 1)]
                 if DEVICE == "cuda" else "not queried off the card")
-        lines.append("#9 and #11 bit-equal run to run")
+        lines.append("#9, #10 and #11 bit-equal run to run")
         lines.append(f"#11 splits {_dw_splits(n, cin, cout, h, w)} (clusters of 1-"
                      f"{fr.DW_MAX_SPLITS} blocks the card holds at once: {held})")
         log(f"[fused] {shape} -> {cout} bf16: " + "; ".join(lines))
@@ -1756,9 +1831,10 @@ def _profile_breakdown(prof, wall_ms: float) -> None:
 
     families = (
         ("fused resnet kernels (#9-#11)", ("conv3x3_kernel", "conv3x3_dw_kernel",
-                                           "sum_tiles_kernel", "sum_dw_kernel")),
+                                           "conv3x3_nchw_kernel", "silu_nhwc_kernel",
+                                           "sum_tiles_kernel")),
         ("flash attention kernels (flash_*)", ("flash_fwd", "flash_bwd")),
-        ("GroupNorm kernels (gn_*)", ("gn_fwd_", "gn_bwd_")),
+        ("GroupNorm kernels (gn_*)", ("gn_fwd_", "gn_bwd_", "sum_splits_kernel")),
         ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
         ("layout transposes", ("nchw", "nhwc", "transpose", "permute")),
         ("matmul (cuBLAS)", ("gemm", "cublas")),
@@ -1771,9 +1847,7 @@ def _profile_breakdown(prof, wall_ms: float) -> None:
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0.0)
+        us = _self_device_us(evt)
         name = evt.key
         per_kernel.append((us, name, evt.count))
         low = name.lower()

@@ -274,6 +274,37 @@ def test_weight_hwio_is_the_permuted_weight():
     assert torch.equal(hwio[1, 2, 5, 7], w[7, 5, 1, 2])  # tap (dy, dx), in, out
 
 
+@pytest.mark.parametrize("shape,cout", [((2, 256, 8, 16), 128), ((1, 128, 12, 48), 256)])
+def test_conv3x3_hands_the_kernel_the_flipped_hwio_weight(monkeypatch, shape, cout):
+    """The backward's ds = conv3x3(dy, flipped_weight(w)): the wrapper's
+    kernel branch (taken here on CPU tensors, the launch recorded instead of
+    made) hands #10 the flipped, channel-swapped weight as the contiguous
+    HWIO (3, 3, C_dy, C_ds), element [kh, kw, c_dy, c_ds] = w[c_dy, c_ds, 2 -
+    kh, 2 - kw], beside dy's NHWC scratch and #9's pixel-rectangle width."""
+    n, c_dy, h, wd = shape
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(rng.standard_normal((c_dy, cout, 3, 3)).astype(np.float32))
+    w = w.to(torch.bfloat16)  # the forward's OIHW weight, cout -> c_dy channels
+    dy = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+    handed, calls = [], []
+    hwio = fr.weight_hwio
+    monkeypatch.setattr(fr, "weight_hwio", lambda t: handed.append(hwio(t)) or handed[-1])
+    monkeypatch.setattr(fr, "_on_cpu", lambda x, name: False)
+    monkeypatch.setattr(fr, "_launch", lambda name, x, *args: calls.append((name, args)))
+    fr.conv3x3(dy, fr.flipped_weight(w))
+    (name, args), = calls
+    assert name == "conv3x3" and len(args) == len(fr._SIGNATURES["conv3x3"]) - 1
+    w_ptr, n_, cin, co, h_, wd_, cols = args[1], *args[5:]
+    assert (n_, cin, co, h_, wd_) == (n, c_dy, cout, h, wd)
+    assert cols == fr.pixel_tile(h, wd)[1]
+    (got,) = handed
+    assert w_ptr == got.data_ptr() and got.is_contiguous()
+    assert got.shape == (3, 3, c_dy, cout)
+    assert torch.equal(got, fr.weight_hwio(fr.flipped_weight(w)))
+    assert torch.equal(got, w.flip(2, 3).permute(2, 3, 0, 1))
+    assert torch.equal(got[0, 2, 5, 7], w[5, 7, 2, 0])
+
+
 @pytest.mark.parametrize("h,w", [(32, 32), (64, 64), (20, 16), (6, 48), (9, 128)])
 def test_tap_chunks_cover_every_pixel_once(h, w):
     """#9's pre-pass writes its |z| partials over chunks of 64 flattened

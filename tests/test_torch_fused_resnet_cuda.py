@@ -8,10 +8,12 @@ Each of the three kernels (``fused_gn_silu_conv3x3``, ``conv3x3``,
 ``conv3x3_dw``) gets the same bf16 inputs as its plain version: at the 256px
 step's fused shape (16, 512, 32, 32) -> 512, at an asymmetric one
 (16, 256, 64, 64) -> 512, and at small odd ones (batch 1, 128 -> 256, H not a
-multiple of #10's 8-row tile or of #9's pixel rectangle). Then the autograd
-op against plain autograd of the same function, the fused forward and
-the weight gradient bit-equal run to run, and the fused forward refusing
-partial buffers of another size than its grid's.
+multiple of the pixel rectangle's rows of #9 and #10, W = 48 under 64-column
+rectangles). Then the
+autograd op against plain autograd of the same function, the fused forward,
+#10 and the weight gradient bit-equal run to run, the fused forward refusing
+partial buffers of another size than its grid's, and #10's C entry refusing
+the shapes its loop does not take.
 
 Bounds. The bf16 outputs (y, ds): kernel and plain round the same fp32 sum,
 taken in another order, so at most 4 bf16 ulps of max|plain| and relative L2
@@ -40,7 +42,7 @@ SHAPES = [
     ((16, 512, 32, 32), 512),  # the 256px step's fused resnets
     ((16, 256, 64, 64), 512),  # asymmetric channels, two row tiles of 32 columns
     ((1, 128, 16, 16), 256),   # batch 1, 128 -> 256
-    ((3, 128, 12, 32), 128),   # H = 12: the last 8-row tile is half outside
+    ((3, 128, 12, 32), 128),   # H = 12: three 4-row rectangles of 32 columns
     ((2, 256, 6, 48), 128),    # H below one tile, three column tiles
     ((2, 128, 20, 16), 128),   # #9's 8 x 16 pixel rectangle: the last one half outside
 ]
@@ -125,6 +127,38 @@ def test_conv3x3_matches_plain(cuda, shape, cout):
     x = _inputs(shape, cout, cuda, seed=5)[0]
     bias = torch.linspace(-1.0, 1.0, wt.shape[0], device=cuda)
     _assert_bf16(fr.conv3x3(x, wt, bias), fr.conv3x3_reference(x, wt, bias))
+
+
+@pytest.mark.parametrize("shape,cout", SHAPES, ids=IDS)
+def test_conv3x3_is_deterministic(cuda, shape, cout):
+    """#10 writes each output once, with no atomics: the same bits twice."""
+    _x, _g, _b, wt, _bias, _res, dy, _a, _o = _inputs(shape, cout, cuda, seed=7)
+    wf = fr.flipped_weight(wt)
+    first = fr.conv3x3(dy, wf)
+    assert torch.equal(fr.conv3x3(dy, wf), first)
+
+
+@pytest.mark.parametrize("what,cin,cout,w,cols", [
+    ("cin not a multiple of 64", 96, 128, 16, 16),
+    ("cout not a multiple of 128", 128, 64, 16, 16),
+    ("w not a multiple of 16", 128, 128, 24, 16),
+    ("rectangle narrower than 16", 128, 128, 16, 8),
+    ("rectangle width not a power of two", 128, 128, 48, 48),
+    ("rectangle wider than 128", 128, 128, 256, 256),
+])
+def test_conv3x3_entry_refuses_what_the_loop_does_not_take(cuda, what, cin, cout, w, cols):
+    """The Python checks raise first; the C entry refuses on its own
+    (cudaErrorInvalidValue, 1) before any launch."""
+    n, h = 1, 8
+    x = torch.zeros((n, cin, h, w), device=cuda, dtype=BF16)
+    wt = torch.zeros((3, 3, cin, cout), device=cuda, dtype=BF16)
+    y = torch.full((n, cout, h, w), 7.0, device=cuda, dtype=BF16)
+    s = torch.empty((n, h, w, cin), device=cuda, dtype=BF16)
+    rc = fr._fn("conv3x3")(x.data_ptr(), wt.data_ptr(), None, y.data_ptr(), s.data_ptr(), n,
+                           cin, cout, h, w, cols, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 1, what
+    assert bool((y == 7.0).all()), what  # nothing was written
 
 
 @pytest.mark.parametrize("shape,cout", DW_SHAPES, ids=DW_IDS)

@@ -232,3 +232,65 @@ def test_pallas_impl_refuses_what_jax_refuses():
     with pytest.raises(RuntimeError, match="ineligible"):
         group_norm(_nchw(x), torch.from_numpy(scale), torch.from_numpy(bias), 32,
                    impl="pallas")
+
+
+# gn_fwd_normalize's split of each plane over several blocks, where B x C is
+# too small to fill the card: every GroupNorm input shape of the SDXL VAE's
+# 1024px batch-1 step, the 256px batch-16 step's largest and smallest, and
+# ragged planes (the last split shorter, or one split only).
+NORM_SPLIT_SHAPES = [
+    (1, 128, 1024, 1024), (1, 256, 1024, 1024), (1, 128, 512, 512), (1, 256, 512, 512),
+    (1, 512, 512, 512), (1, 256, 256, 256), (1, 512, 256, 256), (1, 512, 128, 128),
+    (16, 128, 256, 256), (16, 512, 32, 32), (1, 256, 24, 40), (1, 128, 56, 311),
+]
+
+
+@pytest.mark.parametrize("element_size", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", NORM_SPLIT_SHAPES, ids=[str(s) for s in NORM_SPLIT_SHAPES])
+def test_normalize_splits_cover_every_element_once(shape, element_size):
+    b, c, h, w = shape
+    planes, hw = b * c, h * w
+    splits = gnk.normalize_splits(planes, hw, element_size)
+    assert splits >= 1 and splits & (splits - 1) == 0  # a power of two
+    chunk = gnk.split_chunk(hw, splits)
+    assert chunk % 8 == 0  # every split starts 16-byte aligned
+    ranges = [(min(k * chunk, hw), min((k + 1) * chunk, hw)) for k in range(splits)]
+    # contiguous, in order, from the first element to the last, none empty
+    assert ranges[0][0] == 0 and ranges[-1][1] == hw
+    assert all(e0 == b1 for (_b0, e0), (b1, _e1) in zip(ranges, ranges[1:]))
+    assert all(e > s for s, e in ranges)
+    target = gnk.NORM_TARGET_BLOCKS
+    if planes >= target:
+        assert splits == 1  # the one-block-a-plane grid
+    else:
+        assert planes * splits < 2 * target  # never more than the smallest power reaching it
+    if splits > 1:
+        # each split keeps at least one round of loads by every thread
+        assert chunk >= gnk.THREADS * (16 // element_size) * gnk.NORM_LOADS
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_stats", [False, True])
+@pytest.mark.parametrize("shape", [(1, 128, 56, 311), (2, 128, 8, 16)])
+def test_fwd_normalize_hands_the_kernel_its_split_count(monkeypatch, shape, with_stats, dtype):
+    """The wrapper's kernel branch (taken here on CPU tensors, the launch
+    recorded instead of made) passes the helper's split count, and for the
+    tap's partials a (planes, splits) scratch with its per-plane count; no
+    scratch where there is no tap or one split."""
+    b, c, h, w = shape
+    x = torch.zeros(shape, dtype=dtype)
+    a, off = torch.ones(b, c), torch.zeros(b, c)
+    calls = []
+    monkeypatch.setattr(gnk, "_on_cpu", lambda x, name: False)
+    monkeypatch.setattr(gnk, "_launch", lambda name, x, *args: calls.append((name, args)))
+    y, abs_sum = gnk.fwd_normalize(x, a, off, True, with_stats)
+    (name, args), = calls
+    assert name == "gn_fwd_normalize" and len(args) == len(gnk._SIGNATURES[name]) - 1
+    part_ptr, planes, hw, dt, silu, splits, parts = args[5:]
+    assert (planes, hw, dt, silu) == (b * c, h * w, gnk._DTYPE_CODES[dtype], 1)
+    assert splits == gnk.normalize_splits(b * c, h * w, x.element_size())
+    assert y.shape == x.shape and (abs_sum is not None) == with_stats
+    if with_stats and splits > 1:
+        assert part_ptr is not None and parts == splits
+    else:
+        assert part_ptr is None and parts == 0

@@ -7,7 +7,10 @@ without jax it runs without the repository's conftest:
 Each of the four kernels gets the same inputs as its plain version, at the
 training slice's norm shapes (256px, batch 16: the largest and the smallest)
 and at small odd ones, in bf16 and fp32; then the autograd op (forward, the
-|z| tap, dx, dgamma, dbeta) against the plain GroupNorm.
+|z| tap, dx, dgamma, dbeta) against the plain GroupNorm. The normalize
+kernel also at batch-1 shapes whose few planes it splits over several blocks
+(one with a ragged last split), bit-equal run to run with the tap, and
+refusing a split count or partial count that is not its own.
 
 Bounds. Outputs in x's dtype (y, dx): in fp32 the kernels compute what the
 plain versions compute, up to the order of fp32 operations and the sigmoid,
@@ -195,3 +198,79 @@ def test_unsupported_inputs_raise(cuda):
     with pytest.raises(ValueError, match="must match x"):
         gnk.bwd_reduce(x, g.float(), a, b, True)
     assert gnk.launches == before
+
+
+# batch-1 shapes whose B x C planes do not fill the card: gn_fwd_normalize
+# splits each over several blocks (8 at (1, 128, 256, 256); 2 at
+# (1, 128, 56, 311), whose last split is 8 elements short), or over one where
+# a split would hold less than one round of loads ((1, 512, 64, 64))
+SPLIT_SHAPES = [(1, 128, 256, 256), (1, 512, 64, 64), (1, 128, 56, 311)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+@pytest.mark.parametrize("fuse_silu", [True, False])
+def test_split_normalize_matches_plain_and_repeats(cuda, shape, dtype, fuse_silu):
+    x, _g, _s, _b, a, b = _inputs(shape, dtype, cuda, 8)
+    before = gnk.launches["gn_fwd_normalize"]
+    y, abs_sum = gnk.fwd_normalize(x, a, b, fuse_silu, True)
+    y2, abs_sum2 = gnk.fwd_normalize(x, a, b, fuse_silu, True)
+    torch.cuda.synchronize()
+    assert gnk.launches["gn_fwd_normalize"] == before + 2
+    # the tap's partials are added in order of the split: the same bits
+    assert torch.equal(y, y2) and torch.equal(abs_sum, abs_sum2)
+    ref_y, ref_abs = gnk.fwd_normalize_reference(x, a, b, fuse_silu, True)
+    _assert_like_x(y, ref_y)
+    _assert_sums(abs_sum, ref_abs, dtype)
+    if not fuse_silu:
+        # x*a + b as the plain version rounds it, then one cast
+        assert torch.equal(y, ref_y)
+
+
+@pytest.mark.parametrize("drift", ["double", "plus_one"])
+@pytest.mark.parametrize("shape", [(1, 128, 256, 256), (4, 128, 64, 64)])
+def test_normalize_refuses_another_split_count(cuda, monkeypatch, shape, drift):
+    """The C entry holds the wrapper's split count to its own rule (8 and 1
+    at these shapes), so a wrapper whose count drifted is refused before any
+    write, never run over a partial scratch too small."""
+    x, _g, _s, _b, a, b = _inputs(shape, torch.bfloat16, cuda, 9)
+    count = gnk.normalize_splits
+    monkeypatch.setattr(gnk, "normalize_splits",
+                        lambda *args: count(*args) * 2 if drift == "double"
+                        else count(*args) + 1)
+    before = gnk.launches["gn_fwd_normalize"]
+    for with_stats in (False, True):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            gnk.fwd_normalize(x, a, b, True, with_stats)
+    assert gnk.launches["gn_fwd_normalize"] == before
+
+
+def test_normalize_refuses_another_partial_count(cuda):
+    """The partials a plane the caller sized its scratch by must be the split
+    count where the tap has partials, and 0 with no scratch elsewhere."""
+    shape = (1, 128, 256, 256)
+    x, _g, _s, _b, a, b = _inputs(shape, torch.bfloat16, cuda, 10)
+    planes, hw = 128, 256 * 256
+    splits = gnk.normalize_splits(planes, hw, 2)
+    assert splits > 1
+    y, abs_sum = torch.empty_like(x), torch.empty(1, 128, device=cuda)
+    part = torch.empty(planes, 2 * splits, device=cuda)
+    fn = gnk._fn("gn_fwd_normalize")
+    stream = torch.cuda.current_stream().cuda_stream
+    invalid = 1  # cudaErrorInvalidValue
+
+    def call(tap, scratch, parts, split_count=splits):
+        return fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
+                  None if tap is None else tap.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(),
+                  planes, hw, 1, 1, split_count, parts, stream)
+
+    assert call(abs_sum, part, splits - 1) == invalid
+    assert call(abs_sum, part, splits + 1) == invalid
+    assert call(abs_sum, None, 0) == invalid       # partials with no scratch
+    assert call(None, part, splits) == invalid     # a scratch with no tap
+    assert call(abs_sum, part, splits, splits + 1) == invalid
+    assert call(abs_sum, part, splits) == 0
+    torch.cuda.synchronize()
+    _assert_sums(abs_sum, gnk.fwd_normalize_reference(x, a, b, True, True)[1],
+                 torch.bfloat16)

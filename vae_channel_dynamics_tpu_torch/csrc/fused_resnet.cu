@@ -1,6 +1,7 @@
 // The fused GroupNorm+SiLU+conv3x3 resnet kernels, hand-written for Hopper
 // (sm_90a), over NCHW tensors: no activation is transposed, and #9 and #11
-// write their conv input s = silu(a*x + o) once, pixel-major, into a scratch.
+// write their conv input s = silu(a*x + o) once, pixel-major, into a scratch,
+// as #10 writes its input unchanged.
 //
 // Replaces the Pallas TPU kernels of vae_channel_dynamics_tpu/ops/
 // pallas_resnet.py:
@@ -36,20 +37,16 @@
 //      and the tile's sum y and sum y^2 of the fp32 y as per-tile partials,
 //      which sum_tiles_kernel adds in a fixed order. No atomics.
 //
-// conv3x3 is an implicit GEMM on mma.sync: M = output channels, N = a tile of
-// output pixels, K = 9 * input channels. A block owns 128 output channels of
-// one sample and an 8-row by 16-column pixel tile, so any W that is a
-// multiple of 16 and any H work (rows past H are masked). Per chunk of 32
-// input channels it
-//   1. copies the weights, laid out [tap][out][in] by the wrapper, with
-//      cp.async into shared memory (9 x 128 x 32, rows padded to 40);
-//   2. reads the 10 x 18 halo window of x for those channels, zero outside
-//      the image, and stores it pixel-major, [pixel][channel]: a shifted tap
-//      is then only another pixel row, so every ldmatrix address stays
-//      16-byte aligned whatever the shift;
-//   3. runs 9 taps x 2 k-steps of 16 on eight warps, each 64 channels x 32
-//      pixels (4 x 4 mma tiles, 64 fp32 accumulators a thread).
-// The epilogue adds the bias in fp32 and stores bf16.
+// conv3x3, on the same loop (redesigned for wgmma/TMA; the mma.sync version
+// ran at 26% of its bound: one stage, the whole 9 x 128 x 32 weight slice of
+// each chunk reloaded by every pixel-tile block, and the halo window filled
+// by scalar shared stores). The backward runs it on dy with the flipped,
+// channel-swapped weight, so its input is NCHW and comes from no pre-pass:
+//   1. silu_nhwc_kernel in its identity mode copies x to an NHWC scratch
+//      (N, H, W, Cin) unchanged, 2 * N*H*W*Cin bytes written and read again;
+//   2. kernel #12's loop runs the conv on it and the HWIO weight, zero
+//      padding by TMA's zero fill;
+//   3. #9's epilogue, without residual and moments, writes y + bias NCHW.
 //
 // conv3x3_dw (redesigned for wgmma/TMA; the mma.sync version ran at 14% of
 // its bound: one stage, s recomputed with one expf per element by each of
@@ -98,149 +95,13 @@ using namespace vcd;
 using namespace vcd::sm90;
 namespace c3 = vcd::conv3x3;
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int TR = 8, TC = 16;            // output pixel tile: 8 rows x 16 columns
-constexpr int WR = TR + 2, WC = TC + 2;   // its halo window: 10 x 18
-constexpr int WIN_PX = WR * WC;
-constexpr int KC = 32;                    // input channels per window
-constexpr int LDW = KC + PAD;             // window row stride: [pixel][channel]
-constexpr int WIN_ITEMS = WR * KC;        // (window row, channel) pairs
-
-// input-gradient conv
-constexpr int BM = 128;                   // output channels per block
-constexpr int LDA = KC + PAD;             // weight rows [tap][out][in chunk]
-constexpr int A_BYTES = 9 * BM * LDA * 2;
-constexpr int W_BYTES = WIN_PX * LDW * 2;
-constexpr int CONV_SMEM = A_BYTES + W_BYTES;
+constexpr int THREADS = 256;  // sum_tiles_kernel's block
 
 __device__ __forceinline__ float sigmoid(float z) { return 1.0f / (1.0f + expf(-z)); }
 
 // z = x*a + o as two rounded operations, like the plain version's x*a + o
 __device__ __forceinline__ float affine(float x, float a, float o) {
   return __fadd_rn(__fmul_rn(x, a), o);
-}
-
-// Fills the [pixel][channel] halo window for KC channels starting at plane
-// `plane0` (= sample * C + first channel) around the tile whose top-left
-// output pixel is (row0, col0): x, zero outside the image.
-__device__ __forceinline__ void fill_window(bf16* __restrict__ win, const bf16* __restrict__ x,
-                                            int plane0, int h, int w, int row0, int col0,
-                                            int tid) {
-  for (int i = tid; i < WIN_ITEMS; i += THREADS) {
-    const int ch = i % KC, wr = i / KC;
-    const int row = row0 - 1 + wr;
-    const bool row_ok = row >= 0 && row < h;
-    bf16* dst = win + (wr * WC) * LDW + ch;
-    const bf16 zero = __float2bfloat16(0.0f);
-    if (!row_ok) {
-#pragma unroll
-      for (int j = 0; j < WC; ++j) dst[j * LDW] = zero;
-      continue;
-    }
-    const bf16* xp = x + (static_cast<size_t>(plane0 + ch) * h + row) * w + col0;
-    const uint4 lo = *reinterpret_cast<const uint4*>(xp);
-    const uint4 hi = *reinterpret_cast<const uint4*>(xp + 8);
-    const bf16* l8 = reinterpret_cast<const bf16*>(&lo);
-    const bf16* h8 = reinterpret_cast<const bf16*>(&hi);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      dst[(1 + j) * LDW] = l8[j];
-      dst[(9 + j) * LDW] = h8[j];
-    }
-    dst[0] = col0 > 0 ? xp[-1] : zero;
-    dst[(WC - 1) * LDW] = col0 + TC < w ? xp[TC] : zero;
-  }
-}
-
-// y (N, Cout, H, W) = conv3x3(x) + bias; see the header. Grid (tiles, Cout /
-// BM, N).
-__global__ void __launch_bounds__(THREADS, 2)
-    conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w9,
-                   const float* __restrict__ bias, bf16* __restrict__ y, int cin, int cout, int h,
-                   int w) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sW = reinterpret_cast<bf16*>(smem + A_BYTES);
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int warp_m = warp / 4, warp_n = warp % 4;
-  const int gid = lane / 4, tig = lane % 4;
-  const int tiles_w = w / TC;
-  const int tile = blockIdx.x;
-  const int row0 = (tile / tiles_w) * TR, col0 = (tile % tiles_w) * TC;
-  const int co0 = blockIdx.y * BM;
-  const int n = blockIdx.z;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-
-  for (int ci0 = 0; ci0 < cin; ci0 += KC) {
-    __syncthreads();  // the previous chunk's products are done with sA, sW
-    // 1. weights [tap][co0 .. co0+127][ci0 .. ci0+31], 4 x 16 bytes a row
-    for (int i = tid; i < 9 * BM * (KC / 8); i += THREADS) {
-      const int row = i / (KC / 8), part = i % (KC / 8);
-      const int tap = row / BM, co = row % BM;
-      cp_async16(sA + row * LDA + part * 8,
-                 w9 + (static_cast<size_t>(tap) * cout + co0 + co) * cin + ci0 + part * 8);
-    }
-    cp_async_commit();
-    // 2. the x window
-    fill_window(sW, x, n * cin + ci0, h, w, row0, col0, tid);
-    cp_async_wait<0>();
-    __syncthreads();
-    // 3. the products: 9 taps x 2 k-steps
-#pragma unroll 1
-    for (int tp = 0; tp < 9; ++tp) {
-      const int dy = tp / 3, dx = tp % 3;
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        uint32_t af[4][4];
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-          ldmatrix_x4(af[mt], sA + (tp * BM + warp_m * 64 + mt * 16 + (lane & 15)) * LDA + kk +
-                                  (lane >> 4) * 8);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          // two 8-pixel n-tiles of tile row r: lanes 0-15 columns 0-7, lanes
-          // 16-31 columns 8-15; odd lane octets the upper 8 channels
-          const int r = 2 * warp_n + np;
-          const int c = ((lane >> 4) << 3) + (lane & 7);
-          uint32_t bf[4];
-          ldmatrix_x4(bf, sW + ((r + dy) * WC + c + dx) * LDW + kk + ((lane >> 3) & 1) * 8);
-#pragma unroll
-          for (int mt = 0; mt < 4; ++mt) {
-            mma_bf16(acc[mt][2 * np], af[mt], bf[0], bf[1]);
-            mma_bf16(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
-          }
-        }
-      }
-    }
-  }
-
-  // epilogue: bias in fp32, bf16 store
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int co = co0 + warp_m * 64 + mt * 16 + gid + half * 8;
-      const float bc = bias != nullptr ? bias[co] : 0.0f;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int row = row0 + 2 * warp_n + nt / 2;
-        if (row >= h) continue;
-        const int col = col0 + (nt % 2) * 8 + 2 * tig;
-        const size_t off = (static_cast<size_t>(n * cout + co) * h + row) * w + col;
-        *reinterpret_cast<__nv_bfloat162*>(y + off) =
-            __floats2bfloat162_rn(acc[mt][nt][2 * half] + bc, acc[mt][nt][2 * half + 1] + bc);
-      }
-    }
-  }
 }
 
 // out[r][c] = sum over t < tiles of part[r][t][c], in order of t.
@@ -255,18 +116,20 @@ __global__ void sum_tiles_kernel(const float* __restrict__ part, float* __restri
   out[idx] = s;
 }
 
-// ---- the NHWC pre-pass (#9 and #11) ---------------------------------------- //
+// ---- the NHWC pre-pass (#9, #10 and #11) ---------------------------------- //
 // s (N, H, W, Cin) bf16 = silu(a*x + o) rounded, from x (N, Cin, H, W): the
 // input of #9's conv and of the weight gradient, computed once and laid out
-// pixel-major so that a tap's operand is one TMA box. A block transposes 64
-// channels x 64 pixels through shared memory, 16 bytes a load and a store
-// (H*W is a multiple of 16). With tap_part, the block also writes its
-// channels' sum |z| over its own pixels to tap_part (N, blocks, Cin): each
+// pixel-major so that a tap's operand is one TMA box. With IDENTITY (#10's
+// input), s = x unchanged: no affine, no SiLU, no tap, a and o unused. A block
+// transposes 64 channels x 64 pixels through shared memory, 16 bytes a load
+// and a store (H*W is a multiple of 16). With tap_part, the block also writes
+// its channels' sum |z| over its own pixels to tap_part (N, blocks, Cin): each
 // thread sums its 8 pixels in order, then the channel's 8 threads (lanes 8q
 // .. 8q + 7) add theirs by shuffles in a fixed order. Grid (ceil(H*W / 64),
 // Cin / 64, N).
 constexpr int SILU_PIXELS = 64;  // pixels (and channels) of one pre-pass block
 
+template <bool IDENTITY>
 __global__ void __launch_bounds__(256)
     silu_nhwc_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
                      const float* __restrict__ o, bf16* __restrict__ s,
@@ -281,15 +144,20 @@ __global__ void __launch_bounds__(256)
       const uint4 raw =
           *reinterpret_cast<const uint4*>(x + static_cast<size_t>(plane) * hw + p0 + pv);
       const bf16* v = reinterpret_cast<const bf16*>(&raw);
-      const float ap = a[plane], op = o[plane];
+      if (IDENTITY) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float z = affine(__bfloat162float(v[j]), ap, op);
-        tap += fabsf(z);
-        tile[pv + j][c] = __float2bfloat16(z * sigmoid(z));
+        for (int j = 0; j < 8; ++j) tile[pv + j][c] = v[j];
+      } else {
+        const float ap = a[plane], op = o[plane];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float z = affine(__bfloat162float(v[j]), ap, op);
+          tap += fabsf(z);
+          tile[pv + j][c] = __float2bfloat16(z * sigmoid(z));
+        }
       }
     }
-    if (tap_part != nullptr) {
+    if (!IDENTITY && tap_part != nullptr) {
       tap += __shfl_xor_sync(0xffffffffu, tap, 1);
       tap += __shfl_xor_sync(0xffffffffu, tap, 2);
       tap += __shfl_xor_sync(0xffffffffu, tap, 4);
@@ -309,9 +177,10 @@ __global__ void __launch_bounds__(256)
 // The pre-pass's blocks along the pixels of one image, and so its |z| partials.
 inline int silu_chunks(int hw) { return (hw + SILU_PIXELS - 1) / SILU_PIXELS; }
 
+template <bool IDENTITY>
 cudaError_t silu_nhwc(const void* x, const void* a, const void* o, void* s, void* tap_part,
                       int n, int cin, int hw, cudaStream_t stream) {
-  silu_nhwc_kernel<<<dim3(silu_chunks(hw), cin / 64, n), 256, 0, stream>>>(
+  silu_nhwc_kernel<IDENTITY><<<dim3(silu_chunks(hw), cin / 64, n), 256, 0, stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(a), static_cast<const float*>(o),
       static_cast<bf16*>(s), static_cast<float*>(tap_part), cin, hw);
   return cudaGetLastError();
@@ -401,6 +270,15 @@ __global__ void __launch_bounds__(c3::THREADS, 2)
     fused_gn_silu_conv3x3_kernel(const __grid_constant__ CUtensorMap smap,
                                  const __grid_constant__ CUtensorMap wmap,
                                  const NchwEpilogue epi, int wd, int cin, int bw) {
+  c3::conv3x3_wgmma<64>(&smap, &wmap, wd, cin, bw, epi);
+}
+
+// #10: the same loop and epilogue on the identity pre-pass's copy of x, with
+// neither residual nor moments.
+__global__ void __launch_bounds__(c3::THREADS, 2)
+    conv3x3_nchw_kernel(const __grid_constant__ CUtensorMap smap,
+                        const __grid_constant__ CUtensorMap wmap, const NchwEpilogue epi,
+                        int wd, int cin, int bw) {
   c3::conv3x3_wgmma<64>(&smap, &wmap, wd, cin, bw, epi);
 }
 
@@ -610,7 +488,7 @@ cudaError_t launch_dw(const void* x, const void* a, const void* o, const void* d
                       cudaStream_t stream) {
   using T = DwTile<BW>;
   const int hw = h * w;
-  cudaError_t err = silu_nhwc(x, a, o, s, nullptr, n, cin, hw, stream);
+  cudaError_t err = silu_nhwc<false>(x, a, o, s, nullptr, n, cin, hw, stream);
   if (err != cudaSuccess) return err;
   CUtensorMap smap, dymap;
   const uint64_t sdims[4] = {static_cast<uint64_t>(cin), static_cast<uint64_t>(w),
@@ -646,12 +524,14 @@ cudaError_t launch_dw(const void* x, const void* a, const void* o, const void* d
   return cudaGetLastError();
 }
 
-bool conv_shape_ok(int n, int cin, int cout, int h, int w) {
-  return n >= 1 && n <= 65535 && cin >= KC && cin % KC == 0 && cout >= BM && cout % BM == 0 &&
-         h >= 1 && w >= TC && w % TC == 0;
+// The shapes the wgmma/TMA loop and the NCHW epilogue take: cin a multiple of
+// 64 (the loop's K chunk), cout of 128 (the epilogue stores whole channel
+// blocks), w of 16 (16-byte rows), bw a power of two from 16 to 128.
+bool loop_shape_ok(int n, int cin, int cout, int h, int wd, int bw) {
+  return n >= 1 && n <= 65535 && cin >= 64 && cin % 64 == 0 && cout >= c3::BN &&
+         cout % c3::BN == 0 && h >= 1 && wd >= 16 && wd % 16 == 0 && bw >= 16 &&
+         bw <= c3::BM && (bw & (bw - 1)) == 0;
 }
-
-int tile_count(int h, int w) { return ((h + TR - 1) / TR) * (w / TC); }
 
 cudaError_t sum_tiles(const float* part, float* out, int rows, int tiles, int c,
                       cudaStream_t s) {
@@ -661,14 +541,20 @@ cudaError_t sum_tiles(const float* part, float* out, int rows, int tiles, int c,
   return cudaGetLastError();
 }
 
-cudaError_t launch_conv(const void* x, const void* w9, const void* bias, void* y, int n, int cin,
-                        int cout, int h, int w, cudaStream_t s) {
-  cudaError_t err =
-      cudaFuncSetAttribute(conv3x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, CONV_SMEM);
+cudaError_t launch_conv(const void* x, const void* w, const void* bias, void* y, void* s,
+                        int n, int cin, int cout, int h, int wd, int bw, cudaStream_t stream) {
+  cudaError_t err = silu_nhwc<true>(x, nullptr, nullptr, s, nullptr, n, cin, h * wd, stream);
   if (err != cudaSuccess) return err;
-  conv3x3_kernel<<<dim3(tile_count(h, w), cout / BM, n), THREADS, CONV_SMEM, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w9), static_cast<const float*>(bias),
-      static_cast<bf16*>(y), cin, cout, h, w);
+  CUtensorMap smap, wmap;
+  err = c3::make_maps(&smap, &wmap, s, w, n, h, wd, cin, cout, bw, 64);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(conv3x3_nchw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             c3::SMEM);
+  if (err != cudaSuccess) return err;
+  const NchwEpilogue epi = {static_cast<const float*>(bias), nullptr, static_cast<bf16*>(y),
+                            nullptr, h, wd, cout};
+  conv3x3_nchw_kernel<<<c3::grid(n, h, wd, cout, bw), c3::THREADS, c3::SMEM, stream>>>(
+      smap, wmap, epi, wd, cin, bw);
   return cudaGetLastError();
 }
 
@@ -676,7 +562,7 @@ cudaError_t launch_fused(const void* x, const void* a, const void* o, const void
                          const void* bias, const void* residual, void* y, void* s, void* tap_part,
                          void* mom_part, int n, int cin, int cout, int h, int wd, int bw,
                          cudaStream_t stream) {
-  cudaError_t err = silu_nhwc(x, a, o, s, tap_part, n, cin, h * wd, stream);
+  cudaError_t err = silu_nhwc<false>(x, a, o, s, tap_part, n, cin, h * wd, stream);
   if (err != cudaSuccess) return err;
   CUtensorMap smap, wmap;
   err = c3::make_maps(&smap, &wmap, s, w, n, h, wd, cin, cout, bw, 64);
@@ -712,9 +598,7 @@ int vcd_fused_gn_silu_conv3x3(const void* x, const void* a, const void* o, const
                               void* tap_part, void* tap, void* mom_part, void* ysum, void* ysq,
                               int n, int cin, int cout, int h, int wd, int bw, int chunks,
                               int tiles, void* stream) {
-  if (!conv_shape_ok(n, cin, cout, h, wd) || cin % 64 != 0 || bw < 16 || bw > c3::BM ||
-      (bw & (bw - 1)) != 0)
-    return kInvalid;
+  if (!loop_shape_ok(n, cin, cout, h, wd, bw)) return kInvalid;
   if ((tap_part != nullptr && chunks != silu_chunks(h * wd)) ||
       (mom_part != nullptr && tiles != static_cast<int>(c3::grid(n, h, wd, cout, bw).x)))
     return kInvalid;
@@ -737,14 +621,16 @@ int vcd_fused_gn_silu_conv3x3(const void* x, const void* a, const void* o, const
   return static_cast<int>(err);
 }
 
-// y (n, cout, h, w) bf16 = conv3x3(x (n, cin, h, w) bf16) + bias; w9 (9,
-// cout, cin) bf16, the OIHW weight as [kh*3 + kw][out][in]; bias (cout) fp32
-// or null.
-int vcd_conv3x3(const void* x, const void* w9, const void* bias, void* y, int n, int cin,
-                int cout, int h, int w, void* stream) {
-  if (!conv_shape_ok(n, cin, cout, h, w)) return kInvalid;
-  return static_cast<int>(
-      launch_conv(x, w9, bias, y, n, cin, cout, h, w, static_cast<cudaStream_t>(stream)));
+// y (n, cout, h, w) bf16 = conv3x3(x (n, cin, h, w) bf16) + bias; w (3, 3,
+// cin, cout) bf16, the HWIO weight (for the backward's ds, the flipped,
+// channel-swapped weight); bias (cout) fp32 or null; s (n, h, w, cin) bf16
+// scratch, x's NHWC copy. cin a multiple of 64, cout of 128, w of 16; bw the
+// pixel rectangle's width, a power of two from 16 to 128.
+int vcd_conv3x3(const void* x, const void* w, const void* bias, void* y, void* s, int n,
+                int cin, int cout, int h, int wd, int bw, void* stream) {
+  if (!loop_shape_ok(n, cin, cout, h, wd, bw)) return kInvalid;
+  return static_cast<int>(launch_conv(x, w, bias, y, s, n, cin, cout, h, wd, bw,
+                                      static_cast<cudaStream_t>(stream)));
 }
 
 // dw (cout, cin, 3, 3) fp32 = sum over n, h, w of dy (n, cout, h, w) bf16
@@ -754,7 +640,8 @@ int vcd_conv3x3(const void* x, const void* w9, const void* bias, void* y, int n,
 // cols = dw_cols(w).
 int vcd_conv3x3_dw(const void* x, const void* a, const void* o, const void* dy, void* s,
                    void* dw, int n, int cin, int cout, int h, int w, int splits, void* stream) {
-  if (!conv_shape_ok(n, cin, cout, h, w) || cin % DW_CI != 0 || cout % DW_CO != 0)
+  if (n < 1 || n > 65535 || cin < DW_CI || cin % DW_CI != 0 || cout < DW_CO ||
+      cout % DW_CO != 0 || h < 1 || w < 16 || w % 16 != 0)
     return kInvalid;
   const int cols = dw_cols(w), rows = DW_PIX / cols;
   const long long units = static_cast<long long>(n) * ((h + rows - 1) / rows) * (w / cols);

@@ -17,16 +17,17 @@ CUDA kernel (wrapper here)  replaces
                            conv on kernel #12's loop (``csrc/sm90_conv3x3.cuh``)
 ``conv3x3``                ``_plain_conv_kernel`` (:361): conv3x3(x) + bias; the
                            backward's ds = conv3x3(dy, w flipped and
-                           transposed) (:348-358)
+                           transposed) (:348-358); x copied once to NHWC by
+                           the pre-pass, the conv on kernel #12's loop
 ``conv3x3_dw``             ``_dw_kernel`` (:423): dW = sum over N, H, W of
                            silu(a*x + o) shifted times dy, s recomputed from x
 =========================  ====================================================
 
 The layout is the model's: NCHW activations and the OIHW weight. The
 wrappers lay the small weight out for the kernels, HWIO ``(3, 3, Cin,
-Cout)`` for #9 (kernel #12's B operand) and ``[tap][out][in]`` for #10, and
-transpose no activation: #9 and #11 write s = silu(a*x + o) once into an
-NHWC scratch that the wrapper allocates. All three are tensor-core bound on
+Cout)`` for #9 and #10 (kernel #12's B operand), and transpose no activation
+themselves: #9 and #11 write s = silu(a*x + o) once into an NHWC scratch
+that the wrapper allocates, and #10 its input x unchanged. All three are tensor-core bound on
 the H100 (implicit GEMMs with K = 9 * channels); the source's header has the
 design.
 
@@ -69,8 +70,7 @@ from .stats import mask_for
 LIBRARY = "fused_resnet"
 KERNELS = ("fused_gn_silu_conv3x3", "conv3x3", "conv3x3_dw")
 LANE = 128  # the JAX kernels' channel multiple (pallas_group_norm.py:40)
-W_MULTIPLE = 16  # the JAX kernels' W rule; here also the CUDA pixel tile's width
-TILE_ROWS = 8  # conv3x3's output pixel tile: 8 rows x W_MULTIPLE columns
+W_MULTIPLE = 16  # the JAX kernels' W rule; here also the 16-byte NCHW stores' width
 SILU_PIXELS = 64  # pixels of one block of the NHWC pre-pass (#9's tap partials)
 DW_BLOCK_CHANNELS = (64, 64)  # conv3x3_dw's (out, in) channels per block
 DW_UNIT_PIXELS = 128  # conv3x3_dw's pixel unit: rows x cols of one image
@@ -84,7 +84,7 @@ launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fused_gn_silu_conv3x3": [_P] * 13 + [_I] * 8 + [_P],
-    "conv3x3": [_P] * 4 + [_I] * 5 + [_P],
+    "conv3x3": [_P] * 5 + [_I] * 6 + [_P],
     "conv3x3_dw": [_P] * 6 + [_I] * 6 + [_P],
     "conv3x3_dw_max_clusters": [_I, _I],
 }
@@ -98,8 +98,7 @@ def _pick_tile_h(h: int, w: int, cin: int, cout: int) -> Optional[int]:
     """The JAX rule (pallas_resnet.py:143-167), copied so that both packages
     fuse the same blocks: the largest row tile whose working set fits
     Mosaic's scoped-VMEM budget, or None. It is a TPU budget; the CUDA
-    kernels tile by 8 rows and take any H, but a shape this refuses is not
-    fused here either."""
+    kernels take any H, but a shape this refuses is not fused here either."""
     w_bytes = 3 * 3 * cin * cout * 2
     for tile_h in (16, 8, 4, 2):
         if h % tile_h:
@@ -275,18 +274,10 @@ def _check_weight(name: str, w: torch.Tensor, x: torch.Tensor) -> None:
     _check_bf16(name, "w", w)
 
 
-def _weight9(name: str, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """The bf16 OIHW (Cout, Cin, 3, 3) weight over x's channels as
-    ``conv3x3``'s (9, Cout, Cin)."""
-    _check_weight(name, w, x)
-    cout, cin = w.shape[:2]
-    return w.permute(2, 3, 0, 1).reshape(9, cout, cin).contiguous()
-
-
 def weight_hwio(w: torch.Tensor) -> torch.Tensor:
     """The OIHW (Cout, Cin, 3, 3) weight as HWIO (3, 3, Cin, Cout),
-    contiguous: ``fused_gn_silu_conv3x3``'s weight, read by kernel #12's
-    loop as its MN-major B."""
+    contiguous: the weight of ``fused_gn_silu_conv3x3`` and ``conv3x3``,
+    read by kernel #12's loop as its MN-major B."""
     return w.permute(2, 3, 1, 0).contiguous()
 
 
@@ -417,18 +408,23 @@ def fused_fwd(
 def conv3x3(x: torch.Tensor, w: torch.Tensor,
             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """conv3x3(x) + bias from the ``conv3x3`` kernel (see
-    :func:`conv3x3_reference`); ``w`` OIHW."""
+    :func:`conv3x3_reference`); ``w`` OIHW, handed to the kernel as
+    :func:`weight_hwio`."""
     name = "conv3x3"
     if _on_cpu(x, name):
         return conv3x3_reference(x, w, bias)
     n, cin, h, wd = _check_x(name, x)
-    w9 = _weight9(name, w, x)
-    cout = w9.shape[1]
+    _check_weight(name, w, x)
+    cout = w.shape[0]
     _check_rule(name, x, cout)
     if bias is not None:
         _check_vec(name, "bias", bias, (cout,), x.device)
+    w_hwio = weight_hwio(w)
     y = torch.empty((n, cout, h, wd), dtype=x.dtype, device=x.device)
-    _launch(name, x, x.data_ptr(), w9.data_ptr(), _ptr(bias), y.data_ptr(), n, cin, cout, h, wd)
+    s = torch.empty((n, h, wd, cin), dtype=x.dtype, device=x.device)  # x, NHWC
+    _rows, cols = pixel_tile(h, wd)
+    _launch(name, x, x.data_ptr(), w_hwio.data_ptr(), _ptr(bias), y.data_ptr(), s.data_ptr(),
+            n, cin, cout, h, wd, cols)
     return y
 
 

@@ -23,7 +23,10 @@ CUDA kernel (wrapper here)    replaces
 All four are bound by device-memory bandwidth on the H100 (a few flops per
 2-byte element); each makes one pass over its inputs, one thread block per
 (sample, channel) plane of the NCHW tensor, and writes each per-plane sum
-once without atomics. The source's header has the design.
+once without atomics. Where B x C is too small to fill the card (the 1024px
+batch-1 step), ``gn_fwd_normalize`` splits each plane over
+:func:`normalize_splits` blocks and adds its |z| tap's per-split partials in
+a second pass, in order. The source's header has the design.
 
 The small (B, C) algebra between the kernels stays in PyTorch, as the JAX
 package keeps it in XLA: the group combine C -> G and the reference's
@@ -54,6 +57,9 @@ LIBRARY = "group_norm"
 KERNELS = ("gn_fwd_reduce", "gn_fwd_normalize", "gn_bwd_reduce", "gn_bwd_dx")
 CHANNEL_MULTIPLE = 128  # the JAX kernels' lane width (pallas_group_norm.py:40)
 HW_MULTIPLE = 8  # the JAX kernels' sublane; here the 16-byte bf16 vectors
+THREADS = 256  # a kernel block
+NORM_LOADS = 4  # gn_fwd_normalize's 16-byte loads in flight a thread
+NORM_TARGET_BLOCKS = 8 * 132  # 2048 resident threads on each of the H100's 132 SMs
 
 # kernel launches in this process, per kernel; only the CUDA branches below
 # add to them
@@ -65,7 +71,7 @@ _fns: Dict[str, object] = {}  # ctypes functions, bound at first launch
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "gn_fwd_reduce": [_P, _P, _P, _I, _I, _I, _P],
-    "gn_fwd_normalize": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gn_fwd_normalize": [_P] * 6 + [_I] * 6 + [_P],
     "gn_bwd_reduce": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gn_bwd_dx": [_P] * 8 + [_I, _I, _I, _I, _P],
 }
@@ -81,6 +87,30 @@ def eligible(x: torch.Tensor, num_groups: int) -> bool:
     c = x.shape[1]
     hw = x.shape[2] * x.shape[3]
     return c % CHANNEL_MULTIPLE == 0 and c % num_groups == 0 and hw % HW_MULTIPLE == 0
+
+
+def split_chunk(hw: int, splits: int) -> int:
+    """Elements of one of a plane's ``splits`` splits in ``gn_fwd_normalize``:
+    ceil(hw / splits) rounded up to a multiple of 8 (16 bytes of bf16).
+    Split k covers [min(k * chunk, hw), min((k + 1) * chunk, hw))."""
+    per_split = -(-hw // splits)
+    return -(-per_split // 8) * 8
+
+
+def normalize_splits(planes: int, hw: int, element_size: int) -> int:
+    """How many blocks ``gn_fwd_normalize`` splits each of ``planes`` planes
+    of ``hw`` elements over: the smallest power of two S with planes * S >=
+    ``NORM_TARGET_BLOCKS``, halved while a split would hold less than one
+    round of ``NORM_LOADS`` 16-byte loads by each of the block's threads or
+    the last split would be empty. 1 wherever the planes alone reach the
+    target. The kernel refuses a call made with any other count."""
+    s = 1
+    while planes * s < NORM_TARGET_BLOCKS:
+        s *= 2
+    round_elems = THREADS * (16 // element_size) * NORM_LOADS
+    while s > 1 and (split_chunk(hw, s) < round_elems or (s - 1) * split_chunk(hw, s) >= hw):
+        s //= 2
+    return s
 
 
 # --------------------------------------------------------------------------- #
@@ -215,6 +245,10 @@ def _launch(name: str, x: torch.Tensor, *args) -> None:
     launches[name] += 1
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def _new_vec(x: torch.Tensor) -> torch.Tensor:
     return torch.empty((x.shape[0], x.shape[1]), dtype=torch.float32, device=x.device)
 
@@ -241,10 +275,15 @@ def fwd_normalize(
         return fwd_normalize_reference(x, a, b, fuse_silu, with_stats)
     planes, hw, dt = _check_x(name, x)
     _check_vec(name, x, a=a, b=b)
+    splits = normalize_splits(planes, hw, x.element_size())
     y = torch.empty_like(x)
     abs_sum = _new_vec(x) if with_stats else None
+    # the tap's per-split partials, (planes, splits), where there are several
+    part = (torch.empty((planes, splits), dtype=torch.float32, device=x.device)
+            if with_stats and splits > 1 else None)
     _launch(name, x, x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
-            abs_sum.data_ptr() if with_stats else None, planes, hw, dt, int(fuse_silu))
+            _ptr(abs_sum), _ptr(part), planes, hw, dt, int(fuse_silu), splits,
+            0 if part is None else part.shape[1])
     return y, abs_sum
 
 
@@ -435,4 +474,6 @@ __all__ = [
     "group_norm_silu",
     "group_norm_silu_with_stats",
     "launches",
+    "normalize_splits",
+    "split_chunk",
 ]
