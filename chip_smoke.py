@@ -12,21 +12,27 @@ failure exits non-zero without the final ``ok`` line:
    ``csrc/group_norm.cu``, ``csrc/fused_resnet.cu`` and ``csrc/conv_nhwc.cu``
    (nvcc, sm_90a, one nvcc each, started together), the seconds each took,
    and ptxas's registers and spills (none, and no stack frame, in the fp32
-   flash forward); for the kernels on wgmma/TMA through
-   ``csrc/sm90_wgmma.cuh`` (the fp32 flash forward, #9, #10 and #12 on the
-   shared loop of ``csrc/sm90_conv3x3.cuh``, #11), the HGMMA, UTMALDG and
-   HMMA instructions in their SASS (cuobjdump): HGMMA and UTMALDG present,
-   no HMMA;
+   flash forward and the two backward kernels), and the backward's cluster
+   size at each width; for the kernels on wgmma/TMA through
+   ``csrc/sm90_wgmma.cuh`` (the fp32 flash forward, the dK/dV and dQ
+   kernels, #9, #10 and #12 on the shared loop of ``csrc/sm90_conv3x3.cuh``,
+   #11), the HGMMA, UTMALDG and HMMA instructions in their SASS (cuobjdump):
+   HGMMA and UTMALDG present, no HMMA;
 3. flash kernel vs plain: bf16 q/k/v from a seed at the serving shapes, the
    kernel's max abs and relative L2 error against
    ``flash_attention_reference`` (and proof that the bound rejects a kernel
    that drops one key tile), and both times from CUDA events;
 3'. flash training kernels vs plain at (1, 16384, 512) and (4, 4096, 512):
-   the LSE forward's lse, and dQ, dK, dV from the two backward kernels,
-   against their plain versions, each bound shown to reject a planted fault
-   (one query tile left out of dK/dV, delta left out of dS, the row max in
-   place of lse); kernel, plain and library (``scaled_dot_product_attention``
-   forward and backward, the backend named) times from CUDA events; and one
+   the LSE forward's lse, and dQ, dK, dV from the two backward kernels
+   (bit-equal run to run), against their plain versions, each bound shown to
+   reject a planted fault (one query tile left out of dK/dV, one key tile
+   left out of dQ, the cluster's last rank left out of the logits' sums,
+   delta left out of dS, the row max in place of lse); kernel, plain and
+   library (``scaled_dot_product_attention`` forward and backward, the
+   backend named) times from CUDA events; the backward kernels also at
+   C = 128 and 384 (clusters of one and of three CTAs), and timed at
+   (1, 16384, 128), whose CTAs do C = 512's work without traffic between
+   SMs, to price the exchange; and one
    mid-block ``AttentionBlock`` forward and backward on the card, flash
    against naive, every parameter gradient non-zero and within the naive
    path's own bf16-vs-fp32 difference;
@@ -94,7 +100,9 @@ failure exits non-zero without the final ``ok`` line:
    flash training kernel twice and the GroupNorm kernels as many times as
    the model has norms (and their recompute under ``remat: full``), the
    serving forward never; the control loop's CSVs, the final model and
-   ms/step, img/s and peak memory over steps 11-20;
+   ms/step, img/s and peak memory over steps 11-20; the profile of step 5
+   with each flash and GroupNorm kernel's device time less the bounds of its
+   launches at their own shapes (the redesigns' ranking);
 9. one 1024px step with flash against one with naive attention (the same
    weights, batch and noise, ``remat: none``), held to naive bf16's own
    difference from naive fp32 on that step; 10 timed steps each of naive,
@@ -133,6 +141,7 @@ nvidia-smi line, and ``{"ok": true, "device": {...}}``. Imports no jax.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import io
 import json
@@ -218,6 +227,14 @@ GRAD_MAX_REL = 2.0 ** -6
 LSE_MAX_REL = 1e-5
 FAULT_QUERIES = 32
 BWD_ITERS = 10
+# The backward kernels split the channels over a thread-block cluster of
+# C / 128 CTAs: the widths of a cluster of one and of three, at a small N,
+# held to the same bounds; and the main width's N at C = 128, whose CTAs do
+# the same work as C = 512's without any traffic between SMs, to price the
+# exchange. A rank's partial left out of the logits' sum, and one key tile
+# left out of dQ, are the design's own planted faults.
+BWD_SMALL_SHAPES = ((2, 1024, 128), (1, 1024, 384))
+BWD_EXCHANGE_SHAPE = (1, 16384, 128)
 # the AttentionBlock check: flash vs naive (bf16) within this many times
 # naive bf16 vs naive fp32, plus a floor, per parameter gradient
 BLOCK_CONTROL_RATIO = 1.25
@@ -277,6 +294,18 @@ GN_ITERS = 20
 # |z| add); SiLU' and the two sums (12); SiLU' and the dx combination (14).
 # Every one of them is bound by its bytes by a factor of ten or more.
 GN_OPS = {"gn_fwd_reduce": 2, "gn_fwd_normalize": 8, "gn_bwd_reduce": 12, "gn_bwd_dx": 14}
+# The kernels the 1024px Trainer step launches, by their names in a
+# torch.profiler trace: its kernel losses (device time less the bounds of
+# the launches at their own shapes) rank the redesigns.
+TRAINER_KERNEL_EVENTS = {
+    "flash_attention_fwd_lse": ("flash_fwd_kernel",),
+    "flash_attention_bwd_dkv": ("flash_bwd_dkv_kernel",),
+    "flash_attention_bwd_dq": ("flash_bwd_dq_kernel",),
+    "gn_fwd_reduce": ("gn_fwd_reduce_kernel",),
+    "gn_fwd_normalize": ("gn_fwd_normalize_kernel", "sum_splits_kernel"),
+    "gn_bwd_reduce": ("gn_bwd_reduce_kernel",),
+    "gn_bwd_dx": ("gn_bwd_dx_kernel",),
+}
 # The training slice: bench.py's four norm1 taps (bench.py:78-104), AdamW as
 # configs/bench_256px.yaml (lr 5e-5, warmup 10, clip 1.0, kl 1e-6), and the
 # control loop of configs/base_tpu.yaml (threshold 0.2; gentle nudge 1.1,
@@ -392,10 +421,13 @@ FLASH_F32_ITERS = 5
 # The kernels this slice redesigned. The line carries only what this run
 # measured; the times before the redesign stay in PERF.md's table.
 REDESIGNED = {
-    "conv3x3": "redesigned in this slice (NHWC copy of dy and #12's wgmma/TMA loop, "
-               "was mma.sync)",
-    "gn_fwd_normalize": "redesigned in this slice (each plane split over S blocks where "
-                        "B x C is small, 4 loads in flight a thread, was one block a plane)",
+    "flash_attention_bwd_dkv": "redesigned in this slice (channels split over a cluster of C/128 "
+                               "CTAs, 64 keys a CTA, wgmma/TMA, the logits summed in rank order "
+                               "through distributed shared memory; was mma.sync, 16 keys a block)",
+    "flash_attention_bwd_dq": "redesigned in this slice (channels split over a cluster of C/128 "
+                              "CTAs, 64 queries a CTA, wgmma/TMA, the logits summed in rank order "
+                              "through distributed shared memory; was mma.sync, 16 queries a "
+                              "block)",
 }
 # Tiled inference at full width: a 2048px image through the wrapper with
 # enable_tiling(512, 0.25), bf16: 25 encoder and 25 decoder tiles, the flash
@@ -490,9 +522,11 @@ def kernel_label(mangled: str) -> str:
 WGMMA_KERNELS = {"conv3x3_nhwc_kernel": "conv_nhwc", "conv3x3_dw_kernel": "fused_resnet",
                  "fused_gn_silu_conv3x3_kernel": "fused_resnet",
                  "conv3x3_nchw_kernel": "fused_resnet",
-                 "flash_fwd_f32_kernel": "flash_attention_fwd"}
+                 "flash_fwd_f32_kernel": "flash_attention_fwd",
+                 "flash_bwd_dkv_kernel": "flash_attention_bwd",
+                 "flash_bwd_dq_kernel": "flash_attention_bwd"}
 # ptxas must report no stack frame and no spills for these
-NO_STACK_KERNELS = ("flash_fwd_f32_kernel",)
+NO_STACK_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
 NO_STACK = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 
@@ -550,7 +584,9 @@ def phase_build():
                       f"{kernel} has a stack frame or spills: {spills}")
         log(f"[build] {source}: nvcc {_cuda_build.build_seconds.get(lib, 0.0):.2f} s; "
             f"ptxas per instantiation: {entries}")
-    log(f"[build] {len(builds)} libraries built and loaded in {wall:.2f} s")
+    log(f"[build] {len(builds)} libraries built and loaded in {wall:.2f} s; the flash "
+        "backward's thread-block cluster, CTAs by width: "
+        + str({c: flash_attention.bwd_cluster_size(c) for c in flash_attention.SUPPORTED_CHANNELS}))
     for library in sorted(set(WGMMA_KERNELS.values())):
         for label, ops in sass_counts(library).items():
             base = label.split("<")[0]
@@ -641,6 +677,66 @@ def flash_bounds(b: int, n: int, c: int) -> dict:
     }
 
 
+def gn_bound(name: str, shape, element_size: int) -> tuple[float, str]:
+    """A GroupNorm kernel's bound on an NCHW input of ``shape``: GN_OPS[name]
+    fp32 operations an element, and its bytes (the activations in their
+    dtype, the (B, C) fp32 vectors)."""
+    elem = math.prod(shape)
+    e, bc = elem * element_size, shape[0] * shape[1] * 4
+    nbytes = {"gn_fwd_reduce": e + 2 * bc, "gn_fwd_normalize": 2 * e + 2 * bc,
+              "gn_bwd_reduce": 2 * e + 4 * bc, "gn_bwd_dx": 3 * e + 5 * bc}[name]
+    return roofline(GN_OPS[name] * elem, nbytes, PEAK_FP32_FLOPS)
+
+
+@contextlib.contextmanager
+def launch_bounds(bounds: dict):
+    """While active, adds the bound (ms) of every flash and GroupNorm kernel
+    launch, at the launch's own shape, to ``bounds[kernel]``."""
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+    from vae_channel_dynamics_tpu_torch.ops import group_norm_kernel as gnk
+
+    fa_launch, gn_launch = fa._launch, gnk._launch
+
+    def fa_recorded(name, device, *args):
+        b, n, c = args[-4:-1]  # each entry ends with b, n, c, scale
+        bounds[name] = bounds.get(name, 0.0) + flash_bounds(b, n, c)[name][0]
+        return fa_launch(name, device, *args)
+
+    def gn_recorded(name, x, *args):
+        bounds[name] = bounds.get(name, 0.0) + gn_bound(name, tuple(x.shape),
+                                                        x.element_size())[0]
+        return gn_launch(name, x, *args)
+
+    fa._launch, gnk._launch = fa_recorded, gn_recorded
+    try:
+        yield bounds
+    finally:
+        fa._launch, gnk._launch = fa_launch, gn_launch
+
+
+def kernel_losses(prof, bounds: dict, steps: int) -> None:
+    """Logs, for each kernel of TRAINER_KERNEL_EVENTS, its device time in the
+    profiled step less the bounds of its launches there, and that times
+    ``steps``: the redesigns' ranking."""
+    from torch.autograd import DeviceType
+
+    device = dict.fromkeys(TRAINER_KERNEL_EVENTS, 0.0)
+    count = dict.fromkeys(TRAINER_KERNEL_EVENTS, 0)
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        for name, keys in TRAINER_KERNEL_EVENTS.items():
+            if any(k in evt.key for k in keys):
+                device[name] += _self_device_us(evt) / 1e3
+                count[name] += evt.count if keys[0] in evt.key else 0
+                break
+    rows = sorted(((device[k] - bounds.get(k, 0.0), k) for k in device), reverse=True)
+    log(f"[rank] kernel losses in the profiled step (device ms less the sum of its launches' "
+        f"bounds at their own shapes), and x {steps} steps: " + "; ".join(
+            f"{k} {device[k]:.3f} ms x{count[k]} - bounds {bounds.get(k, 0.0):.3f} = "
+            f"{loss:.3f} ms a step, {loss * steps:.1f} ms over the run" for loss, k in rows))
+
+
 _SDPA_BACKEND = []
 
 
@@ -709,10 +805,30 @@ def rel_errors(out, ref) -> tuple[float, float, float]:
             d.abs().max().item())
 
 
+def bwd_rank_left_out(q, k, v, do, lse, delta, scale: float, rank: int):
+    """(dq, dk, dv) of the plain backward with the 128 channels of cluster
+    rank ``rank`` left out of the logits' sums S and dP (what a cluster that
+    dropped one CTA's partial would give); the products keep every channel."""
+    import torch
+
+    keep = torch.ones(q.shape[-1], dtype=torch.bool, device=q.device)
+    keep[rank * 128:(rank + 1) * 128] = False
+    p = torch.exp(torch.matmul(q.float()[..., keep], k.float()[..., keep].transpose(1, 2))
+                  * scale - lse[..., None])
+    ds = p * (torch.matmul(do.float()[..., keep], v.float()[..., keep].transpose(1, 2))
+              - delta[..., None]) * scale
+    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    return (torch.matmul(ds, k.float()).to(q.dtype),
+            torch.matmul(ds.transpose(1, 2), q.float()).to(k.dtype),
+            torch.matmul(p.transpose(1, 2), do.float()).to(v.dtype))
+
+
 def phase_flash_bwd():
     """The flash training kernels against their plain versions at
-    BWD_SHAPES, with planted faults, CUDA-event times and the SDPA
-    yardstick; then one AttentionBlock forward and backward on the card."""
+    BWD_SHAPES, with planted faults, bit-equal run to run, CUDA-event times
+    and the SDPA yardstick; the backward kernels also at BWD_SMALL_SHAPES
+    (clusters of one and of three CTAs) and timed at BWD_EXCHANGE_SHAPE; then
+    one AttentionBlock forward and backward on the card."""
     import torch
 
     from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
@@ -720,6 +836,69 @@ def phase_flash_bwd():
     names = ("flash_attention_fwd_lse", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
     results = {name: {"max_abs_err": 0.0} for name in names}
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+
+    def held(lines, shape, name, what, errs, fault_errs, max_rel_bound,
+             rel_l2_bound=KERNEL_REL_L2):
+        max_rel, rel_l2, abs_err = errs
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], abs_err)
+        lines.append(f"{what}: max rel {max_rel:.3g} (bound {max_rel_bound:.3g}), rel L2 "
+                     f"{rel_l2:.3g} (bound {rel_l2_bound:.3g}); "
+                     + ", ".join(f"{fault}: max rel {f[0]:.3g}, rel L2 {f[1]:.3g}"
+                                 for fault, f in fault_errs.items()))
+        check(max_rel <= max_rel_bound and rel_l2 <= rel_l2_bound,
+              f"{what} disagrees with plain at {shape}: {errs}")
+        for fault, f in fault_errs.items():
+            check(f[0] > max_rel_bound or f[1] > rel_l2_bound,
+                  f"the {what} bound at {shape} does not reject {fault}")
+
+    def backward(q, k, v, do, lse, delta, scale):
+        """(dq, dk, dv) from the kernels, twice: bit-equal run to run."""
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=scale)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale)
+        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=scale)
+        dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale)
+        sync()
+        check(torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2),
+              f"the backward kernels are not bit-equal run to run at {tuple(q.shape)}")
+        return dq, dk, dv
+
+    def held_backward(lines, shape, q, k, v, do, lse, delta, scale, row_max=None):
+        """dQ, dK, dV against plain, each bound shown to reject the planted
+        faults: one query tile left out of dK/dV, one key tile left out of
+        dQ, the last rank's partial left out of the logits' sums, delta left
+        out of dS, and (with row_max) m in place of lse."""
+        dq, dk, dv = backward(q, k, v, do, lse, delta, scale)
+        pdq, pdk, pdv = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
+        fs = FAULT_QUERIES
+        _, tile_dk, tile_dv = fa.flash_attention_bwd_reference(
+            q[:, fs:], k, v, do[:, fs:], lse[:, fs:], delta[:, fs:], scale)
+        key_dq = fa.flash_attention_bwd_dq_reference(q, k[:, FAULT_TILE:], v[:, FAULT_TILE:], do,
+                                                     lse, delta, scale)
+        rank_dq, rank_dk, rank_dv = bwd_rank_left_out(q, k, v, do, lse, delta, scale,
+                                                      fa.bwd_cluster_size(shape[2]) - 1)
+        nod_dq, nod_dk, _ = fa.flash_attention_bwd_reference(
+            q, k, v, do, lse, torch.zeros_like(delta), scale)
+        m_faults = ({} if row_max is None else
+                    dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_reference(
+                        q, k, v, do, row_max, delta, scale))))
+        rank = "a rank's partial left out"
+        faults_dk = {"a query tile left out": rel_errors(tile_dk, pdk), rank: rel_errors(rank_dk, pdk),
+                     "delta left out": rel_errors(nod_dk, pdk)}
+        faults_dv = {"a query tile left out": rel_errors(tile_dv, pdv), rank: rel_errors(rank_dv, pdv)}
+        faults_dq = {"a key tile left out": rel_errors(key_dq, pdq), rank: rel_errors(rank_dq, pdq),
+                     "delta left out": rel_errors(nod_dq, pdq)}
+        for faults, key in ((faults_dk, "dk"), (faults_dv, "dv"), (faults_dq, "dq")):
+            if m_faults:
+                faults["m for lse"] = rel_errors(m_faults[key], {"dq": pdq, "dk": pdk, "dv": pdv}[key])
+        held(lines, shape, "flash_attention_bwd_dkv", "dK", rel_errors(dk, pdk), faults_dk,
+             GRAD_MAX_REL)
+        held(lines, shape, "flash_attention_bwd_dkv", "dV", rel_errors(dv, pdv), faults_dv,
+             GRAD_MAX_REL)
+        held(lines, shape, "flash_attention_bwd_dq", "dQ", rel_errors(dq, pdq), faults_dq,
+             GRAD_MAX_REL)
+        lines.append("bit-equal run to run")
+
+    bwd_ms = {}
     for shape in BWD_SHAPES:
         b, n, c = shape
         q, k, v, do = (torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
@@ -727,56 +906,23 @@ def phase_flash_bwd():
         scale = c ** -0.5
         lines = []
 
-        def held(name, what, errs, fault_errs, max_rel_bound, rel_l2_bound=KERNEL_REL_L2):
-            max_rel, rel_l2, abs_err = errs
-            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], abs_err)
-            lines.append(f"{what}: max rel {max_rel:.3g} (bound {max_rel_bound:.3g}), rel L2 "
-                         f"{rel_l2:.3g} (bound {rel_l2_bound:.3g}); "
-                         + ", ".join(f"{fault}: max rel {f[0]:.3g}, rel L2 {f[1]:.3g}"
-                                     for fault, f in fault_errs.items()))
-            check(max_rel <= max_rel_bound and rel_l2 <= rel_l2_bound,
-                  f"{what} disagrees with plain at {shape}: {errs}")
-            for fault, f in fault_errs.items():
-                check(f[0] > max_rel_bound or f[1] > rel_l2_bound,
-                      f"the {what} bound at {shape} does not reject {fault}")
-
         # the training forward: o and lse; fault: the row max m in place of lse
         o, lse = fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=torch.bfloat16)
         sync()
         po, plse = fa.flash_attention_fwd_lse_reference(q, k, v, scale, torch.bfloat16)
         row_max = (torch.matmul(q.float(), k.float().transpose(1, 2)) * scale).amax(dim=-1)
-        held("flash_attention_fwd_lse", "lse", rel_errors(lse, plse),
+        held(lines, shape, "flash_attention_fwd_lse", "lse", rel_errors(lse, plse),
              {"m in place of lse": rel_errors(row_max, plse)}, LSE_MAX_REL, LSE_MAX_REL)
         max_rel, rel_l2, abs_err = rel_errors(o, po)
         lines.append(f"o: max rel {max_rel:.3g}, rel L2 {rel_l2:.3g}")
         check(rel_l2 <= KERNEL_REL_L2 and max_rel <= GRAD_MAX_REL,
               f"the LSE forward's o disagrees with plain at {shape}")
+        del po, plse
 
         # the backward kernels on the kernel's own lse and delta
         delta = (do.float() * o.float()).sum(-1)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=scale)
-        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale)
-        sync()
-        pdq, pdk, pdv = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
-        # faults: one query tile left out of dK/dV; delta left out of dS; m
-        # in place of lse
-        fs = FAULT_QUERIES
-        _, tile_dk, tile_dv = fa.flash_attention_bwd_reference(
-            q[:, fs:], k, v, do[:, fs:], lse[:, fs:], delta[:, fs:], scale)
-        nod_dq, nod_dk, _ = fa.flash_attention_bwd_reference(
-            q, k, v, do, lse, torch.zeros_like(delta), scale)
-        m_dq, m_dk, m_dv = fa.flash_attention_bwd_reference(q, k, v, do, row_max, delta, scale)
-        held("flash_attention_bwd_dkv", "dK", rel_errors(dk, pdk),
-             {"a query tile left out": rel_errors(tile_dk, pdk),
-              "delta left out": rel_errors(nod_dk, pdk), "m for lse": rel_errors(m_dk, pdk)},
-             GRAD_MAX_REL)
-        held("flash_attention_bwd_dkv", "dV", rel_errors(dv, pdv),
-             {"a query tile left out": rel_errors(tile_dv, pdv),
-              "m for lse": rel_errors(m_dv, pdv)}, GRAD_MAX_REL)
-        held("flash_attention_bwd_dq", "dQ", rel_errors(dq, pdq),
-             {"delta left out": rel_errors(nod_dq, pdq), "m for lse": rel_errors(m_dq, pdq)},
-             GRAD_MAX_REL)
-        del po, plse, row_max, pdq, pdk, pdv, tile_dk, tile_dv, nod_dq, nod_dk, m_dq, m_dk, m_dv
+        held_backward(lines, shape, q, k, v, do, lse, delta, scale, row_max)
+        del row_max
         release()
 
         # times, in turns: plain, kernel, kernel, plain
@@ -795,6 +941,7 @@ def phase_flash_bwd():
                 lambda: fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, scale),
                 BWD_ITERS),
         }
+        bwd_ms[shape] = {name: times[name][0] for name in names[1:]}
         backend, lib = sdpa_times(q, k, v, do, scale, BWD_ITERS)
         bounds = flash_bounds(b, n, c)
         # SDPA's backward gives dQ, dK and dV in one call, so it stands beside
@@ -817,8 +964,39 @@ def phase_flash_bwd():
             + f"; SDPA ({backend}) forward {lib['fwd']:.4f}, forward for backward "
             f"{lib['fwd_grad']:.4f}, backward {lib['bwd']:.4f}, forward+backward "
             f"{lib['fwd_grad'] + lib['bwd']:.4f}; kernels forward+backward "
-            f"{sum(times[name][0] for name in names):.4f}")
-        del q, k, v, do, o, lse, delta, dq, dk, dv
+            f"{sum(times[name][0] for name in names):.4f}, backward "
+            f"{times[names[1]][0] + times[names[2]][0]:.4f}")
+        del q, k, v, do, o, lse, delta
+        release()
+
+    # clusters of one and of three CTAs; then the exchange's price: C = 128
+    # at the main shape's N is the same work a CTA as C = 512's, with no
+    # traffic between SMs
+    for shape in BWD_SMALL_SHAPES + (BWD_EXCHANGE_SHAPE,):
+        b, n, c = shape
+        q, k, v, do = (torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+                       for _ in range(4))
+        scale = c ** -0.5
+        o, lse = fa.flash_attention_fwd_lse_reference(q, k, v, scale, torch.bfloat16)
+        delta = (do.float() * o.float()).sum(-1)
+        lines = []
+        if shape in BWD_SMALL_SHAPES:
+            held_backward(lines, shape, q, k, v, do, lse, delta, scale)
+        else:
+            dkv = cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                             scale=scale), BWD_ITERS)
+            dq = cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale),
+                         BWD_ITERS)
+            main = bwd_ms[BWD_SHAPES[0]]
+            ranks = fa.bwd_cluster_size(BWD_SHAPES[0][2])
+            lines.append(
+                f"dK/dV {dkv:.4f} ms, dQ {dq:.4f} ms (a cluster of 1; x {ranks} = "
+                f"{ranks * dkv:.4f} and {ranks * dq:.4f} against {BWD_SHAPES[0]}'s "
+                f"{main['flash_attention_bwd_dkv']:.4f} and {main['flash_attention_bwd_dq']:.4f}: "
+                f"traffic between SMs {100 * (1 - ranks * dkv / main['flash_attention_bwd_dkv']):.1f}% "
+                f"and {100 * (1 - ranks * dq / main['flash_attention_bwd_dq']):.1f}% of the call)")
+        log(f"[flash-bwd] {shape} bf16, a cluster of {fa.bwd_cluster_size(c)}: " + "; ".join(lines))
+        del q, k, v, do, o, lse, delta
         release()
     phase_attention_block()
     return results
@@ -1237,14 +1415,9 @@ def phase_gn_kernels():
         # between the kernels, so each forward kernel shows the forward's time
         # and each backward kernel the backward's
         lib_fwd, lib_bwd = library_group_norm(x, g, scale, bias)
-        elem, bc = x.numel(), b * c * 4
-        e = elem * x.element_size()
-        nbytes = {"gn_fwd_reduce": e + 2 * bc, "gn_fwd_normalize": 2 * e + 2 * bc,
-                  "gn_bwd_reduce": 2 * e + 4 * bc, "gn_bwd_dx": 3 * e + 5 * bc}
         if shape == GN_ROW_SHAPE:
             for name, (ms, plain_ms) in times.items():
-                bound_ms, bound_by = roofline(GN_OPS[name] * elem, nbytes[name],
-                                              PEAK_FP32_FLOPS)
+                bound_ms, bound_by = gn_bound(name, shape, x.element_size())
                 fwd_kernel = "fwd" in name
                 results[name].update(
                     shape=list(shape), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1270,9 +1443,8 @@ def phase_gn_kernels():
             + f", gn_fwd_normalize with the tap {stats_ms[0]:.4f}/{stats_ms[1]:.4f}; "
             f"op forward {fwd[0]:.4f}/{fwd[1]:.4f}, op backward {bwd[0]:.4f}/{bwd[1]:.4f}; "
             f"x is {bytes_x / 1e6:.1f} MB, so the reduce kernel reads at "
-            f"{bytes_x / times['gn_fwd_reduce'][0] / 1e6:.0f} GB/s; bounds (bytes at "
-            f"{PEAK_BYTES_PER_S / 1e12} TB/s) "
-            + ", ".join(f"{k} {nbytes[k] / PEAK_BYTES_PER_S * 1e3:.4f}" for k in nbytes)
+            f"{bytes_x / times['gn_fwd_reduce'][0] / 1e6:.0f} GB/s; bounds (gn_bound) "
+            + ", ".join(f"{k} {gn_bound(k, shape, x.element_size())[0]:.4f}" for k in GN_OPS)
             + f"; F.group_norm + F.silu forward {lib_fwd:.4f}, backward {lib_bwd:.4f}")
         del x, g, a, off, ca, cb, cc
     release()
@@ -2236,6 +2408,9 @@ def phase_trainer_1024(tmp: str):
                 if DEVICE == "cuda":
                     activities.append(ProfilerActivity.CUDA)
                 prof = profile(activities=activities)
+                bounds = {}
+                recorder = launch_bounds(bounds)
+                recorder.__enter__()
                 prof.__enter__()
                 t0 = time.perf_counter()
             out = step_fn(state, *a, **kw)
@@ -2243,9 +2418,11 @@ def phase_trainer_1024(tmp: str):
                 sync()
                 wall_ms = (time.perf_counter() - t0) * 1e3
                 prof.__exit__(None, None, None)
+                recorder.__exit__(None, None, None)
                 log(f"[profile] step {TRAINER_PROFILE_STEP} of the 1024px Trainer run "
                     "(flash, pallas, remat full), inside the Trainer:")
                 _profile_breakdown(prof, wall_ms)
+                kernel_losses(prof, bounds, TRAINER_STEPS)
             losses[(current["run"], out[0].step)] = out[1]["train_loss_step"]
             if out[0].step == TRAINER_STEPS:
                 sync()

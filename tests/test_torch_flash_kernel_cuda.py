@@ -28,13 +28,19 @@ bf16 P and dS may round the other way where exp differs in its last bit:
 each is held to max|kernel - plain| <= 2^-6 max|plain| (4 bf16 ulps at the
 top of max|plain|'s binade) and a relative L2 error of 1e-2. Leaving one
 32-query tile out of dK/dV costs about sqrt(32/N) in relative L2, 0.044 at
-N = 16384. The fp32 lse is held to 1e-5 of max|plain|: the kernel sums its
-denominator in another order.
+N = 16384; leaving one rank's 128-channel partial out of the logits' sums
+(the backward kernels split the channels over a thread-block cluster of
+C / 128 CTAs) costs far more. The fp32 lse is held to 1e-5 of max|plain|:
+the kernel sums its denominator in another order.
 """
+
+import ctypes
 
 import pytest
 import torch
 
+from chip_smoke import bwd_rank_left_out
+from vae_channel_dynamics_tpu_torch.ops import _cuda_build
 from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -135,15 +141,45 @@ def test_backward_kernels_match_plain(cuda, shape):
     for f, r in ((fk, refs[1]), (fv, refs[2])):
         max_rel, rel_l2 = _rel(f, r)
         assert max_rel > GRAD_MAX_REL or rel_l2 > REL_L2
+    # and all three with the cluster's last rank left out of the logits' sums
+    faulty = bwd_rank_left_out(q, k, v, do, lse, delta, scale, fa.bwd_cluster_size(shape[2]) - 1)
+    for f, r in zip(faulty, refs):
+        max_rel, rel_l2 = _rel(f, r)
+        assert max_rel > GRAD_MAX_REL or rel_l2 > REL_L2
 
 
-def test_backward_is_deterministic(cuda):
-    q, k, v, do = _qkv((2, 1024, 512), cuda, seed=7, n=4)
-    o, lse = fa.flash_attention_fwd_lse(q, k, v, scale=512 ** -0.5, out_dtype=torch.bfloat16)
+@pytest.mark.parametrize("shape", [(2, 1024, 128), (2, 1024, 256), (1, 1024, 384),
+                                   (2, 1024, 512)])
+def test_backward_is_deterministic(cuda, shape):
+    q, k, v, do = _qkv(shape, cuda, seed=7, n=4)
+    scale = shape[-1] ** -0.5
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=torch.bfloat16)
     delta = (do.float() * o.float()).sum(-1)
-    first = _bwd(q, k, v, do, lse, delta, 512 ** -0.5)
-    second = _bwd(q, k, v, do, lse, delta, 512 ** -0.5)
+    before = dict(fa.launches)
+    first = _bwd(q, k, v, do, lse, delta, scale)
+    second = _bwd(q, k, v, do, lse, delta, scale)
+    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        assert fa.launches[name] == before[name] + 2
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("b, n, c", [(1, 128, 640), (1, 128, 96), (1, 100, 128),
+                                     (1, 64, 128), (0, 128, 128), (70000, 128, 128)])
+def test_backward_entries_refuse_other_shapes(cuda, b, n, c):
+    """The C entries return cudaErrorInvalidValue (1) for a width, token
+    count or batch the kernels do not take, before touching the operands."""
+    fa.build_backward()
+    lib = _cuda_build.load(fa.BWD_LIBRARY)
+    x = torch.zeros(4096, device=cuda, dtype=torch.bfloat16)
+    ptr = ctypes.c_void_p(x.data_ptr())
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    dkv = lib.vcd_flash_attention_bwd_dkv_bf16
+    dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    dq = lib.vcd_flash_attention_bwd_dq_bf16
+    dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    assert dkv(*[ptr] * 8, b, n, c, 1.0, stream) == 1
+    assert dq(*[ptr] * 7, b, n, c, 1.0, stream) == 1
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("shape", [(2, 256, 128), (1, 4096, 512)])

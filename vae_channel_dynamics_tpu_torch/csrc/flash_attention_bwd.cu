@@ -1,350 +1,627 @@
-// Flash-attention backward for the VAE mid block, hand-written for Hopper (sm_90a).
+// Flash-attention backward for the VAE mid block, hand-written for Hopper
+// (sm_90a) on wgmma and TMA, its channels split over a thread-block cluster.
 //
 // Replaces vae_channel_dynamics_tpu/ops/pallas_attention.py::_flash_bwd_dkv_kernel
-// (dK, dV) and ::_flash_bwd_dq_kernel (dQ). Both rebuild each tile of the
-// softmax from the forward's per-row log-sum-exp, with the JAX kernels' math
-// (pallas_attention.py:262-331):
+// (:304, dK, dV) and ::_flash_bwd_dq_kernel (:284, dQ). Both rebuild each tile
+// of the softmax from the forward's per-row log-sum-exp, with the JAX
+// kernels' math (_bwd_tile, :262-281):
 //   S  = Q K^T * scale                 fp32
 //   P  = exp(S - lse)                  exact softmax, no running max
 //   dP = dO V^T                        fp32
 //   dS = P * (dP - delta) * scale      delta = rowsum(dO * O), computed outside
 //   dV += P^T dO,  dK += dS^T Q,  dQ += dS K
 // P and dS are cast to bf16 before the last three products; every
-// accumulator is fp32 and dQ, dK, dV are written in bf16. Each output
-// element is written once by one block, with no atomics, so the results are
-// the same bits from run to run.
+// accumulator is fp32 and dQ, dK, dV are written in bf16.
 //
 // What bounds it on the H100: dK/dV do 8*B*N^2*C FLOPs and dQ 6*B*N^2*C
-// against a few B*N*C bytes of device-memory traffic, so both are
-// tensor-core bound at the mid block's N = 4096 and 16384. The design keeps
-// every N^2 tile (S, dP, P, dS) in shared memory and the fp32 accumulators
-// in registers, and feeds the tensor cores with bf16 mma.sync (m16n8k16)
-// from ldmatrix loads. wgmma/TMA and warp specialisation are later work.
+// against a few B*N*C bytes of device memory, so both would be tensor-core
+// bound at the mid block's N = 4096 and 16384 (1.11 and 0.83 ms at (1,
+// 16384, 512)). What stood in the way is the head: 512 channels wide, so a
+// (rows x 512) fp32 accumulator costs 64 registers a thread for every 16
+// rows over 8 warps. The mma.sync kernels this file held before owned 16
+// keys (or queries) a block, and each of their N / 16 blocks streamed the
+// whole other side, 34.4 GB through L2 a call at (1, 16384, 512): 8-9% of
+// the bound.
 //
-// C = 512 is the difficulty: a (rows x 512) fp32 accumulator is 64 fp32 per
-// thread for every 16 rows when split over 8 warps by columns. dK/dV carry
-// two of them, so that kernel owns BKV = 16 key rows per block (dK and dV:
-// 32 + 32 fp32 per thread), and dQ owns BQR = 16 query rows (32 fp32).
+// The design: the channels, not the rows, are split. A cluster of R = C/128
+// CTAs (4 at C = 512; 1, 2, 3 at 128, 256, 384) shares one block of 64 rows
+// (keys for dK/dV, queries for dQ), and CTA r owns channels [128r, 128r +
+// 128): it loads only that slice of every operand, and its dK and dV (or dQ)
+// of 64 rows x 128 channels are one wgmma accumulator each, 64 fp32 a
+// thread in one warpgroup. Each CTA then streams N x 128 x 2 x 2 bytes, a
+// quarter of a full-width block's, for 4x the rows.
 //
-// dK/dV kernel: one block (256 threads) per 16 keys of one batch element; it
-// loads its K and V rows once and loops over query tiles of 32, double-
-// buffering Q and dO with cp.async so the next tile's copy overlaps the
-// current tile's math. Per tile:
-//   1. warps 0-3 compute S (32 x 16) and warps 4-7 dP, one 16x8 piece each,
-//      contracting over C, into fp32 shared memory;
-//   2. every thread turns 2 elements into P and dS and stores them
-//      transposed (key-major) in bf16;
-//   3. warp w adds P^T dO and dS^T Q into columns [w*C/8, (w+1)*C/8) of its
-//      dV and dK registers.
-// Shared memory at C = 512: 2 x 16,640 (K, V) + 4 x 33,280 (Q, dO, two
-// buffers each) + 2 x 2,560 (S, dP) + 2 x 1,280 (P^T, dS^T) = 174,080 bytes.
+// Per streamed tile (64 queries for dK/dV, 32 keys for dQ):
+//   1. TMA brings the tile's slice (Q and dO, or K and V; dK/dV also lse and
+//      delta) into a ring of stages; each warp's lane 0 issues a quarter of
+//      a refill (one thread issuing all of them held up the warpgroup);
+//   2. wgmma (m64n64k16 or m64n32k16) forms this CTA's partial S and dP (S^T
+//      and dP^T for dK/dV, M = keys) over its 128 channels: 8 k-steps each,
+//      a short accumulation, as the tensor cores truncate fp32 sums;
+//   3. the cluster adds the partials in rank order 0, 1, ..., R-1 through
+//      distributed shared memory: a thread's logits of a tile are pairs, and
+//      pair p belongs to rank p R / pairs. Every CTA stores each pair of its
+//      S and dP partials in fp32 into its own slot or an outbox run for the
+//      owner, and one bulk copy a rank (cp.async.bulk, shared::cta to
+//      shared::cluster) sends each run to its owner's slot for this rank,
+//      counted by the owner's mbarrier (a reduce-scatter); the owner adds
+//      the R slots in rank order, forms P and dS in bf16, and copies its run
+//      of pairs the same way into every other rank's gather buffer (an
+//      all-gather). 36 bytes cross between SMs a logit for dK/dV (30 for dQ,
+//      which gathers dS only), against 96 for a full exchange of the fp32
+//      partials. Every CTA so holds the same bits of P and dS; no atomics,
+//      no fences (each barrier counts the bytes it waits for);
+//   4. the gathered P and dS, in the accumulator's own layout, are wgmma's
+//      register A: dV += P^T dO and dK += dS^T Q (M = keys, K = queries), or
+//      dQ += dS K (M = queries, K = keys), with dO, Q or K read from the
+//      stage as MN-major B (m64n128k16).
+// Each output element is written once, in bf16, by one CTA: two runs give
+// the same bits.
 //
-// dQ kernel: one block per 16 queries; it loads its Q and dO rows once and
-// loops over key tiles of 32, double-buffering K and V. Steps 1-2 as above
-// on a 16 x 32 tile (dS stored query-major), then warp w adds dS K into its
-// C/8 columns of dQ. Shared memory at C = 512: 2 x 16,640 (Q, dO)
-// + 4 x 33,280 (K, V) + 2 x 2,304 (S, dP) + 1,280 (dS) = 172,288 bytes.
+// What bounds the design is the exchange's latency more than its bytes:
+// each tile waits twice for the other ranks, with only one warpgroup an SM
+// to fill the wait, while the card's 50 MB L2 keeps every streamed slice.
+// Two chains an SM hide one's waits behind the other's work, and shared
+// memory sets how:
+//   - dK/dV (64-query tiles, 3 stages, two gather buffers, 195-223 KB for
+//     R = 1-4, one CTA an SM, 253-255 registers, no spills) pipelines
+//     itself by a tile: tile t - 1's products run while the cluster
+//     exchanges tile t;
+//   - dQ (32-key tiles, 2 stages, one gather buffer, 85-99 KB, 122-128
+//     registers) runs two CTAs an SM, one's exchange beside the other's
+//     products; its smaller tiles double the exchanges, which dK/dV, that
+//     gathers P as well, did not recover when it was built that way.
+// C = 128, a cluster of one with no traffic between SMs, prices the
+// exchange: chip_smoke.py logs it beside C = 512.
 //
-// Both are above 48 KB, so the launcher raises the kernels' dynamic shared-
-// memory limit first. ptxas (-Xptxas -v, sm_90a, CUDA 12.8): dK/dV
-// 195 registers at C = 512 (164, 122, 85 at 384, 256, 128), dQ 132 (109,
-// 79, 80), no spills.
-//
-// Plain C interface for ctypes: pointers and the stream
-// are void*, each function returns cudaGetLastError() after its launch. They
-// launch on the caller's stream, allocate nothing and do not synchronise.
+// Plain C interface for ctypes: pointers and the stream are void*, each
+// function returns cudaGetLastError() after its launch (cudaErrorInvalidValue
+// for a shape it does not take). They launch on the caller's stream,
+// allocate nothing and do not synchronise.
 
-#include "sm90_mma.cuh"
+#include <cooperative_groups.h>
+
+#include "sm90_wgmma.cuh"
 
 namespace {
 
-using namespace vcd;
+using namespace vcd::sm90;
+namespace cg = cooperative_groups;
+using bf16 = __nv_bfloat16;
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int BKV = 16;  // dK/dV kernel: keys per block
-constexpr int TQ = 32;   // dK/dV kernel: queries per tile
-constexpr int BQR = 16;  // dQ kernel: queries per block
-constexpr int TK = 32;   // dQ kernel: keys per tile
+constexpr int SLICE = 128;             // channels of one CTA of the cluster
+constexpr int ROWS = 64;               // the CTA's keys (dK/dV) or queries (dQ): wgmma's M
+constexpr int THREADS = 128;           // one warpgroup
+constexpr int RES_BOX = ROWS * 128;    // a resident TMA box: 64 rows x 64 channels bf16
+constexpr int RESIDENT = 2 * RES_BOX;  // a resident 64-row slice of 128 channels
 
-// Step 1 of either kernel on an R x K logits tile (R query rows, K keys):
-// warps 0-3 compute S = Q K^T * scale, warps 4-7 dP = dO V^T, each one 16x8
-// piece, into fp32 tiles of row stride K + 4.
-template <int C, int R, int K>
-__device__ __forceinline__ void logits_pieces(const bf16* sQ, const bf16* sdO, const bf16* sK,
-                                              const bf16* sV, float* sS, float* sdP,
-                                              float scale, int warp, int lane) {
-  static_assert(R * K == 4 * 16 * 8, "four 16x8 pieces per product");
-  constexpr int LD = C + PAD, S_LD = K + 4;
-  const bool is_dp = warp >= 4;  // warp-uniform
-  const int piece = warp & 3;
-  const int m0 = (piece / (K / 8)) * 16, n0 = (piece % (K / 8)) * 8;
-  const bf16* a_src = (is_dp ? sdO : sQ) + (m0 + (lane & 15)) * LD + (lane >> 4) * 8;
-  const bf16* b_src = (is_dp ? sV : sK) + (n0 + (lane & 7)) * LD + ((lane >> 3) & 1) * 8;
-  float d[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-  for (int kk = 0; kk < C; kk += 16) {
-    uint32_t a[4], b[2];
-    ldmatrix_x4(a, a_src + kk);
-    ldmatrix_x2(b, b_src + kk);
-    mma_bf16(d, a, b[0], b[1]);
-  }
-  const int gid = lane >> 2, tig = lane & 3;
-  const float mul = is_dp ? 1.f : scale;
-  float* out = (is_dp ? sdP : sS) + (m0 + gid) * S_LD + n0 + 2 * tig;
-  out[0] = d[0] * mul;
-  out[1] = d[1] * mul;
-  out[8 * S_LD] = d[2] * mul;
-  out[8 * S_LD + 1] = d[3] * mul;
-}
-
-// acc[nt] (16 rows x 8 columns each) += a (16 x 32, row-major in shared
-// memory, row stride A_LD) times the 32 rows x WC columns of b from column
-// c0 (row stride C + PAD). WC = C / 8 columns per warp.
-template <int C, int A_LD>
-__device__ __forceinline__ void accumulate(float (&acc)[C / WARPS / 8][4], const bf16* a,
-                                           const bf16* b, int c0, int lane) {
-  constexpr int LD = C + PAD, NT = C / WARPS / 8;
-  static_assert(NT % 2 == 0, "each ldmatrix.x4.trans feeds two 8-column n-tiles");
-  const int m = lane >> 3;
-#pragma unroll
-  for (int kk = 0; kk < 32; kk += 16) {
-    uint32_t af[4];
-    ldmatrix_x4(af, a + (lane & 15) * A_LD + kk + (lane >> 4) * 8);
-#pragma unroll
-    for (int nt = 0; nt < NT; nt += 2) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(bf, b + (kk + (lane & 7) + (m & 1) * 8) * LD + c0 + nt * 8 + (m >> 1) * 8);
-      mma_bf16(acc[nt], af, bf[0], bf[1]);
-      mma_bf16(acc[nt + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// Write a warp's 16 x WC accumulator as bf16 rows of dst (row stride C).
-template <int C>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[C / WARPS / 8][4],
-                                           int c0, int lane) {
-  constexpr int NT = C / WARPS / 8;
-  const int gid = lane >> 2, tig = lane & 3;
-  bf16* r0 = dst + static_cast<size_t>(gid) * C + c0;
-  bf16* r1 = r0 + 8 * static_cast<size_t>(C);
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int col = nt * 8 + 2 * tig;
-    *reinterpret_cast<__nv_bfloat162*>(r0 + col) = __floats2bfloat162_rn(acc[nt][0], acc[nt][1]);
-    *reinterpret_cast<__nv_bfloat162*>(r1 + col) = __floats2bfloat162_rn(acc[nt][2], acc[nt][3]);
-  }
-}
-
-template <int C>
-struct DkvLayout {
-  static constexpr int LD = C + PAD;
-  static constexpr int S_LD = BKV + 4;      // fp32 S, dP: TQ rows x BKV keys
-  static constexpr int T_LD = TQ + PAD;     // bf16 P^T, dS^T: BKV rows x TQ queries
-  static constexpr int KV_BYTES = BKV * LD * 2;
-  static constexpr int Q_BYTES = TQ * LD * 2;
-  static constexpr int S_BYTES = TQ * S_LD * 4;
-  static constexpr int T_BYTES = BKV * T_LD * 2;
-  static constexpr int BYTES = 2 * KV_BYTES + 4 * Q_BYTES + 2 * S_BYTES + 2 * T_BYTES;
+// Pair p of every thread (of its 2 P logits of a tile) belongs to rank
+// floor(p R / P): ranks own contiguous runs of pairs, [first(r), first(r + 1)).
+template <int R, int P>
+struct Split {
+  static constexpr int MAXP = (P + R - 1) / R;     // pairs a rank owns, at most
+  static constexpr int RUN = MAXP * THREADS * 16;  // one rank's run of partials, bytes
+  __host__ __device__ static constexpr int first(int r) { return (P * r + R - 1) / R; }
+  // the outbox keeps a run for every other rank: o's at o, or o - 1 past this rank
+  __device__ static int outbox_run(int o, int rank) { return o < rank ? o : o - 1; }
 };
 
-template <int C>
-__global__ void __launch_bounds__(THREADS, 1)
-    flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int n, float scale) {
-  using L = DkvLayout<C>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::KV_BYTES);
-  unsigned char* qbase = smem + 2 * L::KV_BYTES;  // [Q0, dO0, Q1, dO1]
-  float* sS = reinterpret_cast<float*>(qbase + 4 * L::Q_BYTES);
-  float* sdP = reinterpret_cast<float*>(qbase + 4 * L::Q_BYTES + L::S_BYTES);
-  bf16* sPt = reinterpret_cast<bf16*>(qbase + 4 * L::Q_BYTES + 2 * L::S_BYTES);
-  bf16* sdSt = reinterpret_cast<bf16*>(qbase + 4 * L::Q_BYTES + 2 * L::S_BYTES + L::T_BYTES);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int k0 = blockIdx.x * BKV;
-  const size_t base = static_cast<size_t>(blockIdx.y) * n * C;
-  const float* lse_b = lse + static_cast<size_t>(blockIdx.y) * n;
-  const float* delta_b = delta + static_cast<size_t>(blockIdx.y) * n;
-
-  // cp.async groups: [K, V, Q_0, dO_0], then one [Q_j+1, dO_j+1] per tile.
-  load_tile<C, BKV, THREADS>(sK, k + base + static_cast<size_t>(k0) * C, tid);
-  load_tile<C, BKV, THREADS>(sV, v + base + static_cast<size_t>(k0) * C, tid);
-  load_tile<C, TQ, THREADS>(reinterpret_cast<bf16*>(qbase), q + base, tid);
-  load_tile<C, TQ, THREADS>(reinterpret_cast<bf16*>(qbase + L::Q_BYTES), dout + base, tid);
-  cp_async_commit();
-
-  constexpr int NT = C / WARPS / 8;
-  const int c0 = warp * (C / WARPS);
-  float acc_dk[NT][4], acc_dv[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[nt][e] = acc_dv[nt][e] = 0.f;
-
-  const int nq = n / TQ;
-  for (int j = 0; j < nq; ++j) {
-    const bf16* sQ = reinterpret_cast<const bf16*>(qbase + (j & 1) * 2 * L::Q_BYTES);
-    const bf16* sdO = reinterpret_cast<const bf16*>(qbase + (j & 1) * 2 * L::Q_BYTES + L::Q_BYTES);
-    // The other buffer was last read in tile j-1's step 3, which every
-    // thread finished before the barrier that ended that tile.
-    if (j + 1 < nq) {
-      unsigned char* nb = qbase + ((j + 1) & 1) * 2 * L::Q_BYTES;
-      const size_t off = base + static_cast<size_t>(j + 1) * TQ * C;
-      load_tile<C, TQ, THREADS>(reinterpret_cast<bf16*>(nb), q + off, tid);
-      load_tile<C, TQ, THREADS>(reinterpret_cast<bf16*>(nb + L::Q_BYTES), dout + off, tid);
-    }
-    cp_async_commit();  // committed even when empty so the wait count stays uniform
-    cp_async_wait<1>();  // tile j (and K, V) have landed
-    __syncthreads();
-
-    // 1. S and dP for these 32 queries x the block's 16 keys
-    logits_pieces<C, TQ, BKV>(sQ, sdO, sK, sV, sS, sdP, scale, warp, lane);
-    __syncthreads();
-
-    // 2. P = exp(S - lse), dS = P (dP - delta) scale, stored key-major in bf16
-    for (int e = tid; e < TQ * BKV; e += THREADS) {
-      const int r = e / BKV, c = e % BKV;
-      const int row = j * TQ + r;
-      const float p = expf(sS[r * L::S_LD + c] - lse_b[row]);
-      const float ds = p * (sdP[r * L::S_LD + c] - delta_b[row]) * scale;
-      sPt[c * L::T_LD + r] = __float2bfloat16(p);
-      sdSt[c * L::T_LD + r] = __float2bfloat16(ds);
-    }
-    __syncthreads();
-
-    // 3. dV += P^T dO, dK += dS^T Q over this tile's 32 queries
-    accumulate<C, L::T_LD>(acc_dv, sPt, sdO, c0, lane);
-    accumulate<C, L::T_LD>(acc_dk, sdSt, sQ, c0, lane);
-    __syncthreads();
-  }
-
-  store_rows<C>(dk + base + static_cast<size_t>(k0) * C, acc_dk, c0, lane);
-  store_rows<C>(dv + base + static_cast<size_t>(k0) * C, acc_dv, c0, lane);
-}
-
-template <int C>
-struct DqLayout {
-  static constexpr int LD = C + PAD;
-  static constexpr int S_LD = TK + 4;      // fp32 S, dP: BQR rows x TK keys
-  static constexpr int D_LD = TK + PAD;    // bf16 dS: BQR rows x TK keys
-  static constexpr int Q_BYTES = BQR * LD * 2;
-  static constexpr int KV_BYTES = TK * LD * 2;
-  static constexpr int S_BYTES = BQR * S_LD * 4;
-  static constexpr int D_BYTES = BQR * D_LD * 2;
-  static constexpr int BYTES = 2 * Q_BYTES + 4 * KV_BYTES + 2 * S_BYTES + D_BYTES;
+// Each kernel's tiling and byte offsets into its 1024-aligned dynamic shared
+// memory. DKV, the dK/dV kernel: streamed tiles of 64 queries, 3 stages,
+// its products pipelined by a tile (two gather buffers), one CTA an SM.
+// Else dQ: tiles of 32 keys, 2 stages, one gather buffer, small enough for
+// two CTAs an SM. DKV gathers P and dS and streams lse and delta; dQ
+// gathers dS only.
+template <int R, bool DKV>
+struct Layout {
+  static constexpr int TILE = DKV ? 64 : 32;             // rows of a streamed tile
+  static constexpr int STAGES = DKV ? 3 : 2;
+  static constexpr int GATHERS = DKV ? 2 : 1;
+  static constexpr int CTAS = DKV ? 1 : 2;                // an SM
+  static constexpr int PAIRS = TILE / 4;                  // a thread's TILE / 2 logits
+  static constexpr int BOX = TILE * 128;                  // a streamed box: TILE x 64 channels
+  static constexpr int STREAMED = 2 * BOX;                // a streamed slice of 128 channels
+  static constexpr int G = DKV ? 8 : 4;                   // gathered bytes a pair
+  using X = Split<R, PAIRS>;
+  static constexpr int RES = 0;                                  // two resident slices
+  static constexpr int RING = RES + 2 * RESIDENT;                // STAGES x two streamed
+  static constexpr int SLOTS = RING + STAGES * 2 * STREAMED;     // [rank][pair][thread] float4
+  static constexpr int OUTBOX = SLOTS + R * X::RUN;              // [other rank][pair][thread]
+  static constexpr int GATHER = OUTBOX + (R - 1) * X::RUN;       // [buffer][pair][thread]
+  static constexpr int GATHER_BYTES = PAIRS * THREADS * G;
+  static constexpr int ROWVEC = GATHER + GATHERS * GATHER_BYTES;  // DKV: [stage][lse, delta]
+  static constexpr int BARS = ROWVEC + (DKV ? STAGES * 2 * TILE * 4 : 0);
+  static constexpr int NBARS = STAGES + 3;                       // full[], res, slots, gather
+  static constexpr int BYTES = BARS + NBARS * 8 + 1024;          // + the alignment pad
+  // an SM's 228 KB, less 1 KB a CTA that the system keeps
+  static_assert(BYTES <= 228 * 1024 / CTAS - 1024, "too much shared memory for CTAS an SM");
 };
 
-template <int C>
-__global__ void __launch_bounds__(THREADS, 1)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int n, float scale) {
-  using L = DqLayout<C>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + L::Q_BYTES);
-  unsigned char* kbase = smem + 2 * L::Q_BYTES;  // [K0, V0, K1, V1]
-  float* sS = reinterpret_cast<float*>(kbase + 4 * L::KV_BYTES);
-  float* sdP = reinterpret_cast<float*>(kbase + 4 * L::KV_BYTES + L::S_BYTES);
-  bf16* sdS = reinterpret_cast<bf16*>(kbase + 4 * L::KV_BYTES + 2 * L::S_BYTES);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * BQR;
-  const size_t base = static_cast<size_t>(blockIdx.y) * n * C;
-  const float* lse_b = lse + static_cast<size_t>(blockIdx.y) * n + q0;
-  const float* delta_b = delta + static_cast<size_t>(blockIdx.y) * n + q0;
-
-  // cp.async groups: [Q, dO, K_0, V_0], then one [K_j+1, V_j+1] per tile.
-  load_tile<C, BQR, THREADS>(sQ, q + base + static_cast<size_t>(q0) * C, tid);
-  load_tile<C, BQR, THREADS>(sdO, dout + base + static_cast<size_t>(q0) * C, tid);
-  load_tile<C, TK, THREADS>(reinterpret_cast<bf16*>(kbase), k + base, tid);
-  load_tile<C, TK, THREADS>(reinterpret_cast<bf16*>(kbase + L::KV_BYTES), v + base, tid);
-  cp_async_commit();
-
-  constexpr int NT = C / WARPS / 8;
-  const int c0 = warp * (C / WARPS);
-  float acc_dq[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dq[nt][e] = 0.f;
-
-  const int nk = n / TK;
-  for (int j = 0; j < nk; ++j) {
-    const bf16* sK = reinterpret_cast<const bf16*>(kbase + (j & 1) * 2 * L::KV_BYTES);
-    const bf16* sV = reinterpret_cast<const bf16*>(kbase + (j & 1) * 2 * L::KV_BYTES + L::KV_BYTES);
-    if (j + 1 < nk) {
-      unsigned char* nb = kbase + ((j + 1) & 1) * 2 * L::KV_BYTES;
-      const size_t off = base + static_cast<size_t>(j + 1) * TK * C;
-      load_tile<C, TK, THREADS>(reinterpret_cast<bf16*>(nb), k + off, tid);
-      load_tile<C, TK, THREADS>(reinterpret_cast<bf16*>(nb + L::KV_BYTES), v + off, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    // 1. S and dP for the block's 16 queries x these 32 keys
-    logits_pieces<C, BQR, TK>(sQ, sdO, sK, sV, sS, sdP, scale, warp, lane);
-    __syncthreads();
-
-    // 2. dS = exp(S - lse) (dP - delta) scale, stored query-major in bf16
-    for (int e = tid; e < BQR * TK; e += THREADS) {
-      const int r = e / TK, c = e % TK;
-      const float p = expf(sS[r * L::S_LD + c] - lse_b[r]);
-      sdS[r * L::D_LD + c] = __float2bfloat16(p * (sdP[r * L::S_LD + c] - delta_b[r]) * scale);
-    }
-    __syncthreads();
-
-    // 3. dQ += dS K over these 32 keys
-    accumulate<C, L::D_LD>(acc_dq, sdS, sK, c0, lane);
-    __syncthreads();
-  }
-
-  store_rows<C>(dq + base + static_cast<size_t>(q0) * C, acc_dq, c0, lane);
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// Step 2: this CTA's partial S (a_s x b_s^T) and dP (a_dp x b_dp^T) over
+// its 128 channels: A a resident 64-row slice, B a streamed slice of TILE
+// rows, each two K-major boxes of 64 channels; 8 k-steps each.
+template <int TILE>
+__device__ __forceinline__ void partial_logits(float (&s)[TILE / 2], float (&dp)[TILE / 2],
+                                               const uint8_t* a_s, const uint8_t* b_s,
+                                               const uint8_t* a_dp, const uint8_t* b_dp) {
+  // d += a b^T over the 128 channels: 64 a box, 16 a k-step (32 bytes on)
+  auto product = [](float (&d)[TILE / 2], const uint8_t* a, const uint8_t* b) {
+#pragma unroll
+    for (int kk = 0; kk < SLICE / 16; ++kk) {
+      const uint64_t da = make_desc(a + (kk / 4) * RES_BOX, 128) + 2 * (kk % 4);
+      const uint64_t db = make_desc(b + (kk / 4) * TILE * 128, 128) + 2 * (kk % 4);
+      if constexpr (TILE == 64)
+        wgmma_ss_m64n64k16(d, da, db, kk > 0);
+      else
+        wgmma_ss_m64n32k16(d, da, db, kk > 0);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < TILE / 2; ++i) s[i] = dp[i] = 0.f;
+  wgmma_fence();
+  product(s, a_s, b_s);
+  product(dp, a_dp, b_dp);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+}
+
+// Step 3, first half: this thread's pairs of S and dP partials, as float4,
+// into this CTA's own slot (the pairs it owns) or its outbox run for their
+// owner; once every thread has written, lane 0 of warp o sends the run of
+// rank o to its slot for this rank in one bulk copy, counted by the owner's
+// slots barrier.
+template <int R, int P>
+__device__ __forceinline__ void push_partials(const float (&s)[2 * P], const float (&dp)[2 * P],
+                                              float4* slots, float4* outbox,
+                                              uint64_t* slots_full, int rank, int wt) {
+  using X = Split<R, P>;
+  constexpr int RUN = X::MAXP * THREADS;  // float4s
+#pragma unroll
+  for (int o = 0; o < R; ++o) {
+    float4* dst = o == rank ? slots + rank * RUN : outbox + X::outbox_run(o, rank) * RUN;
+#pragma unroll
+    for (int p = X::first(o); p < X::first(o + 1); ++p)
+      dst[(p - X::first(o)) * THREADS + wt] =
+          make_float4(s[2 * p], s[2 * p + 1], dp[2 * p], dp[2 * p + 1]);
+  }
+  fence_proxy_async();
+  __syncthreads();
+  const int o = wt / 32;  // lane 0 of warp o sends to rank o
+  if (wt % 32 == 0 && o < R && o != rank)
+    bulk_copy_cluster(cluster_addr(slots + rank * RUN, o), outbox + X::outbox_run(o, rank) * RUN,
+                      (X::first(o + 1) - X::first(o)) * THREADS * 16, cluster_addr(slots_full, o));
+}
+
+// Step 3, second half, on the owner: once every rank's partials have landed,
+// add the slots of each owned pair in rank order, form P and dS and store
+// them (DKV: uint2 {P, dS}; else uint32 dS, bf16 pairs) at the pair's place
+// in this CTA's gather buffer; lane 0 of warp r then copies the owned run
+// of pairs to the same place in rank r's gather buffer, counted by that
+// rank's gather barrier. rowvec, rows: the pair's row vector entries. DKV:
+// per column, from this stage's lse and delta (col(p) = 8 (p / 2) + 2 (lane
+// % 4)); else per row, this thread's rows row0 (even p) and row0 + 8 (odd
+// p), {lse, lse, delta, delta}.
+template <int R, bool DKV>
+__device__ __forceinline__ void reduce_and_gather(const float4* slots, uint8_t* gather,
+                                                  uint64_t* slots_full, uint64_t* gather_full,
+                                                  uint32_t parity, int rank, int wt,
+                                                  const float* rowvec, const float (&rows)[4],
+                                                  float scale) {
+  using L = Layout<R, DKV>;
+  using X = typename L::X;
+  constexpr int G = L::G;
+  mbar_wait(slots_full, parity);
+  const int lo = X::first(rank), hi = X::first(rank + 1), tig = wt % 4;
+#pragma unroll
+  for (int i = 0; i < X::MAXP; ++i) {
+    const int p = lo + i;
+    if (L::PAIRS % R == 0 || p < hi) {  // every rank owns MAXP pairs where R divides PAIRS
+      float4 a = slots[i * THREADS + wt];
+#pragma unroll
+      for (int r = 1; r < R; ++r) {
+        const float4 b = slots[(r * X::MAXP + i) * THREADS + wt];
+        a.x += b.x;
+        a.y += b.y;
+        a.z += b.z;
+        a.w += b.w;
+      }
+      float l0, l1, d0, d1;
+      if (DKV) {
+        const int col = 8 * (p / 2) + 2 * tig;
+        const float2 l = *reinterpret_cast<const float2*>(rowvec + col);
+        const float2 d = *reinterpret_cast<const float2*>(rowvec + L::TILE + col);
+        l0 = l.x;
+        l1 = l.y;
+        d0 = d.x;
+        d1 = d.y;
+      } else {
+        l0 = l1 = (p & 1) ? rows[1] : rows[0];
+        d0 = d1 = (p & 1) ? rows[3] : rows[2];
+      }
+      // S * scale rounded before the subtraction, as the plain version
+      const float p0 = expf(__fmul_rn(a.x, scale) - l0);
+      const float p1 = expf(__fmul_rn(a.y, scale) - l1);
+      const uint32_t ds = pack_bf16(p0 * (a.z - d0) * scale, p1 * (a.w - d1) * scale);
+      if (DKV)
+        reinterpret_cast<uint2*>(gather)[p * THREADS + wt] = make_uint2(pack_bf16(p0, p1), ds);
+      else
+        reinterpret_cast<uint32_t*>(gather)[p * THREADS + wt] = ds;
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+  const int r = wt / 32;  // lane 0 of warp r sends to rank r
+  if (wt % 32 == 0 && r < R && r != rank)
+    bulk_copy_cluster(cluster_addr(gather + lo * THREADS * G, r), gather + lo * THREADS * G,
+                      (hi - lo) * THREADS * G, cluster_addr(gather_full, r));
+}
+
+// d (64 x 128) += A (the gathered 64 x TILE bf16 tile, TILE / 4 pairs a
+// thread in the accumulator's layout) * B (a streamed TILE x 128 slice, its
+// rows the K dimension: MN-major, 16 rows a k-step).
+template <int TILE>
+__device__ __forceinline__ void accumulate(float (&d)[64], const uint32_t (&a)[TILE / 4],
+                                           const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < TILE / 16; ++kk) {
+    const uint32_t frag[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
+    wgmma_rs_m64n128k16<1>(d, frag, make_desc_mn(b + kk * 16 * 128, TILE * 128, 1024));
+  }
+}
+
+// Writes a 64 x 128 accumulator as bf16 rows of dst (row stride C): rows
+// 16 warp + lane / 4 (+ 8), channels 8j + 2 (lane % 4) and the one after.
+template <int C>
+__device__ __forceinline__ void store_slice(bf16* dst, const float (&d)[64], int warp, int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    bf16* row = dst + static_cast<size_t>(16 * warp + lane / 4 + 8 * half) * C + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+          __floats2bfloat162_rn(d[4 * j + 2 * half], d[4 * j + 2 * half + 1]);
+  }
+}
+
+// The barriers: full[STAGES], res, slots_full, gather_full.
+struct Bars {
+  uint64_t* full;
+  uint64_t* res;
+  uint64_t* slots_full;
+  uint64_t* gather_full;
+};
+
+template <int STAGES>
+__device__ __forceinline__ Bars init_bars(uint8_t* at, int tid) {
+  uint64_t* b = reinterpret_cast<uint64_t*>(at);
+  const Bars bars = {b, b + STAGES, b + STAGES + 1, b + STAGES + 2};
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&bars.full[s], 1);
+    mbar_init(bars.res, 1);
+    // one arrival each, thread 0's expect_tx of the tile's bytes (arm())
+    mbar_init(bars.slots_full, 1);
+    mbar_init(bars.gather_full, 1);
+    mbar_init_fence();
+  }
+  // every CTA's barriers are initialised before any CTA of the cluster
+  // sends to them
+  cg::this_cluster().sync();
+  return bars;
+}
+
+// Thread 0 arms the exchange barriers for tile t once this CTA has passed
+// both of tile t - 1's phases: the slots barrier expects the other ranks'
+// partials of this rank's pairs, the gather barrier the other owners' pairs
+// (this CTA's own part of each is written by its own threads before a
+// __syncthreads). No byte of tile t can land before then (a rank sends its
+// partials only after its gather is complete, and an owner gathers only
+// after its slots are), and bytes that land before the arming wait in the
+// barrier's transaction count.
+template <int R, bool DKV>
+__device__ __forceinline__ void arm(const Bars& bars, int rank, int tid) {
+  using L = Layout<R, DKV>;
+  if (tid == 0) {
+    const int own = L::X::first(rank + 1) - L::X::first(rank);
+    mbar_arrive_expect_tx(bars.slots_full, (R - 1) * own * THREADS * 16);
+    mbar_arrive_expect_tx(bars.gather_full, (L::PAIRS - own) * THREADS * L::G);
+  }
+}
+
+// dK, dV (B, N, C) bf16 for the 64 keys blockIdx.y of batch blockIdx.z;
+// grid (R, N / 64, B) in clusters of (R, 1, 1).
+//
+// The loop is pipelined by one tile: tile t - 1's dV and dK products are
+// issued once tile t's partials are sent and run while the cluster
+// exchanges tile t's logits (so the gather buffer is double-buffered), and
+// stage (t - 2) % STAGES, whose products are done, is refilled with tile
+// t - 2 + STAGES while this CTA waits for the other ranks' partials.
+template <int C>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const __grid_constant__ CUtensorMap domap,
+                         const __grid_constant__ CUtensorMap lsemap,
+                         const __grid_constant__ CUtensorMap deltamap, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, int n, float scale) {
+  constexpr int R = C / SLICE;
+  using L = Layout<R, true>;
+  constexpr int TILE = L::TILE, STAGES = L::STAGES, PAIRS = L::PAIRS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int k0 = blockIdx.y * ROWS, b = blockIdx.z, c0 = rank * SLICE, nt = n / TILE;
+  const Bars bars = init_bars<STAGES>(smem + L::BARS, tid);
+  uint8_t* sK = smem + L::RES;
+  uint8_t* sV = sK + RESIDENT;
+  float4* slots = reinterpret_cast<float4*>(smem + L::SLOTS);
+  float4* outbox = reinterpret_cast<float4*>(smem + L::OUTBOX);
+  auto stage = [&](int t) { return smem + L::RING + (t % STAGES) * 2 * L::STREAMED; };  // Q, dO
+  auto gather = [&](int t) { return smem + L::GATHER + (t & 1) * L::GATHER_BYTES; };
+  auto rowvec = [&](int t) {  // lse, delta
+    return reinterpret_cast<float*>(smem + L::ROWVEC) + (t % STAGES) * 2 * TILE;
+  };
+
+  // Part w of tile t's loads (w = 0..3, one a warp on a refill): Q's box w,
+  // dO's box w - 2; part 0 also arms the barrier, part 3 brings the row
+  // vectors.
+  auto issue = [&](int t, int w) {
+    uint64_t* full = &bars.full[t % STAGES];
+    if (w == 0) mbar_arrive_expect_tx(full, 2 * L::STREAMED + 2 * TILE * 4);
+    tma_load_3d(stage(t) + w * L::BOX, w < 2 ? &qmap : &domap, full, c0 + 64 * (w % 2),
+                t * TILE, b);
+    if (w == 3) {
+      tma_load_2d(rowvec(t), &lsemap, full, t * TILE, b);
+      tma_load_2d(rowvec(t) + TILE, &deltamap, full, t * TILE, b);
+    }
+  };
+  if (tid == 0) {
+    mbar_arrive_expect_tx(bars.res, 2 * RESIDENT);
+    for (int box = 0; box < 2; ++box) {
+      tma_load_3d(sK + box * RES_BOX, &kmap, bars.res, c0 + 64 * box, k0, b);
+      tma_load_3d(sV + box * RES_BOX, &vmap, bars.res, c0 + 64 * box, k0, b);
+    }
+    for (int t = 0; t < STAGES && t < nt; ++t)
+      for (int w = 0; w < 4; ++w) issue(t, w);
+  }
+
+  float dkacc[64], dvacc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dkacc[i] = dvacc[i] = 0.f;
+  uint32_t ap[PAIRS], ads[PAIRS];
+  // dV += P^T dO, dK += dS^T Q over tile u's 64 queries: issued, not waited
+  auto products = [&](int u) {
+    const uint2* g = reinterpret_cast<const uint2*>(gather(u));
+#pragma unroll
+    for (int p = 0; p < PAIRS; ++p) {
+      const uint2 v = g[p * THREADS + tid];
+      ap[p] = v.x;
+      ads[p] = v.y;
+    }
+    wgmma_fence();
+    accumulate<TILE>(dvacc, ap, stage(u) + L::STREAMED);
+    accumulate<TILE>(dkacc, ads, stage(u));
+    wgmma_commit();
+  };
+  const float unused[4] = {0.f, 0.f, 0.f, 0.f};
+  mbar_wait(bars.res, 0);
+
+  for (int t = 0; t < nt; ++t) {
+    arm<R, true>(bars, rank, tid);
+    mbar_wait(&bars.full[t % STAGES], (t / STAGES) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T over this CTA's channels (M = keys);
+    // the logits' registers live only until they are pushed
+    {
+      float sacc[TILE / 2], dpacc[TILE / 2];
+      partial_logits<TILE>(sacc, dpacc, sK, stage(t), sV, stage(t) + L::STREAMED);
+      push_partials<R, PAIRS>(sacc, dpacc, slots, outbox, bars.slots_full, rank, tid);
+    }
+    if (lane == 0 && t >= 2 && t - 2 + STAGES < nt) issue(t - 2 + STAGES, warp);
+    if (t > 0) products(t - 1);
+    reduce_and_gather<R, true>(slots, gather(t), bars.slots_full, bars.gather_full, t & 1, rank,
+                               tid, rowvec(t), unused, scale);
+    mbar_wait(bars.gather_full, t & 1);
+    wgmma_wait<0>();
+    fence_regs(dvacc);
+    fence_regs(dkacc);
+    fence_regs(ap);
+    fence_regs(ads);
+  }
+  products(nt - 1);
+  wgmma_wait<0>();
+  fence_regs(dvacc);
+  fence_regs(dkacc);
+  fence_regs(ap);
+  fence_regs(ads);
+
+  const size_t out = (static_cast<size_t>(b) * n + k0) * C + c0;
+  store_slice<C>(dk + out, dkacc, warp, lane);
+  store_slice<C>(dv + out, dvacc, warp, lane);
+  // no CTA leaves while another may still reach its shared memory
+  cg::this_cluster().sync();
+}
+
+// dQ (B, N, C) bf16 for the 64 queries blockIdx.y of batch blockIdx.z; grid
+// and clusters as dK/dV's, two CTAs an SM: one CTA's exchange overlaps the
+// other's products, in place of dK/dV's pipelining.
+template <int C>
+__global__ void __launch_bounds__(THREADS, 2)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dq, int n,
+                        float scale) {
+  constexpr int R = C / SLICE;
+  using L = Layout<R, false>;
+  constexpr int TILE = L::TILE, STAGES = L::STAGES, PAIRS = L::PAIRS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int q0 = blockIdx.y * ROWS, b = blockIdx.z, c0 = rank * SLICE, nt = n / TILE;
+  const Bars bars = init_bars<STAGES>(smem + L::BARS, tid);
+  uint8_t* sQ = smem + L::RES;
+  uint8_t* sdO = sQ + RESIDENT;
+  float4* slots = reinterpret_cast<float4*>(smem + L::SLOTS);
+  float4* outbox = reinterpret_cast<float4*>(smem + L::OUTBOX);
+  uint8_t* gather = smem + L::GATHER;
+  auto stage = [&](int t) { return smem + L::RING + (t % STAGES) * 2 * L::STREAMED; };  // K, V
+
+  // part w of tile t's loads: K's box w, V's box w - 2; part 0 arms the barrier
+  auto issue = [&](int t, int w) {
+    uint64_t* full = &bars.full[t % STAGES];
+    if (w == 0) mbar_arrive_expect_tx(full, 2 * L::STREAMED);
+    tma_load_3d(stage(t) + w * L::BOX, w < 2 ? &kmap : &vmap, full, c0 + 64 * (w % 2),
+                t * TILE, b);
+  };
+  if (tid == 0) {
+    mbar_arrive_expect_tx(bars.res, 2 * RESIDENT);
+    for (int box = 0; box < 2; ++box) {
+      tma_load_3d(sQ + box * RES_BOX, &qmap, bars.res, c0 + 64 * box, q0, b);
+      tma_load_3d(sdO + box * RES_BOX, &domap, bars.res, c0 + 64 * box, q0, b);
+    }
+    for (int t = 0; t < STAGES && t < nt; ++t)
+      for (int w = 0; w < 4; ++w) issue(t, w);
+  }
+
+  // this thread's rows: row0 and row0 + 8; lse and delta of both
+  const size_t row0 = static_cast<size_t>(b) * n + q0 + 16 * warp + lane / 4;
+  const float rows[4] = {lse[row0], lse[row0 + 8], delta[row0], delta[row0 + 8]};
+  float dqacc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dqacc[i] = 0.f;
+  mbar_wait(bars.res, 0);
+
+  for (int t = 0; t < nt; ++t) {
+    arm<R, false>(bars, rank, tid);
+    mbar_wait(&bars.full[t % STAGES], (t / STAGES) & 1);
+
+    // S = Q K^T and dP = dO V^T over this CTA's channels (M = queries)
+    {
+      float sacc[TILE / 2], dpacc[TILE / 2];
+      partial_logits<TILE>(sacc, dpacc, sQ, stage(t), sdO, stage(t) + L::STREAMED);
+      push_partials<R, PAIRS>(sacc, dpacc, slots, outbox, bars.slots_full, rank, tid);
+    }
+    // every warp has finished tile t - 1: its stage takes tile t + 1
+    if (lane == 0 && t >= 1 && t + 1 < nt) issue(t + 1, warp);
+    reduce_and_gather<R, false>(slots, gather, bars.slots_full, bars.gather_full, t & 1, rank,
+                                tid, nullptr, rows, scale);
+    mbar_wait(bars.gather_full, t & 1);
+
+    // dQ += dS K over the tile's keys
+    uint32_t ads[PAIRS];
+#pragma unroll
+    for (int p = 0; p < PAIRS; ++p)
+      ads[p] = reinterpret_cast<const uint32_t*>(gather)[p * THREADS + tid];
+    wgmma_fence();
+    accumulate<TILE>(dqacc, ads, stage(t));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dqacc);
+    fence_regs(ads);
+  }
+
+  store_slice<C>(dq + (static_cast<size_t>(b) * n + q0) * C + c0, dqacc, warp, lane);
+  cg::this_cluster().sync();
+}
+
+// A (b, n, C) bf16 operand in boxes of 64 channels x `rows` rows (ROWS for a
+// resident slice, the kernel's TILE for a streamed one), 128-byte swizzled;
+// a (b, n) fp32 row vector in boxes of `rows`.
+template <int C>
+cudaError_t operand_map(CUtensorMap* map, const void* base, int b, int n, int rows) {
+  const uint64_t dims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(n),
+                            static_cast<uint64_t>(b)};
+  const uint64_t strides[2] = {2ull * C, 2ull * C * n};
+  const uint32_t box[3] = {64, static_cast<uint32_t>(rows), 1};
+  return make_tensor_map(map, base, 3, dims, strides, box, 128);
+}
+
+cudaError_t rowvec_map(CUtensorMap* map, const void* base, int b, int n, int rows) {
+  const uint64_t dims[2] = {static_cast<uint64_t>(n), static_cast<uint64_t>(b)};
+  const uint64_t strides[1] = {4ull * n};
+  const uint32_t box[2] = {static_cast<uint32_t>(rows), 1};
+  return make_tensor_map(map, base, 2, dims, strides, box, 0, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+}
+
+// The launch of one of the kernels over grid (R, n / 64, b) in clusters of
+// R CTAs, with its shared memory; the SM's whole carveout goes to shared
+// memory, so that two CTAs share an SM.
+template <class Kernel, class... Args>
+cudaError_t launch_cluster(Kernel kernel, int r, int b, int n, int bytes, cudaStream_t stream,
+                           Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(r, n / ROWS, b);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = r;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <int C>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int b, int n,
                        float scale, cudaStream_t stream) {
-  const int bytes = DkvLayout<C>::BYTES;
-  cudaError_t err = prepare(flash_bwd_dkv_kernel<C>, bytes);
+  CUtensorMap qmap, kmap, vmap, domap, lsemap, deltamap;
+  constexpr int TILE = Layout<C / SLICE, true>::TILE;
+  cudaError_t err = operand_map<C>(&qmap, q, b, n, TILE);
+  if (err == cudaSuccess) err = operand_map<C>(&kmap, k, b, n, ROWS);
+  if (err == cudaSuccess) err = operand_map<C>(&vmap, v, b, n, ROWS);
+  if (err == cudaSuccess) err = operand_map<C>(&domap, dout, b, n, TILE);
+  if (err == cudaSuccess) err = rowvec_map(&lsemap, lse, b, n, TILE);
+  if (err == cudaSuccess) err = rowvec_map(&deltamap, delta, b, n, TILE);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<C><<<dim3(n / BKV, b), THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, scale);
-  return cudaGetLastError();
+  return launch_cluster(flash_bwd_dkv_kernel<C>, C / SLICE, b, n, Layout<C / SLICE, true>::BYTES,
+                        stream, qmap, kmap, vmap, domap, lsemap, deltamap,
+                        static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, scale);
 }
 
 template <int C>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int b, int n, float scale,
                       cudaStream_t stream) {
-  const int bytes = DqLayout<C>::BYTES;
-  cudaError_t err = prepare(flash_bwd_dq_kernel<C>, bytes);
+  CUtensorMap qmap, kmap, vmap, domap;
+  constexpr int TILE = Layout<C / SLICE, false>::TILE;
+  cudaError_t err = operand_map<C>(&qmap, q, b, n, ROWS);
+  if (err == cudaSuccess) err = operand_map<C>(&kmap, k, b, n, TILE);
+  if (err == cudaSuccess) err = operand_map<C>(&vmap, v, b, n, TILE);
+  if (err == cudaSuccess) err = operand_map<C>(&domap, dout, b, n, ROWS);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<C><<<dim3(n / BQR, b), THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), n, scale);
-  return cudaGetLastError();
+  return launch_cluster(flash_bwd_dq_kernel<C>, C / SLICE, b, n, Layout<C / SLICE, false>::BYTES,
+                        stream, qmap, kmap, vmap, domap, static_cast<const float*>(lse),
+                        static_cast<const float*>(delta), static_cast<bf16*>(dq), n, scale);
 }
 
-bool shape_ok(int b, int n) { return b >= 1 && b <= 65535 && n >= 128 && n % 128 == 0; }
+// The shapes the kernels take: 1 <= b <= 65535 (grid z), n a positive
+// multiple of 128 with n / 64 blocks within grid y.
+bool shape_ok(int b, int n) {
+  return b >= 1 && b <= 65535 && n >= 128 && n % 128 == 0 && n / ROWS <= 65535;
+}
 
 }  // namespace
 

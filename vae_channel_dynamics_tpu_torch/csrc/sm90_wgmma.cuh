@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks for the warpgroup-MMA kernels: mbarriers,
-// TMA tile loads, the wgmma shared-memory matrix descriptor, wgmma.mma_async
-// (bf16 -> fp32) with B from shared memory and A from shared memory or from
-// registers, the tf32 wgmma with both from shared memory and the rounding to
-// tf32, named barriers, and the host-side tensor-map encoder.
+// Hopper (sm_90a) building blocks for the warpgroup-MMA kernels: mbarriers
+// (also across a thread-block cluster), TMA tile loads, the wgmma
+// shared-memory matrix descriptor, wgmma.mma_async (bf16 -> fp32) with B
+// from shared memory and A from shared memory or from registers, the tf32
+// wgmma with both from shared memory and the rounding to tf32, named
+// barriers, and the host-side tensor-map encoder.
 //
 // Conventions. A tile loaded by TMA with a 128-, 64- or 32-byte swizzle sits
 // in shared memory as rows of exactly that many bytes (the box's inner
@@ -82,7 +83,40 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// ---- mbarriers across a thread-block cluster ------------------------------ //
+// The shared::cluster address of `p` (in this CTA's shared memory) at the
+// same offset in the shared memory of the cluster's CTA `rank`.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+// Copies `bytes` (a multiple of 16) from `src` in this CTA's shared memory
+// to `dst` in the shared memory of a CTA of the cluster (this CTA's own
+// too), one bulk transfer counted as transactions of the mbarrier at `bar` in
+// that CTA; dst and bar are shared::cluster addresses (cluster_addr). The
+// writers of src make their stores visible to the copy first
+// (fence_proxy_async, then a barrier).
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, const void* src, uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "r"(smem_u32(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // ---- TMA tile loads (global -> shared, completion on an mbarrier) --------- //
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2) {
   asm volatile(
@@ -196,6 +230,88 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t des
         , "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
         , "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d (64 x 64) += A (64 x 16) * B (64 x 16), both K-major in shared memory,
+// bf16 in, fp32 accumulate.
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        , "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        , "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        , "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        , "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        , "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        , "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+        , "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 32) += A (64 x 16) * B (32 x 16), both K-major in shared memory,
+// bf16 in, fp32 accumulate.
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        , "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        , "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        , "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 128) += A (64 x 16 in registers: this warp's 16 rows as the
+// mma.sync m16n8k16 A fragment) * B (128 x 16 in shared memory: K-major, or
+// MN-major with TRANS_B = 1), bf16 in, fp32 accumulate.
+template <int TRANS_B = 0>
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                  uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        , "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        , "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        , "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        , "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        , "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        , "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+        , "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        , "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+        , "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        , "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
+        , "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        , "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+        , "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+        , "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
+        , "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
 // d (64 x 64) += A (64 x 16 in registers: this warp's 16 rows as the

@@ -20,9 +20,10 @@ CUDA kernel (count key)      replaces
                              also writes the fp32 per-row ``m + log l``
 ``flash_attention_bwd_dkv``  ``_flash_bwd_dkv_kernel`` (:304): dK, dV, keys
                              outer, queries inner (``csrc/flash_attention_bwd
-                             .cu``)
+                             .cu``), the channels split over a thread-block
+                             cluster
 ``flash_attention_bwd_dq``   ``_flash_bwd_dq_kernel`` (:284): dQ, queries outer,
-                             keys inner
+                             keys inner, the same split
 ===========================  ==================================================
 
 What bounds them on the H100, and what the design does about it: at the mid
@@ -30,12 +31,15 @@ block's C = 512 the forward does ``4*B*N^2*C`` FLOPs, dK/dV ``8*B*N^2*C``
 and dQ ``6*B*N^2*C``, against a few ``B*N*C`` bytes of device-memory
 traffic, N/2 FLOPs per byte or more: all four are tensor-core bound at every
 token count the model uses (N = 4096 at 512px, 16384 at 1024px). Each keeps
-its logits tile and fp32 accumulators on chip, so no O(N^2) buffer exists,
-and runs its products on bf16 tensor cores (``mma.sync``); the fp32 forward
-runs each fp32 product as three TF32 ones (hi·hi + hi·lo + lo·hi, hi and lo
-the rounded split of each operand; one TF32 product keeps too few bits) on
-``wgmma`` with TMA loads, bound by the TF32 rate over three. The sources'
-header comments have the tile layouts.
+its logits tile and fp32 accumulators on chip, so no O(N^2) buffer exists.
+The bf16 forwards run their products on ``mma.sync``; the fp32 forward runs
+each fp32 product as three TF32 ones (hi·hi + hi·lo + lo·hi, hi and lo the
+rounded split of each operand; one TF32 product keeps too few bits) on
+``wgmma`` with TMA loads, bound by the TF32 rate over three. The backward
+kernels run on ``wgmma`` with TMA loads, as clusters of
+:func:`bwd_cluster_size` CTAs that own :data:`BWD_SLICE` channels each and
+add their partial logits in rank order through distributed shared memory.
+The sources' header comments have the tile layouts.
 
 :func:`flash_attention` is the op the model calls. With autograd recording
 and an input that requires a gradient it runs :class:`_FlashAttention`,
@@ -64,11 +68,13 @@ FWD_LIBRARY = "flash_attention_fwd"
 BWD_LIBRARY = "flash_attention_bwd"
 KERNELS = ("flash_attention_fwd", "flash_attention_fwd_f32", "flash_attention_fwd_lse",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
-# The kernels' channel widths: their accumulators live in registers, split
-# over 8 warps by columns, so each width is a compiled instantiation; 512 (the
-# SDXL/SD mid block) is the widest that keeps them at 64 fp32 per thread.
+# The kernels' channel widths, each a compiled instantiation: the forwards'
+# accumulators live in registers, split over 8 warps by columns, and 512 (the
+# SDXL/SD mid block) is the widest that keeps them at 64 fp32 per thread; the
+# backward's cluster has one CTA per BWD_SLICE channels, at most 4.
 SUPPORTED_CHANNELS = (128, 256, 384, 512)
 TOKEN_MULTIPLE = 128
+BWD_SLICE = 128
 
 # kernel launches in this process, per kernel; only the CUDA branches below
 # add to them
@@ -93,7 +99,7 @@ _fns: Dict[str, object] = {}  # ctypes functions, bound at first launch
 
 def eligible(num_tokens: int, channels: int) -> bool:
     """Shapes the CUDA kernels take: tokens a multiple of 128 (the JAX
-    kernels' smallest block; the CUDA kernels tile by 16, 32 and 64) and
+    kernels' smallest block; the CUDA kernels tile by 32 and 64) and
     channels in :data:`SUPPORTED_CHANNELS`. The JAX kernels take any multiple
     of 128 channels; the register-resident accumulators limit these to 512,
     and wider heads resolve to ``chunked``."""
@@ -102,6 +108,12 @@ def eligible(num_tokens: int, channels: int) -> bool:
         and num_tokens % TOKEN_MULTIPLE == 0
         and channels in SUPPORTED_CHANNELS
     )
+
+
+def bwd_cluster_size(channels: int) -> int:
+    """CTAs in a thread-block cluster of the backward kernels at this width:
+    one per :data:`BWD_SLICE` channels."""
+    return channels // BWD_SLICE
 
 
 # --------------------------------------------------------------------------- #
@@ -381,6 +393,7 @@ def flash_attention(
 
 
 __all__ = [
+    "bwd_cluster_size",
     "eligible",
     "flash_attention",
     "flash_attention_bwd_dkv",
