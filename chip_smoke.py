@@ -12,16 +12,21 @@ failure exits non-zero without the final ``ok`` line:
    ``csrc/group_norm.cu``, ``csrc/fused_resnet.cu`` and ``csrc/conv_nhwc.cu``
    (nvcc, sm_90a, one nvcc each, started together), the seconds each took,
    and ptxas's registers and spills (none, and no stack frame, in the fp32
-   flash forward and the two backward kernels), and the backward's cluster
+   flash forward and the two backward kernels; no more than SPILL_LIMITS
+   pins in the bf16 forward), and the backward's cluster
    size at each width; for the kernels on wgmma/TMA through
-   ``csrc/sm90_wgmma.cuh`` (the fp32 flash forward, the dK/dV and dQ
-   kernels, #9, #10 and #12 on the shared loop of ``csrc/sm90_conv3x3.cuh``,
-   #11), the HGMMA, UTMALDG and HMMA instructions in their SASS (cuobjdump):
-   HGMMA and UTMALDG present, no HMMA;
+   ``csrc/sm90_wgmma.cuh`` (the bf16 and fp32 flash forwards, the dK/dV and
+   dQ kernels, #9, #10 and #12 on the shared loop of
+   ``csrc/sm90_conv3x3.cuh``, #11), the HGMMA, UTMALDG and HMMA
+   instructions in their SASS (cuobjdump): HGMMA and UTMALDG present, no
+   HMMA;
 3. flash kernel vs plain: bf16 q/k/v from a seed at the serving shapes, the
    kernel's max abs and relative L2 error against
-   ``flash_attention_reference`` (and proof that the bound rejects a kernel
-   that drops one key tile), and both times from CUDA events;
+   ``flash_attention_reference``, bit-equal run to run, proof that the
+   bound rejects a kernel that drops one key tile and the design's own
+   faults (one warpgroup's partial logits left out; the last tile's P V,
+   issued after the loop, left out of O), K and V's intake from L2 into the
+   SMs, and the times from CUDA events;
 3'. flash training kernels vs plain at (1, 16384, 512) and (4, 4096, 512):
    the LSE forward's lse, and dQ, dK, dV from the two backward kernels
    (bit-equal run to run), against their plain versions, each bound shown to
@@ -49,10 +54,10 @@ failure exits non-zero without the final ``ok`` line:
    1024px batch 1), with SiLU and the |z| tap: each of the four kernels
    against its plain version, then the autograd op (y, the tap, dx, dgamma,
    dbeta) against the plain GroupNorm; every bound is also shown to reject a
-   planted fault; the normalize kernel's split count S at each shape, its y
-   and tap bit-equal run to run, y without the SiLU bit-equal to plain, and
-   its tap's bound rejecting one split's partial left out; forward and
-   backward times from CUDA events;
+   planted fault; the normalize and backward-reduce kernels' split count S
+   at each shape, their outputs bit-equal run to run, y without the SiLU
+   bit-equal to plain, and their sums' bound rejecting the last split's
+   partial left out; forward and backward times from CUDA events;
 5'. the fused resnet kernels vs plain, bf16, at the 256px fused path's
    (16, 512, 32, 32) -> 512 and at (16, 256, 64, 64) -> 512: #9 with and
    without the residual, with the |z| tap and the moments (also bit-equal
@@ -213,6 +218,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12  # outside the tensor cores: the GroupNorm kernels' math
 PEAK_TF32_FLOPS = 495e12  # three TF32 products (3xTF32) give fp32 accuracy
 PEAK_BYTES_PER_S = 3.35e12
+SMS = 132
 
 # Flash training kernels vs plain, bf16, at the 1024px mid block's shape
 # (the Trainer slice's) and the 512px one at batch 4. dQ, dK and dV are bf16
@@ -274,7 +280,8 @@ FLASH_TIMED_STEPS = 5  # per block: naive, flash, flash, naive
 # summation order differs and gives about 1e-6. The normalize kernel splits
 # each plane over S blocks where the planes alone do not fill the card (S =
 # 16 and 2 at the 1024px shapes, 1 at the 256px ones); its tap's planted
-# fault leaves the last split's partial out.
+# fault leaves the last split's partial out. The backward reduce splits the
+# same way with a larger least split (S = 16 and 1 at the 1024px shapes).
 GN_SHAPES = ((16, 128, 256, 256), (16, 512, 32, 32), (1, 128, 1024, 1024), (1, 512, 128, 128))
 GN_ROW_SHAPE = (1, 128, 1024, 1024)
 GN_GROUPS = 32
@@ -303,7 +310,7 @@ TRAINER_KERNEL_EVENTS = {
     "flash_attention_bwd_dq": ("flash_bwd_dq_kernel",),
     "gn_fwd_reduce": ("gn_fwd_reduce_kernel",),
     "gn_fwd_normalize": ("gn_fwd_normalize_kernel", "sum_splits_kernel"),
-    "gn_bwd_reduce": ("gn_bwd_reduce_kernel",),
+    "gn_bwd_reduce": ("gn_bwd_reduce_kernel", "sum_splits2_kernel"),
     "gn_bwd_dx": ("gn_bwd_dx_kernel",),
 }
 # The training slice: bench.py's four norm1 taps (bench.py:78-104), AdamW as
@@ -418,16 +425,28 @@ FLASH_F32_SHAPE = (EVAL_BATCH, 4096, 512)
 FLASH_F32_REL_L2 = 1e-5
 FLASH_F32_REPLACES = "vae_channel_dynamics_tpu/ops/pallas_attention.py:136 _flash_kernel (fp32)"
 FLASH_F32_ITERS = 5
-# The kernels this slice redesigned. The line carries only what this run
-# measured; the times before the redesign stay in PERF.md's table.
+# The kernels redesigned for Hopper after their first port: the design.
+# Their times before and after are in PERF.md section 6; this run's are the
+# line's own numbers.
 REDESIGNED = {
-    "flash_attention_bwd_dkv": "redesigned in this slice (channels split over a cluster of C/128 "
-                               "CTAs, 64 keys a CTA, wgmma/TMA, the logits summed in rank order "
-                               "through distributed shared memory; was mma.sync, 16 keys a block)",
-    "flash_attention_bwd_dq": "redesigned in this slice (channels split over a cluster of C/128 "
-                              "CTAs, 64 queries a CTA, wgmma/TMA, the logits summed in rank order "
-                              "through distributed shared memory; was mma.sync, 16 queries a "
-                              "block)",
+    "flash_attention_fwd": "redesigned for Hopper, see PERF.md section 6 (wgmma/TMA: a producer "
+                           "warpgroup and two consumer warpgroups, each half the channels, 64 "
+                           "query rows a CTA, the partial logits added through shared memory, P "
+                           "as wgmma's register A; was mma.sync, 32 rows a block)",
+    "flash_attention_fwd_lse": "redesigned for Hopper with flash_attention_fwd, see PERF.md "
+                               "section 6 (one kernel, the lse pointer set)",
+    "gn_bwd_reduce": "redesigned for Hopper, see PERF.md section 6 (each plane split over S "
+                     "blocks where the planes do not fill the card and each split reads 32 KB or "
+                     "more of x, one load of x and of g in flight a thread, per-split partials "
+                     "added in order; was one block a plane)",
+    "flash_attention_bwd_dkv": "redesigned for Hopper, see PERF.md section 6 (channels split over "
+                               "a cluster of C/128 CTAs, 64 keys a CTA, wgmma/TMA, the logits "
+                               "summed in rank order through distributed shared memory; was "
+                               "mma.sync, 16 keys a block)",
+    "flash_attention_bwd_dq": "redesigned for Hopper, see PERF.md section 6 (channels split over "
+                              "a cluster of C/128 CTAs, 64 queries a CTA, wgmma/TMA, the logits "
+                              "summed in rank order through distributed shared memory; was "
+                              "mma.sync, 16 queries a block)",
 }
 # Tiled inference at full width: a 2048px image through the wrapper with
 # enable_tiling(512, 0.25), bf16: 25 encoder and 25 decoder tiles, the flash
@@ -512,8 +531,8 @@ def kernel_label(mangled: str) -> str:
         size, rest = int(m.group(1)), m.group(2)
         name = rest[:size]
         if len(name) == size and name.endswith("_kernel"):
-            arg = re.match(r"IL[ib](\d+)E", rest[size:])
-            return name + (f"<{arg.group(1)}>" if arg else "")
+            args = re.match(r"I((?:L[ib]\d+E)+)", rest[size:])
+            return name + (f"<{','.join(re.findall(r'(\d+)E', args.group(1)))}>" if args else "")
     return mangled
 
 
@@ -523,11 +542,17 @@ WGMMA_KERNELS = {"conv3x3_nhwc_kernel": "conv_nhwc", "conv3x3_dw_kernel": "fused
                  "fused_gn_silu_conv3x3_kernel": "fused_resnet",
                  "conv3x3_nchw_kernel": "fused_resnet",
                  "flash_fwd_f32_kernel": "flash_attention_fwd",
+                 "flash_fwd_kernel": "flash_attention_fwd",
                  "flash_bwd_dkv_kernel": "flash_attention_bwd",
                  "flash_bwd_dq_kernel": "flash_attention_bwd"}
 # ptxas must report no stack frame and no spills for these
 NO_STACK_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
 NO_STACK = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+# and no more spill bytes (stores, and loads) than ptxas reported when these
+# were built: the bf16 forward's consumers hold O, 128 fp32 a thread at
+# C = 512, in the 232 registers the producer warpgroup hands them
+SPILL_LIMITS = {"flash_fwd_kernel<512>": 24, "flash_fwd_kernel<384>": 0,
+                "flash_fwd_kernel<256>": 0, "flash_fwd_kernel<128>": 0}
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 
 
@@ -568,6 +593,7 @@ def phase_build():
         for fut in [pool.submit(fn) for _lib, fn in builds.values()]:
             fut.result()
     wall = time.perf_counter() - t0
+    pinned = set()
     for source, (lib, _fn) in builds.items():
         # ptxas -v: "Compiling entry function '<mangled>'", then the spill
         # line, then "Used N registers"
@@ -582,8 +608,16 @@ def phase_build():
                 entries.append(f"{kernel}: {regs}, {spills}")
                 check(kernel.split("<")[0] not in NO_STACK_KERNELS or spills == NO_STACK,
                       f"{kernel} has a stack frame or spills: {spills}")
+                if kernel in SPILL_LIMITS:
+                    pinned.add(kernel)
+                    spilled = max(int(m) for m in re.findall(r"(\d+) bytes spill", spills))
+                    check(spilled <= SPILL_LIMITS[kernel],
+                          f"{kernel} spills more than {SPILL_LIMITS[kernel]} bytes: {spills}")
         log(f"[build] {source}: nvcc {_cuda_build.build_seconds.get(lib, 0.0):.2f} s; "
             f"ptxas per instantiation: {entries}")
+    # (a library found already built prints no ptxas report)
+    check(not _cuda_build.build_logs.get(flash_attention.FWD_LIBRARY)
+          or pinned == set(SPILL_LIMITS), f"no ptxas report for {set(SPILL_LIMITS) - pinned}")
     log(f"[build] {len(builds)} libraries built and loaded in {wall:.2f} s; the flash "
         "backward's thread-block cluster, CTAs by width: "
         + str({c: flash_attention.bwd_cluster_size(c) for c in flash_attention.SUPPORTED_CHANNELS}))
@@ -603,13 +637,13 @@ def phase_kernel():
     from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
 
     results = {}
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     for b, n, c in KERNEL_SHAPES:
-        q, k, v = (torch.randn(b, n, c, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = (torch.randn(b, n, c, generator=gen, device=DEVICE).to(torch.bfloat16)
                    for _ in range(3))
         scale = c ** -0.5
         out = fa.flash_attention(q, k, v, scale=scale, out_dtype=torch.bfloat16)
-        torch.cuda.synchronize()
+        sync()
         ref = fa.flash_attention_reference(q, k, v, scale, torch.bfloat16)
         check(torch.isfinite(out).all().item(), f"kernel output not finite at {(b, n, c)}")
         atol = KERNEL_ULPS * bf16_ulp(ref.float().abs().max().item())
@@ -621,6 +655,21 @@ def phase_kernel():
                                              scale, torch.bfloat16)
         fault_err, fault_rel = kernel_errors(fault, ref)
         del fault
+        # the design's own faults: one consumer warpgroup's partial S (its
+        # half of the channels) left out of the logits, and the last tile's
+        # P V (issued after the loop) left out of O
+        half = fa.flash_attention_reference(q[..., :c // 2].contiguous(),
+                                            k[..., :c // 2].contiguous(), v, scale,
+                                            torch.bfloat16)
+        last_pv = fwd_last_pv_left_out(q, k, v, scale)
+        design_faults = {"a warpgroup's partial S left out": kernel_errors(half, ref),
+                         "the last tile's P V left out": kernel_errors(last_pv, ref)}
+        del half, last_pv
+        # bit-equal run to run
+        again = fa.flash_attention(q, k, v, scale=scale, out_dtype=torch.bfloat16)
+        sync()
+        check(torch.equal(out, again), f"the flash forward differs between two runs at {(b, n, c)}")
+        del again
 
         def kernel():
             fa.flash_attention(q, k, v, scale=scale, out_dtype=torch.bfloat16)
@@ -638,22 +687,46 @@ def phase_kernel():
         backend, lib = sdpa_times(q, k, v, None, scale, iters)
         bound_ms, bound_by = flash_bounds(b, n, c)["flash_attention_fwd"]
         flops = 4 * b * n * n * c
+        intake_tbs = fwd_intake_bytes(b, n, c) / ms / 1e9
         log(f"[kernel] (B={b}, N={n}, C={c}) max_abs_err {err:.6g} (tol {atol:.6g}, "
             f"{KERNEL_ULPS} bf16 ulps of max|plain|), rel L2 {rel:.6g} (tol {KERNEL_REL_L2}); "
             f"one dropped {FAULT_TILE}-key tile: max abs {fault_err:.6g}, rel L2 "
             f"{fault_rel:.6g}; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s) "
             f"[{k1:.4f}, {k2:.4f}], plain {plain_ms:.4f} ms [{p1:.4f}, {p2:.4f}], "
             f"bound {bound_ms:.4f} ms ({bound_by}), SDPA forward ({backend}) "
-            f"{lib['fwd']:.4f} ms")
+            f"{lib['fwd']:.4f} ms; bit-equal run to run; "
+            + ", ".join(f"{what}: max abs {e:.6g}, rel L2 {r:.6g}"
+                        for what, (e, r) in design_faults.items())
+            + f"; K and V from L2 into the SMs at {intake_tbs:.2f} TB/s "
+            f"({intake_tbs / SMS * 1e3:.1f} GB/s an SM)")
         check(err <= atol and rel <= KERNEL_REL_L2,
               f"kernel disagrees with plain at {(b, n, c)}: max abs {err}, rel L2 {rel}")
         check(fault_err > atol or fault_rel > KERNEL_REL_L2,
               f"the kernel bound at {(b, n, c)} does not reject a dropped key tile")
+        for what, (e, r) in design_faults.items():
+            check(e > atol or r > KERNEL_REL_L2,
+                  f"the kernel bound at {(b, n, c)} does not reject {what}")
         results[(b, n, c)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                               "bound_ms": bound_ms, "bound_by": bound_by,
                               "library_ms": lib["fwd"]}
         del q, k, v, out, ref
     return results
+
+
+def fwd_last_pv_left_out(q, k, v, scale: float):
+    """The plain forward with the last key tile's P V left out of O, its
+    probabilities still in the softmax's denominator: what a forward that
+    skipped the product it issues after its loop would return."""
+    import torch
+
+    p = torch.softmax(torch.matmul(q.float(), k.float().transpose(1, 2)) * scale, dim=-1)
+    return torch.matmul(p[..., :-FAULT_TILE], v[:, :-FAULT_TILE].float()).to(torch.bfloat16)
+
+
+def fwd_intake_bytes(b: int, n: int, c: int) -> int:
+    """Bytes of K and V the bf16 forward's CTAs bring into their SMs from L2:
+    every one of the n / 64 CTAs of a batch element reads all of its K and V."""
+    return b * (n // 64) * 2 * n * c * 2
 
 
 def roofline(flops: float, nbytes: float, rate: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
@@ -697,10 +770,10 @@ def launch_bounds(bounds: dict):
 
     fa_launch, gn_launch = fa._launch, gnk._launch
 
-    def fa_recorded(name, device, *args):
-        b, n, c = args[-4:-1]  # each entry ends with b, n, c, scale
+    def fa_recorded(name, device, *args, **kw):
+        b, n, c = args[-4:-1]  # each path entry ends with b, n, c, scale
         bounds[name] = bounds.get(name, 0.0) + flash_bounds(b, n, c)[name][0]
-        return fa_launch(name, device, *args)
+        return fa_launch(name, device, *args, **kw)
 
     def gn_recorded(name, x, *args):
         bounds[name] = bounds.get(name, 0.0) + gn_bound(name, tuple(x.shape),
@@ -1336,14 +1409,31 @@ def phase_gn_kernels():
         lines.append(f"gn_fwd_normalize S = {splits} splits a plane, y and tap bit-equal run "
                      "to run, y without the SiLU bit-equal to plain")
         del z, ky2, kabs2, ky0, kabs0, py0, pabs0
-        # 4. bwd reduce; fault: SiLU' left out of g_eff
+        # 4. bwd reduce; faults: SiLU' left out of g_eff, and the last of
+        # its S splits' partials left out (its own split count); the sums
+        # bit-equal run to run
+        splits = gnk.reduce_splits(b * c, h * w, x.element_size())
+        last = (splits - 1) * gnk.split_chunk(h * w, splits)
         kg, kgx = gnk.bwd_reduce(x, g, a, off, True)
+        kg2, kgx2 = gnk.bwd_reduce(x, g, a, off, True)
         sync()
+        check(torch.equal(kg, kg2) and torch.equal(kgx, kgx2),
+              f"gn_bwd_reduce differs between two runs at {shape}")
         pg, pgx = gnk.bwd_reduce_reference(x, g, a, off, True)
         fg, fgx = gnk.bwd_reduce_reference(x, g, a, off, False)
         record("gn_bwd_reduce", max(sum_rel_err(kg, pg), sum_rel_err(kgx, pgx)), GN_SUM_REL,
                max(sum_rel_err(fg, pg), sum_rel_err(fgx, pgx)), "sum g_eff, sum g_eff x (rel)",
                max(max_abs_err(kg, pg), max_abs_err(kgx, pgx)))
+        if splits > 1:
+            lg, lgx = gnk.bwd_reduce_reference(x.flatten(2)[:, :, last:, None],
+                                               g.flatten(2)[:, :, last:, None], a, off, True)
+            record("gn_bwd_reduce", max(sum_rel_err(kg, pg), sum_rel_err(kgx, pgx)), GN_SUM_REL,
+                   max(sum_rel_err(pg - lg, pg), sum_rel_err(pgx - lgx, pgx)),
+                   f"sums (rel; fault: the last of S = {splits} splits' partials left out)",
+                   max(max_abs_err(kg, pg), max_abs_err(kgx, pgx)))
+            del lg, lgx
+        lines.append(f"gn_bwd_reduce S = {splits} splits a plane, bit-equal run to run")
+        del kg2, kgx2
         # 5. bwd dx with the op's own coefficients; fault: SiLU' left out
         n = h * w * (c // GN_GROUPS)
         ca = a

@@ -13,7 +13,10 @@ and both round the output, so they agree to a few bf16 ulps: rtol 1.6e-2
 That absolute floor is loose for long sequences, whose outputs shrink like
 1/sqrt(N), so the relative L2 error is held to 1e-2 as well: bf16 rounding
 gives about 2.5e-3, and a kernel that skips one 64-key tile about 8/sqrt(N),
-0.0625 at N=16384.
+0.0625 at N=16384. The bf16 forward runs on wgmma, two warpgroups each
+summing half the channels of the logits; its design's own faults, one
+warpgroup's partial logits left out and the last tile's P V (issued after
+the loop) left out of O, leave the same bounds.
 
 The fp32 serving forward (the evaluation CLI's fp32 path) takes each fp32
 product as three TF32 products (about 2^-22 of the product) and sums them in
@@ -39,7 +42,7 @@ import ctypes
 import pytest
 import torch
 
-from chip_smoke import bwd_rank_left_out
+from chip_smoke import bwd_rank_left_out, fwd_last_pv_left_out
 from vae_channel_dynamics_tpu_torch.ops import _cuda_build
 from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
 
@@ -95,6 +98,74 @@ def test_kernel_matches_plain(cuda, shape):
     torch.testing.assert_close(out.float(), ref.float(), rtol=RTOL, atol=ATOL)
     rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
     assert rel <= REL_L2, rel
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("shape", [(2, 384, 128), (1, 640, 256), (3, 384, 384), (1, 384, 512),
+                                   (2, 1024, 512)])
+def test_forward_every_width_matches_plain(cuda, shape, with_lse):
+    """Every width, N = 128 x odd among them: the serving forward, or the
+    LSE forward, within the bounds of plain."""
+    q, k, v = _qkv(shape, cuda, seed=sum(shape) + 3)
+    scale = shape[-1] ** -0.5
+    name = "flash_attention_fwd_lse" if with_lse else "flash_attention_fwd"
+    before = fa.launches[name]
+    if with_lse:
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=torch.bfloat16)
+    else:
+        out = fa.flash_attention_fwd(q, k, v, scale=scale, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fa.launches[name] == before + 1
+    ref_out, ref_lse = fa.flash_attention_fwd_lse_reference(q, k, v, scale, torch.bfloat16)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=RTOL, atol=ATOL)
+    assert _rel(out, ref_out)[1] <= REL_L2
+    if with_lse:
+        assert _rel(lse, ref_lse)[0] <= LSE_MAX_REL
+
+
+@pytest.mark.parametrize("c", fa.SUPPORTED_CHANNELS)
+def test_forward_is_deterministic(cuda, c):
+    """Both bf16 forwards, every width: two runs give the same bits, and the
+    serving forward's o is the LSE forward's."""
+    q, k, v = _qkv((2, 512, c), cuda, seed=c + 1)
+    scale = c ** -0.5
+    o1 = fa.flash_attention_fwd(q, k, v, scale=scale, out_dtype=torch.bfloat16)
+    o2 = fa.flash_attention_fwd(q, k, v, scale=scale, out_dtype=torch.bfloat16)
+    lo1, lse1 = fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=torch.bfloat16)
+    lo2, lse2 = fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=torch.bfloat16)
+    assert torch.equal(o1, o2) and torch.equal(lo1, lo2) and torch.equal(lse1, lse2)
+    assert torch.equal(o1, lo1)
+
+
+@pytest.mark.parametrize("shape", [(4, 4096, 512), (1, 16384, 512), (2, 384, 256)])
+def test_forward_bound_rejects_its_design_faults(cuda, shape):
+    """The bound that the kernel meets rejects what its new mechanisms could
+    get wrong: one warpgroup's partial logits (its half of the channels)
+    left out of S, and the last tile's P V left out of O."""
+    q, k, v = _qkv(shape, cuda, seed=sum(shape) + 4)
+    scale = shape[-1] ** -0.5
+    ref = fa.flash_attention_reference(q, k, v, scale, torch.bfloat16)
+    out = fa.flash_attention_fwd(q, k, v, scale=scale, out_dtype=torch.bfloat16)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=RTOL, atol=ATOL)
+    assert _rel(out, ref)[1] <= REL_L2
+    c = shape[-1]
+    half = fa.flash_attention_reference(q[..., :c // 2].contiguous(), k[..., :c // 2].contiguous(),
+                                        v, scale, torch.bfloat16)
+    last_pv = fwd_last_pv_left_out(q, k, v, scale)
+    for faulty in (half, last_pv):
+        close = torch.allclose(faulty.float(), ref.float(), rtol=RTOL, atol=ATOL)
+        assert not (close and _rel(faulty, ref)[1] <= REL_L2)
+
+
+def test_lse_kernel_handles_large_logits(cuda):
+    """Scaled logits in the hundreds through the LSE forward: the base-2
+    running max keeps 2^x in range, and lse stays within 1e-5 of plain."""
+    q, k, v = _qkv((2, 256, 128), cuda, seed=2)
+    out, lse = fa.flash_attention_fwd_lse(q * 8, k * 8, v, scale=1.0, out_dtype=torch.bfloat16)
+    ref, ref_lse = fa.flash_attention_fwd_lse_reference(q * 8, k * 8, v, 1.0, torch.bfloat16)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=RTOL, atol=ATOL)
+    assert _rel(lse, ref_lse)[0] <= LSE_MAX_REL
 
 
 @pytest.mark.parametrize("shape", SHAPES)

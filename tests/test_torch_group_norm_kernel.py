@@ -269,6 +269,30 @@ def test_normalize_splits_cover_every_element_once(shape, element_size):
         assert chunk >= gnk.THREADS * (16 // element_size) * gnk.NORM_LOADS
 
 
+@pytest.mark.parametrize("element_size", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", NORM_SPLIT_SHAPES, ids=[str(s) for s in NORM_SPLIT_SHAPES])
+def test_reduce_splits_cover_every_element_once(shape, element_size):
+    """gn_bwd_reduce's splits: contiguous, in order, none empty, covering the
+    plane; never more than the normalize's, and each at least REDUCE_ROUNDS
+    rounds of one load a thread (32 KB of x and of g) where there are
+    several. At (1, 512, 128, 128) in bf16, 16 KB a split, the plane stays
+    one block."""
+    b, c, h, w = shape
+    planes, hw = b * c, h * w
+    splits = gnk.reduce_splits(planes, hw, element_size)
+    assert splits >= 1 and splits & (splits - 1) == 0
+    assert splits <= gnk.normalize_splits(planes, hw, element_size)
+    chunk = gnk.split_chunk(hw, splits)
+    ranges = [(min(k * chunk, hw), min((k + 1) * chunk, hw)) for k in range(splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == hw
+    assert all(e0 == b1 for (_b0, e0), (b1, _e1) in zip(ranges, ranges[1:]))
+    assert all(e > s for s, e in ranges)
+    if splits > 1:
+        assert chunk * element_size >= gnk.THREADS * 16 * gnk.REDUCE_ROUNDS == 32768
+    if element_size == 2 and shape == (1, 512, 128, 128):
+        assert splits == 1
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("with_stats", [False, True])
 @pytest.mark.parametrize("shape", [(1, 128, 56, 311), (2, 128, 8, 16)])
@@ -294,3 +318,95 @@ def test_fwd_normalize_hands_the_kernel_its_split_count(monkeypatch, shape, with
         assert part_ptr is not None and parts == splits
     else:
         assert part_ptr is None and parts == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 128, 1024, 1024), (1, 512, 128, 128), (16, 128, 256, 256),
+                                   (1, 128, 56, 311)])
+def test_bwd_reduce_hands_the_kernel_its_split_count(monkeypatch, shape, dtype):
+    """``bwd_reduce``'s kernel branch (taken here on CPU tensors, the launch
+    recorded instead of made) passes the helper's split count and, where it
+    is above 1, a (planes, splits, 2) scratch for the per-split pairs of
+    partials with its per-plane count; no scratch where a plane is one
+    split (16 and 1 splits in bf16 at the 1024px step's shapes, 1 at the
+    256px batch-16 one). The inputs are expanded zeros: no memory for the
+    1M-element planes."""
+    b, c, h, w = shape
+    x = torch.zeros((), dtype=dtype).expand(shape)
+    a, off = torch.ones(b, c), torch.zeros(b, c)
+    calls = []
+    monkeypatch.setattr(gnk, "_on_cpu", lambda x, name: False)
+    monkeypatch.setattr(gnk, "_check_layout", lambda name, t, what: None)
+    monkeypatch.setattr(gnk, "_launch", lambda name, x, *args: calls.append((name, args)))
+    made = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *s, **kw: made.append(s) or empty(*s, **kw))
+    gsum, gxsum = gnk.bwd_reduce(x, x, a, off, True)
+    (name, args), = calls
+    assert name == "gn_bwd_reduce" and len(args) == len(gnk._SIGNATURES[name]) - 1
+    part_ptr, planes, hw, dt, silu, splits, parts = args[6:]
+    assert (planes, hw, dt, silu) == (b * c, h * w, gnk._DTYPE_CODES[dtype], 1)
+    assert splits == gnk.reduce_splits(b * c, h * w, x.element_size())
+    assert gsum.shape == gxsum.shape == (b, c)
+    if splits > 1:
+        assert part_ptr is not None and parts == splits
+        assert ((planes, splits, 2),) in made
+    else:
+        assert part_ptr is None and parts == 0
+    if dtype == torch.bfloat16 and shape[0] == 1 and shape[2] in (1024, 128):
+        assert splits == (16 if shape[2] == 1024 else 1)
+    if shape[0] == 16:
+        assert splits == 1
+
+
+@pytest.mark.parametrize("element_size", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [(1, 128, 128, 256), (1, 512, 64, 64), (1, 128, 40, 871),
+                                   (2, 128, 8, 16)])
+def test_split_bwd_partials_added_in_order_match_plain(shape, element_size):
+    """A numpy model of the split ``gn_bwd_reduce``: each of a plane's S
+    splits sums g_eff and g_eff*x over its chunk in fp32, the partials land
+    at [plane, split] of the (planes, S, 2) scratch, and the second pass
+    adds them in split order. Every element is summed once, and the result
+    is ``bwd_reduce_reference``'s within fp32 summation-order error (1e-5
+    of max|plain|). S = 2, 1, 2 (the last split 8 elements short) and 1 at
+    these shapes in bf16."""
+    b, c, h, w = shape
+    planes, hw = b * c, h * w
+    splits = gnk.reduce_splits(planes, hw, element_size)
+    chunk = gnk.split_chunk(hw, splits)
+    rng = np.random.default_rng(sum(shape))
+    x = (rng.standard_normal(shape) * 2.0 + 0.5).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+    a = (1.0 + 0.1 * rng.standard_normal((b, c))).astype(np.float32)
+    off = (0.1 * rng.standard_normal((b, c))).astype(np.float32)
+    ge = _nchw_grad_eff(x, g, a, off)
+    xf, gef = x.reshape(planes, hw), ge.reshape(planes, hw)
+    part = np.zeros((planes, splits, 2), np.float32)
+    seen = np.zeros((planes, hw), np.int64)
+    for blk in range(planes * splits):
+        plane, k = divmod(blk, splits)
+        lo, hi = min(k * chunk, hw), min((k + 1) * chunk, hw)
+        seen[plane, lo:hi] += 1
+        part[plane, k] = (gef[plane, lo:hi].sum(dtype=np.float32),
+                          (gef[plane, lo:hi] * xf[plane, lo:hi]).sum(dtype=np.float32))
+    assert (seen == 1).all()
+    gsum = np.zeros(planes, np.float32)
+    gxsum = np.zeros(planes, np.float32)
+    for k in range(splits):  # sum_splits2_kernel: in order of the split
+        gsum += part[:, k, 0]
+        gxsum += part[:, k, 1]
+    rg, rgx = gnk.bwd_reduce_reference(torch.from_numpy(x), torch.from_numpy(g),
+                                       torch.from_numpy(a), torch.from_numpy(off), True)
+    for got, ref in ((gsum, rg), (gxsum, rgx)):
+        ref = ref.numpy().reshape(planes)
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+    if element_size == 2:
+        assert splits == {(1, 128, 128, 256): 2, (1, 512, 64, 64): 1, (1, 128, 40, 871): 2,
+                          (2, 128, 8, 16): 1}[shape]
+
+
+def _nchw_grad_eff(x, g, a, off):
+    """g times SiLU'(z), z = x a + off, on NCHW numpy arrays in fp32."""
+    z = x * a[:, :, None, None] + off[:, :, None, None]
+    s = 1.0 / (1.0 + np.exp(-z))
+    return (g * (s * (1.0 + z * (1.0 - s)))).astype(np.float32)

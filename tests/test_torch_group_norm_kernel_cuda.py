@@ -8,9 +8,10 @@ Each of the four kernels gets the same inputs as its plain version, at the
 training slice's norm shapes (256px, batch 16: the largest and the smallest)
 and at small odd ones, in bf16 and fp32; then the autograd op (forward, the
 |z| tap, dx, dgamma, dbeta) against the plain GroupNorm. The normalize
-kernel also at batch-1 shapes whose few planes it splits over several blocks
-(one with a ragged last split), bit-equal run to run with the tap, and
-refusing a split count or partial count that is not its own.
+kernel and the backward reduce also at batch-1 shapes whose few planes they
+split over several blocks (one with a ragged last split), bit-equal run to
+run, refusing a split count or partial count that is not their own, and the
+bound rejecting the last split's partial left out.
 
 Bounds. Outputs in x's dtype (y, dx): in fp32 the kernels compute what the
 plain versions compute, up to the order of fp32 operations and the sigmoid,
@@ -274,3 +275,90 @@ def test_normalize_refuses_another_partial_count(cuda):
     torch.cuda.synchronize()
     _assert_sums(abs_sum, gnk.fwd_normalize_reference(x, a, b, True, True)[1],
                  torch.bfloat16)
+
+
+# batch-1 shapes whose planes do not fill the card: gn_bwd_reduce splits
+# each over S blocks where a split reads 32 KB or more of x (bf16, fp32): 16
+# at (1, 128, 1024, 1024); at (1, 512, 128, 128) 1 and 2; at (1, 128, 56,
+# 311) 1 and 2 (the last split 8 elements short); 2 and 4 at (1, 128, 40,
+# 871), the last split 8 elements short
+BWD_SPLIT_SHAPES = [(1, 128, 1024, 1024), (1, 512, 128, 128), (1, 128, 56, 311),
+                    (1, 128, 40, 871)]
+BWD_SPLITS = {(1, 128, 1024, 1024): (16, 16), (1, 512, 128, 128): (1, 2),
+              (1, 128, 56, 311): (1, 2), (1, 128, 40, 871): (2, 4)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", BWD_SPLIT_SHAPES)
+def test_split_bwd_reduce_matches_plain_and_repeats(cuda, shape, dtype):
+    """Each plane split over S blocks (S = 1 where a split would read less
+    than 32 KB), the per-split pairs of partials added in split order:
+    within the sums' bound of plain, the same bits run to run, and the bound
+    rejects the last split's partials left out."""
+    x, g, _s, _b, a, b = _inputs(shape, dtype, cuda, 11)
+    planes, hw = shape[0] * shape[1], shape[2] * shape[3]
+    splits = gnk.reduce_splits(planes, hw, x.element_size())
+    assert splits == BWD_SPLITS[shape][dtype == torch.float32]
+    before = gnk.launches["gn_bwd_reduce"]
+    first = gnk.bwd_reduce(x, g, a, b, True)
+    again = gnk.bwd_reduce(x, g, a, b, True)
+    torch.cuda.synchronize()
+    assert gnk.launches["gn_bwd_reduce"] == before + 2
+    assert all(torch.equal(p, q) for p, q in zip(first, again))
+    ref = gnk.bwd_reduce_reference(x, g, a, b, True)
+    for out, r in zip(first, ref):
+        _assert_sums(out, r, dtype)
+    last = (splits - 1) * gnk.split_chunk(hw, splits)
+    tail = gnk.bwd_reduce_reference(x.flatten(2)[:, :, last:, None],
+                                    g.flatten(2)[:, :, last:, None], a, b, True)
+    faulty = [r - t for r, t in zip(ref, tail)]
+    rel = max(((f - r).abs().max() / r.abs().max()).item() for f, r in zip(faulty, ref))
+    assert rel > SUM_REL[dtype], rel
+
+
+@pytest.mark.parametrize("drift", ["double", "plus_one"])
+@pytest.mark.parametrize("shape", [(1, 128, 256, 256), (4, 128, 64, 64)])
+def test_bwd_reduce_refuses_another_split_count(cuda, monkeypatch, shape, drift):
+    """The C entry holds the wrapper's split count to its own rule (4 and 1
+    at these shapes), so a drifted count is refused before any write."""
+    x, g, _s, _b, a, b = _inputs(shape, torch.bfloat16, cuda, 12)
+    count = gnk.reduce_splits
+    monkeypatch.setattr(gnk, "reduce_splits",
+                        lambda *args: count(*args) * 2 if drift == "double"
+                        else count(*args) + 1)
+    before = gnk.launches["gn_bwd_reduce"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gnk.bwd_reduce(x, g, a, b, True)
+    assert gnk.launches["gn_bwd_reduce"] == before
+
+
+def test_bwd_reduce_refuses_another_partial_count(cuda):
+    """The partials a plane the caller sized its scratch by must be the split
+    count where there are several splits, and 0 with no scratch at one."""
+    shape = (1, 128, 256, 256)
+    x, g, _s, _b, a, b = _inputs(shape, torch.bfloat16, cuda, 13)
+    planes, hw = 128, 256 * 256
+    splits = gnk.reduce_splits(planes, hw, 2)
+    assert splits > 1
+    gsum, gxsum = torch.empty(1, 128, device=cuda), torch.empty(1, 128, device=cuda)
+    part = torch.empty(planes, 2 * splits, 2, device=cuda)
+    fn = gnk._fn("gn_bwd_reduce")
+    stream = torch.cuda.current_stream().cuda_stream
+    invalid = 1  # cudaErrorInvalidValue
+
+    def call(scratch, parts, split_count=splits, n_planes=planes, n_hw=hw):
+        return fn(x.data_ptr(), g.data_ptr(), a.data_ptr(), b.data_ptr(), gsum.data_ptr(),
+                  gxsum.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                  n_planes, n_hw, 1, 1, split_count, parts, stream)
+
+    assert call(part, splits - 1) == invalid
+    assert call(part, splits + 1) == invalid
+    assert call(None, 0) == invalid                 # partials with no scratch
+    assert call(part, splits, splits + 1) == invalid
+    # one split a plane (the 256px batch-16 grid): no scratch, no partials
+    assert call(part, splits, 1, 16 * 128) == invalid
+    assert call(part, splits) == 0
+    torch.cuda.synchronize()
+    ref = gnk.bwd_reduce_reference(x, g, a, b, True)
+    _assert_sums(gsum, ref[0], torch.bfloat16)
+    _assert_sums(gxsum, ref[1], torch.bfloat16)

@@ -12,35 +12,63 @@
 // The LSE output is a null-or-not pointer, not a template flag: the row's
 // final m and l already sit in the softmax threads' registers, so it costs
 // one uniform branch and one store per row at the end, and the serving
-// entry point (lse = nullptr) keeps the same instantiations and code.
+// entry point (lse = nullptr) runs the same instantiations.
 //
 // What bounds it on the H100: at C = 512 the kernel does 4*B*N^2*C FLOPs
-// against about 8*B*N*C bytes of q/k/v/o traffic, i.e. N/2 FLOPs per byte
-// (2048 at N = 4096), far above the card's ~295 FLOPs/byte ridge: it is
-// tensor-core bound. The design keeps the quadratic logits tile and the
-// fp32 accumulators on chip (registers and shared memory) so device memory
-// sees only the linear q/k/v/o traffic, and feeds the tensor cores with
-// bf16 mma.sync (m16n8k16) from ldmatrix loads. wgmma/TMA and warp
-// specialisation are left for a later, faster version.
+// against 8*B*N*C bytes of q/k/v/o in device memory, N/2 FLOPs a byte, far
+// above the card's ~295: tensor-core bound, 0.5559 ms at (1, 16384, 512).
+// What stands in the way is the head, 512 wide: O for 64 query rows is
+// 64 x 512 fp32, half the register file, so a CTA holds 64 query rows, and
+// every CTA brings all of its batch element's K and V into its SM from L2,
+// 128 KB a 64-key tile for 8.4 MFLOP of products (8.6 GB a call at (1,
+// 16384, 512)). Measured on the H100, that stream is the bound: about 28
+// bytes a clock an SM, whether 32 or 132 SMs run, so the SM's intake, not
+// L2 (chip_smoke.py logs the times).
 //
-// Layout of one thread block (256 threads, 8 warps), which owns BQ = 32
-// query rows of one batch element and loops over key tiles of BK = 64:
-//   * the head is 512 wide, so a 32x512 fp32 output accumulator is split
-//     over the 8 warps by columns: each warp holds 32 rows x C/8 columns in
-//     registers (64 fp32 per thread at C = 512);
-//   * Q (32xC), K and V (64xC each) tiles sit in shared memory in bf16,
-//     rows padded by 16 bytes so the 8 row addresses of an ldmatrix fall in
-//     distinct banks; K and V have their own buffers, loaded with cp.async so
-//     the next tile's copy overlaps the current tile's math;
-//   * S (32x64 fp32) and P (32x64 bf16) pass through shared memory between
-//     the QK^T warps (each computes a 16x16 piece), the softmax threads (8 per
-//     row, which also keep that row's m and l in registers) and the PV warps;
-//     with an LSE output, one of those 8 threads writes the row's m + log(l).
-// Shared memory at C = 512: 33,280 (Q) + 2 x 66,560 (K, V) + 8,704 (S)
-// + 4,608 (P) + 256 (row stats) = 179,968 bytes, above 48 KB, so the
-// launcher raises the kernel's dynamic shared-memory limit first. ptxas
-// (-Xptxas -v, sm_90a, CUDA 12.8): 202 registers at C = 512 (170,
-// 122, 82 at 384, 256, 128), no spills.
+// The bf16 kernel (flash_fwd_kernel<C>, wgmma and TMA on
+// sm90_wgmma.cuh). A CTA owns 64 query rows of one batch element.
+//   * A producer warpgroup gives up its registers (setmaxnreg, 40 a thread)
+//     so that two consumer warpgroups get 232: consumer g owns half of the
+//     channels, H = C/2, of S's sum and of O (H/2 fp32 accumulators a
+//     thread, 128 at C = 512, as 64-channel chunks). The producer's thread 0
+//     keeps the ring full in stream order, waiting on each stage's `empty`
+//     barrier; the consumers never wait for it beyond the loads themselves.
+//   * Q stays resident (C/64 boxes of 64 rows x 64 channels, 128-byte
+//     swizzled, the K-major A of Q K^T).
+//   * K and V stream through a ring of 16 KB stages, a unit a stage: one
+//     64-key x 64-channel box of each half, one TMA load of a 4-D view
+//     (H channels, n rows, 2 halves, b). Per 64-key tile, H/64 units of K
+//     and H/64 of V, in the order the consumers read them: K_0, then K_t and
+//     V_(t-1) for t = 1 .. nt - 1, then V_(nt-1).
+//   * S: each consumer forms its partial S over its half (wgmma m64n64k16,
+//     both operands from shared memory, H/16 k-steps: a short accumulation,
+//     as the tensor cores truncate fp32 sums), writes it and adds the
+//     other's: S_0 + S_1 in one warpgroup and S_1 + S_0 in the other, the
+//     same bits (fp32 addition commutes), so both hold the same S, m, l and
+//     P. From C = 256 the partials go into the tile's own K stages, whose
+//     wgmma reads are done and which the ring hands out again only once
+//     every warp has released them; at C = 128 into two slots of their
+//     own. Named barrier 1 orders the writes before the reads; at C = 128,
+//     2 and 3 keep a slot from being written again before it is read.
+//   * The softmax works in base 2: S scale log2(e), ex2.approx on the SFU,
+//     lse = m ln 2 + log(l).
+//   * P (bf16) goes to P V as the register A, straight from S's accumulator
+//     layout (pair p of a thread's S, columns 8(p/2) + 2(lane%4) and the
+//     next, is A-fragment register p % 4 of k-step p / 4), and V's box is
+//     the MN-major B (m64n64k16 per 64-channel chunk), straight from the
+//     ring: P and V^T never pass through shared memory.
+//   * Tile t: Q K_t^T, the exchange (K_t released), then P V of tile t - 1
+//     on the tensor cores while the CUDA cores take tile t's softmax; O is
+//     rescaled once P V is done (V_(t-1) released). A tile holds at most
+//     one tile's K or V in the ring, so the producer runs STAGES - NCH
+//     units ahead (4 at C = 512).
+// O stays in its wgmma accumulators across the key tiles; their truncated
+// fp32 sums drift by about 2^-23 a k-step, far inside the bf16 output's
+// bounds (tests/test_torch_flash_kernel_cuda.py). Grid (N/64, B). The ring
+// has 8 stages at every width: at C = 512 ten would fit, and measured a
+// little slower than eight on the H100 (a power of two keeps the stage
+// index a mask). Shared memory at C = 512: 64 KB (Q) + 8 stages x 16 KB,
+// 197,768 bytes with the barriers and the alignment.
 //
 // The fp32 serving forward (flash_fwd_f32_kernel, no LSE) replaces the same
 // TPU kernel run in fp32 at Precision.HIGHEST: fp32 q/k/v in, fp32 out, P kept
@@ -92,209 +120,335 @@
 // function returns cudaGetLastError() after the launch. It launches on the
 // caller's stream, allocates nothing and does not synchronise.
 
-#include "sm90_mma.cuh"
+
+#include <type_traits>
+
 #include "sm90_wgmma.cuh"
 
 namespace {
 
-using namespace vcd;
 using namespace vcd::sm90;
+using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 32;               // query rows per block
-constexpr int BK = 64;               // keys per tile
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr float MASKED = -1e30f;     // finite stand-in for -inf, as in the TPU kernel
+constexpr int BK = 64;                // keys per tile
+constexpr float MASKED = -1e30f;      // finite stand-in for -inf, as in the TPU kernel
+
+// ---------------------------------------------------------------------------
+// bf16 forward: wgmma/TMA, a producer warpgroup and two consumers (see the header)
+// ---------------------------------------------------------------------------
+constexpr int BQ = 64;                // query rows per CTA: wgmma's M
+constexpr int THREADS = 384;          // a producer warpgroup and two consumers
+constexpr int CONSUMER_WARPS = 8;
+// registers a thread: the producer gives up its own so that the consumers'
+// accumulators (O, 128 fp32 a thread at C = 512, S and P) fit: 128 x 40 +
+// 256 x 232 <= 64K
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int BOX = 64 * 128;         // 64 rows x 64 channels of bf16, 128-byte swizzled
+constexpr int UNIT = 2 * BOX;         // a ring stage: one box of each warpgroup's half
+constexpr int XCH = BQ * BK * 4;      // one warpgroup's partial S, fp32
+constexpr int SMEM_MAX = 232448;      // the dynamic shared memory a CTA may have
+constexpr int STAGES = 8;             // of the K/V ring (see the header)
 
 template <int C>
 struct Layout {
-  static constexpr int LD = C + PAD;      // bf16 row stride of the Q/K/V tiles
-  static constexpr int S_LD = BK + 4;     // fp32 row stride of the logits tile
-  static constexpr int P_LD = BK + PAD;   // bf16 row stride of the probability tile
-  static constexpr int Q_BYTES = BQ * LD * 2;
-  static constexpr int KV_BYTES = BK * LD * 2;
-  static constexpr int S_BYTES = BQ * S_LD * 4;
-  static constexpr int P_BYTES = BQ * P_LD * 2;
-  static constexpr int STAT_BYTES = 2 * BQ * 4;   // per-row correction and final l
-  static constexpr int BYTES = Q_BYTES + 2 * KV_BYTES + S_BYTES + P_BYTES + STAT_BYTES;
+  static constexpr int H = C / 2;                      // channels of a warpgroup
+  static constexpr int NCH = H / 64;                   // units of K (or V) a tile
+  // From two K units a tile up, the partial S are exchanged in the tile's
+  // own K stages once S is formed (warpgroup g in its boxes of the first
+  // two): the ring keeps the 32 KB of two slots of their own, which C = 128
+  // uses.
+  static constexpr bool XIN_RING = NCH >= 2;
+  static constexpr int XCHG = C * 128;                 // after the C/64 boxes of Q
+  static constexpr int RING = XCHG + (XIN_RING ? 0 : 2 * XCH);
+  static constexpr int BARS = RING + STAGES * UNIT;    // full[STAGES], empty[STAGES], q
+  static constexpr int BYTES = BARS + (2 * STAGES + 1) * 8 + 1024;  // + the alignment pad
+  static_assert(H % 64 == 0 && STAGES >= 2 * NCH, "a tile's K and V units fit the ring");
+  static_assert(BYTES <= SMEM_MAX, "too much shared memory");
 };
 
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// 2^x by the SFU (ex2.approx.ftz: about 2 ulp; 0 below 2^-126)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// O (B, N, C) bf16 = softmax(Q K^T * scale) V, and with lse non-null the
+// fp32 (B, N) lse = m + log(l), over bf16 q, k, v (B, N, C). Grid (N / 64,
+// B); a producer warpgroup and two consumers.
 template <int C>
 __global__ void __launch_bounds__(THREADS, 1)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o,
                      float* __restrict__ lse, int n, float scale) {
   using L = Layout<C>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::Q_BYTES);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::Q_BYTES + L::KV_BYTES);
-  float* sS = reinterpret_cast<float*>(smem + L::Q_BYTES + 2 * L::KV_BYTES);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::Q_BYTES + 2 * L::KV_BYTES + L::S_BYTES);
-  float* sCorr =
-      reinterpret_cast<float*>(smem + L::Q_BYTES + 2 * L::KV_BYTES + L::S_BYTES + L::P_BYTES);
-  float* sL = sCorr + BQ;
+  constexpr int H = L::H, NCH = L::NCH;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = smem + L::RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int gid = lane >> 2, tig = lane & 3;   // mma fragment row group / column pair
-  const int q0 = blockIdx.x * BQ;
-  const size_t base = static_cast<size_t>(blockIdx.y) * n * C;
-  const bf16* kb = k + base;
-  const bf16* vb = v + base;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q0 = blockIdx.x * BQ, b = blockIdx.y, nt = n / BK;
+  const int units = 2 * nt * NCH;
+  const float scale_log2 = scale * LOG2E;
 
-  // cp.async groups, in order: [Q, K_0], [V_0], then per tile [K_j+1], [V_j+1].
-  load_tile<C, BQ, THREADS>(sQ, q + base + static_cast<size_t>(q0) * C, tid);
-  load_tile<C, BK, THREADS>(sK, kb, tid);
-  cp_async_commit();
-  load_tile<C, BK, THREADS>(sV, vb, tid);
-  cp_async_commit();
-
-  // QK^T: warp -> one 16-row x 16-key piece of the 32x64 logits tile.
-  const int s_m0 = (warp / 4) * 16, s_n0 = (warp % 4) * 16;
-  // softmax: 8 threads per query row, 8 consecutive logits each.
-  const int srow = tid / 8, scol = (tid % 8) * 8;
-  float m_run = MASKED, l_run = 0.f;
-  // PV: warp -> C/8 output columns for all 32 rows.
-  constexpr int WC = C / WARPS;
-  constexpr int NT = WC / 8;
-  static_assert(NT % 2 == 0, "each ldmatrix.x4.trans feeds two 8-column n-tiles");
-  const int o_c0 = warp * WC;
-  float acc[2][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  const int nk = n / BK;
-  for (int j = 0; j < nk; ++j) {
-    cp_async_wait<1>();  // K_j has landed (V_j may still be in flight)
-    __syncthreads();
-
-    // ---- S = Q K_j^T * scale (fp32) -> shared memory ----
-    {
-      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      const int m = lane >> 3;
-#pragma unroll 8
-      for (int kk = 0; kk < C; kk += 16) {
-        uint32_t a[4], b[4];
-        ldmatrix_x4(a, sQ + (s_m0 + (lane & 15)) * L::LD + kk + (lane >> 4) * 8);
-        ldmatrix_x4(b, sK + (s_n0 + (lane & 7) + (m >> 1) * 8) * L::LD + kk + (m & 1) * 8);
-        mma_bf16(s[0], a, b[0], b[1]);
-        mma_bf16(s[1], a, b[2], b[3]);
-      }
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        float* r0 = sS + (s_m0 + gid) * L::S_LD + s_n0 + t * 8 + 2 * tig;
-        float* r1 = r0 + 8 * L::S_LD;
-        r0[0] = s[t][0] * scale;
-        r0[1] = s[t][1] * scale;
-        r1[0] = s[t][2] * scale;
-        r1[1] = s[t][3] * scale;
-      }
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);  // every consumer warp
     }
-    __syncthreads();
-
-    // The K buffer is free: start the next key tile behind softmax and PV.
-    // The group is committed even when empty so the wait counts stay uniform.
-    if (j + 1 < nk) load_tile<C, BK, THREADS>(sK, kb + static_cast<size_t>(j + 1) * BK * C, tid);
-    cp_async_commit();
-
-    // ---- online softmax over this tile's 64 logits per row ----
-    {
-      const float* sr = sS + srow * L::S_LD + scol;
-      float x[8];
-      float mx = MASKED;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        x[i] = sr[i];
-        mx = fmaxf(mx, x[i]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_new = fmaxf(m_run, mx);
-      bf16* pr = sP + srow * L::P_LD + scol;
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float p = expf(x[i] - m_new);
-        sum += p;
-        pr[i] = __float2bfloat16(p);
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      const float corr = expf(m_run - m_new);
-      l_run = l_run * corr + sum;
-      m_run = m_new;
-      if ((tid & 7) == 0) sCorr[srow] = corr;
-    }
-    cp_async_wait<1>();  // V_j has landed (only the K_j+1 prefetch may be in flight)
-    __syncthreads();
-
-    // ---- acc = acc * corr + P V_j ----
-    {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const float c0 = sCorr[mt * 16 + gid], c1 = sCorr[mt * 16 + gid + 8];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          acc[mt][nt][0] *= c0;
-          acc[mt][nt][1] *= c0;
-          acc[mt][nt][2] *= c1;
-          acc[mt][nt][3] *= c1;
-        }
-      }
-      const int m = lane >> 3;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          ldmatrix_x4(a[mt], sP + (mt * 16 + (lane & 15)) * L::P_LD + kk + (lane >> 4) * 8);
-#pragma unroll
-        for (int nt = 0; nt < NT; nt += 2) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(
-              b, sV + (kk + (lane & 7) + (m & 1) * 8) * L::LD + o_c0 + nt * 8 + (m >> 1) * 8);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            mma_bf16(acc[mt][nt], a[mt], b[0], b[1]);
-            mma_bf16(acc[mt][nt + 1], a[mt], b[2], b[3]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-
-    // The V buffer is free: start the next value tile.
-    if (j + 1 < nk) load_tile<C, BK, THREADS>(sV, vb + static_cast<size_t>(j + 1) * BK * C, tid);
-    cp_async_commit();
-  }
-
-  if ((tid & 7) == 0) {
-    sL[srow] = l_run;
-    if (lse != nullptr) lse[static_cast<size_t>(blockIdx.y) * n + q0 + srow] = m_run + logf(l_run);
+    mbar_init(qbar, 1);
+    mbar_init_fence();
   }
   __syncthreads();
 
-  // ---- O = acc / l, bf16 ----
+  if (warp < 4) {
+    // ---- the producer warpgroup: its thread 0 keeps the ring full ----
+    set_max_regs_dec<PRODUCER_REGS>();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(qbar, C * 128);
+      for (int j = 0; j < C / 64; ++j) tma_load_3d(smem + j * BOX, &qmap, qbar, 64 * j, q0, b);
+      // Unit k of the stream: group k / NCH is K_0, then K_t and V_(t-1) for
+      // t >= 1, then V_(nt-1), the order the consumers read them; chunk k %
+      // NCH. A unit is one box of the 4-D view (H channels, n rows, 2
+      // halves, b) of K or V: 64 channels x 64 rows x both halves. Unit k
+      // goes in once every consumer warp has released unit k - STAGES.
+      for (int k = 0; k < units; ++k) {
+        const int grp = k / NCH, chunk = k % NCH, s = k % STAGES;
+        const bool is_v = grp == 2 * nt - 1 || (grp > 0 && grp % 2 == 0);
+        const int tile = grp == 2 * nt - 1 ? nt - 1 : (is_v ? grp / 2 - 1 : (grp + 1) / 2);
+        const CUtensorMap* map = is_v ? &vmap : &kmap;
+        uint8_t* st = ring + s * UNIT;
+        if (k >= STAGES) mbar_wait(&empty[s], (k / STAGES - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], UNIT);
+        tma_load_4d(st, map, &full[s], chunk * 64, tile * BK, 0, b);
+      }
+    }
+  } else {
+    set_max_regs_inc<CONSUMER_REGS>();
+    // ---- two consumer warpgroups: g owns channels [g H, (g + 1) H) of S's
+    // sum and of O ----
+    const int g = warp / 4 - 1, wt = tid % 128, gid = lane / 4, tig = lane % 4;
+    const int row0 = (warp % 4) * 16 + gid;  // this thread's rows: row0, row0 + 8
+    float oacc[NCH][32];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int r0 = mt * 16 + gid, r1 = r0 + 8;
-    const float l0 = sL[r0], l1 = sL[r1];
-    bf16* o0 = o + base + static_cast<size_t>(q0 + r0) * C + o_c0;
-    bf16* o1 = o + base + static_cast<size_t>(q0 + r1) * C + o_c0;
+    for (int u = 0; u < NCH; ++u)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int col = nt * 8 + 2 * tig;
-      *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
-          __floats2bfloat162_rn(acc[mt][nt][0] / l0, acc[mt][nt][1] / l0);
-      *reinterpret_cast<__nv_bfloat162*>(o1 + col) =
-          __floats2bfloat162_rn(acc[mt][nt][2] / l1, acc[mt][nt][3] / l1);
+      for (int i = 0; i < 32; ++i) oacc[u][i] = 0.f;
+    float m_run[2] = {MASKED, MASKED}, l_run[2] = {0.f, 0.f};  // l: this thread's columns
+    uint32_t pfrag[16];  // P of the tile in P V, bf16 pairs
+    int kc = 0, kr = 0;  // units consumed, units released
+
+    // Waits until the next NCH units of the stream have landed; the first's
+    // index (unit k sits in stage k % STAGES). Every wait comes before the
+    // wgmma_fence of the products that read the units: a spin loop between
+    // the fence and a wgmma makes ptxas serialise the wgmmas (C7520).
+    auto arrived = [&]() {
+      const int first = kc;
+#pragma unroll
+      for (int u = 0; u < NCH; ++u, ++kc) mbar_wait(&full[kc % STAGES], (kc / STAGES) & 1);
+      return first;
+    };
+    auto stage = [&](int first, int u) { return ring + ((first + u) % STAGES) * UNIT; };
+
+    // S_g = Q[:, half g] K_t[:, half g]^T over the K units from `first`:
+    // issued and committed, not waited
+    auto issue_s = [&](float (&sacc)[32], int first) {
+#pragma unroll
+      for (int u = 0; u < NCH; ++u) {
+        const uint8_t* qb = smem + (g * NCH + u) * BOX;
+        const uint8_t* kb = stage(first, u) + g * BOX;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_m64n64k16(sacc, make_desc(qb, 128) + 2 * kk, make_desc(kb, 128) + 2 * kk,
+                             u > 0 || kk > 0);
+      }
+      wgmma_commit();
+    };
+
+    // O_g += P V[:, half g] over the V units from `first`, 64 channels
+    // each, over the tile's 64 keys: issued and committed, not waited
+    auto issue_pv = [&](int first) {
+#pragma unroll
+      for (int u = 0; u < NCH; ++u) {
+        const uint8_t* vb = stage(first, u) + g * BOX;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t a[4] = {pfrag[4 * kk], pfrag[4 * kk + 1], pfrag[4 * kk + 2],
+                                 pfrag[4 * kk + 3]};
+          wgmma_rs_m64n64k16<1>(oacc[u], a, make_desc_mn(vb + kk * 16 * 128, BOX, 1024));
+        }
+      }
+      wgmma_commit();
+    };
+
+    // The next NCH units have been read: release their stages (lane 0 of
+    // each warp arrives).
+    auto release = [&]() {
+#pragma unroll
+      for (int u = 0; u < NCH; ++u)
+        if (lane == 0) mbar_arrive(&empty[(kr + u) % STAGES]);
+      kr += NCH;
+    };
+
+    // This thread's elements 4j .. 4j + 3 of warpgroup w's partial S: in
+    // the K stages of the tile (box w of the first for j < 4, of the second
+    // for the rest), or in w's slot; a warp's 16-byte vectors are adjacent.
+    auto slot = [&](int w, int j, int first) {
+      if constexpr (L::XIN_RING)
+        return reinterpret_cast<float4*>(stage(first, (j >> 2) & 1) + w * BOX) + (j & 3) * 128 +
+               wt;
+      else
+        return reinterpret_cast<float4*>(smem + L::XCHG + w * XCH) + j * 128 + wt;
+    };
+
+    // S = S_0 + S_1 through shared memory, scaled by scale log2(e): the
+    // softmax works in base 2. Both partials are written before either is
+    // read (barrier 1). In the K stages, the next writes go to other stages,
+    // which the ring hands out only once every warp has released them; in
+    // slots of their own, a slot is written again only once the other
+    // warpgroup has read it (barrier 2 + g: the reader arrives, the writer
+    // waits).
+    auto exchange = [&](float (&sacc)[32], int t, int first) {
+      if (!L::XIN_RING && t > 0) named_barrier(2 + g, 256);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *slot(g, j, first) = make_float4(sacc[4 * j], sacc[4 * j + 1], sacc[4 * j + 2],
+                                         sacc[4 * j + 3]);
+      named_barrier(1, 256);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 x = *slot(1 - g, j, first);
+        sacc[4 * j] = (sacc[4 * j] + x.x) * scale_log2;
+        sacc[4 * j + 1] = (sacc[4 * j + 1] + x.y) * scale_log2;
+        sacc[4 * j + 2] = (sacc[4 * j + 2] + x.z) * scale_log2;
+        sacc[4 * j + 3] = (sacc[4 * j + 3] + x.w) * scale_log2;
+      }
+      if (!L::XIN_RING && t + 1 < nt) named_barrier_arrive(3 - g, 256);
+      // these generic-proxy accesses come before the TMA refill of the stages
+      if constexpr (L::XIN_RING) fence_proxy_async();
+    };
+
+    // The online softmax of the tile's rows row0, row0 + 8 over its 64
+    // keys, in base 2 (m is the running max of S log2(e)): P = 2^(S - m) =
+    // exp(S scale - m ln 2) in place in sacc, in fp32.
+    auto softmax = [&](float (&sacc)[32], float (&corr)[2]) {
+      float mx[2] = {MASKED, MASKED};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_run[r], mx[r]);
+        corr[r] = exp2_approx(m_run[r] - m_new);
+        m_run[r] = m_new;
+        l_run[r] *= corr[r];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sacc[i] = exp2_approx(sacc[i] - m_run[(i >> 1) & 1]);
+        l_run[(i >> 1) & 1] += sacc[i];
+      }
+    };
+
+    // P V's A: S's accumulator layout, pair p of a thread's logits (columns
+    // 8(p/2) + 2(lane%4) and the next) is A-fragment register p % 4 of
+    // k-step p / 4
+    auto to_frag = [&](const float (&p)[32]) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) pfrag[j] = pack_bf16(p[2 * j], p[2 * j + 1]);
+      fence_regs(pfrag);
+    };
+
+    // Tile t: S_t, the exchange, then P V of tile t - 1 (when `pv`) beside
+    // tile t's softmax, O rescaled once P V is done; P_t into pfrag. The
+    // first tile, which has no P V, is its own instantiation: a wgmma under
+    // a branch makes ptxas serialise the wgmmas.
+    auto step = [&](int t, auto pv) {
+      float sacc[32], corr[2];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
+      fence_regs(sacc);
+      const int kfirst = arrived();
+      wgmma_fence();
+      issue_s(sacc, kfirst);
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      exchange(sacc, t, kfirst);
+      release();  // K_t
+      if constexpr (decltype(pv)::value) {
+        const int vfirst = arrived();
+        wgmma_fence();
+        issue_pv(vfirst);
+      }
+      softmax(sacc, corr);
+      if constexpr (decltype(pv)::value) {
+        wgmma_wait<0>();
+#pragma unroll
+        for (int u = 0; u < NCH; ++u) fence_regs(oacc[u]);
+        fence_regs(pfrag);
+        release();  // V_(t-1)
+#pragma unroll
+        for (int u = 0; u < NCH; ++u) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) oacc[u][i] *= corr[(i >> 1) & 1];
+          fence_regs(oacc[u]);
+        }
+      }
+      to_frag(sacc);
+    };
+
+    mbar_wait(qbar, 0);
+    step(0, std::false_type());
+    for (int t = 1; t < nt; ++t) step(t, std::true_type());
+    {
+      const int vfirst = arrived();
+      wgmma_fence();
+      issue_pv(vfirst);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int u = 0; u < NCH; ++u) fence_regs(oacc[u]);
+      fence_regs(pfrag);
+      release();
+    }
+
+    // ---- O = acc / l, bf16: this warpgroup's H columns of rows row0, row0 + 8 ----
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    }
+    if (lse != nullptr && g == 0 && tig == 0) {
+      lse[static_cast<size_t>(b) * n + q0 + row0] = m_run[0] * LN2 + logf(l_run[0]);
+      lse[static_cast<size_t>(b) * n + q0 + row0 + 8] = m_run[1] * LN2 + logf(l_run[1]);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      bf16* orow = o + (static_cast<size_t>(b) * n + q0 + row0 + 8 * half) * C + g * H;
+#pragma unroll
+      for (int u = 0; u < NCH; ++u)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 64 * u + 8 * j + 2 * tig) =
+              __floats2bfloat162_rn(oacc[u][4 * j + 2 * half] / l_run[half],
+                                    oacc[u][4 * j + 2 * half + 1] / l_run[half]);
     }
   }
 }
@@ -302,14 +456,27 @@ __global__ void __launch_bounds__(THREADS, 1)
 template <int C>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
                    int n, float scale, cudaStream_t stream) {
-  const int bytes = Layout<C>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  CUtensorMap qmap, kmap, vmap;
+  const uint64_t dims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(n),
+                            static_cast<uint64_t>(b)};
+  const uint64_t strides[2] = {2ull * C, 2ull * C * n};
+  const uint32_t qbox[3] = {64, BQ, 1};
+  // K and V as (C/2 channels, n rows, 2 halves, b): a unit's box lands as
+  // one 64-row box of each half (see the producer)
+  const uint64_t kvdims[4] = {static_cast<uint64_t>(C / 2), static_cast<uint64_t>(n), 2,
+                              static_cast<uint64_t>(b)};
+  const uint64_t kvstrides[3] = {2ull * C, 1ull * C, 2ull * C * n};
+  const uint32_t kvbox[4] = {64, 64, 2, 1};
+  cudaError_t err = make_tensor_map(&qmap, q, 3, dims, strides, qbox, 128);
+  if (err == cudaSuccess) err = make_tensor_map(&kmap, k, 4, kvdims, kvstrides, kvbox, 128);
+  if (err == cudaSuccess) err = make_tensor_map(&vmap, v, 4, kvdims, kvstrides, kvbox, 128);
   if (err != cudaSuccess) return err;
-  const dim3 grid(n / BQ, b);
-  flash_fwd_kernel<C><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, n, scale);
+  constexpr int bytes = Layout<C>::BYTES;
+  err = cudaFuncSetAttribute(flash_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel<C><<<dim3(n / BQ, b), THREADS, bytes, stream>>>(
+      qmap, kmap, vmap, static_cast<bf16*>(o), lse, n, scale);
   return cudaGetLastError();
 }
 
@@ -624,8 +791,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   return cudaGetLastError();
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
-             int n, int c, float scale, void* stream) {
+// The bf16 forward at width c.
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int n,
+             int c, float scale, void* stream) {
   if (b < 1 || b > 65535 || n < BK || n % BK != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (c) {

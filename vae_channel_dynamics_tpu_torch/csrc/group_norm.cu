@@ -47,6 +47,21 @@
 //     the split: no atomics, so two runs give the same bits.
 // y is the same function of each element as before, so it does not depend on S.
 //
+// gn_bwd_reduce reads two tensors, x and g, at the same shapes and splits
+// the same way, with a larger least split (reduce_splits): a split takes at
+// least REDUCE_ROUNDS rounds of one 16-byte load a thread, 32 KB of x and
+// of g. A smaller split saves less than its second pass and second launch
+// cost: at (1, 512, 128, 128), S = 2 (16 KB a split) measured slower than
+// one block a plane on the H100, so there S = 1. With S > 1 one pair of
+// partials (sum g_eff, sum g_eff*x) per (plane, split) into a (planes, S, 2)
+// scratch that sum_splits2_kernel adds in order of the split. Each thread
+// keeps one 16-byte load of each tensor in flight, not LOADS: at 34
+// registers a thread, against 55 with four of each, more blocks share an SM,
+// and on the H100 that was as fast at the 1024px step's shapes and kept the
+// 256px batch-16 ones at one block a plane's speed. With S = 1 each thread
+// sums the same elements in the same order as one block a plane did, so
+// there the sums keep their bits.
+//
 // y = x*a + b is computed as a rounded product and a rounded sum, the same
 // two operations as the plain PyTorch version, so the normalised values
 // agree bit for bit before the SiLU and the cast.
@@ -69,6 +84,9 @@ typedef __nv_bfloat16 bf16;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int LOADS = 4;                  // 16-byte loads in flight a thread (normalize)
+// gn_bwd_reduce's least split: 8 rounds of one 16-byte load a thread, 32 KB
+// of x and of g (see the header)
+constexpr int REDUCE_ROUNDS = 8;
 constexpr int TARGET_BLOCKS = 8 * 132;    // 2048 resident threads on each of 132 SMs
 
 // 16-byte vector loads and stores, converted to and from fp32; a raw load
@@ -250,17 +268,39 @@ __global__ void sum_splits_kernel(const float* __restrict__ part, float* __restr
   out[p] = s;
 }
 
+// out0[p], out1[p] = the sums over k < splits of part[p][k].x and .y, in
+// order of k.
+__global__ void sum_splits2_kernel(const float2* __restrict__ part, float* __restrict__ out0,
+                                   float* __restrict__ out1, int planes, int splits) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= planes) return;
+  const float2* pp = part + static_cast<size_t>(p) * splits;
+  float s0 = 0.0f, s1 = 0.0f;
+  for (int k = 0; k < splits; ++k) {
+    s0 += pp[k].x;
+    s1 += pp[k].y;
+  }
+  out0[p] = s0;
+  out1[p] = s1;
+}
+
+// Grid planes * splits, block b the split b % splits of plane b / splits:
+// sum g_eff and sum g_eff*x over the split's chunk, into gsum and gxsum
+// with one split, else as the pair part[b].
 template <typename T, bool SILU>
 __global__ void __launch_bounds__(THREADS)
     gn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ g,
                          const float* __restrict__ a, const float* __restrict__ b,
-                         float* __restrict__ gsum, float* __restrict__ gxsum, int hw) {
+                         float* __restrict__ gsum, float* __restrict__ gxsum,
+                         float2* __restrict__ part, int hw, int splits, int chunk) {
   constexpr int N = Vec<T>::N;
-  const int plane = blockIdx.x;
+  const int plane = blockIdx.x / splits;
+  int begin, end;
+  split_range(hw, chunk, blockIdx.x % splits, begin, end);
   const size_t off = static_cast<size_t>(plane) * hw;
   const float ap = a[plane], bp = b[plane];
   float sg = 0.0f, sgx = 0.0f;
-  for (int i = threadIdx.x * N; i < hw; i += THREADS * N) {
+  for (int i = begin + threadIdx.x * N; i < end; i += THREADS * N) {
     float xv[N], gv[N];
     Vec<T>::load(x + off + i, xv);
     Vec<T>::load(g + off + i, gv);
@@ -273,8 +313,12 @@ __global__ void __launch_bounds__(THREADS)
   }
   block_sum2(sg, sgx);
   if (threadIdx.x == 0) {
-    gsum[plane] = sg;
-    gxsum[plane] = sgx;
+    if (splits == 1) {
+      gsum[plane] = sg;
+      gxsum[plane] = sgx;
+    } else {
+      part[blockIdx.x] = make_float2(sg, sgx);
+    }
   }
 }
 
@@ -315,17 +359,25 @@ cudaError_t fwd_reduce(const void* x, void* sum, void* sq, int planes, int hw, c
 // multiple of 8 elements (16 bytes of bf16), so every split starts aligned.
 int split_chunk(int hw, int splits) { return ((hw + splits - 1) / splits + 7) / 8 * 8; }
 
-// gn_fwd_normalize's splits of a plane: the smallest power of two S with
-// planes * S >= TARGET_BLOCKS, halved while a chunk would hold less than one
-// round of LOADS loads by every thread or the last split would be empty.
-// vec is the elements of one 16-byte load.
-int norm_splits(int planes, int hw, int vec) {
+// The splits of a plane: the smallest power of two S with planes * S >=
+// TARGET_BLOCKS, halved while a chunk would hold less than `rounds` 16-byte
+// loads by every thread or the last split would be empty. vec is the
+// elements of one 16-byte load.
+int splits_for(int planes, int hw, int vec, int rounds) {
   int s = 1;
   while (static_cast<long long>(planes) * s < TARGET_BLOCKS) s *= 2;
-  while (s > 1 && (split_chunk(hw, s) < THREADS * vec * LOADS ||
+  while (s > 1 && (split_chunk(hw, s) < THREADS * vec * rounds ||
                    static_cast<long long>(s - 1) * split_chunk(hw, s) >= hw))
     s /= 2;
   return s;
+}
+
+// gn_fwd_normalize's: at least one round of its LOADS loads a thread
+int norm_splits(int planes, int hw, int vec) { return splits_for(planes, hw, vec, LOADS); }
+
+// gn_bwd_reduce's: at least REDUCE_ROUNDS rounds of its one load a thread
+int reduce_splits(int planes, int hw, int vec) {
+  return splits_for(planes, hw, vec, REDUCE_ROUNDS);
 }
 
 template <typename T, bool SILU, bool STATS>
@@ -356,10 +408,16 @@ cudaError_t fwd_normalize_t(const void* x, const void* a, const void* b, void* y
 
 template <typename T, bool SILU>
 cudaError_t bwd_reduce(const void* x, const void* g, const void* a, const void* b, void* gsum,
-                       void* gxsum, int planes, int hw, cudaStream_t s) {
-  gn_bwd_reduce_kernel<T, SILU><<<planes, THREADS, 0, s>>>(
+                       void* gxsum, void* part, int planes, int hw, int splits, cudaStream_t s) {
+  gn_bwd_reduce_kernel<T, SILU><<<planes * splits, THREADS, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const float*>(a),
-      static_cast<const float*>(b), static_cast<float*>(gsum), static_cast<float*>(gxsum), hw);
+      static_cast<const float*>(b), static_cast<float*>(gsum), static_cast<float*>(gxsum),
+      static_cast<float2*>(part), hw, splits, split_chunk(hw, splits));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  sum_splits2_kernel<<<(planes + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+      static_cast<const float2*>(part), static_cast<float*>(gsum), static_cast<float*>(gxsum),
+      planes, splits);
   return cudaGetLastError();
 }
 
@@ -414,15 +472,26 @@ int vcd_gn_fwd_normalize(const void* x, const void* a, const void* b, void* y, v
 }
 
 // x, g: (planes, hw); a, b: (planes,) fp32; gsum, gxsum: (planes,) fp32.
+// splits is the count the caller chose for each plane, and parts the
+// partials a plane the caller sized part by: part (planes, parts, 2) fp32
+// scratch for the per-split pairs of partials, null with parts 0 where
+// there is one split. The call is refused unless splits is the kernel's
+// own, reduce_splits(planes, hw, 16 / element size), and parts is splits
+// where there are several.
 int vcd_gn_bwd_reduce(const void* x, const void* g, const void* a, const void* b, void* gsum,
-                      void* gxsum, int planes, int hw, int dtype, int silu, void* stream) {
-  if (bad_shape(planes, hw)) return kInvalid;
+                      void* gxsum, void* part, int planes, int hw, int dtype, int silu,
+                      int splits, int parts, void* stream) {
+  if (bad_shape(planes, hw) || (dtype != 0 && dtype != 1)) return kInvalid;
+  if (splits != reduce_splits(planes, hw, dtype == 0 ? Vec<float>::N : Vec<bf16>::N))
+    return kInvalid;
+  if (splits > 1 ? (part == nullptr || parts != splits) : (part != nullptr || parts != 0))
+    return kInvalid;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype * 2 + (silu ? 1 : 0)) {
-    case 0: return static_cast<int>(bwd_reduce<float, false>(x, g, a, b, gsum, gxsum, planes, hw, s));
-    case 1: return static_cast<int>(bwd_reduce<float, true>(x, g, a, b, gsum, gxsum, planes, hw, s));
-    case 2: return static_cast<int>(bwd_reduce<bf16, false>(x, g, a, b, gsum, gxsum, planes, hw, s));
-    case 3: return static_cast<int>(bwd_reduce<bf16, true>(x, g, a, b, gsum, gxsum, planes, hw, s));
+    case 0: return static_cast<int>(bwd_reduce<float, false>(x, g, a, b, gsum, gxsum, part, planes, hw, splits, s));
+    case 1: return static_cast<int>(bwd_reduce<float, true>(x, g, a, b, gsum, gxsum, part, planes, hw, splits, s));
+    case 2: return static_cast<int>(bwd_reduce<bf16, false>(x, g, a, b, gsum, gxsum, part, planes, hw, splits, s));
+    case 3: return static_cast<int>(bwd_reduce<bf16, true>(x, g, a, b, gsum, gxsum, part, planes, hw, splits, s));
     default: return kInvalid;
   }
 }

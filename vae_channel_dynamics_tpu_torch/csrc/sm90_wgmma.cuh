@@ -315,7 +315,9 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32
 }
 
 // d (64 x 64) += A (64 x 16 in registers: this warp's 16 rows as the
-// mma.sync m16n8k16 A fragment) * B (64 x 16, K-major in shared memory).
+// mma.sync m16n8k16 A fragment) * B (64 x 16 in shared memory: K-major, or
+// MN-major with TRANS_B = 1), bf16 in, fp32 accumulate.
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
                                                  uint64_t desc_b, int scale_d = 1) {
   asm volatile(
@@ -326,7 +328,7 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         , "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
@@ -336,7 +338,7 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_
         , "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
         , "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
         , "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
 // ---- tf32 (the 3xTF32 products of the fp32 kernels) --------------------- //
@@ -422,6 +424,25 @@ __device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], uint64_t desc_a,
 // (1-15; 0 is __syncthreads'), e.g. one warpgroup apart from the others.
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Raises (INC) or lowers this warpgroup's registers a thread to N (a
+// multiple of 8, 24-256), all its warps together: a producer warpgroup hands
+// registers to the consumers, within the SM's 64K.
+template <int N>
+__device__ __forceinline__ void set_max_regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void set_max_regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Arrives at named barrier `id` without waiting: the other threads of its
+// `count` wait there with named_barrier (a producer-consumer handshake).
+__device__ __forceinline__ void named_barrier_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---- host: tensor maps ---------------------------------------------------- //

@@ -32,7 +32,9 @@ and dQ ``6*B*N^2*C``, against a few ``B*N*C`` bytes of device-memory
 traffic, N/2 FLOPs per byte or more: all four are tensor-core bound at every
 token count the model uses (N = 4096 at 512px, 16384 at 1024px). Each keeps
 its logits tile and fp32 accumulators on chip, so no O(N^2) buffer exists.
-The bf16 forwards run their products on ``mma.sync``; the fp32 forward runs
+The bf16 forward (serving, and with the LSE) runs on ``wgmma`` with TMA
+loads: a CTA owns 64 query rows, two consumer warpgroups half the channels
+each, fed by a producer warpgroup. The fp32 forward runs
 each fp32 product as three TF32 ones (hi·hi + hi·lo + lo·hi, hi and lo the
 rounded split of each operand; one TF32 product keeps too few bits) on
 ``wgmma`` with TMA loads, bound by the TF32 rate over three. The backward
@@ -69,9 +71,9 @@ BWD_LIBRARY = "flash_attention_bwd"
 KERNELS = ("flash_attention_fwd", "flash_attention_fwd_f32", "flash_attention_fwd_lse",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 # The kernels' channel widths, each a compiled instantiation: the forwards'
-# accumulators live in registers, split over 8 warps by columns, and 512 (the
-# SDXL/SD mid block) is the widest that keeps them at 64 fp32 per thread; the
-# backward's cluster has one CTA per BWD_SLICE channels, at most 4.
+# accumulators live in registers, split over two warpgroups by channels, and
+# 512 (the SDXL/SD mid block) is the widest that keeps them at 128 fp32 a
+# thread; the backward's cluster has one CTA per BWD_SLICE channels, at most 4.
 SUPPORTED_CHANNELS = (128, 256, 384, 512)
 TOKEN_MULTIPLE = 128
 BWD_SLICE = 128

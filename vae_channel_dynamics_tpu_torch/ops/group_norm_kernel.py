@@ -24,9 +24,11 @@ All four are bound by device-memory bandwidth on the H100 (a few flops per
 2-byte element); each makes one pass over its inputs, one thread block per
 (sample, channel) plane of the NCHW tensor, and writes each per-plane sum
 once without atomics. Where B x C is too small to fill the card (the 1024px
-batch-1 step), ``gn_fwd_normalize`` splits each plane over
-:func:`normalize_splits` blocks and adds its |z| tap's per-split partials in
-a second pass, in order. The source's header has the design.
+batch-1 step), ``gn_fwd_normalize`` and ``gn_bwd_reduce`` split each plane
+over :func:`normalize_splits` or :func:`reduce_splits` blocks and add their
+per-split partials (the
+|z| tap; sum g_eff and sum g_eff*x) in a second pass, in order. The
+source's header has the design.
 
 The small (B, C) algebra between the kernels stays in PyTorch, as the JAX
 package keeps it in XLA: the group combine C -> G and the reference's
@@ -59,6 +61,9 @@ CHANNEL_MULTIPLE = 128  # the JAX kernels' lane width (pallas_group_norm.py:40)
 HW_MULTIPLE = 8  # the JAX kernels' sublane; here the 16-byte bf16 vectors
 THREADS = 256  # a kernel block
 NORM_LOADS = 4  # gn_fwd_normalize's 16-byte loads in flight a thread
+# gn_bwd_reduce's least split: this many rounds of one 16-byte load a thread
+# (32 KB of x and of g); a smaller one saves less than its second pass costs
+REDUCE_ROUNDS = 8
 NORM_TARGET_BLOCKS = 8 * 132  # 2048 resident threads on each of the H100's 132 SMs
 
 # kernel launches in this process, per kernel; only the CUDA branches below
@@ -72,7 +77,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "gn_fwd_reduce": [_P, _P, _P, _I, _I, _I, _P],
     "gn_fwd_normalize": [_P] * 6 + [_I] * 6 + [_P],
-    "gn_bwd_reduce": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gn_bwd_reduce": [_P] * 7 + [_I] * 6 + [_P],
     "gn_bwd_dx": [_P] * 8 + [_I, _I, _I, _I, _P],
 }
 
@@ -90,27 +95,41 @@ def eligible(x: torch.Tensor, num_groups: int) -> bool:
 
 
 def split_chunk(hw: int, splits: int) -> int:
-    """Elements of one of a plane's ``splits`` splits in ``gn_fwd_normalize``:
+    """Elements of one of a plane's ``splits`` splits in ``gn_fwd_normalize``
+    and ``gn_bwd_reduce``:
     ceil(hw / splits) rounded up to a multiple of 8 (16 bytes of bf16).
     Split k covers [min(k * chunk, hw), min((k + 1) * chunk, hw))."""
     per_split = -(-hw // splits)
     return -(-per_split // 8) * 8
 
 
-def normalize_splits(planes: int, hw: int, element_size: int) -> int:
-    """How many blocks ``gn_fwd_normalize`` splits each of ``planes`` planes
-    of ``hw`` elements over: the smallest power of two S with planes * S >=
-    ``NORM_TARGET_BLOCKS``, halved while a split would hold less than one
-    round of ``NORM_LOADS`` 16-byte loads by each of the block's threads or
-    the last split would be empty. 1 wherever the planes alone reach the
-    target. The kernel refuses a call made with any other count."""
+def _splits(planes: int, hw: int, element_size: int, rounds: int) -> int:
+    """The smallest power of two S with planes * S >= ``NORM_TARGET_BLOCKS``,
+    halved while a split would hold less than ``rounds`` 16-byte loads by
+    each of the block's threads or the last split would be empty."""
     s = 1
     while planes * s < NORM_TARGET_BLOCKS:
         s *= 2
-    round_elems = THREADS * (16 // element_size) * NORM_LOADS
-    while s > 1 and (split_chunk(hw, s) < round_elems or (s - 1) * split_chunk(hw, s) >= hw):
+    least = THREADS * (16 // element_size) * rounds
+    while s > 1 and (split_chunk(hw, s) < least or (s - 1) * split_chunk(hw, s) >= hw):
         s //= 2
     return s
+
+
+def normalize_splits(planes: int, hw: int, element_size: int) -> int:
+    """How many blocks ``gn_fwd_normalize`` splits each of ``planes`` planes
+    of ``hw`` elements over: a split holds at least one round of
+    ``NORM_LOADS`` loads a thread. 1 wherever the planes alone reach
+    ``NORM_TARGET_BLOCKS``. The kernel refuses a call made with any other
+    count."""
+    return _splits(planes, hw, element_size, NORM_LOADS)
+
+
+def reduce_splits(planes: int, hw: int, element_size: int) -> int:
+    """How many blocks ``gn_bwd_reduce`` splits each plane over: as
+    :func:`normalize_splits`, but a split holds at least ``REDUCE_ROUNDS``
+    rounds of one load a thread. The kernel refuses any other count."""
+    return _splits(planes, hw, element_size, REDUCE_ROUNDS)
 
 
 # --------------------------------------------------------------------------- #
@@ -298,9 +317,14 @@ def bwd_reduce(
     planes, hw, dt = _check_x(name, x)
     _check_g(name, g, x)
     _check_vec(name, x, a=a, b=b)
+    splits = reduce_splits(planes, hw, x.element_size())
     gsum, gxsum = _new_vec(x), _new_vec(x)
+    # the per-split pairs of partials, (planes, splits, 2), where there are several
+    part = (torch.empty((planes, splits, 2), dtype=torch.float32, device=x.device)
+            if splits > 1 else None)
     _launch(name, x, x.data_ptr(), g.data_ptr(), a.data_ptr(), b.data_ptr(),
-            gsum.data_ptr(), gxsum.data_ptr(), planes, hw, dt, int(fuse_silu))
+            gsum.data_ptr(), gxsum.data_ptr(), _ptr(part), planes, hw, dt, int(fuse_silu),
+            splits, 0 if part is None else part.shape[1])
     return gsum, gxsum
 
 
@@ -475,5 +499,6 @@ __all__ = [
     "group_norm_silu_with_stats",
     "launches",
     "normalize_splits",
+    "reduce_splits",
     "split_chunk",
 ]
