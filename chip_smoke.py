@@ -54,10 +54,11 @@ failure exits non-zero without the final ``ok`` line:
    1024px batch 1), with SiLU and the |z| tap: each of the four kernels
    against its plain version, then the autograd op (y, the tap, dx, dgamma,
    dbeta) against the plain GroupNorm; every bound is also shown to reject a
-   planted fault; the normalize and backward-reduce kernels' split count S
-   at each shape, their outputs bit-equal run to run, y without the SiLU
-   bit-equal to plain, and their sums' bound rejecting the last split's
-   partial left out; forward and backward times from CUDA events;
+   planted fault; the normalize, backward-reduce and dx kernels' split
+   count S at each shape, their outputs bit-equal run to run, y without the
+   SiLU bit-equal to plain, their sums' bound rejecting the last split's
+   partial left out and dx's bound the last split's chunk left unwritten;
+   forward and backward times from CUDA events;
 5'. the fused resnet kernels vs plain, bf16, at the 256px fused path's
    (16, 512, 32, 32) -> 512 and at (16, 256, 64, 64) -> 512: #9 with and
    without the residual, with the |z| tap and the moments (also bit-equal
@@ -281,7 +282,9 @@ FLASH_TIMED_STEPS = 5  # per block: naive, flash, flash, naive
 # each plane over S blocks where the planes alone do not fill the card (S =
 # 16 and 2 at the 1024px shapes, 1 at the 256px ones); its tap's planted
 # fault leaves the last split's partial out. The backward reduce splits the
-# same way with a larger least split (S = 16 and 1 at the 1024px shapes).
+# same way with a larger least split (S = 16 and 1 at the 1024px shapes), and
+# dx with its own (S = 16 and 4); dx's fault leaves the last split's chunk
+# of every plane unwritten.
 GN_SHAPES = ((16, 128, 256, 256), (16, 512, 32, 32), (1, 128, 1024, 1024), (1, 512, 128, 128))
 GN_ROW_SHAPE = (1, 128, 1024, 1024)
 GN_GROUPS = 32
@@ -435,6 +438,10 @@ REDESIGNED = {
                            "as wgmma's register A; was mma.sync, 32 rows a block)",
     "flash_attention_fwd_lse": "redesigned for Hopper with flash_attention_fwd, see PERF.md "
                                "section 6 (one kernel, the lse pointer set)",
+    "gn_bwd_dx": "redesigned for Hopper, see PERF.md section 6 (each plane split over S "
+                 "blocks where the planes do not fill the card, no partials and no second "
+                 "pass, two loads of x and of g in flight a thread; was one block a plane, "
+                 "one load of each in flight)",
     "gn_bwd_reduce": "redesigned for Hopper, see PERF.md section 6 (each plane split over S "
                      "blocks where the planes do not fill the card and each split reads 32 KB or "
                      "more of x, one load of x and of g in flight a thread, per-split partials "
@@ -457,6 +464,32 @@ TILE_RES, TILE_SIZE, TILE_OVERLAP = 2048, 512, 0.25
 TILE_COUNT = 25
 TILE_FLOOR = 1e-3
 SERVE_TILED_RES, SERVE_TILED_IMAGES = 1024, 4
+# The card audit of the CLIs' impl matrix: train.main over mixed_precision x
+# kernel_impl x attention_impl, evaluate.main over mixed_precision x
+# kernel_impl {auto, pallas} x attention_impl, the seeded full-width SDXL VAE
+# at 128px (the mid block's 256 tokens at C = 512 take flash; every norm has
+# a multiple of 128 channels; the 32px and 16px resnets pass the fused gate),
+# batch 2, 2 training steps, 4 evaluated images, TF32 off. Each cell is held
+# to the same precision's control (attention naive, kernel_impl auto: the
+# plain GroupNorm): a bf16 cell within AUDIT_CONTROL_RATIO x the control's
+# own bf16-vs-fp32 difference plus AUDIT_FLOOR (one bf16 ulp, as the step
+# checks' scalars), an fp32 cell within AUDIT_F32_REL (the GroupNorm
+# kernels and chunked attention sum in another order, about 1e-6). Every
+# impl named must launch its kernels; `fused` at fp32 fuses no block (the
+# JAX gate fuses bf16 only) and must launch none. The one refusal expected
+# is fp32 training with explicit flash (ROADMAP Q2, A1); ROADMAP Q3 records
+# no other open finding, so any other failure fails the phase.
+AUDIT_RES, AUDIT_BATCH, AUDIT_STEPS, AUDIT_EVAL_IMAGES = 128, 2, 2, 4
+AUDIT_PRECISIONS = ("bf16", "no")
+AUDIT_TRAIN_KERNELS = ("auto", "pallas", "fused")
+AUDIT_EVAL_KERNELS = ("auto", "pallas")
+AUDIT_ATTENTION = ("auto", "naive", "chunked", "flash")
+AUDIT_CONTROL_RATIO = 1.25
+AUDIT_FLOOR = 2.0 ** -8
+AUDIT_F32_REL = 1e-4
+AUDIT_REFUSAL = "ROADMAP Q2, The flash training kernels at fp32"
+AUDIT_TAPS = ("vae.encoder.down_blocks.0.resnets.0.norm1",  # 128 channels at 128x128
+              "vae.encoder.down_blocks.3.resnets.0.norm1")  # 512 at 16x16: fused in bf16
 
 
 class SmokeFailure(RuntimeError):
@@ -523,16 +556,24 @@ def phase_device():
     return name, smi
 
 
+# template arguments of a mangled kernel name: fp32, bf16, an int or a bool
+_MANGLED_ARG = r"f|13__nv_bfloat16|L[ib](\d+)E"
+
+
 def kernel_label(mangled: str) -> str:
-    """``name<arg>`` of a mangled ``*_kernel`` entry point (its name is the
-    ``<length><name>`` whose name ends in ``_kernel``), else the mangled
-    name."""
+    """``name<args>`` of a mangled ``*_kernel`` entry point (its name is the
+    ``<length><name>`` whose name ends in ``_kernel``; its template arguments
+    fp32, bf16, ints and bools), else the mangled name."""
     for m in re.finditer(r"(?=(\d+)([a-z_]\w*))", mangled):
         size, rest = int(m.group(1)), m.group(2)
         name = rest[:size]
         if len(name) == size and name.endswith("_kernel"):
-            args = re.match(r"I((?:L[ib]\d+E)+)", rest[size:])
-            return name + (f"<{','.join(re.findall(r'(\d+)E', args.group(1)))}>" if args else "")
+            args = re.match(rf"I((?:{_MANGLED_ARG})+)", rest[size:])
+            if not args:
+                return name
+            types = {"f": "fp32", "13__nv_bfloat16": "bf16"}
+            return name + "<" + ",".join(types.get(a.group(0), a.group(1)) for a in
+                                         re.finditer(_MANGLED_ARG, args.group(1))) + ">"
     return mangled
 
 
@@ -1434,18 +1475,32 @@ def phase_gn_kernels():
             del lg, lgx
         lines.append(f"gn_bwd_reduce S = {splits} splits a plane, bit-equal run to run")
         del kg2, kgx2
-        # 5. bwd dx with the op's own coefficients; fault: SiLU' left out
+        # 5. bwd dx with the op's own coefficients, each plane split over its
+        # own S blocks; faults: SiLU' left out, and the last of the S splits'
+        # chunk of every plane left unwritten; dx bit-equal run to run
         n = h * w * (c // GN_GROUPS)
         ca = a
         cb = (-(rstd * rstd) / n).repeat_interleave(c // GN_GROUPS, dim=1).contiguous()
         cc = (0.1 * cb).contiguous()
+        splits = gnk.dx_splits(b * c, h * w, x.element_size())
         kdx = gnk.bwd_dx(x, g, a, off, ca, cb, cc, True)
+        kdx2 = gnk.bwd_dx(x, g, a, off, ca, cb, cc, True)
         sync()
+        check(torch.equal(kdx, kdx2), f"gn_bwd_dx differs between two runs at {shape}")
         pdx = gnk.bwd_dx_reference(x, g, a, off, ca, cb, cc, True)
         fdx = gnk.bwd_dx_reference(x, g, a, off, ca, cb, cc, False)
         err, bound = bf16_err(kdx, pdx)
         record("gn_bwd_dx", err, bound, bf16_err(fdx, pdx)[0], "dx (bf16)", err)
-        del ks, kq, fs, ky, kabs, py, pabs, fy, fabs, kg, kgx, pg, pgx, fg, fgx, kdx, pdx, fdx
+        if splits > 1:
+            fdx = pdx.clone()
+            fdx.flatten(2)[:, :, (splits - 1) * gnk.split_chunk(h * w, splits):] = 0
+            record("gn_bwd_dx", err, bound, bf16_err(fdx, pdx)[0],
+                   f"dx (bf16; fault: the last of S = {splits} splits' chunk left unwritten)",
+                   err)
+        lines.append(f"gn_bwd_dx S = {splits} splits a plane, {gnk.DX_LOADS} loads of x and "
+                     "of g in flight a thread, bit-equal run to run")
+        del ks, kq, fs, ky, kabs, py, pabs, fy, fabs, kg, kgx, pg, pgx, fg, fgx, kdx, kdx2, pdx
+        del fdx
 
         # the autograd op (kernels) against the plain GroupNorm (autograd of
         # group_norm_reference), SiLU fused, the |z| tap from the op
@@ -3178,6 +3233,177 @@ def phase_tiling(tmp: str, model_dir: str) -> None:
     release()
 
 
+def _audit_want(kind: str, precision: str, kernel: str, attention: str, fused: int) -> dict:
+    """The launches a cell of the audit must show: each kernel of an impl
+    the cell names, by its count; every other kernel none. ``fused`` is the
+    resnets the fused gate admitted in the run."""
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+    from vae_channel_dynamics_tpu_torch.ops import fused_resnet as fr
+    from vae_channel_dynamics_tpu_torch.ops import group_norm_kernel as gnk
+
+    want = {name: 0 for name in (*fa.launches, *gnk.launches, *fr.launches)}
+    train = kind == "train"
+    forwards = AUDIT_STEPS if train else AUDIT_EVAL_IMAGES // AUDIT_BATCH
+    if attention == "flash":
+        names = (("flash_attention_fwd_lse", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+                 if train else ("flash_attention_fwd" if precision == "bf16"
+                                else "flash_attention_fwd_f32",))
+        want.update({name: SDXL_ATTENTIONS * forwards for name in names})
+    if kernel == "pallas":
+        names = gnk.KERNELS if train else ("gn_fwd_reduce", "gn_fwd_normalize")
+        want.update({name: SDXL_NORMS * forwards for name in names})
+    if kernel == "fused":
+        # two fused convs a fused resnet, each with the reduce and, in the
+        # backward, the backward reduce and dx of its norm
+        want.update({name: 2 * fused for name in (*fr.KERNELS, "gn_fwd_reduce",
+                                                  "gn_bwd_reduce", "gn_bwd_dx")})
+    return want
+
+
+def phase_cli_audit(tmp: str, model_dir: str) -> None:
+    """The card audit of the CLIs' impl matrix (see AUDIT_*): each cell
+    through ``train.main`` or ``evaluate.main``, finite, within its bound of
+    the control, launching exactly the kernels its impls name; fp32
+    training with explicit flash refused, naming its ROADMAP item."""
+    import logging
+
+    import torch
+    import yaml
+
+    from vae_channel_dynamics_tpu_torch import evaluate
+    from vae_channel_dynamics_tpu_torch import train as train_cli
+    from vae_channel_dynamics_tpu_torch.models import vae as tvae
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+    from vae_channel_dynamics_tpu_torch.ops import fused_resnet as fr
+    from vae_channel_dynamics_tpu_torch.ops import group_norm_kernel as gnk
+
+    counters = {"flash": fa.launches, "gn": gnk.launches, "fused": fr.launches,
+                "blocks": tvae.fused_blocks}
+    results, refused, rows = {}, [], []
+    package_logger = logging.getLogger("vae_channel_dynamics_tpu_torch")
+    level = package_logger.level
+    saved_tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    package_logger.setLevel(logging.WARNING)
+    t_phase = time.perf_counter()
+    try:
+        cells = [("train", p, k, a) for p in AUDIT_PRECISIONS for k in AUDIT_TRAIN_KERNELS
+                 for a in AUDIT_ATTENTION]
+        cells += [("eval", p, k, a) for p in AUDIT_PRECISIONS for k in AUDIT_EVAL_KERNELS
+                  for a in AUDIT_ATTENTION]
+        for cell in cells:
+            kind, precision, kernel, attention = cell
+            tag = "_".join(cell)
+            out_dir = os.path.join(tmp, f"audit_{tag}")
+            cfg = {"seed": SEED, "run_name": "audit", "output_dir": out_dir,
+                   "data": {"dataset_name": "synthetic://shapes?num_samples="
+                                            f"{AUDIT_BATCH * AUDIT_STEPS if kind == 'train' else AUDIT_EVAL_IMAGES}",
+                            "resolution": AUDIT_RES, "batch_size": AUDIT_BATCH,
+                            "do_validation": False},
+                   "training": {"mixed_precision": precision, "num_train_epochs": 1,
+                                "learning_rate": TRAIN_LR, "lr_warmup_steps": 0,
+                                "max_grad_norm": TRAIN_CLIP, "kl_weight": TRAIN_KL},
+                   "model": {"pretrained_vae_name": model_dir, "kernel_impl": kernel,
+                             "attention_impl": attention, "remat": "none"},
+                   "logging": {"log_interval": 1, "report_to": "jsonl"},
+                   "saving": {"save_interval_steps": 1000},
+                   "tracking": {"enabled": True, "track_interval": AUDIT_STEPS,
+                                "target_layers": [
+                                    {"name": n, "capture_point": "output",
+                                     "metrics": ["mean_abs_activation_per_channel"]}
+                                    for n in AUDIT_TAPS]}}
+            cfg_path = os.path.join(tmp, f"audit_{tag}.yaml")
+            with open(cfg_path, "w") as f:
+                yaml.safe_dump(cfg, f)
+            sync()
+            # ---- the main path: counts reset, one CLI run, counts read ----
+            for counts in counters.values():
+                for name in counts:
+                    counts[name] = 0
+            t0 = time.perf_counter()
+            try:
+                if kind == "train":
+                    rc = train_cli.main(["--config_path", cfg_path, "--device", DEVICE])
+                else:
+                    rc = evaluate.main(["--config_path", cfg_path, "--checkpoint_path",
+                                        model_dir, "--output_dir", out_dir, "--eval_split",
+                                        "test", "--enable_logit_lens", "false",
+                                        "--num_samples_to_save", "0", "--device", DEVICE])
+            except NotImplementedError as e:
+                check(kind == "train" and precision == "no" and attention == "flash"
+                      and AUDIT_REFUSAL in str(e), f"{tag} refused: {e}")
+                check(not any(fa.launches.values()),
+                      f"{tag} launched flash kernels before its refusal: {dict(fa.launches)}")
+                refused.append(tag)
+                rows.append(f"[audit] {tag}: refused in {time.perf_counter() - t0:.2f} s "
+                            f"({type(e).__name__}: {e})")
+                shutil.rmtree(out_dir, ignore_errors=True)
+                continue
+            sync()
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"{tag}: the CLI returned {rc}")
+            launches = {name: n for key, counts in counters.items() if key != "blocks"
+                        for name, n in counts.items()}
+            fused = tvae.fused_blocks["fused"]
+            want = _audit_want(kind, precision, kernel, attention, fused)
+            check(launches == want, f"{tag}: launches {launches}, want {want}")
+            check((fused > 0) == (kind == "train" and kernel == "fused" and precision == "bf16"),
+                  f"{tag}: {fused} resnets fused")
+            if kind == "train":
+                with open(os.path.join(out_dir, "audit", "metrics.jsonl")) as f:
+                    records = [json.loads(line) for line in f]
+                steps = {r["step"]: r for r in records if "train_loss_step" in r}
+                check(sorted(steps) == list(range(1, AUDIT_STEPS + 1)),
+                      f"{tag}: logged steps {sorted(steps)}")
+                values = {f"{key}@{step}": steps[step][key] for step in steps
+                          for key in ("rec_loss", "kl_loss", "grad_norm")}
+            else:
+                with open(os.path.join(out_dir, "eval_metrics.json")) as f:
+                    m = json.load(f)
+                check(m["num_samples"] == AUDIT_EVAL_IMAGES, f"{tag}: {m['num_samples']} samples")
+                values = {key: m[key] for key in ("mse", "kl", "psnr", "ssim")}
+            check(all(math.isfinite(v) for v in values.values()), f"{tag}: not finite {values}")
+            results[cell] = values
+            rows.append(f"[audit] {tag}: {wall:.2f} s, "
+                        + ", ".join(f"{k} {v:.6g}" for k, v in values.items())
+                        + f"; launches {({k: v for k, v in launches.items() if v})}"
+                        + (f", resnets fused {fused}" if fused else ""))
+            shutil.rmtree(out_dir, ignore_errors=True)
+            release()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved_tf32
+        package_logger.setLevel(level)
+    want_refused = [f"train_no_{k}_flash" for k in AUDIT_TRAIN_KERNELS]
+    check(refused == want_refused, f"refused {refused}, want {want_refused}")
+
+    # each cell against its precision's control: naive attention, plain GroupNorm
+    worst = {}
+    for cell, values in results.items():
+        kind, precision, kernel, attention = cell
+        control = results[(kind, precision, "auto", "naive")]
+        fp32 = results[(kind, "no", "auto", "naive")]
+        diffs = []
+        for key, v in values.items():
+            rel = abs(v - control[key]) / abs(fp32[key])
+            if precision == "bf16":
+                own = abs(control[key] - fp32[key]) / abs(fp32[key])
+                bound = AUDIT_CONTROL_RATIO * own + AUDIT_FLOOR
+            else:
+                bound = AUDIT_F32_REL
+            check(rel <= bound, f"{'_'.join(cell)}: {key} is {rel} from its control "
+                                f"(bound {bound})")
+            diffs.append(f"{key} {rel:.3g} (bound {bound:.3g})")
+            worst[(kind, precision)] = max(worst.get((kind, precision), 0.0), rel / bound)
+        rows.append(f"[audit] {'_'.join(cell)} vs control: " + ", ".join(diffs))
+    for row in rows:
+        log(row)
+    log(f"[audit] {len(results)} cells ran, {len(refused)} refused as expected ({refused}); "
+        "worst share of its bound by kind and precision: "
+        + ", ".join(f"{k} {p} {v:.3g}" for (k, p), v in worst.items())
+        + f"; the phase took {time.perf_counter() - t_phase:.1f} s")
+    release()
+
+
 def reset_peak() -> None:
     import torch
 
@@ -3201,6 +3427,7 @@ def release() -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError as e:
@@ -3229,6 +3456,7 @@ def main() -> int:
             write_seeded_model_dir(model_dir)
             f32_result["launches"] = phase_eval(tmp, model_dir)
             phase_tiling(tmp, model_dir)
+            phase_cli_audit(tmp, model_dir)
         release()
         bundle = phase_train()
         phase_step_compare(bundle)
@@ -3289,6 +3517,8 @@ def main() -> int:
         "shape": r["shape"],
         **({"note": REDESIGNED[kname]} if kname in REDESIGNED else {}),
     } for kname, r in rows.items()]
+    log(f"[total] every phase in {time.perf_counter() - t_start:.1f} s, the kernels' build "
+        "included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

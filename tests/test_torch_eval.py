@@ -159,6 +159,46 @@ def test_evaluate_cli_refuses_a_missing_card(tmp_path):
                        "--output_dir", str(tmp_path / "out")])
 
 
+def test_evaluate_cli_runs_the_configured_kernel_impl(tmp_path, monkeypatch):
+    """``model.kernel_impl: pallas`` takes every GroupNorm through the kernel
+    wrappers (their CPU branch, counted here), ``auto`` through the plain
+    GroupNorm, and the metrics agree to fp32 rounding (1e-5 relative). The
+    CLI once passed no kernel_impl to its wrapper (as the JAX CLI reads
+    none), so a ``pallas`` evaluation ran the plain GroupNorm on the card.
+    A (128, 128)-channel model: the kernels take 128-channel norms."""
+    from vae_channel_dynamics_tpu_torch.models import io as model_io
+    from vae_channel_dynamics_tpu_torch.ops import group_norm_kernel as gnk
+
+    cfg = VAEConfig(block_out_channels=(128, 128), layers_per_block=1, sample_size=16)
+    model = AutoencoderKL(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model_dir = tmp_path / "model"
+    model_io.save_model_dir(str(model_dir), cfg, model.state_dict())
+    reached = []
+    on_cpu = gnk._on_cpu
+    monkeypatch.setattr(gnk, "_on_cpu", lambda x, name: reached.append(name) or on_cpu(x, name))
+    metrics, calls = {}, {}
+    for impl in ("auto", "pallas"):
+        config_path = tmp_path / f"{impl}.yaml"
+        config_path.write_text(
+            "data:\n"
+            "  dataset_name: synthetic://shapes?num_samples=4\n"
+            "  resolution: 16\n"
+            "  batch_size: 2\n"
+            f"model:\n  kernel_impl: {impl}\n"
+        )
+        reached.clear()
+        assert evaluate.main(["--config_path", str(config_path), "--checkpoint_path",
+                              str(model_dir), "--output_dir", str(tmp_path / impl),
+                              "--enable_logit_lens", "false", "--device", "cpu"]) == 0
+        calls[impl] = sorted(set(reached))
+        with open(tmp_path / impl / "eval_metrics.json") as f:
+            metrics[impl] = json.load(f)
+    assert calls == {"auto": [], "pallas": ["gn_fwd_normalize", "gn_fwd_reduce"]}
+    for key in ("mse", "kl", "psnr", "ssim"):
+        np.testing.assert_allclose(metrics["pallas"][key], metrics["auto"][key], rtol=1e-5)
+
+
 # --------------------------------------------------------------------------- #
 # add_hooks
 # --------------------------------------------------------------------------- #

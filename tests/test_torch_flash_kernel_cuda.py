@@ -353,6 +353,16 @@ def test_fp32_input_raises(cuda):
     assert fa.launches == before
 
 
+def test_fp32_training_refusal_names_its_roadmap_item(cuda):
+    """fp32 training through flash waits for the ROADMAP item named by its
+    title, which a renumbering of the queue leaves true."""
+    q, k, v = _qkv((1, 128, 128), cuda, dtype=torch.float32)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Q2, The flash training kernels at fp32"):
+        fa.flash_attention(*(t.requires_grad_(True) for t in (q, k, v)), scale=1.0,
+                           out_dtype=torch.float32)
+
+
 @pytest.mark.parametrize("shape", [(1, 100, 128), (1, 128, 640), (1, 128, 96)])
 def test_ineligible_shape_raises(cuda, shape):
     q, k, v = _qkv(shape, cuda)

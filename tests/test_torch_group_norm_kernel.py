@@ -9,7 +9,16 @@ and without a tap mask. The same numpy inputs go to both, NHWC to JAX and
 NCHW to the port. Tolerances are the JAX tests' own
 (tests/test_pallas_group_norm.py): fp32 forward 2e-5, the |z| statistic 1e-5
 relative, gradients 5e-4, bf16 IO 2e-2.
+
+Then the split kernels' rules (the splits of each plane for the normalize,
+the backward reduce and dx, and the count each wrapper hands its kernel),
+numpy models of the split backward reduce and the split dx, and, at the
+end, the port's refusals of what it does not run yet, each naming its
+ROADMAP item by title.
 """
+
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -245,52 +254,50 @@ NORM_SPLIT_SHAPES = [
 ]
 
 
+# each split rule, its function and the 16-byte loads a thread its least
+# split holds: gn_fwd_normalize one round of NORM_LOADS, gn_bwd_reduce
+# REDUCE_ROUNDS rounds of one (32 KB of x and of g), gn_bwd_dx one round of
+# DX_LOADS loads of x and of g
+SPLIT_RULES = {"normalize": (gnk.normalize_splits, gnk.NORM_LOADS),
+               "reduce": (gnk.reduce_splits, gnk.REDUCE_ROUNDS),
+               "dx": (gnk.dx_splits, gnk.DX_LOADS)}
+
+
 @pytest.mark.parametrize("element_size", [2, 4], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("shape", NORM_SPLIT_SHAPES, ids=[str(s) for s in NORM_SPLIT_SHAPES])
-def test_normalize_splits_cover_every_element_once(shape, element_size):
+@pytest.mark.parametrize("rule", list(SPLIT_RULES))
+def test_splits_cover_every_element_once(rule, shape, element_size):
+    """Each rule's splits of a plane: a power of two, contiguous, in order,
+    16-byte aligned, none empty, covering the plane; one split wherever the
+    planes alone fill the card (the one-block-a-plane grid), never more than
+    the smallest power of two reaching NORM_TARGET_BLOCKS, and each split at
+    least the rule's least split where there are several. The reduce's
+    never exceed the normalize's, and at (1, 512, 128, 128) in bf16, 16 KB
+    a split, its plane stays one block."""
+    splits_of, loads = SPLIT_RULES[rule]
     b, c, h, w = shape
     planes, hw = b * c, h * w
-    splits = gnk.normalize_splits(planes, hw, element_size)
+    splits = splits_of(planes, hw, element_size)
     assert splits >= 1 and splits & (splits - 1) == 0  # a power of two
     chunk = gnk.split_chunk(hw, splits)
     assert chunk % 8 == 0  # every split starts 16-byte aligned
     ranges = [(min(k * chunk, hw), min((k + 1) * chunk, hw)) for k in range(splits)]
-    # contiguous, in order, from the first element to the last, none empty
     assert ranges[0][0] == 0 and ranges[-1][1] == hw
     assert all(e0 == b1 for (_b0, e0), (b1, _e1) in zip(ranges, ranges[1:]))
     assert all(e > s for s, e in ranges)
     target = gnk.NORM_TARGET_BLOCKS
     if planes >= target:
-        assert splits == 1  # the one-block-a-plane grid
-    else:
-        assert planes * splits < 2 * target  # never more than the smallest power reaching it
-    if splits > 1:
-        # each split keeps at least one round of loads by every thread
-        assert chunk >= gnk.THREADS * (16 // element_size) * gnk.NORM_LOADS
-
-
-@pytest.mark.parametrize("element_size", [2, 4], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("shape", NORM_SPLIT_SHAPES, ids=[str(s) for s in NORM_SPLIT_SHAPES])
-def test_reduce_splits_cover_every_element_once(shape, element_size):
-    """gn_bwd_reduce's splits: contiguous, in order, none empty, covering the
-    plane; never more than the normalize's, and each at least REDUCE_ROUNDS
-    rounds of one load a thread (32 KB of x and of g) where there are
-    several. At (1, 512, 128, 128) in bf16, 16 KB a split, the plane stays
-    one block."""
-    b, c, h, w = shape
-    planes, hw = b * c, h * w
-    splits = gnk.reduce_splits(planes, hw, element_size)
-    assert splits >= 1 and splits & (splits - 1) == 0
-    assert splits <= gnk.normalize_splits(planes, hw, element_size)
-    chunk = gnk.split_chunk(hw, splits)
-    ranges = [(min(k * chunk, hw), min((k + 1) * chunk, hw)) for k in range(splits)]
-    assert ranges[0][0] == 0 and ranges[-1][1] == hw
-    assert all(e0 == b1 for (_b0, e0), (b1, _e1) in zip(ranges, ranges[1:]))
-    assert all(e > s for s, e in ranges)
-    if splits > 1:
-        assert chunk * element_size >= gnk.THREADS * 16 * gnk.REDUCE_ROUNDS == 32768
-    if element_size == 2 and shape == (1, 512, 128, 128):
         assert splits == 1
+    else:
+        assert planes * splits < 2 * target
+    if splits > 1:
+        assert chunk >= gnk.THREADS * (16 // element_size) * loads
+    if rule == "reduce":
+        assert splits <= gnk.normalize_splits(planes, hw, element_size)
+        if splits > 1:
+            assert chunk * element_size >= gnk.THREADS * 16 * gnk.REDUCE_ROUNDS == 32768
+        if element_size == 2 and shape == (1, 512, 128, 128):
+            assert splits == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -359,6 +366,122 @@ def test_bwd_reduce_hands_the_kernel_its_split_count(monkeypatch, shape, dtype):
         assert splits == 1
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 128, 1024, 1024), (1, 512, 128, 128), (16, 128, 256, 256),
+                                   (1, 128, 56, 311)])
+def test_bwd_dx_hands_the_kernel_its_split_count(monkeypatch, shape, dtype):
+    """``bwd_dx``'s kernel branch (taken here on CPU tensors, the launch
+    recorded instead of made) passes the helper's split count: 16 at the
+    1024px step's full-resolution norm, 1 at the 256px batch-16 one (the
+    one-block-a-plane grid). dx needs no scratch: nothing but dx is made.
+    The inputs are expanded zeros: no memory for the 1M-element planes."""
+    b, c, h, w = shape
+    x = torch.zeros((), dtype=dtype).expand(shape)
+    v = torch.zeros(b, c)
+    calls = []
+    monkeypatch.setattr(gnk, "_on_cpu", lambda x, name: False)
+    monkeypatch.setattr(gnk, "_check_layout", lambda name, t, what: None)
+    monkeypatch.setattr(gnk, "_launch", lambda name, x, *args: calls.append((name, args)))
+    made = []
+    empty_like = torch.empty_like
+    monkeypatch.setattr(torch, "empty_like", lambda t, **kw: made.append(t.shape)
+                        or empty_like(t, **kw))
+    dx = gnk.bwd_dx(x, x, v, v, v, v, v, True)
+    (name, args), = calls
+    assert name == "gn_bwd_dx" and len(args) == len(gnk._SIGNATURES[name]) - 1
+    planes, hw, dt, silu, splits = args[8:]
+    assert (planes, hw, dt, silu) == (b * c, h * w, gnk._DTYPE_CODES[dtype], 1)
+    assert splits == gnk.dx_splits(b * c, h * w, x.element_size())
+    assert dx.shape == shape and made == [shape]
+    if shape[0] == 1 and shape[2] == 1024:
+        assert splits == 16
+    if shape[0] == 16:
+        assert splits == 1
+
+
+def _np_dx(x, g, a, off, ca, cb, cc):
+    """The kernel's per-element dx in fp32 numpy, on (planes, n) arrays:
+    z = x a + off and x cb as rounded products and sums, g_eff = g s (1 +
+    z (1 - s)) with s the sigmoid, dx = g_eff ca + x cb + cc. numpy's fp32
+    exp gives each element the same bits wherever it lies in the array."""
+    z = x * a + off
+    s = np.float32(1.0) / (np.float32(1.0) + np.exp(-z))
+    ge = g * (s * (np.float32(1.0) + z * (np.float32(1.0) - s)))
+    return ge * ca + x * cb + cc
+
+
+def _emulate_split_dx(x, g, a, off, ca, cb, cc, splits, element_size, skip_last_split=False):
+    """A numpy model of the split ``gn_bwd_dx`` on (planes, hw) fp32 arrays:
+    block b is split b % S of plane b // S over [min(k chunk, hw),
+    min((k + 1) chunk, hw)); its thread t takes, in rounds of DX_LOADS, the
+    16-byte vectors at begin + t N + (r DX_LOADS + u) THREADS N (N elements
+    a vector) up to the split's end, and computes each element alone.
+    Returns dx and how many times each element was written."""
+    planes, hw = x.shape
+    n = 16 // element_size
+    step = gnk.THREADS * n
+    chunk = gnk.split_chunk(hw, splits)
+    dx = np.full_like(x, np.nan)
+    writes = np.zeros(x.shape, np.int64)
+    for k in range(splits - 1 if skip_last_split else splits):
+        begin, end = min(k * chunk, hw), min((k + 1) * chunk, hw)
+        # the vector starts of every thread's every round and load
+        t = np.arange(gnk.THREADS)[:, None, None] * n
+        r = np.arange(-(-(end - begin) // (gnk.DX_LOADS * step)))[None, :, None]
+        u = np.arange(gnk.DX_LOADS)[None, None, :]
+        starts = (begin + t + (r * gnk.DX_LOADS + u) * step).ravel()
+        starts = starts[starts < end]
+        cols = (starts[:, None] + np.arange(n)[None, :]).ravel()
+        sl = (slice(None), cols)
+        dx[sl] = _np_dx(x[sl], g[sl], a, off, ca, cb, cc)
+        writes[sl] += 1
+    return dx, writes
+
+
+@pytest.mark.parametrize("element_size", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [(1, 128, 128, 128), (1, 128, 56, 311), (1, 128, 40, 871),
+                                   (2, 128, 8, 16)])
+def test_split_bwd_dx_matches_plain_and_jax(shape, element_size):
+    """The split ``gn_bwd_dx`` modelled block by block over ``split_chunk``
+    ranges, with its threads' rounds of DX_LOADS loads: every element is
+    written once, and dx is the same per-element function over the whole
+    plane bit for bit (it does not depend on S), within fp32 rounding of
+    ``bwd_dx_reference`` (torch's exp against numpy's, 1e-6 of max|plain|)
+    and, at (1, 128, 128, 128), of the JAX ``_bwd_dx`` in interpret mode
+    (FWD_TOL). The last split left unwritten is caught wherever S > 1."""
+    b, c, h, w = shape
+    planes, hw = b * c, h * w
+    splits = gnk.dx_splits(planes, hw, element_size)
+    rng = np.random.default_rng(sum(shape))
+    x = (rng.standard_normal((planes, hw)) * 2.0 + 0.5).astype(np.float32)
+    g = rng.standard_normal((planes, hw)).astype(np.float32)
+    a, off, ca, cb, cc = ((s * rng.standard_normal((planes, 1)) + m).astype(np.float32)
+                          for s, m in ((0.1, 1.0), (0.1, 0.0), (1.0, 0.0), (0.01, 0.0),
+                                       (0.1, 0.0)))
+    dx, writes = _emulate_split_dx(x, g, a, off, ca, cb, cc, splits, element_size)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(dx, _np_dx(x, g, a, off, ca, cb, cc))
+    vec = [torch.from_numpy(v.reshape(b, c)) for v in (a, off, ca, cb, cc)]
+    ref = gnk.bwd_dx_reference(torch.from_numpy(x.reshape(shape)),
+                               torch.from_numpy(g.reshape(shape)), *vec, True)
+    ref = ref.numpy().reshape(planes, hw)
+    assert np.abs(dx - ref).max() <= 1e-6 * np.abs(ref).max()
+    if shape == (1, 128, 128, 128):
+        def nhwc(arr):
+            return jnp.asarray(arr.reshape(b, c, hw).transpose(0, 2, 1))
+
+        j_dx = jgn._bwd_dx(nhwc(x), nhwc(g), *(jnp.asarray(v.reshape(b, c))
+                                               for v in (a, off, ca, cb, cc)), True)
+        np.testing.assert_allclose(nhwc(dx), np.asarray(j_dx), rtol=FWD_TOL, atol=FWD_TOL)
+    if splits > 1:
+        faulty, writes = _emulate_split_dx(x, g, a, off, ca, cb, cc, splits, element_size,
+                                           skip_last_split=True)
+        assert (writes == 0).any() and np.isnan(faulty).any()
+    expected = {(1, 128, 128, 128): (4, 8), (1, 128, 56, 311): (4, 8),
+                (1, 128, 40, 871): (8, 16), (2, 128, 8, 16): (1, 1)}[shape]
+    assert splits == expected[element_size == 4]
+
+
 @pytest.mark.parametrize("element_size", [2, 4], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("shape", [(1, 128, 128, 256), (1, 512, 64, 64), (1, 128, 40, 871),
                                    (2, 128, 8, 16)])
@@ -410,3 +533,62 @@ def _nchw_grad_eff(x, g, a, off):
     z = x * a[:, :, None, None] + off[:, :, None, None]
     s = 1.0 / (1.0 + np.exp(-z))
     return (g * (s * (1.0 + z * (1.0 - s)))).astype(np.float32)
+
+
+# --------------------------------------------------------------------------- #
+# The port's refusals name the ROADMAP item they wait for by its title, which
+# a renumbering of the queue leaves true
+# --------------------------------------------------------------------------- #
+def _refusals():
+    from vae_channel_dynamics_tpu_torch.analysis import logit_lens
+    from vae_channel_dynamics_tpu_torch.data import pipeline
+    from vae_channel_dynamics_tpu_torch.models.vae import remat_enabled
+    from vae_channel_dynamics_tpu_torch.ops import fused_resnet
+    from vae_channel_dynamics_tpu_torch.training import loop, step
+
+    def native_decode():
+        os.environ["VCD_NATIVE_PREPROCESS"] = "1"
+        try:
+            pipeline.get_transform(16)
+        finally:
+            del os.environ["VCD_NATIVE_PREPROCESS"]
+
+    return {
+        "parallel": (lambda: loop._refuse_unported({"parallel": {"tensor": 2}}),
+                     "Q1", "Multi-GPU"),
+        "profiling": (lambda: loop._refuse_unported({"profiling": {"enabled": True}}),
+                      "Q1", "Profiling"),
+        "export": (lambda: loop._refuse_unported({"saving": {"export_stablehlo": True}}),
+                   "Q1", "Deployment export"),
+        "remat conv": (lambda: remat_enabled("conv"), "Q1", "`remat: conv`"),
+        "remat offload": (lambda: remat_enabled("offload"), "Q1", "Do not port"),
+        "adafactor": (lambda: step.build_optimizer(1e-4, 10, 100, optimizer="adafactor"),
+                      "Q1", "Adafactor"),
+        "colormap": (lambda: logit_lens.colorize(np.zeros(4, np.float32), "magma"),
+                     "Q1", "Plots"),
+        "native decode": (native_decode, "Q1", "Native decode"),
+        "fused fp32": (lambda: fused_resnet._check_bf16("fused_gn_silu_conv3x3", "x",
+                                                        torch.zeros(1)),
+                       "Q2", "#9-#11 at fp32"),
+    }
+
+
+REFUSALS = ["parallel", "profiling", "export", "remat conv", "remat offload", "adafactor",
+            "colormap", "native decode", "fused fp32"]
+
+
+@pytest.mark.parametrize("case", REFUSALS)
+def test_refusal_names_its_roadmap_item_by_title(case):
+    """Each refusal says "ROADMAP <queue>, <title>", and ROADMAP.md has an
+    item of that title in that queue; no message names an item by number."""
+    call, queue, title = _refusals()[case]
+    with pytest.raises((NotImplementedError, ValueError)) as info:
+        call()
+    message = str(info.value)
+    assert f"ROADMAP {queue}, {title}" in message, message
+    assert re.search(r"item \d", message) is None, message
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "ROADMAP.md")) as f:
+        roadmap = f.read()
+    section = re.search(rf"^### {queue} .*?(?=^### |^## )", roadmap, re.M | re.S)
+    assert section is not None and f"**{title}" in section.group(0), (queue, title)

@@ -8,10 +8,10 @@ Each of the four kernels gets the same inputs as its plain version, at the
 training slice's norm shapes (256px, batch 16: the largest and the smallest)
 and at small odd ones, in bf16 and fp32; then the autograd op (forward, the
 |z| tap, dx, dgamma, dbeta) against the plain GroupNorm. The normalize
-kernel and the backward reduce also at batch-1 shapes whose few planes they
-split over several blocks (one with a ragged last split), bit-equal run to
-run, refusing a split count or partial count that is not their own, and the
-bound rejecting the last split's partial left out.
+kernel, the backward reduce and dx also at batch-1 shapes whose few planes
+they split over several blocks (one with a ragged last split), bit-equal
+run to run, refusing a split count or partial count that is not their own,
+and the bound rejecting the last split's partial (dx: its chunk) left out.
 
 Bounds. Outputs in x's dtype (y, dx): in fp32 the kernels compute what the
 plain versions compute, up to the order of fp32 operations and the sigmoid,
@@ -362,3 +362,60 @@ def test_bwd_reduce_refuses_another_partial_count(cuda):
     ref = gnk.bwd_reduce_reference(x, g, a, b, True)
     _assert_sums(gsum, ref[0], torch.bfloat16)
     _assert_sums(gxsum, ref[1], torch.bfloat16)
+
+
+# gn_bwd_dx splits each plane over S blocks with no partials (bf16, fp32):
+# 16 at (1, 128, 1024, 1024), 4 at (1, 512, 128, 128), 4 and 8 at (1, 128,
+# 56, 311) (the last split short), 8 and 16 at (1, 128, 40, 871); one block
+# a plane at the 256px batch-16 shapes
+DX_SPLIT_SHAPES = [(1, 128, 1024, 1024), (1, 512, 128, 128), (1, 128, 56, 311),
+                   (1, 128, 40, 871), (16, 128, 256, 256), (16, 512, 32, 32)]
+DX_SPLITS = {(1, 128, 1024, 1024): (16, 16), (1, 512, 128, 128): (4, 4),
+             (1, 128, 56, 311): (4, 8), (1, 128, 40, 871): (8, 16),
+             (16, 128, 256, 256): (1, 1), (16, 512, 32, 32): (1, 1)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", DX_SPLIT_SHAPES)
+@pytest.mark.parametrize("fuse_silu", [True, False])
+def test_split_bwd_dx_matches_plain_and_repeats(cuda, shape, dtype, fuse_silu):
+    """Each plane split over S blocks (S = 1 where the planes fill the
+    card): within the dx bound of plain, the same bits run to run, and the
+    bound rejects the last split's chunk of every plane left unwritten."""
+    x, g, _s, _b, a, b = _inputs(shape, dtype, cuda, 14)
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    cb = 1e-3 * torch.randn(a.shape, generator=gen, device=cuda)
+    cc = 0.1 * torch.randn(a.shape, generator=gen, device=cuda)
+    planes, hw = shape[0] * shape[1], shape[2] * shape[3]
+    splits = gnk.dx_splits(planes, hw, x.element_size())
+    assert splits == DX_SPLITS[shape][dtype == torch.float32]
+    before = gnk.launches["gn_bwd_dx"]
+    dx = gnk.bwd_dx(x, g, a, b, a, cb, cc, fuse_silu)
+    again = gnk.bwd_dx(x, g, a, b, a, cb, cc, fuse_silu)
+    torch.cuda.synchronize()
+    assert gnk.launches["gn_bwd_dx"] == before + 2
+    assert torch.equal(dx, again)
+    ref = gnk.bwd_dx_reference(x, g, a, b, a, cb, cc, fuse_silu)
+    _assert_like_x(dx, ref)
+    if splits > 1:
+        faulty = ref.clone()
+        faulty.flatten(2)[:, :, (splits - 1) * gnk.split_chunk(hw, splits):] = 0
+        with pytest.raises(AssertionError):
+            _assert_like_x(faulty, ref)
+
+
+@pytest.mark.parametrize("drift", ["double", "plus_one"])
+@pytest.mark.parametrize("shape", [(1, 128, 256, 256), (4, 128, 64, 64)])
+def test_bwd_dx_refuses_another_split_count(cuda, monkeypatch, shape, drift):
+    """The C entry holds the wrapper's split count to its own rule (16 and
+    1 at these shapes in bf16), so a drifted count is refused before any
+    write."""
+    x, g, _s, _b, a, b = _inputs(shape, torch.bfloat16, cuda, 16)
+    count = gnk.dx_splits
+    monkeypatch.setattr(gnk, "dx_splits",
+                        lambda *args: count(*args) * 2 if drift == "double"
+                        else count(*args) + 1)
+    before = gnk.launches["gn_bwd_dx"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gnk.bwd_dx(x, g, a, b, a, a, a, True)
+    assert gnk.launches["gn_bwd_dx"] == before

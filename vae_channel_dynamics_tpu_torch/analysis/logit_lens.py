@@ -67,7 +67,7 @@ def _colormap(name: str) -> np.ndarray:
         raise ValueError(
             f"colormap {name!r} is not carried by the PyTorch port, which draws without "
             f"matplotlib; it has {sorted(COLORMAPS)} (other colormaps and the plots: "
-            "ROADMAP Q1 item 4)"
+            "ROADMAP Q1, Plots)"
         )
     return COLORMAPS[name]
 

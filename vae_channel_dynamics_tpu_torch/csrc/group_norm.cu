@@ -62,6 +62,18 @@
 // sums the same elements in the same order as one block a plane did, so
 // there the sums keep their bits.
 //
+// gn_bwd_dx reads x and g and writes dx at the same shapes. Once the caller
+// has the per-plane coefficients it is elementwise, so it splits each plane
+// over dx_splits blocks with no partials, no scratch and no second pass: its
+// least split is one round of its DX_LOADS loads a thread, like the
+// normalize's, and S = 1 wherever the planes fill the card (every 256px
+// batch-16 shape, and the fused path's), the one-block-a-plane grid. Each
+// thread keeps DX_LOADS 16-byte loads of x and DX_LOADS of g in flight before
+// it computes and stores them (one block a plane with one load of each in
+// flight ran (1, 128, 1024, 1024) at 39% of its bound on the H100). Every
+// element is written once, by one thread, with the same operations whatever
+// S is, so dx does not depend on S, bit for bit.
+//
 // y = x*a + b is computed as a rounded product and a rounded sum, the same
 // two operations as the plain PyTorch version, so the normalised values
 // agree bit for bit before the SiLU and the cast.
@@ -87,6 +99,10 @@ constexpr int LOADS = 4;                  // 16-byte loads in flight a thread (n
 // gn_bwd_reduce's least split: 8 rounds of one 16-byte load a thread, 32 KB
 // of x and of g (see the header)
 constexpr int REDUCE_ROUNDS = 8;
+// gn_bwd_dx's 16-byte loads of x, and as many of g, in flight a thread: on
+// the H100 one ran 8% slower than two at (1, 128, 1024, 1024) and (16, 128,
+// 256, 256), and four (64 registers against 50) no faster
+constexpr int DX_LOADS = 2;
 constexpr int TARGET_BLOCKS = 8 * 132;    // 2048 resident threads on each of 132 SMs
 
 // 16-byte vector loads and stores, converted to and from fp32; a raw load
@@ -322,27 +338,48 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// Grid planes * splits, block b the split b % splits of plane b / splits:
+// dx over the split's chunk, DX_LOADS loads of x and of g in flight a thread.
 template <typename T, bool SILU>
 __global__ void __launch_bounds__(THREADS)
     gn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
                      const float* __restrict__ a, const float* __restrict__ b,
                      const float* __restrict__ ca, const float* __restrict__ cb,
-                     const float* __restrict__ cc, T* __restrict__ dx, int hw) {
+                     const float* __restrict__ cc, T* __restrict__ dx, int hw, int splits,
+                     int chunk) {
   constexpr int N = Vec<T>::N;
-  const int plane = blockIdx.x;
+  constexpr int STEP = THREADS * N;  // elements of one load by every thread
+  const int plane = blockIdx.x / splits;
+  int begin, end;
+  split_range(hw, chunk, blockIdx.x % splits, begin, end);
   const size_t off = static_cast<size_t>(plane) * hw;
+  const T* xp = x + off;
+  const T* gp = g + off;
+  T* dp = dx + off;
   const float ap = a[plane], bp = b[plane];
   const float cap = ca[plane], cbp = cb[plane], ccp = cc[plane];
-  for (int i = threadIdx.x * N; i < hw; i += THREADS * N) {
-    float xv[N], gv[N];
-    Vec<T>::load(x + off + i, xv);
-    Vec<T>::load(g + off + i, gv);
+  for (int i0 = begin + threadIdx.x * N; i0 < end; i0 += DX_LOADS * STEP) {
+    typename Vec<T>::Raw xr[DX_LOADS], gr[DX_LOADS];
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const float ge = grad_eff<SILU>(gv[j], xv[j], ap, bp);
-      xv[j] = ge * cap + xv[j] * cbp + ccp;
+    for (int u = 0; u < DX_LOADS; ++u) {
+      if (i0 + u * STEP < end) {
+        xr[u] = Vec<T>::load_raw(xp + i0 + u * STEP);
+        gr[u] = Vec<T>::load_raw(gp + i0 + u * STEP);
+      }
     }
-    Vec<T>::store(dx + off + i, xv);
+#pragma unroll
+    for (int u = 0; u < DX_LOADS; ++u) {
+      if (i0 + u * STEP >= end) break;
+      float xv[N], gv[N];
+      Vec<T>::unpack(xr[u], xv);
+      Vec<T>::unpack(gr[u], gv);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float ge = grad_eff<SILU>(gv[j], xv[j], ap, bp);
+        xv[j] = ge * cap + xv[j] * cbp + ccp;
+      }
+      Vec<T>::store(dp + i0 + u * STEP, xv);
+    }
   }
 }
 
@@ -379,6 +416,9 @@ int norm_splits(int planes, int hw, int vec) { return splits_for(planes, hw, vec
 int reduce_splits(int planes, int hw, int vec) {
   return splits_for(planes, hw, vec, REDUCE_ROUNDS);
 }
+
+// gn_bwd_dx's: at least one round of its DX_LOADS loads a thread
+int dx_splits(int planes, int hw, int vec) { return splits_for(planes, hw, vec, DX_LOADS); }
 
 template <typename T, bool SILU, bool STATS>
 cudaError_t fwd_normalize(const void* x, const void* a, const void* b, void* y, void* abs_sum,
@@ -423,11 +463,12 @@ cudaError_t bwd_reduce(const void* x, const void* g, const void* a, const void* 
 
 template <typename T, bool SILU>
 cudaError_t bwd_dx(const void* x, const void* g, const void* a, const void* b, const void* ca,
-                   const void* cb, const void* cc, void* dx, int planes, int hw, cudaStream_t s) {
-  gn_bwd_dx_kernel<T, SILU><<<planes, THREADS, 0, s>>>(
+                   const void* cb, const void* cc, void* dx, int planes, int hw, int splits,
+                   cudaStream_t s) {
+  gn_bwd_dx_kernel<T, SILU><<<planes * splits, THREADS, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const float*>(a),
       static_cast<const float*>(b), static_cast<const float*>(ca), static_cast<const float*>(cb),
-      static_cast<const float*>(cc), static_cast<T*>(dx), hw);
+      static_cast<const float*>(cc), static_cast<T*>(dx), hw, splits, split_chunk(hw, splits));
   return cudaGetLastError();
 }
 
@@ -496,17 +537,21 @@ int vcd_gn_bwd_reduce(const void* x, const void* g, const void* a, const void* b
   }
 }
 
-// x, g, dx: (planes, hw); a, b, ca, cb, cc: (planes,) fp32.
+// x, g, dx: (planes, hw); a, b, ca, cb, cc: (planes,) fp32. splits is the
+// count the caller chose for each plane; the call is refused unless it is
+// the kernel's own, dx_splits(planes, hw, 16 / element size).
 int vcd_gn_bwd_dx(const void* x, const void* g, const void* a, const void* b, const void* ca,
                   const void* cb, const void* cc, void* dx, int planes, int hw, int dtype,
-                  int silu, void* stream) {
-  if (bad_shape(planes, hw)) return kInvalid;
+                  int silu, int splits, void* stream) {
+  if (bad_shape(planes, hw) || (dtype != 0 && dtype != 1)) return kInvalid;
+  if (splits != dx_splits(planes, hw, dtype == 0 ? Vec<float>::N : Vec<bf16>::N))
+    return kInvalid;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype * 2 + (silu ? 1 : 0)) {
-    case 0: return static_cast<int>(bwd_dx<float, false>(x, g, a, b, ca, cb, cc, dx, planes, hw, s));
-    case 1: return static_cast<int>(bwd_dx<float, true>(x, g, a, b, ca, cb, cc, dx, planes, hw, s));
-    case 2: return static_cast<int>(bwd_dx<bf16, false>(x, g, a, b, ca, cb, cc, dx, planes, hw, s));
-    case 3: return static_cast<int>(bwd_dx<bf16, true>(x, g, a, b, ca, cb, cc, dx, planes, hw, s));
+    case 0: return static_cast<int>(bwd_dx<float, false>(x, g, a, b, ca, cb, cc, dx, planes, hw, splits, s));
+    case 1: return static_cast<int>(bwd_dx<float, true>(x, g, a, b, ca, cb, cc, dx, planes, hw, splits, s));
+    case 2: return static_cast<int>(bwd_dx<bf16, false>(x, g, a, b, ca, cb, cc, dx, planes, hw, splits, s));
+    case 3: return static_cast<int>(bwd_dx<bf16, true>(x, g, a, b, ca, cb, cc, dx, planes, hw, splits, s));
     default: return kInvalid;
   }
 }

@@ -47,13 +47,14 @@ def get_transform(resolution: int) -> Callable[[Any], np.ndarray]:
     float32 (torchvision-pipeline parity, data_utils.py:24-30).
 
     ``VCD_NATIVE_PREPROCESS=1`` (the JAX package's fused C++ decode) raises:
-    that path is not ported yet (ROADMAP Q1)."""
+    that path is not ported yet (ROADMAP Q1, Native decode)."""
     from PIL import Image
 
     if os.environ.get("VCD_NATIVE_PREPROCESS", "0") == "1":
         raise NotImplementedError(
             "VCD_NATIVE_PREPROCESS=1: the native C++ decode/resize is not yet "
-            "ported to the PyTorch package (ROADMAP Q1); unset it to use PIL"
+            "ported to the PyTorch package (ROADMAP Q1, Native decode); unset it "
+            "to use PIL"
         )
 
     def transform(img) -> np.ndarray:

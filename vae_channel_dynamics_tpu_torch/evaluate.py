@@ -18,11 +18,14 @@ captured activations, and write ``eval_metrics.txt`` and
 The compute dtype comes from ``training.mixed_precision`` (bf16 for ``bf16``
 and ``fp16``, else fp32). Evaluation is forward-only, so ``attention_impl:
 auto`` resolves through the serving policy at ``data.resolution``: the flash
-forward from 4096 mid-block tokens (512px), bf16 or fp32 by the dtype. The
+forward from 4096 mid-block tokens (512px), bf16 or fp32 by the dtype.
+``model.kernel_impl`` picks the GroupNorm as the Trainer's does (``auto``
+and ``xla`` plain, ``pallas`` the kernels, ``fused`` the fused resnets the
+gate admits); the JAX CLI reads no ``kernel_impl`` and runs ``auto``. The
 per-batch sums stay on the device and are copied to the host once a batch.
 On a card, TF32 is off while it runs, so fp32 means fp32. One device only:
 the JAX CLI's mesh, sharding and shard padding are multi-device work
-(ROADMAP Q1 item 7).
+(ROADMAP Q1, Multi-GPU).
 """
 
 from __future__ import annotations
@@ -171,8 +174,9 @@ def _eval_main(argv=None) -> int:
     if attn_impl == "flash" and configured_impl == "auto":
         logger.info("attention_impl=auto: evaluation is forward-only, using the flash "
                     "kernel (%s).", "bf16" if dtype == torch.bfloat16 else "fp32")
+    kernel_impl = str(config.get("model", {}).get("kernel_impl", "auto"))
     wrapper = SDXLVAEWrapper(config=vae_config, state_dict=state_dict, dtype=dtype,
-                             attn_impl=attn_impl, device=args.device)
+                             attn_impl=attn_impl, device=args.device, impl=kernel_impl)
     device = wrapper.device
 
     logit_lens = None

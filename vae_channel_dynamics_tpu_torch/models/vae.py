@@ -270,15 +270,21 @@ class GroupNorm(TapModule):
 def remat_enabled(remat: Any) -> bool:
     """Whether a ``model.remat`` value rematerialises the resnets:
     False/``"none"`` no, True/``"full"`` yes. ``"conv"`` (save only the conv
-    outputs) and ``"offload"`` are not ported yet and raise."""
+    outputs) is not ported yet and ``"offload"`` is not to be ported: both
+    raise."""
     if not remat or remat == "none":
         return False
     if remat is True or remat == "full":
         return True
-    if remat in ("conv", "offload"):
+    if remat == "conv":
         raise NotImplementedError(
-            f"model.remat {remat!r} is not yet ported to PyTorch (ROADMAP Q1 "
-            "item 1); use 'none' or 'full'"
+            "model.remat 'conv' is not yet ported to PyTorch (ROADMAP Q1, "
+            "`remat: conv`); use 'none' or 'full'"
+        )
+    if remat == "offload":
+        raise NotImplementedError(
+            "model.remat 'offload' is not carried by the PyTorch port (ROADMAP "
+            "Q1, Do not port); use 'none' or 'full'"
         )
     raise ValueError(
         f"remat must be one of False/'none'/True/'full'/'conv'/'offload', got {remat!r}"

@@ -51,7 +51,7 @@ then the dQ kernel. Otherwise it runs the serving forward, bf16 or fp32 by
 the input's dtype (forward-only evaluation runs fp32 when
 ``mixed_precision`` is ``no``). The LSE forward and the backward kernels
 take bf16 only and raise on fp32: fp32 training with ``flash`` is not
-ported (ROADMAP Q2). On CPU tensors
+ported (ROADMAP Q2, The flash training kernels at fp32). On CPU tensors
 each kernel's plain PyTorch version (``*_reference``) runs in its place; on
 a CUDA tensor the kernel launches or the call raises, and nothing falls
 back. ``launches`` counts kernel launches per kernel.
@@ -240,7 +240,8 @@ def _check_cuda(*tensors: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16,
             "the CUDA flash-attention kernels take bf16 q/k/v (and dO) and give "
             "a bf16 output (the serving forward also fp32 in and out), got "
             f"{[str(t.dtype) for t in tensors]} -> {out_dtype}; fp32 training with "
-            "flash is not ported (ROADMAP Q2): use attn_impl='naive' or 'chunked'"
+            "flash is not ported (ROADMAP Q2, The flash training kernels at fp32): "
+            "use attn_impl='naive' or 'chunked'"
         )
     if q.dim() != 3 or any(t.shape != q.shape for t in tensors):
         raise ValueError(

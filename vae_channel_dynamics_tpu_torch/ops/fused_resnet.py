@@ -227,7 +227,8 @@ def _check_bf16(name: str, what: str, t: torch.Tensor) -> None:
     if t.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"{name}: the CUDA fused-resnet kernels take bf16 ({what} is {t.dtype}); "
-            "the model fuses only bf16 compute, and fp32 kernels are not ported yet"
+            "the model fuses only bf16 compute, and fp32 kernels are not ported yet "
+            "(ROADMAP Q2, #9-#11 at fp32)"
         )
 
 

@@ -24,11 +24,11 @@ All four are bound by device-memory bandwidth on the H100 (a few flops per
 2-byte element); each makes one pass over its inputs, one thread block per
 (sample, channel) plane of the NCHW tensor, and writes each per-plane sum
 once without atomics. Where B x C is too small to fill the card (the 1024px
-batch-1 step), ``gn_fwd_normalize`` and ``gn_bwd_reduce`` split each plane
-over :func:`normalize_splits` or :func:`reduce_splits` blocks and add their
-per-split partials (the
-|z| tap; sum g_eff and sum g_eff*x) in a second pass, in order. The
-source's header has the design.
+batch-1 step), ``gn_fwd_normalize``, ``gn_bwd_reduce`` and ``gn_bwd_dx``
+split each plane over :func:`normalize_splits`, :func:`reduce_splits` or
+:func:`dx_splits` blocks; the first two add their per-split partials (the
+|z| tap; sum g_eff and sum g_eff*x) in a second pass, in order, and dx,
+elementwise, needs none. The source's header has the design.
 
 The small (B, C) algebra between the kernels stays in PyTorch, as the JAX
 package keeps it in XLA: the group combine C -> G and the reference's
@@ -64,6 +64,7 @@ NORM_LOADS = 4  # gn_fwd_normalize's 16-byte loads in flight a thread
 # gn_bwd_reduce's least split: this many rounds of one 16-byte load a thread
 # (32 KB of x and of g); a smaller one saves less than its second pass costs
 REDUCE_ROUNDS = 8
+DX_LOADS = 2  # gn_bwd_dx's 16-byte loads of x, and as many of g, in flight a thread
 NORM_TARGET_BLOCKS = 8 * 132  # 2048 resident threads on each of the H100's 132 SMs
 
 # kernel launches in this process, per kernel; only the CUDA branches below
@@ -78,7 +79,7 @@ _SIGNATURES = {
     "gn_fwd_reduce": [_P, _P, _P, _I, _I, _I, _P],
     "gn_fwd_normalize": [_P] * 6 + [_I] * 6 + [_P],
     "gn_bwd_reduce": [_P] * 7 + [_I] * 6 + [_P],
-    "gn_bwd_dx": [_P] * 8 + [_I, _I, _I, _I, _P],
+    "gn_bwd_dx": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 
@@ -95,8 +96,8 @@ def eligible(x: torch.Tensor, num_groups: int) -> bool:
 
 
 def split_chunk(hw: int, splits: int) -> int:
-    """Elements of one of a plane's ``splits`` splits in ``gn_fwd_normalize``
-    and ``gn_bwd_reduce``:
+    """Elements of one of a plane's ``splits`` splits in ``gn_fwd_normalize``,
+    ``gn_bwd_reduce`` and ``gn_bwd_dx``:
     ceil(hw / splits) rounded up to a multiple of 8 (16 bytes of bf16).
     Split k covers [min(k * chunk, hw), min((k + 1) * chunk, hw))."""
     per_split = -(-hw // splits)
@@ -130,6 +131,14 @@ def reduce_splits(planes: int, hw: int, element_size: int) -> int:
     :func:`normalize_splits`, but a split holds at least ``REDUCE_ROUNDS``
     rounds of one load a thread. The kernel refuses any other count."""
     return _splits(planes, hw, element_size, REDUCE_ROUNDS)
+
+
+def dx_splits(planes: int, hw: int, element_size: int) -> int:
+    """How many blocks ``gn_bwd_dx`` splits each plane over: as
+    :func:`normalize_splits`, but a split holds at least one round of its
+    ``DX_LOADS`` loads of x and of g a thread. dx is elementwise, so a split
+    needs no partials. The kernel refuses any other count."""
+    return _splits(planes, hw, element_size, DX_LOADS)
 
 
 # --------------------------------------------------------------------------- #
@@ -339,10 +348,11 @@ def bwd_dx(
     planes, hw, dt = _check_x(name, x)
     _check_g(name, g, x)
     _check_vec(name, x, a=a, b=b, ca=ca, cb=cb, cc=cc)
+    splits = dx_splits(planes, hw, x.element_size())
     dx = torch.empty_like(x)
     _launch(name, x, x.data_ptr(), g.data_ptr(), a.data_ptr(), b.data_ptr(),
             ca.data_ptr(), cb.data_ptr(), cc.data_ptr(), dx.data_ptr(),
-            planes, hw, dt, int(fuse_silu))
+            planes, hw, dt, int(fuse_silu), splits)
     return dx
 
 
@@ -490,6 +500,7 @@ __all__ = [
     "bwd_dx_reference",
     "bwd_reduce",
     "bwd_reduce_reference",
+    "dx_splits",
     "eligible",
     "fwd_normalize",
     "fwd_normalize_reference",

@@ -30,7 +30,7 @@ Retry-After; connections carry a ``--read_timeout_s`` socket timeout.
 the resolution; ``--slicing`` runs one image per pass. With either,
 /reconstruct runs encode then decode (the tiled path) instead of the untiled
 forward, and the attention policy is resolved at the tile size. Not ported
-yet: ``--exported_dir`` (ROADMAP.md).
+yet: ``--exported_dir`` (ROADMAP Q1, Deployment export).
 """
 
 from __future__ import annotations

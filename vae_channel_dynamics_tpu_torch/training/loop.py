@@ -18,9 +18,10 @@ steps on the monitor's data for that step, as in the JAX Trainer, drawn
 with PIL (``analysis/logit_lens.py``).
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-skipped: ``parallel`` axes above 1 (ROADMAP Q1 item 7), ``profiling`` (Q1
-item 8), and ``saving.export_stablehlo``. The matplotlib plots are not
-drawn; the CSV and JSONL files they read are written.
+skipped: ``parallel`` axes above 1 (ROADMAP Q1, Multi-GPU), ``profiling``
+(ROADMAP Q1, Profiling), and ``saving.export_stablehlo`` (ROADMAP Q1,
+Deployment export). The matplotlib plots are not drawn (ROADMAP Q1, Plots);
+the CSV and JSONL files they read are written.
 """
 
 from __future__ import annotations
@@ -126,17 +127,17 @@ def _refuse_unported(config: Dict[str, Any]) -> None:
         if as_int(parallel.get(axis), 1) > 1:
             raise NotImplementedError(
                 f"parallel.{axis} > 1: multi-GPU training is not yet ported to "
-                "PyTorch (ROADMAP Q1 item 7)"
+                "PyTorch (ROADMAP Q1, Multi-GPU)"
             )
     if (config.get("profiling", {}) or {}).get("enabled", False):
         raise NotImplementedError(
             "profiling.enabled: trace capture is not yet ported to PyTorch "
-            "(ROADMAP Q1 item 8); set it to false"
+            "(ROADMAP Q1, Profiling); set it to false"
         )
     if (config.get("saving", {}) or {}).get("export_stablehlo", False):
         raise NotImplementedError(
             "saving.export_stablehlo: deployment export is not yet ported to "
-            "PyTorch (ROADMAP Q1 item 6); set it to false"
+            "PyTorch (ROADMAP Q1, Deployment export); set it to false"
         )
 
 
@@ -673,7 +674,7 @@ class Trainer:
         """The final artifacts: final_model/ (a resumable state),
         final_model/vae/ (the model dir both packages load), vae_ema/, the
         activation-stats CSV and the dead-weight history CSV. The JAX
-        Trainer's plots are not drawn (ROADMAP Q1 item 4)."""
+        Trainer's plots are not drawn (ROADMAP Q1, Plots)."""
         import pandas as pd
 
         summary: Dict[str, Any] = {}
@@ -709,7 +710,7 @@ class Trainer:
                 pd.DataFrame(records).to_csv(
                     os.path.join(self.output_dir, "dead_neuron_percentage_history.csv"),
                     index=False)
-        logger.info("Plots are not drawn by the PyTorch Trainer (ROADMAP Q1 item 4); "
+        logger.info("Plots are not drawn by the PyTorch Trainer (ROADMAP Q1, Plots); "
                     "their CSV and JSONL inputs are in %s", self.output_dir)
         reporter.finish()
         return summary

@@ -206,7 +206,7 @@ def build_optimizer(
     if optimizer == "adafactor":
         raise NotImplementedError(
             "training.optimizer 'adafactor' is not yet ported to PyTorch "
-            "(ROADMAP Q1 item 2); use 'adamw'"
+            "(ROADMAP Q1, Adafactor); use 'adamw'"
         )
     if optimizer != "adamw":
         raise ValueError(
