@@ -7,19 +7,21 @@ Run from the repository root. Phases, each printing what it found; any
 failure exits non-zero without the final ``ok`` line:
 
 1. device: the card's name, and name plus power limit from nvidia-smi;
-2. build: the five kernel libraries, ``vae_channel_dynamics_tpu_torch/csrc/
+2. build: the six kernel libraries, ``vae_channel_dynamics_tpu_torch/csrc/
    flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``,
-   ``csrc/group_norm.cu``, ``csrc/fused_resnet.cu`` and ``csrc/conv_nhwc.cu``
-   (nvcc, sm_90a, one nvcc each, started together), the seconds each took,
-   and ptxas's registers and spills (none, and no stack frame, in the fp32
-   flash forward and the two backward kernels; no more than SPILL_LIMITS
-   pins in the bf16 forward), and the backward's cluster
+   ``csrc/flash_attention_bwd_f32.cu``, ``csrc/group_norm.cu``,
+   ``csrc/fused_resnet.cu`` and ``csrc/conv_nhwc.cu`` (nvcc, sm_90a, one
+   nvcc each, started together), the seconds each took, and ptxas's
+   registers and spills (none, and no stack frame, in the fp32 flash
+   forward, the two bf16 backward kernels and the fp32 backward; no more
+   than SPILL_LIMITS pins in the bf16 forward), and the backward's cluster
    size at each width; for the kernels on wgmma/TMA through
    ``csrc/sm90_wgmma.cuh`` (the bf16 and fp32 flash forwards, the dK/dV and
    dQ kernels, #9, #10 and #12 on the shared loop of
    ``csrc/sm90_conv3x3.cuh``, #11), the HGMMA, UTMALDG and HMMA
    instructions in their SASS (cuobjdump): HGMMA and UTMALDG present, no
-   HMMA;
+   HMMA; for the fp32 backward, plain FFMA by design: FFMA present, no HGMMA
+   or HMMA;
 3. flash kernel vs plain: bf16 q/k/v from a seed at the serving shapes, the
    kernel's max abs and relative L2 error against
    ``flash_attention_reference``, bit-equal run to run, proof that the
@@ -37,7 +39,10 @@ failure exits non-zero without the final ``ok`` line:
    backend named) times from CUDA events; the backward kernels also at
    C = 128 and 384 (clusters of one and of three CTAs), and timed at
    (1, 16384, 128), whose CTAs do C = 512's work without traffic between
-   SMs, to price the exchange; and one
+   SMs, to price the exchange; the same at fp32 (fp32 training: the fp32
+   LSE forward, the fp32 backward) against fp32 plain with TF32 off, also
+   rejecting one TF32 product (plain with TF32 on), bit-equal run to run,
+   timed beside SDPA at fp32; and one
    mid-block ``AttentionBlock`` forward and backward on the card, flash
    against naive, every parameter gradient non-zero and within the naive
    path's own bf16-vs-fp32 difference;
@@ -108,12 +113,18 @@ failure exits non-zero without the final ``ok`` line:
    serving forward never; the control loop's CSVs, the final model and
    ms/step, img/s and peak memory over steps 11-20; the profile of step 5
    with each flash and GroupNorm kernel's device time less the bounds of its
-   launches at their own shapes (the redesigns' ranking);
+   launches at their own shapes (the redesigns' ranking); then fp32
+   training through flash: the same config at ``mixed_precision: no`` for
+   three steps through ``train.main``, each launching the three fp32 flash
+   kernels as often as the bf16 run its bf16 ones (the fp32 kernels' main
+   path: their launches in the kernels line);
 9. one 1024px step with flash against one with naive attention (the same
    weights, batch and noise, ``remat: none``), held to naive bf16's own
-   difference from naive fp32 on that step; 10 timed steps each of naive,
-   flash, and flash with ``remat: full``, in turns, with their peak memory;
-   a torch.profiler breakdown of a flash step.
+   difference from naive fp32 on that step, and the fp32 flash step against
+   naive fp32 within STEP_F32_REL; 10 timed steps each of naive, flash, and
+   flash with ``remat: full``, and of naive and flash at fp32 with and
+   without remat, in turns, with their peak memory; a torch.profiler
+   breakdown of a flash step.
 
 10. kernel #12, the NHWC conv3x3 with bias (``csrc/conv_nhwc.cu``), after
    the fused resnet kernels: against its plain version at the conv bench's
@@ -141,8 +152,10 @@ failure exits non-zero without the final ``ok`` line:
    control; the tiled and untiled 2048px decode's peak memory; the serve CLI
    with ``--tile_size 512`` at ``--resolution 1024``.
 
-The last lines are a JSON object describing the thirteen kernels, the
-nvidia-smi line, and ``{"ok": true, "device": {...}}``. Imports no jax.
+The CLI audit (``phase_cli_audit``, after the tiling phase) runs the
+training and evaluation CLIs over their impl matrix, 40 cells, none
+refused. The last lines are a JSON object describing the sixteen kernels,
+the nvidia-smi line, and ``{"ok": true, "device": {...}}``. Imports no jax.
 """
 
 from __future__ import annotations
@@ -199,17 +212,35 @@ N_DECODE = 2
 DEVICE = "cuda"
 FLASH_FWD_SOURCE = "vae_channel_dynamics_tpu_torch/csrc/flash_attention_fwd.cu"
 FLASH_BWD_SOURCE = "vae_channel_dynamics_tpu_torch/csrc/flash_attention_bwd.cu"
+FLASH_BWD_F32_SOURCE = "vae_channel_dynamics_tpu_torch/csrc/flash_attention_bwd_f32.cu"
 FLASH_SOURCES = {
     "flash_attention_fwd": FLASH_FWD_SOURCE,
     "flash_attention_fwd_lse": FLASH_FWD_SOURCE,
     "flash_attention_bwd_dkv": FLASH_BWD_SOURCE,
     "flash_attention_bwd_dq": FLASH_BWD_SOURCE,
+    "flash_attention_fwd_lse_f32": FLASH_FWD_SOURCE,
+    "flash_attention_bwd_dkv_f32": FLASH_BWD_F32_SOURCE,
+    "flash_attention_bwd_dq_f32": FLASH_BWD_F32_SOURCE,
 }
 FLASH_REPLACES = {
     "flash_attention_fwd": "vae_channel_dynamics_tpu/ops/pallas_attention.py:136",
     "flash_attention_fwd_lse": "vae_channel_dynamics_tpu/ops/pallas_attention.py:177",
     "flash_attention_bwd_dkv": "vae_channel_dynamics_tpu/ops/pallas_attention.py:304",
     "flash_attention_bwd_dq": "vae_channel_dynamics_tpu/ops/pallas_attention.py:284",
+    "flash_attention_fwd_lse_f32": "vae_channel_dynamics_tpu/ops/pallas_attention.py:177 (fp32)",
+    "flash_attention_bwd_dkv_f32": "vae_channel_dynamics_tpu/ops/pallas_attention.py:304 (fp32)",
+    "flash_attention_bwd_dq_f32": "vae_channel_dynamics_tpu/ops/pallas_attention.py:284 (fp32)",
+}
+# the fp32 training kernels: what their designs are (PERF.md section 6)
+F32_NOTES = {
+    "flash_attention_fwd_lse_f32": "the fp32 forward (3xTF32 on wgmma/TMA) with its lse pointer "
+                                   "set; bound: 3 x its products at the TF32 rate",
+    "flash_attention_bwd_dkv_f32": "plain fp32 FFMA on a cluster of C/128 CTAs, the logits summed "
+                                   "in rank order through distributed shared memory; bound: its "
+                                   "FLOPs at the 67 TFLOP/s fp32 (CUDA core) rate",
+    "flash_attention_bwd_dq_f32": "plain fp32 FFMA on a cluster of C/128 CTAs, the logits summed "
+                                  "in rank order through distributed shared memory; bound: its "
+                                  "FLOPs at the 67 TFLOP/s fp32 (CUDA core) rate",
 }
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # each kernel's bound is the larger of its FLOPs over the bf16 tensor-core
@@ -230,6 +261,10 @@ SMS = 132
 # dK/dV costs about sqrt(32/N) in relative L2 (0.044 at N = 16384). lse is
 # fp32: LSE_MAX_REL of max|plain|.
 BWD_SHAPES = ((1, 16384, 512), (4, 4096, 512))
+# The same kernels at fp32 (fp32 training, TF32 off): o, dQ, dK and dV
+# within relative L2 FLASH_F32_REL_L2 (below) of fp32 plain, lse within
+# LSE_MAX_REL; each bound also rejects one TF32 product (the plain version
+# with TF32 on, about 1e-3).
 GRAD_MAX_REL = 2.0 ** -6
 LSE_MAX_REL = 1e-5
 FAULT_QUERIES = 32
@@ -269,6 +304,14 @@ CSV_COLUMNS = ["global_step", "layer_identifier", "original_metric_name", "metri
 SDXL_NORMS, SDXL_RESNET_NORMS, SDXL_ATTENTIONS = 52, 48, 2
 FLASH_STEP_RES = 1024
 FLASH_TIMED_STEPS = 5  # per block: naive, flash, flash, naive
+# fp32 training through flash: the step with flash against the step with
+# naive, both fp32 with TF32 off, within this relative difference on the
+# loss, grad_norm and the mid-block attention gradients (rel L2); the two
+# sum the attention in other orders, about 1e-6 apart
+STEP_F32_REL = 1e-4
+# the 1024px Trainer at mixed_precision "no" with flash: steps through
+# train.main, each launching the fp32 flash kernels
+TRAINER_F32_STEPS = 3
 
 # GroupNorm kernels vs plain, bf16, at both training paths' 128-channel
 # full-resolution norm input (encoder down block 0, decoder up block 3) and
@@ -475,10 +518,9 @@ SERVE_TILED_RES, SERVE_TILED_IMAGES = 1024, 4
 # own bf16-vs-fp32 difference plus AUDIT_FLOOR (one bf16 ulp, as the step
 # checks' scalars), an fp32 cell within AUDIT_F32_REL (the GroupNorm
 # kernels and chunked attention sum in another order, about 1e-6). Every
-# impl named must launch its kernels; `fused` at fp32 fuses no block (the
-# JAX gate fuses bf16 only) and must launch none. The one refusal expected
-# is fp32 training with explicit flash (ROADMAP Q2, A1); ROADMAP Q3 records
-# no other open finding, so any other failure fails the phase.
+# impl named must launch its kernels (fp32 flash its fp32 kernels); `fused`
+# at fp32 fuses no block (the JAX gate fuses bf16 only) and must launch
+# none. Every cell runs: any failure fails the phase.
 AUDIT_RES, AUDIT_BATCH, AUDIT_STEPS, AUDIT_EVAL_IMAGES = 128, 2, 2, 4
 AUDIT_PRECISIONS = ("bf16", "no")
 AUDIT_TRAIN_KERNELS = ("auto", "pallas", "fused")
@@ -487,7 +529,6 @@ AUDIT_ATTENTION = ("auto", "naive", "chunked", "flash")
 AUDIT_CONTROL_RATIO = 1.25
 AUDIT_FLOOR = 2.0 ** -8
 AUDIT_F32_REL = 1e-4
-AUDIT_REFUSAL = "ROADMAP Q2, The flash training kernels at fp32"
 AUDIT_TAPS = ("vae.encoder.down_blocks.0.resnets.0.norm1",  # 128 channels at 128x128
               "vae.encoder.down_blocks.3.resnets.0.norm1")  # 512 at 16x16: fused in bf16
 
@@ -587,14 +628,18 @@ WGMMA_KERNELS = {"conv3x3_nhwc_kernel": "conv_nhwc", "conv3x3_dw_kernel": "fused
                  "flash_bwd_dkv_kernel": "flash_attention_bwd",
                  "flash_bwd_dq_kernel": "flash_attention_bwd"}
 # ptxas must report no stack frame and no spills for these
-NO_STACK_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+NO_STACK_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",
+                    "flash_bwd_f32_kernel")
 NO_STACK = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
 # and no more spill bytes (stores, and loads) than ptxas reported when these
 # were built: the bf16 forward's consumers hold O, 128 fp32 a thread at
 # C = 512, in the 232 registers the producer warpgroup hands them
 SPILL_LIMITS = {"flash_fwd_kernel<512>": 24, "flash_fwd_kernel<384>": 0,
                 "flash_fwd_kernel<256>": 0, "flash_fwd_kernel<128>": 0}
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+# The fp32 backward is plain FFMA by design: FFMA in its SASS, no tensor-core
+# instruction of either kind
+FFMA_KERNELS = {"flash_bwd_f32_kernel": "flash_attention_bwd_f32"}
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "FFMA")
 
 
 def sass_counts(library: str) -> dict:
@@ -626,6 +671,8 @@ def phase_build():
     # one nvcc per library, started together
     builds = {FLASH_FWD_SOURCE: (flash_attention.FWD_LIBRARY, flash_attention.build_forward),
               FLASH_BWD_SOURCE: (flash_attention.BWD_LIBRARY, flash_attention.build_backward),
+              FLASH_BWD_F32_SOURCE: (flash_attention.BWD_F32_LIBRARY,
+                                     flash_attention.build_backward_f32),
               GN_SOURCE: (gnk.LIBRARY, gnk.build),
               FUSED_SOURCE: (fr.LIBRARY, fr.build),
               CONV_SOURCE: (cn.LIBRARY, cn.build)}
@@ -662,14 +709,22 @@ def phase_build():
     log(f"[build] {len(builds)} libraries built and loaded in {wall:.2f} s; the flash "
         "backward's thread-block cluster, CTAs by width: "
         + str({c: flash_attention.bwd_cluster_size(c) for c in flash_attention.SUPPORTED_CHANNELS}))
-    for library in sorted(set(WGMMA_KERNELS.values())):
+    seen = set()
+    for library in sorted(set(WGMMA_KERNELS.values()) | set(FFMA_KERNELS.values())):
         for label, ops in sass_counts(library).items():
             base = label.split("<")[0]
-            if base not in WGMMA_KERNELS:
+            if base not in WGMMA_KERNELS and base not in FFMA_KERNELS:
                 continue
+            seen.add(base)
             log(f"[build] SASS {label}: " + ", ".join(f"{op} {ops[op]}" for op in SASS_OPS))
-            check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
-                  f"{label} is not on the wgmma/TMA path: {ops}")
+            if base in FFMA_KERNELS:
+                check(ops["FFMA"] > 0 and ops["HGMMA"] == 0 and ops["HMMA"] == 0,
+                      f"{label} is not the plain FFMA design: {ops}")
+            else:
+                check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
+                      f"{label} is not on the wgmma/TMA path: {ops}")
+    check(seen == set(WGMMA_KERNELS) | set(FFMA_KERNELS),
+          f"no SASS for {set(WGMMA_KERNELS) | set(FFMA_KERNELS) - seen}")
 
 
 def phase_kernel():
@@ -781,13 +836,22 @@ def roofline(flops: float, nbytes: float, rate: float = PEAK_BF16_FLOPS) -> tupl
 
 def flash_bounds(b: int, n: int, c: int) -> dict:
     """Each flash kernel's bound at (B, N, C): FLOPs of its products, and
-    bytes of its bf16 (B, N, C) operands and fp32 (B, N) row vectors."""
-    t, r = 2 * b * n * c, 4 * b * n
+    bytes of its (B, N, C) operands (bf16, or fp32 for the ``_f32`` kernels)
+    and fp32 (B, N) row vectors. The fp32 LSE forward's FLOPs count three
+    times at the TF32 rate (3xTF32); the fp32 backward is plain FFMA, its
+    FLOPs at the fp32 (CUDA core) rate."""
+    t, r, t32 = 2 * b * n * c, 4 * b * n, 4 * b * n * c
     return {
         "flash_attention_fwd": roofline(4 * b * n * n * c, 4 * t),
         "flash_attention_fwd_lse": roofline(4 * b * n * n * c, 4 * t + r),
         "flash_attention_bwd_dkv": roofline(8 * b * n * n * c, 6 * t + 2 * r),
         "flash_attention_bwd_dq": roofline(6 * b * n * n * c, 5 * t + 2 * r),
+        "flash_attention_fwd_lse_f32": roofline(3 * 4 * b * n * n * c, 4 * t32 + r,
+                                                PEAK_TF32_FLOPS),
+        "flash_attention_bwd_dkv_f32": roofline(8 * b * n * n * c, 6 * t32 + 2 * r,
+                                                PEAK_FP32_FLOPS),
+        "flash_attention_bwd_dq_f32": roofline(6 * b * n * n * c, 5 * t32 + 2 * r,
+                                               PEAK_FP32_FLOPS),
     }
 
 
@@ -911,6 +975,41 @@ def sdpa_times(q, k, v, do, scale: float, iters: int) -> tuple[str, dict]:
     return backend.name, out
 
 
+def sdpa_f32_times(q, k, v, do, scale: float, iters: int) -> tuple[str, dict]:
+    """The first SDPA backend that runs an fp32 forward and backward at head
+    dim 512 (the memory-efficient one where it takes it; each refusal
+    logged), and its CUDA-event ms on (B, N, C) as one head: the forward
+    that keeps what its backward needs, and that backward (dQ, dK, dV). The
+    yardstick only; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaves = [t.unsqueeze(1).detach().requires_grad_(True) for t in (q, k, v)]
+    g = do.unsqueeze(1)
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.FLASH_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                o = F.scaled_dot_product_attention(*leaves, scale=scale)
+                torch.autograd.grad(o, leaves, g)
+                sync()
+        except RuntimeError as e:
+            log(f"[sdpa] {backend.name} refuses an fp32 forward and backward at head dim 512: "
+                f"{str(e).splitlines()[0][:120]}")
+            continue
+        with sdpa_kernel([backend]):
+            out = {"fwd_grad": cuda_ms(
+                lambda: F.scaled_dot_product_attention(*leaves, scale=scale), iters)}
+            o = F.scaled_dot_product_attention(*leaves, scale=scale)
+            out["bwd"] = cuda_ms(lambda: torch.autograd.grad(o, leaves, g, retain_graph=True),
+                                 iters)
+        del o, leaves
+        return backend.name, out
+    raise SmokeFailure("no SDPA backend runs an fp32 forward and backward at head dim 512")
+
+
 def rel_errors(out, ref) -> tuple[float, float, float]:
     """max|out - ref| / max|ref|, relative L2 error, and max|out - ref|."""
     d = out.float() - ref.float()
@@ -948,7 +1047,8 @@ def phase_flash_bwd():
     from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
 
     names = ("flash_attention_fwd_lse", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
-    results = {name: {"max_abs_err": 0.0} for name in names}
+    names_f32 = tuple(f"{name}_f32" for name in names)
+    results = {name: {"max_abs_err": 0.0} for name in names + names_f32}
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
 
     def held(lines, shape, name, what, errs, fault_errs, max_rel_bound,
@@ -966,7 +1066,8 @@ def phase_flash_bwd():
                   f"the {what} bound at {shape} does not reject {fault}")
 
     def backward(q, k, v, do, lse, delta, scale):
-        """(dq, dk, dv) from the kernels, twice: bit-equal run to run."""
+        """(dq, dk, dv) from the kernels (bf16 or fp32 by the operands),
+        twice: bit-equal run to run."""
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=scale)
         dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale)
         dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=scale)
@@ -980,7 +1081,12 @@ def phase_flash_bwd():
         """dQ, dK, dV against plain, each bound shown to reject the planted
         faults: one query tile left out of dK/dV, one key tile left out of
         dQ, the last rank's partial left out of the logits' sums, delta left
-        out of dS, and (with row_max) m in place of lse."""
+        out of dS, and (with row_max) m in place of lse; at fp32 also one
+        TF32 product (the plain version with TF32 on), held to relative L2
+        FLASH_F32_REL_L2 alone."""
+        f32 = q.dtype == torch.float32
+        suffix, max_rel_bound, rel_l2_bound = (("_f32", math.inf, FLASH_F32_REL_L2) if f32
+                                               else ("", GRAD_MAX_REL, KERNEL_REL_L2))
         dq, dk, dv = backward(q, k, v, do, lse, delta, scale)
         pdq, pdk, pdv = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
         fs = FAULT_QUERIES
@@ -1001,16 +1107,107 @@ def phase_flash_bwd():
         faults_dv = {"a query tile left out": rel_errors(tile_dv, pdv), rank: rel_errors(rank_dv, pdv)}
         faults_dq = {"a key tile left out": rel_errors(key_dq, pdq), rank: rel_errors(rank_dq, pdq),
                      "delta left out": rel_errors(nod_dq, pdq)}
+        tf32 = {}
+        if f32:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_reference(
+                    q, k, v, do, lse, delta, scale)))
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
         for faults, key in ((faults_dk, "dk"), (faults_dv, "dv"), (faults_dq, "dq")):
+            plain = {"dq": pdq, "dk": pdk, "dv": pdv}[key]
             if m_faults:
-                faults["m for lse"] = rel_errors(m_faults[key], {"dq": pdq, "dk": pdk, "dv": pdv}[key])
-        held(lines, shape, "flash_attention_bwd_dkv", "dK", rel_errors(dk, pdk), faults_dk,
-             GRAD_MAX_REL)
-        held(lines, shape, "flash_attention_bwd_dkv", "dV", rel_errors(dv, pdv), faults_dv,
-             GRAD_MAX_REL)
-        held(lines, shape, "flash_attention_bwd_dq", "dQ", rel_errors(dq, pdq), faults_dq,
-             GRAD_MAX_REL)
+                faults["m for lse"] = rel_errors(m_faults[key], plain)
+            if tf32:
+                faults["one TF32 product"] = rel_errors(tf32[key], plain)
+        del m_faults, tf32
+        for name, what, errs, faults in (
+                ("flash_attention_bwd_dkv", "dK", rel_errors(dk, pdk), faults_dk),
+                ("flash_attention_bwd_dkv", "dV", rel_errors(dv, pdv), faults_dv),
+                ("flash_attention_bwd_dq", "dQ", rel_errors(dq, pdq), faults_dq)):
+            held(lines, shape, name + suffix, what, errs, faults, max_rel_bound, rel_l2_bound)
         lines.append("bit-equal run to run")
+
+    def training_f32(shape, timed: bool):
+        """The fp32 LSE forward and backward kernels against fp32 plain (TF32
+        off), bit-equal run to run, each bound rejecting its planted faults;
+        with ``timed``, their times in turns beside plain, the bounds and SDPA
+        at fp32."""
+        b, n, c = shape
+        torch.backends.cuda.matmul.allow_tf32 = False
+        q, k, v, do = (torch.randn(shape, generator=gen, device=DEVICE) for _ in range(4))
+        scale = c ** -0.5
+        lines = []
+        o, lse = fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=torch.float32)
+        o2, lse2 = fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=torch.float32)
+        sync()
+        check(torch.equal(o, o2) and torch.equal(lse, lse2),
+              f"the fp32 LSE forward is not bit-equal run to run at {shape}")
+        del o2, lse2
+        po, plse = fa.flash_attention_fwd_lse_reference(q, k, v, scale, torch.float32)
+        row_max = (torch.matmul(q, k.transpose(1, 2)) * scale).amax(dim=-1)
+        dropped = fa.flash_attention_reference(q, k[:, :-FAULT_TILE].contiguous(),
+                                               v[:, :-FAULT_TILE].contiguous(), scale,
+                                               torch.float32)
+        held(lines, shape, "flash_attention_fwd_lse_f32", "lse", rel_errors(lse, plse),
+             {"m in place of lse": rel_errors(row_max, plse)}, LSE_MAX_REL, LSE_MAX_REL)
+        held(lines, shape, "flash_attention_fwd_lse_f32", "o", rel_errors(o, po),
+             {"a key tile left out": rel_errors(dropped, po)}, math.inf, FLASH_F32_REL_L2)
+        del po, plse, dropped
+        delta = (do * o).sum(-1)
+        held_backward(lines, shape, q, k, v, do, lse, delta, scale,
+                      row_max if shape in BWD_SHAPES else None)
+        del row_max
+        release()
+        log(f"[flash-bwd] {shape} fp32 (TF32 off), a cluster of {fa.bwd_cluster_size(c)}: "
+            + "; ".join(lines))
+        if timed:
+            times = {
+                "flash_attention_fwd_lse_f32": timed_pair(
+                    lambda: fa.flash_attention_fwd_lse(q, k, v, scale=scale,
+                                                       out_dtype=torch.float32),
+                    lambda: fa.flash_attention_fwd_lse_reference(q, k, v, scale, torch.float32),
+                    BWD_ITERS),
+                "flash_attention_bwd_dkv_f32": timed_pair(
+                    lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=scale),
+                    lambda: fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale),
+                    BWD_ITERS),
+                "flash_attention_bwd_dq_f32": timed_pair(
+                    lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale),
+                    lambda: fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, scale),
+                    BWD_ITERS),
+            }
+            backend, lib = sdpa_f32_times(q, k, v, do, scale, BWD_ITERS)
+            bounds = flash_bounds(b, n, c)
+            # the 3xTF32 bounds a tensor-core backward would have, beside the
+            # FFMA kernels' own
+            tf32 = {name: roofline(3 * f * b * n * n * c, 0, PEAK_TF32_FLOPS)[0] for name, f in
+                    (("flash_attention_bwd_dkv_f32", 8), ("flash_attention_bwd_dq_f32", 6))}
+            both = "flash_attention_bwd_dkv_f32 + flash_attention_bwd_dq_f32"
+            library = {"flash_attention_fwd_lse_f32": (lib["fwd_grad"],
+                                                       "flash_attention_fwd_lse_f32"),
+                       "flash_attention_bwd_dkv_f32": (lib["bwd"], both),
+                       "flash_attention_bwd_dq_f32": (lib["bwd"], both)}
+            if shape == BWD_SHAPES[0]:
+                for name in names_f32:
+                    results[name].update(shape=list(shape), ms=times[name][0],
+                                         plain_ms=times[name][1], bound_ms=bounds[name][0],
+                                         bound_by=bounds[name][1], library_ms=library[name][0],
+                                         library_covers=f"scaled_dot_product_attention fp32 "
+                                                        f"({backend}): {library[name][1]}")
+            log(f"[flash-bwd] {shape} fp32 ms kernel/plain/bound (CUDA events, {BWD_ITERS} "
+                "calls, in turns; the LSE forward's bound 3xTF32 at 495 TFLOP/s, the "
+                "backward's FFMA at 67): " + ", ".join(
+                    f"{name} {times[name][0]:.4f}/{times[name][1]:.4f}/{bounds[name][0]:.4f} "
+                    f"({100 * bounds[name][0] / times[name][0]:.1f}% of bound"
+                    + (f"; 3xTF32 bound {tf32[name]:.4f}" if name in tf32 else "") + ")"
+                    for name in names_f32)
+                + f"; SDPA fp32 ({backend}) forward for backward {lib['fwd_grad']:.4f}, backward "
+                f"{lib['bwd']:.4f}; kernels forward+backward "
+                f"{sum(times[name][0] for name in names_f32):.4f}")
+        del q, k, v, do, o, lse, delta
+        release()
 
     bwd_ms = {}
     for shape in BWD_SHAPES:
@@ -1082,6 +1279,7 @@ def phase_flash_bwd():
             f"{times[names[1]][0] + times[names[2]][0]:.4f}")
         del q, k, v, do, o, lse, delta
         release()
+        training_f32(shape, timed=True)
 
     # clusters of one and of three CTAs; then the exchange's price: C = 128
     # at the main shape's N is the same work a CTA as C = 512's, with no
@@ -1112,6 +1310,27 @@ def phase_flash_bwd():
         log(f"[flash-bwd] {shape} bf16, a cluster of {fa.bwd_cluster_size(c)}: " + "; ".join(lines))
         del q, k, v, do, o, lse, delta
         release()
+        if shape in BWD_SMALL_SHAPES:
+            training_f32(shape, timed=False)
+        else:
+            # the fp32 backward's exchange, priced the same way
+            q, k, v, do = (torch.randn(shape, generator=gen, device=DEVICE) for _ in range(4))
+            o, lse = fa.flash_attention_fwd_lse_reference(q, k, v, scale, torch.float32)
+            delta = (do * o).sum(-1)
+            dkv = cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                             scale=scale), BWD_ITERS)
+            dq = cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale),
+                         BWD_ITERS)
+            main = {name: results[name]["ms"] for name in names_f32[1:]}
+            ranks = fa.bwd_cluster_size(BWD_SHAPES[0][2])
+            log(f"[flash-bwd] {shape} fp32, a cluster of 1: dK/dV {dkv:.4f} ms, dQ {dq:.4f} ms "
+                f"(x {ranks} = {ranks * dkv:.4f} and {ranks * dq:.4f} against {BWD_SHAPES[0]}'s "
+                f"{main['flash_attention_bwd_dkv_f32']:.4f} and "
+                f"{main['flash_attention_bwd_dq_f32']:.4f}: the exchange "
+                f"{100 * (1 - ranks * dkv / main['flash_attention_bwd_dkv_f32']):.1f}% and "
+                f"{100 * (1 - ranks * dq / main['flash_attention_bwd_dq_f32']):.1f}% of the call)")
+            del q, k, v, do, o, lse, delta
+            release()
     phase_attention_block()
     return results
 
@@ -1164,9 +1383,8 @@ def phase_attention_block():
     counts = {k: fa.launches[k] - before[k] for k in fa.launches}
     naive = run("naive", torch.bfloat16)
     fp32 = run("naive", torch.float32)
-    check(counts == {"flash_attention_fwd": 0, "flash_attention_fwd_f32": 0,
-                     "flash_attention_fwd_lse": 1, "flash_attention_bwd_dkv": 1,
-                     "flash_attention_bwd_dq": 1},
+    check(counts == {name: int(name in ("flash_attention_fwd_lse", "flash_attention_bwd_dkv",
+                                        "flash_attention_bwd_dq")) for name in fa.KERNELS},
           f"the AttentionBlock's flash step launched {counts}")
     rows = []
     for name in flash:
@@ -1560,6 +1778,13 @@ def phase_gn_kernels():
         # between the kernels, so each forward kernel shows the forward's time
         # and each backward kernel the backward's
         lib_fwd, lib_bwd = library_group_norm(x, g, scale, bias)
+        # kernel #3, the normalize with the |z| tap: its own bound (#2's
+        # bytes and the (B, C) sums written; 10 operations an element with
+        # the tap's abs and add) and library chain (F.group_norm, the tap's
+        # per-channel sum of |z|, F.silu)
+        elem, bc = x.numel(), shape[0] * shape[1] * 4
+        stats_bound = roofline(10 * elem, 2 * elem * x.element_size() + 3 * bc, PEAK_FP32_FLOPS)
+        stats_lib = library_group_norm_tap(x, scale, bias)
         if shape == GN_ROW_SHAPE:
             for name, (ms, plain_ms) in times.items():
                 bound_ms, bound_by = gn_bound(name, shape, x.element_size())
@@ -1585,7 +1810,9 @@ def phase_gn_kernels():
         log(f"[gn] {shape} bf16: " + "; ".join(lines))
         log(f"[gn] {shape} ms kernel/plain (CUDA events, {GN_ITERS} calls, in turns): "
             + ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f}" for k, v in times.items())
-            + f", gn_fwd_normalize with the tap {stats_ms[0]:.4f}/{stats_ms[1]:.4f}; "
+            + f", gn_fwd_normalize with the tap (#3) {stats_ms[0]:.4f}/{stats_ms[1]:.4f} (bound "
+            f"{stats_bound[0]:.4f}, {stats_bound[1]}; F.group_norm + |z| sum + F.silu "
+            f"{stats_lib:.4f}); "
             f"op forward {fwd[0]:.4f}/{fwd[1]:.4f}, op backward {bwd[0]:.4f}/{bwd[1]:.4f}; "
             f"x is {bytes_x / 1e6:.1f} MB, so the reduce kernel reads at "
             f"{bytes_x / times['gn_fwd_reduce'][0] / 1e6:.0f} GB/s; bounds (gn_bound) "
@@ -1616,6 +1843,24 @@ def library_group_norm(x, g, scale, bias) -> tuple[float, float]:
     bwd_ms = cuda_ms(lambda: torch.autograd.grad(y, (xr, w, bb), g, retain_graph=True),
                      GN_ITERS)
     return fwd_ms, bwd_ms
+
+
+def library_group_norm_tap(x, scale, bias) -> float:
+    """CUDA-event ms of kernel #3's function from library calls: z =
+    ``F.group_norm(x)``, the per-channel sum of |z| in fp32 and
+    ``F.silu(z)``, in x's dtype (the yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+
+    w, bb = scale.to(x.dtype), bias.to(x.dtype)
+
+    def fwd():
+        with torch.no_grad():
+            z = F.group_norm(x, GN_GROUPS, w, bb, GN_EPS)
+            z.abs().sum(dim=(2, 3), dtype=torch.float32)
+            F.silu(z)
+
+    return cuda_ms(fwd, GN_ITERS)
 
 
 def _fused_fwd_unmasked(x, a, o, w, bias, residual):
@@ -2626,7 +2871,7 @@ def phase_trainer_1024(tmp: str):
         package_logger.setLevel(level)
 
     per_step = {k: v / TRAINER_STEPS for k, v in launches.items()}
-    want = {"flash_attention_fwd": 0, "flash_attention_fwd_f32": 0,
+    want = {**dict.fromkeys(fa.KERNELS, 0),
             "flash_attention_fwd_lse": SDXL_ATTENTIONS,
             "flash_attention_bwd_dkv": SDXL_ATTENTIONS, "flash_attention_bwd_dq": SDXL_ATTENTIONS,
             "gn_fwd_reduce": SDXL_NORMS + SDXL_RESNET_NORMS,
@@ -2704,6 +2949,74 @@ def phase_trainer_1024(tmp: str):
     return {"launches": launches, "model_dir": model_dir}
 
 
+def phase_trainer_1024_f32(tmp: str, model_dir: str) -> dict:
+    """fp32 training through flash on the card: the 1024px Trainer config at
+    ``mixed_precision: no`` with ``attention_impl: flash``, ``kernel_impl:
+    pallas`` and its ``remat: full``, TRAINER_F32_STEPS steps through
+    ``train.main`` from the planted model dir. Each step launches the three
+    fp32 flash kernels as often as the bf16 run launches their bf16 twins,
+    no bf16 flash kernel, and the GroupNorm kernels as the bf16 run does;
+    its losses are finite."""
+    import logging
+
+    import yaml
+
+    from vae_channel_dynamics_tpu_torch import train as train_cli
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+    from vae_channel_dynamics_tpu_torch.ops import group_norm_kernel as gnk
+    from vae_channel_dynamics_tpu_torch.utils.config_utils import load_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, TRAINER_CONFIG))
+    cfg["model"].update(attention_impl="flash", kernel_impl="pallas",
+                        pretrained_vae_name=model_dir)
+    cfg["training"].update(mixed_precision="no", stop_after_steps=TRAINER_F32_STEPS)
+    cfg["saving"]["save_interval_steps"] = 10 * TRAINER_F32_STEPS
+    cfg["logging"]["log_interval"] = 1
+    cfg["output_dir"] = os.path.join(tmp, "fp32")
+    cfg_path = os.path.join(tmp, "fp32.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    package_logger = logging.getLogger("vae_channel_dynamics_tpu_torch")
+    level = package_logger.level
+    package_logger.setLevel(logging.WARNING)
+    try:
+        # ---- the main path of the fp32 kernels: counts reset, the run, counts read ----
+        sync()
+        reset_peak()
+        for counts in (fa.launches, gnk.launches):
+            for name in counts:
+                counts[name] = 0
+        t0 = time.perf_counter()
+        check(train_cli.main(["--config_path", cfg_path, "--device", DEVICE]) == 0,
+              "the fp32 flash Trainer run failed")
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {**fa.launches, **gnk.launches}
+        peak = peak_gb()
+    finally:
+        package_logger.setLevel(level)
+    per_step = {k: v / TRAINER_F32_STEPS for k, v in launches.items()}
+    want = {**dict.fromkeys(fa.KERNELS, 0), **dict.fromkeys(F32_NOTES, SDXL_ATTENTIONS),
+            "gn_fwd_reduce": SDXL_NORMS + SDXL_RESNET_NORMS,
+            "gn_fwd_normalize": SDXL_NORMS + SDXL_RESNET_NORMS,
+            "gn_bwd_reduce": SDXL_NORMS, "gn_bwd_dx": SDXL_NORMS}
+    check(per_step == want, f"fp32 launches per step {per_step}, want {want}")
+    with open(os.path.join(cfg["output_dir"], cfg["run_name"], "metrics.jsonl")) as f:
+        steps = {r["step"]: r for r in map(json.loads, f) if "train_loss_step" in r}
+    check(sorted(steps) == list(range(1, TRAINER_F32_STEPS + 1)), f"fp32 steps {sorted(steps)}")
+    losses = [steps[s]["train_loss_step"] for s in sorted(steps)]
+    check(all(math.isfinite(x) for x in losses), f"fp32 losses {losses}")
+    log(f"[trainer-fp32] {TRAINER_CONFIG} at mixed_precision no, attention_impl flash, "
+        f"kernel_impl pallas, remat {cfg['model']['remat']}: {TRAINER_F32_STEPS} steps through "
+        f"train.main in {wall:.1f} s (model load and final model included), losses {losses}, "
+        f"grad_norm {[steps[s]['grad_norm'] for s in sorted(steps)]}; launches {launches}; "
+        f"peak device memory {peak:.2f} GB")
+    shutil.rmtree(cfg["output_dir"], ignore_errors=True)
+    release()
+    return {"launches": launches}
+
+
 def phase_flash_step_1024(model_dir: str):
     """One 1024px step with flash attention against one with naive, from the
     same weights, batch and noise (remat none), held to naive bf16 against
@@ -2714,6 +3027,7 @@ def phase_flash_step_1024(model_dir: str):
 
     from vae_channel_dynamics_tpu_torch.models import AutoencoderKL
     from vae_channel_dynamics_tpu_torch.models import io as model_io
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
     from vae_channel_dynamics_tpu_torch.training import TrainState, build_optimizer
     from vae_channel_dynamics_tpu_torch.training import make_train_step
 
@@ -2748,6 +3062,7 @@ def phase_flash_step_1024(model_dir: str):
             return False
 
     def one_step(impl, dtype):
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
         set_attention(model, impl).set_compute_dtype(dtype)
         tx = GradCapture()
         step = make_train_step(model, tx, TRAIN_KL)
@@ -2761,6 +3076,9 @@ def phase_flash_step_1024(model_dir: str):
     runs = {"flash bf16": one_step("flash", torch.bfloat16),
             "naive bf16": one_step("naive", torch.bfloat16),
             "naive fp32": one_step("naive", torch.float32)}
+    before = dict(fa.launches)
+    runs["flash fp32"] = one_step("flash", torch.float32)
+    f32_counts = {name: fa.launches[name] - before[name] for name in fa.KERNELS}
     f, n, c = runs["flash bf16"], runs["naive bf16"], runs["naive fp32"]
 
     def rel(a, b):
@@ -2780,7 +3098,20 @@ def phase_flash_step_1024(model_dir: str):
         f"control + floor: " + "; ".join(rows))
     log(f"[flash-step] loss flash {f['loss']:.6g}, naive {n['loss']:.6g}, fp32 {c['loss']:.6g}; "
         f"grad_norm {f['grad_norm']:.6g}, {n['grad_norm']:.6g}, {c['grad_norm']:.6g}")
-    del runs, f, n, c
+    # fp32 training through flash: the fp32 kernels, against naive fp32
+    f32 = runs["flash fp32"]
+    check(f32_counts == {name: SDXL_ATTENTIONS * (name in F32_NOTES) for name in fa.KERNELS},
+          f"the fp32 flash step launched {f32_counts}")
+    rows = []
+    for key in ["loss", "grad_norm", *names]:
+        d = rel(f32[key], c[key])
+        rows.append(f"{key} {d:.3g}")
+        check(d <= STEP_F32_REL, f"1024px fp32 step {key}: flash is {d} from naive (bound "
+                                 f"{STEP_F32_REL})")
+    log(f"[flash-step] 1024px step, flash fp32 vs naive fp32 (TF32 off), relative (rel L2 for "
+        f"the attention gradients), bound {STEP_F32_REL}; launches {f32_counts}: "
+        + "; ".join(rows))
+    del runs, f, n, c, f32
 
     # timed steps with AdamW from the same weights, in turns
     set_attention(model, "flash").set_compute_dtype(torch.bfloat16)
@@ -2790,14 +3121,17 @@ def phase_flash_step_1024(model_dir: str):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
     peaks = {}
 
-    # the paths: attention impl and remat; "flash+remat" is the Trainer
-    # slice's step, here without the Trainer around it
-    paths = {"naive": ("naive", "none"), "flash": ("flash", "none"),
-             "flash+remat": ("flash", "full")}
+    # the paths: attention impl, remat and compute dtype; "flash+remat" is
+    # the Trainer slice's step, here without the Trainer around it
+    bf16, fp32 = torch.bfloat16, torch.float32
+    paths = {"naive": ("naive", "none", bf16), "flash": ("flash", "none", bf16),
+             "flash+remat": ("flash", "full", bf16),
+             "naive fp32": ("naive", "none", fp32), "naive fp32+remat": ("naive", "full", fp32),
+             "flash fp32": ("flash", "none", fp32), "flash fp32+remat": ("flash", "full", fp32)}
 
     def block(path, steps):
-        impl, remat = paths[path]
-        set_attention(model, impl).set_remat(remat)
+        impl, remat, dtype = paths[path]
+        set_attention(model, impl).set_remat(remat).set_compute_dtype(dtype)
         sync()
         reset_peak()
         t0 = time.perf_counter()
@@ -2810,7 +3144,9 @@ def phase_flash_step_1024(model_dir: str):
     for path in paths:  # warm-up of every path's allocations
         block(path, 1)
     peaks.clear()
-    order = ("naive", "flash", "flash+remat", "flash+remat", "flash", "naive")
+    order = ("naive", "flash", "flash+remat", "flash+remat", "flash", "naive",
+             "naive fp32", "flash fp32", "naive fp32+remat", "flash fp32+remat",
+             "flash fp32+remat", "naive fp32+remat", "flash fp32", "naive fp32")
     times = {}
     for path in order:
         times.setdefault(path, []).append(block(path, FLASH_TIMED_STEPS))
@@ -2820,7 +3156,7 @@ def phase_flash_step_1024(model_dir: str):
             f"({2e3 / sum(t):.4f} img/s), peak device memory {peaks[path]:.2f} GB"
             for path, t in times.items()))
 
-    set_attention(model, "flash").set_remat("none")
+    set_attention(model, "flash").set_remat("none").set_compute_dtype(bf16)
     step(state, {"pixel_values": batches[0]}, mask, gen)
     sync()
     from torch.profiler import ProfilerActivity, profile
@@ -3246,9 +3582,9 @@ def _audit_want(kind: str, precision: str, kernel: str, attention: str, fused: i
     forwards = AUDIT_STEPS if train else AUDIT_EVAL_IMAGES // AUDIT_BATCH
     if attention == "flash":
         names = (("flash_attention_fwd_lse", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
-                 if train else ("flash_attention_fwd" if precision == "bf16"
-                                else "flash_attention_fwd_f32",))
-        want.update({name: SDXL_ATTENTIONS * forwards for name in names})
+                 if train else ("flash_attention_fwd",))
+        suffix = "" if precision == "bf16" else "_f32"
+        want.update({name + suffix: SDXL_ATTENTIONS * forwards for name in names})
     if kernel == "pallas":
         names = gnk.KERNELS if train else ("gn_fwd_reduce", "gn_fwd_normalize")
         want.update({name: SDXL_NORMS * forwards for name in names})
@@ -3263,8 +3599,7 @@ def _audit_want(kind: str, precision: str, kernel: str, attention: str, fused: i
 def phase_cli_audit(tmp: str, model_dir: str) -> None:
     """The card audit of the CLIs' impl matrix (see AUDIT_*): each cell
     through ``train.main`` or ``evaluate.main``, finite, within its bound of
-    the control, launching exactly the kernels its impls name; fp32
-    training with explicit flash refused, naming its ROADMAP item."""
+    the control, launching exactly the kernels its impls name."""
     import logging
 
     import torch
@@ -3279,7 +3614,7 @@ def phase_cli_audit(tmp: str, model_dir: str) -> None:
 
     counters = {"flash": fa.launches, "gn": gnk.launches, "fused": fr.launches,
                 "blocks": tvae.fused_blocks}
-    results, refused, rows = {}, [], []
+    results, rows = {}, []
     package_logger = logging.getLogger("vae_channel_dynamics_tpu_torch")
     level = package_logger.level
     saved_tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -3321,24 +3656,13 @@ def phase_cli_audit(tmp: str, model_dir: str) -> None:
                 for name in counts:
                     counts[name] = 0
             t0 = time.perf_counter()
-            try:
-                if kind == "train":
-                    rc = train_cli.main(["--config_path", cfg_path, "--device", DEVICE])
-                else:
-                    rc = evaluate.main(["--config_path", cfg_path, "--checkpoint_path",
-                                        model_dir, "--output_dir", out_dir, "--eval_split",
-                                        "test", "--enable_logit_lens", "false",
-                                        "--num_samples_to_save", "0", "--device", DEVICE])
-            except NotImplementedError as e:
-                check(kind == "train" and precision == "no" and attention == "flash"
-                      and AUDIT_REFUSAL in str(e), f"{tag} refused: {e}")
-                check(not any(fa.launches.values()),
-                      f"{tag} launched flash kernels before its refusal: {dict(fa.launches)}")
-                refused.append(tag)
-                rows.append(f"[audit] {tag}: refused in {time.perf_counter() - t0:.2f} s "
-                            f"({type(e).__name__}: {e})")
-                shutil.rmtree(out_dir, ignore_errors=True)
-                continue
+            if kind == "train":
+                rc = train_cli.main(["--config_path", cfg_path, "--device", DEVICE])
+            else:
+                rc = evaluate.main(["--config_path", cfg_path, "--checkpoint_path",
+                                    model_dir, "--output_dir", out_dir, "--eval_split",
+                                    "test", "--enable_logit_lens", "false",
+                                    "--num_samples_to_save", "0", "--device", DEVICE])
             sync()
             wall = time.perf_counter() - t0
             check(rc == 0, f"{tag}: the CLI returned {rc}")
@@ -3373,8 +3697,7 @@ def phase_cli_audit(tmp: str, model_dir: str) -> None:
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved_tf32
         package_logger.setLevel(level)
-    want_refused = [f"train_no_{k}_flash" for k in AUDIT_TRAIN_KERNELS]
-    check(refused == want_refused, f"refused {refused}, want {want_refused}")
+    check(len(results) == len(cells), f"{len(results)} of {len(cells)} cells ran")
 
     # each cell against its precision's control: naive attention, plain GroupNorm
     worst = {}
@@ -3397,7 +3720,7 @@ def phase_cli_audit(tmp: str, model_dir: str) -> None:
         rows.append(f"[audit] {'_'.join(cell)} vs control: " + ", ".join(diffs))
     for row in rows:
         log(row)
-    log(f"[audit] {len(results)} cells ran, {len(refused)} refused as expected ({refused}); "
+    log(f"[audit] {len(results)} cells ran, none refused; "
         "worst share of its bound by kind and precision: "
         + ", ".join(f"{k} {p} {v:.3g}" for (k, p), v in worst.items())
         + f"; the phase took {time.perf_counter() - t_phase:.1f} s")
@@ -3469,6 +3792,7 @@ def main() -> int:
         release()
         with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
             trainer = phase_trainer_1024(tmp)
+            trainer_f32 = phase_trainer_1024_f32(tmp, trainer["model_dir"])
             phase_flash_step_1024(trainer["model_dir"])
         check("jax" not in sys.modules, "jax was imported")
     except Exception as e:  # noqa: BLE001 — every phase failure fails the run
@@ -3493,6 +3817,7 @@ def main() -> int:
     rows = {"flash_attention_fwd": serving, "flash_attention_fwd_f32": f32_result,
             **flash_results, **gn_results, **fused_results, "conv3x3_nhwc": conv_result}
     launches = dict(trainer["launches"], flash_attention_fwd=serve_launches,
+                    **{k: trainer_f32["launches"][k] for k in F32_NOTES},
                     flash_attention_fwd_f32=f32_result["launches"],
                     conv3x3_nhwc=conv_result["launches"],
                     **{k: fused_trainer["launches"][k] for k in FUSED_REPLACES})
@@ -3516,6 +3841,7 @@ def main() -> int:
         "library_covers": r["library_covers"],
         "shape": r["shape"],
         **({"note": REDESIGNED[kname]} if kname in REDESIGNED else {}),
+        **({"note": F32_NOTES[kname]} if kname in F32_NOTES else {}),
     } for kname, r in rows.items()]
     log(f"[total] every phase in {time.perf_counter() - t_start:.1f} s, the kernels' build "
         "included")

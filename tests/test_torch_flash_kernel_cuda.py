@@ -35,6 +35,13 @@ N = 16384; leaving one rank's 128-channel partial out of the logits' sums
 (the backward kernels split the channels over a thread-block cluster of
 C / 128 CTAs) costs far more. The fp32 lse is held to 1e-5 of max|plain|:
 the kernel sums its denominator in another order.
+
+fp32 training runs the fp32 forward with its lse and the fp32 backward
+(plain fp32 FMAs on the same cluster split), P and dS kept in fp32: o, dQ,
+dK and dV are held to relative L2 1e-5 of the plain version (TF32 off),
+about 1e-6 from sums in another order; each bound rejects one tile left
+out, the cluster's last rank left out of the logits' sums, and the plain
+version with TF32 on (one TF32 product, about 1e-3). Mixed dtypes raise.
 """
 
 import ctypes
@@ -54,6 +61,8 @@ GRAD_MAX_REL = 2.0 ** -6
 LSE_MAX_REL = 1e-5
 KERNELS_TRAINING = ("flash_attention_fwd_lse", "flash_attention_bwd_dkv",
                     "flash_attention_bwd_dq")
+KERNELS_TRAINING_F32 = tuple(f"{name}_f32" for name in KERNELS_TRAINING)
+F32_REL_L2 = 1e-5
 
 
 @pytest.fixture
@@ -340,27 +349,131 @@ def test_fp32_kernel_handles_large_logits(cuda):
 
 
 def test_fp32_input_raises(cuda):
-    """fp32 runs the serving forward only: the training kernels (LSE forward,
-    backward) and mixed dtypes raise."""
+    """Mixed dtypes raise at every entry: fp32 q/k/v with a bf16 output, bf16
+    q/k/v with an fp32 one, and a backward whose dO is not q's dtype."""
     q, k, v = _qkv((1, 128, 128), cuda, dtype=torch.float32)
+    lse = torch.zeros((1, 128), device=cuda)
     before = dict(fa.launches)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fa.flash_attention(*(t.requires_grad_(True) for t in (q, k, v)), scale=1.0,
-                           out_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fa.flash_attention_fwd(q.detach(), k.detach(), v.detach(), scale=1.0,
-                               out_dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="all bf16 or all fp32"):
+        fa.flash_attention_fwd(q, k, v, scale=1.0, out_dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="all bf16 or all fp32"):
+        fa.flash_attention_fwd_lse(q.bfloat16(), k.bfloat16(), v.bfloat16(), scale=1.0,
+                                   out_dtype=torch.float32)
+    for entry in (fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq):
+        with pytest.raises(NotImplementedError, match="all bf16 or all fp32"):
+            entry(q, k, v, q.bfloat16(), lse, lse, scale=1.0)
     assert fa.launches == before
 
 
-def test_fp32_training_refusal_names_its_roadmap_item(cuda):
-    """fp32 training through flash waits for the ROADMAP item named by its
-    title, which a renumbering of the queue leaves true."""
-    q, k, v = _qkv((1, 128, 128), cuda, dtype=torch.float32)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Q2, The flash training kernels at fp32"):
-        fa.flash_attention(*(t.requires_grad_(True) for t in (q, k, v)), scale=1.0,
-                           out_dtype=torch.float32)
+def _f32_training(q, k, v, do, scale):
+    """o, lse, delta and (dq, dk, dv) from the fp32 kernels."""
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=torch.float32)
+    delta = (do * o).sum(-1)
+    return o, lse, delta, _bwd(q, k, v, do, lse, delta, scale)
+
+
+@pytest.mark.parametrize("shape", [(1, 128, 128), (3, 256, 256), (2, 384, 384), (1, 1024, 512),
+                                   (4, 4096, 512)])
+def test_fp32_training_kernels_match_plain(cuda, shape):
+    """The fp32 LSE forward and backward against their plain versions (TF32
+    off), each bound rejecting a planted fault: one 32-query tile out of
+    dK/dV, one 32-key tile out of dQ, the last rank out of the logits' sums,
+    and one TF32 product (the plain version with TF32 on)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = _qkv(shape, cuda, seed=sum(shape) + 3, dtype=torch.float32, n=4)
+    scale = shape[-1] ** -0.5
+    before = dict(fa.launches)
+    o, lse, delta, grads = _f32_training(q, k, v, do, scale)
+    torch.cuda.synchronize()
+    assert {n: fa.launches[n] - before[n] for n in fa.launches} == {
+        n: int(n in KERNELS_TRAINING_F32) for n in fa.launches}
+    po, plse = fa.flash_attention_fwd_lse_reference(q, k, v, scale, torch.float32)
+    assert o.dtype == torch.float32 and _rel(o, po)[1] <= F32_REL_L2
+    assert _rel(lse, plse)[0] <= LSE_MAX_REL
+    refs = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.dtype == torch.float32 and g.shape == q.shape
+        assert _rel(g, r)[1] <= F32_REL_L2, (name, _rel(g, r))
+    _, fk, fv = fa.flash_attention_bwd_reference(
+        q[:, 32:], k, v, do[:, 32:], lse[:, 32:], delta[:, 32:], scale)
+    fq = fa.flash_attention_bwd_dq_reference(q, k[:, 32:], v[:, 32:], do, lse, delta, scale)
+    faults = [(fq, refs[0]), (fk, refs[1]), (fv, refs[2])]
+    faults += zip(bwd_rank_left_out(q, k, v, do, lse, delta, scale,
+                                    fa.bwd_cluster_size(shape[2]) - 1), refs)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        faults += zip(fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale), refs)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for f, r in faults:
+        assert _rel(f, r)[1] > F32_REL_L2
+
+
+@pytest.mark.parametrize("c", fa.SUPPORTED_CHANNELS)
+def test_fp32_training_kernels_are_deterministic(cuda, c):
+    """Every width (clusters of one to four CTAs), two runs bit-equal."""
+    q, k, v, do = _qkv((2, 1024, c), cuda, seed=c + 1, dtype=torch.float32, n=4)
+    first = _f32_training(q, k, v, do, c ** -0.5)
+    second = _f32_training(q, k, v, do, c ** -0.5)
+    assert all(torch.equal(a, b) for a, b in zip(first[:3], second[:3]))
+    assert all(torch.equal(a, b) for a, b in zip(first[3], second[3]))
+
+
+def test_fp32_training_handles_large_logits(cuda):
+    """Logits of several hundred (q and k times 8, scale 1): lse and the
+    gradients stay finite and near plain; exp turns the logits' rounding
+    into relative error, so 1e-4 here, as the fp32 forward's own test."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = _qkv((2, 256, 128), cuda, seed=1, dtype=torch.float32, n=4)
+    q, k = q * 8, k * 8
+    o, lse, delta, grads = _f32_training(q, k, v, do, 1.0)
+    refs = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, 1.0)
+    assert torch.isfinite(lse).all()
+    for g, r in zip(grads, refs):
+        assert torch.isfinite(g).all() and _rel(g, r)[1] <= 1e-4
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 128), (1, 4096, 512)])
+def test_fp32_autograd_function_matches_plain_autograd(cuda, shape):
+    """Gradients through flash_attention at fp32 (the three fp32 kernels)
+    against autograd of the plain forward, TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, g = _qkv(shape, cuda, seed=12, dtype=torch.float32, n=4)
+    scale = shape[-1] ** -0.5
+
+    def grads(fn):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves)
+        return (out.detach(), *torch.autograd.grad(out, leaves, g))
+
+    before = dict(fa.launches)
+    got = grads(lambda a, b, c: fa.flash_attention(a, b, c, scale=scale,
+                                                   out_dtype=torch.float32))
+    torch.cuda.synchronize()
+    assert {n: fa.launches[n] - before[n] for n in fa.launches} == {
+        n: int(n in KERNELS_TRAINING_F32) for n in fa.launches}
+    want = grads(lambda a, b, c: fa.flash_attention_reference(a, b, c, scale, torch.float32))
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        assert _rel(a, b)[1] <= F32_REL_L2, (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("b, n, c", [(1, 128, 640), (1, 128, 96), (1, 100, 128),
+                                     (1, 64, 128), (0, 128, 128), (70000, 128, 128)])
+def test_fp32_backward_entries_refuse_other_shapes(cuda, b, n, c):
+    """The fp32 backward's C entries return cudaErrorInvalidValue (1) for a
+    width, token count or batch they do not take."""
+    fa.build_backward_f32()
+    lib = _cuda_build.load(fa.BWD_F32_LIBRARY)
+    x = torch.zeros(4096, device=cuda)
+    ptr = ctypes.c_void_p(x.data_ptr())
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    dkv = lib.vcd_flash_attention_bwd_dkv_f32
+    dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    dq = lib.vcd_flash_attention_bwd_dq_f32
+    dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    assert dkv(*[ptr] * 8, b, n, c, 1.0, stream) == 1
+    assert dq(*[ptr] * 7, b, n, c, 1.0, stream) == 1
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("shape", [(1, 100, 128), (1, 128, 640), (1, 128, 96)])

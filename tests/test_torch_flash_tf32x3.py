@@ -124,6 +124,17 @@ def emulated_flash_f32(q, k, v, scale: float, terms: int = 3,
     return o / l
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The accumulator model runs thousands of small ops: on one intra-op
+    thread they do not contend with the other test workers' threads (the
+    long accumulation took over 500 s of a Tier-1 run multithreaded)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(shape, seed):
     rng = np.random.default_rng(seed)
     return tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))

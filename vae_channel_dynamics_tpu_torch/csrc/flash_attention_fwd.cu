@@ -70,9 +70,11 @@
 // index a mask). Shared memory at C = 512: 64 KB (Q) + 8 stages x 16 KB,
 // 197,768 bytes with the barriers and the alignment.
 //
-// The fp32 serving forward (flash_fwd_f32_kernel, no LSE) replaces the same
-// TPU kernel run in fp32 at Precision.HIGHEST: fp32 q/k/v in, fp32 out, P kept
-// in fp32 before the P V product. TF32 keeps 10 mantissa bits, too few alone,
+// The fp32 forward (flash_fwd_f32_kernel) replaces the same TPU kernel run
+// in fp32 at Precision.HIGHEST, serving and training alike: fp32 q/k/v in,
+// fp32 out, P kept in fp32 before the P V product, and the same null-or-not
+// lse pointer as the bf16 kernel's (lse = m + log(l), m and l in natural
+// units here: fp32 training's LSE forward, one store a row). TF32 keeps 10 mantissa bits, too few alone,
 // so every product is three TF32 products (3xTF32): each fp32 operand x is
 // split into hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest by
 // cvt.rna, and x y is taken as hi hi + hi lo + lo hi on wgmma with fp32
@@ -523,14 +525,15 @@ __device__ __forceinline__ float4 tf32_lo(float4 x, float4 hi) {
                      to_tf32(x.w - hi.w));
 }
 
-// O (B, N, C) fp32 = softmax(Q K^T * scale) V over fp32 q, k, v (B, N, C).
-// Grid (N / 64, B); two warpgroups, thread 0 also the producer.
+// O (B, N, C) fp32 = softmax(Q K^T * scale) V over fp32 q, k, v (B, N, C),
+// and with lse non-null the fp32 (B, N) lse = m + log(l). Grid (N / 64, B);
+// two warpgroups, thread 0 also the producer.
 template <int C>
 __global__ void __launch_bounds__(F32_THREADS, 1)
     flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap kmap,
-                         const __grid_constant__ CUtensorMap vmap, float* __restrict__ o, int n,
-                         float scale) {
+                         const __grid_constant__ CUtensorMap vmap, float* __restrict__ o,
+                         float* __restrict__ lse, int n, float scale) {
   using U = F32Units<C>;
   constexpr int H = U::H, OC = U::OC;
   extern __shared__ uint8_t smem_raw[];
@@ -758,6 +761,11 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
+  // both warpgroups hold the same m and l: warpgroup 0 writes the rows' lse
+  if (lse != nullptr && g == 0 && tig == 0) {
+    lse[static_cast<size_t>(b) * n + q0 + row0] = m_run[0] + logf(l_run[0]);
+    lse[static_cast<size_t>(b) * n + q0 + row0 + 8] = m_run[1] + logf(l_run[1]);
+  }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     float* orow = o + (static_cast<size_t>(b) * n + q0 + row0 + 8 * half) * C + g * H;
@@ -770,8 +778,8 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
 }
 
 template <int C>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int b, int n,
-                       float scale, cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                       int n, float scale, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
   const uint64_t dims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(n),
                             static_cast<uint64_t>(b)};
@@ -787,7 +795,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
                              F32_SMEM);
   if (err != cudaSuccess) return err;
   flash_fwd_f32_kernel<C><<<dim3(n / F32_BQ, b), F32_THREADS, F32_SMEM, stream>>>(
-      qmap, kmap, vmap, static_cast<float*>(o), n, scale);
+      qmap, kmap, vmap, static_cast<float*>(o), lse, n, scale);
   return cudaGetLastError();
 }
 
@@ -801,6 +809,20 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
     case 256: return static_cast<int>(launch<256>(q, k, v, o, lse, b, n, scale, s));
     case 384: return static_cast<int>(launch<384>(q, k, v, o, lse, b, n, scale, s));
     case 512: return static_cast<int>(launch<512>(q, k, v, o, lse, b, n, scale, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The fp32 forward at width c.
+int dispatch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int b, int n,
+                 int c, float scale, void* stream) {
+  if (b < 1 || b > 65535 || n < BK || n % BK != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (c) {
+    case 128: return static_cast<int>(launch_f32<128>(q, k, v, o, lse, b, n, scale, s));
+    case 256: return static_cast<int>(launch_f32<256>(q, k, v, o, lse, b, n, scale, s));
+    case 384: return static_cast<int>(launch_f32<384>(q, k, v, o, lse, b, n, scale, s));
+    case 512: return static_cast<int>(launch_f32<512>(q, k, v, o, lse, b, n, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -826,15 +848,13 @@ int vcd_flash_attention_fwd_lse_bf16(const void* q, const void* k, const void* v
 // multiple of 64 and c one of 128, 256, 384, 512, as above.
 int vcd_flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, int b,
                                 int n, int c, float scale, void* stream) {
-  if (b < 1 || b > 65535 || n < BK || n % BK != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (c) {
-    case 128: return static_cast<int>(launch_f32<128>(q, k, v, o, b, n, scale, s));
-    case 256: return static_cast<int>(launch_f32<256>(q, k, v, o, b, n, scale, s));
-    case 384: return static_cast<int>(launch_f32<384>(q, k, v, o, b, n, scale, s));
-    case 512: return static_cast<int>(launch_f32<512>(q, k, v, o, b, n, scale, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch_f32(q, k, v, o, nullptr, b, n, c, scale, stream);
+}
+
+// The fp32 training variant: also writes lse, contiguous (b, n) fp32.
+int vcd_flash_attention_fwd_lse_f32(const void* q, const void* k, const void* v, void* o,
+                                    void* lse, int b, int n, int c, float scale, void* stream) {
+  return dispatch_f32(q, k, v, o, static_cast<float*>(lse), b, n, c, scale, stream);
 }
 
 const char* vcd_cuda_error_string(int err) {

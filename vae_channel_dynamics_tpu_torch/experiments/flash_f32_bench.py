@@ -1,0 +1,90 @@
+"""The fp32 flash kernels' times on the card, for a checkout.
+
+    python vae_channel_dynamics_tpu_torch/experiments/flash_f32_bench.py \\
+        [--root CHECKOUT] [--iters N]
+
+Times ``ops.flash_attention.flash_attention_fwd`` on fp32 q, k, v of
+(8, 4096, 512), the fp32 evaluation's shape (batch 8 at 512px), with CUDA
+events over ``--iters`` calls after one warm-up call, TF32 off; where the
+checkout has the fp32 training kernels, also the fp32 LSE forward, dK/dV
+and dQ at (1, 16384, 512), the 1024px mid block. It prints one JSON line:
+the checkout, ms per call of each, the card's name and nvidia-smi's name
+and power limit. ``--root`` imports the package of another checkout
+of this repository (an older commit unpacked beside this one), whose kernel
+library builds into that checkout's ``build/``: run two checkouts in turns
+(A, B, B, A) in one run on one card to compare them. Needs a GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+SHAPE = (8, 4096, 512)
+TRAIN_SHAPE = (1, 16384, 512)
+
+
+def main(argv=None) -> int:
+    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=here, help="the checkout whose package is timed")
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+
+    if not torch.cuda.is_available():
+        print("flash_f32_bench: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(SHAPE, generator=gen, device="cuda") for _ in range(3))
+    scale = SHAPE[-1] ** -0.5
+
+    def call():
+        return fa.flash_attention_fwd(q, k, v, scale=scale, out_dtype=torch.float32)
+
+    out = call()
+    ref = fa.flash_attention_reference(q, k, v, scale, torch.float32)
+    rel = ((out - ref).norm() / ref.norm()).item()
+
+    def cuda_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(args.iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / args.iters
+
+    times = {"flash_attention_fwd_f32": cuda_ms(call)}
+    if "flash_attention_bwd_dkv_f32" in fa.KERNELS:
+        q, k, v, do = (torch.randn(TRAIN_SHAPE, generator=gen, device="cuda") for _ in range(4))
+        scale = TRAIN_SHAPE[-1] ** -0.5
+        o, lse = fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=torch.float32)
+        delta = (do * o).sum(-1)
+        times["flash_attention_fwd_lse_f32"] = cuda_ms(
+            lambda: fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=torch.float32))
+        times["flash_attention_bwd_dkv_f32"] = cuda_ms(
+            lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=scale))
+        times["flash_attention_bwd_dq_f32"] = cuda_ms(
+            lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps({"root": root, "package": os.path.dirname(fa.__file__),
+                      "shape": list(SHAPE), "train_shape": list(TRAIN_SHAPE), "ms": times,
+                      "rel_l2_vs_plain": rel, "device": torch.cuda.get_device_name(0),
+                      "nvidia_smi": smi}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

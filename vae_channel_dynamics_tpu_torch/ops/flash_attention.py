@@ -5,56 +5,64 @@ Counterpart of ``vae_channel_dynamics_tpu/ops/pallas_attention.py``. Its
 Pallas kernels become CUDA C++ kernels for Hopper (``sm_90a``), built by
 ``nvcc`` at first use and called through ``ctypes`` (``ops/_cuda_build.py``):
 
-===========================  ==================================================
-CUDA kernel (count key)      replaces
-===========================  ==================================================
-``flash_attention_fwd``      ``_flash_kernel`` (:136) without the log-sum-exp:
-                             the serving forward (``csrc/flash_attention_fwd
-                             .cu``)
-``flash_attention_fwd_f32``  the same kernel run in fp32 at
-                             ``Precision.HIGHEST``: fp32 q/k/v and output, P
-                             kept in fp32, each product as three TF32
-                             products on ``wgmma`` (same file)
-``flash_attention_fwd_lse``  the same kernel with ``with_lse=True``
-                             (:177-178, :203-210): the training forward, which
-                             also writes the fp32 per-row ``m + log l``
-``flash_attention_bwd_dkv``  ``_flash_bwd_dkv_kernel`` (:304): dK, dV, keys
-                             outer, queries inner (``csrc/flash_attention_bwd
-                             .cu``), the channels split over a thread-block
-                             cluster
-``flash_attention_bwd_dq``   ``_flash_bwd_dq_kernel`` (:284): dQ, queries outer,
-                             keys inner, the same split
-===========================  ==================================================
+===============================  ==============================================
+CUDA kernel (count key)          replaces
+===============================  ==============================================
+``flash_attention_fwd``          ``_flash_kernel`` (:136) without the
+                                 log-sum-exp: the serving forward
+                                 (``csrc/flash_attention_fwd.cu``)
+``flash_attention_fwd_f32``      the same kernel run in fp32 at
+                                 ``Precision.HIGHEST``: fp32 q/k/v and output,
+                                 P kept in fp32, each product as three TF32
+                                 products on ``wgmma`` (same file)
+``flash_attention_fwd_lse``      the same kernel with ``with_lse=True``
+                                 (:177-178, :203-210): the training forward,
+                                 which also writes the fp32 per-row
+                                 ``m + log l``
+``flash_attention_fwd_lse_f32``  the fp32 kernel with ``with_lse=True``: fp32
+                                 training's forward (same file)
+``flash_attention_bwd_dkv``      ``_flash_bwd_dkv_kernel`` (:304): dK, dV, keys
+                                 outer, queries inner
+                                 (``csrc/flash_attention_bwd.cu``), the
+                                 channels split over a thread-block cluster
+``flash_attention_bwd_dq``       ``_flash_bwd_dq_kernel`` (:284): dQ, queries
+                                 outer, keys inner, the same split
+``flash_attention_bwd_dkv_f32``  ``_flash_bwd_dkv_kernel`` in fp32 at
+                                 ``Precision.HIGHEST``: the same split, plain
+                                 fp32 FMAs (``csrc/flash_attention_bwd_f32.cu``)
+``flash_attention_bwd_dq_f32``   ``_flash_bwd_dq_kernel`` in fp32 (same file)
+===============================  ==============================================
 
 What bounds them on the H100, and what the design does about it: at the mid
 block's C = 512 the forward does ``4*B*N^2*C`` FLOPs, dK/dV ``8*B*N^2*C``
 and dQ ``6*B*N^2*C``, against a few ``B*N*C`` bytes of device-memory
-traffic, N/2 FLOPs per byte or more: all four are tensor-core bound at every
-token count the model uses (N = 4096 at 512px, 16384 at 1024px). Each keeps
+traffic, N/2 FLOPs per byte or more: all are bound by arithmetic (the
+tensor cores', the CUDA cores' for the fp32 backward) at every token count
+the model uses (N = 4096 at 512px, 16384 at 1024px). Each keeps
 its logits tile and fp32 accumulators on chip, so no O(N^2) buffer exists.
 The bf16 forward (serving, and with the LSE) runs on ``wgmma`` with TMA
 loads: a CTA owns 64 query rows, two consumer warpgroups half the channels
 each, fed by a producer warpgroup. The fp32 forward runs
 each fp32 product as three TF32 ones (hi·hi + hi·lo + lo·hi, hi and lo the
 rounded split of each operand; one TF32 product keeps too few bits) on
-``wgmma`` with TMA loads, bound by the TF32 rate over three. The backward
-kernels run on ``wgmma`` with TMA loads, as clusters of
+``wgmma`` with TMA loads, bound by the TF32 rate over three. The bf16
+backward kernels run on ``wgmma`` with TMA loads, as clusters of
 :func:`bwd_cluster_size` CTAs that own :data:`BWD_SLICE` channels each and
 add their partial logits in rank order through distributed shared memory.
+The fp32 backward keeps that split on plain fp32 FMAs (bound by the CUDA
+cores' 67 TFLOP/s): exact fp32 products, P and dS never rounded below fp32.
 The sources' header comments have the tile layouts.
 
 :func:`flash_attention` is the op the model calls. With autograd recording
 and an input that requires a gradient it runs :class:`_FlashAttention`,
 whose forward is the LSE kernel and whose backward is δ = rowsum(dO·O) in
 plain PyTorch (as the JAX package leaves it to XLA), then the dK/dV kernel,
-then the dQ kernel. Otherwise it runs the serving forward, bf16 or fp32 by
-the input's dtype (forward-only evaluation runs fp32 when
-``mixed_precision`` is ``no``). The LSE forward and the backward kernels
-take bf16 only and raise on fp32: fp32 training with ``flash`` is not
-ported (ROADMAP Q2, The flash training kernels at fp32). On CPU tensors
-each kernel's plain PyTorch version (``*_reference``) runs in its place; on
-a CUDA tensor the kernel launches or the call raises, and nothing falls
-back. ``launches`` counts kernel launches per kernel.
+then the dQ kernel. Otherwise it runs the serving forward. Every entry
+picks its kernel by the operands' dtype, all bf16 or all fp32
+(``mixed_precision`` ``no`` trains and evaluates in fp32); mixed dtypes
+raise. On CPU tensors each kernel's plain PyTorch version (``*_reference``)
+runs in its place; on a CUDA tensor the kernel launches or the call raises,
+and nothing falls back. ``launches`` counts kernel launches per kernel.
 """
 
 from __future__ import annotations
@@ -68,8 +76,10 @@ from . import _cuda_build
 
 FWD_LIBRARY = "flash_attention_fwd"
 BWD_LIBRARY = "flash_attention_bwd"
+BWD_F32_LIBRARY = "flash_attention_bwd_f32"
 KERNELS = ("flash_attention_fwd", "flash_attention_fwd_f32", "flash_attention_fwd_lse",
-           "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "flash_attention_fwd_lse_f32",
+           "flash_attention_bwd_dkv_f32", "flash_attention_bwd_dq_f32")
 # The kernels' channel widths, each a compiled instantiation: the forwards'
 # accumulators live in registers, split over two warpgroups by channels, and
 # 512 (the SDXL/SD mid block) is the widest that keeps them at 128 fp32 a
@@ -95,6 +105,12 @@ _SYMBOLS = {
                                 [_P] * 8 + [_I, _I, _I, _F, _P]),
     "flash_attention_bwd_dq": (BWD_LIBRARY, "vcd_flash_attention_bwd_dq_bf16",
                                [_P] * 7 + [_I, _I, _I, _F, _P]),
+    "flash_attention_fwd_lse_f32": (FWD_LIBRARY, "vcd_flash_attention_fwd_lse_f32",
+                                    [_P] * 5 + [_I, _I, _I, _F, _P]),
+    "flash_attention_bwd_dkv_f32": (BWD_F32_LIBRARY, "vcd_flash_attention_bwd_dkv_f32",
+                                    [_P] * 8 + [_I, _I, _I, _F, _P]),
+    "flash_attention_bwd_dq_f32": (BWD_F32_LIBRARY, "vcd_flash_attention_bwd_dq_f32",
+                                   [_P] * 7 + [_I, _I, _I, _F, _P]),
 }
 _fns: Dict[str, object] = {}  # ctypes functions, bound at first launch
 
@@ -219,29 +235,33 @@ def build_forward() -> None:
     _fn("flash_attention_fwd")
     _fn("flash_attention_fwd_f32")
     _fn("flash_attention_fwd_lse")
+    _fn("flash_attention_fwd_lse_f32")
 
 
 def build_backward() -> None:
-    """Build (or find built) and load the backward library."""
+    """Build (or find built) and load the bf16 backward library."""
     _fn("flash_attention_bwd_dkv")
     _fn("flash_attention_bwd_dq")
 
 
-def _check_cuda(*tensors: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16,
-                fp32_ok: bool = False) -> None:
-    """Raise unless the kernels take ``tensors``: bf16 in and out, or fp32 in
-    and out where ``fp32_ok`` (the serving forward)."""
+def build_backward_f32() -> None:
+    """Build (or find built) and load the fp32 backward library."""
+    _fn("flash_attention_bwd_dkv_f32")
+    _fn("flash_attention_bwd_dq_f32")
+
+
+def _check_cuda(*tensors: torch.Tensor, out_dtype: torch.dtype) -> None:
+    """Raise unless the kernels take ``tensors``: all bf16 in and out, or all
+    fp32 in and out."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise RuntimeError(f"flash attention: unsupported device {q.device}")
     dtypes = {t.dtype for t in tensors} | {out_dtype}
-    if dtypes != {torch.bfloat16} and not (fp32_ok and dtypes == {torch.float32}):
+    if dtypes not in ({torch.bfloat16}, {torch.float32}):
         raise NotImplementedError(
-            "the CUDA flash-attention kernels take bf16 q/k/v (and dO) and give "
-            "a bf16 output (the serving forward also fp32 in and out), got "
-            f"{[str(t.dtype) for t in tensors]} -> {out_dtype}; fp32 training with "
-            "flash is not ported (ROADMAP Q2, The flash training kernels at fp32): "
-            "use attn_impl='naive' or 'chunked'"
+            "the CUDA flash-attention kernels take q/k/v (and dO) and give the "
+            "output all bf16 or all fp32, got "
+            f"{[str(t.dtype) for t in tensors]} -> {out_dtype}"
         )
     if q.dim() != 3 or any(t.shape != q.shape for t in tensors):
         raise ValueError(
@@ -259,6 +279,11 @@ def _check_cuda(*tensors: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16,
             f"N must be a multiple of {TOKEN_MULTIPLE} and C one of "
             f"{SUPPORTED_CHANNELS}"
         )
+
+
+def _by_dtype(name: str, q: torch.Tensor) -> str:
+    """The kernel ``name`` for q's dtype: ``name`` on bf16, ``name_f32`` on fp32."""
+    return f"{name}_f32" if q.dtype == torch.float32 else name
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -291,10 +316,10 @@ def flash_attention_fwd(q, k, v, *, scale: float, out_dtype: torch.dtype) -> tor
             "gradient goes through flash_attention (the LSE forward and the "
             "backward kernels)"
         )
-    _check_cuda(q, k, v, out_dtype=out_dtype, fp32_ok=True)
+    _check_cuda(q, k, v, out_dtype=out_dtype)
     b, n, c = q.shape
     out = torch.empty_like(q)
-    name = "flash_attention_fwd_f32" if q.dtype == torch.float32 else "flash_attention_fwd"
+    name = _by_dtype("flash_attention_fwd", q)
     _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, c,
             float(scale))
     return out
@@ -304,21 +329,23 @@ def flash_attention_fwd_lse(q, k, v, *, scale: float, out_dtype: torch.dtype
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward: ``(o, lse)``, lse the fp32 ``(B, N)`` per-row
     log-sum-exp of the scaled logits. CPU tensors go to
-    :func:`flash_attention_fwd_lse_reference`."""
+    :func:`flash_attention_fwd_lse_reference`; CUDA tensors to
+    ``flash_attention_fwd_lse`` (all bf16) or ``flash_attention_fwd_lse_f32``
+    (all fp32), or the call raises."""
     if q.device.type == "cpu":
         return flash_attention_fwd_lse_reference(q, k, v, scale, out_dtype)
     _check_cuda(q, k, v, out_dtype=out_dtype)
     b, n, c = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
-    _launch("flash_attention_fwd_lse", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, n, c, float(scale))
+    _launch(_by_dtype("flash_attention_fwd_lse", q), q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, n, c, float(scale))
     return out, lse
 
 
 def _bwd_operands(q, k, v, do, lse, delta) -> Tuple[int, ...]:
     """Check the backward kernels' operands; their pointers."""
-    _check_cuda(q, k, v, do)
+    _check_cuda(q, k, v, do, out_dtype=q.dtype)
     b, n, _c = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.dtype != torch.float32 or tuple(t.shape) != (b, n)
@@ -327,21 +354,26 @@ def _bwd_operands(q, k, v, do, lse, delta) -> Tuple[int, ...]:
                 f"flash attention backward: {name} must be contiguous fp32 "
                 f"{(b, n)} on {q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
-    return tuple(t.data_ptr() for t in (q, k, v, do, lse, delta))
+    tensors = (q, k, v, do, lse, delta)
+    # the kernels load 16 bytes at a time (TMA boxes, cp.async)
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("flash attention backward: operands must be 16-byte aligned")
+    return tuple(t.data_ptr() for t in tensors)
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale: float
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dk, dv)`` from the dK/dV kernel; CPU tensors go to
     :func:`flash_attention_bwd_dkv_reference`. On CUDA, q/k/v/do are
-    contiguous bf16 of one eligible shape and lse, delta contiguous fp32
-    ``(B, N)``."""
+    contiguous and all bf16 (``flash_attention_bwd_dkv``) or all fp32
+    (``flash_attention_bwd_dkv_f32``) of one eligible shape, and lse, delta
+    contiguous fp32 ``(B, N)``."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
     ptrs = _bwd_operands(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_attention_bwd_dkv", q.device, *ptrs, dk.data_ptr(), dv.data_ptr(),
-            *q.shape, float(scale))
+    _launch(_by_dtype("flash_attention_bwd_dkv", q), q.device, *ptrs, dk.data_ptr(),
+            dv.data_ptr(), *q.shape, float(scale))
     return dk, dv
 
 
@@ -353,7 +385,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, scale: float) -> torch.Te
         return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, scale)
     ptrs = _bwd_operands(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
-    _launch("flash_attention_bwd_dq", q.device, *ptrs, dq.data_ptr(), *q.shape, float(scale))
+    _launch(_by_dtype("flash_attention_bwd_dq", q), q.device, *ptrs, dq.data_ptr(), *q.shape,
+            float(scale))
     return dq
 
 
