@@ -16,12 +16,11 @@ failure exits non-zero without the final ``ok`` line:
    forward, the two bf16 backward kernels and the fp32 backward; no more
    than SPILL_LIMITS pins in the bf16 forward), and the backward's cluster
    size at each width; for the kernels on wgmma/TMA through
-   ``csrc/sm90_wgmma.cuh`` (the bf16 and fp32 flash forwards, the dK/dV and
-   dQ kernels, #9, #10 and #12 on the shared loop of
+   ``csrc/sm90_wgmma.cuh`` (the bf16 and fp32 flash forwards, the bf16 and
+   fp32 dK/dV and dQ kernels, #9, #10 and #12 on the shared loop of
    ``csrc/sm90_conv3x3.cuh``, #11), the HGMMA, UTMALDG and HMMA
    instructions in their SASS (cuobjdump): HGMMA and UTMALDG present, no
-   HMMA; for the fp32 backward, plain FFMA by design: FFMA present, no HGMMA
-   or HMMA;
+   HMMA; and the fp32 backward's shared memory at each width;
 3. flash kernel vs plain: bf16 q/k/v from a seed at the serving shapes, the
    kernel's max abs and relative L2 error against
    ``flash_attention_reference``, bit-equal run to run, proof that the
@@ -41,9 +40,12 @@ failure exits non-zero without the final ``ok`` line:
    (1, 16384, 128), whose CTAs do C = 512's work without traffic between
    SMs, to price the exchange; the same at fp32 (fp32 training: the fp32
    LSE forward, the fp32 backward) against fp32 plain with TF32 off, also
-   rejecting one TF32 product (plain with TF32 on), bit-equal run to run,
-   timed beside SDPA at fp32; and one
-   mid-block ``AttentionBlock`` forward and backward on the card, flash
+   rejecting one TF32 product (plain with TF32 on) and the backward's lo
+   products left out (1xTF32: every tensor-core operand rounded to its TF32
+   hi), bit-equal run to run, timed beside SDPA at fp32; the fp32 training
+   kernels at logits of several hundred (LARGE_LOGITS_SHAPE, q and k x 8)
+   within LARGE_LOGITS_REL_L2 of plain, rejecting S summed exactly and one
+   TF32 product; and one mid-block ``AttentionBlock`` forward and backward on the card, flash
    against naive, every parameter gradient non-zero and within the naive
    path's own bf16-vs-fp32 difference;
 4. serving slice: a full-width SDXL VAE with seeded random weights is written
@@ -161,6 +163,7 @@ the nvidia-smi line, and ``{"ok": true, "device": {...}}``. Imports no jax.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import importlib.util
 import io
 import json
@@ -235,12 +238,17 @@ FLASH_REPLACES = {
 F32_NOTES = {
     "flash_attention_fwd_lse_f32": "the fp32 forward (3xTF32 on wgmma/TMA) with its lse pointer "
                                    "set; bound: 3 x its products at the TF32 rate",
-    "flash_attention_bwd_dkv_f32": "plain fp32 FFMA on a cluster of C/128 CTAs, the logits summed "
-                                   "in rank order through distributed shared memory; bound: its "
-                                   "FLOPs at the 67 TFLOP/s fp32 (CUDA core) rate",
-    "flash_attention_bwd_dq_f32": "plain fp32 FFMA on a cluster of C/128 CTAs, the logits summed "
-                                  "in rank order through distributed shared memory; bound: its "
-                                  "FLOPs at the 67 TFLOP/s fp32 (CUDA core) rate",
+    "flash_attention_bwd_dkv_f32": "redesigned for Hopper, see PERF.md section 6 (dP and the "
+                                   "outputs 3xTF32 on wgmma/TMA on a cluster of C/128 CTAs, the "
+                                   "outputs transposed with the streamed operand as register A; "
+                                   "S by FFMA in plain's order; the logits summed in rank order "
+                                   "through distributed shared memory; was plain fp32 FFMA); "
+                                   "bound: 3 x its FLOPs at the TF32 rate",
+    "flash_attention_bwd_dq_f32": "redesigned for Hopper, see PERF.md section 6 (dP and dQ^T "
+                                  "3xTF32 on wgmma/TMA on a cluster of C/128 CTAs, K as register "
+                                  "A; S by FFMA in plain's order; the logits summed in rank order "
+                                  "through distributed shared memory; was plain fp32 FFMA); "
+                                  "bound: 3 x its FLOPs at the TF32 rate",
 }
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # each kernel's bound is the larger of its FLOPs over the bf16 tensor-core
@@ -277,6 +285,15 @@ BWD_ITERS = 10
 # left out of dQ, are the design's own planted faults.
 BWD_SMALL_SHAPES = ((2, 1024, 128), (1, 1024, 384))
 BWD_EXCHANGE_SHAPE = (1, 16384, 128)
+# The fp32 backward at logits of several hundred (q and k x 8, scale 1):
+# P = exp(S - lse) is never renormalised, so S's absolute error is P's
+# relative one, and plain's own rounding of S (about 3 ulps at 700) only
+# cancels where S is summed in plain's order. dQ, dK and dV within relative
+# L2 LARGE_LOGITS_REL_L2 of plain, the bound of
+# tests/test_torch_flash_kernel_cuda.py::test_fp32_training_handles_large_logits;
+# it rejects S summed exactly (about 3e-4) and one TF32 product.
+LARGE_LOGITS_SHAPE = (2, 256, 128)
+LARGE_LOGITS_REL_L2 = 1e-4
 # the AttentionBlock check: flash vs naive (bf16) within this many times
 # naive bf16 vs naive fp32, plus a floor, per parameter gradient
 BLOCK_CONTROL_RATIO = 1.25
@@ -626,7 +643,8 @@ WGMMA_KERNELS = {"conv3x3_nhwc_kernel": "conv_nhwc", "conv3x3_dw_kernel": "fused
                  "flash_fwd_f32_kernel": "flash_attention_fwd",
                  "flash_fwd_kernel": "flash_attention_fwd",
                  "flash_bwd_dkv_kernel": "flash_attention_bwd",
-                 "flash_bwd_dq_kernel": "flash_attention_bwd"}
+                 "flash_bwd_dq_kernel": "flash_attention_bwd",
+                 "flash_bwd_f32_kernel": "flash_attention_bwd_f32"}
 # ptxas must report no stack frame and no spills for these
 NO_STACK_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",
                     "flash_bwd_f32_kernel")
@@ -636,10 +654,7 @@ NO_STACK = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
 # C = 512, in the 232 registers the producer warpgroup hands them
 SPILL_LIMITS = {"flash_fwd_kernel<512>": 24, "flash_fwd_kernel<384>": 0,
                 "flash_fwd_kernel<256>": 0, "flash_fwd_kernel<128>": 0}
-# The fp32 backward is plain FFMA by design: FFMA in its SASS, no tensor-core
-# instruction of either kind
-FFMA_KERNELS = {"flash_bwd_f32_kernel": "flash_attention_bwd_f32"}
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "FFMA")
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 
 
 def sass_counts(library: str) -> dict:
@@ -706,25 +721,25 @@ def phase_build():
     # (a library found already built prints no ptxas report)
     check(not _cuda_build.build_logs.get(flash_attention.FWD_LIBRARY)
           or pinned == set(SPILL_LIMITS), f"no ptxas report for {set(SPILL_LIMITS) - pinned}")
+    # the fp32 backward's dynamic shared memory a CTA, dK/dV and dQ, by width
+    smem = _cuda_build.load(flash_attention.BWD_F32_LIBRARY).vcd_flash_attention_bwd_f32_smem
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
     log(f"[build] {len(builds)} libraries built and loaded in {wall:.2f} s; the flash "
-        "backward's thread-block cluster, CTAs by width: "
-        + str({c: flash_attention.bwd_cluster_size(c) for c in flash_attention.SUPPORTED_CHANNELS}))
+        "backward's thread-block cluster, CTAs by width (bf16 and fp32): "
+        + str({c: flash_attention.bwd_cluster_size(c) for c in flash_attention.SUPPORTED_CHANNELS})
+        + "; the fp32 backward's shared memory a CTA, bytes (dK/dV, dQ): "
+        + str({c: (smem(c, 1), smem(c, 0)) for c in flash_attention.SUPPORTED_CHANNELS}))
     seen = set()
-    for library in sorted(set(WGMMA_KERNELS.values()) | set(FFMA_KERNELS.values())):
+    for library in sorted(set(WGMMA_KERNELS.values())):
         for label, ops in sass_counts(library).items():
             base = label.split("<")[0]
-            if base not in WGMMA_KERNELS and base not in FFMA_KERNELS:
+            if base not in WGMMA_KERNELS:
                 continue
             seen.add(base)
             log(f"[build] SASS {label}: " + ", ".join(f"{op} {ops[op]}" for op in SASS_OPS))
-            if base in FFMA_KERNELS:
-                check(ops["FFMA"] > 0 and ops["HGMMA"] == 0 and ops["HMMA"] == 0,
-                      f"{label} is not the plain FFMA design: {ops}")
-            else:
-                check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
-                      f"{label} is not on the wgmma/TMA path: {ops}")
-    check(seen == set(WGMMA_KERNELS) | set(FFMA_KERNELS),
-          f"no SASS for {set(WGMMA_KERNELS) | set(FFMA_KERNELS) - seen}")
+            check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
+                  f"{label} is not on the wgmma/TMA path: {ops}")
+    check(seen == set(WGMMA_KERNELS), f"no SASS for {set(WGMMA_KERNELS) - seen}")
 
 
 def phase_kernel():
@@ -837,9 +852,8 @@ def roofline(flops: float, nbytes: float, rate: float = PEAK_BF16_FLOPS) -> tupl
 def flash_bounds(b: int, n: int, c: int) -> dict:
     """Each flash kernel's bound at (B, N, C): FLOPs of its products, and
     bytes of its (B, N, C) operands (bf16, or fp32 for the ``_f32`` kernels)
-    and fp32 (B, N) row vectors. The fp32 LSE forward's FLOPs count three
-    times at the TF32 rate (3xTF32); the fp32 backward is plain FFMA, its
-    FLOPs at the fp32 (CUDA core) rate."""
+    and fp32 (B, N) row vectors. The fp32 kernels' FLOPs count three times
+    at the TF32 rate (3xTF32)."""
     t, r, t32 = 2 * b * n * c, 4 * b * n, 4 * b * n * c
     return {
         "flash_attention_fwd": roofline(4 * b * n * n * c, 4 * t),
@@ -848,10 +862,10 @@ def flash_bounds(b: int, n: int, c: int) -> dict:
         "flash_attention_bwd_dq": roofline(6 * b * n * n * c, 5 * t + 2 * r),
         "flash_attention_fwd_lse_f32": roofline(3 * 4 * b * n * n * c, 4 * t32 + r,
                                                 PEAK_TF32_FLOPS),
-        "flash_attention_bwd_dkv_f32": roofline(8 * b * n * n * c, 6 * t32 + 2 * r,
-                                                PEAK_FP32_FLOPS),
-        "flash_attention_bwd_dq_f32": roofline(6 * b * n * n * c, 5 * t32 + 2 * r,
-                                               PEAK_FP32_FLOPS),
+        "flash_attention_bwd_dkv_f32": roofline(3 * 8 * b * n * n * c, 6 * t32 + 2 * r,
+                                                PEAK_TF32_FLOPS),
+        "flash_attention_bwd_dq_f32": roofline(3 * 6 * b * n * n * c, 5 * t32 + 2 * r,
+                                               PEAK_TF32_FLOPS),
     }
 
 
@@ -1036,6 +1050,30 @@ def bwd_rank_left_out(q, k, v, do, lse, delta, scale: float, rank: int):
             torch.matmul(p.transpose(1, 2), do.float()).to(v.dtype))
 
 
+def tf32_hi(x):
+    """fp32 ``x`` rounded to TF32 to nearest, ties away from zero (the
+    kernels' ``cvt.rna``): half of TF32's last place added to the magnitude's
+    bits, then the 13 bits TF32 drops cleared."""
+    import torch
+
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def bwd_lo_left_out(q, k, v, do, lse, delta, scale: float):
+    """(dq, dk, dv) at fp32 with the operands of every tensor-core product
+    rounded to their TF32 hi (dP's, and the outputs' with P and dS; S, by
+    FFMA, stays fp32): what the backward would give with its lo products
+    left out (1xTF32). The products of TF32 values are exact in fp32, so
+    TF32 stays off."""
+    import torch
+
+    p = torch.exp(torch.matmul(q, k.transpose(1, 2)) * scale - lse[..., None])
+    ds = p * (torch.matmul(tf32_hi(do), tf32_hi(v).transpose(1, 2)) - delta[..., None]) * scale
+    p, ds = tf32_hi(p), tf32_hi(ds)
+    return (torch.matmul(ds, tf32_hi(k)), torch.matmul(ds.transpose(1, 2), tf32_hi(q)),
+            torch.matmul(p.transpose(1, 2), tf32_hi(do)))
+
+
 def phase_flash_bwd():
     """The flash training kernels against their plain versions at
     BWD_SHAPES, with planted faults, bit-equal run to run, CUDA-event times
@@ -1082,7 +1120,8 @@ def phase_flash_bwd():
         faults: one query tile left out of dK/dV, one key tile left out of
         dQ, the last rank's partial left out of the logits' sums, delta left
         out of dS, and (with row_max) m in place of lse; at fp32 also one
-        TF32 product (the plain version with TF32 on), held to relative L2
+        TF32 product (the plain version with TF32 on) and the kernels' lo
+        products left out (bwd_lo_left_out), held to relative L2
         FLASH_F32_REL_L2 alone."""
         f32 = q.dtype == torch.float32
         suffix, max_rel_bound, rel_l2_bound = (("_f32", math.inf, FLASH_F32_REL_L2) if f32
@@ -1107,7 +1146,7 @@ def phase_flash_bwd():
         faults_dv = {"a query tile left out": rel_errors(tile_dv, pdv), rank: rel_errors(rank_dv, pdv)}
         faults_dq = {"a key tile left out": rel_errors(key_dq, pdq), rank: rel_errors(rank_dq, pdq),
                      "delta left out": rel_errors(nod_dq, pdq)}
-        tf32 = {}
+        tf32, hi_only = {}, {}
         if f32:
             torch.backends.cuda.matmul.allow_tf32 = True
             try:
@@ -1115,13 +1154,16 @@ def phase_flash_bwd():
                     q, k, v, do, lse, delta, scale)))
             finally:
                 torch.backends.cuda.matmul.allow_tf32 = False
+            hi_only = dict(zip(("dq", "dk", "dv"), bwd_lo_left_out(q, k, v, do, lse, delta,
+                                                                    scale)))
         for faults, key in ((faults_dk, "dk"), (faults_dv, "dv"), (faults_dq, "dq")):
             plain = {"dq": pdq, "dk": pdk, "dv": pdv}[key]
             if m_faults:
                 faults["m for lse"] = rel_errors(m_faults[key], plain)
             if tf32:
                 faults["one TF32 product"] = rel_errors(tf32[key], plain)
-        del m_faults, tf32
+                faults["the lo products left out"] = rel_errors(hi_only[key], plain)
+        del m_faults, tf32, hi_only
         for name, what, errs, faults in (
                 ("flash_attention_bwd_dkv", "dK", rel_errors(dk, pdk), faults_dk),
                 ("flash_attention_bwd_dkv", "dV", rel_errors(dv, pdv), faults_dv),
@@ -1180,10 +1222,6 @@ def phase_flash_bwd():
             }
             backend, lib = sdpa_f32_times(q, k, v, do, scale, BWD_ITERS)
             bounds = flash_bounds(b, n, c)
-            # the 3xTF32 bounds a tensor-core backward would have, beside the
-            # FFMA kernels' own
-            tf32 = {name: roofline(3 * f * b * n * n * c, 0, PEAK_TF32_FLOPS)[0] for name, f in
-                    (("flash_attention_bwd_dkv_f32", 8), ("flash_attention_bwd_dq_f32", 6))}
             both = "flash_attention_bwd_dkv_f32 + flash_attention_bwd_dq_f32"
             library = {"flash_attention_fwd_lse_f32": (lib["fwd_grad"],
                                                        "flash_attention_fwd_lse_f32"),
@@ -1197,11 +1235,9 @@ def phase_flash_bwd():
                                          library_covers=f"scaled_dot_product_attention fp32 "
                                                         f"({backend}): {library[name][1]}")
             log(f"[flash-bwd] {shape} fp32 ms kernel/plain/bound (CUDA events, {BWD_ITERS} "
-                "calls, in turns; the LSE forward's bound 3xTF32 at 495 TFLOP/s, the "
-                "backward's FFMA at 67): " + ", ".join(
+                "calls, in turns; the bounds 3xTF32 at 495 TFLOP/s): " + ", ".join(
                     f"{name} {times[name][0]:.4f}/{times[name][1]:.4f}/{bounds[name][0]:.4f} "
-                    f"({100 * bounds[name][0] / times[name][0]:.1f}% of bound"
-                    + (f"; 3xTF32 bound {tf32[name]:.4f}" if name in tf32 else "") + ")"
+                    f"({100 * bounds[name][0] / times[name][0]:.1f}% of bound)"
                     for name in names_f32)
                 + f"; SDPA fp32 ({backend}) forward for backward {lib['fwd_grad']:.4f}, backward "
                 f"{lib['bwd']:.4f}; kernels forward+backward "
@@ -1331,8 +1367,51 @@ def phase_flash_bwd():
                 f"{100 * (1 - ranks * dq / main['flash_attention_bwd_dq_f32']):.1f}% of the call)")
             del q, k, v, do, o, lse, delta
             release()
+    large_logits_f32()
     phase_attention_block()
     return results
+
+
+def large_logits_f32():
+    """The fp32 training kernels at LARGE_LOGITS_SHAPE with q and k x 8 and
+    scale 1 against fp32 plain, bound LARGE_LOGITS_REL_L2, which rejects two
+    planted faults: S summed exactly (fp64, then rounded) and one TF32
+    product (the plain version with TF32 on)."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    q, k, v, do = (torch.randn(LARGE_LOGITS_SHAPE, generator=gen, device=DEVICE)
+                   for _ in range(4))
+    q, k = q * 8, k * 8
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, scale=1.0, out_dtype=torch.float32)
+    delta = (do * o).sum(-1)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=1.0)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=1.0)
+    sync()
+    refs = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, 1.0)
+    p = torch.exp(torch.matmul(q.double(), k.double().transpose(1, 2)).float() - lse[..., None])
+    ds = p * (torch.matmul(do, v.transpose(1, 2)) - delta[..., None])
+    exact = (torch.matmul(ds, k), torch.matmul(ds.transpose(1, 2), q),
+             torch.matmul(p.transpose(1, 2), do))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, 1.0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    lines = []
+    for name, g, r, e, t in zip(("dQ", "dK", "dV"), (dq, dk, dv), refs, exact, tf32):
+        rel, rel_exact, rel_tf32 = (rel_errors(x, r)[1] for x in (g, e, t))
+        lines.append(f"{name} rel L2 {rel:.3g} (bound {LARGE_LOGITS_REL_L2:.3g}); S summed "
+                     f"exactly {rel_exact:.3g}, one TF32 product {rel_tf32:.3g}")
+        check(torch.isfinite(g).all().item() and rel <= LARGE_LOGITS_REL_L2,
+              f"the fp32 backward's {name} at large logits is {rel} (rel L2) from plain")
+        check(rel_exact > LARGE_LOGITS_REL_L2 and rel_tf32 > LARGE_LOGITS_REL_L2,
+              f"the large-logit bound does not reject a planted fault on {name}")
+    log(f"[flash-bwd] {LARGE_LOGITS_SHAPE} fp32, q and k x 8, scale 1 (max |S| "
+        f"{torch.matmul(q, k.transpose(1, 2)).abs().max().item():.0f}): " + "; ".join(lines))
 
 
 def set_attention(model, impl: str):

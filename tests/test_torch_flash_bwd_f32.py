@@ -4,22 +4,25 @@ JAX package at fp32 (``Precision.HIGHEST``, Pallas in interpret mode).
 The fp32 backward (``flash_bwd_f32_kernel``, ``csrc/flash_attention_bwd_f32.cu``)
 runs as a cluster of R = C / 128 CTAs, CTA r owning channels [128 r, 128 r +
 128) of a block of 64 rows (keys for dK/dV, queries for dQ). Per streamed
-tile of 32 rows it forms its partial S and dP over its own channels with
-fp32 FMAs, the cluster adds the R partials in rank order (((S_0 + S_1) +
-S_2) + S_3) in every CTA, P = exp(S scale - lse) and dS = P (dP - delta)
-scale stay fp32, and each CTA adds the tile's P^T dO and dS^T Q (or dS K)
-over its channels into fresh accumulators that it then adds to its sums.
-:func:`emulated_bwd_f32` takes those steps in that order; its products are
-fp32 matmuls, rounded to nearest as FFMA chains are.
-
-The kernel uses no tensor cores, so it has no TF32 split and no truncating
-accumulator of its own. The bound must still reject what a tensor-core
-shortcut would give: :func:`emulated_bwd_f32` with ``mma`` models the same
-order on 3xTF32 ``wgmma`` (``tests/test_torch_flash_tf32x3.py``'s model:
-hi and lo rounded to nearest, every k-step of 8 added to the accumulator and
-truncated), and the planted faults are one TF32 product (hi alone), one
-accumulator carried over all tiles, and one rank's partial left out of the
-logits.
+tile of 32 rows each CTA forms its partial logits over its own channels:
+S by FFMA, one chain of the 128 channels in order a logit (plain's order:
+fp32 FMA commutes, so the dK/dV kernel's S^T is the dQ kernel's S
+transposed, bit for bit), and dP as three TF32 products on ``wgmma``
+(``tests/test_torch_flash_tf32x3.py``'s model: hi and lo rounded to
+nearest, every k-step of 8 added to the accumulator and truncated, the
+terms lo hi, hi lo, hi hi with A first) in four fresh accumulators of 32
+channels added as (d0 + d1) + (d2 + d3), the resident operand as A: dP^T =
+V dO^T in the dK/dV kernel, dP = dO V^T in the dQ kernel (the two differ in
+their last bits). The cluster adds the R partials in fp32 in rank order
+(((S_0 + S_1) + S_2) + S_3), P = exp(S scale - lse) and dS = P (dP -
+delta) scale stay fp32 until split, and the outputs are taken transposed on
+3xTF32, the streamed operand as A: dK^T = Q^T dS, dV^T = dO^T P over tiles
+of 32 queries and dQ^T = K^T dS^T over tiles of 32 keys, each tile into
+fresh accumulators added to the sums in fp32. :func:`emulated_bwd_f32`
+takes those steps in that order. The planted faults are one TF32 product
+(hi alone), one accumulator carried over all tiles, one rank's partial left
+out of the logits, and, at logits of several hundred, S and dP on the
+tensor cores in one accumulator each (``s_chain`` False, ``dp_parts`` 1).
 
 The fp32 LSE forward is the 3xTF32 forward (``flash_fwd_f32_kernel``) with
 its lse pointer set: :func:`emulated_lse_f32` follows its S (four sums of
@@ -72,56 +75,94 @@ KEY_TILE = 64  # the forward's keys a tile
 SHAPES = [(1, 256, 128), (2, 256, 256), (1, 384, 512)]
 
 
-def _logits(a, b, ranks: int, drop=None, mma=None) -> torch.Tensor:
+def fma_chain(a, b) -> torch.Tensor:
+    """a b^T in fp32 as one FMA chain a logit over the channels in order:
+    each step's exact product added and rounded once (the product of two
+    fp32 values is exact in fp64)."""
+    acc = torch.zeros(a.shape[:-1] + b.shape[-2:-1], dtype=torch.float64)
+    for c in range(a.shape[-1]):
+        acc = (acc + a[..., c, None].double() * b[..., None, :, c].double()).float().double()
+    return acc.float()
+
+
+def _logits(a, b, ranks: int, drop=None, terms: int = 3, chain: bool = False,
+            parts: int = 1) -> torch.Tensor:
     """a b^T as the cluster forms it: each rank's partial over its 128
-    channels (fp32, or ``mma``'s tensor-core model in a fresh accumulator),
-    added in rank order; ``drop`` leaves one rank's partial out."""
+    channels by FFMA (``chain``, :func:`fma_chain`) or on the tensor-core
+    model (a the register A, b the K-major B) in ``parts`` fresh
+    accumulators of 128 / ``parts`` channels added pairwise, added in fp32
+    in rank order; ``drop`` leaves one rank's partial out."""
     total = torch.zeros(a.shape[:-1] + b.shape[-2:-1])
     for r in range(ranks):
         if r == drop:
             continue
         sa, sb = (x[..., r * SLICE:(r + 1) * SLICE] for x in (a, b))
-        part = (torch.matmul(sa, sb.transpose(-1, -2)) if mma is None else
-                wgmma_tf32(torch.zeros_like(total), sa, sb.transpose(-1, -2), mma[0]))
+        if chain:
+            part = fma_chain(sa, sb)
+        else:
+            width = SLICE // parts
+            sums = [wgmma_tf32(torch.zeros_like(total), sa[..., i:i + width],
+                               sb[..., i:i + width].transpose(-1, -2), terms)
+                    for i in range(0, SLICE, width)]
+            while len(sums) > 1:
+                sums = [sums[i] + sums[i + 1] for i in range(0, len(sums), 2)]
+            part = sums[0]
         total = part if r == 0 else total + part
     return total
 
 
-def _accumulate(acc, a, b, mma):
-    """acc + a b over one tile: fp32 into fresh accumulators added to acc
-    (the kernel), or the tensor-core model: fresh (mma[1]) or in acc's own
-    accumulator carried over all tiles."""
-    if mma is None:
-        return acc + torch.matmul(a, b)
-    if mma[1]:
-        return acc + wgmma_tf32(torch.zeros_like(acc), a, b, mma[0])
-    return wgmma_tf32(acc, a, b, mma[0])
-
-
-def emulated_bwd_f32(q, k, v, do, lse, delta, scale: float, drop=None, mma=None):
-    """(dq, dk, dv) in fp32 as the kernels take them, on fp32 (B, N, C) q, k,
-    v, do and (B, N) lse, delta. ``mma`` = (terms, fresh) models the same
-    order on 3xTF32 (terms 3) or 1xTF32 (terms 1) tensor cores."""
-    ranks = q.shape[-1] // SLICE
-    s = _logits(q, k, ranks, drop, mma)        # (B, queries, keys)
-    dp = _logits(do, v, ranks, drop, mma)
+def _softmax_grads(s, dp, lse, delta, scale: float):
+    """P = exp(S scale - lse) and dS = P (dP - delta) scale in fp32, on
+    (B, queries, keys) logits."""
     p = torch.exp(s * scale - lse[..., None])
-    ds = p * (dp - delta[..., None]) * scale
-    return emulated_sums(q, k, do, p, ds, mma)
+    return p, p * (dp - delta[..., None]) * scale
 
 
-def emulated_sums(q, k, do, p, ds, mma=None):
-    """dQ = dS K, dK = dS^T Q, dV = P^T dO as the kernels add them over
-    32-row tiles, from the tile's (B, queries, keys) P and dS; ``mma`` as
-    :func:`emulated_bwd_f32`'s."""
-    dq, dk, dv = (torch.zeros_like(q) for _ in range(3))
+def _accumulate(acc, a, b, terms: int, fresh: bool):
+    """acc + a b over one tile on the tensor-core model: into fresh
+    accumulators added to acc in fp32 (the kernel), or (``fresh`` False) in
+    acc's own accumulator carried over all tiles."""
+    if fresh:
+        return acc + wgmma_tf32(torch.zeros_like(acc), a, b, terms)
+    return wgmma_tf32(acc, a, b, terms)
+
+
+def emulated_bwd_f32(q, k, v, do, lse, delta, scale: float, drop=None, terms: int = 3,
+                     fresh: bool = True, s_chain: bool = True, dp_parts: int = 4):
+    """(dq, dk, dv) in fp32 as the kernels take them, on fp32 (B, N, C) q, k,
+    v, do and (B, N) lse, delta: S by FFMA (``s_chain``; else on the tensor
+    cores as dP), dP in ``dp_parts`` accumulators, 3xTF32 (``terms`` 3) or
+    1xTF32 (1), fresh accumulators a tile or one over all tiles."""
+    ranks = q.shape[-1] // SLICE
+    kw = dict(ranks=ranks, drop=drop, terms=terms)
+    # S: the dK/dV kernel's S^T = K Q^T (keys the rows) and the dQ kernel's S
+    # = Q K^T, the same bits by FFMA
+    s = _logits(q, k, chain=s_chain, parts=dp_parts, **kw)
+    s_t = s.transpose(1, 2) if s_chain else _logits(k, q, parts=dp_parts, **kw)
+    # the dK/dV kernel: dP^T = V dO^T
+    p, ds = _softmax_grads(s_t.transpose(1, 2),
+                           _logits(v, do, parts=dp_parts, **kw).transpose(1, 2), lse, delta,
+                           scale)
+    # the dQ kernel: dP = dO V^T (queries the rows)
+    _p, ds_q = _softmax_grads(s, _logits(do, v, parts=dp_parts, **kw), lse, delta, scale)
+    return emulated_sums(q, k, do, p, ds, ds_q, terms, fresh)
+
+
+def emulated_sums(q, k, do, p, ds, ds_q=None, terms: int = 3, fresh: bool = True):
+    """dQ, dK, dV as the kernels add them over 32-row tiles, transposed with
+    the streamed operand as A: dV^T = dO^T P and dK^T = Q^T dS over tiles of
+    32 queries (the dK/dV kernel's P and dS), dQ^T = K^T dS^T over tiles of
+    32 keys (the dQ kernel's ``ds_q``, by default ``ds``); all (B, queries,
+    keys). ``terms`` and ``fresh`` as :func:`emulated_bwd_f32`'s."""
+    ds_q = ds if ds_q is None else ds_q
+    dq_t, dk_t, dv_t = (torch.zeros_like(q.transpose(1, 2)) for _ in range(3))
     for t in range(0, q.shape[1], TILE):
         rows = slice(t, t + TILE)
-        # dK/dV: tiles of 32 queries; dQ: tiles of 32 keys
-        dv = _accumulate(dv, p[:, rows].transpose(1, 2), do[:, rows], mma)
-        dk = _accumulate(dk, ds[:, rows].transpose(1, 2), q[:, rows], mma)
-        dq = _accumulate(dq, ds[:, :, rows], k[:, rows], mma)
-    return dq, dk, dv
+        dv_t = _accumulate(dv_t, do[:, rows].transpose(1, 2), p[:, rows], terms, fresh)
+        dk_t = _accumulate(dk_t, q[:, rows].transpose(1, 2), ds[:, rows], terms, fresh)
+        dq_t = _accumulate(dq_t, k[:, rows].transpose(1, 2), ds_q[:, :, rows].transpose(1, 2),
+                           terms, fresh)
+    return tuple(g.transpose(1, 2).contiguous() for g in (dq_t, dk_t, dv_t))
 
 
 def emulated_lse_f32(q, k, scale: float) -> torch.Tensor:
@@ -171,7 +212,9 @@ def _rel(out, ref) -> float:
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-def test_emulation_matches_jax_and_plain(shape):
+def test_emulation_matches_jax_and_plain(shape, one_thread):
+    """The kernels' order on 3xTF32: within 1e-5 of the JAX kernels and of
+    the plain version."""
     q, k, v, do, lse, delta, scale = _inputs(shape, seed=sum(shape))
     out = emulated_bwd_f32(q, k, v, do, lse, delta, scale)
     refs = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
@@ -183,7 +226,7 @@ def test_emulation_matches_jax_and_plain(shape):
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-def test_one_rank_left_out_is_rejected(shape):
+def test_one_rank_left_out_is_rejected(shape, one_thread):
     """The cluster without the last rank's partial in the logits' sums (at
     C = 128, the only one): dQ, dK and dV all leave the bound."""
     q, k, v, do, lse, delta, scale = _inputs(shape, seed=sum(shape) + 1)
@@ -208,8 +251,8 @@ def test_one_tf32_product_is_rejected(one_thread):
     which 3xTF32 in the same order keeps."""
     q, k, v, do, lse, delta, scale = _inputs((1, 256, 128), seed=3)
     refs = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
-    three = emulated_bwd_f32(q, k, v, do, lse, delta, scale, mma=(3, True))
-    one = emulated_bwd_f32(q, k, v, do, lse, delta, scale, mma=(1, True))
+    three = emulated_bwd_f32(q, k, v, do, lse, delta, scale)
+    one = emulated_bwd_f32(q, k, v, do, lse, delta, scale, terms=1)
     for name, g3, g1, r in zip(("dq", "dk", "dv"), three, one, refs):
         assert _rel(g3.numpy(), r.numpy()) <= REL_L2 < _rel(g1.numpy(), r.numpy()), name
 
@@ -226,10 +269,51 @@ def test_one_accumulator_over_all_tiles_is_rejected(one_thread):
     p = torch.exp(torch.matmul(q, k.transpose(1, 2)) * scale - lse[..., None])
     ds = p * (torch.matmul(do, v.transpose(1, 2)) - delta[..., None]) * scale
     q, k, do = (t[..., :32].contiguous() for t in (q, k, do))
-    fresh = emulated_sums(q, k, do, p, ds, mma=(3, True))
-    long = emulated_sums(q, k, do, p, ds, mma=(3, False))
+    fresh = emulated_sums(q, k, do, p, ds)
+    long = emulated_sums(q, k, do, p, ds, fresh=False)
     for name, gf, gl, r in zip(("dq", "dk", "dv"), fresh, long, refs):
         assert _rel(gf.numpy(), r.numpy()) <= REL_L2 < _rel(gl.numpy(), r.numpy()), name
+
+
+# The card test's bound at logits of several hundred
+# (tests/test_torch_flash_kernel_cuda.py::test_fp32_training_handles_large_logits)
+LARGE_LOGITS_REL_L2 = 1e-4
+
+
+def _plain_order_grads(q, k, do, s, dp, lse, delta, scale):
+    """(dq, dk, dv) from fp32 logits s and dp, P and dS in fp32, the
+    products summed in fp64."""
+    p, ds = _softmax_grads(s, dp, lse, delta, scale)
+    p, ds = p.double(), ds.double()
+    return (ds @ k.double(), ds.transpose(1, 2) @ q.double(), p.transpose(1, 2) @ do.double())
+
+
+def test_large_logits_need_plain_order(one_thread):
+    """Logits near 700 (q and k x 8, scale 1, as the card test): P = exp(S -
+    lse) is never renormalised, so an absolute error in S is a relative one
+    in P. Against plain in plain's own order (one FMA chain a logit, which
+    the FFMA kernel took and passed with on the card), the kernels' order
+    (S by that chain, dP in four fresh accumulators) keeps the card test's
+    1e-4; S and dP on the tensor cores in one accumulator each (the first
+    3xTF32 design, about 1.5e-3), and even S summed exactly (plain's own
+    rounding is that far from exact), do not."""
+    rng = np.random.default_rng(14)
+    shape = (2, 256, 128)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                   for _ in range(4))
+    q, k = q * 8, k * 8
+    o, lse = fa.flash_attention_fwd_lse_reference(q, k, v, 1.0, torch.float32)
+    delta = (do * o).sum(-1)
+    dp = fma_chain(do, v)
+    refs = _plain_order_grads(q, k, do, fma_chain(q, k), dp, lse, delta, 1.0)
+    kernels = emulated_bwd_f32(q, k, v, do, lse, delta, 1.0)
+    first_cut = emulated_bwd_f32(q, k, v, do, lse, delta, 1.0, s_chain=False, dp_parts=1)
+    exact_s = _plain_order_grads(q, k, do, torch.matmul(q.double(), k.double().transpose(1, 2))
+                                 .float(), dp, lse, delta, 1.0)
+    for name, g, f, e, r in zip(("dq", "dk", "dv"), kernels, first_cut, exact_s, refs):
+        assert _rel(g.numpy(), r.numpy()) <= LARGE_LOGITS_REL_L2, (name, _rel(g.numpy(), r.numpy()))
+        assert _rel(f.numpy(), r.numpy()) > LARGE_LOGITS_REL_L2, name
+        assert _rel(e.numpy(), r.numpy()) > LARGE_LOGITS_REL_L2, name
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -37,11 +37,13 @@ C / 128 CTAs) costs far more. The fp32 lse is held to 1e-5 of max|plain|:
 the kernel sums its denominator in another order.
 
 fp32 training runs the fp32 forward with its lse and the fp32 backward
-(plain fp32 FMAs on the same cluster split), P and dS kept in fp32: o, dQ,
-dK and dV are held to relative L2 1e-5 of the plain version (TF32 off),
-about 1e-6 from sums in another order; each bound rejects one tile left
-out, the cluster's last rank left out of the logits' sums, and the plain
-version with TF32 on (one TF32 product, about 1e-3). Mixed dtypes raise.
+(3xTF32 on wgmma on the same cluster split, the outputs transposed), P and
+dS kept in fp32 until they are split: o, dQ, dK and dV are held to relative
+L2 1e-5 of the plain version (TF32 off), about 3e-6 from the split and
+sums in another order; each bound rejects one tile left out, the cluster's
+last rank left out of the logits' sums, the plain version with TF32 on (one
+TF32 product, about 1e-3) and the backward's lo products left out (every
+operand rounded to its TF32 hi). Mixed dtypes raise.
 """
 
 import ctypes
@@ -49,7 +51,7 @@ import ctypes
 import pytest
 import torch
 
-from chip_smoke import bwd_rank_left_out, fwd_last_pv_left_out
+from chip_smoke import bwd_lo_left_out, bwd_rank_left_out, fwd_last_pv_left_out
 from vae_channel_dynamics_tpu_torch.ops import _cuda_build
 from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
 
@@ -372,13 +374,14 @@ def _f32_training(q, k, v, do, scale):
     return o, lse, delta, _bwd(q, k, v, do, lse, delta, scale)
 
 
-@pytest.mark.parametrize("shape", [(1, 128, 128), (3, 256, 256), (2, 384, 384), (1, 1024, 512),
-                                   (4, 4096, 512)])
+@pytest.mark.parametrize("shape", [(1, 128, 128), (3, 256, 256), (2, 384, 384), (2, 384, 512),
+                                   (1, 1024, 512), (4, 4096, 512)])
 def test_fp32_training_kernels_match_plain(cuda, shape):
     """The fp32 LSE forward and backward against their plain versions (TF32
     off), each bound rejecting a planted fault: one 32-query tile out of
     dK/dV, one 32-key tile out of dQ, the last rank out of the logits' sums,
-    and one TF32 product (the plain version with TF32 on)."""
+    one TF32 product (the plain version with TF32 on) and the backward's lo
+    products left out (1xTF32)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, do = _qkv(shape, cuda, seed=sum(shape) + 3, dtype=torch.float32, n=4)
     scale = shape[-1] ** -0.5
@@ -405,6 +408,7 @@ def test_fp32_training_kernels_match_plain(cuda, shape):
         faults += zip(fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale), refs)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+    faults += zip(bwd_lo_left_out(q, k, v, do, lse, delta, scale), refs)
     for f, r in faults:
         assert _rel(f, r)[1] > F32_REL_L2
 

@@ -1,6 +1,7 @@
 // Flash-attention backward at fp32 for the VAE mid block, hand-written for
-// Hopper (sm_90a): dK/dV and dQ, plain fp32 FMAs on the CUDA cores, the
-// channels split over a thread-block cluster.
+// Hopper (sm_90a): dK/dV and dQ with TMA loads, dP and the output products
+// as 3xTF32 on wgmma, S by FFMA, the channels split over a thread-block
+// cluster.
 //
 // Replaces vae_channel_dynamics_tpu/ops/pallas_attention.py::_flash_bwd_dkv_kernel
 // (:304, dK, dV) and ::_flash_bwd_dq_kernel (:284, dQ) as the JAX model runs
@@ -12,58 +13,108 @@
 //   dP = dO V^T
 //   dS = P * (dP - delta) * scale      delta = rowsum(dO * O), computed outside
 //   dV += P^T dO,  dK += dS^T Q,  dQ += dS K
-// P and dS stay fp32; nothing is rounded below fp32.
+// P and dS stay fp32 until they are split for the products.
 //
 // What bounds it on the H100: dK/dV do 8*B*N^2*C FLOPs and dQ 6*B*N^2*C
-// against a few B*N*C fp32 bytes, so both are bound by arithmetic. On the
-// CUDA cores that is 67 TFLOP/s: 16.41 and 12.31 ms at (1, 16384, 512).
-// This kernel takes the fp32 products as plain FFMA, not as 3xTF32 on the
-// tensor cores (the fp32 forward's route, bound 6.66 and 5.00 ms there):
-//   * every product of the backward has an operand that tf32 wgmma would
-//     need transposed in shared memory (its B is K-major only): P^T dO,
-//     dS^T Q and dS K all sum over the streamed rows, which are the
-//     operands' outer dimension;
-//   * the tensor cores truncate each fp32 accumulation, which a 3xTF32
-//     kernel must keep short and a test must model; FFMA rounds to nearest;
-//   * with hi and lo copies of each operand the shared memory of a 64-row
-//     block of 128 channels does not close.
-// A 3xTF32 backward on wgmma is later work (ROADMAP); this one is simple and
-// exact.
+// against a few B*N*C fp32 bytes, so both are bound by arithmetic. TF32
+// keeps 10 mantissa bits, so each output product and dP are three TF32
+// products (3xTF32, as the fp32 forward's): each fp32 operand x is split
+// into hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest, and x y
+// is taken as lo hi + hi lo + hi hi on wgmma with fp32 accumulation. S alone
+// is taken by FFMA on the CUDA cores (below). Bound: 3 x the FLOPs at the
+// 495 TFLOP/s TF32 rate, 6.66 and 5.00 ms at (1, 16384, 512); S's FFMAs
+// alone are 4.10 ms of the CUDA cores' 67 TFLOP/s in each kernel.
 //
-// The design keeps the bf16 backward's split (flash_attention_bwd.cu): the
-// channels, not the rows. A cluster of R = C/128 CTAs (4 at C = 512; 1, 2,
+// Why S is not on the tensor cores: with P = exp(S scale - lse) rebuilt
+// from the forward's lse and never renormalised, an absolute error in S is
+// a relative error in P, and at logits of several hundred the plain fp32
+// matmul's own rounding (one FMA chain a logit) is already about 3 ulps.
+// Summed on wgmma (truncating, 48 adds) S is 1.5e-3 off plain there; summed
+// exactly, still 2-4e-4; in plain's own order, one FMA chain of the
+// channels in order, it keeps plain's bits
+// (tests/test_torch_flash_bwd_f32.py::test_large_logits_need_plain_order).
+// dP enters only through dP - delta, where its truncation error is small
+// against the difference, so wgmma serves it, in four fresh accumulators of
+// 32 channels (one accumulator of 48 adds reaches 1.1e-4 there on one input
+// of ten). S by FFMA is shared-memory bound: 4 x 4 logits a thread load 8
+// float4 for 64 FMAs, so warpgroup 0 takes all of S and warpgroup 1 all
+// the rest but its own products, and the order below keeps S running while
+// the cluster exchanges.
+//
+// The split: the channels, not the rows, as in the bf16 backward
+// (flash_attention_bwd.cu). A cluster of R = C/128 CTAs (4 at C = 512; 1, 2,
 // 3 at 128, 256, 384) shares one block of 64 rows (keys for dK/dV, queries
-// for dQ), and CTA r owns channels [128r, 128r + 128): its slice of the two
-// resident operands (K and V, or Q and dO) stays in shared memory, and its
-// dK and dV (or dQ) of 64 rows x 128 channels are 32 fp32 registers a thread
-// each over 256 threads. Per streamed tile of 32 rows (queries for dK/dV,
-// keys for dQ):
-//   1. cp.async brings the tile's slice of the two streamed operands (Q and
-//      dO, or K and V; dK/dV also the tile's lse and delta) into one of two
-//      stages, rows padded to 132 floats so that a warp's float4 columns
-//      fall on distinct banks; the next tile's loads are in flight meanwhile;
-//   2. warps 0-3 form this CTA's partial S (or S^T) over its 128 channels
-//      and warps 4-7 its partial dP, 4 x 4 logits a thread, one FFMA chain
-//      of 128 channels each, into one of two partial buffers;
-//   3. the cluster synchronises, and every CTA reads all R partials of each
-//      logit through distributed shared memory and adds them in rank order
-//      0, 1, ..., R-1, so every CTA holds the same bits of S and dP, and
-//      forms P and dS (transposed, rows of the streamed index) in its own
-//      shared memory. The partial buffers alternate by tile, so one cluster
-//      barrier a tile suffices: a CTA writes a buffer again only after every
-//      CTA has passed the next tile's barrier, so after its reads;
-//   4. each thread adds the tile's P^T dO and dS^T Q (or dS K) over 4 rows
-//      x 8 of its CTA's channels into fresh accumulators, one FFMA chain of
-//      32 rows, then adds those to its dK and dV (or dQ) sums: a sum of N
-//      terms in two levels, whose rounding stays far under the plain
-//      matmul's own.
-// No atomics; each output element is written once, by one thread: two runs
-// give the same bits. One kernel template serves both: DKV picks the roles
-// of the operands, lse and delta by column (dK/dV) or by row (dQ), and the
-// second output.
+// for dQ), and CTA r owns channels [128r, 128r + 128). Two warpgroups a CTA.
 //
-// Shared memory: 66 KB resident + 66 KB of stages + 40 KB of partials + 17
-// KB of P^T and dS^T = 194,048 bytes, one CTA an SM.
+// tf32 wgmma takes K-major operands only (no transpose flag), and every
+// output product sums over the streamed rows, its operands' outer dimension.
+// So the outputs are computed transposed, M = channels: dK^T = Q^T dS,
+// dV^T = dO^T P, dQ^T = K^T dS^T. The streamed operand is wgmma's register A,
+// gathered from its row-major fp32 tile by each thread's own loads (a
+// transpose costs only addressing) and split in registers, and P and dS,
+// which the kernel forms itself, are the K-major B in shared memory, written
+// once as hi and once as lo. dP keeps both operands K-major over the
+// channels: the resident one (V, or dO) is register A, split as it is
+// loaded, and the streamed one B, split into a buffer of its own.
+//
+// Per streamed tile of 32 rows (queries for dK/dV, keys for dQ):
+//   1. TMA brought the tile's slice of the two streamed operands (Q and dO,
+//      or K and V; dK/dV also lse and delta) into one of two stages, four
+//      128-byte swizzled boxes of 32 channels each; warpgroup 1 splits the
+//      second (dO, or V) into hi and lo at the same offsets in the split
+//      buffer; the stage stays fp32;
+//   2. warpgroup 0 forms this CTA's partial S^T (or S) over its 128
+//      channels by FFMA, 4 x 4 logits a thread (rows rg + 16 i, columns c8 +
+//      8 j), one chain of the 128 channels in order each; warpgroup 1 its
+//      partial dP^T (or dP) on wgmma, m64n32k8, four fresh accumulators of 4
+//      k-steps of three products (12 truncating adds), added as (d0 + d1) +
+//      (d2 + d3);
+//   3. the cluster adds the partials in rank order 0, 1, ..., R-1 by the
+//      bf16 backward's reduce-scatter: the tile's k-step j, and so the logit
+//      pairs 2j and 2j + 1 of a wgmma accumulator, belongs to rank j R / 4;
+//      every CTA bulk-copies each owner its partials, the owner's warpgroup
+//      1 adds the R slots, forms P and dS in fp32, splits them into hi and
+//      lo at their places in the B tiles and bulk-copies its run into every
+//      other rank's (an all-gather). Every CTA so holds the same bits of P
+//      and dS. Bytes a tile at R = 4: 12 KB of partials out of and into each
+//      CTA, and 8 KB (dQ 4 KB) of hi/lo tiles to each of the three others;
+//   4. warpgroup 0 adds dK^T (both 64-channel halves) and warpgroup 1 dV^T;
+//      for dQ warpgroup g adds dQ^T over channels [64g, 64g + 64):
+//      m64n64k8, each tile's products into fresh accumulators (4 k-steps of
+//      three), then into the running sums by fp32 adds.
+// The loop runs one tile ahead. Iteration t: both warpgroups load their
+// products' A of tile t into registers and push tile t's partials (formed
+// in iteration t - 1, one barrier for the CTA); then warpgroup 0 forms tile
+// t + 1's S, while warpgroup 1 splits tile t + 1 (the partials travel),
+// reduces its owned pairs of tile t and starts the gather, and forms tile t
+// + 1's dP (the gather travels); then each takes tile t's products, warpgroup
+// 0 once warpgroup 1's own run of the B tiles is written (named barrier 3).
+// The partial logits wait in registers until the next push, so that one set
+// of B tiles and of slots suffices. The tensor cores truncate each fp32
+// accumulation (round toward zero), so no wgmma accumulation is long
+// (tests/test_torch_flash_tf32x3.py). The splits take cvt.rna's rounding by
+// integer operations, bit for bit, at the full integer rate (cvt.rna.tf32
+// compiles to several instructions).
+//
+// The B tiles: a thread's logit pair p = 2j + h sits at rows 16w + lane/4 +
+// 8h (w its warp) and columns 8j + 2(lane%4) and the next; over the
+// warpgroup that is 32 rows x one k-step of 8 columns, one 1 KB block of
+// 8-row core matrices (no swizzle; 256 bytes from one 8-row group to the
+// next, 128 from one 4-column half to the other). The blocks are [k-step
+// j][tile][h], tiles P hi, P lo, dS hi, dS lo (dQ: dS hi, dS lo): each
+// tile's two halves of a k-step are the B of one m64n64k8, and a rank's run
+// of k-steps is one contiguous bulk copy. The partial slots keep that
+// layout: warpgroup 0 scatters its 4 x 4 logits of S to the places of the
+// accumulator layout.
+//
+// Shared memory at R = 4 (dK/dV): 64 KB resident (two 64-row slices), 64 KB
+// of stages, 32 KB of split buffer, 32 KB of B tiles, 28 KB of partial
+// slots and outbox = 226,856 bytes with the barriers and the alignment (R =
+// 3, whose ranks own 2, 1 and 1 k-steps: 230,952); dQ 16 KB less. One CTA
+// an SM. No atomics; each output element is written once, by one thread:
+// two runs give the same bits. One kernel template serves both: DKV picks
+// the roles of the operands, lse and delta by column (dK/dV) or by row
+// (dQ), and the outputs.
 //
 // Plain C interface for ctypes: pointers and the stream are void*, each
 // function returns cudaGetLastError() after its launch (cudaErrorInvalidValue
@@ -71,269 +122,623 @@
 // allocate nothing and do not synchronise.
 
 #include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "sm90_wgmma.cuh"
 
 namespace {
 
+using namespace vcd::sm90;
 namespace cg = cooperative_groups;
 
-constexpr int SLICE = 128;         // channels of one CTA of the cluster
-constexpr int ROWS = 64;           // the cluster's keys (dK/dV) or queries (dQ)
-constexpr int TILE = 32;           // streamed rows a tile
-constexpr int THREADS = 256;
+constexpr int SLICE = 128;                 // channels of one CTA of the cluster
+constexpr int ROWS = 64;                   // the cluster's keys (dK/dV) or queries (dQ)
+constexpr int TILE = 32;                   // streamed rows a tile
+constexpr int WG = 128;                    // threads of a warpgroup
+constexpr int THREADS = 2 * WG;
 constexpr int STAGES = 2;
-constexpr int LD = SLICE + 4;      // operand row stride, floats: 4 banks on a row
-constexpr int XLD = TILE + 8;      // partial-logit row stride: a warp's stores on 32 banks
-constexpr int PLD = ROWS + 4;      // P^T and dS^T row stride: a quarter warp's float4s apart
+constexpr int RES_BOX = ROWS * 128;        // a resident TMA box: 64 rows x 32 channels fp32
+constexpr int RESIDENT = 4 * RES_BOX;      // a resident 64-row slice of 128 channels
+constexpr int STR_BOX = TILE * 128;        // a streamed box: 32 rows x 32 channels
+constexpr int STREAMED = 4 * STR_BOX;      // a streamed 32-row slice
+constexpr int PAIRS = TILE / 4;            // a thread's 16 partial logits, in pairs
+constexpr int KSTEPS = TILE / 8;           // k-steps of the products: two pairs each
+constexpr int BLOCK = 1024;                // a B tile's block of one pair
+constexpr int DP_PARTS = 4;                // dP's fresh accumulators, 32 channels each
+static_assert(DP_PARTS == 4, "partial_dp adds its parts as (d0 + d1) + (d2 + d3)");
+constexpr int DP_BUFS = 3;                 // dP's groups of A registers, loaded ahead
 
-// Offsets into the dynamic shared memory, in floats.
-constexpr int RES = 0;                                // two resident 64-row slices
-constexpr int RING = RES + 2 * ROWS * LD;             // STAGES x two streamed slices
-constexpr int PART = RING + STAGES * 2 * TILE * LD;   // [buffer][S, dP][row][XLD]
-constexpr int PT = PART + 2 * 2 * ROWS * XLD;         // P^T, then dS^T: [col][PLD]
-constexpr int VEC = PT + 2 * TILE * PLD;              // dK/dV: [stage][lse, delta][TILE]; dQ: [lse, delta][ROWS]
-constexpr int FLOATS = VEC + 2 * 2 * TILE;
-constexpr int SMEM_BYTES = FLOATS * 4;
-static_assert(STAGES * 2 * TILE == 2 * ROWS, "the row vectors' region fits both kernels");
-static_assert(SMEM_BYTES <= 227 * 1024, "too much shared memory for a CTA");
+// The k-steps of a tile's logits, and so their pairs 2j and 2j + 1, belong
+// to rank floor(j R / KSTEPS): ranks own contiguous runs [first(r),
+// first(r + 1)). A CTA's partial slots are compact: its own R runs of its
+// pairs ([rank][pair][thread] float4), then its outbox, a run for every
+// other rank in rank order.
+template <int R>
+struct Split {
+  __host__ __device__ static constexpr int first(int r) { return (KSTEPS * r + R - 1) / R; }
+  __host__ __device__ static constexpr int pairs(int r) { return 2 * (first(r + 1) - first(r)); }
+  // float4s before rank o's run in the outbox of rank `rank`
+  __device__ static int outbox_at(int o, int rank) {
+    int at = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (r < o && r != rank) at += pairs(r);
+    return at * WG;
+  }
+  // the largest slots region of any rank, bytes
+  static constexpr int bytes() {
+    int most = 0;
+    for (int r = 0; r < R; ++r) {
+      const int b = ((R - 1) * pairs(r) + PAIRS) * WG * 16;
+      most = b > most ? b : most;
+    }
+    return most;
+  }
+};
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
+// Byte offsets into the 1024-aligned dynamic shared memory.
+template <int R, bool DKV>
+struct Layout {
+  using X = Split<R>;
+  static constexpr int NB = DKV ? 4 : 2;                     // B tiles: P hi, lo, dS hi, lo
+  static constexpr int KSTEP_BYTES = NB * 2 * BLOCK;         // [tile][half][block]
+  static constexpr int RES = 0;                              // two resident slices
+  static constexpr int RING = RES + 2 * RESIDENT;            // STAGES x two streamed slices
+  static constexpr int SPLIT = RING + STAGES * 2 * STREAMED; // hi, lo of the second streamed slice
+  static constexpr int BT = SPLIT + 2 * STREAMED;            // [k-step][tile][half] blocks
+  static constexpr int SLOTS = BT + KSTEPS * KSTEP_BYTES;    // partial slots and outbox
+  static constexpr int VEC = SLOTS + X::bytes();             // DKV: [stage][lse, delta][TILE]
+  static constexpr int BARS = VEC + (DKV ? STAGES * 2 * TILE : 2 * ROWS) * 4;
+  static constexpr int NBARS = STAGES + 3;                   // full[], res, slots, gather
+  static constexpr int BYTES = BARS + NBARS * 8 + 1024;      // + the alignment pad
+  static_assert(BYTES <= 227 * 1024, "too much shared memory for a CTA");
+};
+
+// Keeps the compiler from hoisting what derives from x out of a loop: the
+// tile loop recomputes its addresses rather than hold them in registers.
+__device__ __forceinline__ int launder(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// Finite x rounded to tf32 to nearest, ties away from zero, as fp32 bits:
+// cvt.rna.tf32.f32's rounding as two integer operations (half of tf32's
+// last place added to the magnitude's bits, then the 13 bits tf32 drops
+// cleared), which issue at the full integer rate where the conversion does
+// not.
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
-// Waits until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+// hi and lo of fp32 x as tf32 bits
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = rna_tf32(x);
+  lo = rna_tf32(x - __uint_as_float(hi));
 }
 
-__device__ __forceinline__ float lane4(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+__device__ __forceinline__ void split_tf32(float4 x, float4& hi, float4& lo) {
+  uint32_t h[4], l[4];
+  split_tf32(x.x, h[0], l[0]);
+  split_tf32(x.y, h[1], l[1]);
+  split_tf32(x.z, h[2], l[2]);
+  split_tf32(x.w, h[3], l[3]);
+  hi = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                   __uint_as_float(h[3]));
+  lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
+                   __uint_as_float(l[3]));
 }
 
-// DKV: dK (out1), dV (out2) for the 64 keys blockIdx.y of batch blockIdx.z.
-// Else dQ (out1; out2 unused) for the 64 queries blockIdx.y. q, k, v, dout,
-// out1, out2: (B, N, C) fp32; lse, delta: (B, N) fp32. Grid (R, N / 64, B)
-// in clusters of (R, 1, 1).
+// Element (row, ch) of a slice of 128-byte swizzled boxes of 32 channels,
+// `box` bytes a box: chunk c of a row at c ^ (row % 8).
+__device__ __forceinline__ int swizzled(int row, int ch, int box) {
+  return (ch >> 5) * box + row * 128 + ((((ch & 31) >> 2) ^ (row & 7)) << 4) + (ch & 3) * 4;
+}
+
+// Component e of v (e a constant after unrolling).
+__device__ __forceinline__ float lane(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// Step 2, warpgroup 0: this CTA's partial S^T (or S) by FFMA, a (64 rows,
+// resident) times b^T (32 rows, streamed, fp32) over the slice's 128
+// channels: logit (rg + 16 i, c8 + 8 j) in s[4 i + j], one chain of the
+// channels in order each (plain's order). The chunk of 4 channels a step
+// sits at chunk ^ (row % 8) of each row, and row % 8 is rg % 8 for all four
+// a rows and c8 for all four b rows, so each step's addresses are two XORs;
+// a warp's 4 a rows and 8 b rows fall on distinct chunks, so each float4
+// load takes one wavefront. The 16 chains advance one channel at a time,
+// 16 independent FMAs apart.
+__device__ __forceinline__ void partial_s(float (&s)[16], const uint8_t* a, const uint8_t* b,
+                                          int wt) {
+  const int rg = launder(wt / 8), c8 = wt % 8;
+  const uint8_t* ra = a + rg * 128;  // row rg + 16 i at + 16 i rows
+  const uint8_t* rb = b + c8 * 128;  // row c8 + 8 j at + 8 j rows
+  const int xa = (rg % 8) << 4, xb = c8 << 4;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s[i] = 0.f;
+#pragma unroll 1
+  for (int box = 0; box < SLICE / 32; ++box) {
+#pragma unroll
+    for (int chunk = 0; chunk < 8; ++chunk) {
+      const uint8_t* pa = ra + box * RES_BOX + ((chunk << 4) ^ xa);
+      const uint8_t* pb = rb + box * STR_BOX + ((chunk << 4) ^ xb);
+      float4 av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(pa + 16 * 128 * i);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(pb + 8 * 128 * j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            s[4 * i + j] = fmaf(lane(av[i], e), lane(bv[j], e), s[4 * i + j]);
+    }
+  }
+}
+
+// Step 2, warpgroup 1: this CTA's partial dP^T (or dP), a (64 rows,
+// resident) times b^T (32 rows, streamed, split into hi and lo tiles) over
+// the slice's 128 channels, in DP_PARTS fresh accumulators of 32 channels
+// added at the end. A comes from registers, split as it is loaded, in
+// groups of two k-steps, DP_BUFS - 1 groups ahead of their wgmmas: beside
+// S's stream of shared-memory loads a load waits longer than one group's
+// wgmmas take.
+__device__ __forceinline__ void partial_dp(float (&d)[16], const uint8_t* a,
+                                           const uint8_t* b_hi, const uint8_t* b_lo, int wt) {
+  constexpr int GROUPS = SLICE / 16;
+  // this thread's rows 16 warp + lane/4 (+ 8), whose row % 8 is lane/4, and
+  // columns lane % 4 (+ 4) of each k-step
+  const int gid = launder((wt % 32) / 4);
+  const uint8_t* at = a + (16 * (wt / 32) + gid) * 128 + (wt % 4) * 4;
+  uint32_t frag[DP_BUFS][2][8];  // [group % DP_BUFS][k-step][hi 0-3, lo 4-7]
+  auto load = [&](int grp) {
+    uint32_t(&f)[2][8] = frag[grp % DP_BUFS];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int kk = 2 * grp + s;  // channels 8 kk .. 8 kk + 7
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // a[e]: row + 8 (e & 1), channel + 4 (e >> 1): chunk 2 (kk % 4) + (e >> 1)
+        const int chunk = 2 * (kk % 4) + (e >> 1);
+        const float x = *reinterpret_cast<const float*>(
+            at + (kk / 4) * RES_BOX + (e & 1) * 1024 + ((chunk ^ gid) << 4));
+        split_tf32(x, f[s][e], f[s][4 + e]);
+      }
+    }
+  };
+  float part[DP_PARTS][16];
+#pragma unroll
+  for (int q = 0; q < DP_PARTS; ++q) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) part[q][i] = 0.f;
+    fence_regs(part[q]);  // zeroed here, not between a fence and its wgmma
+  }
+#pragma unroll
+  for (int grp = 0; grp < DP_BUFS - 1; ++grp) load(grp);
+#pragma unroll
+  for (int grp = 0; grp < GROUPS; ++grp) {
+    uint32_t(&f)[2][8] = frag[grp % DP_BUFS];
+    float(&acc)[16] = part[grp / (GROUPS / DP_PARTS)];
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int kk = 2 * grp + s;
+      const uint32_t hi[4] = {f[s][0], f[s][1], f[s][2], f[s][3]};
+      const uint32_t lo[4] = {f[s][4], f[s][5], f[s][6], f[s][7]};
+      const uint64_t bh = make_desc(b_hi + (kk / 4) * STR_BOX, 128) + 2 * (kk % 4);
+      const uint64_t bl = make_desc(b_lo + (kk / 4) * STR_BOX, 128) + 2 * (kk % 4);
+      wgmma_tf32_rs_m64n32k8(acc, lo, bh);
+      wgmma_tf32_rs_m64n32k8(acc, hi, bl);
+      wgmma_tf32_rs_m64n32k8(acc, hi, bh);
+    }
+    wgmma_commit();
+    if (grp + DP_BUFS - 1 < GROUPS) {
+      // group grp - 1's registers are free once it is done: they take
+      // group grp + DP_BUFS - 1
+      if (grp > 0) {
+        wgmma_wait<1>();
+#pragma unroll
+        for (int s = 0; s < 2; ++s) fence_regs(frag[(grp + DP_BUFS - 1) % DP_BUFS][s]);
+      }
+      load(grp + DP_BUFS - 1);
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int b = 0; b < DP_BUFS; ++b)
+#pragma unroll
+    for (int s = 0; s < 2; ++s) fence_regs(frag[b][s]);
+#pragma unroll
+  for (int q = 0; q < DP_PARTS; ++q) fence_regs(part[q]);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) d[i] = (part[0][i] + part[1][i]) + (part[2][i] + part[3][i]);
+}
+
+// Step 3, first half: this thread's partials into this CTA's own slot (the
+// pairs it owns) or its outbox run for their owner, float4 (S pair, dP
+// pair) at [pair][accumulator thread]: warpgroup 1's dP pairs as its
+// accumulator holds them, warpgroup 0's 4 x 4 logits of S scattered to the
+// places of the accumulator layout (x holds either); once every thread has
+// written, lane 0 of warp o sends the run of rank o to its slot for this
+// rank in one bulk copy, counted by the owner's slots barrier.
+template <int R>
+__device__ __forceinline__ void push_partials(const float (&x)[16], float2* slots,
+                                              uint64_t* slots_full, int rank, int tid) {
+  using X = Split<R>;
+  const int g = tid / WG, wt = tid % WG;
+  const int mine = X::pairs(rank);
+  float2* outbox = slots + R * mine * WG * 2;
+#pragma unroll
+  for (int o = 0; o < R; ++o) {
+    float2* dst = o == rank ? slots + rank * mine * WG * 2 : outbox + X::outbox_at(o, rank) * 2;
+    if (g == 1) {
+#pragma unroll
+      for (int p = 2 * X::first(o); p < 2 * X::first(o + 1); ++p)
+        dst[((p - 2 * X::first(o)) * WG + wt) * 2 + 1] = make_float2(x[2 * p], x[2 * p + 1]);
+    } else {
+      // logit (rg + 16 i, c8 + 8 j): accumulator row 16 i + rg % 8 + 8 h
+      // (h = rg / 8) of warp i, column 8 j + 2 (c8 / 2) + c8 % 2, so pair
+      // 2 j + h of thread 32 i + 4 (rg % 8) + c8 / 2, half c8 % 2
+      const int rg = wt / 8, c8 = wt % 8;
+      float* to = reinterpret_cast<float*>(dst) + 4 * (4 * (rg % 8) + c8 / 2) + c8 % 2;
+#pragma unroll
+      for (int j = X::first(o); j < X::first(o + 1); ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          to[4 * ((2 * (j - X::first(o)) + rg / 8) * WG + 32 * i)] = x[4 * i + j];
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+  const int o = tid / 32;  // lane 0 of warp o sends to rank o
+  if (tid % 32 == 0 && o < R && o != rank)
+    bulk_copy_cluster(cluster_addr(slots + rank * X::pairs(o) * WG * 2, o),
+                      outbox + X::outbox_at(o, rank) * 2, X::pairs(o) * WG * 16,
+                      cluster_addr(slots_full, o));
+}
+
+// Step 3, second half, on the owner, by warpgroup 1 alone: once every
+// rank's partials have landed, add the slots of each owned pair in rank
+// order, form P and dS, split them into hi and lo at the pair's place in the
+// B tiles; lane 0 of warpgroup 1's warp r then copies the owned run to the
+// same place in rank r's B tiles, counted by that rank's gather barrier, and
+// the warpgroup arrives at named barrier 3, where warpgroup 0 waits before
+// its products read the owned run. vec: DKV, the tile's lse and delta by
+// column; else the block's by row.
+template <int R, bool DKV>
+__device__ __forceinline__ void reduce_and_gather(const float4* slots, uint8_t* bt,
+                                                  uint64_t* slots_full, uint64_t* gather_full,
+                                                  uint32_t parity, int rank, int tid,
+                                                  const float* vec, float scale) {
+  using L = Layout<R, DKV>;
+  using X = typename L::X;
+  mbar_wait(slots_full, parity);
+  const int mine = X::pairs(rank), p0 = 2 * X::first(rank), wt = tid % WG;
+  for (int i = wt; i < mine * WG; i += WG) {
+    const int pi = i / WG, p = p0 + pi;
+    float4 a = slots[pi * WG + wt];
+#pragma unroll
+    for (int r = 1; r < R; ++r) {
+      const float4 b = slots[(r * mine + pi) * WG + wt];
+      a.x += b.x;
+      a.y += b.y;
+      a.z += b.z;
+      a.w += b.w;
+    }
+    const int warp = wt / 32, gid = (wt % 32) / 4, tig = wt % 4;
+    float l0, l1, d0, d1;
+    if (DKV) {  // columns: the tile's queries
+      const int col = 8 * (p / 2) + 2 * tig;
+      l0 = vec[col];
+      l1 = vec[col + 1];
+      d0 = vec[TILE + col];
+      d1 = vec[TILE + col + 1];
+    } else {  // rows: the block's queries
+      const int row = 16 * warp + gid + 8 * (p & 1);
+      l0 = l1 = vec[row];
+      d0 = d1 = vec[ROWS + row];
+    }
+    // S * scale rounded before the subtraction, as the plain version
+    const float p0v = expf(__fmul_rn(a.x, scale) - l0);
+    const float p1v = expf(__fmul_rn(a.y, scale) - l1);
+    const float ds0 = p0v * (a.z - d0) * scale, ds1 = p1v * (a.w - d1) * scale;
+    // k-step p / 2, half p % 2: [k-step][tile][half] blocks
+    uint8_t* at = bt + (p / 2) * L::KSTEP_BYTES + (p & 1) * BLOCK + warp * 256 +
+                  (tig >> 1) * 128 + gid * 16 + (tig & 1) * 8;
+    uint32_t h0, e0, h1, e1;
+    if (DKV) {
+      split_tf32(p0v, h0, e0);
+      split_tf32(p1v, h1, e1);
+      *reinterpret_cast<uint2*>(at) = make_uint2(h0, h1);
+      *reinterpret_cast<uint2*>(at + 2 * BLOCK) = make_uint2(e0, e1);
+      at += 4 * BLOCK;
+    }
+    split_tf32(ds0, h0, e0);
+    split_tf32(ds1, h1, e1);
+    *reinterpret_cast<uint2*>(at) = make_uint2(h0, h1);
+    *reinterpret_cast<uint2*>(at + 2 * BLOCK) = make_uint2(e0, e1);
+  }
+  fence_proxy_async();
+  named_barrier(2, WG);
+  named_barrier_arrive(3, THREADS);
+  const int r = wt / 32;  // lane 0 of warpgroup 1's warp r sends to rank r
+  const int run = X::first(rank) * L::KSTEP_BYTES;
+  if (wt % 32 == 0 && r < R && r != rank)
+    bulk_copy_cluster(cluster_addr(bt + run, r), bt + run, mine / 2 * L::KSTEP_BYTES,
+                      cluster_addr(gather_full, r));
+}
+
+// Step 1, warpgroup 1: the streamed slice `st` split into hi at `split`
+// and lo at `split` + STREAMED, at the same offsets (the swizzle kept).
+__device__ __forceinline__ void split_slice(const uint8_t* st, uint8_t* split, int wt) {
+#pragma unroll
+  for (int i = 0; i < STREAMED / 16 / WG; ++i) {
+    const int off = (wt + WG * i) * 16;
+    float4 h, l;
+    split_tf32(*reinterpret_cast<const float4*>(st + off), h, l);
+    *reinterpret_cast<float4*>(split + off) = h;
+    *reinterpret_cast<float4*>(split + STREAMED + off) = l;
+  }
+  fence_proxy_async();
+  named_barrier(2, WG);
+}
+
+// Step 4, first half: the products' register A in fp32, the streamed
+// slice's rows^T for channels [64 (mb0 + m), + 64), read transposed from
+// its fp32 tile at `st`: a[e] is channel ch0 + 8 (e & 1), row 8j + lane % 4
+// + 4 (e >> 1) of k-step j.
+template <int MB>
+__device__ __forceinline__ void load_frags(float (&frag)[MB][KSTEPS][4], const uint8_t* st,
+                                           int mb0, int wt) {
+  const int warp = wt / 32, gid = launder((wt % 32) / 4), tig = wt % 4;
+#pragma unroll
+  for (int m = 0; m < MB; ++m) {
+    const int ch0 = 64 * (mb0 + m) + 16 * warp + gid;
+#pragma unroll
+    for (int j = 0; j < KSTEPS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int off = swizzled(8 * j + tig + 4 * (e >> 1), ch0 + 8 * (e & 1), STR_BOX);
+        frag[m][j][e] = *reinterpret_cast<const float*>(st + off);
+      }
+  }
+}
+
+// Step 4, second half: d[m] (channels [64 (mb0 + m), + 64) x the block's 64
+// rows) += A (frag[m], split here into hi and lo) times the B tiles `tile`
+// (hi) and `tile + 1` (lo), through fresh accumulators.
+template <int MB, int KSTEP_BYTES>
+__device__ __forceinline__ void products(float (&d)[MB][32], const float (&frag)[MB][KSTEPS][4],
+                                         const uint8_t* bt, int tile) {
+#pragma unroll
+  for (int m = 0; m < MB; ++m) {
+    float fresh[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) fresh[i] = 0.f;
+    fence_regs(fresh);  // zeroed here, not between the fence and its wgmma
+    uint32_t split[KSTEPS][8];  // [k-step][hi 0-3, lo 4-7]
+#pragma unroll
+    for (int j = 0; j < KSTEPS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(frag[m][j][e], split[j][e], split[j][4 + e]);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < KSTEPS; ++j) {
+      const uint32_t hi[4] = {split[j][0], split[j][1], split[j][2], split[j][3]};
+      const uint32_t lo[4] = {split[j][4], split[j][5], split[j][6], split[j][7]};
+      const uint8_t* block = bt + j * KSTEP_BYTES + tile * 2 * BLOCK;
+      const uint64_t bh = make_desc_interleave(block, 128, 256);
+      const uint64_t bl = make_desc_interleave(block + 2 * BLOCK, 128, 256);
+      wgmma_tf32_rs_m64n64k8(fresh, lo, bh);
+      wgmma_tf32_rs_m64n64k8(fresh, hi, bl);
+      wgmma_tf32_rs_m64n64k8(fresh, hi, bh);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < KSTEPS; ++j) fence_regs(split[j]);
+    fence_regs(fresh);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[m][i] += fresh[i];
+  }
+}
+
+// Writes d[m] transposed into out (rows of C channels, the block's first row
+// at out, this CTA's first channel at c0): accumulator row (channel)
+// 64 (mb0 + m) + 16 warp + lane/4 (+ 8), column 8j + 2 (lane % 4) (+ 1),
+// which is block row 16 (j % 4) + 2 (lane % 4) (+ 1) + 8 (j / 4).
+template <int C, int MB>
+__device__ __forceinline__ void store_transposed(float* out, const float (&d)[MB][32], int mb0,
+                                                 int wt) {
+  const int warp = wt / 32, gid = (wt % 32) / 4, tig = wt % 4;
+#pragma unroll
+  for (int m = 0; m < MB; ++m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ch = 64 * (mb0 + m) + 16 * warp + gid + 8 * (e >> 1);
+        const int row = 16 * (j % 4) + 2 * tig + (e & 1) + 8 * (j / 4);
+        out[static_cast<size_t>(row) * C + ch] = d[m][4 * j + e];
+      }
+}
+
+// DKV: dK (out1), dV (out2) for the 64 keys blockIdx.y of batch blockIdx.z:
+// resident K, V (res0, res1), streamed Q, dO (str0, str1) with the tile's
+// lse and delta by TMA. Else dQ (out1; out2 unused) for the 64 queries
+// blockIdx.y: resident Q, dO, streamed K, V, the block's lse and delta read
+// once. Operand maps: (B, N, C) fp32 in boxes of 32 channels x 64 rows
+// (resident) or 32 rows (streamed), 128-byte swizzled; lse and delta (B, N)
+// fp32. Grid (R, N / 64, B) in clusters of (R, 1, 1).
 template <int C, bool DKV>
 __global__ void __launch_bounds__(THREADS, 1)
-    flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ dout,
+    flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap res0map,
+                         const __grid_constant__ CUtensorMap res1map,
+                         const __grid_constant__ CUtensorMap str0map,
+                         const __grid_constant__ CUtensorMap str1map,
+                         const __grid_constant__ CUtensorMap lsemap,
+                         const __grid_constant__ CUtensorMap deltamap,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          float* __restrict__ out1, float* __restrict__ out2, int n,
                          float scale) {
   constexpr int R = C / SLICE;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int tid = threadIdx.x;
-  const int r0 = blockIdx.y * ROWS, c0 = rank * SLICE, nt = n / TILE;
-  const size_t base = static_cast<size_t>(blockIdx.z) * n;  // batch element's first row
-  // the resident rows' operands and the streamed ones: S (or S^T) is
-  // res1 str1^T, dP (or dP^T) res2 str2^T; out1 += dS str1, out2 += P str2
-  const float* res1 = DKV ? k : q;
-  const float* res2 = DKV ? v : dout;
-  const float* str1 = DKV ? q : k;
-  const float* str2 = DKV ? dout : v;
-  float* pt = smem + PT;
-  float* dst = pt + TILE * PLD;
-  auto stage = [&](int t) { return smem + RING + (t % STAGES) * 2 * TILE * LD; };
-  auto part = [&](int t) { return smem + PART + (t & 1) * 2 * ROWS * XLD; };
-  auto vecs = [&](int t) { return smem + VEC + (DKV ? (t % STAGES) * 2 * TILE : 0); };
+  using L = Layout<R, DKV>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = tid / WG, wt = tid % WG;
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int r0 = blockIdx.y * ROWS, b = blockIdx.z, c0 = rank * SLICE, nt = n / TILE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* res_full = full + STAGES;
+  uint64_t* slots_full = res_full + 1;
+  uint64_t* gather_full = res_full + 2;
+  uint8_t* split = smem + L::SPLIT;
+  uint8_t* bt = smem + L::BT;
+  auto stage = [&](int t) { return smem + L::RING + (t % STAGES) * 2 * STREAMED; };
+  auto vec = [&](int t) {
+    return reinterpret_cast<float*>(smem + L::VEC) + (DKV ? (t % STAGES) * 2 * TILE : 0);
+  };
 
-  // rows [row0, row0 + rows) of this CTA's 128 channels of src, into dst
-  auto load_rows = [&](float* to, const float* src, int row0, int rows) {
-    for (int i = tid; i < rows * (SLICE / 4); i += THREADS) {
-      const int row = i / (SLICE / 4), c4 = i % (SLICE / 4);
-      cp_async16(to + row * LD + 4 * c4, src + (base + row0 + row) * C + c0 + 4 * c4);
+  // part w of tile t's loads (w = 0..7, one a warp on a refill): box w % 4
+  // of streamed operand w / 4; part 0 also arms the barrier, part 7 brings
+  // the row vectors (dK/dV)
+  auto issue = [&](int t, int w) {
+    uint64_t* bar = &full[t % STAGES];
+    if (w == 0) mbar_arrive_expect_tx(bar, 2 * STREAMED + (DKV ? 2 * TILE * 4 : 0));
+    tma_load_3d(stage(t) + (w / 4) * STREAMED + (w % 4) * STR_BOX, w < 4 ? &str0map : &str1map,
+                bar, c0 + 32 * (w % 4), t * TILE, b);
+    if (DKV && w == 7) {
+      tma_load_2d(vec(t), &lsemap, bar, t * TILE, b);
+      tma_load_2d(vec(t) + TILE, &deltamap, bar, t * TILE, b);
     }
   };
-  auto load_vec = [&](float* to, const float* src, int row0, int rows) {
-    if (tid < rows / 4) cp_async16(to + 4 * tid, src + base + row0 + 4 * tid);
-  };
-  // tile t's loads as one group (an empty group past the last tile)
-  auto issue = [&](int t) {
-    if (t < nt) {
-      float* st = stage(t);
-      load_rows(st, str1, t * TILE, TILE);
-      load_rows(st + TILE * LD, str2, t * TILE, TILE);
-      if (DKV) {
-        load_vec(vecs(t), lse, t * TILE, TILE);
-        load_vec(vecs(t) + TILE, delta, t * TILE, TILE);
-      }
-    }
-    cp_async_commit();
-  };
-  load_rows(smem + RES, res1, r0, ROWS);
-  load_rows(smem + RES + ROWS * LD, res2, r0, ROWS);
-  if (!DKV) {
-    load_vec(vecs(0), lse, r0, ROWS);
-    load_vec(vecs(0) + ROWS, delta, r0, ROWS);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    mbar_init(res_full, 1);
+    // one arrival each, thread 0's expect_tx of the tile's bytes (arm below)
+    mbar_init(slots_full, 1);
+    mbar_init(gather_full, 1);
+    mbar_init_fence();
   }
-  issue(0);
-  issue(1);
+  if (!DKV && tid < ROWS) {
+    const size_t row = static_cast<size_t>(b) * n + r0 + tid;
+    vec(0)[tid] = lse[row];
+    vec(0)[ROWS + tid] = delta[row];
+  }
+  // every CTA's barriers are initialised before any CTA of the cluster
+  // sends to them
+  cg::this_cluster().sync();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(res_full, 2 * RESIDENT);
+    for (int box = 0; box < 4; ++box) {
+      tma_load_3d(smem + L::RES + box * RES_BOX, &res0map, res_full, c0 + 32 * box, r0, b);
+      tma_load_3d(smem + L::RES + RESIDENT + box * RES_BOX, &res1map, res_full, c0 + 32 * box,
+                  r0, b);
+    }
+  }
+  if (lane == 0)
+    for (int t = 0; t < STAGES && t < nt; ++t) issue(t, warp);
 
-  // step 2: matrix mat (0: S, 1: dP) of the partial logits, rows rg + 16 i
-  // and columns cg + 8 j (i, j < 4): a warp's rows and columns are
-  // consecutive, so its float4 loads fall on distinct banks
-  const int mat = tid / 128, rg = (tid % 128) / 8, cg8 = tid % 8;
-  const float* a_op = smem + RES + mat * ROWS * LD;
-  // step 3: column col of the tile, rows rr .. rr + 7
-  const int col = tid % 32, rr = 8 * (tid / 32);
-  // step 4: rows 4 rq .. 4 rq + 3, channels 4 cj .. + 3 and 64 + 4 cj .. + 3
-  const int rq = tid / 16, cj = tid % 16;
-  float acc1[4][8], acc2[4][8];
+  // DKV: warpgroup 0 sums dK^T, 1 dV^T, both 128 channels; dQ: warpgroup g
+  // sums dQ^T over channels [64g, 64g + 64)
+  constexpr int MB = DKV ? 2 : 1;
+  const int mb0 = DKV ? 0 : g;
+  const int op = DKV ? g : 0;                  // the streamed operand of the products
+  const int tile = DKV ? (g == 0 ? 2 : 0) : 0;  // their B tiles: dS, or P
+  float acc[MB][32];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int m = 0; m < MB; ++m)
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc1[i][e] = acc2[i][e] = 0.f;
+    for (int i = 0; i < 32; ++i) acc[m][i] = 0.f;
+  mbar_wait(res_full, 0);
+  // tile t's partial logits into x: warpgroup 0 S by FFMA (x[4 i + j]);
+  // warpgroup 1 splits the tile's second streamed slice (split_next), then
+  // forms dP on wgmma (its accumulator's layout)
+  float x[16];
+  auto split_next = [&](int t) {
+    mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+    split_slice(stage(t) + STREAMED, split, wt);
+  };
+  if (g == 0) {
+    mbar_wait(&full[0], 0);
+    partial_s(x, smem + L::RES, stage(0), wt);
+  } else {
+    split_next(0);
+    partial_dp(x, smem + L::RES + RESIDENT, split, split + STREAMED, wt);
+  }
 
   for (int t = 0; t < nt; ++t) {
-    cp_async_wait<1>();  // tile t (and the resident slices) landed
-    __syncthreads();
-    const float* st = stage(t);
-
-    // ---- step 2: this CTA's partial S and dP over its 128 channels ----
-    {
-      const float* b_op = st + mat * TILE * LD;
-      float x[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) x[i][j] = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < SLICE; c += 4) {
-        float4 a[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = *reinterpret_cast<const float4*>(a_op + (rg + 16 * i) * LD + c);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          bv[j] = *reinterpret_cast<const float4*>(b_op + (cg8 + 8 * j) * LD + c);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            x[i][j] = fmaf(a[i].x, bv[j].x, x[i][j]);
-            x[i][j] = fmaf(a[i].y, bv[j].y, x[i][j]);
-            x[i][j] = fmaf(a[i].z, bv[j].z, x[i][j]);
-            x[i][j] = fmaf(a[i].w, bv[j].w, x[i][j]);
-          }
-      }
-      float* xp = part(t) + mat * ROWS * XLD;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) xp[(rg + 16 * i) * XLD + cg8 + 8 * j] = x[i][j];
+    // ---- step 3: the products' A of tile t into registers, tile t's
+    // partials pushed to their owners (after tile t - 1's products: the B
+    // tiles are free; the push's barrier also frees stage t for tile t + 2,
+    // but for the tile's lse and delta, which warp 7 refills once they are
+    // read) ----
+    float frag[MB][KSTEPS][4];
+    load_frags<MB>(frag, stage(t) + op * STREAMED, mb0, wt);
+    push_partials<R>(x, reinterpret_cast<float2*>(smem + L::SLOTS), slots_full, rank, tid);
+    // then arm tile t's exchange barriers: the other ranks' partials of this
+    // rank's pairs, and the other owners' runs of the B tiles. Armed only
+    // once push_partials' barrier has seen every thread past tile t - 1's
+    // waits: at R = 1 both expect no byte, so arming completes the phase at
+    // once, and a phase completed before a lagging warpgroup's wait of the
+    // one before would leave it waiting on the parity forever. No byte of
+    // tile t can come before this CTA's partials have left, and bytes that
+    // come before the arming count toward the phase it leaves pending.
+    if (tid == 0) {
+      const int own = L::X::pairs(rank);
+      mbar_arrive_expect_tx(slots_full, (R - 1) * own * WG * 16);
+      mbar_arrive_expect_tx(gather_full, (PAIRS - own) / 2 * L::KSTEP_BYTES);
     }
-    cluster.sync();  // every rank's partials of tile t are visible
+    const bool refill = lane == 0 && t + STAGES < nt;
+    if (refill && warp != 7) issue(t + STAGES, warp);
 
-    // ---- step 3: the partials added in rank order; P and dS ----
-    {
-      float s[8], dp[8];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float* xr = cluster.map_shared_rank(part(t), r);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float sv = xr[(rr + e) * XLD + col];
-          const float dv = xr[(ROWS + rr + e) * XLD + col];
-          s[e] = r == 0 ? sv : s[e] + sv;
-          dp[e] = r == 0 ? dv : dp[e] + dv;
-        }
+    // ---- warpgroup 0 forms tile t + 1's S; warpgroup 1 splits tile t + 1
+    // while the partials travel, adds the owned pairs in rank order and
+    // gathers P and dS, and forms tile t + 1's dP while the gather travels;
+    // then each takes tile t's products into fresh accumulators, then the
+    // sums ----
+    if (g == 0) {
+      if (t + 1 < nt) {
+        mbar_wait(&full[(t + 1) % STAGES], ((t + 1) / STAGES) & 1);
+        partial_s(x, smem + L::RES, stage(t + 1), wt);
       }
-      const float* vv = vecs(t);
-      float p[8], ds[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        // dK/dV: the tile's columns are queries; dQ: the block's rows are
-        const float l = DKV ? vv[col] : vv[rr + e];
-        const float d = DKV ? vv[TILE + col] : vv[ROWS + rr + e];
-        // S * scale rounded before the subtraction, as the plain version
-        p[e] = expf(__fmul_rn(s[e], scale) - l);
-        ds[e] = p[e] * (dp[e] - d) * scale;
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        *reinterpret_cast<float4*>(pt + col * PLD + rr + 4 * h) =
-            make_float4(p[4 * h], p[4 * h + 1], p[4 * h + 2], p[4 * h + 3]);
-        *reinterpret_cast<float4*>(dst + col * PLD + rr + 4 * h) =
-            make_float4(ds[4 * h], ds[4 * h + 1], ds[4 * h + 2], ds[4 * h + 3]);
-      }
+      mbar_wait(gather_full, t & 1);
+      named_barrier(3, THREADS);  // this CTA's own run of the B tiles is written
+    } else {
+      if (t + 1 < nt) split_next(t + 1);
+      reduce_and_gather<R, DKV>(reinterpret_cast<const float4*>(smem + L::SLOTS), bt,
+                                slots_full, gather_full, t & 1, rank, tid, vec(t), scale);
+      if (refill && warp == 7) issue(t + STAGES, warp);
+      if (t + 1 < nt) partial_dp(x, smem + L::RES + RESIDENT, split, split + STREAMED, wt);
+      mbar_wait(gather_full, t & 1);
     }
-    __syncthreads();  // P^T and dS^T are written
-
-    // ---- step 4: the tile's products into fresh accumulators, then the sums ----
-    {
-      float t1[4][8], t2[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) t1[i][e] = t2[i][e] = 0.f;
-      const float* b1 = st;
-      const float* b2 = st + TILE * LD;
-#pragma unroll 4
-      for (int kk = 0; kk < TILE; ++kk) {
-        const float4 d4 = *reinterpret_cast<const float4*>(dst + kk * PLD + 4 * rq);
-        const float4 x0 = *reinterpret_cast<const float4*>(b1 + kk * LD + 4 * cj);
-        const float4 x1 = *reinterpret_cast<const float4*>(b1 + kk * LD + 64 + 4 * cj);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            t1[i][e] = fmaf(lane4(d4, i), lane4(x0, e), t1[i][e]);
-            t1[i][4 + e] = fmaf(lane4(d4, i), lane4(x1, e), t1[i][4 + e]);
-          }
-        if (DKV) {
-          const float4 p4 = *reinterpret_cast<const float4*>(pt + kk * PLD + 4 * rq);
-          const float4 y0 = *reinterpret_cast<const float4*>(b2 + kk * LD + 4 * cj);
-          const float4 y1 = *reinterpret_cast<const float4*>(b2 + kk * LD + 64 + 4 * cj);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              t2[i][e] = fmaf(lane4(p4, i), lane4(y0, e), t2[i][e]);
-              t2[i][4 + e] = fmaf(lane4(p4, i), lane4(y1, e), t2[i][4 + e]);
-            }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          acc1[i][e] += t1[i][e];
-          if (DKV) acc2[i][e] += t2[i][e];
-        }
-    }
-    __syncthreads();  // every thread is done with stage t and with P^T, dS^T
-    issue(t + 2);
+    products<MB, L::KSTEP_BYTES>(acc, frag, bt, tile);
   }
-  // no CTA leaves while another may still read its partials
-  cluster.sync();
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t row = (base + r0 + 4 * rq + i) * C + c0 + 4 * cj;
-    *reinterpret_cast<float4*>(out1 + row) =
-        make_float4(acc1[i][0], acc1[i][1], acc1[i][2], acc1[i][3]);
-    *reinterpret_cast<float4*>(out1 + row + 64) =
-        make_float4(acc1[i][4], acc1[i][5], acc1[i][6], acc1[i][7]);
-    if (DKV) {
-      *reinterpret_cast<float4*>(out2 + row) =
-          make_float4(acc2[i][0], acc2[i][1], acc2[i][2], acc2[i][3]);
-      *reinterpret_cast<float4*>(out2 + row + 64) =
-          make_float4(acc2[i][4], acc2[i][5], acc2[i][6], acc2[i][7]);
-    }
-  }
+  const size_t out = (static_cast<size_t>(b) * n + r0) * C + c0;
+  store_transposed<C, MB>((DKV && g == 1 ? out2 : out1) + out, acc, mb0, wt);
+  // no CTA leaves while another may still reach its shared memory
+  cg::this_cluster().sync();
+}
+
+// A (b, n, C) fp32 operand in boxes of 32 channels x `rows` rows, 128-byte
+// swizzled; a (b, n) fp32 row vector in boxes of TILE.
+template <int C>
+cudaError_t operand_map(CUtensorMap* map, const void* base, int b, int n, int rows) {
+  const uint64_t dims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(n),
+                            static_cast<uint64_t>(b)};
+  const uint64_t strides[2] = {4ull * C, 4ull * C * n};
+  const uint32_t box[3] = {32, static_cast<uint32_t>(rows), 1};
+  return make_tensor_map(map, base, 3, dims, strides, box, 128, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+}
+
+cudaError_t rowvec_map(CUtensorMap* map, const void* base, int b, int n) {
+  const uint64_t dims[2] = {static_cast<uint64_t>(n), static_cast<uint64_t>(b)};
+  const uint64_t strides[1] = {4ull * n};
+  const uint32_t box[2] = {TILE, 1};
+  return make_tensor_map(map, base, 2, dims, strides, box, 0, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
 // The launch over grid (R, n / 64, b) in clusters of R CTAs, with the
@@ -342,9 +747,18 @@ template <int C, bool DKV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, void* out1, void* out2, int b, int n,
                    float scale, cudaStream_t stream) {
+  // dK/dV: K, V resident and Q, dO streamed; dQ: Q, dO resident and K, V streamed
+  CUtensorMap res0, res1, str0, str1, lsemap, deltamap;
+  cudaError_t err = operand_map<C>(&res0, DKV ? k : q, b, n, ROWS);
+  if (err == cudaSuccess) err = operand_map<C>(&res1, DKV ? v : dout, b, n, ROWS);
+  if (err == cudaSuccess) err = operand_map<C>(&str0, DKV ? q : k, b, n, TILE);
+  if (err == cudaSuccess) err = operand_map<C>(&str1, DKV ? dout : v, b, n, TILE);
+  if (err == cudaSuccess) err = rowvec_map(&lsemap, lse, b, n);
+  if (err == cudaSuccess) err = rowvec_map(&deltamap, delta, b, n);
+  if (err != cudaSuccess) return err;
   auto kernel = flash_bwd_f32_kernel<C, DKV>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  constexpr int bytes = Layout<C / SLICE, DKV>::BYTES;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
@@ -352,7 +766,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C / SLICE, n / ROWS, b);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
@@ -361,11 +775,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   cluster.val.clusterDim.z = 1;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(q),
-                           static_cast<const float*>(k), static_cast<const float*>(v),
-                           static_cast<const float*>(dout), static_cast<const float*>(lse),
-                           static_cast<const float*>(delta), static_cast<float*>(out1),
-                           static_cast<float*>(out2), n, scale);
+  err = cudaLaunchKernelEx(&cfg, kernel, res0, res1, str0, str1, lsemap, deltamap,
+                           static_cast<const float*>(lse), static_cast<const float*>(delta),
+                           static_cast<float*>(out1), static_cast<float*>(out2), n, scale);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -388,6 +800,17 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout, cons
   }
 }
 
+template <bool DKV>
+int smem_bytes(int c) {
+  switch (c) {
+    case 128: return Layout<1, DKV>::BYTES;
+    case 256: return Layout<2, DKV>::BYTES;
+    case 384: return Layout<3, DKV>::BYTES;
+    case 512: return Layout<4, DKV>::BYTES;
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -407,6 +830,12 @@ int vcd_flash_attention_bwd_dq_f32(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
                                    void* dq, int b, int n, int c, float scale, void* stream) {
   return dispatch<false>(q, k, v, dout, lse, delta, dq, nullptr, b, n, c, scale, stream);
+}
+
+// The dynamic shared memory a CTA of the dK/dV (dkv != 0) or dQ kernel takes
+// at width c, in bytes; -1 for a width it does not take.
+int vcd_flash_attention_bwd_f32_smem(int c, int dkv) {
+  return dkv ? smem_bytes<true>(c) : smem_bytes<false>(c);
 }
 
 const char* vcd_cuda_error_string(int err) {

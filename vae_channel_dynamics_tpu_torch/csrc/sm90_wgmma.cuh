@@ -2,8 +2,9 @@
 // (also across a thread-block cluster), TMA tile loads, the wgmma
 // shared-memory matrix descriptor, wgmma.mma_async (bf16 -> fp32) with B
 // from shared memory and A from shared memory or from registers, the tf32
-// wgmma with both from shared memory and the rounding to tf32, named
-// barriers, and the host-side tensor-map encoder.
+// wgmma (B from shared memory, K-major with or without swizzle; A from
+// shared memory or registers) and the rounding to tf32, named barriers, and
+// the host-side tensor-map encoder.
 //
 // Conventions. A tile loaded by TMA with a 128-, 64- or 32-byte swizzle sits
 // in shared memory as rows of exactly that many bytes (the box's inner
@@ -418,6 +419,65 @@ __device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], uint64_t desc_a,
         , "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
         , "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// The descriptor of a K-major tile without swizzle: 8-row core matrices of
+// 16 bytes a row (128 contiguous bytes), `lbo` bytes from one core matrix to
+// the next along K (the two halves of a 32-byte k-step), `sbo` bytes from
+// one 8-row group to the next along M or N.
+__device__ __forceinline__ uint64_t make_desc_interleave(const void* tile, uint32_t lbo,
+                                                         uint32_t sbo) {
+  uint64_t d = (static_cast<uint64_t>(smem_u32(tile)) & 0x3FFFF) >> 4;
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
+  return d;  // layout 0: no swizzle
+}
+
+// d (64 x 32) += A (64 x 8 tf32 in registers) * B (32 x 8 tf32, K-major in
+// shared memory), fp32 accumulate. Warp w of the warpgroup holds A's rows
+// 16w + lane/4 (a[0], a[2]) and 16w + lane/4 + 8 (a[1], a[3]), columns
+// lane%4 (a[0], a[1]) and lane%4 + 4 (a[2], a[3]): the mma.sync m16n8k8
+// tf32 A fragment. The registers are fp32 bits already rounded to tf32.
+__device__ __forceinline__ void wgmma_tf32_rs_m64n32k8(float (&d)[16], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        , "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        , "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        , "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// The same with N = 64: d (64 x 64) += A (64 x 8, registers) * B (64 x 8).
+__device__ __forceinline__ void wgmma_tf32_rs_m64n64k8(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        , "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        , "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        , "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        , "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        , "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        , "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+        , "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 // Synchronises `count` threads (a multiple of 32) on named barrier `id`

@@ -28,8 +28,10 @@ CUDA kernel (count key)          replaces
 ``flash_attention_bwd_dq``       ``_flash_bwd_dq_kernel`` (:284): dQ, queries
                                  outer, keys inner, the same split
 ``flash_attention_bwd_dkv_f32``  ``_flash_bwd_dkv_kernel`` in fp32 at
-                                 ``Precision.HIGHEST``: the same split, plain
-                                 fp32 FMAs (``csrc/flash_attention_bwd_f32.cu``)
+                                 ``Precision.HIGHEST``: the same split, dP and
+                                 the outputs as three TF32 products on
+                                 ``wgmma``, S by FFMA
+                                 (``csrc/flash_attention_bwd_f32.cu``)
 ``flash_attention_bwd_dq_f32``   ``_flash_bwd_dq_kernel`` in fp32 (same file)
 ===============================  ==============================================
 
@@ -37,7 +39,8 @@ What bounds them on the H100, and what the design does about it: at the mid
 block's C = 512 the forward does ``4*B*N^2*C`` FLOPs, dK/dV ``8*B*N^2*C``
 and dQ ``6*B*N^2*C``, against a few ``B*N*C`` bytes of device-memory
 traffic, N/2 FLOPs per byte or more: all are bound by arithmetic (the
-tensor cores', the CUDA cores' for the fp32 backward) at every token count
+tensor cores'; the fp32 backward's S, by FFMA, by its shared-memory loads)
+at every token count
 the model uses (N = 4096 at 512px, 16384 at 1024px). Each keeps
 its logits tile and fp32 accumulators on chip, so no O(N^2) buffer exists.
 The bf16 forward (serving, and with the LSE) runs on ``wgmma`` with TMA
@@ -49,8 +52,12 @@ rounded split of each operand; one TF32 product keeps too few bits) on
 backward kernels run on ``wgmma`` with TMA loads, as clusters of
 :func:`bwd_cluster_size` CTAs that own :data:`BWD_SLICE` channels each and
 add their partial logits in rank order through distributed shared memory.
-The fp32 backward keeps that split on plain fp32 FMAs (bound by the CUDA
-cores' 67 TFLOP/s): exact fp32 products, P and dS never rounded below fp32.
+The fp32 backward keeps that split and takes dP and the outputs as 3xTF32
+on ``wgmma``, the outputs transposed (dK^T = Q^T dS, dV^T = dO^T P, dQ^T =
+K^T dS^T: tf32 ``wgmma`` takes K-major operands only), P and dS fp32 until
+they are split; S is one FMA chain a logit over the channels in order, the
+plain matmul's order, which P = exp(S - lse) needs at logits of several
+hundred.
 The sources' header comments have the tile layouts.
 
 :func:`flash_attention` is the op the model calls. With autograd recording
