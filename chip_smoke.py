@@ -20,7 +20,8 @@ failure exits non-zero without the final ``ok`` line:
    fp32 dK/dV and dQ kernels, #9, #10 and #12 on the shared loop of
    ``csrc/sm90_conv3x3.cuh``, #11), the HGMMA, UTMALDG and HMMA
    instructions in their SASS (cuobjdump): HGMMA and UTMALDG present, no
-   HMMA; and the fp32 backward's shared memory at each width;
+   HMMA; and the fp32 backward's shared memory at each width; then
+   ``tools/doctor.py --device cuda`` in-process, every check passing;
 3. flash kernel vs plain: bf16 q/k/v from a seed at the serving shapes, the
    kernel's max abs and relative L2 error against
    ``flash_attention_reference``, bit-equal run to run, proof that the
@@ -55,6 +56,8 @@ failure exits non-zero without the final ``ok`` line:
    clients gives p50/p95 latency and req/s; then concurrent ``/encode`` and
    a ``/decode``. Every answer must be 200 with finite values of the right
    shape, and the flash kernel must have been launched while serving them;
+   then ``tools/serving_bench.py`` drives the same server for
+   SERVING_BENCH_SECONDS (its p50 and req/s, no error);
    one batch's forward with the flash kernel is held against the naive path;
 5. GroupNorm kernels vs plain, bf16, at the 128-channel full-resolution
    norm and the mid-block norm of both training paths (256px batch 16 and
@@ -101,7 +104,21 @@ failure exits non-zero without the final ``ok`` line:
    norm1 planted, taps on two fused blocks' norm outputs (kernel #9's side
    output): every step launches #9, #10 and #11 18 times and #1, #4 and #5
    for the fused convs only, 9 blocks fuse a step, the planted channels are
-   classified and nudged, the CSVs and the final model are written;
+   classified and nudged, the CSVs and the final model are written; the
+   config's own profiling window (from step 20) writes a trace, which
+   ``tools/profile_summary.py`` reads: device events, #9-#11 among them;
+7'''. Adafactor: ``configs/bench_adafactor_256px.yaml`` with ``kernel_impl:
+   pallas`` through ``train.main``, against the same config with ``adamw``,
+   in turns (ADAFACTOR_ORDER): ms/step over the steps after the warm-up
+   (host clock, synchronised), peak memory and the optimizer state's bytes
+   (from the final checkpoint), every loss finite; in the timed steps each
+   optimizer update (``_Optimizer.update``: the clip and the update) is
+   timed on the host clock and by CUDA events around it (the span it adds
+   to the device's timeline, the host's issue time where the device
+   waits); one Adafactor run's
+   profiling window covers its last steps, after the timed ones, and
+   ``tools/profile_summary.py`` reads its trace: device events, the
+   GroupNorm kernels and cuDNN's convs among them;
 8. the 1024px Trainer slice: ``configs/experiment_1024_stretch.yaml`` with
    ``attention_impl: flash``, ``kernel_impl: pallas``, a seeded full-width
    SDXL model dir with planted channels, 20 steps and a checkpoint every 10,
@@ -123,10 +140,16 @@ failure exits non-zero without the final ``ok`` line:
 9. one 1024px step with flash against one with naive attention (the same
    weights, batch and noise, ``remat: none``), held to naive bf16's own
    difference from naive fp32 on that step, and the fp32 flash step against
-   naive fp32 within STEP_F32_REL; 10 timed steps each of naive, flash, and
-   flash with ``remat: full``, and of naive and flash at fp32 with and
+   naive fp32 within STEP_F32_REL; ``remat: conv`` on the flash step
+   against ``none`` and ``full``: the loss, grad_norm and mid-block and
+   resnet gradients within ``none``'s own run-to-run spread, as many cuDNN
+   conv forwards as ``none`` and as many GroupNorm forward kernels as
+   ``full``; 10 timed steps each of naive, flash, flash with ``remat:
+   full`` and with ``remat: conv``, and of naive and flash at fp32 with and
    without remat, in turns, with their peak memory; a torch.profiler
-   breakdown of a flash step.
+   breakdown of a flash step; then a fused block at (16, 512, 32, 32)
+   under ``remat`` none, conv and full: #9 launched as often under conv as
+   under none, the same gradients.
 
 10. kernel #12, the NHWC conv3x3 with bias (``csrc/conv_nhwc.cu``), after
    the fused resnet kernels: against its plain version at the conv bench's
@@ -208,6 +231,7 @@ MAX_BATCH = 4
 # waits while one runs
 LOAD_CONCURRENCY = 2 * MAX_BATCH
 LOAD_SECONDS = 40.0
+SERVING_BENCH_SECONDS = 5.0  # tools/serving_bench.py against the same server
 N_IMAGES = 16
 N_ENCODE = 4
 N_DECODE = 2
@@ -442,8 +466,22 @@ FUSED_TRAINER_STEPS = 20
 FUSED_TAPS = ("vae.decoder.up_blocks.0.resnets.0.norm1",
               "vae.encoder.mid_block.resnets.1.norm2")
 FUSED_PLANTED_NORM = "decoder.up_blocks.0.resnets.0.norm1"
+# the Adafactor phase: bench_adafactor_256px.yaml against the same config
+# with adamw, in turns; a run's steps after the warm-up and before the
+# profiled window are timed, and one Adafactor run profiles its last steps
+ADAFACTOR_CONFIG = "configs/bench_adafactor_256px.yaml"
+ADAFACTOR_ORDER = ("adamw", "adafactor", "adafactor", "adamw")
+ADAFACTOR_STEPS = 14
+ADAFACTOR_WARMUP = 2
+ADAFACTOR_PROFILE_START = 13
+ADAFACTOR_PROFILED_RUN = 2
 # the SDXL VAE at 256px: 24 resnets, the nine 512-channel ones at 32x32 fuse
 SDXL_RESNETS, SDXL_FUSED_AT_256 = 24, 9
+# remat: conv against none on the 1024px step: resnet parameters' gradients
+REMAT_GRADS = ["encoder.down_blocks.0.resnets.0.conv1.weight",
+               "encoder.down_blocks.0.resnets.0.norm1.weight",
+               "decoder.up_blocks.3.resnets.2.conv2.weight",
+               "decoder.up_blocks.3.resnets.2.norm2.bias"]
 
 # Kernel #12, the NHWC conv3x3 with bias (csrc/conv_nhwc.cu), against its
 # plain version (the nine shifted fp32 products) at the conv bench's four
@@ -740,6 +778,18 @@ def phase_build():
             check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
                   f"{label} is not on the wgmma/TMA path: {ops}")
     check(seen == set(WGMMA_KERNELS), f"no SASS for {set(WGMMA_KERNELS) - seen}")
+
+
+def phase_doctor():
+    """``tools/doctor.py --device cuda`` in this process, after the build: every
+    check passes (the libraries are found built)."""
+    from vae_channel_dynamics_tpu_torch.tools import doctor
+
+    log("[doctor] python -m vae_channel_dynamics_tpu_torch.tools.doctor --device cuda:")
+    t0 = time.perf_counter()
+    rc = doctor.main(["--device", DEVICE])
+    check(rc == 0, f"doctor --device {DEVICE} exited {rc}")
+    log(f"[doctor] every check passed in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_kernel():
@@ -1615,6 +1665,16 @@ def phase_slice(tmp: str):
             f"/healthz {health}; stats {server.stats()}")
         log(f"[slice] flash kernel launches while serving: {launches}")
         check(launches > 0, "the flash kernel was not launched on the served path")
+
+        # the HTTP load client of tools/serving_bench.py against the same server
+        from vae_channel_dynamics_tpu_torch.tools import serving_bench
+
+        bench = serving_bench.run(f"http://127.0.0.1:{server.port}", streams=LOAD_CONCURRENCY,
+                                  duration_s=SERVING_BENCH_SECONDS, resolution=RESOLUTION)
+        log(f"[slice] tools/serving_bench, {LOAD_CONCURRENCY} streams for "
+            f"{SERVING_BENCH_SECONDS:.0f} s: {json.dumps(bench)}")
+        check(bench["errors"] == 0 and bench["ok"] > 0 and bench["shed_503"] == 0,
+              f"serving_bench: {bench}")
     finally:
         server.shutdown()
         thread.join(timeout=30)
@@ -2467,23 +2527,12 @@ def phase_step_compare(bundle):
 
 
 def _profile_breakdown(prof, wall_ms: float) -> None:
-    """Device time of one step by kernel family, from torch.profiler."""
+    """Device time of one step by kernel family (``tools/profile_summary.py``'s
+    families), from torch.profiler."""
     from torch.autograd import DeviceType
 
-    families = (
-        ("fused resnet kernels (#9-#11)", ("conv3x3_kernel", "conv3x3_dw_kernel",
-                                           "conv3x3_nchw_kernel", "silu_nhwc_kernel",
-                                           "sum_tiles_kernel")),
-        ("flash attention kernels (flash_*)", ("flash_fwd", "flash_bwd")),
-        ("GroupNorm kernels (gn_*)", ("gn_fwd_", "gn_bwd_", "sum_splits_kernel")),
-        ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
-        ("layout transposes", ("nchw", "nhwc", "transpose", "permute")),
-        ("matmul (cuBLAS)", ("gemm", "cublas")),
-        ("optimizer (foreach)", ("foreach", "multi_tensor")),
-        ("reductions", ("reduce",)),
-        ("elementwise", ("elementwise", "vectorized", "unrolled")),
-        ("memcpy/memset", ("memcpy", "memset")),
-    )
+    from vae_channel_dynamics_tpu_torch.tools.profile_summary import family
+
     totals, per_kernel = {}, []
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
@@ -2491,8 +2540,7 @@ def _profile_breakdown(prof, wall_ms: float) -> None:
         us = _self_device_us(evt)
         name = evt.key
         per_kernel.append((us, name, evt.count))
-        low = name.lower()
-        fam = next((f for f, keys in families if any(k in low for k in keys)), "other")
+        fam = family(name)
         totals[fam] = totals.get(fam, 0.0) + us
     device_ms = sum(totals.values()) / 1e3
     if device_ms == 0.0:
@@ -2711,7 +2759,6 @@ def phase_fused_trainer(tmp: str):
     cfg["output_dir"] = tmp
     cfg["model"].update(kernel_impl="fused", pretrained_vae_name=model_dir, remat="none")
     cfg["logit_lens"]["enabled"] = False
-    cfg["profiling"]["enabled"] = False
     cfg["training"]["stop_after_steps"] = FUSED_TRAINER_STEPS
     cfg["tracking"] = {"enabled": True, "track_interval": TRACK_INTERVAL, "target_layers": [
         {"name": n, "capture_point": "output", "metrics": ["mean_abs_activation_per_channel"]}
@@ -2793,7 +2840,169 @@ def phase_fused_trainer(tmp: str):
     log(f"[fused-trainer] {FUSED_TRAINER_STEPS} steps in {wall:.1f} s (model load, control loop "
         f"and final model included); peak device memory {peak:.2f} GB; interventions "
         f"{interventions}; planted gamma now {gamma.tolist()[:2]}")
+    # the config's own profiling window (from step 20) holds the last step
+    from vae_channel_dynamics_tpu_torch.tools import profile_summary as ps
+
+    prof = cfg["profiling"]
+    families = read_trace_families(os.path.join(run_dir, prof.get("output_subdir", "profile")),
+                                   "fused-trainer")
+    check(families.get(ps.FUSED_RESNET, (0, 0))[1] > 0,
+          f"the fused Trainer's trace holds no fused resnet kernel: {families}")
     return {"launches": launches}
+
+
+def read_trace_families(trace_dir: str, tag: str) -> dict:
+    """{family: (device ms, launches)} of the newest trace under
+    ``trace_dir``, read by ``tools/profile_summary.py``, whose summary is
+    logged; the trace must hold device events."""
+    from vae_channel_dynamics_tpu_torch.tools import profile_summary as ps
+
+    path = ps.find_trace(trace_dir)
+    device = ps.device_events(ps.load_trace(path))
+    check(len(device) > 0, f"{path} holds no device events")
+    for line in ps.summarize(trace_dir, top_n=8, path=path).splitlines():
+        log(f"[{tag}] profile_summary: {line}")
+    return {fam: (us / 1e3, n) for fam, us, n in ps.family_table(device)}
+
+
+def phase_adafactor_trainer(tmp: str) -> None:
+    """``configs/bench_adafactor_256px.yaml`` through ``train.main`` with
+    ``kernel_impl: pallas``, against the same config with ``adamw``, in turns
+    (ADAFACTOR_ORDER); see the module docstring (7''')."""
+    import copy
+    import logging
+
+    import torch
+    import yaml
+
+    from vae_channel_dynamics_tpu_torch import train as train_cli
+    from vae_channel_dynamics_tpu_torch.tools import profile_summary as ps
+    from vae_channel_dynamics_tpu_torch.training import loop
+    from vae_channel_dynamics_tpu_torch.training import step as step_mod
+    from vae_channel_dynamics_tpu_torch.utils.config_utils import load_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = load_config(os.path.join(root, ADAFACTOR_CONFIG))
+    check(base["training"]["optimizer"] == "adafactor", f"{ADAFACTOR_CONFIG} is not adafactor")
+    res, batch = int(base["data"]["resolution"]), int(base["data"]["batch_size"])
+    timed = ADAFACTOR_PROFILE_START - 1 - ADAFACTOR_WARMUP
+    log(f"[adafactor] {ADAFACTOR_CONFIG} with kernel_impl pallas, {res}px batch {batch}, "
+        f"{ADAFACTOR_STEPS} steps a run, runs {ADAFACTOR_ORDER}: steps "
+        f"{ADAFACTOR_WARMUP + 1}-{ADAFACTOR_PROFILE_START - 1} timed (host clock, "
+        f"synchronised), steps {ADAFACTOR_PROFILE_START}-{ADAFACTOR_STEPS} of run "
+        f"{ADAFACTOR_PROFILED_RUN} profiled by the config's profiling section")
+
+    # per-step losses and the synchronised host clock around the timed steps,
+    # through a wrapper on the Trainer's steps
+    losses, marks, current = {}, {}, {}
+    make_train_step = loop.make_train_step
+    update = step_mod._Optimizer.update
+    # per run: (host seconds, start event, end event) of each timed update
+    updates: dict = {}
+
+    def timed_update(self, *a, **kw):
+        if not current.get("timing"):
+            return update(self, *a, **kw)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = update(self, *a, **kw)
+        end.record()
+        updates.setdefault(current["run"], []).append((time.perf_counter() - t0, start, end))
+        return out
+
+    def timed_make_train_step(*args, **kwargs):
+        step_fn = make_train_step(*args, **kwargs)
+
+        def step(state, *a, **kw):
+            if state.step == ADAFACTOR_WARMUP:
+                sync()
+                marks[(current["run"], "start")] = time.perf_counter()
+            current["timing"] = ADAFACTOR_WARMUP <= state.step < ADAFACTOR_PROFILE_START - 1
+            out = step_fn(state, *a, **kw)
+            current["timing"] = False
+            losses[(current["run"], out[0].step)] = out[1]["train_loss_step"]
+            if out[0].step == ADAFACTOR_PROFILE_START - 1:
+                sync()
+                marks[(current["run"], "end")] = time.perf_counter()
+            return out
+
+        return step
+
+    results, families = {}, {}
+    package_logger = logging.getLogger("vae_channel_dynamics_tpu_torch")
+    level = package_logger.level
+    package_logger.setLevel(logging.WARNING)
+    loop.make_train_step = timed_make_train_step
+    step_mod._Optimizer.update = timed_update
+    try:
+        for i, opt in enumerate(ADAFACTOR_ORDER):
+            run = f"{opt}_{i}"
+            cfg = copy.deepcopy(base)
+            cfg["output_dir"] = os.path.join(tmp, run)
+            cfg["model"].update(kernel_impl="pallas")
+            cfg["training"].update(optimizer=opt, stop_after_steps=ADAFACTOR_STEPS)
+            cfg["profiling"] = {"enabled": i == ADAFACTOR_PROFILED_RUN,
+                                "start_step": ADAFACTOR_PROFILE_START,
+                                "num_steps": ADAFACTOR_STEPS - ADAFACTOR_PROFILE_START}
+            path = os.path.join(tmp, f"{run}.yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump(cfg, f)
+            current["run"] = run
+            sync()
+            reset_peak()
+            check(train_cli.main(["--config_path", path, "--device", DEVICE]) == 0,
+                  f"the {run} Trainer run failed")
+            peak = peak_gb()
+            run_dir = os.path.join(cfg["output_dir"], cfg["run_name"])
+            saved = torch.load(os.path.join(run_dir, "final_model", "state", "train_state.pt"),
+                               map_location="cpu", weights_only=True)["opt"]
+            state_bytes = sum(t.numel() * t.element_size()
+                              for name, values in saved.items()
+                              if isinstance(values, list) and name != "acc_grads"
+                              for t in values if t is not None)
+            ms = (marks[(run, "end")] - marks[(run, "start")]) / timed * 1e3
+            timed_updates = updates.pop(run)
+            check(len(timed_updates) == timed, f"{run}: {len(timed_updates)} updates timed")
+            host_ms = sum(u[0] for u in timed_updates) / timed * 1e3
+            span_ms = sum(u[1].elapsed_time(u[2]) for u in timed_updates) / timed
+            results.setdefault(opt, []).append((ms, peak, state_bytes, saved["kind"],
+                                                host_ms, span_ms))
+            if i == ADAFACTOR_PROFILED_RUN:
+                families = read_trace_families(os.path.join(run_dir, "profile"), "adafactor")
+            del saved
+            shutil.rmtree(cfg["output_dir"], ignore_errors=True)
+            release()
+    finally:
+        loop.make_train_step = make_train_step
+        step_mod._Optimizer.update = update
+        package_logger.setLevel(level)
+    values = torch.stack([v.float() for v in losses.values()]).cpu()
+    check(len(losses) == ADAFACTOR_STEPS * len(ADAFACTOR_ORDER)
+          and bool(values.isfinite().all()),
+          f"{len(losses)} losses, finite: {values.isfinite().tolist()}")
+    for opt, rows in results.items():
+        ms = [r[0] for r in rows]
+        log(f"[adafactor] {opt} ({rows[0][3]}): {sum(ms) / len(ms):.2f} ms/step over steps "
+            f"{ADAFACTOR_WARMUP + 1}-{ADAFACTOR_PROFILE_START - 1} "
+            f"({', '.join(f'{t:.2f}' for t in ms)} a run; "
+            f"{batch * len(ms) * 1e3 / sum(ms):.2f} img/s), peak device memory "
+            f"{max(r[1] for r in rows):.2f} GB, optimizer state {rows[0][2]} bytes; "
+            f"the update a step: host {', '.join(f'{r[4]:.4f}' for r in rows)} ms, "
+            f"device span {', '.join(f'{r[5]:.4f}' for r in rows)} ms a run")
+    check(all(r[3] == "FactoredState" for r in results["adafactor"])
+          and results["adafactor"][0][2] < results["adamw"][0][2] / 10,
+          f"the Adafactor runs' state: {results['adafactor']}")
+    log(f"[adafactor] losses of the {len(losses)} steps all finite; adafactor/adamw ms/step "
+        f"{sum(r[0] for r in results['adafactor']) / sum(r[0] for r in results['adamw']):.4f}")
+    mean = {opt: [sum(r[k] for r in rows) / len(rows) for k in (0, 4, 5)]
+            for opt, rows in results.items()}
+    log(f"[adafactor] adafactor - adamw a step: {mean['adafactor'][0] - mean['adamw'][0]:.4f} "
+        f"ms/step, the update's host time {mean['adafactor'][1] - mean['adamw'][1]:.4f} ms, "
+        f"its device span {mean['adafactor'][2] - mean['adamw'][2]:.4f} ms")
+    for fam in (ps.GROUPNORM, ps.CUDNN_CONVS):
+        check(families.get(fam, (0, 0))[1] > 0,
+              f"the profiled Adafactor steps' trace holds no {fam}: {families}")
 
 
 def write_planted_model_dir(path: str, planted_norm: str = TRAINER_PLANTED_NORM) -> None:
@@ -3126,6 +3335,8 @@ def phase_flash_step_1024(model_dir: str):
     names = [f"{part}.mid_block.attentions.0.{leaf}" for part in ("encoder", "decoder")
              for leaf in ("group_norm.weight", "to_q.weight", "to_k.weight", "to_v.weight",
                           "to_out.0.weight", "to_out.0.bias")]
+    # remat: conv against none also on the rematerialised resnets' parameters
+    remat_names = names + REMAT_GRADS
 
     class GradCapture:
         """Stands in for the optimizer: keeps the named gradients and
@@ -3137,12 +3348,12 @@ def phase_flash_step_1024(model_dir: str):
             return None
 
         def update(self, grads, opt_state, params):
-            self.grads = {n: grads[n].float().clone() for n in names}
+            self.grads = {n: grads[n].float().clone() for n in remat_names}
             return False
 
-    def one_step(impl, dtype):
+    def one_step(impl, dtype, remat="none"):
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-        set_attention(model, impl).set_compute_dtype(dtype)
+        set_attention(model, impl).set_remat(remat).set_compute_dtype(dtype)
         tx = GradCapture()
         step = make_train_step(model, tx, TRAIN_KL)
         _state, metrics, _ = step(TrainState.create(model, tx), {"pixel_values": batches[0]},
@@ -3191,6 +3402,7 @@ def phase_flash_step_1024(model_dir: str):
         f"the attention gradients), bound {STEP_F32_REL}; launches {f32_counts}: "
         + "; ".join(rows))
     del runs, f, n, c, f32
+    remat_conv_step(one_step, remat_names)
 
     # timed steps with AdamW from the same weights, in turns
     set_attention(model, "flash").set_compute_dtype(torch.bfloat16)
@@ -3204,7 +3416,7 @@ def phase_flash_step_1024(model_dir: str):
     # the Trainer slice's step, here without the Trainer around it
     bf16, fp32 = torch.bfloat16, torch.float32
     paths = {"naive": ("naive", "none", bf16), "flash": ("flash", "none", bf16),
-             "flash+remat": ("flash", "full", bf16),
+             "flash+remat": ("flash", "full", bf16), "flash+conv": ("flash", "conv", bf16),
              "naive fp32": ("naive", "none", fp32), "naive fp32+remat": ("naive", "full", fp32),
              "flash fp32": ("flash", "none", fp32), "flash fp32+remat": ("flash", "full", fp32)}
 
@@ -3223,7 +3435,8 @@ def phase_flash_step_1024(model_dir: str):
     for path in paths:  # warm-up of every path's allocations
         block(path, 1)
     peaks.clear()
-    order = ("naive", "flash", "flash+remat", "flash+remat", "flash", "naive",
+    order = ("naive", "flash", "flash+remat", "flash+conv", "flash+conv", "flash+remat",
+             "flash", "naive",
              "naive fp32", "flash fp32", "naive fp32+remat", "flash fp32+remat",
              "flash fp32+remat", "naive fp32+remat", "flash fp32", "naive fp32")
     times = {}
@@ -3251,6 +3464,97 @@ def phase_flash_step_1024(model_dir: str):
     log("[profile] one 1024px flash step (remat none):")
     _profile_breakdown(prof, wall_ms)
     del model, state, tx, batches
+    release()
+    fused_block_under_conv()
+
+
+def remat_conv_step(one_step, keys) -> None:
+    """``remat: conv`` on the 1024px flash step against ``none`` and
+    ``full`` (bf16, the same weights, batch and noise): the loss, grad_norm
+    and ``keys``' gradients within ``none``'s own run-to-run spread, as many
+    conv forwards executed (``aten::_convolution``, cuDNN's on the card: a
+    kept output is not computed again) as ``none`` and fewer than ``full``,
+    as many GroupNorm forward kernels as ``full``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vae_channel_dynamics_tpu_torch.ops import group_norm_kernel as gnk
+
+    forward = ("gn_fwd_reduce", "gn_fwd_normalize")
+    runs, counts = {}, {}
+    for run, remat in (("none", "none"), ("none again", "none"), ("conv", "conv"),
+                       ("full", "full")):
+        before = dict(gnk.launches)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            runs[run] = one_step("flash", torch.bfloat16, remat)
+        convs = sum(e.count for e in prof.key_averages() if e.key == "aten::_convolution")
+        counts[run] = {"conv forwards": convs,
+                       **{k: gnk.launches[k] - before[k] for k in forward}}
+
+    def rel(a, b):
+        if isinstance(a, float):
+            return abs(a - b) / abs(b)
+        return ((a - b).norm() / b.norm()).item()
+
+    rows = []
+    none, again, conv = runs["none"], runs["none again"], runs["conv"]
+    for key in ["loss", "grad_norm", *keys]:
+        d, spread = rel(conv[key], none[key]), rel(again[key], none[key])
+        rows.append(f"{key} {d:.3g} (spread {spread:.3g})")
+        check(d <= STEP_CONTROL_RATIO * spread,
+              f"remat conv {key}: {d} from none, whose own run-to-run spread is {spread}")
+    log(f"[remat-conv] 1024px flash step, bf16, remat conv vs none (relative; rel L2 for "
+        f"gradients), bound {STEP_CONTROL_RATIO} x none's run-to-run spread: "
+        + "; ".join(rows))
+    log(f"[remat-conv] launches a step: {counts}")
+    check(counts["conv"]["conv forwards"] == counts["none"]["conv forwards"]
+          < counts["full"]["conv forwards"],
+          f"remat conv ran other conv forwards than none: {counts}")
+    check(all(counts["conv"][k] == counts["full"][k] > counts["none"][k] for k in forward),
+          f"remat conv launched other GroupNorm forwards than full: {counts}")
+
+
+def fused_block_under_conv() -> None:
+    """A fused block at the 256px fused path's shape, (16, 512, 32, 32),
+    bf16, forward and backward under ``remat`` none, conv and full: #9
+    launches as often under conv as under none (a checkpoint of the fused
+    body would launch it again), and the gradients are the same."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.models import vae as tvae
+    from vae_channel_dynamics_tpu_torch.ops import fused_resnet as fr
+
+    n, c, h, w = FUSED_SHAPES[0][0]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 30)
+    x = torch.randn((n, c, h, w), generator=gen, device=DEVICE).to(torch.bfloat16)
+    blk = tvae.ResnetBlock2D(c, c, GN_GROUPS, GN_EPS, device=DEVICE)
+    with torch.no_grad():
+        for m in blk.modules():
+            if isinstance(m, (tvae.Conv2d, tvae.GroupNorm)):
+                m.init_weights(gen)
+            if isinstance(m, tvae.Conv2d):
+                m.compute_dtype = torch.bfloat16
+    blk.impl = "fused"
+    runs = {}
+    for remat in ("none", "conv", "full"):
+        blk.remat = remat
+        blk.zero_grad(set_to_none=True)
+        xr = x.clone().requires_grad_(True)
+        before = dict(fr.launches)
+        torch.mean(torch.square(blk(xr).float())).backward()
+        sync()
+        runs[remat] = ({k: fr.launches[k] - before[k] for k in fr.KERNELS},
+                       [xr.grad] + [p.grad.clone() for p in blk.parameters()])
+    log(f"[remat-conv] a fused block at {(n, c, h, w)}, forward and backward, launches: "
+        + "; ".join(f"{remat} {counts}" for remat, (counts, _g) in runs.items()))
+    check(runs["conv"][0] == runs["none"][0]
+          and runs["conv"][0]["fused_gn_silu_conv3x3"] == 2
+          and runs["full"][0]["fused_gn_silu_conv3x3"] == 4,
+          f"the fused block under conv launched {runs['conv'][0]}, under none "
+          f"{runs['none'][0]}")
+    check(all(torch.equal(a, b) for a, b in zip(runs["conv"][1], runs["none"][1])),
+          "the fused block's gradients under conv differ from none's")
+    del blk, x, runs
     release()
 
 
@@ -3844,6 +4148,7 @@ def main() -> int:
     try:
         name, smi = phase_device()
         phase_build()
+        phase_doctor()
         kernel_results = phase_kernel()
         flash_results = phase_flash_bwd()
         gn_results = phase_gn_kernels()
@@ -3868,6 +4173,9 @@ def main() -> int:
         release()
         with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
             fused_trainer = phase_fused_trainer(tmp)
+        release()
+        with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
+            phase_adafactor_trainer(tmp)
         release()
         with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
             trainer = phase_trainer_1024(tmp)

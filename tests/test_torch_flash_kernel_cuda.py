@@ -245,6 +245,26 @@ def test_backward_is_deterministic(cuda, shape):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+@pytest.mark.parametrize("shape", [(4, 8192, 128), (1, 8192, 512)])
+def test_backward_over_many_tiles_after_the_arming_repair(cuda, shape):
+    """The exchange barriers are armed after push_partials' barrier, which
+    every thread passes only after its waits on the tile before: at C = 128
+    (a cluster of one) they expect no byte, so arming completes the phase at
+    once. Over 128 and 256 tiles at C = 128 and C = 512, three runs are
+    bit-equal and within the bound of the plain version."""
+    q, k, v, do = _qkv(shape, cuda, seed=11, n=4)
+    scale = shape[-1] ** -0.5
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=torch.bfloat16)
+    delta = (do.float() * o.float()).sum(-1)
+    runs = [_bwd(q, k, v, do, lse, delta, scale) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for run in runs[1:] for a, b in zip(runs[0], run))
+    refs = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
+    for name, g, r in zip(("dq", "dk", "dv"), runs[0], refs):
+        max_rel, rel_l2 = _rel(g, r)
+        assert max_rel <= GRAD_MAX_REL and rel_l2 <= REL_L2, (name, max_rel, rel_l2)
+
+
 @pytest.mark.parametrize("b, n, c", [(1, 128, 640), (1, 128, 96), (1, 100, 128),
                                      (1, 64, 128), (0, 128, 128), (70000, 128, 128)])
 def test_backward_entries_refuse_other_shapes(cuda, b, n, c):

@@ -260,7 +260,7 @@ def test_gate_falls_back_like_jax():
 def test_remat_full_equals_none_bit_for_bit():
     x = _nchw(_x(seed=5))
     runs = {}
-    for remat in (False, True):
+    for remat in ("none", "full"):
         holder = _port_block(128, 256, BLOCK_CAPTURE, seed=3)
         holder.blk.remat = remat
         before = dict(tvae.fused_blocks)
@@ -273,7 +273,7 @@ def test_remat_full_equals_none_bit_for_bit():
         assert tvae.fused_blocks["fused"] == before["fused"] + 1
         runs[remat] = (y.detach(), stats, xr.grad,
                        {n: p.grad for n, p in holder.blk.named_parameters()})
-    (y0, s0, gx0, g0), (y1, s1, gx1, g1) = runs[False], runs[True]
+    (y0, s0, gx0, g0), (y1, s1, gx1, g1) = runs["none"], runs["full"]
     assert torch.equal(y0, y1) and torch.equal(gx0, gx1)
     assert s0.keys() == s1.keys() and all(torch.equal(s0[k], s1[k]) for k in s0)
     assert all(torch.equal(g0[n], g1[n]) for n in g0)

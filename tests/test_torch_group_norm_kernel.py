@@ -542,9 +542,9 @@ def _nchw_grad_eff(x, g, a, off):
 def _refusals():
     from vae_channel_dynamics_tpu_torch.analysis import logit_lens
     from vae_channel_dynamics_tpu_torch.data import pipeline
-    from vae_channel_dynamics_tpu_torch.models.vae import remat_enabled
+    from vae_channel_dynamics_tpu_torch.models.vae import remat_mode
     from vae_channel_dynamics_tpu_torch.ops import fused_resnet
-    from vae_channel_dynamics_tpu_torch.training import loop, step
+    from vae_channel_dynamics_tpu_torch.training import loop
 
     def native_decode():
         os.environ["VCD_NATIVE_PREPROCESS"] = "1"
@@ -556,14 +556,9 @@ def _refusals():
     return {
         "parallel": (lambda: loop._refuse_unported({"parallel": {"tensor": 2}}),
                      "Q1", "Multi-GPU"),
-        "profiling": (lambda: loop._refuse_unported({"profiling": {"enabled": True}}),
-                      "Q1", "Profiling"),
         "export": (lambda: loop._refuse_unported({"saving": {"export_stablehlo": True}}),
                    "Q1", "Deployment export"),
-        "remat conv": (lambda: remat_enabled("conv"), "Q1", "`remat: conv`"),
-        "remat offload": (lambda: remat_enabled("offload"), "Q1", "Do not port"),
-        "adafactor": (lambda: step.build_optimizer(1e-4, 10, 100, optimizer="adafactor"),
-                      "Q1", "Adafactor"),
+        "remat offload": (lambda: remat_mode("offload"), "Q1", "Do not port"),
         "colormap": (lambda: logit_lens.colorize(np.zeros(4, np.float32), "magma"),
                      "Q1", "Plots"),
         "native decode": (native_decode, "Q1", "Native decode"),
@@ -573,8 +568,7 @@ def _refusals():
     }
 
 
-REFUSALS = ["parallel", "profiling", "export", "remat conv", "remat offload", "adafactor",
-            "colormap", "native decode", "fused fp32"]
+REFUSALS = ["parallel", "export", "remat offload", "colormap", "native decode", "fused fp32"]
 
 
 @pytest.mark.parametrize("case", REFUSALS)

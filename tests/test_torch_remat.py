@@ -1,13 +1,13 @@
 """Rematerialisation of the port's resnets (``remat``: none | full), on the
-CPU.
+CPU (``remat: conv`` has its own file, tests/test_torch_remat_conv.py).
 
 ``remat: full`` wraps every ``ResnetBlock2D`` in ``torch.utils.checkpoint``:
 the backward runs each body again. It must change nothing but memory: the
 same loss, the same gradients and the same tap values as ``remat: none`` on
 the same weights, batch and noise, and the recompute must leave no tap
 values behind. The two runs do the same float operations in the same order,
-so they are held to equality. ``conv`` and ``offload`` (JAX
-``_resnet_remat_cls``) are not ported and raise.
+so they are held to equality. ``offload`` (JAX ``_resnet_remat_cls``) is not
+to be ported and raises.
 """
 
 import numpy as np
@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from vae_channel_dynamics_tpu_torch.models import AutoencoderKL, VAEConfig
-from vae_channel_dynamics_tpu_torch.models.vae import ResnetBlock2D, remat_enabled
+from vae_channel_dynamics_tpu_torch.models.vae import ResnetBlock2D, remat_mode
 from vae_channel_dynamics_tpu_torch.models.wrapper import forward_with_stats
 from vae_channel_dynamics_tpu_torch.ops.stats import tap_mask
 
@@ -65,9 +65,9 @@ def test_full_remat_matches_no_remat(impl):
 def test_remat_wraps_every_resnet_and_only_under_autograd():
     model = AutoencoderKL(VAEConfig(**NARROW), remat=True)
     resnets = [m for m in model.modules() if isinstance(m, ResnetBlock2D)]
-    assert resnets and all(m.remat for m in resnets)
-    assert not any(m.remat for m in model.set_remat("none").modules()
-                   if isinstance(m, ResnetBlock2D))
+    assert resnets and all(m.remat == "full" for m in resnets)
+    assert all(m.remat == "none" for m in model.set_remat("none").modules()
+               if isinstance(m, ResnetBlock2D))
     model.set_remat("full").init_weights(torch.Generator().manual_seed(0))
     x = torch.zeros(1, 3, 16, 16)
     with torch.no_grad():
@@ -76,15 +76,43 @@ def test_remat_wraps_every_resnet_and_only_under_autograd():
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("mode", ["conv", "offload"])
+@pytest.mark.parametrize("mode", ["offload"])
 def test_unported_remat_modes_raise(mode):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         AutoencoderKL(VAEConfig.tiny(), remat=mode)
 
 
-@pytest.mark.parametrize("value,expect", [(False, False), ("none", False), (None, False),
-                                          (True, True), ("full", True)])
+@pytest.mark.parametrize("value,expect", [(False, "none"), ("none", "none"), (None, "none"),
+                                          (True, "full"), ("full", "full")])
 def test_remat_values(value, expect):
-    assert remat_enabled(value) is expect
+    assert remat_mode(value) == expect
     with pytest.raises(ValueError):
-        remat_enabled("typo")
+        remat_mode("typo")
+
+
+@pytest.mark.parametrize("value,expect", [(False, "none"), (None, "none"), ("none", "none"),
+                                          (True, "full"), ("full", "full"), ("conv", "conv")])
+def test_block_remat_attribute_holds_the_mode(value, expect, monkeypatch):
+    """A value set on a block directly (as the tests and the smoke script do)
+    becomes its mode: ``blk.remat = False`` must not reach ``forward`` as a
+    value that runs the checkpoint."""
+    blk = ResnetBlock2D(32, 32, 8, 1e-6)
+    blk.remat = value
+    assert blk.remat == expect
+    from vae_channel_dynamics_tpu_torch.models import vae as tvae
+
+    checkpoints = []
+    real = tvae.checkpoint
+    monkeypatch.setattr(tvae, "checkpoint",
+                        lambda *a, **kw: checkpoints.append(1) or real(*a, **kw))
+    blk(torch.zeros(1, 32, 4, 4, requires_grad=True)).sum().backward()
+    assert len(checkpoints) == (expect == "full")
+
+
+@pytest.mark.parametrize("value,error", [("typo", ValueError),
+                                         ("offload", NotImplementedError)])
+def test_block_remat_attribute_refuses_other_values(value, error):
+    blk = ResnetBlock2D(32, 32, 8, 1e-6)
+    with pytest.raises(error):
+        blk.remat = value
+    assert blk.remat == "none"

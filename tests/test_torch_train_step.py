@@ -332,9 +332,3 @@ def test_uint8_dequantize_matches_jax():
     f = torch.rand(2, 3)
     assert dequantize_pixels(f) is f
 
-
-def test_adafactor_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        build_optimizer(1e-3, 0, 10, optimizer="adafactor")
-    with pytest.raises(ValueError):
-        build_optimizer(1e-3, 0, 10, optimizer="sgd")

@@ -264,10 +264,8 @@ def test_gradient_accumulation_and_ema(tmp_path):
 
 @pytest.mark.parametrize("section,key,value", [
     ("parallel", "tensor", 2),
-    ("profiling", "enabled", True),
     ("saving", "export_stablehlo", True),
     ("parallel", "spatial", 2),
-    ("model", "remat", "conv"),
 ])
 def test_unported_options_raise(tmp_path, section, key, value):
     cfg = _resume_cfg(tmp_path, "refused")

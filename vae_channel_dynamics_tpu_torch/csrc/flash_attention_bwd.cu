@@ -316,14 +316,18 @@ __device__ __forceinline__ Bars init_bars(uint8_t* at, int tid) {
   return bars;
 }
 
-// Thread 0 arms the exchange barriers for tile t once this CTA has passed
-// both of tile t - 1's phases: the slots barrier expects the other ranks'
-// partials of this rank's pairs, the gather barrier the other owners' pairs
-// (this CTA's own part of each is written by its own threads before a
-// __syncthreads). No byte of tile t can land before then (a rank sends its
-// partials only after its gather is complete, and an owner gathers only
-// after its slots are), and bytes that land before the arming wait in the
-// barrier's transaction count.
+// Thread 0 arms tile t's exchange barriers: the slots barrier expects the
+// other ranks' partials of this rank's pairs, the gather barrier the other
+// owners' pairs (this CTA's own part of each is written by its own threads
+// before a __syncthreads). Called after push_partials, whose barrier every
+// thread passes only after its waits on tile t - 1: at R = 1 both barriers
+// expect no byte, so arming completes the phase at once, and a phase
+// completed before a lagging warp's wait on the one before would leave it
+// waiting on the parity forever. No byte of tile t can land before this
+// CTA's partials have left (a rank sends its partials only after its
+// gather is complete, and an owner gathers only after its slots are), and
+// bytes that land before the arming count toward the phase it leaves
+// pending.
 template <int R, bool DKV>
 __device__ __forceinline__ void arm(const Bars& bars, int rank, int tid) {
   using L = Layout<R, DKV>;
@@ -415,7 +419,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   mbar_wait(bars.res, 0);
 
   for (int t = 0; t < nt; ++t) {
-    arm<R, true>(bars, rank, tid);
     mbar_wait(&bars.full[t % STAGES], (t / STAGES) & 1);
 
     // S^T = K Q^T and dP^T = V dO^T over this CTA's channels (M = keys);
@@ -425,6 +428,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       partial_logits<TILE>(sacc, dpacc, sK, stage(t), sV, stage(t) + L::STREAMED);
       push_partials<R, PAIRS>(sacc, dpacc, slots, outbox, bars.slots_full, rank, tid);
     }
+    arm<R, true>(bars, rank, tid);
     if (lane == 0 && t >= 2 && t - 2 + STAGES < nt) issue(t - 2 + STAGES, warp);
     if (t > 0) products(t - 1);
     reduce_and_gather<R, true>(slots, gather(t), bars.slots_full, bars.gather_full, t & 1, rank,
@@ -503,7 +507,6 @@ __global__ void __launch_bounds__(THREADS, 2)
   mbar_wait(bars.res, 0);
 
   for (int t = 0; t < nt; ++t) {
-    arm<R, false>(bars, rank, tid);
     mbar_wait(&bars.full[t % STAGES], (t / STAGES) & 1);
 
     // S = Q K^T and dP = dO V^T over this CTA's channels (M = queries)
@@ -512,6 +515,7 @@ __global__ void __launch_bounds__(THREADS, 2)
       partial_logits<TILE>(sacc, dpacc, sQ, stage(t), sdO, stage(t) + L::STREAMED);
       push_partials<R, PAIRS>(sacc, dpacc, slots, outbox, bars.slots_full, rank, tid);
     }
+    arm<R, false>(bars, rank, tid);
     // every warp has finished tile t - 1: its stage takes tile t + 1
     if (lane == 0 && t >= 1 && t + 1 < nt) issue(t + 1, warp);
     reduce_and_gather<R, false>(slots, gather, bars.slots_full, bars.gather_full, t & 1, rank,

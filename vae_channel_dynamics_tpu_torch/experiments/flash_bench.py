@@ -1,18 +1,21 @@
-"""The fp32 flash kernels' times on the card, for a checkout.
+"""The flash kernels' times on the card, for a checkout.
 
-    python vae_channel_dynamics_tpu_torch/experiments/flash_f32_bench.py \\
+    python vae_channel_dynamics_tpu_torch/experiments/flash_bench.py \\
         [--root CHECKOUT] [--iters N]
 
 Times ``ops.flash_attention.flash_attention_fwd`` on fp32 q, k, v of
-(8, 4096, 512), the fp32 evaluation's shape (batch 8 at 512px), with CUDA
-events over ``--iters`` calls after one warm-up call, TF32 off; where the
-checkout has the fp32 training kernels, also the fp32 LSE forward, dK/dV
-and dQ at (1, 16384, 512), the 1024px mid block. It prints one JSON line:
-the checkout, ms per call of each, the card's name and nvidia-smi's name
-and power limit. ``--root`` imports the package of another checkout
-of this repository (an older commit unpacked beside this one), whose kernel
-library builds into that checkout's ``build/``: run two checkouts in turns
-(A, B, B, A) in one run on one card to compare them. Needs a GPU.
+(8, 4096, 512), the fp32 evaluation's shape (batch 8 at 512px), TF32 off;
+where the checkout has the fp32 training kernels, also the fp32 LSE forward,
+dK/dV and dQ at (1, 16384, 512), the 1024px mid block; and the bf16 dK/dV
+(#7) and dQ (#8) at (1, 16384, 512) (a cluster of four CTAs) and at (1,
+16384, 128) (a cluster of one), checking that two calls of each are
+bit-equal. Each time is from CUDA events over ``--iters`` calls after one
+warm-up call. It prints one JSON line: the checkout, ms per call of each,
+the card's name and nvidia-smi's name and power limit. ``--root`` imports
+the package of another checkout of this repository (an older commit
+unpacked beside this one), whose kernel libraries build into that
+checkout's ``build/``: run two checkouts in turns (A, B, B, A) in one run on
+one card to compare them. Needs a GPU.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import sys
 
 SHAPE = (8, 4096, 512)
 TRAIN_SHAPE = (1, 16384, 512)
+BF16_BWD_SHAPES = ((1, 16384, 512), (1, 16384, 128))
 
 
 def main(argv=None) -> int:
@@ -40,7 +44,7 @@ def main(argv=None) -> int:
     from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
 
     if not torch.cuda.is_available():
-        print("flash_f32_bench: needs an NVIDIA GPU", file=sys.stderr)
+        print("flash_bench: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -77,12 +81,31 @@ def main(argv=None) -> int:
             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=scale))
         times["flash_attention_bwd_dq_f32"] = cuda_ms(
             lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale))
+    bit_equal = {}
+    for shape in BF16_BWD_SHAPES:
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        scale = shape[-1] ** -0.5
+        o, lse = fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=torch.bfloat16)
+        delta = (do.float() * o.float()).sum(-1)
+
+        def dkv():
+            return fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=scale)
+
+        def dq():
+            return fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale)
+
+        tag = "x".join(map(str, shape))
+        times[f"flash_attention_bwd_dkv@{tag}"] = cuda_ms(dkv)
+        times[f"flash_attention_bwd_dq@{tag}"] = cuda_ms(dq)
+        bit_equal[tag] = (all(torch.equal(a, b) for a, b in zip(dkv(), dkv()))
+                          and torch.equal(dq(), dq()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"root": root, "package": os.path.dirname(fa.__file__),
                       "shape": list(SHAPE), "train_shape": list(TRAIN_SHAPE), "ms": times,
-                      "rel_l2_vs_plain": rel, "device": torch.cuda.get_device_name(0),
-                      "nvidia_smi": smi}), flush=True)
+                      "rel_l2_vs_plain": rel, "bf16_bwd_bit_equal_run_to_run": bit_equal,
+                      "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}), flush=True)
     return 0
 
 

@@ -40,12 +40,15 @@ table taps nothing.
 Rematerialisation (``remat``, JAX ``_resnet_remat_cls``): ``"none"``/False
 keeps every activation for the backward; ``"full"``/True wraps each
 ``ResnetBlock2D`` in ``torch.utils.checkpoint`` (non-reentrant), so only a
-block's input is kept and its body runs again in the backward. The JAX model
-remats only the resnets, so the attention blocks are never recomputed. The
-recompute reports no taps: the forward's values stand.
+block's input is kept and its body runs again in the backward; ``"conv"``
+keeps the conv outputs (JAX ``save_only_these_names("conv_out")``): each
+conv's input, a GroupNorm+SiLU output, is left out of the saved tensors and
+computed again from the norm's input when the backward reads it. The JAX
+model remats only the resnets, so the attention blocks are never
+recomputed. The recompute reports no taps: the forward's values stand.
 
-Not in this port yet: ``remat: conv`` and ``offload``, and the spatial-conv
-branch of the JAX model.
+Not in this port: ``remat: offload`` (not to be ported), and the
+spatial-conv branch of the JAX model.
 """
 
 from __future__ import annotations
@@ -267,24 +270,21 @@ class GroupNorm(TapModule):
 # --------------------------------------------------------------------------- #
 # Blocks
 # --------------------------------------------------------------------------- #
-def remat_enabled(remat: Any) -> bool:
-    """Whether a ``model.remat`` value rematerialises the resnets:
-    False/``"none"`` no, True/``"full"`` yes. ``"conv"`` (save only the conv
-    outputs) is not ported yet and ``"offload"`` is not to be ported: both
-    raise."""
+def remat_mode(remat: Any) -> str:
+    """The resnets' rematerialisation a ``model.remat`` value asks for:
+    False/``"none"`` -> ``"none"``, True/``"full"`` -> ``"full"``,
+    ``"conv"`` -> ``"conv"``. ``"offload"`` is not to be ported and
+    raises."""
     if not remat or remat == "none":
-        return False
+        return "none"
     if remat is True or remat == "full":
-        return True
+        return "full"
     if remat == "conv":
-        raise NotImplementedError(
-            "model.remat 'conv' is not yet ported to PyTorch (ROADMAP Q1, "
-            "`remat: conv`); use 'none' or 'full'"
-        )
+        return "conv"
     if remat == "offload":
         raise NotImplementedError(
             "model.remat 'offload' is not carried by the PyTorch port (ROADMAP "
-            "Q1, Do not port); use 'none' or 'full'"
+            "Q1, Do not port); use 'none', 'full' or 'conv'"
         )
     raise ValueError(
         f"remat must be one of False/'none'/True/'full'/'conv'/'offload', got {remat!r}"
@@ -307,8 +307,11 @@ fused_blocks: Dict[str, int] = {"fused": 0, "unfused": 0}
 
 class ResnetBlock2D(nn.Module):
     """norm1+SiLU -> conv1 -> norm2+SiLU -> conv2, plus the input (through a
-    1x1 conv_shortcut when the channel counts differ). With ``remat`` set
-    and autograd recording, the body runs under ``torch.utils.checkpoint``.
+    1x1 conv_shortcut when the channel counts differ). With ``remat``
+    (:func:`remat_mode`) and autograd recording, ``"full"`` runs the body
+    under ``torch.utils.checkpoint`` and ``"conv"`` keeps the conv outputs
+    and computes each conv's input again in the backward
+    (:meth:`_conv_of_norm`).
 
     ``impl="fused"`` (JAX ``models/vae.py:427-613``): where :meth:`_fused_ok`
     admits the block, each norm+SiLU+conv pair is one
@@ -317,7 +320,7 @@ class ResnetBlock2D(nn.Module):
     taps come from the kernel's |z| side output; otherwise the block runs
     unfused, with plain norms."""
 
-    remat: bool = False
+    _remat: str = "none"
     impl: str = "auto"
     # fuse only up to 32x32, the JAX model's measured TPU crossover (JAX
     # vae.py:523-531), kept so that both packages fuse the same blocks
@@ -338,6 +341,16 @@ class ResnetBlock2D(nn.Module):
         # the model's capture specs under this block, set by set_capture
         self.full_name = ""
         self._captures: CaptureTable = ()
+
+    @property
+    def remat(self) -> str:
+        return self._remat
+
+    @remat.setter
+    def remat(self, value: Any) -> None:
+        # every assignment goes through remat_mode, so a bool or an unknown
+        # value never reaches forward as a mode
+        self._remat = remat_mode(value)
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -371,9 +384,16 @@ class ResnetBlock2D(nn.Module):
                 and fused_resnet.eligible((n, cout, h, w), cout, self.num_groups)
                 and self._fused_captures_ok())
 
-    def _body(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(self.norm1(x))
-        h = self.conv2(self.norm2(h))
+    @staticmethod
+    def _pair(norm: GroupNorm, conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
+        return conv(norm(x))
+
+    def _body(self, x: torch.Tensor, pair=None) -> torch.Tensor:
+        """The unfused block; ``pair(norm, conv, x)`` applies each norm and
+        conv pair (:meth:`_conv_of_norm` under ``remat: conv``)."""
+        pair = pair or self._pair
+        h = pair(self.norm1, self.conv1, x)
+        h = pair(self.norm2, self.conv2, h)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -401,6 +421,33 @@ class ResnetBlock2D(nn.Module):
         self.norm2.tap(h, "input")
         return self._fused_pair(h, self.norm2, self.conv2, residual.to(self.compute_dtype))
 
+    def _conv_of_norm(self, norm: GroupNorm, conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
+        """conv(norm(x)) for ``remat: conv``: the conv's saved input, the
+        GroupNorm+SiLU output, is packed as a recipe that computes it again
+        from ``x`` (taps muted) when the backward unpacks it. ``x`` is kept
+        anyway (the norm saves it), so the norm's output costs no memory
+        between the forward and the backward, and no conv runs twice. The
+        norm's own saved tensors stay: the kernels' keep ``x`` and their
+        statistics, the plain version its fp32 intermediates."""
+        dtype = conv.compute_dtype or conv.weight.dtype
+        a = norm(x).to(dtype)
+
+        def again() -> torch.Tensor:
+            with torch.no_grad():
+                return self._recompute(lambda inp: norm(inp).to(dtype), x)
+
+        # the hooks outlive the forward in the graph: they must not hold ``a``
+        key = (a.data_ptr(), a.shape, a.dtype)
+
+        def pack(t: torch.Tensor):
+            return again if (t.data_ptr(), t.shape, t.dtype) == key else t
+
+        def unpack(saved):
+            return saved() if callable(saved) else saved
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+            return conv(a)
+
     def _recompute(self, body, x: torch.Tensor) -> torch.Tensor:
         """The body with every tap muted: the backward's recompute must not
         write into the stats dict the forward already reported to."""
@@ -414,14 +461,19 @@ class ResnetBlock2D(nn.Module):
                 m._sink = sink
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        body = self._body
+        body, fused = self._body, False
         if self.impl == "fused":
             fused = self._fused_ok(x)
             fused_blocks["fused" if fused else "unfused"] += 1
             if fused:
                 body = self._fused_body
-        if not (self.remat and torch.is_grad_enabled()):
+        if self.remat == "none" or not torch.is_grad_enabled():
             return body(x)
+        if self.remat == "conv":
+            # the fused kernels never materialise the norms and SiLUs, and the
+            # fused op keeps only what its backward reads, so a fused body has
+            # nothing to drop (JAX _resnet_remat_cls)
+            return body(x) if fused else self._body(x, self._conv_of_norm)
         ran = []
 
         def run(inp: torch.Tensor) -> torch.Tensor:
@@ -623,7 +675,7 @@ class AutoencoderKL(nn.Module):
     dtype of every conv and linear layer and so of the resnets' fused path
     (None: their weights' dtype), ``capture``
     the tap table, ``remat`` the resnets' rematerialisation
-    (:func:`remat_enabled`); :meth:`set_impl`, :meth:`set_compute_dtype`,
+    (:func:`remat_mode`); :meth:`set_impl`, :meth:`set_compute_dtype`,
     :meth:`set_capture` and :meth:`set_remat` change them on a built model."""
 
     def __init__(self, config: Optional[VAEConfig] = None, attn_impl: str = "auto",
@@ -677,12 +729,13 @@ class AutoencoderKL(nn.Module):
         return self
 
     def set_remat(self, remat: Any) -> "AutoencoderKL":
-        """Rematerialise every ``ResnetBlock2D`` (``"full"``) or none."""
+        """Rematerialise every ``ResnetBlock2D`` (``"full"``), keep their
+        conv outputs (``"conv"``), or neither."""
         self.remat = remat
-        flag = remat_enabled(remat)
+        mode = remat_mode(remat)
         for module in self.modules():
             if isinstance(module, ResnetBlock2D):
-                module.remat = flag
+                module.remat = mode
         return self
 
     def set_capture(self, capture: CaptureTable) -> "AutoencoderKL":

@@ -6,7 +6,8 @@ same directory contract: a checkpoint is a directory (``chkpt-<step>`` or
 position, ``resume_meta.json`` with the JAX package's keys (``micro_step``,
 ``global_step``, ``epoch``, ``in_epoch_batches``). ``state/train_state.pt``
 is one ``torch.save`` of plain CPU tensors and integers: the fp32 master
-parameters by torch name, the AdamW moments and counters, the optimizer
+parameters by torch name, the optimizer state by field (AdamW's moments, or
+Adafactor's row, column and full moments) with its counters, the optimizer
 step, the stats accumulators and count, and the EMA parameters. The model
 directory that both packages load (``final_model/vae``) is the Trainer's to
 write, through ``models/io.py``.
@@ -14,6 +15,7 @@ write, through ``models/io.py``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -33,22 +35,25 @@ RESUME_META = "resume_meta.json"
 
 
 def _tensors(values, fn):
-    return None if values is None else [fn(v) for v in values]
+    return None if values is None else [None if v is None else fn(v) for v in values]
+
+
+def _opt_dict(opt, copy) -> Dict[str, Any]:
+    """An optimizer state (a dataclass of tensor lists and integers) by
+    field, with its kind."""
+    out: Dict[str, Any] = {"kind": type(opt).__name__}
+    for field in dataclasses.fields(opt):
+        value = getattr(opt, field.name)
+        out[field.name] = int(value) if isinstance(value, int) else _tensors(value, copy)
+    return out
 
 
 def state_dict_of(state: TrainState, copy=lambda t: t.detach().cpu()) -> Dict[str, Any]:
     """The state as a dict of tensors (each passed through ``copy``) and
     integers."""
-    opt = state.opt_state
     return {
         "params": {k: copy(p) for k, p in state.model.named_parameters()},
-        "opt": {
-            "mu": _tensors(opt.mu, copy),
-            "nu": _tensors(opt.nu, copy),
-            "count": int(opt.count),
-            "mini_step": int(opt.mini_step),
-            "acc_grads": _tensors(opt.acc_grads, copy),
-        },
+        "opt": _opt_dict(state.opt_state, copy),
         "step": int(state.step),
         "stats_acc": {k: copy(v) for k, v in state.stats_acc.items()},
         "stats_count": copy(state.stats_count),
@@ -166,16 +171,26 @@ def restore_train_state(path: str, state: TrainState) -> TrainState:
         raise ValueError(f"checkpoint {path} holds other parameters than the model")
     for k, p in params.items():
         p.copy_(saved["params"][k])
-    opt = state.opt_state
-    for name in ("mu", "nu", "acc_grads"):
-        live, kept = getattr(opt, name), saved["opt"][name]
-        if (live is None) != (kept is None):
+    opt, kept_opt = state.opt_state, saved["opt"]
+    kind = kept_opt.get("kind", "OptState")
+    if kind != type(opt).__name__:
+        raise ValueError(f"checkpoint {path} holds a {kind} optimizer state, the run a "
+                         f"{type(opt).__name__} (training.optimizer differs?)")
+    for field in dataclasses.fields(opt):
+        name = field.name
+        live, kept = getattr(opt, name), kept_opt[name]
+        if isinstance(live, int):
+            setattr(opt, name, int(kept))
+            continue
+        if (live is None) != (kept is None) or len(live or []) != len(kept or []):
             raise ValueError(f"checkpoint {path}: optimizer {name} does not match "
                              "(gradient accumulation differs?)")
         for dst, src in zip(live or [], kept or []):
-            dst.copy_(src)
-    opt.count = int(saved["opt"]["count"])
-    opt.mini_step = int(saved["opt"]["mini_step"])
+            if (dst is None) != (src is None):
+                raise ValueError(f"checkpoint {path}: optimizer {name} is factored "
+                                 "otherwise")
+            if dst is not None:
+                dst.copy_(src)
     state.step = int(saved["step"])
     if set(saved["stats_acc"]) != set(state.stats_acc):
         raise ValueError(f"checkpoint {path}: stats accumulators do not match the tracking config")

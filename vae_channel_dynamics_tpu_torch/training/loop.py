@@ -17,11 +17,14 @@ With ``logit_lens.enabled`` the lens runs every ``visualization_interval``
 steps on the monitor's data for that step, as in the JAX Trainer, drawn
 with PIL (``analysis/logit_lens.py``).
 
+With ``profiling.enabled`` a torch.profiler trace covers the configured
+step window (``utils/profiling.py``) and is closed on every exit path.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-skipped: ``parallel`` axes above 1 (ROADMAP Q1, Multi-GPU), ``profiling``
-(ROADMAP Q1, Profiling), and ``saving.export_stablehlo`` (ROADMAP Q1,
-Deployment export). The matplotlib plots are not drawn (ROADMAP Q1, Plots);
-the CSV and JSONL files they read are written.
+skipped: ``parallel`` axes above 1 (ROADMAP Q1, Multi-GPU) and
+``saving.export_stablehlo`` (ROADMAP Q1, Deployment export). The matplotlib
+plots are not drawn (ROADMAP Q1, Plots); the CSV and JSONL files they read
+are written.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from ..models.vae import AutoencoderKL, VAEConfig
 from ..models.wrapper import resolve_device
 from ..tracking import ActivityMonitor, DeadNeuronTracker
 from ..utils.config_utils import as_float, as_int
+from ..utils.profiling import TraceCapture
 from ..utils.reporting import build_reporter
 from .checkpoint import (
     AsyncSaver,
@@ -129,11 +133,6 @@ def _refuse_unported(config: Dict[str, Any]) -> None:
                 f"parallel.{axis} > 1: multi-GPU training is not yet ported to "
                 "PyTorch (ROADMAP Q1, Multi-GPU)"
             )
-    if (config.get("profiling", {}) or {}).get("enabled", False):
-        raise NotImplementedError(
-            "profiling.enabled: trace capture is not yet ported to PyTorch "
-            "(ROADMAP Q1, Profiling); set it to false"
-        )
     if (config.get("saving", {}) or {}).get("export_stablehlo", False):
         raise NotImplementedError(
             "saving.export_stablehlo: deployment export is not yet ported to "
@@ -296,6 +295,8 @@ class Trainer:
                                       device=device)
             ll_interval = as_int(ll_config.get("visualization_interval"), 1000)
 
+        tracer = TraceCapture(config.get("profiling", {}), self.output_dir, device)
+
         # ---------------- state and steps ---------------- #
         model.set_capture(monitor.scalar_capture_table)
         ema_decay = as_float(tc.get("ema_decay"), 0.0)
@@ -444,6 +445,7 @@ class Trainer:
                                  and next_global % track_interval == 0)
                     noise_gen.manual_seed(_step_seed(seed, micro_step))
                     pixels = {"pixel_values": batch["pixel_values"]}
+                    tracer.maybe_start(next_global)
                     if want_maps:
                         model.set_capture(monitor.map_capture_table)
                         try:
@@ -454,6 +456,7 @@ class Trainer:
                     else:
                         state, metrics, maps = step_plain(state, pixels, batch["mask"],
                                                           noise_gen)
+                    tracer.maybe_stop(next_global)
                     pending_metrics.append(metrics)
                     if not is_update:
                         continue
@@ -612,11 +615,18 @@ class Trainer:
                 if global_step >= max_train_steps:
                     logger.info("Reached max_train_steps.")
                     break
+            # a window still open at the end of training is written here,
+            # where a trace without device events raises
+            tracer.close()
         finally:
             if prev_sigterm is not None:
                 signal.signal(signal.SIGTERM, prev_sigterm)
             if ckpt_saver is not None:
                 ckpt_saver.wait(reraise=False)
+            try:
+                tracer.close()
+            except Exception:  # noqa: BLE001 — teardown must not mask the loop's error
+                logger.exception("Profiler trace close failed")
         if ckpt_saver is not None:
             ckpt_saver.wait()
         elapsed = time.time() - t_start

@@ -16,9 +16,17 @@ JAX package's step for step (``build_optimizer``):
   decay ``wd * param``, times ``-lr(count)`` with the count of updates
   applied before this one, so the first update takes ``lr(0)`` as torch's
   LambdaLR does;
+* ``adafactor``: optax 0.2.6's ``adafactor(learning_rate=schedule,
+  weight_decay_rate=wd or None)`` with its defaults: factored second
+  moments over a parameter's two largest axes when both have at least 128
+  entries (a full moment otherwise), decay ``1 - (count + 1) ** -0.8``,
+  ``eps`` 1e-30 added to the squared gradient, each update clipped to a
+  block RMS of 1, times ``lr(count)``, times the parameter's RMS (at least
+  1e-3), plus ``wd * param`` after the learning rate (so the decay is not
+  scaled by it), no momentum;
 * ``MultiSteps`` gradient accumulation: the running mean of k micro-step
-  gradients goes through the two above on every k-th micro-step, and the
-  schedule's count advances only then.
+  gradients goes through the clip and the optimizer on every k-th
+  micro-step, and the schedule's count advances only then.
 
 PyTorch runs eagerly, so there is no jit: a step runs the forward under the
 tap mask, the backward, the update in place on the fp32 master parameters
@@ -33,8 +41,9 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..models.wrapper import forward_with_stats
@@ -108,6 +117,11 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 @dataclasses.dataclass
 class OptState:
+    """AdamW's state. Every optimizer state keeps ``count``, ``mini_step``
+    and ``acc_grads`` under these names; its other fields are lists of
+    tensors (or of None), one entry a parameter (``training/checkpoint.py``
+    saves them by field)."""
+
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
     # updates applied so far: Adam's bias-correction count and the
@@ -119,26 +133,40 @@ class OptState:
     acc_grads: Optional[List[torch.Tensor]] = None
 
 
-class AdamW:
-    """``optax.chain(clip_by_global_norm, adamw)``, wrapped in
+@dataclasses.dataclass
+class FactoredState:
+    """Adafactor's state (optax ``FactoredState``): per parameter, the row
+    and column moments of a factored parameter (None otherwise) and the full
+    moment of an unfactored one (None otherwise)."""
+
+    v_row: List[Optional[torch.Tensor]]
+    v_col: List[Optional[torch.Tensor]]
+    v: List[Optional[torch.Tensor]]
+    count: int = 0
+    mini_step: int = 0
+    acc_grads: Optional[List[torch.Tensor]] = None
+
+
+class _Optimizer:
+    """Global-norm clipping and the optimizer, wrapped in
     ``optax.MultiSteps`` when ``every_k > 1``; parameters and gradients are
     dicts keyed by parameter name, updated in place."""
 
-    def __init__(self, schedule: Schedule, b1: float, b2: float, eps: float,
-                 weight_decay: float, max_grad_norm: float, every_k: int = 1):
+    def __init__(self, schedule: Schedule, max_grad_norm: float, every_k: int = 1):
         self.schedule = schedule
-        self.b1, self.b2, self.eps = b1, b2, eps
-        self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
         self.every_k = max(1, int(every_k))
 
-    def init(self, params: Dict[str, torch.Tensor]) -> OptState:
-        ps = [p.detach() for p in params.values()]
-        return OptState(
-            mu=[torch.zeros_like(p) for p in ps],
-            nu=[torch.zeros_like(p) for p in ps],
-            acc_grads=[torch.zeros_like(p) for p in ps] if self.every_k > 1 else None,
-        )
+    def _acc_grads(self, ps: List[torch.Tensor]) -> Optional[List[torch.Tensor]]:
+        return [torch.zeros_like(p) for p in ps] if self.every_k > 1 else None
+
+    def _clip(self, g: List[torch.Tensor]) -> List[torch.Tensor]:
+        if self.max_grad_norm and self.max_grad_norm > 0:
+            norm = global_norm(g)
+            scale = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
+                                self.max_grad_norm / norm)
+            g = torch._foreach_mul(g, scale)
+        return g
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: OptState,
@@ -155,19 +183,30 @@ class AdamW:
                 state.mini_step += 1
                 return False
             g = state.acc_grads
-        self._apply(g, state, [p.detach() for p in params.values()])
+        self._apply(self._clip(g), state, [p.detach() for p in params.values()])
         if self.every_k > 1:
             state.mini_step = 0
             for a in state.acc_grads:
                 a.zero_()
         return True
 
+
+class AdamW(_Optimizer):
+    """``optax.chain(clip_by_global_norm, adamw)``, in ``MultiSteps`` when
+    ``every_k > 1``."""
+
+    def __init__(self, schedule: Schedule, b1: float, b2: float, eps: float,
+                 weight_decay: float, max_grad_norm: float, every_k: int = 1):
+        super().__init__(schedule, max_grad_norm, every_k)
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+
+    def init(self, params: Dict[str, torch.Tensor]) -> OptState:
+        ps = [p.detach() for p in params.values()]
+        return OptState(mu=[torch.zeros_like(p) for p in ps],
+                        nu=[torch.zeros_like(p) for p in ps], acc_grads=self._acc_grads(ps))
+
     def _apply(self, g: List[torch.Tensor], state: OptState, ps: List[torch.Tensor]) -> None:
-        if self.max_grad_norm and self.max_grad_norm > 0:
-            norm = global_norm(g)
-            scale = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
-                                self.max_grad_norm / norm)
-            g = torch._foreach_mul(g, scale)
         lr = self.schedule(state.count)
         state.count += 1
         b1, b2 = self.b1, self.b2
@@ -185,6 +224,101 @@ class AdamW:
         torch._foreach_add_(ps, upd, alpha=-lr)
 
 
+# optax 0.2.6's adafactor defaults (module docstring); no config key sets them
+_MIN_DIM_SIZE_TO_FACTOR = 128
+_DECAY_RATE = 0.8
+_EPS = 1e-30
+_CLIPPING_THRESHOLD = 1.0
+_MIN_SCALE = 1e-3
+
+
+def factored_dims(shape: Sequence[int]) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims``: the second largest and the largest axis
+    (of equal sizes the later counts as the larger, as numpy's argsort of a
+    short shape orders them), or None when the second largest is below 128
+    entries. The port's OIHW and (out, in) weights pick the same two axes as
+    JAX's HWIO and (in, out) ones, in the other order; the factored
+    estimate, a product of their two means over the mean of all, is the
+    same either way."""
+    if len(shape) < 2:
+        return None
+    order = sorted(range(len(shape)), key=lambda i: shape[i])
+    if shape[order[-2]] < _MIN_DIM_SIZE_TO_FACTOR:
+        return None
+    return order[-2], order[-1]
+
+
+class Adafactor(_Optimizer):
+    """``optax.chain(clip_by_global_norm, adafactor)`` with optax 0.2.6's
+    defaults (module docstring), in ``MultiSteps`` when ``every_k > 1``."""
+
+    def __init__(self, schedule: Schedule, weight_decay: float, max_grad_norm: float,
+                 every_k: int = 1):
+        super().__init__(schedule, max_grad_norm, every_k)
+        self.weight_decay = weight_decay
+
+    def init(self, params: Dict[str, torch.Tensor]) -> FactoredState:
+        ps = [p.detach() for p in params.values()]
+        v_row, v_col, v = [], [], []
+        for p in ps:
+            dims = factored_dims(p.shape)
+            if dims is None:
+                v_row.append(None)
+                v_col.append(None)
+                v.append(torch.zeros_like(p))
+            else:
+                d1, d0 = dims
+                v_row.append(torch.zeros_like(p.select(d0, 0)))
+                v_col.append(torch.zeros_like(p.select(d1, 0)))
+                v.append(None)
+        return FactoredState(v_row=v_row, v_col=v_col, v=v, acc_grads=self._acc_grads(ps))
+
+    def _apply(self, g: List[torch.Tensor], state: FactoredState,
+               ps: List[torch.Tensor]) -> None:
+        f32 = np.float32
+        # optax's decay, in fp32: 1 - (count + 1) ** -0.8
+        decay = f32(1.0) - f32(state.count + 1) ** f32(-_DECAY_RATE)
+        keep, take = float(decay), float(f32(1.0) - decay)
+        lr = self.schedule(state.count)
+        state.count += 1
+        sq = torch._foreach_mul(g, g)
+        torch._foreach_add_(sq, _EPS)
+        full = [i for i, v in enumerate(state.v) if v is not None]
+        upd: List[Optional[torch.Tensor]] = [None] * len(g)
+        if full:
+            vs = [state.v[i] for i in full]
+            torch._foreach_mul_(vs, keep)
+            torch._foreach_add_(vs, torch._foreach_mul([sq[i] for i in full], take))
+            rs = torch._foreach_rsqrt(vs)
+            for i, u in zip(full, torch._foreach_mul([g[i] for i in full], rs)):
+                upd[i] = u
+        for i, v_row in enumerate(state.v_row):
+            if v_row is None:
+                continue
+            d1, d0 = factored_dims(g[i].shape)
+            v_col = state.v_col[i]
+            v_row.mul_(keep).add_(sq[i].mean(dim=d0) * take)
+            v_col.mul_(keep).add_(sq[i].mean(dim=d1) * take)
+            row_col_mean = v_row.mean(dim=d1 - 1 if d1 > d0 else d1, keepdim=True)
+            row_factor = (v_row / row_col_mean).rsqrt()
+            upd[i] = g[i] * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
+        # clip each update to a block RMS of 1, then the learning rate and
+        # the parameter's RMS (at least 1e-3); the
+        # RMS is the norm over sqrt(numel), a host float: no device copy
+        roots = [math.sqrt(p.numel()) for p in ps]
+        denom = torch._foreach_div(torch._foreach_norm(upd), roots)
+        torch._foreach_div_(denom, _CLIPPING_THRESHOLD)
+        torch._foreach_clamp_min_(denom, 1.0)
+        p_rms = torch._foreach_div(torch._foreach_norm(ps), roots)
+        torch._foreach_clamp_min_(p_rms, _MIN_SCALE)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_mul_(upd, p_rms)
+        if self.weight_decay:
+            torch._foreach_add_(upd, ps, alpha=self.weight_decay)
+        torch._foreach_sub_(ps, upd)
+
+
 def build_optimizer(
     learning_rate: float,
     warmup_steps: int,
@@ -197,17 +331,16 @@ def build_optimizer(
     gradient_accumulation_steps: int = 1,
     optimizer: str = "adamw",
     lr_scheduler_type: str = "linear",
-) -> Tuple[AdamW, Schedule]:
-    """AdamW with global-norm clipping and the learning-rate schedule, with
-    optional gradient accumulation; the JAX package's ``build_optimizer``.
-    ``adafactor`` is not ported yet."""
+) -> Tuple[Union[AdamW, Adafactor], Schedule]:
+    """AdamW or Adafactor with global-norm clipping and the learning-rate
+    schedule, with optional gradient accumulation; the JAX package's
+    ``build_optimizer``. Adafactor ignores the Adam betas and epsilon, and
+    takes ``adam_weight_decay`` as its decoupled weight decay rate."""
     schedule = make_lr_schedule(lr_scheduler_type, learning_rate, warmup_steps,
                                 max_train_steps)
     if optimizer == "adafactor":
-        raise NotImplementedError(
-            "training.optimizer 'adafactor' is not yet ported to PyTorch "
-            "(ROADMAP Q1, Adafactor); use 'adamw'"
-        )
+        return Adafactor(schedule, adam_weight_decay or 0.0, max_grad_norm or 0.0,
+                         gradient_accumulation_steps), schedule
     if optimizer != "adamw":
         raise ValueError(
             f"Unknown training.optimizer '{optimizer}' (expected 'adamw' or 'adafactor')"
@@ -351,11 +484,14 @@ def make_eval_step(model: torch.nn.Module):
 
 
 __all__ = [
+    "Adafactor",
     "AdamW",
+    "FactoredState",
     "OptState",
     "build_optimizer",
     "default_stats_accumulate",
     "dequantize_pixels",
+    "factored_dims",
     "global_norm",
     "linear_warmup_decay_schedule",
     "make_eval_step",
