@@ -179,7 +179,42 @@ failure exits non-zero without the final ``ok`` line:
 
 The CLI audit (``phase_cli_audit``, after the tiling phase) runs the
 training and evaluation CLIs over their impl matrix, 40 cells, none
-refused. The last lines are a JSON object describing the sixteen kernels,
+refused. Then:
+
+14. deployment export (``phase_export``, on the same seeded model dir): the
+   SDXL VAE exported at 512px in bf16 and in fp32 through
+   ``tools/export_model.main --check`` (the exported ``reconstruct`` within
+   the check's bound of the live wrapper); each ``.pt2`` under 5 MB (no
+   weight in it) and the export seconds; ``reconstruct`` from one artifact
+   at batch 1 and 4, each call launching the flash forward (bf16 #6, or #6
+   at fp32) exactly as often as the live wrapper's, twice; then the server
+   from the bf16 export (``--exported_dir``) under 8 closed-loop clients
+   for EXPORT_LOAD_SECONDS: p50, p95 and req/s beside the live server's
+   window, every answer 200, finite, of the right shape,
+   ``?deterministic=false`` refused with a 4xx, and #6's launches while
+   serving on an ``[export]`` line;
+
+after the Adafactor phase:
+
+15. the native loader (``phase_native_loader``): ``tools/doctor.py``'s
+   native check passes (g++ builds the port's ``csrc/preprocess.cpp`` and
+   ``csrc/decode.cpp`` with libjpeg/libpng, or, where their headers are
+   missing, ``preprocess.cpp`` alone: a warning, PIL decodes and the C++
+   kernel resizes) and the build that was made is printed;
+   ``tools/loader_bench.py`` in-process at 256px from 512px JPEGs and at
+   1024px from 2048px JPEGs (LOADER_RUNS), workers 0 and 4: img/s for PIL
+   and native, the host's cores, and every image of a native result through
+   the native path its build has (none through the PIL transform);
+16. the host-fed Trainer (``phase_realloader_trainer``):
+   ``configs/bench_realloader.yaml`` through ``train.main`` on 240 JPEGs of
+   ``make_jpegs``, under ``VCD_NATIVE_PREPROCESS`` 0 and 1 in turns, 20
+   steps each: ms/step and img/s over steps 6-20, finite losses, every
+   image of the native run through the native path (none through the PIL
+   transform); the native run also sets
+   ``saving.export_stablehlo`` and its ``final_model/exported`` (naive
+   attention at 256px: no kernel) is held to the live wrapper of
+   ``final_model/vae``.
+ The last lines are a JSON object describing the sixteen kernels,
 the nvidia-smi line, and ``{"ok": true, "device": {...}}``. Imports no jax.
 """
 
@@ -200,6 +235,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -586,6 +622,31 @@ AUDIT_FLOOR = 2.0 ** -8
 AUDIT_F32_REL = 1e-4
 AUDIT_TAPS = ("vae.encoder.down_blocks.0.resnets.0.norm1",  # 128 channels at 128x128
               "vae.encoder.down_blocks.3.resnets.0.norm1")  # 512 at 16x16: fused in bf16
+
+# the native loader (phase_native_loader): tools/loader_bench.py in-process,
+# (label, arguments, images) at the JAX tool's defaults and at 1024px
+LOADER_RUNS = (("256px from 512px JPEGs", ["--resolution", "256", "--src-size", "512",
+                                           "--num-images", "256"], 256),
+               ("1024px from 2048px JPEGs", ["--resolution", "1024", "--src-size", "2048",
+                                             "--num-images", "32"], 32))
+LOADER_WORKERS = "0,4"
+# the host-fed Trainer (phase_realloader_trainer): configs/bench_realloader.yaml
+# on make_jpegs' JPEGs, under VCD_NATIVE_PREPROCESS 0 and 1 in turns
+REALLOADER_CONFIG = "configs/bench_realloader.yaml"
+REALLOADER_IMAGES = 240
+REALLOADER_SRC = 512
+REALLOADER_STEPS = 20
+REALLOADER_TIMED_FROM = 6  # ms/step over steps 6-20
+REALLOADER_ORDER = ("0", "1")
+# the deployment export (phase_export): the seeded SDXL VAE at 512px
+EXPORT_RES = 512
+EXPORT_MAX_BYTES = 5 << 20  # a .pt2 that held the weights would be 335 MB
+EXPORT_BATCHES = (1, MAX_BATCH)
+EXPORT_KERNELS = {"bf16": "flash_attention_fwd", "fp32": "flash_attention_fwd_f32"}
+EXPORT_LOAD_SECONDS = 15.0
+EXPORT_TIMED_CALLS = 5
+# the live server's sustained window (phase_slice), beside the exported one's
+SERVING_LIVE: dict = {}
 
 
 class SmokeFailure(RuntimeError):
@@ -1628,6 +1689,7 @@ def phase_slice(tmp: str):
         lat = sorted(dt for c_lat, _end in clients for dt in c_lat)
         p50_ms, p95_ms = percentile(lat, 0.50) * 1e3, percentile(lat, 0.95) * 1e3
         rps = len(lat) / wall
+        SERVING_LIVE.update(p50_ms=p50_ms, p95_ms=p95_ms, rps=rps, requests=len(lat))
         log(f"[slice] sustained /reconstruct?format=npy at {RESOLUTION}px, "
             f"{LOAD_CONCURRENCY} concurrent clients, {LOAD_SECONDS:.0f} s window: "
             f"{len(lat)} requests all 200 in {wall:.3f} s, p50 {p50_ms:.1f} ms, "
@@ -4110,6 +4172,327 @@ def phase_cli_audit(tmp: str, model_dir: str) -> None:
     release()
 
 
+def phase_native_loader() -> None:
+    """The native loader on the card's host: doctor's native check (``ok``
+    with the decode linked; ``warn`` for the preprocess-only build, made
+    where libjpeg's and libpng's headers are missing: PIL decodes, the C++
+    kernel resizes, crops and normalises), the build that was made, then
+    ``tools/loader_bench.py`` in-process at LOADER_RUNS with workers
+    LOADER_WORKERS; no image of a native result goes through the PIL
+    transform."""
+    from vae_channel_dynamics_tpu_torch.data import native
+    from vae_channel_dynamics_tpu_torch.tools import doctor, loader_bench
+
+    t_phase = time.perf_counter()
+    doctor._RESULTS.clear()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        doctor.check_native()
+    line = out.getvalue().strip()
+    log(f"[loader] doctor's native check: {line}")
+    check(doctor._RESULTS in (["ok"], ["warn"]), f"the native check failed: {line}")
+    decoded = "decode" if native.build_kind == "decode" else "preprocess"
+    log(f"[loader] native build: {native.build_kind} ({native.get_lib()._name}); every "
+        f"native image is counted under {decoded!r}"
+        + ("" if decoded == "decode" else " (PIL decodes it, the C++ kernel resizes)")
+        + f"; host cores {os.cpu_count()}")
+    for label, argv, images in LOADER_RUNS:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = loader_bench.main(argv + ["--workers", LOADER_WORKERS])
+        check(rc == 0, f"loader_bench {label} exited {rc}")
+        result = json.loads(out.getvalue().strip().splitlines()[-1])
+        log(f"[loader] {label}, workers {LOADER_WORKERS}, {images} images, "
+            f"{time.perf_counter() - t0:.1f} s: {json.dumps(result)}")
+        for w in LOADER_WORKERS.split(","):
+            counts = result["native_counts"].get(f"native_w{w}")
+            want = {"decode": 0, "preprocess": 0, "pil": 0, decoded: images}
+            check(counts == want, f"{label} native workers {w}: paths {result['native_counts']}")
+            log(f"[loader] {label} workers {w}: pil {result['results'][f'pil_w{w}']} img/s, "
+                f"native ({native.build_kind}) {result['results'][f'native_w{w}']} img/s, "
+                f"paths {counts}")
+    log(f"[loader] the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_realloader_trainer(tmp: str) -> None:
+    """``configs/bench_realloader.yaml`` through ``train.main`` on
+    REALLOADER_IMAGES JPEGs of ``loader_bench.make_jpegs``, under
+    ``VCD_NATIVE_PREPROCESS`` 0 and 1 in turns: ms/step and img/s over steps
+    REALLOADER_TIMED_FROM-REALLOADER_STEPS (host clock, synchronised), finite
+    losses, every image of the native run decoded natively; the native run
+    also writes ``final_model/exported``, whose ``reconstruct`` is held to
+    the live wrapper of ``final_model/vae``."""
+    import copy
+    import logging
+
+    import torch
+    import yaml
+
+    from vae_channel_dynamics_tpu_torch import train as train_cli
+    from vae_channel_dynamics_tpu_torch.data import native
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+    from vae_channel_dynamics_tpu_torch.tools import export_model, loader_bench
+    from vae_channel_dynamics_tpu_torch.training import loop
+    from vae_channel_dynamics_tpu_torch.utils.config_utils import load_config
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = load_config(os.path.join(root, REALLOADER_CONFIG))
+    res, batch = int(base["data"]["resolution"]), int(base["data"]["batch_size"])
+    jpegs = os.path.join(tmp, "jpegs")
+    os.makedirs(jpegs)
+    t0 = time.perf_counter()
+    loader_bench.make_jpegs(jpegs, REALLOADER_IMAGES, REALLOADER_SRC)
+    log(f"[realloader] {REALLOADER_IMAGES} JPEGs of {REALLOADER_SRC}px written in "
+        f"{time.perf_counter() - t0:.1f} s; {REALLOADER_CONFIG} at {res}px batch {batch}, "
+        f"{base['data']['num_workers']} loader workers, {REALLOADER_STEPS} steps a run")
+
+    losses, marks, current = {}, {}, {}
+    make_train_step = loop.make_train_step
+
+    def timed_make_train_step(*args, **kwargs):
+        step_fn = make_train_step(*args, **kwargs)
+
+        def step(state, *a, **kw):
+            if state.step == REALLOADER_TIMED_FROM - 1:
+                sync()
+                marks[(current["run"], "start")] = time.perf_counter()
+            out = step_fn(state, *a, **kw)
+            losses[(current["run"], out[0].step)] = out[1]["train_loss_step"]
+            if out[0].step == REALLOADER_STEPS:
+                sync()
+                marks[(current["run"], "end")] = time.perf_counter()
+            return out
+
+        return step
+
+    timed = REALLOADER_STEPS - REALLOADER_TIMED_FROM + 1
+    before = os.environ.get("VCD_NATIVE_PREPROCESS")
+    package_logger = logging.getLogger("vae_channel_dynamics_tpu_torch")
+    level = package_logger.level
+    package_logger.setLevel(logging.WARNING)
+    loop.make_train_step = timed_make_train_step
+    results, export_dir, vae_dir = {}, None, None
+    try:
+        for flag in REALLOADER_ORDER:
+            run = "native" if flag == "1" else "pil"
+            cfg = copy.deepcopy(base)
+            cfg["output_dir"] = os.path.join(tmp, run)
+            cfg["data"]["dataset_name"] = jpegs
+            cfg["training"]["stop_after_steps"] = REALLOADER_STEPS
+            cfg["saving"]["export_stablehlo"] = run == "native"
+            path = os.path.join(tmp, f"{run}.yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump(cfg, f)
+            os.environ["VCD_NATIVE_PREPROCESS"] = flag
+            native.reset_counts()
+            current["run"] = run
+            t0 = time.perf_counter()
+            check(train_cli.main(["--config_path", path, "--device", DEVICE]) == 0,
+                  f"the {run} Trainer run failed")
+            seconds = time.perf_counter() - t0
+            counts = dict(native.counts)
+            span = marks[(run, "end")] - marks[(run, "start")]
+            run_losses = [losses[(run, i)] for i in range(1, REALLOADER_STEPS + 1)]
+            check(all(math.isfinite(v) for v in run_losses), f"{run}: losses {run_losses}")
+            results[run] = (span / timed * 1e3, timed * batch / span)
+            log(f"[realloader] {run} loader: {results[run][0]:.1f} ms/step, "
+                f"{results[run][1]:.1f} img/s over steps {REALLOADER_TIMED_FROM}-"
+                f"{REALLOADER_STEPS}; the run took {seconds:.1f} s; losses from "
+                f"{run_losses[0]:.5g} to {run_losses[-1]:.5g}; native paths {counts}")
+            if run == "native":
+                decoded = "decode" if native.build_kind == "decode" else "preprocess"
+                check(counts["pil"] == 0 and counts[decoded] >= REALLOADER_STEPS * batch
+                      and counts["decode"] + counts["preprocess"] == counts[decoded],
+                      f"native run ({native.build_kind} build): image paths {counts}")
+                final = os.path.join(cfg["output_dir"], cfg["run_name"], "final_model")
+                export_dir, vae_dir = os.path.join(final, "exported"), os.path.join(final, "vae")
+            else:
+                check(not any(counts.values()), f"PIL run: native paths {counts}")
+    finally:
+        loop.make_train_step = make_train_step
+        package_logger.setLevel(level)
+        if before is None:
+            os.environ.pop("VCD_NATIVE_PREPROCESS", None)
+        else:
+            os.environ["VCD_NATIVE_PREPROCESS"] = before
+    manifest = export_model.read_manifest(export_dir)
+    check(manifest["resolution"] == res and manifest["dtype"] == "bfloat16"
+          and manifest["attention_impl"] == "auto"
+          and all(not i["vcd_ops"] for i in manifest["entry_points"].values()),
+          f"the Trainer's export: {manifest}")
+    for name in fa.launches:
+        fa.launches[name] = 0
+    result = export_model.check_export(vae_dir, export_dir, DEVICE)
+    check(result["err"] <= result["bound"], f"the Trainer's export against its model: {result}")
+    check(not any(fa.launches.values()), f"naive export launched {fa.launches}")
+    log(f"[realloader] final_model/exported ({manifest['dtype']}, attention "
+        f"{manifest['attention_impl']}, .pt2 bytes "
+        f"{[i['bytes'] for i in manifest['entry_points'].values()]}): reconstruct vs the "
+        f"live wrapper of final_model/vae max abs {result['err']:.4g} (bound, the live "
+        f"bf16-vs-fp32 difference, {result['bound']:.4g}); native/PIL ms/step "
+        f"{results['native'][0] / results['pil'][0]:.3f}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    release()
+
+
+def _serve_window(server, seconds: float, bodies, shape):
+    """Closed-loop ``/reconstruct?format=npy`` from LOAD_CONCURRENCY clients
+    for ``seconds``: (sorted latencies, wall seconds); every answer is 200,
+    finite and of ``shape``."""
+    import numpy as np
+
+    t_start = time.perf_counter()
+    deadline = t_start + seconds
+
+    def client(i):
+        lat, j = [], i
+        while time.perf_counter() < deadline:
+            status, data, dt = _post(server.port, "/reconstruct?format=npy",
+                                     bodies[j % len(bodies)])
+            check(status == 200, f"/reconstruct answered {status}")
+            arr = _load_npy(data)
+            check(arr.shape == shape and bool(np.isfinite(arr).all()),
+                  f"/reconstruct returned {arr.shape} or non-finite values")
+            lat.append(dt)
+            j += LOAD_CONCURRENCY
+        return lat, time.perf_counter()
+
+    with ThreadPoolExecutor(max_workers=LOAD_CONCURRENCY) as pool:
+        clients = list(pool.map(client, range(LOAD_CONCURRENCY)))
+    wall = max(end for _lat, end in clients) - t_start
+    return sorted(dt for c_lat, _end in clients for dt in c_lat), wall
+
+
+def phase_export(tmp: str, model_dir: str) -> None:
+    """The seeded SDXL VAE exported at EXPORT_RES in bf16 and fp32 through
+    ``tools/export_model.main --check``: each ``.pt2`` under EXPORT_MAX_BYTES
+    (no weight in it), ``reconstruct`` from one artifact at EXPORT_BATCHES,
+    each call launching the flash forward exactly as the live wrapper's
+    does; then the server from the bf16 export under LOAD_CONCURRENCY
+    closed-loop clients for EXPORT_LOAD_SECONDS, beside the live server's
+    window, sampling refused with a 4xx."""
+    import numpy as np
+    import torch
+
+    from vae_channel_dynamics_tpu_torch import server as srv_mod
+    from vae_channel_dynamics_tpu_torch.models import SDXLVAEWrapper
+    from vae_channel_dynamics_tpu_torch.models import io as model_io
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+    from vae_channel_dynamics_tpu_torch.tools import export_model
+
+    t_phase = time.perf_counter()
+    config, state = model_io.load_model_dir(model_dir)
+    dirs = {}
+    for dtype_name, kernel in EXPORT_KERNELS.items():
+        dst = os.path.join(tmp, f"exported_{dtype_name}")
+        t0 = time.perf_counter()
+        try:
+            rc = export_model.main(["--model_dir", model_dir, "--dst", dst, "--resolution",
+                                    str(EXPORT_RES), "--dtype", dtype_name, "--check",
+                                    "--device", DEVICE])
+        except SystemExit as e:
+            raise SmokeFailure(f"export {dtype_name}: {e}") from None
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"export_model {dtype_name} exited {rc}")
+        manifest = export_model.read_manifest(dst)
+        sizes = {name: info["bytes"] for name, info in manifest["entry_points"].items()}
+        check(all(n < EXPORT_MAX_BYTES for n in sizes.values()), f".pt2 sizes {sizes}")
+        check(manifest["attention_impl"] == "flash"
+              and all(i["vcd_ops"] == ["vcd::flash_attention_fwd"]
+                      for i in manifest["entry_points"].values()),
+              f"the {dtype_name} export does not call the flash op: {manifest}")
+        log(f"[export] {dtype_name} at {EXPORT_RES}px: export and --check in {seconds:.1f} s "
+            f"(export seconds {[i['export_seconds'] for i in manifest['entry_points'].values()]}), "
+            f".pt2 bytes {sizes}")
+
+        exported = export_model.ExportedVAEWrapper(dst, state, DEVICE)
+        live = SDXLVAEWrapper(config, state_dict=state, dtype=exported.dtype, attn_impl="flash",
+                              device=DEVICE)
+        rng = np.random.default_rng(SEED)
+        for b in EXPORT_BATCHES:
+            x = torch.from_numpy(rng.uniform(-1, 1, (b, EXPORT_RES, EXPORT_RES, 3))
+                                 .astype(np.float32)).to(exported.dtype).float()
+            counts, outs = [], []
+            for run in (exported, live):
+                for name in fa.launches:
+                    fa.launches[name] = 0
+                outs.append(run.forward(x, sample_posterior=False)["reconstruction"].float())
+                sync()
+                counts.append({k: v for k, v in fa.launches.items() if v})
+            check(counts[0] == counts[1] == {kernel: 2},
+                  f"{dtype_name} batch {b}: exported launched {counts[0]}, live {counts[1]}")
+            check(outs[0].shape == (b, EXPORT_RES, EXPORT_RES, 3)
+                  and bool(torch.isfinite(outs[0]).all()), f"{dtype_name} batch {b}: output")
+            log(f"[export] {dtype_name} reconstruct at batch {b} from the one artifact: "
+                f"launches {counts[0]} (live {counts[1]}), max abs vs live "
+                f"{(outs[0] - outs[1]).abs().max().item():.4g}")
+        if dtype_name == "bf16":
+            # one reconstruct at the server's batch, host clock around a sync,
+            # EXPORT_TIMED_CALLS a block, live and exported in turns
+            times = {"live": [], "exported": []}
+            for name in ("live", "exported", "exported", "live"):
+                run = live if name == "live" else exported
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(EXPORT_TIMED_CALLS):
+                    run.forward(x, sample_posterior=False)
+                sync()
+                times[name].append((time.perf_counter() - t0) / EXPORT_TIMED_CALLS * 1e3)
+            log(f"[export] bf16 reconstruct at batch {b}, ms a call (host clock, synchronised, "
+                f"{EXPORT_TIMED_CALLS} a block, in turns): live {times['live']}, exported "
+                f"{times['exported']}")
+        dirs[dtype_name] = dst
+        del exported, live, outs
+        release()
+
+    args = srv_mod.parse_args([
+        "--checkpoint_path", model_dir, "--exported_dir", dirs["bf16"], "--resolution", "256",
+        "--max_batch", str(MAX_BATCH), "--port", "0", "--device", DEVICE,
+    ])
+    server = srv_mod.build_server(args)
+    check(server.resolution == EXPORT_RES, f"served at {server.resolution}px")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        server.warmup()
+        log(f"[export] server from the bf16 export on port {server.port}, warmed up in "
+            f"{time.perf_counter() - t0:.1f} s")
+        rng = np.random.default_rng(SEED)
+        bodies = [_npy(rng.uniform(-1, 1, (EXPORT_RES, EXPORT_RES, 3)).astype(np.float32))
+                  for _ in range(N_IMAGES)]
+        for name in fa.launches:
+            fa.launches[name] = 0
+        lat, wall = _serve_window(server, EXPORT_LOAD_SECONDS, bodies,
+                                  (EXPORT_RES, EXPORT_RES, 3))
+        launches = dict(fa.launches)
+        try:
+            _post(server.port, "/reconstruct?format=npy&deterministic=false", bodies[0])
+            refused = None
+        except urllib.error.HTTPError as e:
+            refused = e.code
+        check(refused is not None and 400 <= refused < 500,
+              f"?deterministic=false answered {refused}, want a 4xx")
+    finally:
+        server.shutdown()
+        thread.join(timeout=30)
+    p50, p95 = percentile(lat, 0.50) * 1e3, percentile(lat, 0.95) * 1e3
+    log(f"[export] sustained /reconstruct?format=npy at {EXPORT_RES}px from the bf16 export, "
+        f"{LOAD_CONCURRENCY} clients, {EXPORT_LOAD_SECONDS:.0f} s window: {len(lat)} requests "
+        f"all 200 in {wall:.3f} s, p50 {p50:.1f} ms, p95 {p95:.1f} ms, {len(lat) / wall:.3f} "
+        f"req/s; the live server ({LOAD_SECONDS:.0f} s window): p50 "
+        f"{SERVING_LIVE.get('p50_ms', float('nan')):.1f} ms, p95 "
+        f"{SERVING_LIVE.get('p95_ms', float('nan')):.1f} ms, "
+        f"{SERVING_LIVE.get('rps', float('nan')):.3f} req/s; ?deterministic=false -> {refused}")
+    check(launches["flash_attention_fwd"] > 0 and sum(launches.values())
+          == launches["flash_attention_fwd"], f"exported server launches {launches}")
+    log(f"[export] flash kernel launches while serving the export: "
+        f"flash_attention_fwd {launches['flash_attention_fwd']}")
+    log(f"[export] the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def reset_peak() -> None:
     import torch
 
@@ -4164,6 +4547,7 @@ def main() -> int:
             f32_result["launches"] = phase_eval(tmp, model_dir)
             phase_tiling(tmp, model_dir)
             phase_cli_audit(tmp, model_dir)
+            phase_export(tmp, model_dir)
         release()
         bundle = phase_train()
         phase_step_compare(bundle)
@@ -4176,6 +4560,10 @@ def main() -> int:
         release()
         with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
             phase_adafactor_trainer(tmp)
+        release()
+        phase_native_loader()
+        with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
+            phase_realloader_trainer(tmp)
         release()
         with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
             trainer = phase_trainer_1024(tmp)

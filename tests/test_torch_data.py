@@ -90,9 +90,16 @@ def test_transform_matches_jax_on_encoded_bytes(tmp_path):
                                   jdata.get_transform(12)(str(path)))
 
 
-def test_native_preprocess_is_refused(monkeypatch):
+def test_native_preprocess_is_refused(monkeypatch, tmp_path):
+    """``VCD_NATIVE_PREPROCESS=1`` where the native library cannot be built
+    raises, naming the compiler command, instead of measuring PIL under the
+    native label (the JAX package warns and uses PIL); where it builds, the
+    transform runs natively (tests/test_torch_native.py)."""
+    from vae_channel_dynamics_tpu_torch.data import native
+
+    monkeypatch.setattr(native, "CXX", str(tmp_path / "no-such-g++"))
     monkeypatch.setenv("VCD_NATIVE_PREPROCESS", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(native.NativeBuildError, match="no-such-g\\+\\+ -O3"):
         tdata.get_transform(16)
 
 

@@ -541,34 +541,23 @@ def _nchw_grad_eff(x, g, a, off):
 # --------------------------------------------------------------------------- #
 def _refusals():
     from vae_channel_dynamics_tpu_torch.analysis import logit_lens
-    from vae_channel_dynamics_tpu_torch.data import pipeline
     from vae_channel_dynamics_tpu_torch.models.vae import remat_mode
     from vae_channel_dynamics_tpu_torch.ops import fused_resnet
     from vae_channel_dynamics_tpu_torch.training import loop
 
-    def native_decode():
-        os.environ["VCD_NATIVE_PREPROCESS"] = "1"
-        try:
-            pipeline.get_transform(16)
-        finally:
-            del os.environ["VCD_NATIVE_PREPROCESS"]
-
     return {
         "parallel": (lambda: loop._refuse_unported({"parallel": {"tensor": 2}}),
                      "Q1", "Multi-GPU"),
-        "export": (lambda: loop._refuse_unported({"saving": {"export_stablehlo": True}}),
-                   "Q1", "Deployment export"),
         "remat offload": (lambda: remat_mode("offload"), "Q1", "Do not port"),
         "colormap": (lambda: logit_lens.colorize(np.zeros(4, np.float32), "magma"),
                      "Q1", "Plots"),
-        "native decode": (native_decode, "Q1", "Native decode"),
         "fused fp32": (lambda: fused_resnet._check_bf16("fused_gn_silu_conv3x3", "x",
                                                         torch.zeros(1)),
                        "Q2", "#9-#11 at fp32"),
     }
 
 
-REFUSALS = ["parallel", "export", "remat offload", "colormap", "native decode", "fused fp32"]
+REFUSALS = ["parallel", "remat offload", "colormap", "fused fp32"]
 
 
 @pytest.mark.parametrize("case", REFUSALS)

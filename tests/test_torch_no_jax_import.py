@@ -16,7 +16,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "vae_channel_dynamics_tpu_torch"
 ENTRY_POINTS = (PORT, f"{PORT}.serve", f"{PORT}.server", f"{PORT}.train",
                 f"{PORT}.training.loop", f"{PORT}.evaluate",
-                f"{PORT}.experiments.conv_bench")
+                f"{PORT}.experiments.conv_bench", f"{PORT}.tools.export_model",
+                f"{PORT}.tools.loader_bench")
 FORBIDDEN = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|orbax|vae_channel_dynamics_tpu)(?:\.|\s|$)",
     re.MULTILINE)

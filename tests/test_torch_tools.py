@@ -7,6 +7,10 @@
 - ``serving_bench`` drives a live CPU server and reports its latencies and
   rate;
 - ``doctor`` on this CPU-only machine reports its FAILs and exits nonzero;
+  its native check reports ``ok`` with the decode linked, and ``FAIL``
+  without a compiler;
+- ``loader_bench`` prints the JAX tool's JSON line, with every image of a
+  native result through native code;
 - ``convert_diffusers`` takes a diffusers directory and a legacy
   ``model.safetensors`` directory to the canonical one, tensor for tensor,
   and refuses weights that do not fit the config.
@@ -33,6 +37,7 @@ from vae_channel_dynamics_tpu_torch.tools import (
     compare_runs,
     convert_diffusers,
     doctor,
+    loader_bench,
     report,
     serving_bench,
 )
@@ -140,6 +145,40 @@ def test_doctor_reports_its_fails_on_the_cpu(capsys):
         assert f"library {name}" in out
     fails = sum(line.startswith("[ FAIL ]") for line in lines)
     assert lines[-1] == f"{len(lines) - 2} checks: {fails} failed, 0 warnings"
+
+
+def test_doctor_native_check_is_ok_with_the_decode_linked(capsys):
+    doctor._RESULTS.clear()
+    doctor.check_native()
+    assert capsys.readouterr().out == "[  ok  ] native preprocess: decode+preprocess path active\n"
+    assert doctor._RESULTS == ["ok"]
+
+
+def test_doctor_native_check_fails_without_a_compiler(monkeypatch, tmp_path, capsys):
+    from vae_channel_dynamics_tpu_torch.data import native
+
+    monkeypatch.setattr(native, "CXX", str(tmp_path / "no-such-g++"))
+    doctor._RESULTS.clear()
+    doctor.check_native()
+    out = capsys.readouterr().out
+    assert out.startswith("[ FAIL ] native preprocess: the native preprocess library did not "
+                          "build") and "no-such-g++" in out
+    assert doctor._RESULTS == ["FAIL"]
+
+
+def test_loader_bench_counts_every_native_image_as_native(capsys):
+    assert loader_bench.main(["--num-images", "8", "--src-size", "64", "--resolution", "32",
+                              "--workers", "0", "--batch-size", "4"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    result = json.loads(lines[0])
+    # the JAX tool's keys, and the native counts beside them
+    assert set(result) == {"metric", "src_jpeg_px", "host_cores", "results", "native_counts"}
+    assert result["metric"] == "loader_images_per_sec@32px" and result["src_jpeg_px"] == 64
+    assert set(result["results"]) == {"pil_w0", "native_w0"}
+    assert all(v > 0 for v in result["results"].values())
+    assert result["native_counts"] == {"native_w0": {"decode": 8, "preprocess": 0, "pil": 0}}
+    assert "VCD_NATIVE_PREPROCESS" not in os.environ
 
 
 def test_doctor_checks_every_kernel_library():

@@ -2,11 +2,12 @@
 
 The port's own copy of ``vae_channel_dynamics_tpu/data/pipeline.py``: the
 same transform, sources, loader order and collate, so both packages see the
-same batches for the same seed and epoch. Two differences: :class:`Prefetcher`
-stages each batch in pinned host memory and copies it to the device with
-``non_blocking=True`` from its worker thread; and the native C++ decode
-(JAX ``data/native.py``) is not ported, so ``VCD_NATIVE_PREPROCESS=1``
-raises.
+same batches for the same seed and epoch, and ``VCD_NATIVE_PREPROCESS=1``
+runs the same native C++ decode and resize (``data/native.py``). Two
+differences: :class:`Prefetcher` stages each batch in pinned host memory and
+copies it to the device with ``non_blocking=True`` from its worker thread;
+and a native library that does not build raises instead of falling back to
+PIL.
 
 Behavioral contract (reference: src/data_utils.py):
 - transform = shorter-side bilinear resize -> center crop -> RGB ->
@@ -46,18 +47,74 @@ def get_transform(resolution: int) -> Callable[[Any], np.ndarray]:
     """Shorter-side bilinear resize -> center crop -> RGB -> [-1, 1] HWC
     float32 (torchvision-pipeline parity, data_utils.py:24-30).
 
-    ``VCD_NATIVE_PREPROCESS=1`` (the JAX package's fused C++ decode) raises:
-    that path is not ported yet (ROADMAP Q1, Native decode)."""
+    With ``VCD_NATIVE_PREPROCESS=1`` the decode, resize, crop and normalize
+    run in the fused C++ kernels (``data/native.py``), as in the JAX
+    package: encoded JPEG/PNG bytes (raw, a path, or a still-lazy
+    file-backed PIL image) through ``decode_preprocess``
+    (``VCD_NATIVE_DCT_SCALE``, default 1, lets libjpeg decode at a reduced
+    size), decoded uint8 arrays through ``preprocess_image``, and what
+    neither takes (a CMYK JPEG, another container) through PIL, one image
+    at a time. ``native.counts`` records each image's path. Where the
+    library does not build, this raises :class:`native.NativeBuildError`
+    (the JAX package warns and uses PIL)."""
     from PIL import Image
 
+    native_mod = None
+    decode = False
     if os.environ.get("VCD_NATIVE_PREPROCESS", "0") == "1":
-        raise NotImplementedError(
-            "VCD_NATIVE_PREPROCESS=1: the native C++ decode/resize is not yet "
-            "ported to the PyTorch package (ROADMAP Q1, Native decode); unset it "
-            "to use PIL"
-        )
+        from . import native as native_mod
+
+        native_mod.get_lib()  # raises NativeBuildError, naming the compiler commands
+        decode = native_mod.decode_available()
+    dct_scaling = os.environ.get("VCD_NATIVE_DCT_SCALE", "1") == "1"
+
+    def _raw_bytes(img) -> Optional[bytes]:
+        """Encoded JPEG/PNG bytes for the fused native decode, when the item
+        is raw bytes, a path, or a still-lazy file-backed PIL image (PIL
+        closes ``fp`` on load, so an open fp means the pixels are untouched
+        and re-reading the file is exact)."""
+        if isinstance(img, bytes):
+            return img
+        path = None
+        if isinstance(img, str):
+            path = img
+        elif (
+            isinstance(img, Image.Image)
+            and getattr(img, "fp", None) is not None
+            and getattr(img, "filename", "")
+        ):
+            path = img.filename
+        if path and path.lower().endswith((".jpg", ".jpeg", ".png")):
+            try:
+                with open(path, "rb") as f:
+                    return f.read()
+            except OSError:
+                return None
+        return None
 
     def transform(img) -> np.ndarray:
+        if native_mod is None:
+            return _pil_transform(img)
+        if decode:
+            raw = _raw_bytes(img)
+            if raw is not None:
+                try:
+                    out = native_mod.decode_preprocess(raw, resolution, dct_scaling=dct_scaling)
+                except RuntimeError:
+                    pass  # a container or colour space the decoder does not take -> PIL
+                else:
+                    native_mod.count("decode")
+                    return out
+        arr = np.asarray(img) if isinstance(img, Image.Image) else img
+        if isinstance(arr, np.ndarray) and arr.dtype == np.uint8 and (
+            arr.ndim == 2 or (arr.ndim == 3 and arr.shape[2] in (1, 3))
+        ):
+            native_mod.count("preprocess")
+            return native_mod.preprocess_image(arr, resolution)
+        native_mod.count("pil")
+        return _pil_transform(img)
+
+    def _pil_transform(img) -> np.ndarray:
         if isinstance(img, bytes):
             import io
 

@@ -64,7 +64,12 @@ The sources' header comments have the tile layouts.
 and an input that requires a gradient it runs :class:`_FlashAttention`,
 whose forward is the LSE kernel and whose backward is δ = rowsum(dO·O) in
 plain PyTorch (as the JAX package leaves it to XLA), then the dK/dV kernel,
-then the dQ kernel. Otherwise it runs the serving forward. Every entry
+then the dQ kernel. Otherwise it runs the serving forward, which is
+registered as the custom op ``vcd::flash_attention_fwd``
+(``torch.library.custom_op``: the plain version on the CPU, the kernel on
+CUDA, a fake that gives the output's shape and dtype), so that
+``torch.export`` keeps it as one node of an exported program
+(``tools/export_model.py``); the training kernels are not registered. Every entry
 picks its kernel by the operands' dtype, all bf16 or all fp32
 (``mixed_precision`` ``no`` trains and evaluates in fp32); mixed dtypes
 raise. On CPU tensors each kernel's plain PyTorch version (``*_reference``)
@@ -307,29 +312,68 @@ def _launch(name: str, device: torch.device, *args) -> None:
     launches[name] += 1
 
 
-def flash_attention_fwd(q, k, v, *, scale: float, out_dtype: torch.dtype) -> torch.Tensor:
-    """The serving forward: ``softmax(q k^T * scale) v`` over ``(B, N, C)``.
-    CPU tensors go to :func:`flash_attention_reference`; CUDA tensors to the
-    kernel, which takes contiguous q/k/v of one :func:`eligible` shape, all
-    bf16 with a bf16 ``out_dtype`` or all fp32 with an fp32 one (the
-    ``flash_attention_fwd_f32`` kernel), or the call raises. A CUDA input
-    that requires a gradient raises too: this kernel leaves nothing for a
-    backward."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale, out_dtype)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "flash_attention_fwd has no backward; an input that requires a "
-            "gradient goes through flash_attention (the LSE forward and the "
-            "backward kernels)"
+def _check_fwd_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            "flash attention expects q, k, v of one (B, N, C) shape, got "
+            f"{[tuple(t.shape) for t in (q, k, v)]}"
         )
+
+
+@torch.library.custom_op("vcd::flash_attention_fwd", mutates_args=(), device_types="cpu")
+def _flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                            out_dtype: torch.dtype) -> torch.Tensor:
+    """``vcd::flash_attention_fwd`` on the CPU: the plain version."""
+    _check_fwd_shapes(q, k, v)
+    return flash_attention_reference(q, k, v, scale, out_dtype)
+
+
+@_flash_attention_fwd_op.register_kernel("cuda")
+def _flash_attention_fwd_cuda(q, k, v, scale, out_dtype):
+    """``vcd::flash_attention_fwd`` on the card: the serving kernel,
+    ``flash_attention_fwd`` on bf16 and ``flash_attention_fwd_f32`` on fp32."""
     _check_cuda(q, k, v, out_dtype=out_dtype)
+    # the kernel loads 16 bytes at a time (TMA boxes)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash attention: operands must be 16-byte aligned")
     b, n, c = q.shape
     out = torch.empty_like(q)
     name = _by_dtype("flash_attention_fwd", q)
     _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, c,
             float(scale))
     return out
+
+
+@_flash_attention_fwd_op.register_fake
+def _flash_attention_fwd_fake(q, k, v, scale, out_dtype):
+    """The output's shape and dtype, after the checks that need no pointer
+    (a fake tensor has none): what ``torch.export`` traces."""
+    if q.device.type == "cuda":
+        _check_cuda(q, k, v, out_dtype=out_dtype)
+    else:
+        _check_fwd_shapes(q, k, v)
+    return q.new_empty(q.shape, dtype=out_dtype)
+
+
+def flash_attention_fwd(q, k, v, *, scale: float, out_dtype: torch.dtype) -> torch.Tensor:
+    """The serving forward: ``softmax(q k^T * scale) v`` over ``(B, N, C)``,
+    through the custom op ``vcd::flash_attention_fwd`` (so that
+    ``torch.export`` records it as one node). CPU tensors go to
+    :func:`flash_attention_reference`; CUDA tensors to the kernel, which
+    takes contiguous, 16-byte aligned q/k/v of one :func:`eligible` shape,
+    all bf16 with a bf16 ``out_dtype`` or all fp32 with an fp32 one (the
+    ``flash_attention_fwd_f32`` kernel), or the call raises. A CUDA input
+    that requires a gradient raises too: this kernel leaves nothing for a
+    backward (a CPU one runs the differentiable plain version)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.device.type == "cpu":
+            return flash_attention_reference(q, k, v, scale, out_dtype)
+        raise RuntimeError(
+            "flash_attention_fwd has no backward; an input that requires a "
+            "gradient goes through flash_attention (the LSE forward and the "
+            "backward kernels)"
+        )
+    return torch.ops.vcd.flash_attention_fwd(q, k, v, float(scale), out_dtype)
 
 
 def flash_attention_fwd_lse(q, k, v, *, scale: float, out_dtype: torch.dtype

@@ -2,7 +2,8 @@
 
 ``python -m vae_channel_dynamics_tpu_torch.server --checkpoint_path <dir>
 [--port 8400] [--resolution 256] [--max_batch 8] [--max_wait_ms 10]
-[--tile_size 0] [--tile_overlap 0.25] [--slicing] [--device cuda]``
+[--tile_size 0] [--tile_overlap 0.25] [--slicing] [--exported_dir DIR]
+[--device cuda]``
 
 Counterpart of ``vae_channel_dynamics_tpu/server.py``. The batcher, the
 HTTP handler and the overload rules are the same framework-free code; only
@@ -29,8 +30,13 @@ Retry-After; connections carry a ``--read_timeout_s`` socket timeout.
 (``wrapper.enable_tiling``), so activation memory follows the tile and not
 the resolution; ``--slicing`` runs one image per pass. With either,
 /reconstruct runs encode then decode (the tiled path) instead of the untiled
-forward, and the attention policy is resolved at the tile size. Not ported
-yet: ``--exported_dir`` (ROADMAP Q1, Deployment export).
+forward, and the attention policy is resolved at the tile size.
+
+``--exported_dir`` serves the ``torch.export`` programs of
+``tools/export_model.py`` (``ExportedVAEWrapper``) instead of the live
+model: deterministic only (``?deterministic=false`` gets a client error),
+at the manifest's resolution, untiled; the weights still load from
+``--checkpoint_path``.
 """
 
 from __future__ import annotations
@@ -246,12 +252,17 @@ class VAEServer:
         self.read_timeout_s = float(read_timeout_s)
         # the one latent shape /decode serves, as every endpoint serves one
         # shape
-        cfg = wrapper.config
-        down = 2 ** (len(cfg.block_out_channels) - 1)
-        self.latent_shape = (
-            self.resolution // down, self.resolution // down,
-            int(cfg.latent_channels),
-        )
+        latent_shape = getattr(wrapper, "latent_shape", None)
+        if latent_shape is not None:
+            # an exported wrapper carries its geometry in its manifest
+            self.latent_shape = tuple(int(v) for v in latent_shape)
+        else:
+            cfg = wrapper.config
+            down = 2 ** (len(cfg.block_out_channels) - 1)
+            self.latent_shape = (
+                self.resolution // down, self.resolution // down,
+                int(cfg.latent_channels),
+            )
         # the image transform needs Pillow: it is built on the first
         # image-bytes request, so a host without Pillow still serves the
         # .npy paths
@@ -352,8 +363,12 @@ class VAEServer:
         z = self.batcher.submit("encode", dummy)
         self.batcher.submit("decode", z)
         self.batcher.submit("reconstruct", dummy)
-        self.batcher.submit("encode@sample", dummy)
-        self.batcher.submit("reconstruct@sample", dummy)
+        # wrappers that refuse sampling (exported artifacts) skip these
+        try:
+            self.batcher.submit("encode@sample", dummy)
+            self.batcher.submit("reconstruct@sample", dummy)
+        except ValueError as e:
+            logger.info("Sampling endpoints not warmed (%s)", e)
         logger.info("Warmup done in %.1fs", time.time() - t0)
 
     # ------------------------------------------------------------------ #
@@ -652,34 +667,61 @@ def parse_args(argv=None):
                    help="Process one image per device pass "
                         "(wrapper.enable_slicing): batched endpoints at "
                         "single-sample activation cost.")
+    p.add_argument("--exported_dir", default=None,
+                   help="Serve the torch.export programs in this export dir "
+                        "(tools/export_model.py) instead of the live model: "
+                        "deterministic-only; the resolution comes from the "
+                        "manifest; weights still load from --checkpoint_path.")
     p.add_argument("--device", default="cuda",
                    help="Torch device to serve on; 'cuda' fails when no GPU "
                         "is visible (pass 'cpu' to run on the CPU).")
     return p.parse_args(argv)
 
 
+class ExportedServingRefused(ValueError):
+    """``--exported_dir`` with an option only the live model has."""
+
+
 def build_server(args) -> VAEServer:
     """Load the model dir named by ``args`` and build the server ``main``
     runs: bf16 compute, the serving attention policy (at the tile size when
-    tiling), tiling and slicing as asked, the batcher."""
+    tiling), tiling and slicing as asked, the batcher; or, with
+    ``--exported_dir``, the exported programs at their manifest's
+    resolution."""
     vae_dir = os.path.join(args.checkpoint_path, "vae")
     if not os.path.isdir(vae_dir):
         vae_dir = args.checkpoint_path
     config, state_dict = model_io.load_model_dir(vae_dir)
-    attn_impl = resolve_serving_attention_impl(
-        args.attention_impl, args.tile_size or args.resolution, config, logger=logger,
-    )
-    wrapper = SDXLVAEWrapper(
-        config=config, state_dict=state_dict, dtype=torch.bfloat16,
-        attn_impl=attn_impl, device=args.device,
-    )
-    if args.tile_size:
-        wrapper.enable_tiling(args.tile_size, args.tile_overlap)
-    if args.slicing:
-        wrapper.enable_slicing()
+    resolution = args.resolution
+    if args.exported_dir:
+        from .tools.export_model import ExportedVAEWrapper
+
+        if args.tile_size or args.slicing:
+            raise ExportedServingRefused(
+                "--tile_size/--slicing require the live model: exported "
+                "programs run their pinned untiled graphs. Re-export or "
+                "serve via --checkpoint_path alone."
+            )
+        wrapper = ExportedVAEWrapper(args.exported_dir, state_dict, device=args.device)
+        if wrapper.resolution != args.resolution:
+            logger.info("Serving at the artifact's resolution %d (manifest), "
+                        "not --resolution %d.", wrapper.resolution, args.resolution)
+        resolution = wrapper.resolution
+    else:
+        attn_impl = resolve_serving_attention_impl(
+            args.attention_impl, args.tile_size or args.resolution, config, logger=logger,
+        )
+        wrapper = SDXLVAEWrapper(
+            config=config, state_dict=state_dict, dtype=torch.bfloat16,
+            attn_impl=attn_impl, device=args.device,
+        )
+        if args.tile_size:
+            wrapper.enable_tiling(args.tile_size, args.tile_overlap)
+        if args.slicing:
+            wrapper.enable_slicing()
     return VAEServer(
         wrapper,
-        resolution=args.resolution,
+        resolution=resolution,
         max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms,
         host=args.host,
@@ -696,7 +738,11 @@ def main(argv=None) -> int:
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
     args = parse_args(argv)
-    server = build_server(args)
+    try:
+        server = build_server(args)
+    except ExportedServingRefused as e:
+        logger.error("%s", e)
+        return 2
     import signal
 
     graceful_threads: list = []

@@ -6,8 +6,9 @@ Diagnoses the setup problems that would stop a run on the GPU before it
 starts: a CPU-only torch build, no visible card, no ``nvcc``, a build
 directory that cannot be written, a kernel library that does not build
 (``ops/_cuda_build.py`` builds each ``csrc/*.cu`` for ``sm_90a`` at its
-first launch), and the card's name and power limit as ``nvidia-smi``
-reports them. With ``--device cuda`` it also times the dispatch round trip
+first launch), a native decode library that does not build with g++
+(``data/native.py``: with libjpeg/libpng, else preprocess-only, a warning),
+and the card's name and power limit as ``nvidia-smi`` reports them. With ``--device cuda`` it also times the dispatch round trip
 and a calibration bf16 matmul with CUDA events.
 
 Prints one ``ok | warn | FAIL`` line per check; exits nonzero if any FAIL.
@@ -125,6 +126,39 @@ def check_libraries(can_build: bool) -> None:
             _report("ok", f"library {name}", "already built, loaded")
 
 
+def check_native() -> None:
+    """The native decode library builds and runs: ``preprocess_image`` on
+    an 8px array and, with the decode linked, ``decode_preprocess`` on a
+    JPEG written in memory by PIL (JAX ``tools/doctor.py``'s check)."""
+    import io
+
+    import numpy as np
+
+    from ..data import native
+
+    try:
+        native.get_lib()
+    except native.NativeBuildError as e:
+        _report("FAIL", "native preprocess", str(e).replace("\n", " | "))
+        return
+    arr = np.full((16, 20, 3), 128, np.uint8)
+    out = native.preprocess_image(arr, 8)
+    if out.shape != (8, 8, 3):
+        _report("FAIL", "native preprocess", f"bad output shape {out.shape}")
+        return
+    if not native.decode_available():
+        _report("warn", "native preprocess",
+                "preprocess-only (libjpeg/libpng not linked); PIL decodes")
+        return
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, "JPEG")
+    dec = native.decode_preprocess(buf.getvalue(), 8)
+    status = "ok" if dec.shape == (8, 8, 3) and np.isfinite(dec).all() else "FAIL"
+    _report(status, "native preprocess", "decode+preprocess path active")
+
+
 def check_nvidia_smi() -> None:
     cmd = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
     try:
@@ -191,6 +225,7 @@ def main(argv=None) -> int:
     nvcc = check_nvcc()
     writable = check_build_dir()
     check_libraries(nvcc and writable)
+    check_native()
     check_nvidia_smi()
     if args.device is not None:
         if cuda:

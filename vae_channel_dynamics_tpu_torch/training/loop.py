@@ -20,9 +20,14 @@ with PIL (``analysis/logit_lens.py``).
 With ``profiling.enabled`` a torch.profiler trace covers the configured
 step window (``utils/profiling.py``) and is closed on every exit path.
 
+``saving.export_stablehlo`` (the key keeps its JAX name, since the configs
+are shared) writes ``final_model/exported/``: the port writes
+``torch.export`` programs there (``tools/export_model.py``), at
+``data.resolution``, bf16 under ``mixed_precision`` bf16 or fp16, else fp32,
+for the Trainer's device.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-skipped: ``parallel`` axes above 1 (ROADMAP Q1, Multi-GPU) and
-``saving.export_stablehlo`` (ROADMAP Q1, Deployment export). The matplotlib
+skipped: ``parallel`` axes above 1 (ROADMAP Q1, Multi-GPU). The matplotlib
 plots are not drawn (ROADMAP Q1, Plots); the CSV and JSONL files they read
 are written.
 """
@@ -81,7 +86,8 @@ def resolve_model(model_config: Dict[str, Any], dtype: torch.dtype,
     ``fused`` the fused resnet kernels where the JAX gate admits a block
     (bf16 compute, up to 32x32) and the plain GroupNorm elsewhere.
     ``attention_impl``: ``auto``, ``naive``, ``chunked`` or ``flash``,
-    resolved per call as in the JAX model. ``remat``: ``none``/``full``."""
+    resolved per call as in the JAX model. ``remat``: ``none``, ``full`` or
+    ``conv`` (``models/vae.py``, ``remat_mode``)."""
     impl = str(model_config.get("kernel_impl", "auto"))
     if impl not in KERNEL_IMPLS:
         raise ValueError(f"Unknown model.kernel_impl {impl!r}; expected "
@@ -133,11 +139,6 @@ def _refuse_unported(config: Dict[str, Any]) -> None:
                 f"parallel.{axis} > 1: multi-GPU training is not yet ported to "
                 "PyTorch (ROADMAP Q1, Multi-GPU)"
             )
-    if (config.get("saving", {}) or {}).get("export_stablehlo", False):
-        raise NotImplementedError(
-            "saving.export_stablehlo: deployment export is not yet ported to "
-            "PyTorch (ROADMAP Q1, Deployment export); set it to false"
-        )
 
 
 def _step_seed(seed: int, micro_step: int) -> int:
@@ -700,6 +701,23 @@ class Trainer:
             model_io.save_model_dir(ema_dir, vae_config, state.ema_params)
             logger.info("EMA VAE saved to %s", ema_dir)
             summary["ema_model_dir"] = ema_dir
+
+        if (self.config.get("saving", {}) or {}).get("export_stablehlo", False):
+            # deployment artifacts next to the model dir: torch.export
+            # programs of encode/decode/reconstruct with a symbolic batch.
+            # The EMA weights share the programs, since the weights are an
+            # argument of them.
+            from ..tools.export_model import export_model_dir
+
+            export_dir = os.path.join(final_dir, "exported")
+            export_model_dir(
+                vae_dir, export_dir,
+                resolution=as_int(self.data_config.get("resolution"), 256),
+                dtype_name="bf16" if self.mixed_precision in ("bf16", "fp16") else "fp32",
+                device=self.device,
+            )
+            logger.info("torch.export deployment artifacts in %s", export_dir)
+            summary["export_dir"] = export_dir
 
         if monitor.enabled:
             records = monitor.export_all_processed_data_to_records()
