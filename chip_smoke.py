@@ -213,7 +213,18 @@ after the Adafactor phase:
    transform); the native run also sets
    ``saving.export_stablehlo`` and its ``final_model/exported`` (naive
    attention at 256px: no kernel) is held to the live wrapper of
-   ``final_model/vae``.
+   ``final_model/vae``;
+
+and after the export phase:
+
+17. more than one GPU (``phase_multi_gpu``, see the comment above
+   MULTI_ZERO_CONFIG): every card a rank over NCCL, spawned with torchrun's
+   environment; the ZeRO stack, DDP, the 1024px flash Trainer, the fused
+   path with ZeRO-1 and the evaluation CLI through the CLIs, each against
+   one process at the same global batch, the kernels counted on every
+   rank; the server with one replica a card. ``multi_gpu_main`` runs it
+   alone, at W = 1 and at every card of the machine, with the W = 4
+   against W = 1 ratios.
  The last lines are a JSON object describing the sixteen kernels,
 the nvidia-smi line, and ``{"ok": true, "device": {...}}``. Imports no jax.
 """
@@ -4493,6 +4504,616 @@ def phase_export(tmp: str, model_dir: str) -> None:
     log(f"[export] the phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --------------------------------------------------------------------------- #
+# More than one GPU: the data axis through the CLIs, one rank a card
+# --------------------------------------------------------------------------- #
+# phase_multi_gpu spawns W = torch.cuda.device_count() ranks over NCCL, one a
+# card (torchrun's environment, each rank in its own process), and runs in
+# each, through train.main and evaluate.main: (a) configs/bench_zero3_256px.yaml
+# (the ZeRO stack and the EMA) with kernel_impl pallas and the control loop on
+# planted channels, at bf16 and at fp32; (a') the same at bf16 without the
+# ZeRO flags (DDP); (b) configs/experiment_1024_stretch.yaml with flash,
+# pallas and remat full, at bf16 and at fp32; (c) configs/bench_256px.yaml
+# with kernel_impl fused and shard_optimizer (MULTI_FUSED_BATCH images a
+# rank; its fp32 control runs the plain path); (d) the evaluation CLI at
+# 512px (fp32, pallas, flash). Each is held to the same config in this
+# process without a group at the same global batch: fp32 at W = 1 within
+# MULTI_F32_REL (the losses and the gradient norm step by step, and each
+# final parameter tensor within MULTI_F32_REL of its largest entry; cuDNN
+# deterministic in the fp32 runs and their controls, so that its algorithms'
+# own run-to-run rounding, which Adam's first step turns into lr-sized
+# changes of near-zero gradients, does not hide what the data axis adds;
+# the log says whether they are bit-equal), bf16 by the audit's rule
+# (AUDIT_CONTROL_RATIO x the control's bf16-vs-fp32 difference +
+# AUDIT_FLOOR), fp32 at W > 1 within AUDIT_F32_REL (the sums' order
+# differs), the evaluation within MULTI_F32_REL. At W > 1 the controls of
+# (a) and (c) run under remat full (the same arithmetic) so that 4x the
+# batch fits at fp32. (e) the 512px server with use_mesh, one replica a card
+# (max_batch MAX_BATCH, rounded up to the card count), MULTI_SERVE_SECONDS
+# under LOAD_CONCURRENCY closed-loop clients, after one replicated forward
+# is launched with the host-sync check on. Each rank counts its kernels'
+# launches, its peak memory and its step times (host clock, synchronised
+# after each step); a step's time and img/s are the slowest rank's mean over
+# the steps after the first MULTI_WARMUP_STEPS, in runs that no profiler
+# touches. At W > 1 two more runs of (a) and (a') profile step
+# MULTI_PROFILE_STEP on every rank for the NCCL kernels' time (at W = 1 NCCL
+# launches none); a rank's NCCL time counts its wait for the others, so the
+# least over the ranks is the reading, and the profiler stretches the step.
+# phase_multi_gpu(timing_only=True) runs the timed runs, the profiled runs
+# and (at W > 1) the server only, without the controls and the evaluation.
+MULTI_ZERO_CONFIG = "configs/bench_zero3_256px.yaml"
+MULTI_FUSED_CONFIG = "configs/bench_256px.yaml"
+MULTI_STEPS = {"a": 5, "b": 4, "c": 2}
+# (c)'s images a rank: its fused path keeps 41 GB at batch 16 (PERF.md), so
+# the one-process control of four ranks fits at 4 a rank
+MULTI_FUSED_BATCH = 4
+MULTI_EVAL_BATCH, MULTI_EVAL_BATCHES = 4, 2
+MULTI_F32_REL = 1e-6
+MULTI_SERVE_SECONDS = 15.0
+MULTI_RANK_TIMEOUT = 900.0
+MULTI_PROFILE_STEP = 3
+# the first two steps still warm up (cuDNN's choices, the allocator)
+MULTI_WARMUP_STEPS = 2
+# a rehearsal on the CPU shrinks the runs' resolutions ({kind: px}) and runs
+# MULTI_RANK_PRELUDE in each rank first (its patches); both empty on the card
+MULTI_RESOLUTION: dict = {}
+MULTI_RANK_PRELUDE = ""
+MULTI_KERNELS = {
+    "a": ("gn_fwd_reduce", "gn_fwd_normalize", "gn_bwd_reduce", "gn_bwd_dx"),
+    "b": ("gn_fwd_reduce", "gn_fwd_normalize", "gn_bwd_reduce", "gn_bwd_dx",
+          "flash_attention_fwd_lse", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"),
+    "c": ("fused_gn_silu_conv3x3", "conv3x3", "conv3x3_dw"),
+    "d": ("gn_fwd_reduce", "gn_fwd_normalize", "flash_attention_fwd_f32"),
+}
+
+
+def _multi_configs(tmp: str, model_dir: str, world: int) -> dict:
+    """{run: (config path for a rank, config path for the one-process
+    control)} of the training runs, and the evaluation's config."""
+    import yaml
+
+    from vae_channel_dynamics_tpu_torch.utils.config_utils import load_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    loop_cfg = load_config(os.path.join(root, TRAINER_CONFIG))
+    out = {}
+
+    def control_loop(cfg, steps):
+        for key in ("tracking", "classification", "intervention"):
+            cfg[key] = json.loads(json.dumps(loop_cfg[key]))
+        cfg["tracking"]["track_interval"] = steps
+        cfg["intervention"]["intervention_interval"] = steps
+
+    for run, src, precision in (("a_bf16", MULTI_ZERO_CONFIG, "bf16"),
+                                ("a_fp32", MULTI_ZERO_CONFIG, "no"),
+                                ("a_ddp", MULTI_ZERO_CONFIG, "bf16"),
+                                ("b_bf16", TRAINER_CONFIG, "bf16"),
+                                ("b_fp32", TRAINER_CONFIG, "no"),
+                                ("c_bf16", MULTI_FUSED_CONFIG, "bf16"),
+                                ("c_fp32", MULTI_FUSED_CONFIG, "no")):
+        kind = run[0]
+        steps = MULTI_STEPS[kind]
+        paths = []
+        for side in ("rank", "control"):
+            cfg = load_config(os.path.join(root, src))
+            batch = MULTI_FUSED_BATCH if kind == "c" else int(cfg["data"]["batch_size"])
+            cfg["run_name"] = f"{run}_{side}"
+            cfg["output_dir"] = os.path.join(tmp, f"multi_w{world}")
+            cfg["data"].update(max_samples=batch * world * steps, num_workers=0,
+                               batch_size=batch * (1 if side == "rank" else world))
+            cfg["model"].update(pretrained_vae_name=model_dir)
+            cfg["training"].update(mixed_precision=precision, stop_after_steps=steps)
+            cfg["logging"] = {"log_interval": 1, "report_to": "jsonl"}
+            cfg["saving"] = {"save_interval_steps": 1000}
+            cfg["logit_lens"] = {"enabled": False}
+            cfg.pop("profiling", None)
+            if kind in MULTI_RESOLUTION:
+                cfg["data"]["resolution"] = MULTI_RESOLUTION[kind]
+            if kind == "a":
+                cfg["model"]["kernel_impl"] = "pallas"
+                control_loop(cfg, steps)
+                if run == "a_ddp":
+                    cfg["parallel"] = {}
+            elif kind == "b":
+                cfg["model"].update(attention_impl="flash", kernel_impl="pallas", remat="full")
+                control_loop(cfg, steps)
+            else:
+                cfg["model"]["kernel_impl"] = "fused"
+                cfg["parallel"] = {"shard_optimizer": True}
+            if side == "control" and world > 1 and kind in ("a", "c"):
+                cfg["model"]["remat"] = "full"
+            path = os.path.join(tmp, f"multi_w{world}_{run}_{side}.yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump(cfg, f)
+            paths.append(path)
+            if side == "rank" and run in ("a_bf16", "a_ddp") and world > 1:
+                # the same run, profiled on every rank, apart from the timed one
+                cfg["run_name"] = f"{run}_prof"
+                cfg["data"]["max_samples"] = batch * world * MULTI_PROFILE_STEP
+                cfg["training"]["stop_after_steps"] = MULTI_PROFILE_STEP
+                prof = os.path.join(tmp, f"multi_w{world}_{run}_prof.yaml")
+                with open(prof, "w") as f:
+                    yaml.safe_dump(cfg, f)
+                out[f"{run}_prof"] = (prof, None)
+        out[run] = tuple(paths)
+    eval_cfg = {"seed": SEED, "data": {"dataset_name": "synthetic://shapes",
+                                       "resolution": RESOLUTION},
+                "training": {"mixed_precision": "no"},
+                "model": {"kernel_impl": "pallas", "attention_impl": "auto"}}
+    eval_path = os.path.join(tmp, f"multi_w{world}_eval.yaml")
+    with open(eval_path, "w") as f:
+        yaml.safe_dump(eval_cfg, f)
+    out["eval"] = eval_path
+    return out
+
+
+def _multi_eval_argv(cfg_path: str, model_dir: str, out_dir: str, batch: int,
+                     images: int) -> list:
+    return ["--config_path", cfg_path, "--checkpoint_path", model_dir, "--output_dir", out_dir,
+            "--eval_split", "test", "--max_eval_samples", str(images), "--batch_size",
+            str(batch), "--enable_logit_lens", "false", "--num_samples_to_save", "2",
+            "--device", DEVICE]
+
+
+def multi_gpu_rank(args_path: str) -> None:
+    """One rank of ``phase_multi_gpu``: joins the NCCL group from torchrun's
+    environment and runs every job through the CLIs, counting its kernels'
+    launches, its peak memory and its synchronised step times, and tracing
+    step ``profile_step`` of a job that names one; writes ``rank<r>.json``
+    (and the traces) beside ``args_path``."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch import evaluate
+    from vae_channel_dynamics_tpu_torch import train as train_cli
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+    from vae_channel_dynamics_tpu_torch.ops import fused_resnet as fr
+    from vae_channel_dynamics_tpu_torch.ops import group_norm_kernel as gnk
+    from vae_channel_dynamics_tpu_torch.parallel.mesh import initialize_distributed, shutdown
+    from vae_channel_dynamics_tpu_torch.parallel.zero import replicate_leaf
+    from vae_channel_dynamics_tpu_torch.training import loop
+
+    with open(args_path) as f:
+        args = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    axis = initialize_distributed(DEVICE)
+    ends, models = [], []
+    traced = {"step": 0, "path": ""}
+    make_train_step = loop.make_train_step
+
+    def timed_make_train_step(*a, **kw):
+        step_fn = make_train_step(*a, **kw)
+
+        def step(state, *sa, **skw):
+            prof = None
+            if len(ends) + 1 == traced["step"]:
+                sync()
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            out = step_fn(state, *sa, **skw)
+            sync()
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                os.makedirs(os.path.dirname(traced["path"]), exist_ok=True)
+                prof.export_chrome_trace(traced["path"])
+            ends.append(time.perf_counter())
+            if not models or models[-1] is not state.model:
+                models.append(state.model)
+            return out
+
+        return step
+
+    loop.make_train_step = timed_make_train_step
+    results = {"nccl": (".".join(map(str, torch.cuda.nccl.version())) if DEVICE == "cuda"
+                        else axis.backend),
+               "device": str(axis.device), "runs": {}}
+    for job in args["jobs"]:
+        for counts in (fa.launches, gnk.launches, fr.launches):
+            for k in counts:
+                counts[k] = 0
+        ends.clear()
+        models.clear()
+        traced["step"] = job.get("profile_step", 0)
+        traced["path"] = os.path.join(os.path.dirname(args_path), f"prof_{job['name']}",
+                                      f"rank{axis.rank}.json")
+        torch.backends.cudnn.deterministic = job["name"].endswith("fp32")
+        sync()
+        reset_peak()
+        t0 = time.perf_counter()
+        if job["kind"] == "train":
+            rc = train_cli.main(["--config_path", job["config"], "--device", DEVICE])
+        else:
+            rc = evaluate.main(job["argv"])
+        sync()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"rank {axis.rank}: {job['name']} returned {rc}")
+        row = {"wall_s": wall, "peak_gb": peak_gb(),
+               "step_ms": [1e3 * (b - a) for a, b in zip(ends, ends[1:])],
+               "launches": {k: v for c in (fa.launches, gnk.launches, fr.launches)
+                            for k, v in c.items() if v}}
+        if models:
+            # a bit-level checksum of the whole parameters, the same on
+            # every rank after the nudges
+            with torch.no_grad():
+                row["checksum"] = int(sum(replicate_leaf(p).float().view(torch.int32)
+                                          .to(torch.int64).sum() for p in
+                                          models[-1].parameters()).item())
+        results["runs"][job["name"]] = row
+        del models[:]
+        release()
+        torch.distributed.barrier()
+    with open(os.path.join(os.path.dirname(args_path), f"rank{axis.rank}.json"), "w") as f:
+        json.dump(results, f)
+    loop.make_train_step = make_train_step
+    shutdown(axis)
+
+
+def _spawn_ranks(tmp: str, world: int, jobs: list) -> list:
+    """Run ``multi_gpu_rank`` on ``world`` ranks, one a card; a rank that
+    fails or a group that outlives MULTI_RANK_TIMEOUT fails the phase (every
+    process is killed first). Returns the ranks' result dicts."""
+    import socket
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(tmp, f"ranks_w{world}")
+    os.makedirs(work, exist_ok=True)
+    args_path = os.path.join(work, "args.json")
+    with open(args_path, "w") as f:
+        json.dump({"jobs": jobs}, f)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs, logs = [], []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        log_f = open(os.path.join(work, f"rank{rank}.log"), "w")
+        logs.append(log_f)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke\n" + MULTI_RANK_PRELUDE
+             + f"\nchip_smoke.multi_gpu_rank({args_path!r})"],
+            cwd=root, env=env, stdout=log_f, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + MULTI_RANK_TIMEOUT
+    failed = None
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline:
+                failed = f"the ranks outlived {MULTI_RANK_TIMEOUT} s"
+                break
+            if any(p.poll() not in (None, 0) for p in procs):
+                time.sleep(2.0)  # let the others report, then stop them
+                failed = "a rank failed"
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log_f in logs:
+            log_f.close()
+    rcs = [p.returncode for p in procs]
+    if failed or any(rcs):
+        for rank in range(world):
+            with open(os.path.join(work, f"rank{rank}.log")) as f:
+                print(f"--- rank {rank} (rc {rcs[rank]}) ---\n{f.read()[-6000:]}",
+                      file=sys.stderr)
+        check(False, f"[multi] {failed or 'a rank failed'}: return codes {rcs}")
+    out = []
+    for rank in range(world):
+        with open(os.path.join(work, f"rank{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _step_values(run_dir: str) -> dict:
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    return {f"{key}@{r['step']}": r[key] for r in records if "train_loss_step" in r
+            for key in ("rec_loss", "kl_loss", "grad_norm")}
+
+
+def _nccl_ms(path: str) -> tuple:
+    """(NCCL kernels' device ms, every kernel's device ms) in one rank's
+    trace of a profiled step."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    check(kernels, f"[multi] no kernel in the trace {path}")
+    nccl = sum(e["dur"] for e in kernels if "nccl" in e["name"].lower()) / 1e3
+    total = sum(e["dur"] for e in kernels) / 1e3
+    return nccl, total
+
+
+def _params_rel(dir_a: str, dir_b: str) -> tuple:
+    """(relative L2 of a - b over every parameter, the largest |a - b| over
+    the largest |b| of one tensor and that tensor's name, bit-equal) of two
+    model dirs."""
+    from vae_channel_dynamics_tpu_torch.models import io as model_io
+
+    _, a = model_io.load_model_dir(dir_a)
+    _, b = model_io.load_model_dir(dir_b)
+    worst, name, equal, sq, norm = 0.0, "", True, 0.0, 0.0
+    for k, v in b.items():
+        d = a[k].double() - v.double()
+        sq += float(d.square().sum())
+        norm += float(v.double().square().sum())
+        rel = float(d.abs().max()) / max(float(v.double().abs().max()), 1e-30)
+        if rel > worst:
+            worst, name = rel, k
+        equal = equal and bool((a[k] == v).all())
+    return math.sqrt(sq / norm), worst, name, equal
+
+
+def phase_multi_gpu(tmp: str, model_dir: str, world: int = 0,
+                    timing_only: bool = False) -> dict:
+    """More than one GPU; see the comment above MULTI_ZERO_CONFIG. Returns
+    this world's numbers: img/s of (a) and (b), peak memory a rank with and
+    without the ZeRO stack, the NCCL share of a step and serving req/s.
+    ``timing_only`` runs the timed and profiled runs and the server, and
+    none of the controls."""
+    import numpy as np
+    import torch
+
+    from vae_channel_dynamics_tpu_torch import evaluate
+    from vae_channel_dynamics_tpu_torch import server as srv
+    from vae_channel_dynamics_tpu_torch import train as train_cli
+    from vae_channel_dynamics_tpu_torch.models import SDXLVAEWrapper
+    from vae_channel_dynamics_tpu_torch.models import io as model_io
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+
+    world = world or torch.cuda.device_count()
+    t_phase = time.perf_counter()
+    planted = os.path.join(tmp, "multi_planted_sdxl_vae")
+    if not os.path.isdir(planted):
+        write_planted_model_dir(planted)
+    configs = _multi_configs(tmp, planted, world)
+    eval_images = MULTI_EVAL_BATCH * MULTI_EVAL_BATCHES * world
+    rank_runs = (("a_bf16", "a_ddp", "b_bf16") if timing_only else
+                 ("a_bf16", "a_fp32", "a_ddp", "b_bf16", "b_fp32", "c_bf16"))
+    jobs = [{"name": run, "kind": "train", "config": configs[run][0]} for run in rank_runs]
+    profiled = [run for run in ("a_bf16", "a_ddp") if f"{run}_prof" in configs]
+    jobs += [{"name": f"{run}_prof", "kind": "train", "config": configs[f"{run}_prof"][0],
+              "profile_step": MULTI_PROFILE_STEP} for run in profiled]
+    if not timing_only:
+        jobs.append({"name": "eval", "kind": "eval", "argv": _multi_eval_argv(
+            configs["eval"], model_dir, os.path.join(tmp, f"multi_w{world}", "eval_rank"),
+            MULTI_EVAL_BATCH, eval_images)})
+    release()
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(tmp, world, jobs)
+    spawn_s = time.perf_counter() - t0
+    log(f"[multi] W = {world} ranks over NCCL {ranks[0]['nccl']} "
+        f"({', '.join(r['device'] for r in ranks)}): {len(jobs)} jobs in {spawn_s:.1f} s")
+
+    # the controls: the same configs in this process, no group, W x the batch
+    saved_tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for run in () if timing_only else ("a_bf16", "a_fp32", "b_bf16", "b_fp32", "c_bf16",
+                                           "c_fp32"):
+            torch.backends.cudnn.deterministic = run.endswith("fp32")
+            check(train_cli.main(["--config_path", configs[run][1], "--device", DEVICE]) == 0,
+                  f"[multi] control {run} failed")
+            release()
+        torch.backends.cudnn.deterministic = False
+        check(timing_only or evaluate.main(_multi_eval_argv(
+            configs["eval"], model_dir, os.path.join(tmp, f"multi_w{world}", "eval_control"),
+            MULTI_EVAL_BATCH * world, eval_images)) == 0, "[multi] the control evaluation")
+        release()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved_tf32
+    base = os.path.join(tmp, f"multi_w{world}")
+
+    # every run against its control
+    for run in rank_runs:
+        kind = run[0]
+        control = "a_bf16" if run == "a_ddp" else run
+        got = _step_values(os.path.join(base, f"{run}_rank"))
+        check(len(got) == 3 * MULTI_STEPS[kind], f"[multi] {run}: steps {sorted(got)}")
+        want = fp32 = {} if timing_only else _step_values(
+            os.path.join(base, f"{control}_control"))
+        if not timing_only:
+            fp32 = _step_values(os.path.join(base, f"{kind}_fp32_control"))
+            check(sorted(got) == sorted(want),
+                  f"[multi] {run}: steps {sorted(got)} against {sorted(want)}")
+        worst = 0.0
+        for key, v in got.items():
+            check(math.isfinite(v), f"[multi] {run}: {key} is {v}")
+            if timing_only:
+                continue
+            rel = abs(v - want[key]) / abs(fp32[key])
+            if run.endswith("fp32"):
+                bound = MULTI_F32_REL if world == 1 else AUDIT_F32_REL
+            else:
+                own = abs(want[key] - fp32[key]) / abs(fp32[key])
+                bound = AUDIT_CONTROL_RATIO * own + AUDIT_FLOOR
+            check(rel <= bound, f"[multi] {run}: {key} {v} is {rel:.3g} from the control "
+                                f"(bound {bound:.3g})")
+            worst = max(worst, rel / bound)
+        note = ""
+        if run.endswith("fp32") and world == 1:
+            rel, worst_rel, worst_name, equal = _params_rel(
+                os.path.join(base, f"{run}_rank", "final_model", "vae"),
+                os.path.join(base, f"{run}_control", "final_model", "vae"))
+            check(worst_rel <= MULTI_F32_REL, f"[multi] {run}: final parameter {worst_name} "
+                                              f"{worst_rel:.3g} of its largest entry from the "
+                                              f"control (relative L2 {rel:.3g})")
+            note = ("; final parameters bit-equal" if equal else
+                    f"; final parameters {rel:.3g} (relative L2), worst tensor {worst_name} "
+                    f"{worst_rel:.3g} of its largest entry")
+        for r, rank in enumerate(ranks):
+            launched = rank["runs"][run]["launches"]
+            names = tuple(n + ("_f32" if run.endswith("fp32") and n.startswith("flash") else "")
+                          for n in MULTI_KERNELS[kind])
+            check(all(launched.get(n, 0) > 0 for n in names),
+                  f"[multi] {run}: rank {r} launched {launched}, want each of {names}")
+        sums = {rank["runs"][run].get("checksum") for rank in ranks}
+        check(len(sums) == 1, f"[multi] {run}: the ranks' parameters differ: {sums}")
+        if kind in ("a", "b") and not timing_only:
+            with open(os.path.join(base, f"{run}_rank", "intervention_history.csv")) as f:
+                rows = f.read().split()
+            with open(os.path.join(base, f"{control}_control",
+                                   "intervention_history.csv")) as f:
+                check(rows == f.read().split(), f"[multi] {run}: other nudges than the control")
+            check(any(int(row.split(",")[2]) > 0 for row in rows), f"[multi] {run}: no nudge")
+        steps = [rank["runs"][run]["step_ms"] for rank in ranks]
+        log(f"[multi] W = {world} {run}: worst share of its bound {worst:.3g}{note}; rank 0's "
+            f"run {ranks[0]['runs'][run]['wall_s']:.1f} s; per rank peak GB "
+            + ", ".join(f"{rank['runs'][run]['peak_gb']:.2f}" for rank in ranks)
+            + "; step ms (after the first) " + "; ".join(
+                ", ".join(f"{t:.1f}" for t in s) for s in steps)
+            + f"; rank 0 launches {ranks[0]['runs'][run]['launches']}")
+
+    # the evaluation
+    if not timing_only:
+        with open(os.path.join(base, "eval_rank", "eval_metrics.json")) as f:
+            got = json.load(f)
+        with open(os.path.join(base, "eval_control", "eval_metrics.json")) as f:
+            want = json.load(f)
+        check(got["num_samples"] == want["num_samples"] == eval_images,
+              f"[multi] evaluation: {got['num_samples']} samples")
+        for key in ("mse", "kl", "psnr", "ssim"):
+            rel = abs(got[key] - want[key]) / abs(want[key])
+            check(rel <= MULTI_F32_REL, f"[multi] evaluation {key}: {got[key]} against "
+                                        f"{want[key]} ({rel:.3g})")
+        for r, rank in enumerate(ranks):
+            launched = rank["runs"]["eval"]["launches"]
+            check(all(launched.get(n, 0) > 0 for n in MULTI_KERNELS["d"]),
+                  f"[multi] evaluation: rank {r} launched {launched}")
+        log(f"[multi] W = {world} evaluation at {RESOLUTION}px fp32, {eval_images} images: "
+            + ", ".join(f"{k} {got[k]:.6g} (control {want[k]:.6g})"
+                        for k in ("mse", "kl", "psnr", "ssim")))
+
+    def step_ms(run: str) -> float:
+        # the slowest rank's mean over the steps after the warm-up (step_ms
+        # starts at step 2; no profiler runs in these runs)
+        return max(np.mean(rank["runs"][run]["step_ms"][MULTI_WARMUP_STEPS - 1:])
+                   for rank in ranks)
+
+    numbers = {
+        "a_step_ms": step_ms("a_bf16"), "a_ddp_step_ms": step_ms("a_ddp"),
+        "b_step_ms": step_ms("b_bf16"),
+        "a_img_s": world * 16e3 / step_ms("a_bf16"),
+        "a_ddp_img_s": world * 16e3 / step_ms("a_ddp"),
+        "b_img_s": world * 1e3 / step_ms("b_bf16"),
+        "peak_gb_zero": max(r["runs"]["a_bf16"]["peak_gb"] for r in ranks),
+        "peak_gb_ddp": max(r["runs"]["a_ddp"]["peak_gb"] for r in ranks),
+    }
+    work = os.path.join(tmp, f"ranks_w{world}")
+    for run in profiled:
+        # each rank's NCCL time in its profiled step (the least waits least
+        # for the other ranks), beside how far the profiler stretched it
+        per_rank = [_nccl_ms(os.path.join(work, f"prof_{run}_prof", f"rank{r}.json"))
+                    for r in range(world)]
+        traced_ms = max(rank["runs"][run + "_prof"]["step_ms"][-1] for rank in ranks)
+        numbers[f"{run}_nccl_ms"] = min(n for n, _ in per_rank)
+        log(f"[multi] W = {world} {run}: step {MULTI_PROFILE_STEP} profiled on every rank: "
+            f"NCCL kernels (ms) " + ", ".join(f"{n:.2f}" for n, _ in per_rank)
+            + " of kernels (ms) " + ", ".join(f"{t:.2f}" for _, t in per_rank)
+            + f"; the profiled step {traced_ms:.1f} ms, {traced_ms / step_ms(run):.2f}x the "
+              f"unprofiled {step_ms(run):.1f} ms")
+
+    # (e) the server, one replica a card
+    config, state_dict = model_io.load_model_dir(model_dir)
+    wrapper = SDXLVAEWrapper(config=config, state_dict=state_dict, dtype=torch.bfloat16,
+                             attn_impl=srv.resolve_serving_attention_impl(
+                                 "auto", RESOLUTION, config),
+                             device=DEVICE)
+    del state_dict
+    rng = np.random.default_rng(SEED)
+    images = rng.uniform(-1, 1, (LOAD_CONCURRENCY, RESOLUTION, RESOLUTION, 3)).astype(
+        np.float32)
+    bodies = [_npy(x) for x in images]
+    # timing_only serves at W > 1 only, one replica and one a card, in turn
+    for replicas in sorted({1, world}) if world > 1 or not timing_only else ():
+        server = srv.VAEServer(wrapper, resolution=RESOLUTION, max_batch=MAX_BATCH,
+                               max_wait_ms=10.0, port=0, use_mesh=replicas > 1)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            check(len(server.replicas) == replicas, f"{len(server.replicas)} replicas")
+            # one replicated forward, its launches under the host-sync check
+            blocks = np.split(images[:server.batcher.max_batch], replicas)
+            xs = [torch.from_numpy(b).to(w.device) for b, w in zip(blocks, server.replicas)]
+            sync()
+            if DEVICE == "cuda":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                ys = [srv._call(w, "reconstruct", x, True, None)
+                      for w, x in zip(server.replicas, xs)]
+            finally:
+                if DEVICE == "cuda":
+                    torch.cuda.set_sync_debug_mode("default")
+            got = torch.cat([y.float().cpu() for y in ys])
+            # each block as the first card computes it at the block's own
+            # batch (another batch size may take other cuDNN algorithms,
+            # whose bf16 rounding a random-weight decoder amplifies to ~5%)
+            want = torch.cat([wrapper.forward(torch.from_numpy(b), sample_posterior=False)
+                              ["reconstruction"].float().cpu() for b in blocks])
+            err = float((got - want).norm() / want.norm())
+            check(err <= MULTI_F32_REL, f"[multi] {replicas} replicas: rel L2 {err:.3g} "
+                                        "from the first card")
+            server.warmup()
+            before = fa.launches["flash_attention_fwd"]
+            lat, wall = _serve_window(server, MULTI_SERVE_SECONDS, bodies,
+                                      (RESOLUTION, RESOLUTION, 3))
+            launched = fa.launches["flash_attention_fwd"] - before
+            calls = server.batcher.batch_calls
+            check(launched >= SDXL_ATTENTIONS * replicas, f"[multi] flash launched {launched}")
+            rps = len(lat) / wall
+            numbers[f"serve_rps_{replicas}"] = rps
+            log(f"[multi] server, {replicas} replica(s) at {RESOLUTION}px, max_batch "
+                f"{server.batcher.max_batch}: {len(lat)} requests in {wall:.1f} s, "
+                f"{rps:.3f} req/s, p50 {1e3 * percentile(lat, 0.5):.1f} ms, p95 "
+                f"{1e3 * percentile(lat, 0.95):.1f} ms; {calls} batches; the replicated "
+                f"forward launched without a host sync, rel L2 {err:.3g} from the first card; "
+                f"flash forward launched {launched} times")
+        finally:
+            server.shutdown()
+            thread.join(timeout=30)
+    del wrapper
+    release()
+    shutil.rmtree(base, ignore_errors=True)
+    log(f"[multi] W = {world}: " + ", ".join(f"{k} {v:.4g}" for k, v in numbers.items())
+        + f"; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return numbers
+
+
+def multi_gpu_main(timing_only: bool = False) -> int:
+    """``phase_multi_gpu`` alone, at W = 1 and at every card of the machine,
+    with the device and build phases it needs: ``python -c "import
+    chip_smoke; chip_smoke.multi_gpu_main()"`` (``timing_only=True``: the
+    timed, profiled and serving runs only)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    name, smi = phase_device()
+    phase_build()
+    with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
+        model_dir = os.path.join(tmp, "sdxl_seeded")
+        write_seeded_model_dir(model_dir)
+        worlds = sorted({1, torch.cuda.device_count()})
+        numbers = {w: phase_multi_gpu(tmp, model_dir, world=w, timing_only=timing_only)
+                   for w in worlds}
+    top = worlds[-1]
+    if top > 1:
+        log(f"[multi] W = {top} against W = 1 on {smi}: " + ", ".join(
+            f"{k} x{numbers[top][k] / numbers[1][k]:.3f}" for k in
+            ("a_img_s", "a_ddp_img_s", "b_img_s")) + "; ms a step across cards "
+            + ", ".join(f"{k} +{numbers[top][k] - numbers[1][k]:.1f}" for k in
+                        ("a_step_ms", "a_ddp_step_ms", "b_step_ms")) + f"; serving req/s "
+            f"x{numbers[top][f'serve_rps_{top}'] / numbers[top]['serve_rps_1']:.3f} "
+            "(one replica and one a card, in the same phase)")
+    print(smi, flush=True)
+    print(json.dumps({"multi_gpu": {str(w): n for w, n in numbers.items()}}), flush=True)
+    return 0
+
+
 def reset_peak() -> None:
     import torch
 
@@ -4548,6 +5169,7 @@ def main() -> int:
             phase_tiling(tmp, model_dir)
             phase_cli_audit(tmp, model_dir)
             phase_export(tmp, model_dir)
+            phase_multi_gpu(tmp, model_dir)
         release()
         bundle = phase_train()
         phase_step_compare(bundle)

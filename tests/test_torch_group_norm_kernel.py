@@ -547,7 +547,9 @@ def _refusals():
 
     return {
         "parallel": (lambda: loop._refuse_unported({"parallel": {"tensor": 2}}),
-                     "Q1", "Multi-GPU"),
+                     "Q1", "Spatial and tensor parallelism"),
+        "parallel slices": (lambda: loop._refuse_unported({"parallel": {"slices": 2}}),
+                            "Q1", "Do not port"),
         "remat offload": (lambda: remat_mode("offload"), "Q1", "Do not port"),
         "colormap": (lambda: logit_lens.colorize(np.zeros(4, np.float32), "magma"),
                      "Q1", "Plots"),
@@ -557,7 +559,7 @@ def _refusals():
     }
 
 
-REFUSALS = ["parallel", "remat offload", "colormap", "fused fp32"]
+REFUSALS = ["parallel", "parallel slices", "remat offload", "colormap", "fused fp32"]
 
 
 @pytest.mark.parametrize("case", REFUSALS)

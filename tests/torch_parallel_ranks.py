@@ -1,0 +1,249 @@
+"""Rank programs for the gloo tests of ``tests/test_torch_parallel_*.py``,
+and the launcher that runs them.
+
+:func:`run_ranks` starts ``world`` processes of this file, each with the
+environment torchrun would give it (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT`` on a port the OS picked),
+on one intra-op thread, and kills them all and fails when they outlive
+``timeout`` seconds. Each rank joins the group with
+``initialize_distributed`` (gloo on the CPU; NCCL where the arguments say
+``"device": "cuda"``, one card a rank) and runs one scenario of
+:data:`SCENARIOS` on the arguments in a JSON file; rank 0 writes what the
+tests compare. This file imports torch and the port only, never JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(scenario: str, args: dict, tmp_dir: str, world: int = 2,
+              timeout: float = 120.0) -> None:
+    """Run ``scenario`` on ``world`` ranks; raise with the ranks' logs when
+    one fails or the group outlives ``timeout``."""
+    os.makedirs(tmp_dir, exist_ok=True)
+    args_path = os.path.join(tmp_dir, f"{scenario}_args.json")
+    with open(args_path, "w") as f:
+        json.dump(args, f)
+    port = free_port()
+    procs, logs = [], []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+                   PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        log = open(os.path.join(tmp_dir, f"{scenario}_rank{rank}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), scenario, args_path],
+            cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{scenario}: the ranks outlived {timeout} s")
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.1)
+        # a rank that failed leaves the others waiting on a collective
+        time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    rcs = [p.returncode for p in procs]
+    if any(rcs):
+        tails = []
+        for rank in range(world):
+            with open(os.path.join(tmp_dir, f"{scenario}_rank{rank}.log")) as f:
+                tails.append(f"--- rank {rank} (rc {rcs[rank]}) ---\n" + f.read()[-4000:])
+        raise RuntimeError(f"{scenario} failed:\n" + "\n".join(tails))
+
+
+# --------------------------------------------------------------------------- #
+# scenarios, run inside a rank
+# --------------------------------------------------------------------------- #
+def _narrow_model(state_path: str, capture=()):
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+
+    saved = np.load(state_path)
+    model = AutoencoderKL(VAEConfig(block_out_channels=(128, 128), layers_per_block=1,
+                                    norm_num_groups=32), impl="auto", capture=capture)
+    model.load_state_dict({k: torch.from_numpy(saved[k]) for k in saved.files}, strict=True)
+    return model
+
+
+def _kept_allowance(whole, world: int, params_whole: bool) -> int:
+    """The bytes a rank may keep whole under the ZeRO flags: the parameters
+    when they stay whole (ZeRO-1), every leaf of a parameter that
+    ``zero_axis`` leaves whole, and Adafactor's factored moments (a mean
+    over the sliced axis is whole)."""
+    from vae_channel_dynamics_tpu_torch.parallel.zero import zero_axis
+
+    def nbytes(t):
+        return 0 if t is None else t.numel() * t.element_size()
+
+    names = list(whole["params"])
+    opt = whole["opt"]
+    total = 0
+    for i, name in enumerate(names):
+        p = whole["params"][name]
+        lone = zero_axis(tuple(p.shape), world) is None
+        if params_whole or lone:
+            total += nbytes(p)
+        for field in ("mu", "nu", "v", "acc_grads"):
+            if lone and opt.get(field) is not None:
+                total += nbytes(opt[field][i])
+        for field in ("v_row", "v_col"):
+            if opt.get(field) is not None:
+                total += nbytes(opt[field][i])
+        if lone and whole["ema_params"] is not None:
+            total += nbytes(whole["ema_params"][name])
+    return total
+
+
+def scenario_step(axis, args) -> None:
+    """Two micro-steps of the data-parallel train step for each variant (an
+    optimizer, its ZeRO flags and its gradient accumulation) on this rank's
+    block of the global batch and of the JAX step's noise; rank 0 writes
+    the metrics, the stats, the whole parameters and EMA, and every rank
+    its state bytes and what it may keep whole."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.parallel import local_block
+    from vae_channel_dynamics_tpu_torch.parallel.zero import (
+        ZeroLayout, fully_shard_model, replicate_leaf, state_bytes)
+    from vae_channel_dynamics_tpu_torch.tracking import ActivityMonitor
+    from vae_channel_dynamics_tpu_torch.training import TrainState, build_optimizer
+    from vae_channel_dynamics_tpu_torch.training.checkpoint import state_dict_of
+    from vae_channel_dynamics_tpu_torch.training.step import make_train_step
+
+    data = np.load(args["data"])
+    out = {}
+    for variant in args["variants"]:
+        monitor = ActivityMonitor(args["tracking"])
+        model = _narrow_model(args["state"], monitor.scalar_capture_table)
+        flags = variant["flags"]
+        tx, _ = build_optimizer(args["lr"], args["warmup"], args["max_steps"],
+                                adam_weight_decay=args["wd"], adam_epsilon=args["eps"],
+                                max_grad_norm=args["max_grad_norm"],
+                                optimizer=variant["optimizer"],
+                                gradient_accumulation_steps=variant.get("accum", 1),
+                                summed_grads=True)
+        if flags.get("shard_params"):
+            fully_shard_model(model, axis)
+            forward = model
+        else:
+            forward = torch.nn.parallel.DistributedDataParallel(model)
+        layout = (ZeroLayout(axis, model, bool(flags.get("shard_optimizer")),
+                             bool(flags.get("shard_ema")), bool(flags.get("shard_params")))
+                  if any(flags.values()) else None)
+        state = TrainState.create(model, tx, stats_acc=monitor.init_acc(model),
+                                  ema=True, layout=layout)
+        step = make_train_step(model, tx, args["kl_weight"],
+                               stats_accumulate=ActivityMonitor.accumulate,
+                               ema_decay=args["ema_decay"], axis=axis,
+                               forward_module=forward)
+        metrics = []
+        for t in range(args["steps"]):
+            batch = local_block(data[f"pixels{t}"], axis.rank, axis.world)
+            mask = local_block(data["mask"], axis.rank, axis.world)
+            noise = local_block(data[f"noise{t}"], axis.rank, axis.world)
+            state, m, _ = step(state, {"pixel_values": batch}, mask, noise=noise)
+            metrics.append([float(m[k]) for k in ("train_loss_step", "rec_loss", "kl_loss",
+                                                  "grad_norm")])
+        whole = state_dict_of(state)
+        sliced, kept = state_bytes(state)
+        name = variant["name"]
+        out[f"{name}/metrics"] = np.array(metrics)
+        for k, v in whole["params"].items():
+            out[f"{name}/param/{k}"] = v.numpy()
+        for k, v in whole["ema_params"].items():
+            out[f"{name}/ema/{k}"] = v.numpy()
+        for k, v in state.stats_acc.items():
+            out[f"{name}/stats/{k}"] = v.numpy()
+        allowance = _kept_allowance(whole, axis.world, not flags.get("shard_params"))
+        out[f"{name}/bytes"] = np.array([sliced, kept])
+        # the ranks' parameters after the step are the same bits
+        gathered = [replicate_leaf(p).reshape(-1) for p in model.parameters()]
+        flat = torch.cat(gathered)
+        parts = [torch.empty_like(flat) for _ in range(axis.world)]
+        torch.distributed.all_gather(parts, flat)
+        out[f"{name}/ranks_equal"] = np.array(all(torch.equal(parts[0], q) for q in parts))
+        all_bytes = [None] * axis.world
+        torch.distributed.all_gather_object(all_bytes, [sliced, kept, allowance])
+        out[f"{name}/rank_bytes"] = np.array(all_bytes)
+    if axis.is_main:
+        np.savez(args["out"], **out)
+
+
+def scenario_runs(axis, args) -> None:
+    """Trainer runs and evaluation CLI calls, in order. After each Trainer
+    run every rank's whole parameters go to ``<out>_<i>_rank<r>.npz`` and
+    rank 0's summary to ``<out>_<i>.json``."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch import evaluate
+    from vae_channel_dynamics_tpu_torch.parallel.zero import replicate_leaf
+    from vae_channel_dynamics_tpu_torch.training.loop import Trainer
+
+    for i, run in enumerate(args["runs"]):
+        if run["kind"] == "eval":
+            if evaluate.main(run["argv"] + ["--device", args.get("device", "cpu")]):
+                raise SystemExit(f"evaluation {i} failed")
+            torch.distributed.barrier()
+            continue
+        trainer = Trainer(run["config"], resume_from=run.get("resume_from"),
+                          device=args.get("device", "cpu"), axis=axis)
+        summary = trainer.train()
+        np.savez(f"{args['out']}_{i}_rank{axis.rank}.npz",
+                 **{k: replicate_leaf(p).cpu().numpy()
+                    for k, p in trainer.model.named_parameters()})
+        if axis.is_main:
+            with open(f"{args['out']}_{i}.json", "w") as f:
+                json.dump({k: v for k, v in summary.items()
+                           if isinstance(v, (int, float, str, bool, type(None)))}, f)
+        torch.distributed.barrier()
+
+
+SCENARIOS = {"step": scenario_step, "runs": scenario_runs}
+
+
+def _main() -> None:
+    scenario, args_path = sys.argv[1], sys.argv[2]
+    sys.path.insert(0, REPO)
+    import torch
+
+    torch.set_num_threads(1)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from vae_channel_dynamics_tpu_torch.parallel.mesh import initialize_distributed, shutdown
+
+    with open(args_path) as f:
+        args = json.load(f)
+    axis = initialize_distributed(args.get("device", "cpu"))
+    SCENARIOS[scenario](axis, args)
+    shutdown(axis)
+
+
+if __name__ == "__main__":
+    _main()

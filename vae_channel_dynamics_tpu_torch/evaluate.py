@@ -23,9 +23,15 @@ forward from 4096 mid-block tokens (512px), bf16 or fp32 by the dtype.
 and ``xla`` plain, ``pallas`` the kernels, ``fused`` the fused resnets the
 gate admits); the JAX CLI reads no ``kernel_impl`` and runs ``auto``. The
 per-batch sums stay on the device and are copied to the host once a batch.
-On a card, TF32 is off while it runs, so fp32 means fp32. One device only:
-the JAX CLI's mesh, sharding and shard padding are multi-device work
-(ROADMAP Q1, Multi-GPU).
+On a card, TF32 is off while it runs, so fp32 means fp32.
+
+Across ranks (launched by torchrun, ``parallel/``; ``--device cpu`` runs
+gloo) every rank reads each global batch of ``batch_size`` x world
+images, pads it to a multiple of the world size (``pad_batch_to_multiple``)
+and evaluates its contiguous block, as the JAX CLI shards its batch over
+its mesh; the masked sums are added over the ranks, and rank 0 gathers the
+reconstructions it saves, runs the lens on the first global batch and
+writes the same files as one process at that batch size.
 """
 
 from __future__ import annotations
@@ -138,12 +144,22 @@ def _eval_main(argv=None) -> int:
     from .models import io as model_io
     from .ops.attention import resolve_serving_impl
     from .ops.image_metrics import psnr_from_accumulated, ssim_per_image
+    from .parallel.mesh import (
+        all_gather_rows,
+        initialize_distributed,
+        local_block,
+        pad_batch_to_multiple,
+        shutdown,
+    )
     from .training.step import dequantize_pixels
     from .utils.config_utils import as_int, load_config, warn_unknown_keys
     from .utils.logging_utils import setup_logging
 
-    setup_logging()
     args = parse_args(argv)
+    axis = initialize_distributed(args.device)
+    world, rank = (1, 0) if axis is None else (axis.world, axis.rank)
+    is_main = rank == 0
+    setup_logging(rank=rank)
     config = load_config(args.config_path)
     warn_unknown_keys(config)
 
@@ -176,11 +192,13 @@ def _eval_main(argv=None) -> int:
                     "kernel (%s).", "bf16" if dtype == torch.bfloat16 else "fp32")
     kernel_impl = str(config.get("model", {}).get("kernel_impl", "auto"))
     wrapper = SDXLVAEWrapper(config=vae_config, state_dict=state_dict, dtype=dtype,
-                             attn_impl=attn_impl, device=args.device, impl=kernel_impl)
+                             attn_impl=attn_impl,
+                             device=args.device if axis is None else axis.device,
+                             impl=kernel_impl)
     device = wrapper.device
 
     logit_lens = None
-    if args.enable_logit_lens:
+    if args.enable_logit_lens and is_main:
         ll_main = config.get("logit_lens", {})
         logit_lens = VAELogitLens(
             logit_lens_config={
@@ -220,14 +238,15 @@ def _eval_main(argv=None) -> int:
     )
     batch_size = (args.batch_size if args.batch_size is not None
                   else as_int(dc.get("validation_batch_size"), as_int(dc.get("batch_size"), 4)))
-    loader = create_dataloader(eval_dataset, batch_size=batch_size,
+    # every rank reads the global batch and evaluates its block of it
+    loader = create_dataloader(eval_dataset, batch_size=batch_size * world,
                                num_workers=as_int(dc.get("num_workers"), 0), shuffle=False)
 
     @torch.inference_mode()
-    def eval_batch(pixels_in: torch.Tensor):
-        """The reconstruction and the batch's sums, on the device: [sum of
-        per-sample MSE, sum KL, PSNR SSE, PSNR observations, sum SSIM,
-        samples]."""
+    def eval_batch(pixels_in: torch.Tensor, mask: torch.Tensor):
+        """The reconstruction and the batch's masked sums, on the device:
+        [sum of per-sample MSE, sum KL, PSNR SSE, PSNR observations, sum
+        SSIM, samples]."""
         out = wrapper.forward(pixels_in, sample_posterior=False)
         recon = out["reconstruction"].float()
         pixels = pixels_in.float()
@@ -236,11 +255,11 @@ def _eval_main(argv=None) -> int:
         recon01 = torch.clamp((recon + 1.0) / 2.0, 0.0, 1.0)
         pixels01 = torch.clamp((pixels + 1.0) / 2.0, 0.0, 1.0)
         ssim_b = ssim_per_image(recon01, pixels01, data_range=1.0)
-        n = float(recon.shape[0])
+        n = mask.sum()
         sums = torch.stack([
-            per_sample_sq.sum(), kl.sum(), (recon01 - pixels01).square().sum(),
-            torch.tensor(n * (recon[0].numel()), device=recon.device), ssim_b.sum(),
-            torch.tensor(n, device=recon.device),
+            (per_sample_sq * mask).sum(), (kl * mask).sum(),
+            ((recon01 - pixels01).square() * mask[:, None, None, None]).sum(),
+            n * float(recon[0].numel()), (ssim_b * mask).sum(), n,
         ])
         return out["reconstruction"], sums
 
@@ -255,8 +274,17 @@ def _eval_main(argv=None) -> int:
     for batch in loader:
         if batch is None:
             continue
-        pixels_in = dequantize_pixels(torch.from_numpy(batch["pixel_values"]).to(device))
-        recon, sums = eval_batch(pixels_in)
+        pixels_host = batch["pixel_values"]
+        if world > 1:
+            padded, mask_host = pad_batch_to_multiple({"x": pixels_host}, world)
+            block = local_block(padded["x"], rank, world)
+            mask_host = local_block(mask_host, rank, world)
+        else:
+            block, mask_host = pixels_host, np.ones(pixels_host.shape[0], np.float32)
+        recon, sums = eval_batch(dequantize_pixels(torch.from_numpy(block).to(device)),
+                                 torch.from_numpy(mask_host).to(device))
+        if axis is not None:
+            torch.distributed.all_reduce(sums)
         mse_b, kl_b, sse_b, obs_b, ssim_b, n_b = sums.cpu().tolist()
         total_mse += mse_b
         total_kl += kl_b
@@ -267,12 +295,16 @@ def _eval_main(argv=None) -> int:
 
         if samples_saved < args.num_samples_to_save:
             take = min(args.num_samples_to_save - samples_saved, int(n_b))
+            if axis is not None:
+                # the ranks' blocks, in the global batch's order
+                recon = all_gather_rows(recon.contiguous(), world).flatten(0, 1)
             recon_host = recon[:take].float().cpu().numpy()
             for i in range(take):
-                _to_png(batch["pixel_values"][i],
-                        os.path.join(args.output_dir, f"sample_{samples_saved}_orig.png"))
-                _to_png(recon_host[i],
-                        os.path.join(args.output_dir, f"sample_{samples_saved}_recon.png"))
+                if is_main:
+                    _to_png(pixels_host[i], os.path.join(
+                        args.output_dir, f"sample_{samples_saved}_orig.png"))
+                    _to_png(recon_host[i], os.path.join(
+                        args.output_dir, f"sample_{samples_saved}_recon.png"))
                 samples_saved += 1
         del recon
 
@@ -281,7 +313,8 @@ def _eval_main(argv=None) -> int:
             ran_logit_lens = True
             logger.info("Running LogitLens on first batch activations...")
             wrapper.add_hooks(args.logit_lens_layers)
-            wrapper.forward(pixels_in, sample_posterior=False)
+            wrapper.forward(dequantize_pixels(torch.from_numpy(pixels_host).to(device)),
+                            sample_posterior=False)
             activations = wrapper.get_captured_activations()
             # the reference's quirk, kept (SURVEY.md §5a-14): out_{i}.png,
             # at most 10, written per layer and OVERWRITTEN by the next, so
@@ -316,6 +349,9 @@ def _eval_main(argv=None) -> int:
     logger.info("  Average SSIM: %.4f", final_ssim)
     logger.info("  Saved %d image samples to %s", samples_saved, args.output_dir)
 
+    if not is_main:
+        shutdown(axis)
+        return 0
     metrics_path = os.path.join(args.output_dir, "eval_metrics.txt")
     with open(metrics_path, "w") as f:
         f.write(f"Evaluation Split: {args.eval_split}\n")
@@ -340,6 +376,7 @@ def _eval_main(argv=None) -> int:
             f,
             indent=2,
         )
+    shutdown(axis)
     return 0
 
 

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.zero import replicate_leaf, write_leaf
 from ..utils import naming
 
 logger = logging.getLogger(__name__)
@@ -94,10 +95,12 @@ class InterventionHandler:
                 logger.warning("Could not retrieve scale parameter '%s'. Skipping.",
                                param_name)
                 continue
+            # an FSDP2 shard of gamma is gathered whole and written back as
+            # this rank's block (parallel/zero.py): every rank nudges alike
             nudged, applied = self._nudged_scale(
-                gamma.detach().float().cpu().numpy(), indices)
+                replicate_leaf(gamma).float().cpu().numpy(), indices)
             if applied:
-                gamma.copy_(torch.from_numpy(nudged.astype(np.float32)))
+                write_leaf(gamma, torch.from_numpy(nudged.astype(np.float32)))
                 self.num_nudges_applied += applied
         if self.num_nudges_applied > 0:
             logger.info("Applied '%s' to %d channel scales at step %d.",

@@ -110,6 +110,18 @@ class SDXLVAEWrapper:
     def state_dict(self) -> Dict[str, torch.Tensor]:
         return self.model.state_dict()
 
+    def replicate(self, device: Any) -> "SDXLVAEWrapper":
+        """The same model (weights, dtype, impls, tiling and slicing) on
+        ``device``: one replica a card for serving across cards."""
+        other = SDXLVAEWrapper(
+            config=self.config,
+            state_dict={k: v.float() for k, v in self.model.state_dict().items()},
+            dtype=self.dtype, attn_impl=self.attn_impl, device=device, impl=self.impl)
+        other.use_tiling, other.use_slicing = self.use_tiling, self.use_slicing
+        other.tile_sample_min_size = self.tile_sample_min_size
+        other.tile_overlap_factor = self.tile_overlap_factor
+        return other
+
     @property
     def spatial_factor(self) -> int:
         """Pixel-to-latent downsample factor (2^(len(block_out_channels)-1))."""

@@ -65,7 +65,7 @@ import torch.nn.functional as F
 from . import _cuda_build
 from . import group_norm_kernel as gnk
 from .conv_nhwc import pixel_tile
-from .stats import mask_for
+from .stats import mask_count, mask_for
 
 LIBRARY = "fused_resnet"
 KERNELS = ("fused_gn_silu_conv3x3", "conv3x3", "conv3x3_dw")
@@ -528,7 +528,7 @@ def mean_abs_from_tap(tap: torch.Tensor, hw: int) -> torch.Tensor:
     m = mask_for(tap)
     if m is None:
         return tap.sum(dim=0) / float(tap.shape[0] * hw)
-    return (tap * m[:, None]).sum(dim=0) / (m.sum().clamp_min(1.0) * float(hw))
+    return (tap * m[:, None]).sum(dim=0) / (mask_count(m) * float(hw))
 
 
 __all__ = [

@@ -53,7 +53,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import _cuda_build
-from .stats import mask_for
+from .stats import mask_count, mask_for
 
 LIBRARY = "group_norm"
 KERNELS = ("gn_fwd_reduce", "gn_fwd_normalize", "gn_bwd_reduce", "gn_bwd_dx")
@@ -488,7 +488,7 @@ def group_norm_silu_with_stats(
     m = mask_for(abs_sum)
     if m is None:
         return y, abs_sum.sum(dim=0) / float(b * h * w)
-    return y, (abs_sum * m[:, None]).sum(dim=0) / (m.sum().clamp_min(1.0) * float(h * w))
+    return y, (abs_sum * m[:, None]).sum(dim=0) / (mask_count(m) * float(h * w))
 
 
 __all__ = [

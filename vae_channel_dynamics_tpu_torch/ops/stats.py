@@ -20,6 +20,13 @@ metric but the full map then reduces over the valid rows only, so
 remainder-batch pad duplicates carry zero weight. JAX reads the mask while it
 traces; PyTorch runs eagerly, so the context manager simply has to be open
 while the model runs.
+
+Across ranks (``parallel/``) the means are over the global batch, as JAX
+takes them on global arrays: the train step passes the global valid count,
+so each rank's value of a linear metric is its share of the global mean,
+and the step adds the shares over the ranks (:data:`SUMMED_METRICS`).
+``std_activation`` is not linear: with ``reduce`` it adds its sums over the
+ranks itself, so every rank gets the global value.
 """
 
 from __future__ import annotations
@@ -29,21 +36,33 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 _TAP_MASK: Optional[torch.Tensor] = None
+_TAP_COUNT: Optional[torch.Tensor] = None
+_TAP_REDUCE = False
+
+# the metrics whose per-rank values, taken with the global count, add up
+# over the ranks to the global value
+SUMMED_METRICS = frozenset({"mean_abs_activation_per_channel", "mean_activation",
+                            "zero_fraction_per_channel"})
 
 
 @contextlib.contextmanager
-def tap_mask(mask: Optional[torch.Tensor]):
+def tap_mask(mask: Optional[torch.Tensor], count: Optional[torch.Tensor] = None,
+             reduce: bool = False):
     """Install a (B,)-shaped 0/1 validity mask for the tap metrics while the
-    block runs; the previous mask comes back afterwards."""
-    global _TAP_MASK
-    prev = _TAP_MASK
-    _TAP_MASK = mask
+    block runs; the previous mask comes back afterwards. ``count`` is the
+    valid rows of the global batch (a 0-d device tensor; the mask's own sum
+    by default); ``reduce`` has ``std_activation`` add its sums over the
+    ranks of the process group."""
+    global _TAP_MASK, _TAP_COUNT, _TAP_REDUCE
+    prev = _TAP_MASK, _TAP_COUNT, _TAP_REDUCE
+    _TAP_MASK, _TAP_COUNT, _TAP_REDUCE = mask, count, reduce
     try:
         yield
     finally:
-        _TAP_MASK = prev
+        _TAP_MASK, _TAP_COUNT, _TAP_REDUCE = prev
 
 
 def mask_for(x: torch.Tensor) -> Optional[torch.Tensor]:
@@ -54,6 +73,13 @@ def mask_for(x: torch.Tensor) -> Optional[torch.Tensor]:
     if m is None or x.dim() < 2 or m.dim() != 1 or x.shape[0] != m.shape[0]:
         return None
     return m.to(device=x.device, dtype=torch.float32)
+
+
+def mask_count(m: torch.Tensor) -> torch.Tensor:
+    """The number of valid rows a masked mean divides by: the global count
+    when one is installed, else the mask's sum (at least 1)."""
+    count = m.sum() if _TAP_COUNT is None else _TAP_COUNT.to(m.device)
+    return count.clamp_min(1.0)
 
 
 def _channel_dim(x: torch.Tensor) -> int:
@@ -69,7 +95,7 @@ def _per_sample_channel_mean(v: torch.Tensor) -> torch.Tensor:
 
 def _masked_channel_mean(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     per_sample = _per_sample_channel_mean(v)
-    return (per_sample * m[:, None]).sum(dim=0) / m.sum().clamp_min(1.0)
+    return (per_sample * m[:, None]).sum(dim=0) / mask_count(m)
 
 
 def _channel_mean(v: torch.Tensor) -> torch.Tensor:
@@ -89,7 +115,7 @@ def mean_activation(x: torch.Tensor) -> torch.Tensor:
     if m is None:
         return xf.mean()
     per_sample = xf.mean(dim=tuple(range(1, x.dim())))
-    return (per_sample * m).sum() / m.sum().clamp_min(1.0)
+    return (per_sample * m).sum() / mask_count(m)
 
 
 def std_activation(x: torch.Tensor) -> torch.Tensor:
@@ -101,9 +127,15 @@ def std_activation(x: torch.Tensor) -> torch.Tensor:
     # passes: E[x^2] - E[x]^2 cancels in fp32 when |mean| dominates the std
     per_elem = math.prod(x.shape[1:])
     w = m.reshape((-1,) + (1,) * (x.dim() - 1))
-    n = m.sum() * float(per_elem)
-    mean = (xf * w).sum() / n.clamp_min(1.0)
-    var = ((xf - mean).square() * w).sum() / (n - 1.0).clamp_min(1.0)
+    n = (m.sum() if _TAP_COUNT is None else _TAP_COUNT.to(m.device)) * float(per_elem)
+    total = (xf * w).sum()
+    if _TAP_REDUCE:
+        dist.all_reduce(total)
+    mean = total / n.clamp_min(1.0)
+    dev = ((xf - mean).square() * w).sum()
+    if _TAP_REDUCE:
+        dist.all_reduce(dev)
+    var = dev / (n - 1.0).clamp_min(1.0)
     return var.sqrt()
 
 
@@ -141,8 +173,10 @@ def channel_stats(x: torch.Tensor, metrics: Tuple[str, ...]) -> Dict[str, torch.
 
 __all__ = [
     "METRIC_FNS",
+    "SUMMED_METRICS",
     "channel_stats",
     "full_activation_map",
+    "mask_count",
     "mask_for",
     "mean_abs_activation_per_channel",
     "mean_activation",

@@ -37,6 +37,16 @@ forward, and the attention policy is resolved at the tile size.
 model: deterministic only (``?deterministic=false`` gets a client error),
 at the manifest's resolution, untiled; the weights still load from
 ``--checkpoint_path``.
+
+Across cards (wherever more than one card is visible, as the JAX server
+shards over a data mesh; ``VAEServer(use_mesh=False)`` keeps one): one
+replica of the live model a card, ``max_batch`` rounded up to a multiple of
+the replica count, and each padded micro-batch split into contiguous
+blocks, one a replica. Every block is copied in and launched before any
+result is read, so the cards run together from the one batcher thread; each
+block's valid rows are sliced on its card and the results concatenated in
+order. Exported programs are pinned to one device: ``use_mesh=True`` with
+them is refused, and unset serves them on one card.
 """
 
 from __future__ import annotations
@@ -51,7 +61,7 @@ import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
@@ -245,8 +255,16 @@ class VAEServer:
         max_queue: int = 64,
         max_body_bytes: int = 32 << 20,
         read_timeout_s: float = 30.0,
+        use_mesh: Optional[bool] = None,
+        replicas: Optional[Sequence[Any]] = None,
     ):
         self.wrapper = wrapper
+        # the wrappers each batch is split over, ``wrapper`` first; given
+        # explicitly (the tests' CPU replicas), ``use_mesh`` is not read
+        self.replicas = (list(replicas) if replicas is not None
+                         else serving_replicas(wrapper, use_mesh))
+        n_rep = len(self.replicas)
+        max_batch = -(-max(1, int(max_batch)) // n_rep) * n_rep
         self.resolution = int(resolution)
         self.max_body_bytes = int(max_body_bytes)
         self.read_timeout_s = float(read_timeout_s)
@@ -307,8 +325,8 @@ class VAEServer:
 
     def serve_forever(self) -> None:
         logger.info(
-            "Serving on %s:%d (%s, res=%d, max_batch=%d)",
-            self.httpd.server_address[0], self.port, self.platform,
+            "Serving on %s:%d (%s x %d, res=%d, max_batch=%d)",
+            self.httpd.server_address[0], self.port, self.platform, len(self.replicas),
             self.resolution, self.batcher.max_batch,
         )
         self.httpd.serve_forever()
@@ -381,13 +399,14 @@ class VAEServer:
         return x, n
 
     def _run(self, kind: str, stacked: np.ndarray) -> np.ndarray:
-        """Batcher callback: one padded device call per group."""
+        """Batcher callback: one padded device call per group, split into
+        one contiguous block a replica."""
         deterministic = not kind.endswith("@sample")
         op = kind.split("@", 1)[0]
+        if op not in ("encode", "decode", "reconstruct"):
+            raise ValueError(f"unknown op {op!r}")
         padded, n = self._pad(stacked.astype(np.float32))
-        device = self.wrapper.device
-        x = torch.from_numpy(padded).to(device)
-        generator = None
+        seed = None
         if not deterministic:
             # fresh seed per device call: the wrapper's generator=None
             # fallback is a FIXED seed, which would make every 'sampling'
@@ -395,26 +414,24 @@ class VAEServer:
             with self._lock:
                 self._sample_calls += 1
                 seed = self._sample_calls
-            generator = torch.Generator(device=device).manual_seed(seed)
-        if op == "encode":
-            y = self.wrapper.encode(x, deterministic=deterministic,
-                                    generator=generator)
-        elif op == "decode":
-            y = self.wrapper.decode(x)
-        elif op == "reconstruct":
-            if self.wrapper.use_tiling or self.wrapper.use_slicing:
-                # tiling and slicing live on encode/decode: the same
-                # deterministic math as forward(), plus decode's [-1, 1] clamp
-                y = self.wrapper.decode(self.wrapper.encode(
-                    x, deterministic=deterministic, generator=generator))
-            else:
-                y = self.wrapper.forward(
-                    x, sample_posterior=not deterministic, generator=generator
-                )["reconstruction"]
-        else:
-            raise ValueError(f"unknown op {op!r}")
-        # slice the padding off on the device before the copy to the host
-        return y[:n].float().cpu().numpy()
+        blocks = np.split(padded, len(self.replicas))
+        # every block on its card before any launch, every launch before
+        # any result is read: the cards run together
+        xs = [torch.from_numpy(b).to(w.device, non_blocking=True)
+              for b, w in zip(blocks, self.replicas)]
+        ys = [_call(w, op, x, deterministic,
+                    None if seed is None else
+                    torch.Generator(device=w.device).manual_seed(seed * len(xs) + i))
+              for i, (w, x) in enumerate(zip(self.replicas, xs))]
+        # slice each block's padding off on its device before the copy to
+        # the host
+        outs, off = [], 0
+        for x, y in zip(xs, ys):
+            keep = max(0, min(x.shape[0], n - off))
+            off += x.shape[0]
+            if keep:
+                outs.append(y[:keep].float().cpu().numpy())
+        return outs[0] if len(outs) == 1 else np.concatenate(outs)
 
     # ------------------------------------------------------------------ #
     def _record(self, dt: float, ok: bool) -> None:
@@ -490,6 +507,7 @@ class VAEServer:
                         "resolution": server.resolution,
                         "scaling_factor": server.wrapper.scaling_factor,
                         "max_batch": server.batcher.max_batch,
+                        "replicas": len(server.replicas),
                     })
                 elif path == "/stats":
                     self._send_json(200, server.stats())
@@ -621,6 +639,42 @@ class VAEServer:
                     server._record(time.perf_counter() - t0, ok)
 
         return Handler
+
+
+def serving_replicas(wrapper, use_mesh: Optional[bool]) -> List[Any]:
+    """The wrappers the server splits each batch over: ``wrapper`` alone, or
+    it and one replica on each further visible card (``use_mesh`` None:
+    wherever more than one card is visible and the wrapper can be
+    replicated)."""
+    if not getattr(wrapper, "supports_mesh", True):
+        if use_mesh:
+            raise ValueError(
+                "use_mesh=True is incompatible with this wrapper (exported programs "
+                "run pinned to one device; serve the live model across cards)")
+        return [wrapper]
+    device = wrapper.device
+    if use_mesh is False or device.type != "cuda":
+        return [wrapper]
+    first = device.index or 0
+    count = torch.cuda.device_count()
+    others = [torch.device("cuda", (first + i) % count) for i in range(1, count)]
+    return [wrapper] + [wrapper.replicate(d) for d in others]
+
+
+def _call(wrapper, op: str, x: torch.Tensor, deterministic: bool,
+          generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One replica's part of a batch, launched and not waited for."""
+    if op == "encode":
+        return wrapper.encode(x, deterministic=deterministic, generator=generator)
+    if op == "decode":
+        return wrapper.decode(x)
+    if wrapper.use_tiling or wrapper.use_slicing:
+        # tiling and slicing live on encode/decode: the same deterministic
+        # math as forward(), plus decode's [-1, 1] clamp
+        return wrapper.decode(wrapper.encode(x, deterministic=deterministic,
+                                             generator=generator))
+    return wrapper.forward(x, sample_posterior=not deterministic,
+                           generator=generator)["reconstruction"]
 
 
 def _to_png(arr_hwc: np.ndarray) -> bytes:

@@ -304,6 +304,8 @@ class ExportedVAEWrapper:
 
     use_tiling = False
     use_slicing = False
+    # the programs are pinned to the device they load on: served on one card
+    supports_mesh = False
 
     def __init__(self, export_dir: str, params: Mapping[str, torch.Tensor], device: Any = None):
         from ..models.wrapper import resolve_device

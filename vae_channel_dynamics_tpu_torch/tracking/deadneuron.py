@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from ..models.vae import Conv2d, GroupNorm, Linear
+from ..parallel.zero import replicate_leaf
 from ..utils import naming
 
 logger = logging.getLogger(__name__)
@@ -110,7 +111,9 @@ class DeadNeuronTracker:
         if not targets:
             logger.warning("DeadNeuronTracker: no target parameters found.")
             return
-        pcts = torch.stack([self._percent(w) for w in targets.values()]).cpu().tolist()
+        # FSDP2 shards are read whole (a collective every rank reaches)
+        pcts = torch.stack([self._percent(replicate_leaf(w))
+                            for w in targets.values()]).cpu().tolist()
         for name, pct in zip(targets, pcts):
             self.percent_history[name].append((global_step, float(pct)))
 
@@ -120,7 +123,7 @@ class DeadNeuronTracker:
                 logger.debug("Raw-weight target not found: %s", name)
                 continue
             # replace-not-append: only the latest snapshot survives
-            self.weights_history[name] = [leaf.detach().float().cpu().numpy()]
+            self.weights_history[name] = [replicate_leaf(leaf).float().cpu().numpy()]
 
 
 __all__ = ["DeadNeuronTracker"]

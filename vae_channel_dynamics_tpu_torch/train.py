@@ -8,6 +8,14 @@ configs, the same run directory, ``--resume_from`` a checkpoint dir
 (``chkpt-N`` or ``final_model``) or ``auto`` (the newest ``chkpt-N`` of the
 run). It trains on one GPU, ``cuda`` unless ``--device`` says otherwise; a
 CUDA device raises when there is no GPU, and nothing falls back to the CPU.
+
+On several GPUs, one process per card through torchrun::
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m vae_channel_dynamics_tpu_torch.train --config_path <yaml>
+
+each rank on ``cuda:LOCAL_RANK`` over NCCL (``--device cpu``: gloo on the
+CPU), ``data.batch_size`` images a rank (``parallel/``).
 """
 
 from __future__ import annotations
@@ -34,14 +42,16 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> int:
+    from .parallel.mesh import initialize_distributed, shutdown
     from .training.checkpoint import latest_checkpoint
     from .training.loop import Trainer
     from .utils.config_utils import load_config, warn_unknown_keys
     from .utils.logging_utils import setup_logging
 
-    setup_logging()
-    log = logging.getLogger(__name__)
     args = parse_args(argv)
+    axis = initialize_distributed(args.device)
+    setup_logging(rank=0 if axis is None else axis.rank)
+    log = logging.getLogger(__name__)
     config = load_config(args.config_path)
     warn_unknown_keys(config)
     resume_from = args.resume_from
@@ -54,8 +64,9 @@ def main(argv=None) -> int:
             log.info("Auto-resume from %s", resume_from)
         else:
             log.info("Auto-resume: no checkpoint found; starting fresh.")
-    summary = Trainer(config, resume_from=resume_from, device=args.device).train()
+    summary = Trainer(config, resume_from=resume_from, device=args.device, axis=axis).train()
     log.info("Run summary: %s", summary)
+    shutdown(axis)
     return 0
 
 

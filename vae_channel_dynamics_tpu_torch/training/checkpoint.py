@@ -11,6 +11,12 @@ Adafactor's row, column and full moments) with its counters, the optimizer
 step, the stats accumulators and count, and the EMA parameters. The model
 directory that both packages load (``final_model/vae``) is the Trainer's to
 write, through ``models/io.py``.
+
+Across ranks the file is the same as one process writes: a state whose
+leaves are sliced (``state.layout``, ``parallel/zero.py``) is gathered
+whole on every rank (a collective every rank calls), rank 0 writes it, and
+a restore copies each rank's slice out of the whole leaves, so a run saved
+at one world size resumes at any other.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..parallel.zero import write_leaf
 from .state import TrainState
 
 logger = logging.getLogger(__name__)
@@ -34,31 +41,39 @@ STATE_FILE = "train_state.pt"
 RESUME_META = "resume_meta.json"
 
 
-def _tensors(values, fn):
-    return None if values is None else [None if v is None else fn(v) for v in values]
-
-
-def _opt_dict(opt, copy) -> Dict[str, Any]:
+def _opt_dict(opt, copy, whole) -> Dict[str, Any]:
     """An optimizer state (a dataclass of tensor lists and integers) by
     field, with its kind."""
     out: Dict[str, Any] = {"kind": type(opt).__name__}
     for field in dataclasses.fields(opt):
         value = getattr(opt, field.name)
-        out[field.name] = int(value) if isinstance(value, int) else _tensors(value, copy)
+        if isinstance(value, int):
+            out[field.name] = int(value)
+        else:
+            out[field.name] = None if value is None else [
+                None if v is None else copy(whole(field.name, i, v))
+                for i, v in enumerate(value)]
     return out
 
 
 def state_dict_of(state: TrainState, copy=lambda t: t.detach().cpu()) -> Dict[str, Any]:
-    """The state as a dict of tensors (each passed through ``copy``) and
-    integers."""
+    """The state as a dict of whole tensors (each passed through ``copy``)
+    and integers; sliced leaves are gathered first, on every rank."""
+    layout = state.layout
+
+    def whole(field: str, i: int, t: torch.Tensor) -> torch.Tensor:
+        return t.detach() if layout is None else layout.gather(field, i, t.detach())
+
     return {
-        "params": {k: copy(p) for k, p in state.model.named_parameters()},
-        "opt": _opt_dict(state.opt_state, copy),
+        "params": {k: copy(whole("param", i, p))
+                   for i, (k, p) in enumerate(state.model.named_parameters())},
+        "opt": _opt_dict(state.opt_state, copy, whole),
         "step": int(state.step),
         "stats_acc": {k: copy(v) for k, v in state.stats_acc.items()},
         "stats_count": copy(state.stats_count),
         "ema_params": (None if state.ema_params is None
-                       else {k: copy(v) for k, v in state.ema_params.items()}),
+                       else {k: copy(whole("ema", i, v))
+                             for i, (k, v) in enumerate(state.ema_params.items())}),
     }
 
 
@@ -79,10 +94,21 @@ def _write(path: str, payload: Dict[str, Any], meta: Optional[Dict]) -> None:
     logger.info("Saved train state to %s", target)
 
 
-def save_train_state(path: str, state: TrainState, meta: Optional[Dict] = None) -> None:
+def write_state_dict(path: str, payload: Dict[str, Any], meta: Optional[Dict] = None) -> None:
+    """Write a :func:`state_dict_of` payload (on any device) as a
+    checkpoint under ``path``."""
+    _write(path, _to_cpu(payload), meta)
+
+
+def save_train_state(path: str, state: TrainState, meta: Optional[Dict] = None,
+                     write: bool = True) -> None:
     """Write ``state`` under ``path``/state (overwriting), and ``meta`` (the
-    data-stream position) as ``resume_meta.json`` beside it."""
-    _write(path, state_dict_of(state), meta)
+    data-stream position) as ``resume_meta.json`` beside it. Across ranks
+    every rank calls it (the gather) and only the one with ``write``
+    writes."""
+    payload = state_dict_of(state)
+    if write:
+        _write(path, payload, meta)
 
 
 class AsyncSaver:
@@ -96,11 +122,15 @@ class AsyncSaver:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
-    def save(self, path: str, state: TrainState, on_complete=None, meta=None) -> None:
+    def save(self, path: str, state: TrainState, on_complete=None, meta=None,
+             write: bool = True) -> None:
         """``on_complete`` (e.g. pruning) runs in the writer thread after the
-        checkpoint lands."""
+        checkpoint lands. Across ranks every rank calls it (the snapshot
+        gathers sliced leaves) and only the one with ``write`` writes."""
         self.wait()
         snapshot = state_dict_of(state, copy=lambda t: t.detach().clone())
+        if not write:
+            return
 
         def write() -> None:
             try:
@@ -166,11 +196,16 @@ def restore_train_state(path: str, state: TrainState) -> TrainState:
     if not os.path.isfile(target):
         raise FileNotFoundError(f"No checkpoint state at {target}")
     saved = torch.load(target, map_location="cpu", weights_only=True)
+    layout = state.layout
+
+    def mine(field: str, i: int, full: torch.Tensor) -> torch.Tensor:
+        return full if layout is None else layout.scatter(field, i, full)
+
     params = dict(state.model.named_parameters())
     if set(saved["params"]) != set(params):
         raise ValueError(f"checkpoint {path} holds other parameters than the model")
     for k, p in params.items():
-        p.copy_(saved["params"][k])
+        write_leaf(p, saved["params"][k])
     opt, kept_opt = state.opt_state, saved["opt"]
     kind = kept_opt.get("kind", "OptState")
     if kind != type(opt).__name__:
@@ -182,15 +217,24 @@ def restore_train_state(path: str, state: TrainState) -> TrainState:
         if isinstance(live, int):
             setattr(opt, name, int(kept))
             continue
+        if name == "acc_grads" and (live is None) != (kept is None):
+            # a data-parallel run keeps no accumulator (training/step.py);
+            # a save at an update boundary holds an empty one either way
+            if int(kept_opt["mini_step"]) != 0:
+                raise ValueError(f"checkpoint {path}: saved mid-accumulation by a run "
+                                 "that keeps its gradient sum elsewhere")
+            for dst in live or []:
+                dst.zero_()
+            continue
         if (live is None) != (kept is None) or len(live or []) != len(kept or []):
             raise ValueError(f"checkpoint {path}: optimizer {name} does not match "
                              "(gradient accumulation differs?)")
-        for dst, src in zip(live or [], kept or []):
+        for i, (dst, src) in enumerate(zip(live or [], kept or [])):
             if (dst is None) != (src is None):
                 raise ValueError(f"checkpoint {path}: optimizer {name} is factored "
                                  "otherwise")
             if dst is not None:
-                dst.copy_(src)
+                dst.copy_(mine(name, i, src))
     state.step = int(saved["step"])
     if set(saved["stats_acc"]) != set(state.stats_acc):
         raise ValueError(f"checkpoint {path}: stats accumulators do not match the tracking config")
@@ -199,8 +243,8 @@ def restore_train_state(path: str, state: TrainState) -> TrainState:
     state.stats_count.copy_(saved["stats_count"])
     if (state.ema_params is None) != (saved["ema_params"] is None):
         raise ValueError(f"checkpoint {path}: EMA presence differs from training.ema_decay")
-    for k, v in (state.ema_params or {}).items():
-        v.copy_(saved["ema_params"][k])
+    for i, (k, v) in enumerate((state.ema_params or {}).items()):
+        v.copy_(mine("ema", i, saved["ema_params"][k]))
     logger.info("Restored train state from %s", target)
     return state
 
@@ -246,4 +290,6 @@ __all__ = [
     "read_resume_meta",
     "restore_train_state",
     "save_train_state",
+    "state_dict_of",
+    "write_state_dict",
 ]

@@ -1,7 +1,9 @@
-"""Training orchestration on one device: the port of
+"""Training orchestration: the port of
 ``vae_channel_dynamics_tpu/training/loop.py``.
 
-The same loop as the JAX Trainer, with one process driving one device:
+The same loop as the JAX Trainer, with one process driving one device, or
+one process per card over the ``data`` axis (launched by torchrun,
+``parallel/``):
 epochs over the seeded loader, gradient accumulation, the EMA, the interval
 control loop (activity monitor -> classifier -> nudger, the dead-weight
 tracker, and their CSVs), periodic and preemption checkpoints with the
@@ -26,10 +28,22 @@ are shared) writes ``final_model/exported/``: the port writes
 ``data.resolution``, bf16 under ``mixed_precision`` bf16 or fp16, else fp32,
 for the Trainer's device.
 
+Across ranks each rank reads its strided shard of every epoch
+(``data.batch_size`` per rank, ``drop_last``), and the model is wrapped in
+DDP, or sharded by FSDP2 under ``parallel.shard_params`` (ZeRO-3, not with
+``kernel_impl: fused``, whose kernels keep the parameters whole, as in JAX);
+``shard_optimizer`` and ``shard_ema`` slice the optimizer state and the EMA
+(``parallel/zero.py``). The step reduces the losses and the taps over the
+global batch, so every rank runs the monitor, the classifier and the
+nudger on the same numbers and nudges the same γ entries. Rank 0 alone
+writes the config, the reports, the CSVs, the checkpoints (gathered on
+every rank), ``final_model``, the lens and the profile trace.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-skipped: ``parallel`` axes above 1 (ROADMAP Q1, Multi-GPU). The matplotlib
-plots are not drawn (ROADMAP Q1, Plots); the CSV and JSONL files they read
-are written.
+skipped: ``parallel.spatial`` and ``parallel.tensor`` above 1 (ROADMAP Q1,
+Spatial and tensor parallelism) and ``parallel.slices`` (Do not port). The
+matplotlib plots are not drawn (ROADMAP Q1, Plots); the CSV and JSONL files
+they read are written.
 """
 
 from __future__ import annotations
@@ -52,6 +66,8 @@ from ..intervention import InterventionHandler
 from ..models import io as model_io
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..models.wrapper import resolve_device
+from ..parallel.mesh import initialize_distributed, launched_by_torchrun, refuse_unported_axes
+from ..parallel.zero import ZeroLayout, fully_shard_model
 from ..tracking import ActivityMonitor, DeadNeuronTracker
 from ..utils.config_utils import as_float, as_int
 from ..utils.profiling import TraceCapture
@@ -62,6 +78,8 @@ from .checkpoint import (
     read_resume_meta,
     restore_train_state,
     save_train_state,
+    state_dict_of,
+    write_state_dict,
 )
 from .state import TrainState
 from .step import build_optimizer, make_eval_step, make_train_step
@@ -132,13 +150,39 @@ def resolve_model(model_config: Dict[str, Any], dtype: torch.dtype,
 
 
 def _refuse_unported(config: Dict[str, Any]) -> None:
-    parallel = config.get("parallel", {}) or {}
-    for axis in ("spatial", "slices", "tensor"):
-        if as_int(parallel.get(axis), 1) > 1:
-            raise NotImplementedError(
-                f"parallel.{axis} > 1: multi-GPU training is not yet ported to "
-                "PyTorch (ROADMAP Q1, Multi-GPU)"
-            )
+    refuse_unported_axes(config.get("parallel", {}) or {})
+
+
+def _wrap_data_parallel(model: AutoencoderKL, axis, parallel: Dict[str, Any]):
+    """(the module the step runs forward through, the ZeRO layout or None)
+    for this rank: FSDP2 under ``shard_params`` (kept whole, with a
+    warning, under ``kernel_impl: fused``: its kernels take whole
+    parameters, JAX ``loop.py:477-486``), DDP otherwise."""
+    shard_opt = bool(parallel.get("shard_optimizer", False))
+    shard_ema = bool(parallel.get("shard_ema", False))
+    shard_par = bool(parallel.get("shard_params", False))
+    if shard_par and model.impl == "fused":
+        logger.warning("parallel.shard_params is incompatible with model.kernel_impl=fused "
+                       "across ranks; keeping the params replicated.")
+        shard_par = False
+    if shard_par:
+        fully_shard_model(model, axis)
+        forward_module = model
+        logger.info("parallel.shard_params: parameters sharded over the %d-way data axis "
+                    "(ZeRO-3, FSDP2)", axis.world)
+    else:
+        ids = [axis.device.index] if axis.device.type == "cuda" else None
+        forward_module = torch.nn.parallel.DistributedDataParallel(model, device_ids=ids)
+    layout = None
+    if shard_opt or shard_ema or shard_par:
+        layout = ZeroLayout(axis, model, shard_opt, shard_ema, fsdp=shard_par)
+        if shard_opt:
+            logger.info("parallel.shard_optimizer: optimizer state sharded over the %d-way "
+                        "data axis (ZeRO-1)", axis.world)
+        if shard_ema:
+            logger.info("parallel.shard_ema: EMA sharded over the %d-way data axis",
+                        axis.world)
+    return forward_module, layout
 
 
 def _step_seed(seed: int, micro_step: int) -> int:
@@ -148,10 +192,15 @@ def _step_seed(seed: int, micro_step: int) -> int:
 
 class Trainer:
     def __init__(self, config: Dict[str, Any], resume_from: Optional[str] = None,
-                 device: Any = "cuda"):
+                 device: Any = "cuda", axis=None):
         self.config = config
         self.resume_from = resume_from
-        self.device = resolve_device(device)
+        if axis is None and launched_by_torchrun():
+            axis = initialize_distributed(device)
+        # this process's parallel.DataAxis; None runs in one process
+        self.axis = axis
+        self.device = axis.device if axis is not None else resolve_device(device)
+        self.is_main = axis is None or axis.is_main
 
         self.run_name = config.get("run_name", "vae_run")
         self.output_dir = os.path.join(config.get("output_dir", "./results"), self.run_name)
@@ -175,16 +224,22 @@ class Trainer:
         config = self.config
         _refuse_unported(config)
         device = self.device
-        logger.info("Running experiment: %s on %s", self.run_name, device)
+        axis, is_main = self.axis, self.is_main
+        world = 1 if axis is None else axis.world
+        rank = 0 if axis is None else axis.rank
+        logger.info("Running experiment: %s on %s (rank %d of %d)", self.run_name, device,
+                    rank, world)
         os.makedirs(self.output_dir, exist_ok=True)
-        with open(os.path.join(self.output_dir, "config.yaml"), "w") as f:
-            yaml.dump(config, f, default_flow_style=False)
+        if is_main:
+            with open(os.path.join(self.output_dir, "config.yaml"), "w") as f:
+                yaml.dump(config, f, default_flow_style=False)
 
         seed = as_int(config.get("seed"), 0)
         reporter = build_reporter(
             self.logging_config.get("report_to", "tensorboard"), self.output_dir,
             self.logging_dir, config.get("project_name", "vae_project"), self.run_name,
             config=config, entity=self.logging_config.get("entity"),
+            is_main_process=is_main,
         )
 
         # ---------------- model ---------------- #
@@ -196,7 +251,14 @@ class Trainer:
         else:
             dtype = torch.float32
         model = resolve_model(config.get("model", {}), dtype, device)
+        self.model = model
         vae_config = model.config
+        parallel = config.get("parallel", {}) or {}
+        forward_module, layout = model, None
+        if axis is not None:
+            forward_module, layout = _wrap_data_parallel(model, axis, parallel)
+        elif any(parallel.get(k) for k in ("shard_optimizer", "shard_ema", "shard_params")):
+            logger.info("parallel.shard_*: one process, so every leaf stays whole")
 
         # ---------------- data ---------------- #
         dc = self.data_config
@@ -214,8 +276,12 @@ class Trainer:
             seed=seed,
             transfer_dtype=dc.get("transfer_dtype", "float32"),
         )
+        # data.batch_size is per rank; each rank reads its strided shard of
+        # every epoch, all of the same length (JAX loop.py:309-326)
         train_loader = create_dataloader(train_dataset, batch_size=batch_size,
-                                         num_workers=num_workers, shuffle=True, seed=seed)
+                                         num_workers=num_workers, shuffle=True, seed=seed,
+                                         shard_index=rank, num_shards=world,
+                                         drop_last=world > 1)
         val_loader = None
         do_validation = bool(dc.get("do_validation", False))
         if do_validation:
@@ -235,6 +301,7 @@ class Trainer:
                     val_dataset,
                     batch_size=as_int(dc.get("validation_batch_size"), batch_size),
                     num_workers=num_workers, shuffle=False, seed=seed,
+                    shard_index=rank, num_shards=world, drop_last=world > 1,
                 )
             except Exception as e:  # noqa: BLE001 — parity: disable on failure
                 logger.error("Failed to load validation data: %s. Disabling validation.", e)
@@ -244,7 +311,8 @@ class Trainer:
         tc = self.training_config
         accum = max(1, as_int(tc.get("gradient_accumulation_steps"), 1))
         try:
-            steps_per_epoch = max(1, math.ceil(len(train_dataset) / batch_size / accum))
+            steps_per_epoch = max(1, math.ceil(len(train_dataset) / (batch_size * world)
+                                               / accum))
         except TypeError:  # streaming dataset (train.py:188-192 semantics)
             steps_per_epoch = as_int(tc.get("max_steps_per_epoch_iterable"), 10000)
         num_train_epochs = as_int(tc.get("num_train_epochs"), 1)
@@ -261,6 +329,7 @@ class Trainer:
             gradient_accumulation_steps=accum,
             optimizer=str(tc.get("optimizer", "adamw")).lower(),
             lr_scheduler_type=str(tc.get("lr_scheduler_type", "linear")),
+            summed_grads=axis is not None,
         )
 
         # ---------------- instrumentation ---------------- #
@@ -290,30 +359,33 @@ class Trainer:
         ll_config = config.get("logit_lens", {}) or {}
         logit_lens = None
         ll_interval = 0
-        if ll_config.get("enabled", False):
+        if ll_config.get("enabled", False) and is_main:
             logit_lens = VAELogitLens(logit_lens_config=ll_config,
                                       main_experiment_output_dir=self.output_dir, seed=seed,
                                       device=device)
             ll_interval = as_int(ll_config.get("visualization_interval"), 1000)
 
-        tracer = TraceCapture(config.get("profiling", {}), self.output_dir, device)
+        tracer = TraceCapture(config.get("profiling", {}) if is_main else {},
+                              self.output_dir, device)
 
         # ---------------- state and steps ---------------- #
         model.set_capture(monitor.scalar_capture_table)
         ema_decay = as_float(tc.get("ema_decay"), 0.0)
         state = TrainState.create(model, tx, stats_acc=monitor.init_acc(model),
-                                  ema=ema_decay > 0.0)
+                                  ema=ema_decay > 0.0, layout=layout)
         if self.resume_from:
             state = restore_train_state(self.resume_from, state)
             logger.info("Resumed from %s at step %d", self.resume_from, state.step)
         step_plain = make_train_step(model, tx, self.kl_weight,
                                      stats_accumulate=ActivityMonitor.accumulate,
-                                     ema_decay=ema_decay)
+                                     ema_decay=ema_decay, axis=axis,
+                                     forward_module=forward_module)
         step_maps = None
         if monitor.enabled and monitor.map_keys:
             step_maps = make_train_step(model, tx, self.kl_weight,
                                         stats_accumulate=ActivityMonitor.accumulate,
-                                        map_keys=monitor.map_keys, ema_decay=ema_decay)
+                                        map_keys=monitor.map_keys, ema_decay=ema_decay,
+                                        axis=axis, forward_module=forward_module)
         eval_step = make_eval_step(model) if do_validation else None
 
         # ---------------- intervals ---------------- #
@@ -325,6 +397,15 @@ class Trainer:
         validation_epochs = as_int(tc.get("validation_epochs"), 0)
         validation_steps = as_int(tc.get("validation_steps"), 0)
         ckpt_saver = AsyncSaver() if self.saving_config.get("async_save", True) else None
+
+        def _agreed(flag: bool) -> bool:
+            """Whether any rank raised ``flag`` (a collective; every rank
+            calls it at the same step)."""
+            if axis is None:
+                return flag
+            t = torch.tensor([1.0 if flag else 0.0], device=device)
+            torch.distributed.all_reduce(t)
+            return bool(t.item() > 0)
 
         # ---------------- preemption ---------------- #
         # SIGTERM (and training.stop_after_steps) checkpoint at the next step
@@ -437,7 +518,7 @@ class Trainer:
                 train_batches = _prepared_batches(
                     train_loader, skip=resume_skip_batches if epoch == start_epoch else 0)
                 for batch in train_batches:
-                    images_seen += batch["n_valid"]
+                    images_seen += batch["n_valid"] * world
                     micro_step += 1
                     in_epoch_micro += 1
                     is_update = micro_step % accum == 0
@@ -485,16 +566,20 @@ class Trainer:
                     if (handler is not None and intervention_interval > 0
                             and global_step % intervention_interval == 0):
                         if classification_output:
+                            # every rank classified the same reduced stats,
+                            # so every rank nudges the same entries
                             handler.intervene(model, classification_output, global_step)
                             inactive_total = sum(len(v["inactive_channel_indices"])
                                                  for v in classification_output.values())
                             reporter.log({"inactive_channels": inactive_total,
                                           "nudged_scales": handler.num_nudges_applied},
                                          global_step)
-                            with open(os.path.join(self.output_dir,
-                                                   "intervention_history.csv"), "a") as fh:
-                                fh.write(f"{global_step},{inactive_total},"
-                                         f"{handler.num_nudges_applied}\n")
+                            if is_main:
+                                with open(os.path.join(self.output_dir,
+                                                       "intervention_history.csv"),
+                                          "a") as fh:
+                                    fh.write(f"{global_step},{inactive_total},"
+                                             f"{handler.num_nudges_applied}\n")
                         else:
                             logger.info("Step %d: Intervention due, but no regions classified.",
                                         global_step)
@@ -562,21 +647,27 @@ class Trainer:
 
                         if ckpt_saver is not None:
                             ckpt_saver.save(ckpt_path, state, on_complete=_prune,
-                                            meta=_resume_meta())
+                                            meta=_resume_meta(), write=is_main)
                         else:
-                            save_train_state(ckpt_path, state, meta=_resume_meta())
-                            _prune()
+                            save_train_state(ckpt_path, state, meta=_resume_meta(),
+                                             write=is_main)
+                            if is_main:
+                                _prune()
 
                     # --- preemption-safe exit ---
                     deterministic_stop = stop_after_steps > 0 and global_step >= stop_after_steps
-                    if deterministic_stop:
-                        preempt_flag["hit"] = True
-                    if preempt_flag["hit"]:
+                    stop_now = deterministic_stop or (axis is None and preempt_flag["hit"])
+                    if not stop_now and axis is not None and global_step % log_interval == 0:
+                        # a signal reaches the ranks at different steps: they
+                        # agree at the logging interval, where the metrics
+                        # already cost a host sync
+                        stop_now = _agreed(preempt_flag["hit"])
+                    if stop_now:
                         if ckpt_saver is not None:
                             ckpt_saver.wait()
                         save_train_state(
                             os.path.join(self.output_dir, f"{checkpoint_prefix}-{global_step}"),
-                            state, meta=_resume_meta())
+                            state, meta=_resume_meta(), write=is_main)
                         logger.warning("Preemption checkpoint written at step %d; "
                                        "exiting the training loop.", global_step)
                         preempted = True
@@ -664,8 +755,10 @@ class Trainer:
                                          out["num_samples"]]).float())
         finally:
             prepared_batches.close()
-        rec_sum, kl_sum, n = (torch.stack(sums).sum(0).cpu().tolist()
-                              if sums else (0.0, 0.0, 0.0))
+        total = torch.stack(sums).sum(0) if sums else torch.zeros(3, device=self.device)
+        if self.axis is not None:
+            torch.distributed.all_reduce(total)
+        rec_sum, kl_sum, n = total.cpu().tolist()
         avg_rec = rec_sum / n if n else 0.0
         avg_kl = kl_sum / n if n else 0.0
         avg_total = avg_rec + self.kl_weight * avg_kl
@@ -690,17 +783,22 @@ class Trainer:
 
         summary: Dict[str, Any] = {}
         final_dir = os.path.join(self.output_dir, "final_model")
-        os.makedirs(final_dir, exist_ok=True)
-        save_train_state(final_dir, state, meta=final_meta)
         vae_dir = os.path.join(final_dir, "vae")
-        model_io.save_model_dir(vae_dir, vae_config, dict(state.model.named_parameters()))
-        logger.info("Final VAE saved to %s", vae_dir)
         summary["final_model_dir"] = final_dir
+        # whole on every rank (the gather is a collective), written by rank 0
+        whole = state_dict_of(state, copy=lambda t: t)
         if state.ema_params is not None:
-            ema_dir = os.path.join(final_dir, "vae_ema")
-            model_io.save_model_dir(ema_dir, vae_config, state.ema_params)
-            logger.info("EMA VAE saved to %s", ema_dir)
-            summary["ema_model_dir"] = ema_dir
+            summary["ema_model_dir"] = os.path.join(final_dir, "vae_ema")
+        if not self.is_main:
+            reporter.finish()
+            return summary
+        os.makedirs(final_dir, exist_ok=True)
+        write_state_dict(final_dir, whole, final_meta)
+        model_io.save_model_dir(vae_dir, vae_config, whole["params"])
+        logger.info("Final VAE saved to %s", vae_dir)
+        if state.ema_params is not None:
+            model_io.save_model_dir(summary["ema_model_dir"], vae_config, whole["ema_params"])
+            logger.info("EMA VAE saved to %s", summary["ema_model_dir"])
 
         if (self.config.get("saving", {}) or {}).get("export_stablehlo", False):
             # deployment artifacts next to the model dir: torch.export

@@ -30,6 +30,10 @@ class TrainState:
     # exponential moving average of the parameters (training.ema_decay > 0),
     # by parameter name; None when disabled
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    # parallel/zero.py's ZeroLayout when the optimizer state, the EMA or
+    # the parameters keep one slice a rank (their tensors here are this
+    # rank's slices); None keeps every leaf whole
+    layout: Optional[object] = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -37,9 +41,18 @@ class TrainState:
         return dict(self.model.named_parameters())
 
     @classmethod
-    def create(cls, model: nn.Module, tx, stats_acc=None, ema: bool = False) -> "TrainState":
+    def create(cls, model: nn.Module, tx, stats_acc=None, ema: bool = False,
+               layout=None) -> "TrainState":
+        """A fresh state; with ``layout`` the optimizer state and the EMA
+        are this rank's slices of them (``parallel/zero.py``)."""
         device = next(model.parameters()).device
-        params = dict(model.named_parameters())
+        if layout is None:
+            params = dict(model.named_parameters())
+            ema_src = params
+        else:
+            params = layout.opt_params(model)
+            ema_src = layout.ema_views(model)
+            tx.shards = layout
         return cls(
             model=model,
             opt_state=tx.init(params),
@@ -47,8 +60,9 @@ class TrainState:
             stats_acc=dict(stats_acc or {}),
             stats_count=torch.zeros((), dtype=torch.float32, device=device),
             ema_params=(
-                {k: p.detach().clone() for k, p in params.items()} if ema else None
+                {k: p.detach().clone() for k, p in ema_src.items()} if ema else None
             ),
+            layout=layout,
         )
 
     def reset_stats(self) -> "TrainState":

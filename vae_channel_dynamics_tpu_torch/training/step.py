@@ -38,6 +38,7 @@ caller reads it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -45,8 +46,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.wrapper import forward_with_stats
+from ..parallel.mesh import all_gather_rows
 from ..ops.stats import tap_mask
 from .state import TrainState
 
@@ -152,17 +155,36 @@ class _Optimizer:
     ``optax.MultiSteps`` when ``every_k > 1``; parameters and gradients are
     dicts keyed by parameter name, updated in place."""
 
-    def __init__(self, schedule: Schedule, max_grad_norm: float, every_k: int = 1):
+    def __init__(self, schedule: Schedule, max_grad_norm: float, every_k: int = 1,
+                 summed_grads: bool = False):
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
         self.every_k = max(1, int(every_k))
+        # the data-parallel step sums the micro-steps' gradients in the
+        # parameters' .grad (DDP's no_sync) and reads them on the k-th
+        # (update_summed): the state then holds no accumulator
+        self.summed_grads = bool(summed_grads)
+        # parallel/zero.py's ZeroLayout when each rank updates slices of the
+        # parameters: whole shapes, and the reductions over the slices
+        self.shards = None
 
     def _acc_grads(self, ps: List[torch.Tensor]) -> Optional[List[torch.Tensor]]:
-        return [torch.zeros_like(p) for p in ps] if self.every_k > 1 else None
+        if self.every_k == 1 or self.summed_grads:
+            return None
+        return [torch.zeros_like(p) for p in ps]
+
+    def _shape(self, i: int, p: torch.Tensor) -> Tuple[int, ...]:
+        return tuple(p.shape) if self.shards is None else self.shards.full_shapes[i]
+
+    def _norms(self, ts: List[torch.Tensor]) -> List[torch.Tensor]:
+        if self.shards is None:
+            return list(torch._foreach_norm(ts))
+        return self.shards.norms(range(len(ts)), ts)
 
     def _clip(self, g: List[torch.Tensor]) -> List[torch.Tensor]:
         if self.max_grad_norm and self.max_grad_norm > 0:
-            norm = global_norm(g)
+            norm = (global_norm(g) if self.shards is None
+                    else self.shards.global_norm(g))
             scale = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
                                 self.max_grad_norm / norm)
             g = torch._foreach_mul(g, scale)
@@ -190,14 +212,31 @@ class _Optimizer:
                 a.zero_()
         return True
 
+    @torch.no_grad()
+    def update_summed(self, grads: Dict[str, torch.Tensor], state,
+                      params: Dict[str, torch.Tensor]) -> bool:
+        """One micro-step where the gradient accumulates outside the state
+        (DDP's ``no_sync``): ``grads`` is the sum of the micro-steps' since
+        the last update, read on every k-th micro-step only."""
+        if state.mini_step < self.every_k - 1:
+            state.mini_step += 1
+            return False
+        g = [grads[name] for name in params]
+        if self.every_k > 1:
+            g = torch._foreach_div(g, float(self.every_k))
+        self._apply(self._clip(g), state, [p.detach() for p in params.values()])
+        state.mini_step = 0
+        return True
+
 
 class AdamW(_Optimizer):
     """``optax.chain(clip_by_global_norm, adamw)``, in ``MultiSteps`` when
     ``every_k > 1``."""
 
     def __init__(self, schedule: Schedule, b1: float, b2: float, eps: float,
-                 weight_decay: float, max_grad_norm: float, every_k: int = 1):
-        super().__init__(schedule, max_grad_norm, every_k)
+                 weight_decay: float, max_grad_norm: float, every_k: int = 1,
+                 summed_grads: bool = False):
+        super().__init__(schedule, max_grad_norm, every_k, summed_grads)
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
 
@@ -253,15 +292,15 @@ class Adafactor(_Optimizer):
     defaults (module docstring), in ``MultiSteps`` when ``every_k > 1``."""
 
     def __init__(self, schedule: Schedule, weight_decay: float, max_grad_norm: float,
-                 every_k: int = 1):
-        super().__init__(schedule, max_grad_norm, every_k)
+                 every_k: int = 1, summed_grads: bool = False):
+        super().__init__(schedule, max_grad_norm, every_k, summed_grads)
         self.weight_decay = weight_decay
 
     def init(self, params: Dict[str, torch.Tensor]) -> FactoredState:
         ps = [p.detach() for p in params.values()]
         v_row, v_col, v = [], [], []
-        for p in ps:
-            dims = factored_dims(p.shape)
+        for i, p in enumerate(ps):
+            dims = factored_dims(self._shape(i, p))
             if dims is None:
                 v_row.append(None)
                 v_col.append(None)
@@ -292,24 +331,34 @@ class Adafactor(_Optimizer):
             rs = torch._foreach_rsqrt(vs)
             for i, u in zip(full, torch._foreach_mul([g[i] for i in full], rs)):
                 upd[i] = u
+        shards = self.shards
         for i, v_row in enumerate(state.v_row):
             if v_row is None:
                 continue
-            d1, d0 = factored_dims(g[i].shape)
+            d1, d0 = factored_dims(self._shape(i, g[i]))
             v_col = state.v_col[i]
-            v_row.mul_(keep).add_(sq[i].mean(dim=d0) * take)
-            v_col.mul_(keep).add_(sq[i].mean(dim=d1) * take)
-            row_col_mean = v_row.mean(dim=d1 - 1 if d1 > d0 else d1, keepdim=True)
+            r1 = d1 - 1 if d1 > d0 else d1
+            if shards is None:
+                row, col = sq[i].mean(dim=d0), sq[i].mean(dim=d1)
+            else:
+                # a rank holding a slice of the axis a mean runs over adds
+                # its sums to the other ranks'
+                row = shards.axis_mean(i, sq[i], d0, d0)
+                col = shards.axis_mean(i, sq[i], d1, d1)
+            v_row.mul_(keep).add_(row * take)
+            v_col.mul_(keep).add_(col * take)
+            row_col_mean = (v_row.mean(dim=r1, keepdim=True) if shards is None
+                            else shards.axis_mean(i, v_row, r1, d1).unsqueeze(r1))
             row_factor = (v_row / row_col_mean).rsqrt()
             upd[i] = g[i] * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
         # clip each update to a block RMS of 1, then the learning rate and
         # the parameter's RMS (at least 1e-3); the
         # RMS is the norm over sqrt(numel), a host float: no device copy
-        roots = [math.sqrt(p.numel()) for p in ps]
-        denom = torch._foreach_div(torch._foreach_norm(upd), roots)
+        roots = [math.sqrt(math.prod(self._shape(i, p))) for i, p in enumerate(ps)]
+        denom = torch._foreach_div(self._norms(upd), roots)
         torch._foreach_div_(denom, _CLIPPING_THRESHOLD)
         torch._foreach_clamp_min_(denom, 1.0)
-        p_rms = torch._foreach_div(torch._foreach_norm(ps), roots)
+        p_rms = torch._foreach_div(self._norms(ps), roots)
         torch._foreach_clamp_min_(p_rms, _MIN_SCALE)
         torch._foreach_div_(upd, denom)
         torch._foreach_mul_(upd, lr)
@@ -331,27 +380,35 @@ def build_optimizer(
     gradient_accumulation_steps: int = 1,
     optimizer: str = "adamw",
     lr_scheduler_type: str = "linear",
+    summed_grads: bool = False,
 ) -> Tuple[Union[AdamW, Adafactor], Schedule]:
     """AdamW or Adafactor with global-norm clipping and the learning-rate
     schedule, with optional gradient accumulation; the JAX package's
     ``build_optimizer``. Adafactor ignores the Adam betas and epsilon, and
-    takes ``adam_weight_decay`` as its decoupled weight decay rate."""
+    takes ``adam_weight_decay`` as its decoupled weight decay rate.
+    ``summed_grads`` is for the data-parallel step: the micro-steps'
+    gradients sum in the parameters' .grad and the state keeps no
+    accumulator."""
     schedule = make_lr_schedule(lr_scheduler_type, learning_rate, warmup_steps,
                                 max_train_steps)
     if optimizer == "adafactor":
         return Adafactor(schedule, adam_weight_decay or 0.0, max_grad_norm or 0.0,
-                         gradient_accumulation_steps), schedule
+                         gradient_accumulation_steps, summed_grads), schedule
     if optimizer != "adamw":
         raise ValueError(
             f"Unknown training.optimizer '{optimizer}' (expected 'adamw' or 'adafactor')"
         )
     tx = AdamW(schedule, adam_beta1, adam_beta2, adam_epsilon, adam_weight_decay,
-               max_grad_norm or 0.0, gradient_accumulation_steps)
+               max_grad_norm or 0.0, gradient_accumulation_steps, summed_grads)
     return tx, schedule
 
 
-def _masked_mean(per_sample: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return (per_sample * mask).sum() / mask.sum().clamp_min(1.0)
+def _masked_mean(per_sample: torch.Tensor, mask: torch.Tensor,
+                 count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The masked sum over ``count`` valid rows (the mask's own sum by
+    default; a rank's share of the global mean with the global count)."""
+    count = mask.sum() if count is None else count
+    return (per_sample * mask).sum() / count.clamp_min(1.0)
 
 
 def dequantize_pixels(pixel_values: torch.Tensor) -> torch.Tensor:
@@ -362,11 +419,13 @@ def dequantize_pixels(pixel_values: torch.Tensor) -> torch.Tensor:
     return pixel_values
 
 
-def _losses(out, pixel_values: torch.Tensor, mask: torch.Tensor):
+def _losses(out, pixel_values: torch.Tensor, mask: torch.Tensor,
+            count: Optional[torch.Tensor] = None):
     recon = out["reconstruction"].float()
     pixels = pixel_values.float()
     sq = (recon - pixels).square().mean(dim=tuple(range(1, recon.dim())))
-    return _masked_mean(sq, mask), _masked_mean(out["latent_dist"].kl(), mask)
+    return (_masked_mean(sq, mask, count),
+            _masked_mean(out["latent_dist"].kl(), mask, count))
 
 
 def default_stats_accumulate(
@@ -386,6 +445,14 @@ def _nchw_pixels(batch, device) -> torch.Tensor:
     return dequantize_pixels(pixels).permute(0, 3, 1, 2).contiguous()
 
 
+def _blend_ema(state: TrainState, params: Dict[str, torch.Tensor], ema_decay: float) -> None:
+    ema = list(state.ema_params.values())
+    with torch.no_grad():
+        torch._foreach_mul_(ema, ema_decay)
+        torch._foreach_add_(ema, [params[k].detach() for k in state.ema_params],
+                            alpha=1.0 - ema_decay)
+
+
 def make_train_step(
     model: torch.nn.Module,
     tx: AdamW,
@@ -393,6 +460,8 @@ def make_train_step(
     stats_accumulate: Optional[Callable] = None,
     map_keys: Tuple[str, ...] = (),
     ema_decay: float = 0.0,
+    axis=None,
+    forward_module: Optional[torch.nn.Module] = None,
 ):
     """Build the train step for ``model`` (an ``AutoencoderKL``).
 
@@ -403,48 +472,140 @@ def make_train_step(
     ``torch.Generator`` ``rng``, or is the NHWC standard-normal ``noise``
     given (tests inject the JAX step's). ``metrics`` holds 0-d device
     tensors; ``maps`` the full activation maps captured under ``map_keys``.
-    """
+
+    With ``axis`` (a ``parallel.DataAxis``) the step is this rank's part of
+    a step over the ``data`` axis; without it, the step of one process,
+    which is the same step with no collective. ``forward_module`` is
+    ``model`` wrapped in DDP (its gradients arrive all-reduced and averaged
+    over the ranks) or ``model`` itself under FSDP2 (reduce-scattered and
+    averaged). The loss each rank differentiates is its masked sums over
+    the GLOBAL valid count, times the world size to undo that average, so
+    the gradient is the one-process gradient of the global batch whatever
+    each rank's share of valid rows. The tap metrics take the same global
+    count (``ops.stats.tap_mask``), and their shares, the losses' and the
+    reported metrics' are summed in one collective after the backward;
+    ``std_activation`` reduces itself. The gradient norm is the global one
+    on every rank, so every rank clips alike. Without ``noise`` the
+    posterior noise is this rank's rows of the global draw from ``rng``
+    (the loaders' strided shards: local row j is global row
+    ``j * world + rank``), so W ranks draw what one process draws at the
+    same global batch.
+
+    Gradient accumulation (``tx.every_k > 1``): one process keeps optax
+    ``MultiSteps``' running mean in the state and reports each micro-step's
+    own gradient norm, as JAX does. Across ranks the micro-steps before the
+    k-th run without the gradient collective (DDP ``no_sync``, FSDP2
+    ``set_requires_gradient_sync``), the gradients sum in the parameters'
+    .grad and the optimizer (built with ``summed_grads``) takes their mean
+    on the k-th (``update_summed``); ``grad_norm`` is then the norm of the
+    mean so far, which on the k-th micro-step is the global mean the clip
+    reads (before it, this rank's part): a micro-step's own global norm
+    would need the collective that ``no_sync`` saves.
+
+    ``state.layout`` (``parallel.zero.ZeroLayout``) gives the slices that
+    the optimizer and the EMA update under the ZeRO flags; the slices the
+    optimizer updated are all-gathered after it (ZeRO-1)."""
+    from ..ops.stats import SUMMED_METRICS
+
     accumulate = stats_accumulate or default_stats_accumulate
-    device = _device_of(model)
+    device = _device_of(model) if axis is None else axis.device
+    world, rank = (1, 0) if axis is None else (axis.world, axis.rank)
+    summed = axis is not None and tx.every_k > 1
+    if summed and not tx.summed_grads:
+        raise ValueError("a data-parallel step with gradient accumulation needs the "
+                         "optimizer built with summed_grads=True")
+    forward_module = forward_module if forward_module is not None else model
+    ddp = isinstance(forward_module, torch.nn.parallel.DistributedDataParallel)
 
     def step_fn(state: TrainState, batch, mask, rng: Optional[torch.Generator] = None,
                 *, noise=None):
         if rng is None and noise is None:
             raise ValueError("pass a torch.Generator (rng) or the posterior noise")
+        layout = state.layout
         x = _nchw_pixels(batch, device)
         mask_t = torch.as_tensor(mask, dtype=torch.float32).to(device, non_blocking=True)
-        noise_t = (None if noise is None
-                   else torch.as_tensor(noise).to(device).permute(0, 3, 1, 2))
-        params = dict(state.model.named_parameters())
-        for p in params.values():
-            p.grad = None
+        if noise is not None:
+            noise_t = torch.as_tensor(noise).to(device).permute(0, 3, 1, 2)
+        elif world > 1:
+            cfg = model.config
+            down = 2 ** (len(cfg.block_out_channels) - 1)
+            shape = (x.shape[0] * world, cfg.latent_channels, x.shape[2] // down,
+                     x.shape[3] // down)
+            noise_t = torch.randn(shape, generator=rng, dtype=torch.float32,
+                                  device=device)[rank::world]
+        else:
+            noise_t = None  # the posterior draws from rng
+        # one process reads nothing of the optimizer's state here: the
+        # optimizer may be a stand-in that keeps none
+        opt = state.opt_state
+        if not summed or opt.mini_step == 0:
+            for p in state.model.parameters():
+                p.grad = None
+        count = None
+        quiet = contextlib.nullcontext()
+        if axis is not None:
+            last = not summed or opt.mini_step >= tx.every_k - 1
+            count = mask_t.sum()
+            dist.all_reduce(count)
+            if not ddp:
+                forward_module.set_requires_gradient_sync(last)
+            elif not last:
+                quiet = forward_module.no_sync()
         # the taps weight per-sample contributions by the mask while the
         # forward runs, so pad rows carry zero weight
-        with tap_mask(mask_t):
-            out, stats = forward_with_stats(state.model, x, True, generator=rng,
+        with quiet, tap_mask(mask_t, count=count, reduce=axis is not None):
+            out, stats = forward_with_stats(forward_module, x, True, generator=rng,
                                             noise=noise_t)
-            rec_loss, kl_loss = _losses(out, x, mask_t)
+            rec_loss, kl_loss = _losses(out, x, mask_t, count)
             loss = rec_loss + kl_weight * kl_loss
-            loss.backward()
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in params.items()}
-        grad_norm = global_norm(list(grads.values()))
-        applied = tx.update(grads, state.opt_state, params)
-        for p in params.values():
-            p.grad = None
+            (loss * float(world) if world > 1 else loss).backward()
 
-        maps = {k: stats[k] for k in map_keys if k in stats}
-        scalar_stats = {k: v for k, v in stats.items() if k not in maps}
-        state.stats_acc = accumulate(state.stats_acc, scalar_stats)
+        maps = {k: stats.pop(k) for k in map_keys if k in stats}
+        if axis is not None:
+            summed_keys = [k for k in stats if k.rsplit(".", 1)[-1] in SUMMED_METRICS]
+            flat = torch.cat([torch.stack([rec_loss, kl_loss]).detach()]
+                             + [stats[k].reshape(-1) for k in summed_keys])
+            dist.all_reduce(flat)
+            rec_loss, kl_loss = flat[0], flat[1]
+            loss = rec_loss + kl_weight * kl_loss
+            off = 2
+            for k in summed_keys:
+                size = stats[k].numel()
+                stats[k] = flat[off:off + size].view(stats[k].shape)
+                off += size
+            for k, v in maps.items():
+                # the ranks' rows, back in the one-process batch's order
+                rows = all_gather_rows(v, world)
+                maps[k] = rows.transpose(0, 1).reshape((-1,) + tuple(v.shape[1:]))
+
+        if layout is None:
+            params = dict(state.model.named_parameters())
+            grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                     for n, p in params.items()}
+            grad_norm = global_norm(list(grads.values()))
+        else:
+            params = layout.opt_params(state.model)
+            grads = layout.opt_grads(state.model)
+            grad_norm = layout.global_norm(list(grads.values()))
+        if summed:
+            grad_norm = grad_norm / float(opt.mini_step + 1)
+            applied = tx.update_summed(grads, opt, params)
+        else:
+            applied = tx.update(grads, opt, params)
+        if applied or not summed:
+            for p in state.model.parameters():
+                p.grad = None
+        if applied and layout is not None:
+            layout.sync_params(state.model)
+
+        state.stats_acc = accumulate(state.stats_acc, stats)
         state.stats_count += 1.0
         if ema_decay > 0.0 and state.ema_params is not None and applied:
             # blend only on micro-steps where the optimizer applied an update:
             # k-step accumulation would otherwise decay the EMA k times
-            ema = list(state.ema_params.values())
-            with torch.no_grad():
-                torch._foreach_mul_(ema, ema_decay)
-                torch._foreach_add_(ema, [params[k].detach() for k in state.ema_params],
-                                    alpha=1.0 - ema_decay)
+            views = (layout.ema_views(state.model) if layout is not None
+                     else dict(state.model.named_parameters()))
+            _blend_ema(state, views, ema_decay)
         state.step += 1
         metrics = {
             "train_loss_step": loss.detach(),

@@ -9,14 +9,18 @@ import sys
 from typing import Optional
 
 
-def setup_logging(log_level: int = logging.INFO, log_file: Optional[str] = None) -> None:
-    """Configure root logging to stdout with an optional file handler."""
+def setup_logging(log_level: int = logging.INFO, log_file: Optional[str] = None,
+                  rank: int = 0) -> None:
+    """Configure root logging to stdout with an optional file handler.
+    Across ranks only rank 0 logs at ``log_level``; every other rank logs
+    its warnings and errors, each line tagged with its rank."""
     handlers: list = [logging.StreamHandler(sys.stdout)]
     if log_file:
         handlers.append(logging.FileHandler(log_file))
+    tag = f"[rank {rank}] " if rank else ""
     logging.basicConfig(
-        level=log_level,
-        format="%(asctime)s - %(name)s - %(levelname)s - %(message)s",
+        level=log_level if rank == 0 else max(log_level, logging.WARNING),
+        format=f"%(asctime)s - {tag}%(name)s - %(levelname)s - %(message)s",
         handlers=handlers,
         force=True,
     )
