@@ -49,6 +49,11 @@ failure exits non-zero without the final ``ok`` line:
    TF32 product; and one mid-block ``AttentionBlock`` forward and backward on the card, flash
    against naive, every parameter gradient non-zero and within the naive
    path's own bf16-vs-fp32 difference;
+3''. the flash kernels at fewer queries than keys (``phase_flash_split``:
+   the 1024px mid block's N / 2 and N / 4 queries of a spatial group
+   against all N keys): the serving and LSE forwards, dK/dV and dQ, bf16
+   and fp32, against their plain versions with planted faults, bit-equal
+   run to run, timed beside their bounds and SDPA at the same (nq, nk);
 4. serving slice: a full-width SDXL VAE with seeded random weights is written
    with the port's ``save_model_dir`` and served by the port's server at 512px
    (``attention_impl=auto``, ``max_batch`` 4, an ephemeral port). A
@@ -222,7 +227,9 @@ and after the export phase:
    environment; the ZeRO stack, DDP, the 1024px flash Trainer, the fused
    path with ZeRO-1 and the evaluation CLI through the CLIs, each against
    one process at the same global batch, the kernels counted on every
-   rank; the server with one replica a card. ``multi_gpu_main`` runs it
+   rank; at W >= 2 the 1024px flash Trainer with the images' rows over
+   two cards (``parallel.spatial: 2``), held to one process the same way;
+   the server with one replica a card. ``multi_gpu_main`` runs it
    alone, at W = 1 and at every card of the machine, with the W = 4
    against W = 1 ratios.
  The last lines are a JSON object describing the sixteen kernels,
@@ -971,24 +978,29 @@ def roofline(flops: float, nbytes: float, rate: float = PEAK_BF16_FLOPS) -> tupl
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def flash_bounds(b: int, n: int, c: int) -> dict:
-    """Each flash kernel's bound at (B, N, C): FLOPs of its products, and
-    bytes of its (B, N, C) operands (bf16, or fp32 for the ``_f32`` kernels)
-    and fp32 (B, N) row vectors. The fp32 kernels' FLOPs count three times
-    at the TF32 rate (3xTF32)."""
-    t, r, t32 = 2 * b * n * c, 4 * b * n, 4 * b * n * c
-    return {
-        "flash_attention_fwd": roofline(4 * b * n * n * c, 4 * t),
-        "flash_attention_fwd_lse": roofline(4 * b * n * n * c, 4 * t + r),
-        "flash_attention_bwd_dkv": roofline(8 * b * n * n * c, 6 * t + 2 * r),
-        "flash_attention_bwd_dq": roofline(6 * b * n * n * c, 5 * t + 2 * r),
-        "flash_attention_fwd_lse_f32": roofline(3 * 4 * b * n * n * c, 4 * t32 + r,
-                                                PEAK_TF32_FLOPS),
-        "flash_attention_bwd_dkv_f32": roofline(3 * 8 * b * n * n * c, 6 * t32 + 2 * r,
-                                                PEAK_TF32_FLOPS),
-        "flash_attention_bwd_dq_f32": roofline(3 * 6 * b * n * n * c, 5 * t32 + 2 * r,
-                                               PEAK_TF32_FLOPS),
-    }
+def flash_bounds(b: int, n: int, c: int, nk: int = 0) -> dict:
+    """Each flash kernel's bound at (B, N, C), or at ``n`` queries against
+    ``nk`` keys: FLOPs of its products, and bytes of its operands (q, o, dO
+    and dQ of ``n`` rows, k, v, dK, dV of ``nk``; bf16, or fp32 for the
+    ``_f32`` kernels) and its fp32 (B, n) row vectors, each read or written
+    once. The fp32 kernels' FLOPs count three times at the TF32 rate
+    (3xTF32)."""
+    nk = nk or n
+    f, r = b * n * nk * c, 4 * b * n
+    bounds = {}
+    for suffix, size, scale, rate in (("", 2, 1, PEAK_BF16_FLOPS),
+                                      ("_f32", 4, 3, PEAK_TF32_FLOPS)):
+        tq, tk = size * b * n * c, size * b * nk * c
+        bounds.update({
+            f"flash_attention_fwd{suffix}": roofline(scale * 4 * f, 2 * tq + 2 * tk, rate),
+            f"flash_attention_fwd_lse{suffix}": roofline(scale * 4 * f, 2 * tq + 2 * tk + r,
+                                                         rate),
+            f"flash_attention_bwd_dkv{suffix}": roofline(scale * 8 * f, 2 * tq + 4 * tk + 2 * r,
+                                                         rate),
+            f"flash_attention_bwd_dq{suffix}": roofline(scale * 6 * f, 3 * tq + 2 * tk + 2 * r,
+                                                        rate),
+        })
+    return bounds
 
 
 def gn_bound(name: str, shape, element_size: int) -> tuple[float, str]:
@@ -1012,8 +1024,8 @@ def launch_bounds(bounds: dict):
     fa_launch, gn_launch = fa._launch, gnk._launch
 
     def fa_recorded(name, device, *args, **kw):
-        b, n, c = args[-4:-1]  # each path entry ends with b, n, c, scale
-        bounds[name] = bounds.get(name, 0.0) + flash_bounds(b, n, c)[name][0]
+        b, nq, nk, c = args[-5:-1]  # each path entry ends with b, nq, nk, c, scale
+        bounds[name] = bounds.get(name, 0.0) + flash_bounds(b, nq, c, nk)[name][0]
         return fa_launch(name, device, *args, **kw)
 
     def gn_recorded(name, x, *args):
@@ -1491,6 +1503,146 @@ def phase_flash_bwd():
             release()
     large_logits_f32()
     phase_attention_block()
+    return results
+
+
+# The flash kernels at fewer queries than keys: the 1024px mid block under
+# parallel.spatial 2 and 4, each rank's N / S queries against all N keys,
+# (B, nq, nk, C). Each kernel (the serving forward #6, the LSE forward #6',
+# dK/dV #7, dQ #8) in bf16 and fp32 against its plain version under the
+# bounds of phase_flash_bwd, bit-equal run to run, rejecting a key tile
+# left out of o and dQ, a query tile left out of dK/dV and the cluster's
+# last rank left out of the logits' sums; timed in turns with plain, beside
+# the bound at (nq, nk) and SDPA at the same shapes.
+SPLIT_SHAPES = ((1, 8192, 16384, 512), (1, 4096, 16384, 512))
+SPLIT_ITERS = 5
+SPLIT_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_lse", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq")
+
+
+def phase_flash_split() -> dict:
+    """The flash kernels at SPLIT_SHAPES (see the comment above them).
+    Returns {kernel name (with _f32 at fp32): its numbers at SPLIT_SHAPES[0]}."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 18)
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        suffix = "_f32" if f32 else ""
+        for shape in SPLIT_SHAPES:
+            b, nq, nk, c = shape
+            q, do = (torch.randn((b, nq, c), generator=gen, device=DEVICE).to(dtype)
+                     for _ in range(2))
+            k, v = (torch.randn((b, nk, c), generator=gen, device=DEVICE).to(dtype)
+                    for _ in range(2))
+            scale = c ** -0.5
+
+            def kernels():
+                o, lse = fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=dtype)
+                serving = fa.flash_attention_fwd(q, k, v, scale=scale, out_dtype=dtype)
+                delta = (do.float() * o.float()).sum(-1)
+                dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=scale)
+                dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale)
+                return o, lse, serving, delta, dq, dk, dv
+
+            first, again = kernels(), kernels()
+            sync()
+            check(all(torch.equal(a, b_) for a, b_ in zip(first, again)),
+                  f"[flash-split] the kernels are not bit-equal run to run at {shape} {dtype}")
+            del again
+            o, lse, serving, delta, dq, dk, dv = first
+            check(torch.equal(serving, o), f"[flash-split] the serving forward's o is not the "
+                                           f"LSE forward's at {shape} {dtype}")
+            po, plse = fa.flash_attention_fwd_lse_reference(q, k, v, scale, dtype)
+            pdq, pdk, pdv = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
+            dropped = fa.flash_attention_reference(q, k[:, :-FAULT_TILE].contiguous(),
+                                                   v[:, :-FAULT_TILE].contiguous(), scale, dtype)
+            _, tile_dk, tile_dv = fa.flash_attention_bwd_reference(
+                q[:, FAULT_QUERIES:], k, v, do[:, FAULT_QUERIES:], lse[:, FAULT_QUERIES:],
+                delta[:, FAULT_QUERIES:], scale)
+            key_dq = fa.flash_attention_bwd_dq_reference(q, k[:, FAULT_TILE:], v[:, FAULT_TILE:],
+                                                         do, lse, delta, scale)
+            rank_dq, rank_dk, rank_dv = bwd_rank_left_out(q, k, v, do, lse, delta, scale,
+                                                          fa.bwd_cluster_size(c) - 1)
+            max_rel_bound, rel_l2_bound = ((math.inf, FLASH_F32_REL_L2) if f32
+                                           else (GRAD_MAX_REL, KERNEL_REL_L2))
+            errs, lines = {}, []
+            for what, got, ref, faults in (
+                    ("lse", lse, plse, {}),
+                    ("o", o, po, {"a key tile left out": dropped}),
+                    ("dQ", dq, pdq, {"a key tile left out": key_dq, "a rank left out": rank_dq}),
+                    ("dK", dk, pdk, {"a query tile left out": tile_dk,
+                                     "a rank left out": rank_dk}),
+                    ("dV", dv, pdv, {"a query tile left out": tile_dv,
+                                     "a rank left out": rank_dv})):
+                bounds_of = ((LSE_MAX_REL, LSE_MAX_REL) if what == "lse"
+                             else (max_rel_bound, rel_l2_bound))
+                max_rel, rel_l2, abs_err = rel_errors(got, ref)
+                errs[what] = abs_err
+                check(max_rel <= bounds_of[0] and rel_l2 <= bounds_of[1],
+                      f"[flash-split] {what} disagrees with plain at {shape} {dtype}: max rel "
+                      f"{max_rel:.3g}, rel L2 {rel_l2:.3g}")
+                rejected = []
+                for fault, f in faults.items():
+                    fm, fl, _ = rel_errors(f, ref)
+                    check(fm > bounds_of[0] or fl > bounds_of[1],
+                          f"[flash-split] the {what} bound at {shape} does not reject {fault}")
+                    rejected.append(f"{fault} {fl:.3g}")
+                lines.append(f"{what} max rel {max_rel:.3g}, rel L2 {rel_l2:.3g}"
+                             + (f" (rejects {', '.join(rejected)})" if rejected else ""))
+            del po, plse, pdq, pdk, pdv, dropped, tile_dk, tile_dv, key_dq, rank_dq, rank_dk
+            del rank_dv, first
+            release()
+            times = {
+                "flash_attention_fwd": timed_pair(
+                    lambda: fa.flash_attention_fwd(q, k, v, scale=scale, out_dtype=dtype),
+                    lambda: fa.flash_attention_reference(q, k, v, scale, dtype), SPLIT_ITERS),
+                "flash_attention_fwd_lse": timed_pair(
+                    lambda: fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=dtype),
+                    lambda: fa.flash_attention_fwd_lse_reference(q, k, v, scale, dtype),
+                    SPLIT_ITERS),
+                "flash_attention_bwd_dkv": timed_pair(
+                    lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=scale),
+                    lambda: fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale),
+                    SPLIT_ITERS),
+                "flash_attention_bwd_dq": timed_pair(
+                    lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale),
+                    lambda: fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, scale),
+                    SPLIT_ITERS),
+            }
+            if f32:
+                backend, lib = sdpa_f32_times(q, k, v, do, scale, SPLIT_ITERS)
+                lib["fwd"] = sdpa_fp32_ms(q, k, v, scale, SPLIT_ITERS)[1]
+            else:
+                backend, lib = sdpa_times(q, k, v, do, scale, SPLIT_ITERS)
+            library = {"flash_attention_fwd": lib["fwd"], "flash_attention_fwd_lse": lib["fwd_grad"],
+                       "flash_attention_bwd_dkv": lib["bwd"], "flash_attention_bwd_dq": lib["bwd"]}
+            bounds = flash_bounds(b, nq, c, nk)
+            err_of = {"flash_attention_fwd": errs["o"], "flash_attention_fwd_lse": errs["o"],
+                      "flash_attention_bwd_dkv": max(errs["dK"], errs["dV"]),
+                      "flash_attention_bwd_dq": errs["dQ"]}
+            if shape == SPLIT_SHAPES[0]:
+                for name in SPLIT_KERNELS:
+                    results[name + suffix] = {
+                        "shape": list(shape), "ms": times[name][0], "plain_ms": times[name][1],
+                        "bound_ms": bounds[name + suffix][0],
+                        "bound_by": bounds[name + suffix][1], "library_ms": library[name],
+                        "max_abs_err": err_of[name]}
+            log(f"[flash-split] (B={b}, nq={nq}, nk={nk}, C={c}) {'fp32' if f32 else 'bf16'}: "
+                + "; ".join(lines) + "; bit-equal run to run; ms kernel/plain/bound (CUDA "
+                f"events, {SPLIT_ITERS} calls, in turns): " + ", ".join(
+                    f"{name}{suffix} {times[name][0]:.4f}/{times[name][1]:.4f}/"
+                    f"{bounds[name + suffix][0]:.4f} "
+                    f"({100 * bounds[name + suffix][0] / times[name][0]:.1f}% of bound)"
+                    for name in SPLIT_KERNELS)
+                + f"; SDPA{' fp32' if f32 else ''} ({backend}) forward {lib['fwd']:.4f}, forward "
+                f"for backward {lib['fwd_grad']:.4f}, backward {lib['bwd']:.4f}")
+            del q, k, v, do, o, lse, serving, delta, dq, dk, dv
+            release()
     return results
 
 
@@ -4541,9 +4693,20 @@ def phase_export(tmp: str, model_dir: str) -> None:
 # least over the ranks is the reading, and the profiler stretches the step.
 # phase_multi_gpu(timing_only=True) runs the timed runs, the profiled runs
 # and (at W > 1) the server only, without the controls and the evaluation.
+# (s), at W >= 2 only: (b)'s config with parallel.spatial MULTI_SPATIAL (W /
+# 2 data x 2 spatial ranks, each 512 of the 1024 rows, the mid block's flash
+# kernels at 8192 queries against 16384 keys), at bf16 and at fp32, in a
+# spawn of its own (MULTI_SPATIAL_TIMEOUT), held to one process at the same
+# global batch (W / 2 images) as (b) is, its kernels counted on every rank;
+# a third run profiles step MULTI_PROFILE_STEP on every rank for the NCCL
+# kernels (the halo exchanges, the GroupNorm all-reduces, the K/V gathers
+# and the gradient's all-reduce). At W = 1 a line says that no spatial rank
+# ran.
 MULTI_ZERO_CONFIG = "configs/bench_zero3_256px.yaml"
 MULTI_FUSED_CONFIG = "configs/bench_256px.yaml"
-MULTI_STEPS = {"a": 5, "b": 4, "c": 2}
+MULTI_STEPS = {"a": 5, "b": 4, "c": 2, "s": 4}
+MULTI_SPATIAL = 2
+MULTI_SPATIAL_TIMEOUT = 480.0
 # (c)'s images a rank: its fused path keeps 41 GB at batch 16 (PERF.md), so
 # the one-process control of four ranks fits at 4 a rank
 MULTI_FUSED_BATCH = 4
@@ -4564,6 +4727,8 @@ MULTI_KERNELS = {
           "flash_attention_fwd_lse", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"),
     "c": ("fused_gn_silu_conv3x3", "conv3x3", "conv3x3_dw"),
     "d": ("gn_fwd_reduce", "gn_fwd_normalize", "flash_attention_fwd_f32"),
+    "s": ("gn_fwd_reduce", "gn_fwd_normalize", "gn_bwd_reduce", "gn_bwd_dx",
+          "flash_attention_fwd_lse", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"),
 }
 
 
@@ -4584,23 +4749,27 @@ def _multi_configs(tmp: str, model_dir: str, world: int) -> dict:
         cfg["tracking"]["track_interval"] = steps
         cfg["intervention"]["intervention_interval"] = steps
 
+    spatial = (("s_bf16", TRAINER_CONFIG, "bf16"), ("s_fp32", TRAINER_CONFIG, "no"))
     for run, src, precision in (("a_bf16", MULTI_ZERO_CONFIG, "bf16"),
                                 ("a_fp32", MULTI_ZERO_CONFIG, "no"),
                                 ("a_ddp", MULTI_ZERO_CONFIG, "bf16"),
                                 ("b_bf16", TRAINER_CONFIG, "bf16"),
                                 ("b_fp32", TRAINER_CONFIG, "no"),
                                 ("c_bf16", MULTI_FUSED_CONFIG, "bf16"),
-                                ("c_fp32", MULTI_FUSED_CONFIG, "no")):
+                                ("c_fp32", MULTI_FUSED_CONFIG, "no")) + (
+                                    spatial if world >= MULTI_SPATIAL else ()):
         kind = run[0]
         steps = MULTI_STEPS[kind]
+        # the batch's shards: a spatial group reads one
+        shards = world // MULTI_SPATIAL if kind == "s" else world
         paths = []
         for side in ("rank", "control"):
             cfg = load_config(os.path.join(root, src))
             batch = MULTI_FUSED_BATCH if kind == "c" else int(cfg["data"]["batch_size"])
             cfg["run_name"] = f"{run}_{side}"
             cfg["output_dir"] = os.path.join(tmp, f"multi_w{world}")
-            cfg["data"].update(max_samples=batch * world * steps, num_workers=0,
-                               batch_size=batch * (1 if side == "rank" else world))
+            cfg["data"].update(max_samples=batch * shards * steps, num_workers=0,
+                               batch_size=batch * (1 if side == "rank" else shards))
             cfg["model"].update(pretrained_vae_name=model_dir)
             cfg["training"].update(mixed_precision=precision, stop_after_steps=steps)
             cfg["logging"] = {"log_interval": 1, "report_to": "jsonl"}
@@ -4614,9 +4783,11 @@ def _multi_configs(tmp: str, model_dir: str, world: int) -> dict:
                 control_loop(cfg, steps)
                 if run == "a_ddp":
                     cfg["parallel"] = {}
-            elif kind == "b":
+            elif kind in ("b", "s"):
                 cfg["model"].update(attention_impl="flash", kernel_impl="pallas", remat="full")
                 control_loop(cfg, steps)
+                cfg["parallel"] = ({"spatial": MULTI_SPATIAL}
+                                   if kind == "s" and side == "rank" else {})
             else:
                 cfg["model"]["kernel_impl"] = "fused"
                 cfg["parallel"] = {"shard_optimizer": True}
@@ -4626,10 +4797,10 @@ def _multi_configs(tmp: str, model_dir: str, world: int) -> dict:
             with open(path, "w") as f:
                 yaml.safe_dump(cfg, f)
             paths.append(path)
-            if side == "rank" and run in ("a_bf16", "a_ddp") and world > 1:
+            if side == "rank" and run in ("a_bf16", "a_ddp", "s_bf16") and world > 1:
                 # the same run, profiled on every rank, apart from the timed one
                 cfg["run_name"] = f"{run}_prof"
-                cfg["data"]["max_samples"] = batch * world * MULTI_PROFILE_STEP
+                cfg["data"]["max_samples"] = batch * shards * MULTI_PROFILE_STEP
                 cfg["training"]["stop_after_steps"] = MULTI_PROFILE_STEP
                 prof = os.path.join(tmp, f"multi_w{world}_{run}_prof.yaml")
                 with open(prof, "w") as f:
@@ -4748,14 +4919,16 @@ def multi_gpu_rank(args_path: str) -> None:
     shutdown(axis)
 
 
-def _spawn_ranks(tmp: str, world: int, jobs: list) -> list:
-    """Run ``multi_gpu_rank`` on ``world`` ranks, one a card; a rank that
-    fails or a group that outlives MULTI_RANK_TIMEOUT fails the phase (every
-    process is killed first). Returns the ranks' result dicts."""
+def _spawn_ranks(tmp: str, world: int, jobs: list, tag: str = "",
+                 timeout: float = MULTI_RANK_TIMEOUT) -> list:
+    """Run ``multi_gpu_rank`` on ``world`` ranks, one a card, in the work
+    directory ``ranks_w<world><tag>``; a rank that fails or a group that
+    outlives ``timeout`` fails the phase (every process is killed first).
+    Returns the ranks' result dicts."""
     import socket
 
     root = os.path.dirname(os.path.abspath(__file__))
-    work = os.path.join(tmp, f"ranks_w{world}")
+    work = os.path.join(tmp, f"ranks_w{world}{tag}")
     os.makedirs(work, exist_ok=True)
     args_path = os.path.join(work, "args.json")
     with open(args_path, "w") as f:
@@ -4774,12 +4947,12 @@ def _spawn_ranks(tmp: str, world: int, jobs: list) -> list:
             [sys.executable, "-c", "import chip_smoke\n" + MULTI_RANK_PRELUDE
              + f"\nchip_smoke.multi_gpu_rank({args_path!r})"],
             cwd=root, env=env, stdout=log_f, stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + MULTI_RANK_TIMEOUT
+    deadline = time.monotonic() + timeout
     failed = None
     try:
         while any(p.poll() is None for p in procs):
             if time.monotonic() > deadline:
-                failed = f"the ranks outlived {MULTI_RANK_TIMEOUT} s"
+                failed = f"the ranks outlived {timeout} s"
                 break
             if any(p.poll() not in (None, 0) for p in procs):
                 time.sleep(2.0)  # let the others report, then stop them
@@ -4872,10 +5045,12 @@ def phase_multi_gpu(tmp: str, model_dir: str, world: int = 0,
     eval_images = MULTI_EVAL_BATCH * MULTI_EVAL_BATCHES * world
     rank_runs = (("a_bf16", "a_ddp", "b_bf16") if timing_only else
                  ("a_bf16", "a_fp32", "a_ddp", "b_bf16", "b_fp32", "c_bf16"))
+    spatial_runs = (() if world < MULTI_SPATIAL else
+                    ("s_bf16",) if timing_only else ("s_bf16", "s_fp32"))
     jobs = [{"name": run, "kind": "train", "config": configs[run][0]} for run in rank_runs]
-    profiled = [run for run in ("a_bf16", "a_ddp") if f"{run}_prof" in configs]
+    profiled = [run for run in ("a_bf16", "a_ddp", "s_bf16") if f"{run}_prof" in configs]
     jobs += [{"name": f"{run}_prof", "kind": "train", "config": configs[f"{run}_prof"][0],
-              "profile_step": MULTI_PROFILE_STEP} for run in profiled]
+              "profile_step": MULTI_PROFILE_STEP} for run in profiled if run[0] != "s"]
     if not timing_only:
         jobs.append({"name": "eval", "kind": "eval", "argv": _multi_eval_argv(
             configs["eval"], model_dir, os.path.join(tmp, f"multi_w{world}", "eval_rank"),
@@ -4886,13 +5061,31 @@ def phase_multi_gpu(tmp: str, model_dir: str, world: int = 0,
     spawn_s = time.perf_counter() - t0
     log(f"[multi] W = {world} ranks over NCCL {ranks[0]['nccl']} "
         f"({', '.join(r['device'] for r in ranks)}): {len(jobs)} jobs in {spawn_s:.1f} s")
+    if spatial_runs:
+        # the spatial runs in a spawn of their own: the first collectives of
+        # a new layout, under a shorter limit
+        sp_jobs = [{"name": run, "kind": "train", "config": configs[run][0]}
+                   for run in spatial_runs]
+        sp_jobs += [{"name": "s_bf16_prof", "kind": "train",
+                     "config": configs["s_bf16_prof"][0], "profile_step": MULTI_PROFILE_STEP}]
+        t0 = time.perf_counter()
+        sp_ranks = _spawn_ranks(tmp, world, sp_jobs, tag="_spatial",
+                                timeout=MULTI_SPATIAL_TIMEOUT)
+        for rank, sp_rank in zip(ranks, sp_ranks):
+            rank["runs"].update(sp_rank["runs"])
+        log(f"[multi] W = {world}: {world // MULTI_SPATIAL} data x {MULTI_SPATIAL} spatial "
+            f"ranks, {len(sp_jobs)} jobs in {time.perf_counter() - t0:.1f} s")
+    else:
+        log(f"[multi] W = {world}: no spatial ranks ran on {world} card(s): parallel.spatial "
+            f"{MULTI_SPATIAL} needs {MULTI_SPATIAL} cards a group; the flash kernels at fewer "
+            "queries than keys ran in phase_flash_split")
 
     # the controls: the same configs in this process, no group, W x the batch
     saved_tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         for run in () if timing_only else ("a_bf16", "a_fp32", "b_bf16", "b_fp32", "c_bf16",
-                                           "c_fp32"):
+                                           "c_fp32") + spatial_runs:
             torch.backends.cudnn.deterministic = run.endswith("fp32")
             check(train_cli.main(["--config_path", configs[run][1], "--device", DEVICE]) == 0,
                   f"[multi] control {run} failed")
@@ -4907,7 +5100,7 @@ def phase_multi_gpu(tmp: str, model_dir: str, world: int = 0,
     base = os.path.join(tmp, f"multi_w{world}")
 
     # every run against its control
-    for run in rank_runs:
+    for run in rank_runs + spatial_runs:
         kind = run[0]
         control = "a_bf16" if run == "a_ddp" else run
         got = _step_values(os.path.join(base, f"{run}_rank"))
@@ -4951,7 +5144,7 @@ def phase_multi_gpu(tmp: str, model_dir: str, world: int = 0,
                   f"[multi] {run}: rank {r} launched {launched}, want each of {names}")
         sums = {rank["runs"][run].get("checksum") for rank in ranks}
         check(len(sums) == 1, f"[multi] {run}: the ranks' parameters differ: {sums}")
-        if kind in ("a", "b") and not timing_only:
+        if kind in ("a", "b", "s") and not timing_only:
             with open(os.path.join(base, f"{run}_rank", "intervention_history.csv")) as f:
                 rows = f.read().split()
             with open(os.path.join(base, f"{control}_control",
@@ -5000,11 +5193,16 @@ def phase_multi_gpu(tmp: str, model_dir: str, world: int = 0,
         "b_img_s": world * 1e3 / step_ms("b_bf16"),
         "peak_gb_zero": max(r["runs"]["a_bf16"]["peak_gb"] for r in ranks),
         "peak_gb_ddp": max(r["runs"]["a_ddp"]["peak_gb"] for r in ranks),
+        "peak_gb_b": max(r["runs"]["b_bf16"]["peak_gb"] for r in ranks),
     }
-    work = os.path.join(tmp, f"ranks_w{world}")
+    if spatial_runs:
+        numbers.update(s_step_ms=step_ms("s_bf16"),
+                       s_img_s=world // MULTI_SPATIAL * 1e3 / step_ms("s_bf16"),
+                       peak_gb_spatial=max(r["runs"]["s_bf16"]["peak_gb"] for r in ranks))
     for run in profiled:
         # each rank's NCCL time in its profiled step (the least waits least
         # for the other ranks), beside how far the profiler stretched it
+        work = os.path.join(tmp, f"ranks_w{world}" + ("_spatial" if run[0] == "s" else ""))
         per_rank = [_nccl_ms(os.path.join(work, f"prof_{run}_prof", f"rank{r}.json"))
                     for r in range(world)]
         traced_ms = max(rank["runs"][run + "_prof"]["step_ms"][-1] for rank in ranks)
@@ -5109,6 +5307,15 @@ def multi_gpu_main(timing_only: bool = False) -> int:
                         ("a_step_ms", "a_ddp_step_ms", "b_step_ms")) + f"; serving req/s "
             f"x{numbers[top][f'serve_rps_{top}'] / numbers[top]['serve_rps_1']:.3f} "
             "(one replica and one a card, in the same phase)")
+        if "s_step_ms" in numbers[top]:
+            log(f"[multi] spatial: the 1024px Trainer at W = {top} ({top // MULTI_SPATIAL} data "
+                f"x {MULTI_SPATIAL} spatial) {numbers[top]['s_step_ms']:.1f} ms a step, "
+                f"{numbers[top]['s_img_s']:.3f} img/s, peak a rank "
+                f"{numbers[top]['peak_gb_spatial']:.2f} GB, against one card (b_bf16 at W = 1) "
+                f"{numbers[1]['b_step_ms']:.1f} ms, {numbers[1]['b_img_s']:.3f} img/s, "
+                f"{numbers[1]['peak_gb_b']:.2f} GB"
+                + (f"; NCCL kernels in a profiled spatial step {numbers[top]['s_bf16_nccl_ms']:.2f}"
+                   " ms (the least over the ranks)" if "s_bf16_nccl_ms" in numbers[top] else ""))
     print(smi, flush=True)
     print(json.dumps({"multi_gpu": {str(w): n for w, n in numbers.items()}}), flush=True)
     return 0
@@ -5155,6 +5362,7 @@ def main() -> int:
         phase_doctor()
         kernel_results = phase_kernel()
         flash_results = phase_flash_bwd()
+        split_results = phase_flash_split()
         gn_results = phase_gn_kernels()
         fused_results = phase_fused_kernels()
         conv_result = phase_conv_nhwc()
@@ -5239,6 +5447,8 @@ def main() -> int:
         "shape": r["shape"],
         **({"note": REDESIGNED[kname]} if kname in REDESIGNED else {}),
         **({"note": F32_NOTES[kname]} if kname in F32_NOTES else {}),
+        # the same kernel at fewer queries than keys (the spatial axis)
+        **({"split": split_results[kname]} if kname in split_results else {}),
     } for kname, r in rows.items()]
     log(f"[total] every phase in {time.perf_counter() - t_start:.1f} s, the kernels' build "
         "included")

@@ -44,6 +44,14 @@ sums in another order; each bound rejects one tile left out, the cluster's
 last rank left out of the logits' sums, the plain version with TF32 on (one
 TF32 product, about 1e-3) and the backward's lo products left out (every
 operand rounded to its TF32 hi). Mixed dtypes raise.
+
+Fewer queries than keys (the spatial axis: each rank's N / S rows of the
+image against every rank's keys): each kernel at nq = N / 2 and N / 4
+against nk = N, bf16 and fp32, under the same bounds, which reject a key
+tile left out of the forward and of dQ, a query tile left out of dK/dV and
+a rank's partial left out of the logits' sums; two runs are bit-equal; and
+a query block's o, lse and dQ at nq < nk are the bits of the same block at
+nq == nk, so the query count changes no block's arithmetic.
 """
 
 import ctypes
@@ -276,11 +284,13 @@ def test_backward_entries_refuse_other_shapes(cuda, b, n, c):
     ptr = ctypes.c_void_p(x.data_ptr())
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     dkv = lib.vcd_flash_attention_bwd_dkv_bf16
-    dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     dq = lib.vcd_flash_attention_bwd_dq_bf16
-    dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    assert dkv(*[ptr] * 8, b, n, c, 1.0, stream) == 1
-    assert dq(*[ptr] * 7, b, n, c, 1.0, stream) == 1
+    dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    # (b, nq, nk, c): the bad count as the queries, as the keys, as both
+    for nq, nk in ((n, n), (n, 128), (128, n)):
+        assert dkv(*[ptr] * 8, b, nq, nk, c, 1.0, stream) == 1
+        assert dq(*[ptr] * 7, b, nq, nk, c, 1.0, stream) == 1
     torch.cuda.synchronize()
 
 
@@ -492,11 +502,13 @@ def test_fp32_backward_entries_refuse_other_shapes(cuda, b, n, c):
     ptr = ctypes.c_void_p(x.data_ptr())
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     dkv = lib.vcd_flash_attention_bwd_dkv_f32
-    dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     dq = lib.vcd_flash_attention_bwd_dq_f32
-    dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    assert dkv(*[ptr] * 8, b, n, c, 1.0, stream) == 1
-    assert dq(*[ptr] * 7, b, n, c, 1.0, stream) == 1
+    dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    # (b, nq, nk, c): the bad count as the queries, as the keys, as both
+    for nq, nk in ((n, n), (n, 128), (128, n)):
+        assert dkv(*[ptr] * 8, b, nq, nk, c, 1.0, stream) == 1
+        assert dq(*[ptr] * 7, b, nq, nk, c, 1.0, stream) == 1
     torch.cuda.synchronize()
 
 
@@ -512,3 +524,94 @@ def test_non_contiguous_input_raises(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q[:, :, :128], k[:, :, :128], v[:, :, :128], scale=1.0,
                            out_dtype=torch.bfloat16)
+
+
+# (B, nq, nk, C): a spatial group of 2 and of 4 over N = 4096 keys, and a
+# cluster of one at C = 128
+SPLIT_SHAPES = [(1, 2048, 4096, 512), (1, 1024, 4096, 512), (2, 256, 1024, 128)]
+
+
+def _split_operands(shape, device, dtype, seed):
+    b, nq, nk, c = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, do = (torch.randn((b, nq, c), generator=gen, device=device).to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, nk, c), generator=gen, device=device).to(dtype) for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_fewer_queries_than_keys_match_plain(cuda, shape, dtype):
+    """Each changed kernel (the serving and LSE forwards, dK/dV, dQ) at nq <
+    nk against its plain version, launched once a call, bit-equal run to
+    run; each bound rejects its planted faults."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = dtype == torch.float32
+    q, k, v, do = _split_operands(shape, cuda, dtype, seed=sum(shape))
+    scale = shape[-1] ** -0.5
+    before = dict(fa.launches)
+    runs = []
+    for _ in range(2):
+        o, lse = fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=dtype)
+        serving = fa.flash_attention_fwd(q, k, v, scale=scale, out_dtype=dtype)
+        delta = (do.float() * o.float()).sum(-1)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=scale)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale)
+        runs.append((o, lse, serving, dq, dk, dv))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    suffix = "_f32" if f32 else ""
+    for name in ("flash_attention_fwd_lse", "flash_attention_fwd", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        assert fa.launches[name + suffix] == before[name + suffix] + 2, name
+    o, lse, serving, dq, dk, dv = runs[0]
+    assert o.shape == q.shape and lse.shape == q.shape[:2] and dk.shape == k.shape
+    assert torch.equal(serving, o)
+    po, plse = fa.flash_attention_fwd_lse_reference(q, k, v, scale, dtype)
+    # the backward's plain version on the kernel's own lse and delta
+    pdq, pdk, pdv = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
+    fs = 64
+    dropped = fa.flash_attention_reference(q, k[:, :-fs].contiguous(), v[:, :-fs].contiguous(),
+                                           scale, dtype)
+    _, tile_dk, tile_dv = fa.flash_attention_bwd_reference(
+        q[:, 32:], k, v, do[:, 32:], lse[:, 32:], delta[:, 32:], scale)
+    key_dq = fa.flash_attention_bwd_dq_reference(q, k[:, fs:], v[:, fs:], do, lse, delta, scale)
+    rank_dq, rank_dk, rank_dv = bwd_rank_left_out(q, k, v, do, lse, delta, scale,
+                                                  fa.bwd_cluster_size(shape[-1]) - 1)
+
+    def within(got, ref):
+        max_rel, rel_l2 = _rel(got, ref)
+        return rel_l2 <= (F32_REL_L2 if f32 else REL_L2) and (f32 or max_rel <= GRAD_MAX_REL)
+
+    assert _rel(lse, plse)[0] <= LSE_MAX_REL
+    for name, got, ref, faults in (
+            ("o", o, po, [dropped]),
+            ("dq", dq, pdq, [key_dq, rank_dq]),
+            ("dk", dk, pdk, [tile_dk, rank_dk]),
+            ("dv", dv, pdv, [tile_dv, rank_dv])):
+        assert within(got, ref), (name, _rel(got, ref))
+        for i, fault in enumerate(faults):
+            assert not within(fault, ref), (name, i, _rel(fault, ref))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [(1, 4096, 512), (2, 1024, 128)])
+def test_query_blocks_do_not_depend_on_the_query_count(cuda, shape, dtype):
+    """o, lse and dQ of the first N / 2 and N / 4 queries against all N keys
+    are the bits of the same rows at nq == nk: the query extent sets the
+    grid and nothing else."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, n, c = shape
+    q, k, v, do = (t.to(dtype) for t in _qkv(shape, cuda, seed=n + c, dtype=torch.float32, n=4))
+    scale = c ** -0.5
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=dtype)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale)
+    for nq in (n // 2, n // 4):
+        qs, dos = q[:, :nq].contiguous(), do[:, :nq].contiguous()
+        o_s, lse_s = fa.flash_attention_fwd_lse(qs, k, v, scale=scale, out_dtype=dtype)
+        dq_s = fa.flash_attention_bwd_dq(qs, k, v, dos, lse[:, :nq].contiguous(),
+                                         delta[:, :nq].contiguous(), scale=scale)
+        torch.cuda.synchronize()
+        assert torch.equal(o_s, o[:, :nq]) and torch.equal(lse_s, lse[:, :nq]), nq
+        assert torch.equal(dq_s, dq[:, :nq]), nq

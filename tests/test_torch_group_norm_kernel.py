@@ -547,7 +547,7 @@ def _refusals():
 
     return {
         "parallel": (lambda: loop._refuse_unported({"parallel": {"tensor": 2}}),
-                     "Q1", "Spatial and tensor parallelism"),
+                     "Q1", "Tensor parallelism"),
         "parallel slices": (lambda: loop._refuse_unported({"parallel": {"slices": 2}}),
                             "Q1", "Do not port"),
         "remat offload": (lambda: remat_mode("offload"), "Q1", "Do not port"),

@@ -28,6 +28,7 @@ from vae_channel_dynamics_tpu_torch.parallel import (
     pad_batch_to_multiple,
     refuse_unported_axes,
 )
+from vae_channel_dynamics_tpu_torch.parallel.mesh import spatial_conv_choice, with_spatial
 from vae_channel_dynamics_tpu_torch.parallel.zero import (
     _best_axis,
     _channel_axis,
@@ -128,13 +129,60 @@ def test_chunks_are_torch_chunk(n, world):
         assert chunk_span(n, r, world)[1] == want.shape[0]
 
 
-@pytest.mark.parametrize("axis,name", [("tensor", "Spatial and tensor parallelism"),
-                                       ("spatial", "Spatial and tensor parallelism"),
+@pytest.mark.parametrize("axis,name", [("tensor", "Tensor parallelism"),
                                        ("slices", "Do not port")])
 def test_unported_axes_are_refused(axis, name):
     with pytest.raises(NotImplementedError, match=name):
         refuse_unported_axes({axis: 2})
     refuse_unported_axes({axis: 1, "shard_params": True})
+
+
+@pytest.mark.parametrize("value", ["gspmd", "shard_map", None])
+def test_spatial_axis_is_ported(value):
+    """``parallel.spatial`` passes the refusals, ``spatial_conv`` takes both
+    of JAX's values (the one manual halo exchange either way) and refuses
+    others with JAX's message, and one process does not divide into
+    spatial shards (JAX ``make_mesh``'s message)."""
+    parallel = {"spatial": 2, "spatial_conv": value}
+    refuse_unported_axes(parallel)
+    assert spatial_conv_choice(parallel) == (value or "gspmd")
+    with pytest.raises(ValueError, match="must be 'gspmd' or 'shard_map'"):
+        spatial_conv_choice({"spatial_conv": "xla"})
+    assert with_spatial(None, 1) is None
+    with pytest.raises(ValueError, match="not divisible by slices=1 x spatial=2"):
+        with_spatial(None, 2)
+
+
+@pytest.mark.parametrize("geometry,halo", [((3, 1, (1, 1)), (1, 1)), ((3, 2, (0, 1)), (0, 1)),
+                                           ((1, 1, (0, 0)), (0, 0))])
+def test_halo_widths_are_jax_halo_widths(geometry, halo):
+    """The port's halo arithmetic is JAX's, messages included."""
+    from vae_channel_dynamics_tpu.ops.spatial_conv import _halo_widths
+
+    from vae_channel_dynamics_tpu_torch.ops.spatial_conv import halo_widths
+
+    kh, stride, pad = geometry
+    assert halo_widths(kh, stride, pad, 8, 16, 2) == _halo_widths(kh, stride, pad, 8, 16, 2) == halo
+    for args in ((kh, stride, pad, 3, 9, 3), (3, 1, (1, 1), 0, 0, 2), (3, 2, (0, 1), 3, 6, 2)):
+        try:
+            _halo_widths(*args)
+        except ValueError as e:
+            with pytest.raises(ValueError) as got:
+                halo_widths(*args)
+            assert str(got.value) == str(e)
+        else:
+            assert halo_widths(*args) == _halo_widths(*args)
+
+
+def test_row_block_refuses_rows_that_do_not_split():
+    from vae_channel_dynamics_tpu_torch.ops.spatial_conv import SpatialGroup, row_block
+
+    sp = SpatialGroup(group=None, size=2, index=1, prev=0, next=None)
+    x = torch.arange(2 * 6).reshape(1, 1, 6, 2)
+    assert torch.equal(row_block(x, sp), x[:, :, 3:])
+    assert row_block(x, None) is x
+    with pytest.raises(ValueError, match="H=5 not divisible by the 2-way spatial axis"):
+        row_block(x[:, :, :5], sp)
 
 
 def test_one_process_without_torchrun(monkeypatch):

@@ -264,13 +264,22 @@ def test_gradient_accumulation_and_ema(tmp_path):
 
 @pytest.mark.parametrize("section,key,value", [
     ("parallel", "tensor", 2),
-    ("parallel", "spatial", 2),
     ("parallel", "slices", 2),
 ])
 def test_unported_options_raise(tmp_path, section, key, value):
     cfg = _resume_cfg(tmp_path, "refused")
     cfg.setdefault(section, {})[key] = value
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(cfg, device="cpu").train()
+
+
+def test_spatial_axis_in_one_process_does_not_divide(tmp_path):
+    """``parallel.spatial`` is ported (its parity with one process is
+    ``tests/test_torch_spatial_trainer.py``); one process is one device,
+    which two spatial shards do not divide: JAX ``make_mesh``'s error."""
+    cfg = _resume_cfg(tmp_path, "spatial")
+    cfg.setdefault("parallel", {})["spatial"] = 2
+    with pytest.raises(ValueError, match="1 devices not divisible by slices=1 x spatial=2"):
         Trainer(cfg, device="cpu").train()
 
 

@@ -126,10 +126,13 @@ def scenario_step(axis, args) -> None:
     optimizer, its ZeRO flags and its gradient accumulation) on this rank's
     block of the global batch and of the JAX step's noise; rank 0 writes
     the metrics, the stats, the whole parameters and EMA, and every rank
-    its state bytes and what it may keep whole."""
+    its state bytes and what it may keep whole. With ``spatial`` S > 1 the
+    ranks form spatial groups of S: each takes its data rank's block, and
+    the step its rows."""
     import torch
 
     from vae_channel_dynamics_tpu_torch.parallel import local_block
+    from vae_channel_dynamics_tpu_torch.parallel.mesh import with_spatial
     from vae_channel_dynamics_tpu_torch.parallel.zero import (
         ZeroLayout, fully_shard_model, replicate_leaf, state_bytes)
     from vae_channel_dynamics_tpu_torch.tracking import ActivityMonitor
@@ -137,6 +140,7 @@ def scenario_step(axis, args) -> None:
     from vae_channel_dynamics_tpu_torch.training.checkpoint import state_dict_of
     from vae_channel_dynamics_tpu_torch.training.step import make_train_step
 
+    axis = with_spatial(axis, args.get("spatial", 1))
     data = np.load(args["data"])
     out = {}
     for variant in args["variants"]:
@@ -165,9 +169,9 @@ def scenario_step(axis, args) -> None:
                                forward_module=forward)
         metrics = []
         for t in range(args["steps"]):
-            batch = local_block(data[f"pixels{t}"], axis.rank, axis.world)
-            mask = local_block(data["mask"], axis.rank, axis.world)
-            noise = local_block(data[f"noise{t}"], axis.rank, axis.world)
+            batch = local_block(data[f"pixels{t}"], axis.data_rank, axis.data_world)
+            mask = local_block(data["mask"], axis.data_rank, axis.data_world)
+            noise = local_block(data[f"noise{t}"], axis.data_rank, axis.data_world)
             state, m, _ = step(state, {"pixel_values": batch}, mask, noise=noise)
             metrics.append([float(m[k]) for k in ("train_loss_step", "rec_loss", "kl_loss",
                                                   "grad_norm")])
@@ -181,7 +185,7 @@ def scenario_step(axis, args) -> None:
             out[f"{name}/ema/{k}"] = v.numpy()
         for k, v in state.stats_acc.items():
             out[f"{name}/stats/{k}"] = v.numpy()
-        allowance = _kept_allowance(whole, axis.world, not flags.get("shard_params"))
+        allowance = _kept_allowance(whole, axis.data_world, not flags.get("shard_params"))
         out[f"{name}/bytes"] = np.array([sliced, kept])
         # the ranks' parameters after the step are the same bits
         gathered = [replicate_leaf(p).reshape(-1) for p in model.parameters()]
@@ -225,7 +229,134 @@ def scenario_runs(axis, args) -> None:
         torch.distributed.barrier()
 
 
-SCENARIOS = {"step": scenario_step, "runs": scenario_runs}
+def _gather_rows(t, sp, dim):
+    """Every spatial rank's rows of ``t`` along ``dim``, in order."""
+    import torch
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(t) for _ in range(sp.size)]
+    dist.all_gather(parts, t.contiguous(), group=sp.group)
+    return torch.cat(parts, dim=dim)
+
+
+def _summed(t):
+    import torch.distributed as dist
+
+    t = t.detach().clone()
+    dist.all_reduce(t)
+    return t
+
+
+def scenario_spatial_ops(axis, args) -> None:
+    """The row-sharded ops on a spatial group of every rank: each conv
+    geometry through ``halo_conv`` (forward, input and weight gradients),
+    GroupNorm+SiLU on both routes with the mean |z| tap and the stats taps
+    under the mask, and attention (naive, chunked, flash's plain versions)
+    on local queries against gathered keys and values (forward, dQ, dK, dV).
+    Rank 0 writes the whole-image results: rows gathered, partial sums
+    (weight, scale and bias gradients, tap shares) summed."""
+    import torch
+    import torch.nn.functional as F
+
+    from vae_channel_dynamics_tpu_torch.ops import attention, flash_attention, stats
+    from vae_channel_dynamics_tpu_torch.ops.group_norm import group_norm
+    from vae_channel_dynamics_tpu_torch.ops.group_norm_kernel import (
+        group_norm_silu_with_stats)
+    from vae_channel_dynamics_tpu_torch.ops.spatial_conv import (
+        SpatialGroup, gather_rows, halo_conv, row_block, spatial_conv_scope)
+    from vae_channel_dynamics_tpu_torch.parallel.mesh import with_spatial
+
+    axis = with_spatial(axis, axis.world)
+    sp = SpatialGroup.of(axis)
+    data = np.load(args["data"])
+    out = {}
+
+    def t(name):
+        return torch.from_numpy(data[name])
+
+    # (a) the conv geometries: NCHW rows of x and of the output's cotangent
+    for geo in args["geometries"]:
+        name = geo["id"]
+        x = row_block(t(f"{name}/x"), sp).clone().requires_grad_(True)
+        w = t(f"{name}/w").clone().requires_grad_(True)
+        g = row_block(t(f"{name}/g"), sp)
+        inp = F.interpolate(x, scale_factor=2.0, mode="nearest") if geo["up"] else x
+        y = halo_conv(inp, w, None, geo["stride"], tuple(geo["pad"]), sp)
+        (y * g).sum().backward()
+        out[f"{name}/y"] = _gather_rows(y.detach(), sp, 2).numpy()
+        out[f"{name}/dx"] = _gather_rows(x.grad, sp, 2).numpy()
+        out[f"{name}/dw"] = _summed(w.grad).numpy()
+
+    # (b) GroupNorm+SiLU on both routes, with the |z| tap, under the mask
+    mask = t("gn/mask")
+    count = mask.sum()
+    for impl in ("auto", "pallas"):
+        x = row_block(t("gn/x"), sp).clone().requires_grad_(True)
+        scale = t("gn/scale").clone().requires_grad_(True)
+        bias = t("gn/bias").clone().requires_grad_(True)
+        with spatial_conv_scope(sp), stats.tap_mask(mask, count=count, reduce=True):
+            if impl == "pallas":
+                y, tap = group_norm_silu_with_stats(x, scale, bias, args["groups"], 1e-6,
+                                                    fuse_silu=True)
+            else:
+                z = group_norm(x, scale, bias, args["groups"], 1e-6, impl=impl)
+                tap = stats.mean_abs_activation_per_channel(z)
+                y = z * torch.sigmoid(z)
+            (y * row_block(t("gn/g"), sp)).sum().backward()
+        out[f"gn_{impl}/y"] = _gather_rows(y.detach(), sp, 2).numpy()
+        out[f"gn_{impl}/dx"] = _gather_rows(x.grad, sp, 2).numpy()
+        out[f"gn_{impl}/dscale"] = _summed(scale.grad).numpy()
+        out[f"gn_{impl}/dbias"] = _summed(bias.grad).numpy()
+        out[f"gn_{impl}/tap"] = _summed(tap).numpy()
+    # the stats taps of a 4-D and a (B, N, C) activation: the linear ones'
+    # shares summed over the ranks, the std and the map whole on each rank
+    for name in ("act4", "act3"):
+        a = row_block(t(f"stats/{name}"), sp, dim=2 if name == "act4" else 1)
+        with spatial_conv_scope(sp), stats.tap_mask(mask, count=count, reduce=True):
+            got = stats.channel_stats(a, tuple(stats.METRIC_FNS))
+        for metric, value in got.items():
+            if metric in stats.SUMMED_METRICS:
+                value = _summed(value)
+            out[f"stats_{name}/{metric}"] = value.numpy()
+
+    # (c) attention: this rank's queries against every rank's keys and values
+    scale = args["attn_scale"]
+    fns = {
+        "naive": lambda q, k, v: attention.naive_attention(q, k, v, scale=scale,
+                                                           out_dtype=q.dtype),
+        "chunked": lambda q, k, v: attention.chunked_attention(
+            q, k, v, scale=scale, out_dtype=q.dtype, chunk=args["chunk"]),
+        "flash": lambda q, k, v: flash_attention.flash_attention(q, k, v, scale=scale,
+                                                                 out_dtype=q.dtype),
+    }
+    for impl, fn in fns.items():
+        q, k, v = (row_block(t(f"attn/{n}"), sp, dim=1).clone().requires_grad_(True)
+                   for n in "qkv")
+        o = fn(q, gather_rows(k, 1, sp), gather_rows(v, 1, sp))
+        (o * row_block(t("attn/g"), sp, dim=1)).sum().backward()
+        out[f"attn_{impl}/o"] = _gather_rows(o.detach(), sp, 1).numpy()
+        for n, leaf in zip("qkv", (q, k, v)):
+            out[f"attn_{impl}/d{n}"] = _gather_rows(leaf.grad, sp, 1).numpy()
+    # the flash kernels' plain versions at nq < nk, through their wrappers
+    q, k, v, g = (row_block(t(f"attn/{n}"), sp, dim=1) for n in "qkvg")
+    k, v = _gather_rows(k, sp, 1), _gather_rows(v, sp, 1)
+    o, lse = flash_attention.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=q.dtype)
+    delta = (g * o).sum(-1)
+    dk, dv = flash_attention.flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale=scale)
+    dq = flash_attention.flash_attention_bwd_dq(q, k, v, g, lse, delta, scale=scale)
+    out["kernels/o"] = _gather_rows(o, sp, 1).numpy()
+    out["kernels/serving"] = _gather_rows(flash_attention.flash_attention_fwd(
+        q, k, v, scale=scale, out_dtype=q.dtype), sp, 1).numpy()
+    out["kernels/lse"] = _gather_rows(lse, sp, 1).numpy()
+    out["kernels/dq"] = _gather_rows(dq, sp, 1).numpy()
+    out["kernels/dk"] = _summed(dk).numpy()
+    out["kernels/dv"] = _summed(dv).numpy()
+    out["kernels/nq_nk"] = np.array([q.shape[1], k.shape[1]])
+    if axis.is_main:
+        np.savez(args["out"], **out)
+
+
+SCENARIOS = {"step": scenario_step, "runs": scenario_runs, "spatial_ops": scenario_spatial_ops}
 
 
 def _main() -> None:

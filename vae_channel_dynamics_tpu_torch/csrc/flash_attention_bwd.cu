@@ -74,6 +74,12 @@
 // C = 128, a cluster of one with no traffic between SMs, prices the
 // exchange: chip_smoke.py logs it beside C = 512.
 //
+// Q, dO, lse and delta hold Nq rows and K, V Nk, as in the JAX kernels:
+// under a spatial group of S ranks (ops/spatial_conv.py) each rank's queries
+// are its Nq = N / S rows of the image and its keys all N. dK/dV's grid runs
+// over the Nk keys and its loop over the Nq queries; dQ's grid over the
+// queries and its loop over the keys. At Nq == Nk nothing else differs.
+//
 // Plain C interface for ctypes: pointers and the stream are void*, each
 // function returns cudaGetLastError() after its launch (cudaErrorInvalidValue
 // for a shape it does not take). They launch on the caller's stream,
@@ -338,8 +344,8 @@ __device__ __forceinline__ void arm(const Bars& bars, int rank, int tid) {
   }
 }
 
-// dK, dV (B, N, C) bf16 for the 64 keys blockIdx.y of batch blockIdx.z;
-// grid (R, N / 64, B) in clusters of (R, 1, 1).
+// dK, dV (B, Nk, C) bf16 for the 64 keys blockIdx.y of batch blockIdx.z;
+// grid (R, Nk / 64, B) in clusters of (R, 1, 1); the loop over Nq queries.
 //
 // The loop is pipelined by one tile: tile t - 1's dV and dK products are
 // issued once tile t's partials are sent and run while the cluster
@@ -354,7 +360,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                          const __grid_constant__ CUtensorMap domap,
                          const __grid_constant__ CUtensorMap lsemap,
                          const __grid_constant__ CUtensorMap deltamap, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int n, float scale) {
+                         bf16* __restrict__ dv, int nq, int nk, float scale) {
   constexpr int R = C / SLICE;
   using L = Layout<R, true>;
   constexpr int TILE = L::TILE, STAGES = L::STAGES, PAIRS = L::PAIRS;
@@ -362,7 +368,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
-  const int k0 = blockIdx.y * ROWS, b = blockIdx.z, c0 = rank * SLICE, nt = n / TILE;
+  const int k0 = blockIdx.y * ROWS, b = blockIdx.z, c0 = rank * SLICE, nt = nq / TILE;
   const Bars bars = init_bars<STAGES>(smem + L::BARS, tid);
   uint8_t* sK = smem + L::RES;
   uint8_t* sV = sK + RESIDENT;
@@ -447,24 +453,25 @@ __global__ void __launch_bounds__(THREADS, 1)
   fence_regs(ap);
   fence_regs(ads);
 
-  const size_t out = (static_cast<size_t>(b) * n + k0) * C + c0;
+  const size_t out = (static_cast<size_t>(b) * nk + k0) * C + c0;
   store_slice<C>(dk + out, dkacc, warp, lane);
   store_slice<C>(dv + out, dvacc, warp, lane);
   // no CTA leaves while another may still reach its shared memory
   cg::this_cluster().sync();
 }
 
-// dQ (B, N, C) bf16 for the 64 queries blockIdx.y of batch blockIdx.z; grid
-// and clusters as dK/dV's, two CTAs an SM: one CTA's exchange overlaps the
-// other's products, in place of dK/dV's pipelining.
+// dQ (B, Nq, C) bf16 for the 64 queries blockIdx.y of batch blockIdx.z; grid
+// (R, Nq / 64, B) and clusters as dK/dV's, the loop over Nk keys, two CTAs
+// an SM: one CTA's exchange overlaps the other's products, in place of
+// dK/dV's pipelining.
 template <int C>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap kmap,
                         const __grid_constant__ CUtensorMap vmap,
                         const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
-                        const float* __restrict__ delta, bf16* __restrict__ dq, int n,
-                        float scale) {
+                        const float* __restrict__ delta, bf16* __restrict__ dq, int nq,
+                        int nk, float scale) {
   constexpr int R = C / SLICE;
   using L = Layout<R, false>;
   constexpr int TILE = L::TILE, STAGES = L::STAGES, PAIRS = L::PAIRS;
@@ -472,7 +479,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
-  const int q0 = blockIdx.y * ROWS, b = blockIdx.z, c0 = rank * SLICE, nt = n / TILE;
+  const int q0 = blockIdx.y * ROWS, b = blockIdx.z, c0 = rank * SLICE, nt = nk / TILE;
   const Bars bars = init_bars<STAGES>(smem + L::BARS, tid);
   uint8_t* sQ = smem + L::RES;
   uint8_t* sdO = sQ + RESIDENT;
@@ -499,7 +506,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 
   // this thread's rows: row0 and row0 + 8; lse and delta of both
-  const size_t row0 = static_cast<size_t>(b) * n + q0 + 16 * warp + lane / 4;
+  const size_t row0 = static_cast<size_t>(b) * nq + q0 + 16 * warp + lane / 4;
   const float rows[4] = {lse[row0], lse[row0 + 8], delta[row0], delta[row0 + 8]};
   float dqacc[64];
 #pragma unroll
@@ -535,7 +542,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     fence_regs(ads);
   }
 
-  store_slice<C>(dq + (static_cast<size_t>(b) * n + q0) * C + c0, dqacc, warp, lane);
+  store_slice<C>(dq + (static_cast<size_t>(b) * nq + q0) * C + c0, dqacc, warp, lane);
   cg::this_cluster().sync();
 }
 
@@ -558,12 +565,12 @@ cudaError_t rowvec_map(CUtensorMap* map, const void* base, int b, int n, int row
   return make_tensor_map(map, base, 2, dims, strides, box, 0, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
-// The launch of one of the kernels over grid (R, n / 64, b) in clusters of
-// R CTAs, with its shared memory; the SM's whole carveout goes to shared
+// The launch of one of the kernels over grid (R, rows / 64, b) in clusters
+// of R CTAs, with its shared memory; the SM's whole carveout goes to shared
 // memory, so that two CTAs share an SM.
 template <class Kernel, class... Args>
-cudaError_t launch_cluster(Kernel kernel, int r, int b, int n, int bytes, cudaStream_t stream,
-                           Args... args) {
+cudaError_t launch_cluster(Kernel kernel, int r, int b, int rows, int bytes,
+                           cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          bytes);
   if (err == cudaSuccess)
@@ -571,7 +578,7 @@ cudaError_t launch_cluster(Kernel kernel, int r, int b, int n, int bytes, cudaSt
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(r, n / ROWS, b);
+  cfg.gridDim = dim3(r, rows / ROWS, b);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
@@ -589,77 +596,79 @@ cudaError_t launch_cluster(Kernel kernel, int r, int b, int n, int bytes, cudaSt
 
 template <int C>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const void* lse, const void* delta, void* dk, void* dv, int b, int n,
-                       float scale, cudaStream_t stream) {
+                       const void* lse, const void* delta, void* dk, void* dv, int b, int nq,
+                       int nk, float scale, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap, domap, lsemap, deltamap;
   constexpr int TILE = Layout<C / SLICE, true>::TILE;
-  cudaError_t err = operand_map<C>(&qmap, q, b, n, TILE);
-  if (err == cudaSuccess) err = operand_map<C>(&kmap, k, b, n, ROWS);
-  if (err == cudaSuccess) err = operand_map<C>(&vmap, v, b, n, ROWS);
-  if (err == cudaSuccess) err = operand_map<C>(&domap, dout, b, n, TILE);
-  if (err == cudaSuccess) err = rowvec_map(&lsemap, lse, b, n, TILE);
-  if (err == cudaSuccess) err = rowvec_map(&deltamap, delta, b, n, TILE);
+  cudaError_t err = operand_map<C>(&qmap, q, b, nq, TILE);
+  if (err == cudaSuccess) err = operand_map<C>(&kmap, k, b, nk, ROWS);
+  if (err == cudaSuccess) err = operand_map<C>(&vmap, v, b, nk, ROWS);
+  if (err == cudaSuccess) err = operand_map<C>(&domap, dout, b, nq, TILE);
+  if (err == cudaSuccess) err = rowvec_map(&lsemap, lse, b, nq, TILE);
+  if (err == cudaSuccess) err = rowvec_map(&deltamap, delta, b, nq, TILE);
   if (err != cudaSuccess) return err;
-  return launch_cluster(flash_bwd_dkv_kernel<C>, C / SLICE, b, n, Layout<C / SLICE, true>::BYTES,
+  return launch_cluster(flash_bwd_dkv_kernel<C>, C / SLICE, b, nk, Layout<C / SLICE, true>::BYTES,
                         stream, qmap, kmap, vmap, domap, lsemap, deltamap,
-                        static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, scale);
+                        static_cast<bf16*>(dk), static_cast<bf16*>(dv), nq, nk, scale);
 }
 
 template <int C>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dq, int b, int n, float scale,
-                      cudaStream_t stream) {
+                      const void* lse, const void* delta, void* dq, int b, int nq, int nk,
+                      float scale, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap, domap;
   constexpr int TILE = Layout<C / SLICE, false>::TILE;
-  cudaError_t err = operand_map<C>(&qmap, q, b, n, ROWS);
-  if (err == cudaSuccess) err = operand_map<C>(&kmap, k, b, n, TILE);
-  if (err == cudaSuccess) err = operand_map<C>(&vmap, v, b, n, TILE);
-  if (err == cudaSuccess) err = operand_map<C>(&domap, dout, b, n, ROWS);
+  cudaError_t err = operand_map<C>(&qmap, q, b, nq, ROWS);
+  if (err == cudaSuccess) err = operand_map<C>(&kmap, k, b, nk, TILE);
+  if (err == cudaSuccess) err = operand_map<C>(&vmap, v, b, nk, TILE);
+  if (err == cudaSuccess) err = operand_map<C>(&domap, dout, b, nq, ROWS);
   if (err != cudaSuccess) return err;
-  return launch_cluster(flash_bwd_dq_kernel<C>, C / SLICE, b, n, Layout<C / SLICE, false>::BYTES,
+  return launch_cluster(flash_bwd_dq_kernel<C>, C / SLICE, b, nq, Layout<C / SLICE, false>::BYTES,
                         stream, qmap, kmap, vmap, domap, static_cast<const float*>(lse),
-                        static_cast<const float*>(delta), static_cast<bf16*>(dq), n, scale);
+                        static_cast<const float*>(delta), static_cast<bf16*>(dq), nq, nk, scale);
 }
 
-// The shapes the kernels take: 1 <= b <= 65535 (grid z), n a positive
-// multiple of 128 with n / 64 blocks within grid y.
-bool shape_ok(int b, int n) {
-  return b >= 1 && b <= 65535 && n >= 128 && n % 128 == 0 && n / ROWS <= 65535;
+// The shapes the kernels take: 1 <= b <= 65535 (grid z), nq and nk positive
+// multiples of 128 with nq / 64 and nk / 64 blocks within grid y.
+bool shape_ok(int b, int nq, int nk) {
+  return b >= 1 && b <= 65535 && nq >= 128 && nq % 128 == 0 && nq / ROWS <= 65535 &&
+         nk >= 128 && nk % 128 == 0 && nk / ROWS <= 65535;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, dout, dk, dv: contiguous (b, n, c) bf16; lse, delta: contiguous
-// (b, n) fp32; all on the current device. n must be a multiple of 128 and c
-// one of 128, 256, 384, 512.
+// q, dout: contiguous (b, nq, c) bf16; k, v, dk, dv: contiguous (b, nk, c)
+// bf16; lse, delta: contiguous (b, nq) fp32; all on the current device. nq
+// and nk must be multiples of 128 and c one of 128, 256, 384, 512.
 int vcd_flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse, const void* delta,
-                                     void* dk, void* dv, int b, int n, int c, float scale,
-                                     void* stream) {
-  if (!shape_ok(b, n)) return static_cast<int>(cudaErrorInvalidValue);
+                                     void* dk, void* dv, int b, int nq, int nk, int c,
+                                     float scale, void* stream) {
+  if (!shape_ok(b, nq, nk)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (c) {
-    case 128: return static_cast<int>(launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, b, n, scale, s));
-    case 256: return static_cast<int>(launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, b, n, scale, s));
-    case 384: return static_cast<int>(launch_dkv<384>(q, k, v, dout, lse, delta, dk, dv, b, n, scale, s));
-    case 512: return static_cast<int>(launch_dkv<512>(q, k, v, dout, lse, delta, dk, dv, b, n, scale, s));
+    case 128: return static_cast<int>(launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, b, nq, nk, scale, s));
+    case 256: return static_cast<int>(launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, b, nq, nk, scale, s));
+    case 384: return static_cast<int>(launch_dkv<384>(q, k, v, dout, lse, delta, dk, dv, b, nq, nk, scale, s));
+    case 512: return static_cast<int>(launch_dkv<512>(q, k, v, dout, lse, delta, dk, dv, b, nq, nk, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The same operands; writes dq, contiguous (b, n, c) bf16.
+// The same operands; writes dq, contiguous (b, nq, c) bf16.
 int vcd_flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
-                                    void* dq, int b, int n, int c, float scale, void* stream) {
-  if (!shape_ok(b, n)) return static_cast<int>(cudaErrorInvalidValue);
+                                    void* dq, int b, int nq, int nk, int c, float scale,
+                                    void* stream) {
+  if (!shape_ok(b, nq, nk)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (c) {
-    case 128: return static_cast<int>(launch_dq<128>(q, k, v, dout, lse, delta, dq, b, n, scale, s));
-    case 256: return static_cast<int>(launch_dq<256>(q, k, v, dout, lse, delta, dq, b, n, scale, s));
-    case 384: return static_cast<int>(launch_dq<384>(q, k, v, dout, lse, delta, dq, b, n, scale, s));
-    case 512: return static_cast<int>(launch_dq<512>(q, k, v, dout, lse, delta, dq, b, n, scale, s));
+    case 128: return static_cast<int>(launch_dq<128>(q, k, v, dout, lse, delta, dq, b, nq, nk, scale, s));
+    case 256: return static_cast<int>(launch_dq<256>(q, k, v, dout, lse, delta, dq, b, nq, nk, scale, s));
+    case 384: return static_cast<int>(launch_dq<384>(q, k, v, dout, lse, delta, dq, b, nq, nk, scale, s));
+    case 512: return static_cast<int>(launch_dq<512>(q, k, v, dout, lse, delta, dq, b, nq, nk, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -569,8 +569,11 @@ __device__ __forceinline__ void store_transposed(float* out, const float (&d)[MB
 // lse and delta by TMA. Else dQ (out1; out2 unused) for the 64 queries
 // blockIdx.y: resident Q, dO, streamed K, V, the block's lse and delta read
 // once. Operand maps: (B, N, C) fp32 in boxes of 32 channels x 64 rows
-// (resident) or 32 rows (streamed), 128-byte swizzled; lse and delta (B, N)
-// fp32. Grid (R, N / 64, B) in clusters of (R, 1, 1).
+// (resident) or 32 rows (streamed), 128-byte swizzled; lse and delta (B, Nq)
+// fp32. The resident operands hold n_res rows (Nk keys for dK/dV, Nq
+// queries for dQ) and the streamed n_str (the other count): under a spatial
+// group Nq = N / S (ops/spatial_conv.py); at Nq == Nk nothing else differs.
+// Grid (R, n_res / 64, B) in clusters of (R, 1, 1).
 template <int C, bool DKV>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap res0map,
@@ -580,8 +583,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                          const __grid_constant__ CUtensorMap lsemap,
                          const __grid_constant__ CUtensorMap deltamap,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ out1, float* __restrict__ out2, int n,
-                         float scale) {
+                         float* __restrict__ out1, float* __restrict__ out2, int n_res,
+                         int n_str, float scale) {
   constexpr int R = C / SLICE;
   using L = Layout<R, DKV>;
   extern __shared__ uint8_t smem_raw[];
@@ -589,7 +592,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = tid / WG, wt = tid % WG;
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
-  const int r0 = blockIdx.y * ROWS, b = blockIdx.z, c0 = rank * SLICE, nt = n / TILE;
+  const int r0 = blockIdx.y * ROWS, b = blockIdx.z, c0 = rank * SLICE, nt = n_str / TILE;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
   uint64_t* res_full = full + STAGES;
   uint64_t* slots_full = res_full + 1;
@@ -623,7 +626,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     mbar_init_fence();
   }
   if (!DKV && tid < ROWS) {
-    const size_t row = static_cast<size_t>(b) * n + r0 + tid;
+    const size_t row = static_cast<size_t>(b) * n_res + r0 + tid;
     vec(0)[tid] = lse[row];
     vec(0)[ROWS + tid] = delta[row];
   }
@@ -717,7 +720,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     products<MB, L::KSTEP_BYTES>(acc, frag, bt, tile);
   }
 
-  const size_t out = (static_cast<size_t>(b) * n + r0) * C + c0;
+  const size_t out = (static_cast<size_t>(b) * n_res + r0) * C + c0;
   store_transposed<C, MB>((DKV && g == 1 ? out2 : out1) + out, acc, mb0, wt);
   // no CTA leaves while another may still reach its shared memory
   cg::this_cluster().sync();
@@ -741,20 +744,22 @@ cudaError_t rowvec_map(CUtensorMap* map, const void* base, int b, int n) {
   return make_tensor_map(map, base, 2, dims, strides, box, 0, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
-// The launch over grid (R, n / 64, b) in clusters of R CTAs, with the
+// The launch over grid (R, n_res / 64, b) in clusters of R CTAs, with the
 // shared memory; the SM's whole carveout goes to shared memory.
 template <int C, bool DKV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
-                   const void* lse, const void* delta, void* out1, void* out2, int b, int n,
-                   float scale, cudaStream_t stream) {
-  // dK/dV: K, V resident and Q, dO streamed; dQ: Q, dO resident and K, V streamed
+                   const void* lse, const void* delta, void* out1, void* out2, int b, int nq,
+                   int nk, float scale, cudaStream_t stream) {
+  // dK/dV: K, V resident (nk rows) and Q, dO streamed (nq); dQ: Q, dO
+  // resident and K, V streamed
+  const int n_res = DKV ? nk : nq, n_str = DKV ? nq : nk;
   CUtensorMap res0, res1, str0, str1, lsemap, deltamap;
-  cudaError_t err = operand_map<C>(&res0, DKV ? k : q, b, n, ROWS);
-  if (err == cudaSuccess) err = operand_map<C>(&res1, DKV ? v : dout, b, n, ROWS);
-  if (err == cudaSuccess) err = operand_map<C>(&str0, DKV ? q : k, b, n, TILE);
-  if (err == cudaSuccess) err = operand_map<C>(&str1, DKV ? dout : v, b, n, TILE);
-  if (err == cudaSuccess) err = rowvec_map(&lsemap, lse, b, n);
-  if (err == cudaSuccess) err = rowvec_map(&deltamap, delta, b, n);
+  cudaError_t err = operand_map<C>(&res0, DKV ? k : q, b, n_res, ROWS);
+  if (err == cudaSuccess) err = operand_map<C>(&res1, DKV ? v : dout, b, n_res, ROWS);
+  if (err == cudaSuccess) err = operand_map<C>(&str0, DKV ? q : k, b, n_str, TILE);
+  if (err == cudaSuccess) err = operand_map<C>(&str1, DKV ? dout : v, b, n_str, TILE);
+  if (err == cudaSuccess) err = rowvec_map(&lsemap, lse, b, nq);
+  if (err == cudaSuccess) err = rowvec_map(&deltamap, delta, b, nq);
   if (err != cudaSuccess) return err;
   auto kernel = flash_bwd_f32_kernel<C, DKV>;
   constexpr int bytes = Layout<C / SLICE, DKV>::BYTES;
@@ -764,7 +769,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C / SLICE, n / ROWS, b);
+  cfg.gridDim = dim3(C / SLICE, n_res / ROWS, b);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
@@ -777,25 +782,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, res0, res1, str0, str1, lsemap, deltamap,
                            static_cast<const float*>(lse), static_cast<const float*>(delta),
-                           static_cast<float*>(out1), static_cast<float*>(out2), n, scale);
+                           static_cast<float*>(out1), static_cast<float*>(out2), n_res, n_str,
+                           scale);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <bool DKV>
 int dispatch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-             const void* delta, void* out1, void* out2, int b, int n, int c, float scale,
-             void* stream) {
-  // 1 <= b <= 65535 (grid z), n a positive multiple of 128 with n / 64
-  // blocks within grid y
-  if (b < 1 || b > 65535 || n < 128 || n % 128 != 0 || n / ROWS > 65535)
+             const void* delta, void* out1, void* out2, int b, int nq, int nk, int c,
+             float scale, void* stream) {
+  // 1 <= b <= 65535 (grid z), nq and nk positive multiples of 128 with
+  // nq / 64 and nk / 64 blocks within grid y
+  if (b < 1 || b > 65535 || nq < 128 || nq % 128 != 0 || nq / ROWS > 65535 || nk < 128 ||
+      nk % 128 != 0 || nk / ROWS > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (c) {
-    case 128: return static_cast<int>(launch<128, DKV>(q, k, v, dout, lse, delta, out1, out2, b, n, scale, s));
-    case 256: return static_cast<int>(launch<256, DKV>(q, k, v, dout, lse, delta, out1, out2, b, n, scale, s));
-    case 384: return static_cast<int>(launch<384, DKV>(q, k, v, dout, lse, delta, out1, out2, b, n, scale, s));
-    case 512: return static_cast<int>(launch<512, DKV>(q, k, v, dout, lse, delta, out1, out2, b, n, scale, s));
+    case 128: return static_cast<int>(launch<128, DKV>(q, k, v, dout, lse, delta, out1, out2, b, nq, nk, scale, s));
+    case 256: return static_cast<int>(launch<256, DKV>(q, k, v, dout, lse, delta, out1, out2, b, nq, nk, scale, s));
+    case 384: return static_cast<int>(launch<384, DKV>(q, k, v, dout, lse, delta, out1, out2, b, nq, nk, scale, s));
+    case 512: return static_cast<int>(launch<512, DKV>(q, k, v, dout, lse, delta, out1, out2, b, nq, nk, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -815,21 +822,23 @@ int smem_bytes(int c) {
 
 extern "C" {
 
-// q, k, v, dout, dk, dv: contiguous (b, n, c) fp32; lse, delta: contiguous
-// (b, n) fp32; all 16-byte aligned, on the current device. n must be a
-// multiple of 128 and c one of 128, 256, 384, 512.
+// q, dout: contiguous (b, nq, c) fp32; k, v, dk, dv: contiguous (b, nk, c)
+// fp32; lse, delta: contiguous (b, nq) fp32; all 16-byte aligned, on the
+// current device. nq and nk must be multiples of 128 and c one of 128, 256,
+// 384, 512.
 int vcd_flash_attention_bwd_dkv_f32(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
-                                    void* dk, void* dv, int b, int n, int c, float scale,
-                                    void* stream) {
-  return dispatch<true>(q, k, v, dout, lse, delta, dk, dv, b, n, c, scale, stream);
+                                    void* dk, void* dv, int b, int nq, int nk, int c,
+                                    float scale, void* stream) {
+  return dispatch<true>(q, k, v, dout, lse, delta, dk, dv, b, nq, nk, c, scale, stream);
 }
 
-// The same operands; writes dq, contiguous (b, n, c) fp32.
+// The same operands; writes dq, contiguous (b, nq, c) fp32.
 int vcd_flash_attention_bwd_dq_f32(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
-                                   void* dq, int b, int n, int c, float scale, void* stream) {
-  return dispatch<false>(q, k, v, dout, lse, delta, dq, nullptr, b, n, c, scale, stream);
+                                   void* dq, int b, int nq, int nk, int c, float scale,
+                                   void* stream) {
+  return dispatch<false>(q, k, v, dout, lse, delta, dq, nullptr, b, nq, nk, c, scale, stream);
 }
 
 // The dynamic shared memory a CTA of the dK/dV (dkv != 0) or dQ kernel takes

@@ -7,8 +7,12 @@
 //   online softmax with fp32 running max m and denominator l;
 //   P = exp(S - m) cast to bf16 before the P V product (fp32 accumulation);
 //   O = acc / l, written in bf16;
-//   training only: lse = m + log(l) per query row, fp32 (B, N), which the
+//   training only: lse = m + log(l) per query row, fp32 (B, Nq), which the
 //   backward kernels (flash_attention_bwd.cu) rebuild P from.
+// Q holds Nq rows and K, V Nk, as in the JAX kernel: under a spatial group
+// of S ranks (ops/spatial_conv.py) each rank's queries are its Nq = N / S
+// rows of the image and its keys all N. Nq sets the grid, Nk the key loop
+// and the K/V tensor maps; at Nq == Nk nothing else differs.
 // The LSE output is a null-or-not pointer, not a template flag: the row's
 // final m and l already sit in the softmax threads' registers, so it costs
 // one uniform branch and one store per row at the end, and the serving
@@ -119,7 +123,8 @@
 // the alignment.
 //
 // Plain C interface for ctypes: pointers and the stream are void*, the
-// function returns cudaGetLastError() after the launch. It launches on the
+// function returns cudaGetLastError() after the launch (cudaErrorInvalidValue
+// for a shape it does not take). It launches on the
 // caller's stream, allocates nothing and does not synchronise.
 
 
@@ -185,14 +190,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // O (B, N, C) bf16 = softmax(Q K^T * scale) V, and with lse non-null the
-// fp32 (B, N) lse = m + log(l), over bf16 q, k, v (B, N, C). Grid (N / 64,
-// B); a producer warpgroup and two consumers.
+// fp32 (B, Nq) lse = m + log(l), over bf16 q (B, Nq, C) and k, v (B, Nk, C).
+// Grid (Nq / 64, B); a producer warpgroup and two consumers.
 template <int C>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o,
-                     float* __restrict__ lse, int n, float scale) {
+                     float* __restrict__ lse, int nq, int nk, float scale) {
   using L = Layout<C>;
   constexpr int H = L::H, NCH = L::NCH;
   extern __shared__ uint8_t smem_raw[];
@@ -203,7 +208,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* qbar = empty + STAGES;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * BQ, b = blockIdx.y, nt = n / BK;
+  const int q0 = blockIdx.x * BQ, b = blockIdx.y, nt = nk / BK;
   const int units = 2 * nt * NCH;
   const float scale_log2 = scale * LOG2E;
 
@@ -438,12 +443,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     }
     if (lse != nullptr && g == 0 && tig == 0) {
-      lse[static_cast<size_t>(b) * n + q0 + row0] = m_run[0] * LN2 + logf(l_run[0]);
-      lse[static_cast<size_t>(b) * n + q0 + row0 + 8] = m_run[1] * LN2 + logf(l_run[1]);
+      lse[static_cast<size_t>(b) * nq + q0 + row0] = m_run[0] * LN2 + logf(l_run[0]);
+      lse[static_cast<size_t>(b) * nq + q0 + row0 + 8] = m_run[1] * LN2 + logf(l_run[1]);
     }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      bf16* orow = o + (static_cast<size_t>(b) * n + q0 + row0 + 8 * half) * C + g * H;
+      bf16* orow = o + (static_cast<size_t>(b) * nq + q0 + row0 + 8 * half) * C + g * H;
 #pragma unroll
       for (int u = 0; u < NCH; ++u)
 #pragma unroll
@@ -457,17 +462,17 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 template <int C>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
-                   int n, float scale, cudaStream_t stream) {
+                   int nq, int nk, float scale, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
-  const uint64_t dims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(n),
+  const uint64_t dims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(nq),
                             static_cast<uint64_t>(b)};
-  const uint64_t strides[2] = {2ull * C, 2ull * C * n};
+  const uint64_t strides[2] = {2ull * C, 2ull * C * nq};
   const uint32_t qbox[3] = {64, BQ, 1};
-  // K and V as (C/2 channels, n rows, 2 halves, b): a unit's box lands as
+  // K and V as (C/2 channels, nk rows, 2 halves, b): a unit's box lands as
   // one 64-row box of each half (see the producer)
-  const uint64_t kvdims[4] = {static_cast<uint64_t>(C / 2), static_cast<uint64_t>(n), 2,
+  const uint64_t kvdims[4] = {static_cast<uint64_t>(C / 2), static_cast<uint64_t>(nk), 2,
                               static_cast<uint64_t>(b)};
-  const uint64_t kvstrides[3] = {2ull * C, 1ull * C, 2ull * C * n};
+  const uint64_t kvstrides[3] = {2ull * C, 1ull * C, 2ull * C * nk};
   const uint32_t kvbox[4] = {64, 64, 2, 1};
   cudaError_t err = make_tensor_map(&qmap, q, 3, dims, strides, qbox, 128);
   if (err == cudaSuccess) err = make_tensor_map(&kmap, k, 4, kvdims, kvstrides, kvbox, 128);
@@ -477,8 +482,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   err = cudaFuncSetAttribute(flash_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<C><<<dim3(n / BQ, b), THREADS, bytes, stream>>>(
-      qmap, kmap, vmap, static_cast<bf16*>(o), lse, n, scale);
+  flash_fwd_kernel<C><<<dim3(nq / BQ, b), THREADS, bytes, stream>>>(
+      qmap, kmap, vmap, static_cast<bf16*>(o), lse, nq, nk, scale);
   return cudaGetLastError();
 }
 
@@ -525,15 +530,15 @@ __device__ __forceinline__ float4 tf32_lo(float4 x, float4 hi) {
                      to_tf32(x.w - hi.w));
 }
 
-// O (B, N, C) fp32 = softmax(Q K^T * scale) V over fp32 q, k, v (B, N, C),
-// and with lse non-null the fp32 (B, N) lse = m + log(l). Grid (N / 64, B);
-// two warpgroups, thread 0 also the producer.
+// O (B, Nq, C) fp32 = softmax(Q K^T * scale) V over fp32 q (B, Nq, C) and
+// k, v (B, Nk, C), and with lse non-null the fp32 (B, Nq) lse = m + log(l).
+// Grid (Nq / 64, B); two warpgroups, thread 0 also the producer.
 template <int C>
 __global__ void __launch_bounds__(F32_THREADS, 1)
     flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap, float* __restrict__ o,
-                         float* __restrict__ lse, int n, float scale) {
+                         float* __restrict__ lse, int nq, int nk, float scale) {
   using U = F32Units<C>;
   constexpr int H = U::H, OC = U::OC;
   extern __shared__ uint8_t smem_raw[];
@@ -544,7 +549,7 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int q0 = blockIdx.x * F32_BQ, b = blockIdx.y;
-  const int units = (n / F32_BK) * U::UNITS;
+  const int units = (nk / F32_BK) * U::UNITS;
 
   // Unit k of the stream, into its stage: per key tile, NS units of Q and K
   // (16 channels of each half, 64 rows each, 64-byte swizzled), then for
@@ -638,7 +643,7 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
     ++k;
   };
 
-  for (int t = 0; t < n / F32_BK; ++t) {
+  for (int t = 0; t < nk / F32_BK; ++t) {
     // ---- S_g = Q[:, half g] K[:, half g]^T, 3xTF32, in two parts ----
     float sacc[32], sacc2[32];
 #pragma unroll
@@ -763,12 +768,12 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
   }
   // both warpgroups hold the same m and l: warpgroup 0 writes the rows' lse
   if (lse != nullptr && g == 0 && tig == 0) {
-    lse[static_cast<size_t>(b) * n + q0 + row0] = m_run[0] + logf(l_run[0]);
-    lse[static_cast<size_t>(b) * n + q0 + row0 + 8] = m_run[1] + logf(l_run[1]);
+    lse[static_cast<size_t>(b) * nq + q0 + row0] = m_run[0] + logf(l_run[0]);
+    lse[static_cast<size_t>(b) * nq + q0 + row0 + 8] = m_run[1] + logf(l_run[1]);
   }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    float* orow = o + (static_cast<size_t>(b) * n + q0 + row0 + 8 * half) * C + g * H;
+    float* orow = o + (static_cast<size_t>(b) * nq + q0 + row0 + 8 * half) * C + g * H;
 #pragma unroll
     for (int j = 0; j < H / 8; ++j)
       *reinterpret_cast<float2*>(orow + 8 * j + 2 * tig) =
@@ -779,50 +784,59 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
 
 template <int C>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int b,
-                       int n, float scale, cudaStream_t stream) {
+                       int nq, int nk, float scale, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
-  const uint64_t dims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(n),
-                            static_cast<uint64_t>(b)};
-  const uint64_t strides[2] = {4ull * C, 4ull * C * n};
+  const uint64_t qdims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(nq),
+                             static_cast<uint64_t>(b)};
+  const uint64_t qstrides[2] = {4ull * C, 4ull * C * nq};
+  const uint64_t kvdims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(nk),
+                              static_cast<uint64_t>(b)};
+  const uint64_t kvstrides[2] = {4ull * C, 4ull * C * nk};
   const uint32_t qkbox[3] = {F32_KC, F32_BQ, 1};
   const uint32_t vbox[3] = {F32Units<C>::OC, F32_VK, 1};
   const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  cudaError_t err = make_tensor_map(&qmap, q, 3, dims, strides, qkbox, 64, f32);
-  if (err == cudaSuccess) err = make_tensor_map(&kmap, k, 3, dims, strides, qkbox, 64, f32);
-  if (err == cudaSuccess) err = make_tensor_map(&vmap, v, 3, dims, strides, vbox, 0, f32);
+  cudaError_t err = make_tensor_map(&qmap, q, 3, qdims, qstrides, qkbox, 64, f32);
+  if (err == cudaSuccess) err = make_tensor_map(&kmap, k, 3, kvdims, kvstrides, qkbox, 64, f32);
+  if (err == cudaSuccess) err = make_tensor_map(&vmap, v, 3, kvdims, kvstrides, vbox, 0, f32);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_fwd_f32_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              F32_SMEM);
   if (err != cudaSuccess) return err;
-  flash_fwd_f32_kernel<C><<<dim3(n / F32_BQ, b), F32_THREADS, F32_SMEM, stream>>>(
-      qmap, kmap, vmap, static_cast<float*>(o), lse, n, scale);
+  flash_fwd_f32_kernel<C><<<dim3(nq / F32_BQ, b), F32_THREADS, F32_SMEM, stream>>>(
+      qmap, kmap, vmap, static_cast<float*>(o), lse, nq, nk, scale);
   return cudaGetLastError();
 }
 
+// The shapes both forwards take: 1 <= b <= 65535 (grid y), nq and nk
+// positive multiples of the 64-row query block and the 64-key tile.
+bool shape_ok(int b, int nq, int nk) {
+  return b >= 1 && b <= 65535 && nq >= BQ && nq % BQ == 0 && nk >= BK && nk % BK == 0;
+}
+
 // The bf16 forward at width c.
-int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int n,
-             int c, float scale, void* stream) {
-  if (b < 1 || b > 65535 || n < BK || n % BK != 0) return static_cast<int>(cudaErrorInvalidValue);
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int nq,
+             int nk, int c, float scale, void* stream) {
+  if (!shape_ok(b, nq, nk)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (c) {
-    case 128: return static_cast<int>(launch<128>(q, k, v, o, lse, b, n, scale, s));
-    case 256: return static_cast<int>(launch<256>(q, k, v, o, lse, b, n, scale, s));
-    case 384: return static_cast<int>(launch<384>(q, k, v, o, lse, b, n, scale, s));
-    case 512: return static_cast<int>(launch<512>(q, k, v, o, lse, b, n, scale, s));
+    case 128: return static_cast<int>(launch<128>(q, k, v, o, lse, b, nq, nk, scale, s));
+    case 256: return static_cast<int>(launch<256>(q, k, v, o, lse, b, nq, nk, scale, s));
+    case 384: return static_cast<int>(launch<384>(q, k, v, o, lse, b, nq, nk, scale, s));
+    case 512: return static_cast<int>(launch<512>(q, k, v, o, lse, b, nq, nk, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The fp32 forward at width c.
-int dispatch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int b, int n,
-                 int c, float scale, void* stream) {
-  if (b < 1 || b > 65535 || n < BK || n % BK != 0) return static_cast<int>(cudaErrorInvalidValue);
+int dispatch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int b, int nq,
+                 int nk, int c, float scale, void* stream) {
+  if (!shape_ok(b, nq, nk)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (c) {
-    case 128: return static_cast<int>(launch_f32<128>(q, k, v, o, lse, b, n, scale, s));
-    case 256: return static_cast<int>(launch_f32<256>(q, k, v, o, lse, b, n, scale, s));
-    case 384: return static_cast<int>(launch_f32<384>(q, k, v, o, lse, b, n, scale, s));
-    case 512: return static_cast<int>(launch_f32<512>(q, k, v, o, lse, b, n, scale, s));
+    case 128: return static_cast<int>(launch_f32<128>(q, k, v, o, lse, b, nq, nk, scale, s));
+    case 256: return static_cast<int>(launch_f32<256>(q, k, v, o, lse, b, nq, nk, scale, s));
+    case 384: return static_cast<int>(launch_f32<384>(q, k, v, o, lse, b, nq, nk, scale, s));
+    case 512: return static_cast<int>(launch_f32<512>(q, k, v, o, lse, b, nq, nk, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -831,30 +845,33 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o, float* ls
 
 extern "C" {
 
-// q, k, v, o: contiguous (b, n, c) bf16 on the current device. n must be a
-// multiple of 64 (the key tile) and c one of 128, 256, 384, 512.
+// q, o: contiguous (b, nq, c) bf16, k, v: contiguous (b, nk, c) bf16, on
+// the current device. nq and nk must be multiples of 64 (the query block,
+// the key tile) and c one of 128, 256, 384, 512.
 int vcd_flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o, int b,
-                                 int n, int c, float scale, void* stream) {
-  return dispatch(q, k, v, o, nullptr, b, n, c, scale, stream);
+                                 int nq, int nk, int c, float scale, void* stream) {
+  return dispatch(q, k, v, o, nullptr, b, nq, nk, c, scale, stream);
 }
 
-// The training variant: also writes lse, contiguous (b, n) fp32.
+// The training variant: also writes lse, contiguous (b, nq) fp32.
 int vcd_flash_attention_fwd_lse_bf16(const void* q, const void* k, const void* v, void* o,
-                                     void* lse, int b, int n, int c, float scale, void* stream) {
-  return dispatch(q, k, v, o, static_cast<float*>(lse), b, n, c, scale, stream);
+                                     void* lse, int b, int nq, int nk, int c, float scale,
+                                     void* stream) {
+  return dispatch(q, k, v, o, static_cast<float*>(lse), b, nq, nk, c, scale, stream);
 }
 
-// The fp32 serving forward: q, k, v, o contiguous (b, n, c) fp32; n a
-// multiple of 64 and c one of 128, 256, 384, 512, as above.
+// The fp32 serving forward: q, o contiguous (b, nq, c) fp32, k, v (b, nk, c)
+// fp32; nq and nk multiples of 64 and c one of 128, 256, 384, 512, as above.
 int vcd_flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, int b,
-                                int n, int c, float scale, void* stream) {
-  return dispatch_f32(q, k, v, o, nullptr, b, n, c, scale, stream);
+                                int nq, int nk, int c, float scale, void* stream) {
+  return dispatch_f32(q, k, v, o, nullptr, b, nq, nk, c, scale, stream);
 }
 
-// The fp32 training variant: also writes lse, contiguous (b, n) fp32.
+// The fp32 training variant: also writes lse, contiguous (b, nq) fp32.
 int vcd_flash_attention_fwd_lse_f32(const void* q, const void* k, const void* v, void* o,
-                                    void* lse, int b, int n, int c, float scale, void* stream) {
-  return dispatch_f32(q, k, v, o, static_cast<float*>(lse), b, n, c, scale, stream);
+                                    void* lse, int b, int nq, int nk, int c, float scale,
+                                    void* stream) {
+  return dispatch_f32(q, k, v, o, static_cast<float*>(lse), b, nq, nk, c, scale, stream);
 }
 
 const char* vcd_cuda_error_string(int err) {

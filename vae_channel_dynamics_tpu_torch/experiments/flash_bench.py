@@ -1,7 +1,7 @@
 """The flash kernels' times on the card, for a checkout.
 
     python vae_channel_dynamics_tpu_torch/experiments/flash_bench.py \\
-        [--root CHECKOUT] [--iters N]
+        [--root CHECKOUT] [--iters N] [--digest]
 
 Times ``ops.flash_attention.flash_attention_fwd`` on fp32 q, k, v of
 (8, 4096, 512), the fp32 evaluation's shape (batch 8 at 512px), TF32 off;
@@ -16,6 +16,11 @@ the package of another checkout of this repository (an older commit
 unpacked beside this one), whose kernel libraries build into that
 checkout's ``build/``: run two checkouts in turns (A, B, B, A) in one run on
 one card to compare them. Needs a GPU.
+
+``--digest`` times nothing: it runs every flash kernel (the serving and LSE
+forwards, dK/dV, dQ; bf16 and fp32) at nq == nk on seeded operands at
+``DIGEST_SHAPES`` and prints one JSON line of each output's SHA-256, so two
+checkouts' lines show whether their kernels give the same bits.
 """
 
 from __future__ import annotations
@@ -29,6 +34,37 @@ import sys
 SHAPE = (8, 4096, 512)
 TRAIN_SHAPE = (1, 16384, 512)
 BF16_BWD_SHAPES = ((1, 16384, 512), (1, 16384, 128))
+DIGEST_SHAPES = ((1, 16384, 512), (4, 4096, 512), (2, 1024, 128), (1, 1024, 384))
+
+
+def digests(torch, fa) -> dict:
+    """SHA-256 of each kernel's outputs at each of DIGEST_SHAPES, bf16 and
+    fp32 (TF32 off), operands from one seed."""
+    import hashlib
+
+    def sha(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    out = {}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        for shape in DIGEST_SHAPES:
+            gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+            q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                           for _ in range(4))
+            scale = shape[-1] ** -0.5
+            o, lse = fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=dtype)
+            delta = (do.float() * o.float()).sum(-1)
+            key = f"{tag}@{'x'.join(map(str, shape))}"
+            out[f"fwd_lse {key}"] = sha(o, lse)
+            out[f"fwd {key}"] = sha(fa.flash_attention_fwd(q, k, v, scale=scale, out_dtype=dtype))
+            out[f"bwd_dkv {key}"] = sha(*fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                                     scale=scale))
+            out[f"bwd_dq {key}"] = sha(fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                                 scale=scale))
+    return out
 
 
 def main(argv=None) -> int:
@@ -36,6 +72,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=here, help="the checkout whose package is timed")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--digest", action="store_true",
+                    help="print the kernels' output digests at nq == nk, time nothing")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -47,6 +85,10 @@ def main(argv=None) -> int:
         print("flash_bench: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.digest:
+        print(json.dumps({"root": root, "package": os.path.dirname(fa.__file__),
+                          "digests": digests(torch, fa)}), flush=True)
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(SHAPE, generator=gen, device="cuda") for _ in range(3))
     scale = SHAPE[-1] ** -0.5

@@ -47,8 +47,17 @@ computed again from the norm's input when the backward reads it. The JAX
 model remats only the resnets, so the attention blocks are never
 recomputed. The recompute reports no taps: the forward's values stand.
 
-Not in this port: ``remat: offload`` (not to be ported), and the
-spatial-conv branch of the JAX model.
+Image rows sharded over a spatial group (``parallel.spatial``, JAX's
+spatial-conv branch): under ``ops.spatial_conv.spatial_conv_scope`` every
+conv exchanges its halo rows with the neighbouring shards
+(``halo_conv``), every GroupNorm sums its statistics over the shards, and
+the attention block keeps its local queries against every shard's keys and
+values (``gather_rows``). Under ``remat: full`` a rank must run the same
+collectives in the recompute as every other rank, so there the
+checkpoint's early stop is off and the whole body runs again. The fused
+resnet kernels exchange no halo: the gate refuses a block under the scope.
+
+Not in this port: ``remat: offload`` (not to be ported).
 """
 
 from __future__ import annotations
@@ -60,13 +69,14 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from ..ops import flash_attention as flash_ops
 from ..ops import fused_resnet
 from ..ops.attention import chunked_attention, naive_attention, resolve_impl
 from ..ops import group_norm_kernel
 from ..ops.group_norm import group_norm, silu
+from ..ops.spatial_conv import active_spatial_group, gather_rows, halo_conv
 from ..ops.stats import channel_stats
 from .distributions import DiagonalGaussianDistribution
 
@@ -162,7 +172,8 @@ class Conv2d(TapModule):
     ``padding`` is symmetric (an int) or an explicit ``(left, right, top,
     bottom)`` zero pad applied after the input tap, so that the tap sees the
     unpadded input as in the JAX model. The conv computes in
-    ``compute_dtype`` when set, else in its weight's dtype."""
+    ``compute_dtype`` when set, else in its weight's dtype. Under a spatial
+    group it is :func:`ops.spatial_conv.halo_conv` on this rank's rows."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  stride: int = 1, padding: Union[int, Tuple[int, int, int, int]] = 1,
@@ -187,9 +198,14 @@ class Conv2d(TapModule):
         self.tap(x, "input")
         dt = self.compute_dtype or self.weight.dtype
         x = x.to(dt)
-        if self.pad is not None:
-            x = F.pad(x, self.pad)
-        y = F.conv2d(x, self.weight.to(dt), self.bias.to(dt), self.stride, self.padding)
+        sp = active_spatial_group()
+        if sp is not None:
+            pad = self.pad if self.pad is not None else (self.padding,) * 4
+            y = halo_conv(x, self.weight.to(dt), self.bias.to(dt), self.stride, pad, sp)
+        else:
+            if self.pad is not None:
+                x = F.pad(x, self.pad)
+            y = F.conv2d(x, self.weight.to(dt), self.bias.to(dt), self.stride, self.padding)
         self.tap(y, "output")
         return y
 
@@ -376,6 +392,9 @@ class ResnetBlock2D(nn.Module):
         to _FUSED_MAX_HW, both convs eligible, every capture servable."""
         if self.impl != "fused" or self.compute_dtype != torch.bfloat16:
             return False
+        if active_spatial_group() is not None:
+            # the fused kernels' convs exchange no halo rows
+            return False
         n, _c, h, w = x.shape
         if h * w > self._FUSED_MAX_HW:
             return False
@@ -483,7 +502,12 @@ class ResnetBlock2D(nn.Module):
             return body(inp)
 
         # the body draws no random numbers, so no RNG state is stashed
-        return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+        if active_spatial_group() is None:
+            return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+        # the recompute must run every collective the forward ran, on every
+        # rank: no early stop
+        with set_checkpoint_early_stop(False):
+            return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 class AttentionBlock(nn.Module):
@@ -493,7 +517,10 @@ class AttentionBlock(nn.Module):
     .resolve_impl``; ``flash`` that the kernels cannot take runs ``chunked``,
     as in the JAX model. ``flash`` is differentiable: with autograd recording
     it runs the LSE forward and the backward kernels
-    (``ops/flash_attention.py``)."""
+    (``ops/flash_attention.py``). Under a spatial group the queries are this
+    rank's rows and K and V every shard's, gathered in order (JAX's
+    sequence parallelism, for every impl); the policy reads the whole
+    image's token count."""
 
     def __init__(self, channels: int, num_groups: int, eps: float,
                  attn_impl: str = "auto", device=None):
@@ -510,8 +537,12 @@ class AttentionBlock(nn.Module):
         h = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
         q, k, v = self.to_q(h), self.to_k(h), self.to_v(h)
         scale = 1.0 / math.sqrt(c)
-        impl = resolve_impl(self.attn_impl, hh * ww, c, batch=b)
-        if impl == "flash" and not flash_ops.eligible(hh * ww, c):
+        sp = active_spatial_group()
+        if sp is not None:
+            k, v = gather_rows(k, 1, sp), gather_rows(v, 1, sp)
+        impl = resolve_impl(self.attn_impl, k.shape[1], c, batch=b)
+        if impl == "flash" and not (flash_ops.eligible(hh * ww, c)
+                                    and flash_ops.eligible(k.shape[1], c)):
             impl = "chunked"
         if impl == "flash":
             h = flash_ops.flash_attention(q, k, v, scale=scale, out_dtype=q.dtype)

@@ -60,6 +60,15 @@ plain matmul's order, which P = exp(S - lse) needs at logits of several
 hundred.
 The sources' header comments have the tile layouts.
 
+Every kernel takes the query count ``nq`` and the key count ``nk`` apart,
+as the JAX kernels do (``_flash_forward``, ``_flash_backward``): under a
+spatial group (``ops/spatial_conv.py``) each rank's queries are its rows of
+the image and its keys and values every rank's, so ``nq = N / S``. The
+query extent sets the grid of the forwards and of dQ and the length of the
+row vectors ``lse`` and ``delta`` (``(B, nq)``); the key extent sets their
+key loop. dK/dV's grid runs over the keys and its loop over the queries.
+At ``nq == nk`` each kernel computes what it computed before, bit for bit.
+
 :func:`flash_attention` is the op the model calls. With autograd recording
 and an input that requires a gradient it runs :class:`_FlashAttention`,
 whose forward is the LSE kernel and whose backward is δ = rowsum(dO·O) in
@@ -80,7 +89,7 @@ and nothing falls back. ``launches`` counts kernel launches per kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -106,36 +115,40 @@ launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel -> (library, C symbol, argument types)
+# every kernel's trailing arguments: b, nq, nk, c, scale, the stream
+_SHAPE = [_I, _I, _I, _I, _F, _P]
 _SYMBOLS = {
-    "flash_attention_fwd": (FWD_LIBRARY, "vcd_flash_attention_fwd_bf16",
-                            [_P] * 4 + [_I, _I, _I, _F, _P]),
+    "flash_attention_fwd": (FWD_LIBRARY, "vcd_flash_attention_fwd_bf16", [_P] * 4 + _SHAPE),
     "flash_attention_fwd_f32": (FWD_LIBRARY, "vcd_flash_attention_fwd_f32",
-                                [_P] * 4 + [_I, _I, _I, _F, _P]),
+                                [_P] * 4 + _SHAPE),
     "flash_attention_fwd_lse": (FWD_LIBRARY, "vcd_flash_attention_fwd_lse_bf16",
-                                [_P] * 5 + [_I, _I, _I, _F, _P]),
+                                [_P] * 5 + _SHAPE),
     "flash_attention_bwd_dkv": (BWD_LIBRARY, "vcd_flash_attention_bwd_dkv_bf16",
-                                [_P] * 8 + [_I, _I, _I, _F, _P]),
+                                [_P] * 8 + _SHAPE),
     "flash_attention_bwd_dq": (BWD_LIBRARY, "vcd_flash_attention_bwd_dq_bf16",
-                               [_P] * 7 + [_I, _I, _I, _F, _P]),
+                               [_P] * 7 + _SHAPE),
     "flash_attention_fwd_lse_f32": (FWD_LIBRARY, "vcd_flash_attention_fwd_lse_f32",
-                                    [_P] * 5 + [_I, _I, _I, _F, _P]),
+                                    [_P] * 5 + _SHAPE),
     "flash_attention_bwd_dkv_f32": (BWD_F32_LIBRARY, "vcd_flash_attention_bwd_dkv_f32",
-                                    [_P] * 8 + [_I, _I, _I, _F, _P]),
+                                    [_P] * 8 + _SHAPE),
     "flash_attention_bwd_dq_f32": (BWD_F32_LIBRARY, "vcd_flash_attention_bwd_dq_f32",
-                                   [_P] * 7 + [_I, _I, _I, _F, _P]),
+                                   [_P] * 7 + _SHAPE),
 }
 _fns: Dict[str, object] = {}  # ctypes functions, bound at first launch
 
 
-def eligible(num_tokens: int, channels: int) -> bool:
-    """Shapes the CUDA kernels take: tokens a multiple of 128 (the JAX
-    kernels' smallest block; the CUDA kernels tile by 32 and 64) and
-    channels in :data:`SUPPORTED_CHANNELS`. The JAX kernels take any multiple
-    of 128 channels; the register-resident accumulators limit these to 512,
-    and wider heads resolve to ``chunked``."""
+def eligible(num_tokens: int, channels: int, num_keys: Optional[int] = None) -> bool:
+    """Shapes the CUDA kernels take: queries (``num_tokens``) and keys
+    (``num_keys``, the queries' count by default) each a multiple of 128
+    (the JAX kernels' smallest block; the CUDA kernels tile by 32 and 64)
+    and channels in :data:`SUPPORTED_CHANNELS`. The JAX kernels take any
+    multiple of 128 channels; the register-resident accumulators limit these
+    to 512, and wider heads resolve to ``chunked``."""
+    num_keys = num_tokens if num_keys is None else num_keys
     return (
-        num_tokens > 0
+        min(num_tokens, num_keys) > 0
         and num_tokens % TOKEN_MULTIPLE == 0
+        and num_keys % TOKEN_MULTIPLE == 0
         and channels in SUPPORTED_CHANNELS
     )
 
@@ -148,7 +161,8 @@ def bwd_cluster_size(channels: int) -> int:
 
 # --------------------------------------------------------------------------- #
 # Plain versions: the kernels' functions in PyTorch, used for CPU tensors and
-# as the card's reference. q, k, v, do: (B, N, C); lse, delta: (B, N) fp32.
+# as the card's reference. q, do: (B, nq, C); k, v: (B, nk, C); lse, delta:
+# (B, nq) fp32.
 # --------------------------------------------------------------------------- #
 def _logits(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
     return torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
@@ -163,7 +177,8 @@ def flash_attention_reference(
 ) -> torch.Tensor:
     """Plain PyTorch ``softmax(q k^T * scale) v`` with the kernel's casts:
     fp32 logits and softmax, probabilities cast to the input dtype before the
-    product with ``v``. ``(B, N, C)`` in, ``(B, N, C)`` of ``out_dtype`` out."""
+    product with ``v``. q ``(B, nq, C)`` against k, v ``(B, nk, C)``; ``(B,
+    nq, C)`` of ``out_dtype`` out."""
     p = torch.softmax(_logits(q, k, scale), dim=-1).to(q.dtype)
     return torch.matmul(p, v).to(out_dtype)
 
@@ -176,14 +191,14 @@ def flash_attention_fwd_lse_reference(
     out_dtype: torch.dtype,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`flash_attention_reference` plus the fp32 per-row log-sum-exp of
-    the scaled logits, ``(B, N)``."""
+    the scaled logits, ``(B, nq)``."""
     logits = _logits(q, k, scale)
     p = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.matmul(p, v).to(out_dtype), torch.logsumexp(logits, dim=-1)
 
 
 def _bwd_tiles(q, k, v, do, lse, delta, scale) -> Tuple[torch.Tensor, torch.Tensor]:
-    """JAX ``_bwd_tile`` over the whole (N, N) at once: P = exp(S - lse) and
+    """JAX ``_bwd_tile`` over the whole (nq, nk) at once: P = exp(S - lse) and
     dS = P (dO V^T - delta) scale, each cast to the input dtype (and back to
     fp32 for the products, which accumulate in fp32)."""
     p = torch.exp(_logits(q, k, scale) - lse[..., None])
@@ -262,10 +277,12 @@ def build_backward_f32() -> None:
     _fn("flash_attention_bwd_dq_f32")
 
 
-def _check_cuda(*tensors: torch.Tensor, out_dtype: torch.dtype) -> None:
-    """Raise unless the kernels take ``tensors``: all bf16 in and out, or all
-    fp32 in and out."""
-    q = tensors[0]
+def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *rest: torch.Tensor,
+                out_dtype: torch.dtype) -> None:
+    """Raise unless the kernels take ``q, k, v`` (and dO in ``rest``): all
+    bf16 in and out, or all fp32 in and out; q (and dO) ``(B, nq, C)``, k
+    and v ``(B, nk, C)``, both lengths :func:`eligible`."""
+    tensors = (q, k, v) + rest
     if q.device.type != "cuda":
         raise RuntimeError(f"flash attention: unsupported device {q.device}")
     dtypes = {t.dtype for t in tensors} | {out_dtype}
@@ -275,20 +292,22 @@ def _check_cuda(*tensors: torch.Tensor, out_dtype: torch.dtype) -> None:
             "output all bf16 or all fp32, got "
             f"{[str(t.dtype) for t in tensors]} -> {out_dtype}"
         )
-    if q.dim() != 3 or any(t.shape != q.shape for t in tensors):
+    _check_fwd_shapes(q, k, v)
+    if any(t.shape != q.shape for t in rest):
         raise ValueError(
-            "flash attention expects q, k, v (and dO) of one (B, N, C) shape, got "
+            "flash attention expects dO of q's (B, nq, C) shape, got "
             f"{[tuple(t.shape) for t in tensors]}"
         )
     if not all(t.device == q.device for t in tensors):
         raise ValueError("flash attention: operands on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash attention: operands must be contiguous")
-    b, n, c = q.shape
-    if not eligible(n, c):
+    b, nq, c = q.shape
+    nk = k.shape[1]
+    if not eligible(nq, c, nk):
         raise ValueError(
-            f"flash attention: shape (B={b}, N={n}, C={c}) is not eligible: "
-            f"N must be a multiple of {TOKEN_MULTIPLE} and C one of "
+            f"flash attention: shape (B={b}, nq={nq}, nk={nk}, C={c}) is not eligible: "
+            f"nq and nk must be multiples of {TOKEN_MULTIPLE} and C one of "
             f"{SUPPORTED_CHANNELS}"
         )
 
@@ -313,9 +332,10 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 
 def _check_fwd_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+    if (q.dim() != 3 or k.dim() != 3 or k.shape != v.shape
+            or (k.shape[0], k.shape[2]) != (q.shape[0], q.shape[2])):
         raise ValueError(
-            "flash attention expects q, k, v of one (B, N, C) shape, got "
+            "flash attention expects q (B, nq, C) and k, v of one (B, nk, C) shape, got "
             f"{[tuple(t.shape) for t in (q, k, v)]}"
         )
 
@@ -336,11 +356,11 @@ def _flash_attention_fwd_cuda(q, k, v, scale, out_dtype):
     # the kernel loads 16 bytes at a time (TMA boxes)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash attention: operands must be 16-byte aligned")
-    b, n, c = q.shape
+    b, nq, c = q.shape
     out = torch.empty_like(q)
     name = _by_dtype("flash_attention_fwd", q)
-    _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, c,
-            float(scale))
+    _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq,
+            k.shape[1], c, float(scale))
     return out
 
 
@@ -356,7 +376,8 @@ def _flash_attention_fwd_fake(q, k, v, scale, out_dtype):
 
 
 def flash_attention_fwd(q, k, v, *, scale: float, out_dtype: torch.dtype) -> torch.Tensor:
-    """The serving forward: ``softmax(q k^T * scale) v`` over ``(B, N, C)``,
+    """The serving forward: ``softmax(q k^T * scale) v``, q ``(B, nq, C)``
+    against k, v ``(B, nk, C)``,
     through the custom op ``vcd::flash_attention_fwd`` (so that
     ``torch.export`` records it as one node). CPU tensors go to
     :func:`flash_attention_reference`; CUDA tensors to the kernel, which
@@ -378,7 +399,7 @@ def flash_attention_fwd(q, k, v, *, scale: float, out_dtype: torch.dtype) -> tor
 
 def flash_attention_fwd_lse(q, k, v, *, scale: float, out_dtype: torch.dtype
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The training forward: ``(o, lse)``, lse the fp32 ``(B, N)`` per-row
+    """The training forward: ``(o, lse)``, lse the fp32 ``(B, nq)`` per-row
     log-sum-exp of the scaled logits. CPU tensors go to
     :func:`flash_attention_fwd_lse_reference`; CUDA tensors to
     ``flash_attention_fwd_lse`` (all bf16) or ``flash_attention_fwd_lse_f32``
@@ -386,24 +407,24 @@ def flash_attention_fwd_lse(q, k, v, *, scale: float, out_dtype: torch.dtype
     if q.device.type == "cpu":
         return flash_attention_fwd_lse_reference(q, k, v, scale, out_dtype)
     _check_cuda(q, k, v, out_dtype=out_dtype)
-    b, n, c = q.shape
+    b, nq, c = q.shape
     out = torch.empty_like(q)
-    lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, nq), dtype=torch.float32, device=q.device)
     _launch(_by_dtype("flash_attention_fwd_lse", q), q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, n, c, float(scale))
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, nq, k.shape[1], c, float(scale))
     return out, lse
 
 
 def _bwd_operands(q, k, v, do, lse, delta) -> Tuple[int, ...]:
     """Check the backward kernels' operands; their pointers."""
     _check_cuda(q, k, v, do, out_dtype=q.dtype)
-    b, n, _c = q.shape
+    b, nq, _c = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
-        if (t.dtype != torch.float32 or tuple(t.shape) != (b, n)
+        if (t.dtype != torch.float32 or tuple(t.shape) != (b, nq)
                 or t.device != q.device or not t.is_contiguous()):
             raise ValueError(
                 f"flash attention backward: {name} must be contiguous fp32 "
-                f"{(b, n)} on {q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+                f"{(b, nq)} on {q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
     tensors = (q, k, v, do, lse, delta)
     # the kernels load 16 bytes at a time (TMA boxes, cp.async)
@@ -417,14 +438,16 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale: float
     """``(dk, dv)`` from the dK/dV kernel; CPU tensors go to
     :func:`flash_attention_bwd_dkv_reference`. On CUDA, q/k/v/do are
     contiguous and all bf16 (``flash_attention_bwd_dkv``) or all fp32
-    (``flash_attention_bwd_dkv_f32``) of one eligible shape, and lse, delta
-    contiguous fp32 ``(B, N)``."""
+    (``flash_attention_bwd_dkv_f32``), q and do ``(B, nq, C)``, k and v
+    ``(B, nk, C)``, both lengths eligible, and lse, delta contiguous fp32
+    ``(B, nq)``."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
     ptrs = _bwd_operands(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    b, nq, c = q.shape
     _launch(_by_dtype("flash_attention_bwd_dkv", q), q.device, *ptrs, dk.data_ptr(),
-            dv.data_ptr(), *q.shape, float(scale))
+            dv.data_ptr(), b, nq, k.shape[1], c, float(scale))
     return dk, dv
 
 
@@ -436,8 +459,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, scale: float) -> torch.Te
         return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, scale)
     ptrs = _bwd_operands(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
-    _launch(_by_dtype("flash_attention_bwd_dq", q), q.device, *ptrs, dq.data_ptr(), *q.shape,
-            float(scale))
+    b, nq, c = q.shape
+    _launch(_by_dtype("flash_attention_bwd_dq", q), q.device, *ptrs, dq.data_ptr(), b, nq,
+            k.shape[1], c, float(scale))
     return dq
 
 
@@ -471,8 +495,8 @@ def flash_attention(
     scale: float,
     out_dtype: torch.dtype,
 ) -> torch.Tensor:
-    """Single-head ``softmax(q @ k^T * scale) @ v`` over ``(B, N, C)``,
-    differentiable: :class:`_FlashAttention` when autograd records and an
+    """Single-head ``softmax(q @ k^T * scale) @ v``, q ``(B, nq, C)``
+    against k, v ``(B, nk, C)``, differentiable: :class:`_FlashAttention` when autograd records and an
     input requires a gradient, else the serving forward."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, scale, out_dtype)

@@ -19,6 +19,11 @@ entry point the model uses. ``impl`` selects
   resnets that the gate admits run their norms inside the fused
   GroupNorm+SiLU+conv kernels (``ops/fused_resnet.py``, called from
   ``models/vae.py``), and every other norm reaches here and runs plain.
+
+Under a spatial group (``ops/spatial_conv.py``) each rank holds a block of
+the image's rows: both routes add their per-(sample, group) sums over the
+group's ranks before the mean and the variance, which JAX gets from GSPMD's
+partial sums, and count the whole image's H*W.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from . import group_norm_kernel
+from .spatial_conv import active_spatial_group, all_reduce_sum
 
 
 def group_norm_reference(
@@ -46,6 +52,12 @@ def group_norm_reference(
     n = h * w * cg
     s = xg.sum(dim=(2, 3, 4))  # (B, G)
     q = xg.square().sum(dim=(2, 3, 4))
+    sp = active_spatial_group()
+    if sp is not None:
+        # the sums over every row shard (an all-reduce, which is its own
+        # adjoint in the backward)
+        s, q = all_reduce_sum(torch.stack([s, q]), sp).unbind(0)
+        n *= sp.size
     mean = s / n
     var = q / n - mean.square()
     inv = torch.rsqrt(var + eps)

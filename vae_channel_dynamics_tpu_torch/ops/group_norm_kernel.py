@@ -43,6 +43,13 @@ Each kernel has its plain PyTorch version beside it (``*_reference``), and
 each wrapper runs that plain version only for a tensor that lies on the CPU.
 A CUDA tensor goes to the kernel, or the call raises; nothing falls back.
 ``launches`` counts kernel launches per kernel.
+
+Under a spatial group (``ops/spatial_conv.py``) the kernels run on this
+rank's rows unchanged: #1's and #4's per-(sample, channel) sums are
+all-reduced over the group between the kernels, the group statistics and
+the backward's coefficients count the whole image, and dgamma, dbeta come
+from this rank's own sums (the gradient all-reduce adds the ranks'). The
+split heuristics read the local H*W.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import _cuda_build
+from .spatial_conv import active_spatial_group
 from .stats import mask_count, mask_for
 
 LIBRARY = "group_norm"
@@ -382,17 +390,28 @@ def _affine_coeffs(mean, rstd, scale, bias, num_groups: int):
     return a.float().contiguous(), off.float().contiguous()
 
 
+def _summed_over_rows(a: torch.Tensor, b: torch.Tensor, sp):
+    """``a`` and ``b`` summed over the spatial group ``sp``'s row shards
+    (one all-reduce), and the group's size; as they are, and 1, without."""
+    if sp is None:
+        return a, b, 1
+    both = torch.stack([a, b])
+    torch.distributed.all_reduce(both, group=sp.group)
+    return both[0], both[1], sp.size
+
+
 def _fwd(x, scale, bias, num_groups, eps, fuse_silu, with_stats):
     x = x.contiguous()
-    hw = x.shape[2] * x.shape[3]
     sums, sqs = fwd_reduce(x)
+    sums, sqs, shards = _summed_over_rows(sums, sqs, active_spatial_group())
+    hw = x.shape[2] * x.shape[3] * shards
     mean, rstd = _group_stats(sums, sqs, hw, num_groups, eps)
     a, b = _affine_coeffs(mean, rstd, scale, bias, num_groups)
     y, abs_sum = fwd_normalize(x, a, b, fuse_silu, with_stats)
     return y, abs_sum, (x, scale, bias, mean, rstd, a, b)
 
 
-def _bwd(res, num_groups: int, fuse_silu: bool, g: torch.Tensor):
+def _bwd(res, num_groups: int, fuse_silu: bool, g: torch.Tensor, sp=None):
     x, scale, bias, mean, rstd, a, b = res
     bsz, c, h, w = x.shape
     cg = c // num_groups
@@ -402,10 +421,14 @@ def _bwd(res, num_groups: int, fuse_silu: bool, g: torch.Tensor):
 
     mean_c = mean.repeat_interleave(cg, dim=1)
     rstd_c = rstd.repeat_interleave(cg, dim=1)
-    # parameter grads: dbeta = sum g_eff, dgamma = sum g_eff * x_hat
+    # parameter grads: dbeta = sum g_eff, dgamma = sum g_eff * x_hat, over
+    # this rank's rows
     dbeta = gsum.sum(dim=0)
+    dgamma = ((gxsum - mean_c * gsum) * rstd_c).sum(dim=0)
+    # dx reads the sums over the whole image
+    gsum, gxsum, shards = _summed_over_rows(gsum, gxsum, sp)
+    n *= shards
     centred = (gxsum - mean_c * gsum) * rstd_c
-    dgamma = centred.sum(dim=0)
     # dx = rstd*(gamma*g_eff - d1/n - x_hat*d2/n) with per-group
     # d1 = sum gamma*g_eff and d2 = sum gamma*g_eff*x_hat, folded into
     # dx = g_eff*ca + x*cb + cc
@@ -429,11 +452,12 @@ class GroupNormSilu(torch.autograd.Function):
         y, _abs, res = _fwd(x, scale, bias, num_groups, eps, fuse_silu, False)
         ctx.save_for_backward(*res)
         ctx.num_groups, ctx.fuse_silu = num_groups, fuse_silu
+        ctx.sp = active_spatial_group()
         return y
 
     @staticmethod
     def backward(ctx, g):
-        dx, dgamma, dbeta = _bwd(ctx.saved_tensors, ctx.num_groups, ctx.fuse_silu, g)
+        dx, dgamma, dbeta = _bwd(ctx.saved_tensors, ctx.num_groups, ctx.fuse_silu, g, ctx.sp)
         return dx, dgamma, dbeta, None, None, None
 
 
@@ -447,12 +471,13 @@ class GroupNormSiluStats(torch.autograd.Function):
         y, abs_sum, res = _fwd(x, scale, bias, num_groups, eps, fuse_silu, True)
         ctx.save_for_backward(*res)
         ctx.num_groups, ctx.fuse_silu = num_groups, fuse_silu
+        ctx.sp = active_spatial_group()
         ctx.mark_non_differentiable(abs_sum)
         return y, abs_sum
 
     @staticmethod
     def backward(ctx, g, _g_abs):
-        dx, dgamma, dbeta = _bwd(ctx.saved_tensors, ctx.num_groups, ctx.fuse_silu, g)
+        dx, dgamma, dbeta = _bwd(ctx.saved_tensors, ctx.num_groups, ctx.fuse_silu, g, ctx.sp)
         return dx, dgamma, dbeta, None, None, None
 
 
@@ -488,7 +513,11 @@ def group_norm_silu_with_stats(
     m = mask_for(abs_sum)
     if m is None:
         return y, abs_sum.sum(dim=0) / float(b * h * w)
-    return y, (abs_sum * m[:, None]).sum(dim=0) / (mask_count(m) * float(h * w))
+    # under a spatial group, this rank's share of the whole image's mean
+    # (the train step sums the shares, as ops.stats' taps)
+    sp = active_spatial_group()
+    hw = h * w * (1 if sp is None else sp.size)
+    return y, (abs_sum * m[:, None]).sum(dim=0) / (mask_count(m) * float(hw))
 
 
 __all__ = [

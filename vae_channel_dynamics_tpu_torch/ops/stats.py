@@ -27,6 +27,12 @@ so each rank's value of a linear metric is its share of the global mean,
 and the step adds the shares over the ranks (:data:`SUMMED_METRICS`).
 ``std_activation`` is not linear: with ``reduce`` it adds its sums over the
 ranks itself, so every rank gets the global value.
+
+Under a spatial group (``ops/spatial_conv.py``) each rank holds a block of
+every activation's rows, and with a mask installed each linear metric is
+this rank's share of the whole image's mean (divided by the group's size
+too), which the step adds over every rank; ``std_activation`` counts the
+whole image, and ``full_activation_map`` gathers its rows over the group.
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from .spatial_conv import active_spatial_group
 
 _TAP_MASK: Optional[torch.Tensor] = None
 _TAP_COUNT: Optional[torch.Tensor] = None
@@ -82,6 +90,13 @@ def mask_count(m: torch.Tensor) -> torch.Tensor:
     return count.clamp_min(1.0)
 
 
+def _row_shards() -> int:
+    """How many row shards a spatial position of a tapped tensor is one of:
+    the installed spatial group's size, else 1."""
+    sp = active_spatial_group()
+    return 1 if sp is None else sp.size
+
+
 def _channel_dim(x: torch.Tensor) -> int:
     return 1 if x.dim() == 4 else x.dim() - 1
 
@@ -95,7 +110,7 @@ def _per_sample_channel_mean(v: torch.Tensor) -> torch.Tensor:
 
 def _masked_channel_mean(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     per_sample = _per_sample_channel_mean(v)
-    return (per_sample * m[:, None]).sum(dim=0) / mask_count(m)
+    return (per_sample * m[:, None]).sum(dim=0) / (mask_count(m) * _row_shards())
 
 
 def _channel_mean(v: torch.Tensor) -> torch.Tensor:
@@ -115,7 +130,7 @@ def mean_activation(x: torch.Tensor) -> torch.Tensor:
     if m is None:
         return xf.mean()
     per_sample = xf.mean(dim=tuple(range(1, x.dim())))
-    return (per_sample * m).sum() / mask_count(m)
+    return (per_sample * m).sum() / (mask_count(m) * _row_shards())
 
 
 def std_activation(x: torch.Tensor) -> torch.Tensor:
@@ -125,7 +140,7 @@ def std_activation(x: torch.Tensor) -> torch.Tensor:
         return xf.std(correction=1)
     # masked unbiased std over every element of the valid samples, in two
     # passes: E[x^2] - E[x]^2 cancels in fp32 when |mean| dominates the std
-    per_elem = math.prod(x.shape[1:])
+    per_elem = math.prod(x.shape[1:]) * _row_shards()
     w = m.reshape((-1,) + (1,) * (x.dim() - 1))
     n = (m.sum() if _TAP_COUNT is None else _TAP_COUNT.to(m.device)) * float(per_elem)
     total = (xf * w).sum()
@@ -147,8 +162,16 @@ def zero_fraction_per_channel(x: torch.Tensor, tol: float = 1e-8) -> torch.Tenso
 
 def full_activation_map(x: torch.Tensor) -> torch.Tensor:
     """The raw activation, detached. The JAX package transposes its NHWC
-    tensor to NCHW here; the port's tensor is NCHW already."""
-    return x.detach()
+    tensor to NCHW here; the port's tensor is NCHW already. Under a spatial
+    group the rows of every shard, in order (a collective)."""
+    x = x.detach()
+    sp = active_spatial_group()
+    if sp is None:
+        return x
+    parts = [torch.empty_like(x) for _ in range(sp.size)]
+    dist.all_gather(parts, x.contiguous(), group=sp.group)
+    # NCHW rows, or the tokens of a (B, N, C) tensor
+    return torch.cat(parts, dim=2 if x.dim() == 4 else 1)
 
 
 METRIC_FNS = {

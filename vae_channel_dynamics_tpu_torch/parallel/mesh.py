@@ -1,5 +1,5 @@
-"""The ``data`` axis across GPUs: the process group, the mesh and the batch
-layout.
+"""The ``data`` and ``spatial`` axes across GPUs: the process groups, the
+mesh and the batch layout.
 
 Counterpart of ``vae_channel_dynamics_tpu/parallel/mesh.py``. The JAX
 package runs one SPMD program over a device mesh; the port runs one process
@@ -20,6 +20,13 @@ that :func:`pad_batch_to_multiple` appends land on the last ranks. The
 Trainer's loaders read the strided per-rank shards of the data pipeline
 instead (``data/pipeline.py``, ``shard_index``/``num_shards``); the union of
 the ranks' batch t is the one-process batch t either way.
+
+``parallel.spatial`` = S > 1 lays the ranks out as JAX ``make_mesh`` does:
+``data`` outer and ``spatial`` inner, so rank ``r`` is data rank ``r // S``
+and spatial rank ``r % S``, and a spatial group is a block of neighbouring
+ranks (:func:`with_spatial`). Every rank of a spatial group reads the same
+images and keeps its block of their rows (``ops/spatial_conv.py``); the
+batch, its pad rows and its validity mask follow the data axis only.
 """
 
 from __future__ import annotations
@@ -36,14 +43,20 @@ import torch.distributed as dist
 logger = logging.getLogger(__name__)
 
 DATA_AXIS = "data"
+SPATIAL_AXIS = "spatial"
 
 _ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 
 @dataclasses.dataclass
 class DataAxis:
-    """This process's place on the data axis: its rank, the world size, its
-    device and the 1-D ``DeviceMesh`` named ``data``."""
+    """This process's place on the mesh: its rank, the world size, its
+    device and the ``DeviceMesh``: 1-D named ``data``, or 2-D named
+    ``("data", "spatial")`` with ``spatial`` ranks a spatial group.
+    ``data_group`` is the process group of the ranks that hold the same
+    rows of other images (None: the whole world, at ``spatial`` 1);
+    ``spatial_group`` that of the ranks that hold the rows of the same
+    images (None at ``spatial`` 1)."""
 
     rank: int
     world: int
@@ -52,10 +65,26 @@ class DataAxis:
     mesh: Any
     # whether this process started the group (and so ends it in shutdown)
     owned: bool = True
+    spatial: int = 1
+    data_group: Any = None
+    spatial_group: Any = None
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
+
+    @property
+    def data_world(self) -> int:
+        """The number of batch shards: the world over ``spatial``."""
+        return self.world // self.spatial
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.spatial
+
+    @property
+    def spatial_rank(self) -> int:
+        return self.rank % self.spatial
 
     @property
     def backend(self) -> str:
@@ -63,22 +92,35 @@ class DataAxis:
 
 
 def refuse_unported_axes(parallel: Optional[Dict[str, Any]]) -> None:
-    """``parallel.spatial`` and ``parallel.tensor`` above 1 are the next
-    slice of the multi-GPU work; ``parallel.slices`` (the TPU pod's DCN
-    axis) has no counterpart on a GPU host."""
+    """``parallel.tensor`` above 1 is the next slice of the multi-GPU work;
+    ``parallel.slices`` (the TPU pod's DCN axis) has no counterpart on a GPU
+    host. The data and spatial axes are ported, and ``spatial_conv`` takes
+    both of JAX's values (:func:`spatial_conv_choice`)."""
     parallel = parallel or {}
-    for axis in ("spatial", "tensor"):
-        if int(parallel.get(axis) or 1) > 1:
-            raise NotImplementedError(
-                f"parallel.{axis} > 1 is not ported to PyTorch yet (ROADMAP Q1, "
-                "Spatial and tensor parallelism); the data axis is: launch one "
-                "process per card with torchrun"
-            )
+    if int(parallel.get("tensor") or 1) > 1:
+        raise NotImplementedError(
+            "parallel.tensor > 1 is not ported to PyTorch yet (ROADMAP Q1, "
+            "Tensor parallelism); the data and spatial axes are: launch one "
+            "process per card with torchrun"
+        )
     if int(parallel.get("slices") or 1) > 1:
         raise NotImplementedError(
             "parallel.slices > 1: the multi-slice DCN axis is a TPU pod layout "
             "(ROADMAP Q1, Do not port); launch one process per card with torchrun"
         )
+
+
+def spatial_conv_choice(parallel: Optional[Dict[str, Any]]) -> str:
+    """``parallel.spatial_conv``, checked as JAX ``make_mesh`` checks it.
+    Both values run the port's one manual halo exchange
+    (``ops/spatial_conv.py``): the key exists in JAX to route around XLA's
+    partitioner, which the port does not have."""
+    value = (parallel or {}).get("spatial_conv", "gspmd") or "gspmd"
+    if value not in ("gspmd", "shard_map"):
+        raise ValueError(
+            f"parallel.spatial_conv must be 'gspmd' or 'shard_map', got {value!r}"
+        )
+    return value
 
 
 def launched_by_torchrun() -> bool:
@@ -128,14 +170,58 @@ def initialize_distributed(device: Any = "cuda") -> Optional[DataAxis]:
 
 
 def make_mesh(device: torch.device, rank: Optional[int] = None, world: Optional[int] = None,
-              local_rank: int = 0) -> DataAxis:
-    """The 1-D ``DeviceMesh`` named ``data`` over every rank of the group."""
+              local_rank: int = 0, spatial: int = 1) -> DataAxis:
+    """The ``DeviceMesh`` over every rank of the group: 1-D named ``data``
+    at ``spatial`` 1, else 2-D ``("data", "spatial")`` of shape (world / S,
+    S) with its process groups (a collective: every rank calls it)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     world = dist.get_world_size() if world is None else world
     rank = dist.get_rank() if rank is None else rank
-    mesh = init_device_mesh(device.type, (world,), mesh_dim_names=(DATA_AXIS,))
-    return DataAxis(rank=rank, world=world, local_rank=local_rank, device=device, mesh=mesh)
+    spatial = int(spatial or 1)
+    if spatial < 1:
+        raise ValueError(f"parallel.spatial must be >= 1, got {spatial}")
+    if world % spatial != 0:
+        raise ValueError(
+            f"{world} devices not divisible by slices=1 x spatial={spatial} x tensor=1"
+        )
+    if spatial == 1:
+        mesh = init_device_mesh(device.type, (world,), mesh_dim_names=(DATA_AXIS,))
+        return DataAxis(rank=rank, world=world, local_rank=local_rank, device=device,
+                        mesh=mesh)
+    mesh = init_device_mesh(device.type, (world // spatial, spatial),
+                            mesh_dim_names=(DATA_AXIS, SPATIAL_AXIS))
+    return DataAxis(rank=rank, world=world, local_rank=local_rank, device=device, mesh=mesh,
+                    spatial=spatial, data_group=mesh.get_group(DATA_AXIS),
+                    spatial_group=mesh.get_group(SPATIAL_AXIS))
+
+
+_LAYOUTS: Dict[Tuple[str, int, int], DataAxis] = {}
+
+
+def with_spatial(axis: Optional[DataAxis], spatial: int) -> Optional[DataAxis]:
+    """``axis`` laid out with ``spatial`` ranks a spatial group (the 2-D
+    mesh and its groups, made once a process for each layout; a collective
+    the first time). Without a group (``axis`` None) only ``spatial`` 1
+    runs: one device does not divide into spatial shards."""
+    spatial = int(spatial or 1)
+    if axis is None:
+        if spatial > 1:
+            raise ValueError(
+                f"1 devices not divisible by slices=1 x spatial={spatial} x tensor=1: "
+                "launch one process per card with torchrun"
+            )
+        return None
+    if axis.spatial == spatial:
+        return axis
+    key = (str(axis.device), axis.world, spatial)
+    if key not in _LAYOUTS:
+        _LAYOUTS[key] = make_mesh(axis.device, rank=axis.rank, world=axis.world,
+                                  local_rank=axis.local_rank, spatial=spatial)
+    out = dataclasses.replace(_LAYOUTS[key], owned=axis.owned)
+    logger.info("mesh: %d data x %d spatial ranks (rank %d: data rank %d, rows block %d)",
+                out.data_world, spatial, out.rank, out.data_rank, out.spatial_rank)
+    return out
 
 
 def shutdown(axis: Optional[DataAxis]) -> None:
@@ -144,12 +230,14 @@ def shutdown(axis: Optional[DataAxis]) -> None:
     in-process caller started stays up."""
     if axis is not None and axis.owned and dist.is_initialized():
         dist.barrier()
+        _LAYOUTS.clear()
         dist.destroy_process_group()
 
 
 def data_axis_size(axis: Optional[DataAxis]) -> int:
-    """Number of batch shards: the world size, 1 without a group."""
-    return 1 if axis is None else axis.world
+    """Number of batch shards: the world size over ``spatial``, 1 without a
+    group."""
+    return 1 if axis is None else axis.data_world
 
 
 def pad_batch_to_multiple(
@@ -196,16 +284,17 @@ def local_block(batch: Union[Rows, Dict[str, Rows]], rank: int, world: int):
     return batch[block_rows(batch.shape[0], rank, world)]
 
 
-def all_gather_rows(t: torch.Tensor, world: int) -> torch.Tensor:
+def all_gather_rows(t: torch.Tensor, world: int, group: Any = None) -> torch.Tensor:
     """The ranks' equal-sized ``t`` stacked along a new leading axis:
-    (world, *t.shape)."""
+    (world, *t.shape), over ``group`` (the whole world by default)."""
     parts = [torch.empty_like(t) for _ in range(world)]
-    dist.all_gather(parts, t.contiguous())
+    dist.all_gather(parts, t.contiguous(), group=group)
     return torch.stack(parts)
 
 
 __all__ = [
     "DATA_AXIS",
+    "SPATIAL_AXIS",
     "DataAxis",
     "all_gather_rows",
     "block_rows",
@@ -217,4 +306,6 @@ __all__ = [
     "pad_batch_to_multiple",
     "refuse_unported_axes",
     "shutdown",
+    "spatial_conv_choice",
+    "with_spatial",
 ]

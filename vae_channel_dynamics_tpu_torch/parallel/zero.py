@@ -16,6 +16,12 @@ rank keeps a slice of every sharded leaf and the collectives are explicit:
   (:func:`fully_shard_model`); the parameters, their gradients, the
   optimizer state and the EMA all keep the parameter's shard.
 
+Under a spatial axis (``parallel.spatial`` > 1) every leaf shards over the
+data group only and the ranks of a spatial group hold replicas (JAX
+``parallel/zero.py``): ZeRO-1 and the EMA slice by the data rank and gather
+over the data group, and FSDP2 runs on a 2-D mesh that replicates over
+``spatial`` and shards over ``data`` (HSDP).
+
 A leaf's slice is along the axis ``_best_axis`` (the largest axis that the
 world size divides) picks on the leaf's JAX layout (:func:`zero_axis`), in
 ``torch.chunk``'s blocks. A leaf with no such axis stays
@@ -115,9 +121,10 @@ def local_chunk(t: torch.Tensor, axis: Optional[int], rank: int, world: int) -> 
 
 
 def gather_chunks(local: torch.Tensor, axis: Optional[int], full_len: int,
-                  world: int) -> torch.Tensor:
+                  world: int, group=None) -> torch.Tensor:
     """The whole tensor from every rank's block along ``axis`` (a
-    collective); ``local`` itself when ``axis`` is None."""
+    collective over ``group``, the whole world by default); ``local``
+    itself when ``axis`` is None."""
     if axis is None:
         return local
     c = -(-full_len // world)
@@ -126,7 +133,7 @@ def gather_chunks(local: torch.Tensor, axis: Optional[int], full_len: int,
         pad = moved.new_zeros((c - moved.shape[0],) + tuple(moved.shape[1:]))
         moved = torch.cat([moved, pad])
     parts = [torch.empty_like(moved) for _ in range(world)]
-    dist.all_gather(parts, moved.contiguous())
+    dist.all_gather(parts, moved.contiguous(), group=group)
     return torch.cat(parts)[:full_len].movedim(0, axis).contiguous()
 
 
@@ -138,6 +145,17 @@ def _is_dtensor(t) -> bool:
 
 def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if _is_dtensor(t) else t
+
+
+def shard_placement(t: torch.Tensor):
+    """(mesh dim, ``Shard`` placement) of an FSDP2 parameter: its one
+    ``Shard`` (after HSDP's ``Replicate`` on a spatial mesh)."""
+    from torch.distributed.tensor import Shard
+
+    for i, placement in enumerate(t.placements):
+        if isinstance(placement, Shard):
+            return i, placement
+    raise ValueError(f"no Shard placement in {t.placements}")
 
 
 def replicate_leaf(t: torch.Tensor) -> torch.Tensor:
@@ -152,11 +170,11 @@ def write_leaf(param: torch.Tensor, value: torch.Tensor) -> None:
     """Write the whole ``value`` into ``param``: its own block of it where
     ``param`` is an FSDP2 shard."""
     if _is_dtensor(param):
-        placement = param.placements[0]
+        mesh_dim, placement = shard_placement(param)
         mesh = param.device_mesh
         local = param.to_local()
         local.copy_(local_chunk(value.to(local.device), placement.dim,
-                                mesh.get_local_rank(), mesh.size()))
+                                mesh.get_local_rank(mesh_dim), mesh.size(mesh_dim)))
     else:
         param.copy_(value.to(param.device))
 
@@ -180,20 +198,40 @@ def fsdp_blocks(model: nn.Module) -> List[nn.Module]:
     return blocks
 
 
+_HSDP_MESHES: Dict[tuple, object] = {}
+
+
+def fsdp_mesh(axis: DataAxis):
+    """The mesh FSDP2 takes: the data mesh, or on a spatial mesh a 2-D one
+    that replicates over ``spatial`` (its dim 0) and shards over ``data``
+    (HSDP; made once a process, a collective the first time)."""
+    if axis.spatial == 1:
+        return axis.mesh
+    key = (str(axis.device), axis.world, axis.spatial)
+    if key not in _HSDP_MESHES:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        ranks = torch.arange(axis.world).reshape(axis.data_world, axis.spatial).t().contiguous()
+        _HSDP_MESHES[key] = DeviceMesh(axis.device.type, ranks,
+                                       mesh_dim_names=("replicate", "shard"))
+    return _HSDP_MESHES[key]
+
+
 def fully_shard_model(model: nn.Module, axis: DataAxis) -> nn.Module:
     """ZeRO-3: ``fully_shard`` each block, then the root. Each parameter is
-    ``Shard(_best_axis)``, or ``Shard(0)`` (uneven) where the world size
-    divides no axis."""
+    ``Shard(_best_axis)``, or ``Shard(0)`` (uneven) where the data axis
+    divides no axis; on a spatial mesh each spatial group holds replicas."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
     def placement(p: nn.Parameter):
-        a = zero_axis(tuple(p.shape), axis.world)
+        a = zero_axis(tuple(p.shape), axis.data_world)
         return Shard(0 if a is None else a)
 
+    mesh = fsdp_mesh(axis)
     for block in fsdp_blocks(model):
-        fully_shard(block, mesh=axis.mesh, shard_placement_fn=placement)
-    fully_shard(model, mesh=axis.mesh, shard_placement_fn=placement)
+        fully_shard(block, mesh=mesh, shard_placement_fn=placement)
+    fully_shard(model, mesh=mesh, shard_placement_fn=placement)
     return model
 
 
@@ -209,13 +247,16 @@ class ZeroLayout:
     def __init__(self, axis: DataAxis, model: nn.Module, shard_optimizer: bool,
                  shard_ema: bool, fsdp: bool):
         self.axis = axis
-        self.rank, self.world = axis.rank, axis.world
+        # the slices follow the data axis; a spatial group holds replicas
+        self.rank, self.world = axis.data_rank, axis.data_world
+        self.group = axis.data_group
         self.fsdp = fsdp
         params = dict(model.named_parameters())
         self.full_shapes = [tuple(p.shape) for p in params.values()]
         self._masks: Dict[Tuple[int, ...], torch.Tensor] = {}
         if fsdp:
-            own = [p.placements[0].dim if _is_dtensor(p) else None for p in params.values()]
+            own = [shard_placement(p)[1].dim if _is_dtensor(p) else None
+                   for p in params.values()]
             self.opt_axes = list(own)
             self.ema_axes = list(own)
         else:
@@ -259,7 +300,7 @@ class ZeroLayout:
                  for r in range(self.world)]
         flat = torch.cat([v.reshape(-1) for v in views[self.rank]])
         parts = [torch.empty_like(flat) for _ in range(self.world)]
-        dist.all_gather(parts, flat)
+        dist.all_gather(parts, flat, group=self.group)
         for r in range(self.world):
             if r == self.rank:
                 continue
@@ -281,7 +322,7 @@ class ZeroLayout:
         if self.opt_axes[i] != param_dim:
             return t.mean(dim=dim)
         s = t.sum(dim=dim)
-        dist.all_reduce(s)
+        dist.all_reduce(s, group=self.group)
         return s / float(self.full_shapes[i][param_dim])
 
     def norms(self, idx: Sequence[int], tensors: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -295,7 +336,7 @@ class ZeroLayout:
             mask = self._masks[idx] = torch.tensor(
                 [1.0 if self.sharded(i) else 0.0 for i in idx], device=sq.device)
         shared = sq * mask
-        dist.all_reduce(shared)
+        dist.all_reduce(shared, group=self.group)
         return list((shared + sq * (1.0 - mask)).sqrt().unbind())
 
     def global_norm(self, tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -334,7 +375,8 @@ class ZeroLayout:
         a = self.leaf_axis(field, i)
         if a is None or self.world == 1 and not _is_dtensor(local):
             return _local(local)
-        return gather_chunks(_local(local), a, self.leaf_shape(field, i)[a], self.world)
+        return gather_chunks(_local(local), a, self.leaf_shape(field, i)[a], self.world,
+                             self.group)
 
     def scatter(self, field: str, i: int, full: torch.Tensor) -> torch.Tensor:
         """This rank's block of a whole leaf."""
@@ -374,10 +416,12 @@ __all__ = [
     "_channel_axis",
     "chunk_span",
     "fsdp_blocks",
+    "fsdp_mesh",
     "fully_shard_model",
     "gather_chunks",
     "local_chunk",
     "replicate_leaf",
+    "shard_placement",
     "state_bytes",
     "write_leaf",
     "zero_axis",

@@ -39,11 +39,20 @@ nudger on the same numbers and nudges the same γ entries. Rank 0 alone
 writes the config, the reports, the CSVs, the checkpoints (gathered on
 every rank), ``final_model``, the lens and the profile trace.
 
+``parallel.spatial`` = S > 1 shards the images' rows over spatial groups of
+S neighbouring ranks (``parallel/mesh.py``, ``ops/spatial_conv.py``): every
+rank of a group reads its data rank's shard (the loaders' ``shard_index``
+and ``num_shards`` are the data axis's) and keeps its block of the rows;
+the train and validation steps run under the spatial scope. The parameters
+are replicated over ``spatial``, so checkpoints, exact resume, the control
+loop and ``final_model`` are as on the data axis. ``kernel_impl: fused`` on
+a spatial mesh runs ``auto`` with JAX's warning: the fused kernels exchange
+no halo.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-skipped: ``parallel.spatial`` and ``parallel.tensor`` above 1 (ROADMAP Q1,
-Spatial and tensor parallelism) and ``parallel.slices`` (Do not port). The
-matplotlib plots are not drawn (ROADMAP Q1, Plots); the CSV and JSONL files
-they read are written.
+skipped: ``parallel.tensor`` above 1 (ROADMAP Q1, Tensor parallelism) and
+``parallel.slices`` (Do not port). The matplotlib plots are not drawn
+(ROADMAP Q1, Plots); the CSV and JSONL files they read are written.
 """
 
 from __future__ import annotations
@@ -66,7 +75,13 @@ from ..intervention import InterventionHandler
 from ..models import io as model_io
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..models.wrapper import resolve_device
-from ..parallel.mesh import initialize_distributed, launched_by_torchrun, refuse_unported_axes
+from ..parallel.mesh import (
+    initialize_distributed,
+    launched_by_torchrun,
+    refuse_unported_axes,
+    spatial_conv_choice,
+    with_spatial,
+)
 from ..parallel.zero import ZeroLayout, fully_shard_model
 from ..tracking import ActivityMonitor, DeadNeuronTracker
 from ..utils.config_utils import as_float, as_int
@@ -169,7 +184,7 @@ def _wrap_data_parallel(model: AutoencoderKL, axis, parallel: Dict[str, Any]):
         fully_shard_model(model, axis)
         forward_module = model
         logger.info("parallel.shard_params: parameters sharded over the %d-way data axis "
-                    "(ZeRO-3, FSDP2)", axis.world)
+                    "(ZeRO-3, FSDP2)", axis.data_world)
     else:
         ids = [axis.device.index] if axis.device.type == "cuda" else None
         forward_module = torch.nn.parallel.DistributedDataParallel(model, device_ids=ids)
@@ -178,10 +193,10 @@ def _wrap_data_parallel(model: AutoencoderKL, axis, parallel: Dict[str, Any]):
         layout = ZeroLayout(axis, model, shard_opt, shard_ema, fsdp=shard_par)
         if shard_opt:
             logger.info("parallel.shard_optimizer: optimizer state sharded over the %d-way "
-                        "data axis (ZeRO-1)", axis.world)
+                        "data axis (ZeRO-1)", axis.data_world)
         if shard_ema:
             logger.info("parallel.shard_ema: EMA sharded over the %d-way data axis",
-                        axis.world)
+                        axis.data_world)
     return forward_module, layout
 
 
@@ -223,12 +238,21 @@ class Trainer:
     def train(self) -> Dict[str, Any]:
         config = self.config
         _refuse_unported(config)
+        parallel = config.get("parallel", {}) or {}
+        spatial = as_int(parallel.get("spatial"), 1)
+        spatial_conv = spatial_conv_choice(parallel)
+        self.axis = with_spatial(self.axis, spatial)
         device = self.device
         axis, is_main = self.axis, self.is_main
-        world = 1 if axis is None else axis.world
-        rank = 0 if axis is None else axis.rank
+        # the batch's shards: the data axis (each spatial group reads one)
+        world = 1 if axis is None else axis.data_world
+        rank = 0 if axis is None else axis.data_rank
         logger.info("Running experiment: %s on %s (rank %d of %d)", self.run_name, device,
-                    rank, world)
+                    0 if axis is None else axis.rank, 1 if axis is None else axis.world)
+        if spatial > 1:
+            logger.info("parallel.spatial: image rows over %d-way spatial groups, %d data "
+                        "ranks; parallel.spatial_conv: %s (both values run the manual halo "
+                        "exchange, ops/spatial_conv.py)", spatial, world, spatial_conv)
         os.makedirs(self.output_dir, exist_ok=True)
         if is_main:
             with open(os.path.join(self.output_dir, "config.yaml"), "w") as f:
@@ -251,9 +275,16 @@ class Trainer:
         else:
             dtype = torch.float32
         model = resolve_model(config.get("model", {}), dtype, device)
+        if model.impl == "fused" and spatial > 1:
+            # a sharded H axis would need the conv halo exchange the fused
+            # kernels do not implement (JAX loop.py:238-258)
+            logger.warning(
+                "model.kernel_impl='fused' only supports pure data-parallel meshes, not "
+                "%s — falling back to kernel_impl='auto'.",
+                {"data": world, "spatial": spatial})
+            model.set_impl("auto")
         self.model = model
         vae_config = model.config
-        parallel = config.get("parallel", {}) or {}
         forward_module, layout = model, None
         if axis is not None:
             forward_module, layout = _wrap_data_parallel(model, axis, parallel)
@@ -386,7 +417,7 @@ class Trainer:
                                         stats_accumulate=ActivityMonitor.accumulate,
                                         map_keys=monitor.map_keys, ema_decay=ema_decay,
                                         axis=axis, forward_module=forward_module)
-        eval_step = make_eval_step(model) if do_validation else None
+        eval_step = make_eval_step(model, axis) if do_validation else None
 
         # ---------------- intervals ---------------- #
         # clamped to >=1: the non-finite loss check rides the logging interval

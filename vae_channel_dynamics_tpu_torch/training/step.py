@@ -49,8 +49,9 @@ import torch
 import torch.distributed as dist
 
 from ..models.wrapper import forward_with_stats
-from ..parallel.mesh import all_gather_rows
+from ..ops.spatial_conv import SpatialGroup, gather_rows, row_block, spatial_conv_scope
 from ..ops.stats import tap_mask
+from ..parallel.mesh import all_gather_rows
 from .state import TrainState
 
 logger = logging.getLogger(__name__)
@@ -420,10 +421,15 @@ def dequantize_pixels(pixel_values: torch.Tensor) -> torch.Tensor:
 
 
 def _losses(out, pixel_values: torch.Tensor, mask: torch.Tensor,
-            count: Optional[torch.Tensor] = None):
+            count: Optional[torch.Tensor] = None, shards: int = 1):
+    """The masked MSE and KL; over ``shards`` row shards each rank's are
+    its rows' shares (the mean over every element of the whole image, the
+    KL's sum over its latent rows), which add up over the shards."""
     recon = out["reconstruction"].float()
     pixels = pixel_values.float()
     sq = (recon - pixels).square().mean(dim=tuple(range(1, recon.dim())))
+    if shards > 1:
+        sq = sq / float(shards)
     return (_masked_mean(sq, mask, count),
             _masked_mean(out["latent_dist"].kl(), mask, count))
 
@@ -440,8 +446,11 @@ def _device_of(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def _nchw_pixels(batch, device) -> torch.Tensor:
+def _nchw_pixels(batch, device, sp: Optional[SpatialGroup] = None) -> torch.Tensor:
+    """The batch's NHWC pixels as NCHW [-1, 1] on ``device``: this rank's
+    block of their rows under a spatial group."""
     pixels = torch.as_tensor(batch["pixel_values"]).to(device, non_blocking=True)
+    pixels = row_block(pixels, sp, dim=1)
     return dequantize_pixels(pixels).permute(0, 3, 1, 2).contiguous()
 
 
@@ -474,8 +483,9 @@ def make_train_step(
     tensors; ``maps`` the full activation maps captured under ``map_keys``.
 
     With ``axis`` (a ``parallel.DataAxis``) the step is this rank's part of
-    a step over the ``data`` axis; without it, the step of one process,
-    which is the same step with no collective. ``forward_module`` is
+    a step over the ``data`` axis, and over the ``spatial`` axis where it
+    has one; without it, the step of one process, which is the same step
+    with no collective. ``forward_module`` is
     ``model`` wrapped in DDP (its gradients arrive all-reduced and averaged
     over the ranks) or ``model`` itself under FSDP2 (reduce-scattered and
     averaged). The loss each rank differentiates is its masked sums over
@@ -490,6 +500,18 @@ def make_train_step(
     (the loaders' strided shards: local row j is global row
     ``j * world + rank``), so W ranks draw what one process draws at the
     same global batch.
+
+    Over the ``spatial`` axis (S ranks a spatial group) every rank of a
+    group gets the same images (``batch``, ``mask`` and ``noise`` of its
+    data rank) and keeps its block of their rows and of the latent rows; the
+    forward and the backward run under ``ops.spatial_conv
+    .spatial_conv_scope``, so the convs exchange halos, the GroupNorms and
+    taps sum over the row shards and the attention gathers K and V. The
+    MSE and KL each rank differentiates are its rows' shares, the count is
+    the data axis's, the gradient all-reduce (DDP or FSDP2) runs over all
+    D x S ranks and its 1/(D S) is undone, and the metrics and linear taps
+    add up over every rank. The activation maps are gathered over rows,
+    then over the data axis.
 
     Gradient accumulation (``tx.every_k > 1``): one process keeps optax
     ``MultiSteps``' running mean in the state and reports each micro-step's
@@ -509,7 +531,12 @@ def make_train_step(
 
     accumulate = stats_accumulate or default_stats_accumulate
     device = _device_of(model) if axis is None else axis.device
-    world, rank = (1, 0) if axis is None else (axis.world, axis.rank)
+    # the gradient's ranks, and the batch's shards and this rank's shard
+    world = 1 if axis is None else axis.world
+    data_world, data_rank = (1, 0) if axis is None else (axis.data_world, axis.data_rank)
+    data_group = None if axis is None else axis.data_group
+    sp = SpatialGroup.of(axis)
+    shards = 1 if sp is None else sp.size
     summed = axis is not None and tx.every_k > 1
     if summed and not tx.summed_grads:
         raise ValueError("a data-parallel step with gradient accumulation needs the "
@@ -522,17 +549,17 @@ def make_train_step(
         if rng is None and noise is None:
             raise ValueError("pass a torch.Generator (rng) or the posterior noise")
         layout = state.layout
-        x = _nchw_pixels(batch, device)
+        x = _nchw_pixels(batch, device, sp)
         mask_t = torch.as_tensor(mask, dtype=torch.float32).to(device, non_blocking=True)
         if noise is not None:
-            noise_t = torch.as_tensor(noise).to(device).permute(0, 3, 1, 2)
+            noise_t = row_block(torch.as_tensor(noise).to(device), sp, dim=1).permute(0, 3, 1, 2)
         elif world > 1:
             cfg = model.config
             down = 2 ** (len(cfg.block_out_channels) - 1)
-            shape = (x.shape[0] * world, cfg.latent_channels, x.shape[2] // down,
-                     x.shape[3] // down)
-            noise_t = torch.randn(shape, generator=rng, dtype=torch.float32,
-                                  device=device)[rank::world]
+            shape = (x.shape[0] * data_world, cfg.latent_channels,
+                     x.shape[2] * shards // down, x.shape[3] // down)
+            noise_t = row_block(torch.randn(shape, generator=rng, dtype=torch.float32,
+                                            device=device)[data_rank::data_world], sp)
         else:
             noise_t = None  # the posterior draws from rng
         # one process reads nothing of the optimizer's state here: the
@@ -546,17 +573,18 @@ def make_train_step(
         if axis is not None:
             last = not summed or opt.mini_step >= tx.every_k - 1
             count = mask_t.sum()
-            dist.all_reduce(count)
+            dist.all_reduce(count, group=data_group)
             if not ddp:
                 forward_module.set_requires_gradient_sync(last)
             elif not last:
                 quiet = forward_module.no_sync()
         # the taps weight per-sample contributions by the mask while the
         # forward runs, so pad rows carry zero weight
-        with quiet, tap_mask(mask_t, count=count, reduce=axis is not None):
+        with quiet, tap_mask(mask_t, count=count, reduce=axis is not None), \
+                spatial_conv_scope(sp):
             out, stats = forward_with_stats(forward_module, x, True, generator=rng,
                                             noise=noise_t)
-            rec_loss, kl_loss = _losses(out, x, mask_t, count)
+            rec_loss, kl_loss = _losses(out, x, mask_t, count, shards)
             loss = rec_loss + kl_weight * kl_loss
             (loss * float(world) if world > 1 else loss).backward()
 
@@ -574,8 +602,9 @@ def make_train_step(
                 stats[k] = flat[off:off + size].view(stats[k].shape)
                 off += size
             for k, v in maps.items():
-                # the ranks' rows, back in the one-process batch's order
-                rows = all_gather_rows(v, world)
+                # the data ranks' rows (each map whole over the image's rows
+                # already), back in the one-process batch's order
+                rows = all_gather_rows(v, data_world, data_group)
                 maps[k] = rows.transpose(0, 1).reshape((-1,) + tuple(v.shape[1:]))
 
         if layout is None:
@@ -618,27 +647,38 @@ def make_train_step(
     return step_fn
 
 
-def make_eval_step(model: torch.nn.Module):
+def make_eval_step(model: torch.nn.Module, axis=None):
     """Deterministic (posterior mode) forward with SUM-convention losses for
     validation, plus the per-element-mean MSE the evaluation CLI uses.
-    Returns ``eval_fn(batch, mask) -> dict`` with an NHWC reconstruction."""
+    Returns ``eval_fn(batch, mask) -> dict`` with an NHWC reconstruction.
+
+    Over a spatial group (``axis`` with ``spatial`` > 1) each rank runs its
+    rows of the images under the scope: its sums are its rows' shares, which
+    add up over the group, ``num_samples`` counts on the group's first rank
+    only, so that a sum over every rank counts each image once, and the
+    reconstruction is gathered over the rows, whole on every rank."""
     device = _device_of(model)
+    sp = SpatialGroup.of(axis)
 
     @torch.no_grad()
     def eval_fn(batch, mask):
-        x = _nchw_pixels(batch, device)
+        x = _nchw_pixels(batch, device, sp)
         mask_t = torch.as_tensor(mask, dtype=torch.float32).to(device)
-        out, _stats = forward_with_stats(model, x, sample_posterior=False)
+        with spatial_conv_scope(sp):
+            out, _stats = forward_with_stats(model, x, sample_posterior=False)
         recon = out["reconstruction"].float()
         per_sample_sq_sum = (recon - x.float()).square().sum(dim=(1, 2, 3))
         kl = out["latent_dist"].kl()
-        n_pixel_dims = recon[0].numel()
+        n_pixel_dims = recon[0].numel() * (1 if sp is None else sp.size)
+        reconstruction = out["reconstruction"]
+        if sp is not None:
+            reconstruction = gather_rows(reconstruction, 2, sp)
         return {
             "rec_loss_sum": (per_sample_sq_sum * mask_t).sum(),
             "kl_sum": (kl * mask_t).sum(),
             "mse_mean_weighted": (per_sample_sq_sum * mask_t).sum() / n_pixel_dims,
-            "num_samples": mask_t.sum(),
-            "reconstruction": out["reconstruction"].permute(0, 2, 3, 1),
+            "num_samples": mask_t.sum() if sp is None or sp.index == 0 else mask_t.sum() * 0.0,
+            "reconstruction": reconstruction.permute(0, 2, 3, 1),
         }
 
     return eval_fn
