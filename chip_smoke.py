@@ -408,6 +408,8 @@ STEP_F32_REL = 1e-4
 # train.main, each launching the fp32 flash kernels
 TRAINER_F32_STEPS = 3
 
+GN_GROUPS = 32
+GN_EPS = 1e-6
 # GroupNorm kernels vs plain, bf16, at both training paths' 128-channel
 # full-resolution norm input (encoder down block 0, decoder up block 3) and
 # their mid-block norm: the 256px batch-16 slice's, then the 1024px batch-1
@@ -424,9 +426,26 @@ TRAINER_F32_STEPS = 3
 # dx with its own (S = 16 and 4); dx's fault leaves the last split's chunk
 # of every plane unwritten.
 GN_SHAPES = ((16, 128, 256, 256), (16, 512, 32, 32), (1, 128, 1024, 1024), (1, 512, 128, 128))
+# The same checks, untimed, in bf16 and in fp32, at every channel block the
+# tensor runs of phase_multi_gpu launch the kernels on: each norm's C / T
+# channels with its G / T groups, (t) configs/bench_tp.yaml at 256px batch 16
+# at T = 2 and 4, (st) the 1024px Trainer at 2 spatial x 2 tensor, batch 1,
+# half the rows. The splits of #2, #4 and #5 follow the planes B x C / T, so
+# these blocks take split counts GN_SHAPES does not. GN_LAYERS: the SDXL
+# VAE's norm inputs as (channels, downscale from the image).
+GN_LAYERS = ((128, 1), (128, 2), (256, 1), (256, 2), (256, 4), (512, 2), (512, 4), (512, 8))
+GN_BLOCK_RUNS = ((16, 256, 1, (2, 4)), (1, 1024, 2, (2,)))  # (batch, px, spatial, T)
+GN_BLOCK_SHAPES = tuple(sorted({
+    ((b, c // t, px // d // s, px // d), GN_GROUPS // t)
+    for b, px, s, ts in GN_BLOCK_RUNS for t in ts for c, d in GN_LAYERS}))
+# fp32 bounds (tests/test_torch_group_norm_kernel_cuda.py's): y and dx of
+# the kernels within GN_F32_REL of max|plain| (and 1e-5), the op's y and dx
+# within GN_F32_OP_REL (the JAX tests' 2e-5 and 5e-4: the plain autograd
+# and the folded dx formula round apart), the fp32 sums GN_SUM_REL_F32
+GN_F32_REL = 1e-5
+GN_F32_OP_REL = (2e-5, 5e-4)
+GN_SUM_REL_F32 = 1e-4
 GN_ROW_SHAPE = (1, 128, 1024, 1024)
-GN_GROUPS = 32
-GN_EPS = 1e-6
 GN_ULPS = 4
 GN_SUM_REL = 1e-3
 GN_SOURCE = "vae_channel_dynamics_tpu_torch/csrc/group_norm.cu"
@@ -1956,10 +1975,196 @@ def timed_pair(kernel, plain, iters: int = GN_ITERS) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def _gn_check(shape, groups: int, dtype, gen, results: dict) -> tuple:
+    """Each GroupNorm kernel against its plain version on the same inputs,
+    then the autograd op against the plain GroupNorm, at ``shape`` with
+    ``groups`` groups in ``dtype`` (bf16 or fp32); every bound is shown to
+    reject a planted fault. Adds each kernel's max abs error to
+    ``results``; returns (the lines to log, the inputs (x, g, scale, bias,
+    a, b, ca, cb, cc) for the times)."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.ops import group_norm_kernel as gnk
+    from vae_channel_dynamics_tpu_torch.ops.group_norm import group_norm_reference
+
+    dname = "bf16" if dtype == torch.bfloat16 else "fp32"
+    sum_rel = GN_SUM_REL if dtype == torch.bfloat16 else GN_SUM_REL_F32
+
+    def like_x(out, ref, fp32_rel=GN_F32_REL):
+        # y or dx, in x's dtype: GN_ULPS bf16 ulps of max|plain| in bf16,
+        # fp32_rel of max|plain| (and 1e-5) in fp32
+        if dtype == torch.bfloat16:
+            return bf16_err(out, ref)
+        return max_abs_err(out, ref), fp32_rel * ref.float().abs().max().item() + 1e-5
+
+    b, c, h, w = shape
+    x = (torch.randn(shape, generator=gen, device=DEVICE) * 2.0 + 0.5).to(dtype)
+    g = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+    scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+    bias = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+    # the per-(sample, channel) coefficients from the plain sums
+    sums, sqs = gnk.fwd_reduce_reference(x)
+    mean, rstd = gnk._group_stats(sums, sqs, h * w, groups, GN_EPS)
+    a, off = gnk._affine_coeffs(mean, rstd, scale, bias, groups)
+    lines = []
+
+    def record(name, err, bound, fault_err, what, abs_err):
+        # the kernels line reports each kernel's max abs error; the bound
+        # is on ``err`` (relative for the fp32 sums)
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], abs_err)
+        lines.append(f"{name} {what}: err {err:.4g} (bound {bound:.4g}), "
+                     f"planted fault {fault_err:.4g}")
+        check(err <= bound, f"{name} {what} disagrees with plain at {shape}: {err} > {bound}")
+        check(fault_err > bound, f"the {name} {what} bound at {shape} does not reject "
+                                 f"its planted fault ({fault_err} <= {bound})")
+
+    # 1. fwd reduce; fault: the last 1/128 of each plane's rows (at least
+    # one) left out
+    ks, kq = gnk.fwd_reduce(x)
+    sync()
+    fs, _fq = gnk.fwd_reduce_reference(x[:, :, :-max(1, h // 128)])
+    record("gn_fwd_reduce", max(sum_rel_err(ks, sums), sum_rel_err(kq, sqs)), sum_rel,
+           sum_rel_err(fs, sums), "sum x, sum x^2 (rel)",
+           max(max_abs_err(ks, sums), max_abs_err(kq, sqs)))
+    # 2-3. normalize with SiLU and the |z| tap; faults: b left out of y,
+    # |z| taken after the SiLU
+    ky, kabs = gnk.fwd_normalize(x, a, off, True, True)
+    sync()
+    py, pabs = gnk.fwd_normalize_reference(x, a, off, True, True)
+    fy, _ = gnk.fwd_normalize_reference(x, a, torch.zeros_like(off), True, False)
+    err, bound = like_x(ky, py)
+    record("gn_fwd_normalize", err, bound, like_x(fy, py)[0], f"y ({dname})", err)
+    z = x.float() * a[:, :, None, None] + off[:, :, None, None]
+    fabs = (z * torch.sigmoid(z)).abs().sum(dim=(2, 3))
+    del z
+    record("gn_fwd_normalize", sum_rel_err(kabs, pabs), sum_rel,
+           sum_rel_err(fabs, pabs), "sum |z| tap (rel)", max_abs_err(kabs, pabs))
+    # the normalize kernel's split of each plane over S blocks: y and the
+    # tap bit-equal run to run (the partials are added in split order), y
+    # without the SiLU bit-equal to plain (x*a + b rounded as plain
+    # rounds it, then one cast); fault: the last split's partial left out
+    splits = gnk.normalize_splits(b * c, h * w, x.element_size())
+    ky2, kabs2 = gnk.fwd_normalize(x, a, off, True, True)
+    ky0, kabs0 = gnk.fwd_normalize(x, a, off, False, True)
+    sync()
+    check(torch.equal(ky, ky2) and torch.equal(kabs, kabs2),
+          f"gn_fwd_normalize differs between two runs at {shape}")
+    py0, pabs0 = gnk.fwd_normalize_reference(x, a, off, False, True)
+    if dtype == torch.bfloat16:
+        check(torch.equal(ky0, py0),
+              f"gn_fwd_normalize without the SiLU is not bit-equal to plain at {shape}")
+        plain_y0 = "bit-equal to plain"
+    else:
+        # fp32: the kernel may fuse x*a + b into one rounding
+        err0, bound0 = like_x(ky0, py0)
+        check(err0 <= bound0, f"gn_fwd_normalize without the SiLU disagrees at {shape}: "
+                              f"{err0} > {bound0}")
+        plain_y0 = f"err {err0:.3g} (bound {bound0:.3g})"
+    last = (splits - 1) * gnk.split_chunk(h * w, splits)
+    z = x.flatten(2)[:, :, last:].float() * a[:, :, None] + off[:, :, None]
+    record("gn_fwd_normalize", sum_rel_err(kabs0, pabs0), sum_rel,
+           sum_rel_err(pabs0 - z.abs().sum(dim=2), pabs0),
+           f"sum |z| tap without the SiLU (rel; fault: the last of S = {splits} splits' "
+           "partial left out)", max_abs_err(kabs0, pabs0))
+    lines.append(f"gn_fwd_normalize S = {splits} splits a plane, y and tap bit-equal run "
+                 f"to run, y without the SiLU {plain_y0}")
+    del z, ky2, kabs2, ky0, kabs0, py0, pabs0
+    # 4. bwd reduce; faults: SiLU' left out of g_eff, and the last of
+    # its S splits' partials left out (its own split count); the sums
+    # bit-equal run to run
+    splits = gnk.reduce_splits(b * c, h * w, x.element_size())
+    last = (splits - 1) * gnk.split_chunk(h * w, splits)
+    kg, kgx = gnk.bwd_reduce(x, g, a, off, True)
+    kg2, kgx2 = gnk.bwd_reduce(x, g, a, off, True)
+    sync()
+    check(torch.equal(kg, kg2) and torch.equal(kgx, kgx2),
+          f"gn_bwd_reduce differs between two runs at {shape}")
+    pg, pgx = gnk.bwd_reduce_reference(x, g, a, off, True)
+    fg, fgx = gnk.bwd_reduce_reference(x, g, a, off, False)
+    record("gn_bwd_reduce", max(sum_rel_err(kg, pg), sum_rel_err(kgx, pgx)), sum_rel,
+           max(sum_rel_err(fg, pg), sum_rel_err(fgx, pgx)), "sum g_eff, sum g_eff x (rel)",
+           max(max_abs_err(kg, pg), max_abs_err(kgx, pgx)))
+    if splits > 1:
+        lg, lgx = gnk.bwd_reduce_reference(x.flatten(2)[:, :, last:, None],
+                                           g.flatten(2)[:, :, last:, None], a, off, True)
+        record("gn_bwd_reduce", max(sum_rel_err(kg, pg), sum_rel_err(kgx, pgx)), sum_rel,
+               max(sum_rel_err(pg - lg, pg), sum_rel_err(pgx - lgx, pgx)),
+               f"sums (rel; fault: the last of S = {splits} splits' partials left out)",
+               max(max_abs_err(kg, pg), max_abs_err(kgx, pgx)))
+        del lg, lgx
+    lines.append(f"gn_bwd_reduce S = {splits} splits a plane, bit-equal run to run")
+    del kg2, kgx2
+    # 5. bwd dx with the op's own coefficients, each plane split over its
+    # own S blocks; faults: SiLU' left out, and the last of the S splits'
+    # chunk of every plane left unwritten; dx bit-equal run to run
+    n = h * w * (c // groups)
+    ca = a
+    cb = (-(rstd * rstd) / n).repeat_interleave(c // groups, dim=1).contiguous()
+    cc = (0.1 * cb).contiguous()
+    splits = gnk.dx_splits(b * c, h * w, x.element_size())
+    kdx = gnk.bwd_dx(x, g, a, off, ca, cb, cc, True)
+    kdx2 = gnk.bwd_dx(x, g, a, off, ca, cb, cc, True)
+    sync()
+    check(torch.equal(kdx, kdx2), f"gn_bwd_dx differs between two runs at {shape}")
+    pdx = gnk.bwd_dx_reference(x, g, a, off, ca, cb, cc, True)
+    fdx = gnk.bwd_dx_reference(x, g, a, off, ca, cb, cc, False)
+    err, bound = like_x(kdx, pdx)
+    record("gn_bwd_dx", err, bound, like_x(fdx, pdx)[0], f"dx ({dname})", err)
+    if splits > 1:
+        fdx = pdx.clone()
+        fdx.flatten(2)[:, :, (splits - 1) * gnk.split_chunk(h * w, splits):] = 0
+        record("gn_bwd_dx", err, bound, like_x(fdx, pdx)[0],
+               f"dx ({dname}; fault: the last of S = {splits} splits' chunk left unwritten)",
+               err)
+    lines.append(f"gn_bwd_dx S = {splits} splits a plane, {gnk.DX_LOADS} loads of x and "
+                 "of g in flight a thread, bit-equal run to run")
+    del ks, kq, fs, ky, kabs, py, pabs, fy, fabs, kg, kgx, pg, pgx, fg, fgx, kdx, kdx2, pdx
+    del fdx
+
+    # the autograd op (kernels) against the plain GroupNorm (autograd of
+    # group_norm_reference), SiLU fused, the |z| tap from the op
+    def op_grads(fn, silu=True):
+        xr = x.detach().requires_grad_(True)
+        sr = scale.detach().requires_grad_(True)
+        br = bias.detach().requires_grad_(True)
+        y = fn(xr, sr, br, silu)
+        dx, ds, db = torch.autograd.grad(y, (xr, sr, br), g)
+        return y.detach(), dx, ds, db
+
+    def kernel_op(xr, sr, br, silu):
+        y, _tap = gnk.group_norm_silu_with_stats(xr, sr, br, groups, GN_EPS, silu)
+        return y
+
+    def plain_op(xr, sr, br, silu):
+        return group_norm_reference(xr, sr, br, groups, GN_EPS, silu)
+
+    ky, kdx, kds, kdb = op_grads(kernel_op)
+    _y, ktap = gnk.group_norm_silu_with_stats(x, scale, bias, groups, GN_EPS, True)
+    sync()
+    py, pdx, pds, pdb = op_grads(plain_op)
+    _fy, _fdx, _fds, fdb = op_grads(plain_op, silu=False)
+    ptap = gnk.fwd_normalize_reference(x, a, off, True, True)[1].sum(0) / (b * h * w)
+    errs = [like_x(ky, py, GN_F32_OP_REL[0]), like_x(kdx, pdx, GN_F32_OP_REL[1])]
+    tap_err = sum_rel_err(ktap, ptap)
+    ds_err, db_err = sum_rel_err(kds, pds), sum_rel_err(kdb, pdb)
+    fault_db = sum_rel_err(fdb, pdb)
+    lines.append(f"op: y err {errs[0][0]:.4g} (bound {errs[0][1]:.4g}), mean|z| tap rel "
+                 f"{tap_err:.3g}, dx err {errs[1][0]:.4g} (bound {errs[1][1]:.4g}), dgamma "
+                 f"rel {ds_err:.3g}, dbeta rel {db_err:.3g} (bound {sum_rel}; SiLU' left "
+                 f"out: dbeta rel {fault_db:.3g})")
+    check(all(e <= bd for e, bd in errs), f"the GroupNorm op's y or dx disagree at {shape}")
+    check(max(tap_err, ds_err, db_err) <= sum_rel,
+          f"the GroupNorm op's tap, dgamma or dbeta disagree at {shape}")
+    check(fault_db > sum_rel, f"the dbeta bound at {shape} does not reject its fault")
+    del ky, kdx, kds, kdb, py, pdx, pds, pdb, fdb, ktap, ptap
+    return lines, (x, g, scale, bias, a, off, ca, cb, cc)
+
+
 def phase_gn_kernels():
     """Each GroupNorm kernel against its plain version on the same inputs,
-    then the autograd op against the plain GroupNorm, at GN_SHAPES in bf16;
-    every bound is shown to reject a planted fault."""
+    then the autograd op against the plain GroupNorm (``_gn_check``), timed,
+    at GN_SHAPES in bf16; then the same checks, untimed, at every channel
+    block of GN_BLOCK_SHAPES in bf16 and in fp32."""
     import torch
 
     from vae_channel_dynamics_tpu_torch.ops import group_norm_kernel as gnk
@@ -1968,159 +2173,8 @@ def phase_gn_kernels():
     results = {name: {"max_abs_err": 0.0} for name in gnk.KERNELS}
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     for shape in GN_SHAPES:
-        b, c, h, w = shape
-        x = (torch.randn(shape, generator=gen, device=DEVICE) * 2.0 + 0.5).to(torch.bfloat16)
-        g = torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
-        scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=DEVICE)
-        bias = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
-        # the per-(sample, channel) coefficients from the plain sums
-        sums, sqs = gnk.fwd_reduce_reference(x)
-        mean, rstd = gnk._group_stats(sums, sqs, h * w, GN_GROUPS, GN_EPS)
-        a, off = gnk._affine_coeffs(mean, rstd, scale, bias, GN_GROUPS)
-        lines = []
-
-        def record(name, err, bound, fault_err, what, abs_err):
-            # the kernels line reports each kernel's max abs error; the bound
-            # is on ``err`` (relative for the fp32 sums)
-            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], abs_err)
-            lines.append(f"{name} {what}: err {err:.4g} (bound {bound:.4g}), "
-                         f"planted fault {fault_err:.4g}")
-            check(err <= bound, f"{name} {what} disagrees with plain at {shape}: {err} > {bound}")
-            check(fault_err > bound, f"the {name} {what} bound at {shape} does not reject "
-                                     f"its planted fault ({fault_err} <= {bound})")
-
-        # 1. fwd reduce; fault: the last 1/128 of each plane's rows (at least
-        # one) left out
-        ks, kq = gnk.fwd_reduce(x)
-        sync()
-        fs, _fq = gnk.fwd_reduce_reference(x[:, :, :-max(1, h // 128)])
-        record("gn_fwd_reduce", max(sum_rel_err(ks, sums), sum_rel_err(kq, sqs)), GN_SUM_REL,
-               sum_rel_err(fs, sums), "sum x, sum x^2 (rel)",
-               max(max_abs_err(ks, sums), max_abs_err(kq, sqs)))
-        # 2-3. normalize with SiLU and the |z| tap; faults: b left out of y,
-        # |z| taken after the SiLU
-        ky, kabs = gnk.fwd_normalize(x, a, off, True, True)
-        sync()
-        py, pabs = gnk.fwd_normalize_reference(x, a, off, True, True)
-        fy, _ = gnk.fwd_normalize_reference(x, a, torch.zeros_like(off), True, False)
-        err, bound = bf16_err(ky, py)
-        record("gn_fwd_normalize", err, bound, bf16_err(fy, py)[0], "y (bf16)", err)
-        z = x.float() * a[:, :, None, None] + off[:, :, None, None]
-        fabs = (z * torch.sigmoid(z)).abs().sum(dim=(2, 3))
-        del z
-        record("gn_fwd_normalize", sum_rel_err(kabs, pabs), GN_SUM_REL,
-               sum_rel_err(fabs, pabs), "sum |z| tap (rel)", max_abs_err(kabs, pabs))
-        # the normalize kernel's split of each plane over S blocks: y and the
-        # tap bit-equal run to run (the partials are added in split order), y
-        # without the SiLU bit-equal to plain (x*a + b rounded as plain
-        # rounds it, then one cast); fault: the last split's partial left out
-        splits = gnk.normalize_splits(b * c, h * w, x.element_size())
-        ky2, kabs2 = gnk.fwd_normalize(x, a, off, True, True)
-        ky0, kabs0 = gnk.fwd_normalize(x, a, off, False, True)
-        sync()
-        check(torch.equal(ky, ky2) and torch.equal(kabs, kabs2),
-              f"gn_fwd_normalize differs between two runs at {shape}")
-        py0, pabs0 = gnk.fwd_normalize_reference(x, a, off, False, True)
-        check(torch.equal(ky0, py0),
-              f"gn_fwd_normalize without the SiLU is not bit-equal to plain at {shape}")
-        last = (splits - 1) * gnk.split_chunk(h * w, splits)
-        z = x.flatten(2)[:, :, last:].float() * a[:, :, None] + off[:, :, None]
-        record("gn_fwd_normalize", sum_rel_err(kabs0, pabs0), GN_SUM_REL,
-               sum_rel_err(pabs0 - z.abs().sum(dim=2), pabs0),
-               f"sum |z| tap without the SiLU (rel; fault: the last of S = {splits} splits' "
-               "partial left out)", max_abs_err(kabs0, pabs0))
-        lines.append(f"gn_fwd_normalize S = {splits} splits a plane, y and tap bit-equal run "
-                     "to run, y without the SiLU bit-equal to plain")
-        del z, ky2, kabs2, ky0, kabs0, py0, pabs0
-        # 4. bwd reduce; faults: SiLU' left out of g_eff, and the last of
-        # its S splits' partials left out (its own split count); the sums
-        # bit-equal run to run
-        splits = gnk.reduce_splits(b * c, h * w, x.element_size())
-        last = (splits - 1) * gnk.split_chunk(h * w, splits)
-        kg, kgx = gnk.bwd_reduce(x, g, a, off, True)
-        kg2, kgx2 = gnk.bwd_reduce(x, g, a, off, True)
-        sync()
-        check(torch.equal(kg, kg2) and torch.equal(kgx, kgx2),
-              f"gn_bwd_reduce differs between two runs at {shape}")
-        pg, pgx = gnk.bwd_reduce_reference(x, g, a, off, True)
-        fg, fgx = gnk.bwd_reduce_reference(x, g, a, off, False)
-        record("gn_bwd_reduce", max(sum_rel_err(kg, pg), sum_rel_err(kgx, pgx)), GN_SUM_REL,
-               max(sum_rel_err(fg, pg), sum_rel_err(fgx, pgx)), "sum g_eff, sum g_eff x (rel)",
-               max(max_abs_err(kg, pg), max_abs_err(kgx, pgx)))
-        if splits > 1:
-            lg, lgx = gnk.bwd_reduce_reference(x.flatten(2)[:, :, last:, None],
-                                               g.flatten(2)[:, :, last:, None], a, off, True)
-            record("gn_bwd_reduce", max(sum_rel_err(kg, pg), sum_rel_err(kgx, pgx)), GN_SUM_REL,
-                   max(sum_rel_err(pg - lg, pg), sum_rel_err(pgx - lgx, pgx)),
-                   f"sums (rel; fault: the last of S = {splits} splits' partials left out)",
-                   max(max_abs_err(kg, pg), max_abs_err(kgx, pgx)))
-            del lg, lgx
-        lines.append(f"gn_bwd_reduce S = {splits} splits a plane, bit-equal run to run")
-        del kg2, kgx2
-        # 5. bwd dx with the op's own coefficients, each plane split over its
-        # own S blocks; faults: SiLU' left out, and the last of the S splits'
-        # chunk of every plane left unwritten; dx bit-equal run to run
-        n = h * w * (c // GN_GROUPS)
-        ca = a
-        cb = (-(rstd * rstd) / n).repeat_interleave(c // GN_GROUPS, dim=1).contiguous()
-        cc = (0.1 * cb).contiguous()
-        splits = gnk.dx_splits(b * c, h * w, x.element_size())
-        kdx = gnk.bwd_dx(x, g, a, off, ca, cb, cc, True)
-        kdx2 = gnk.bwd_dx(x, g, a, off, ca, cb, cc, True)
-        sync()
-        check(torch.equal(kdx, kdx2), f"gn_bwd_dx differs between two runs at {shape}")
-        pdx = gnk.bwd_dx_reference(x, g, a, off, ca, cb, cc, True)
-        fdx = gnk.bwd_dx_reference(x, g, a, off, ca, cb, cc, False)
-        err, bound = bf16_err(kdx, pdx)
-        record("gn_bwd_dx", err, bound, bf16_err(fdx, pdx)[0], "dx (bf16)", err)
-        if splits > 1:
-            fdx = pdx.clone()
-            fdx.flatten(2)[:, :, (splits - 1) * gnk.split_chunk(h * w, splits):] = 0
-            record("gn_bwd_dx", err, bound, bf16_err(fdx, pdx)[0],
-                   f"dx (bf16; fault: the last of S = {splits} splits' chunk left unwritten)",
-                   err)
-        lines.append(f"gn_bwd_dx S = {splits} splits a plane, {gnk.DX_LOADS} loads of x and "
-                     "of g in flight a thread, bit-equal run to run")
-        del ks, kq, fs, ky, kabs, py, pabs, fy, fabs, kg, kgx, pg, pgx, fg, fgx, kdx, kdx2, pdx
-        del fdx
-
-        # the autograd op (kernels) against the plain GroupNorm (autograd of
-        # group_norm_reference), SiLU fused, the |z| tap from the op
-        def op_grads(fn, silu=True):
-            xr = x.detach().requires_grad_(True)
-            sr = scale.detach().requires_grad_(True)
-            br = bias.detach().requires_grad_(True)
-            y = fn(xr, sr, br, silu)
-            dx, ds, db = torch.autograd.grad(y, (xr, sr, br), g)
-            return y.detach(), dx, ds, db
-
-        def kernel_op(xr, sr, br, silu):
-            y, _tap = gnk.group_norm_silu_with_stats(xr, sr, br, GN_GROUPS, GN_EPS, silu)
-            return y
-
-        def plain_op(xr, sr, br, silu):
-            return group_norm_reference(xr, sr, br, GN_GROUPS, GN_EPS, silu)
-
-        ky, kdx, kds, kdb = op_grads(kernel_op)
-        _y, ktap = gnk.group_norm_silu_with_stats(x, scale, bias, GN_GROUPS, GN_EPS, True)
-        sync()
-        py, pdx, pds, pdb = op_grads(plain_op)
-        _fy, _fdx, _fds, fdb = op_grads(plain_op, silu=False)
-        ptap = gnk.fwd_normalize_reference(x, a, off, True, True)[1].sum(0) / (b * h * w)
-        errs = [bf16_err(ky, py), bf16_err(kdx, pdx)]
-        tap_err = sum_rel_err(ktap, ptap)
-        ds_err, db_err = sum_rel_err(kds, pds), sum_rel_err(kdb, pdb)
-        fault_db = sum_rel_err(fdb, pdb)
-        lines.append(f"op: y err {errs[0][0]:.4g} (bound {errs[0][1]:.4g}), mean|z| tap rel "
-                     f"{tap_err:.3g}, dx err {errs[1][0]:.4g} (bound {errs[1][1]:.4g}), dgamma "
-                     f"rel {ds_err:.3g}, dbeta rel {db_err:.3g} (bound {GN_SUM_REL}; SiLU' left "
-                     f"out: dbeta rel {fault_db:.3g})")
-        check(all(e <= bd for e, bd in errs), f"the GroupNorm op's y or dx disagree at {shape}")
-        check(max(tap_err, ds_err, db_err) <= GN_SUM_REL,
-              f"the GroupNorm op's tap, dgamma or dbeta disagree at {shape}")
-        check(fault_db > GN_SUM_REL, f"the dbeta bound at {shape} does not reject its fault")
-        del ky, kdx, kds, kdb, py, pdx, pds, pdb, fdb, ktap, ptap
-
+        lines, (x, g, scale, bias, a, off, ca, cb, cc) = _gn_check(
+            shape, GN_GROUPS, torch.bfloat16, gen, results)
         # times: each kernel against its plain version, then the op's
         # forward and backward
         times = {
@@ -2183,6 +2237,14 @@ def phase_gn_kernels():
             + ", ".join(f"{k} {gn_bound(k, shape, x.element_size())[0]:.4f}" for k in GN_OPS)
             + f"; F.group_norm + F.silu forward {lib_fwd:.4f}, backward {lib_bwd:.4f}")
         del x, g, a, off, ca, cb, cc
+    t0 = time.perf_counter()
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, groups in GN_BLOCK_SHAPES:
+            lines, _inputs = _gn_check(shape, groups, dtype, gen, results)
+            del _inputs
+            log(f"[gn] block {shape}, {groups} groups, {str(dtype)[6:]}: " + "; ".join(lines))
+    log(f"[gn] {len(GN_BLOCK_SHAPES)} channel blocks of the tensor runs, bf16 and fp32, each "
+        f"kernel and the op within its bound, in {time.perf_counter() - t0:.1f} s")
     release()
     return results
 
@@ -4692,7 +4754,9 @@ def phase_export(tmp: str, model_dir: str) -> None:
 # launches none); a rank's NCCL time counts its wait for the others, so the
 # least over the ranks is the reading, and the profiler stretches the step.
 # phase_multi_gpu(timing_only=True) runs the timed runs, the profiled runs
-# and (at W > 1) the server only, without the controls and the evaluation.
+# and (at W > 1) the server only, without the controls and the evaluation;
+# ``kinds`` picks the kinds of run (MULTI_KINDS), ("t", "st") the tensor
+# runs alone.
 # (s), at W >= 2 only: (b)'s config with parallel.spatial MULTI_SPATIAL (W /
 # 2 data x 2 spatial ranks, each 512 of the 1024 rows, the mid block's flash
 # kernels at 8192 queries against 16384 keys), at bf16 and at fp32, in a
@@ -4702,11 +4766,35 @@ def phase_export(tmp: str, model_dir: str) -> None:
 # kernels (the halo exchanges, the GroupNorm all-reduces, the K/V gathers
 # and the gradient's all-reduce). At W = 1 a line says that no spatial rank
 # ran.
+# (t), at W >= 2 only: configs/bench_tp.yaml (256px, batch 16, EMA) at
+# parallel.tensor W (one data rank: every card holds 1/W of each channel
+# axis _channel_axis cuts), kernel_impl pallas and the control loop, at bf16
+# and at fp32, in a spawn of its own (MULTI_TENSOR_TIMEOUT), held to one
+# process at the same global batch (16 images) as (a) is; the GroupNorm
+# kernels #1-#5 must launch on every rank, and only at channel blocks (C/W:
+# (16, 128 / W, 256, 256) at the full-resolution norms); each rank logs its
+# peak memory and its collectives a step (ops/tensor_parallel.py's count);
+# a third run profiles step MULTI_PROFILE_STEP on every rank for the NCCL
+# kernels (the channel gathers, the reduce-scatters of the input gradients,
+# the row-parallel conv_out's sum and DDP's gradient all-reduce). The fp32
+# run goes twice more on every rank and in one process: with the
+# allocator's history recorded (t_fp32_mem: what is live at the peak, by the
+# site that allocated it, _memory_peak) and with cuDNN free to choose
+# non-deterministic algorithms (t_fp32_free: its peak). (st), at
+# W >= 4 only, in the same spawn: (b)'s 1024px config at 2 spatial x 2
+# tensor ranks (W / 4 data ranks), bf16 and fp32, attention_impl flash,
+# which runs auto on a tensor mesh with JAX's warning (its control runs
+# auto), held to one process at the same global batch. At W = 1 a line says
+# that no tensor rank ran.
 MULTI_ZERO_CONFIG = "configs/bench_zero3_256px.yaml"
 MULTI_FUSED_CONFIG = "configs/bench_256px.yaml"
-MULTI_STEPS = {"a": 5, "b": 4, "c": 2, "s": 4}
+MULTI_TP_CONFIG = "configs/bench_tp.yaml"
+MULTI_STEPS = {"a": 5, "b": 4, "c": 2, "s": 4, "t": 4, "st": 3}
 MULTI_SPATIAL = 2
 MULTI_SPATIAL_TIMEOUT = 480.0
+MULTI_TENSOR_TIMEOUT = 600.0
+# (st)'s spatial x tensor layout: the smallest world that holds it
+MULTI_ST = {"spatial": 2, "tensor": 2}
 # (c)'s images a rank: its fused path keeps 41 GB at batch 16 (PERF.md), so
 # the one-process control of four ranks fits at 4 a rank
 MULTI_FUSED_BATCH = 4
@@ -4729,7 +4817,37 @@ MULTI_KERNELS = {
     "d": ("gn_fwd_reduce", "gn_fwd_normalize", "flash_attention_fwd_f32"),
     "s": ("gn_fwd_reduce", "gn_fwd_normalize", "gn_bwd_reduce", "gn_bwd_dx",
           "flash_attention_fwd_lse", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"),
+    "t": ("gn_fwd_reduce", "gn_fwd_normalize", "gn_bwd_reduce", "gn_bwd_dx"),
+    "st": ("gn_fwd_reduce", "gn_fwd_normalize", "gn_bwd_reduce", "gn_bwd_dx"),
 }
+
+
+# the kinds of run above, and the evaluation (d) and the server (e)
+MULTI_KINDS = ("a", "b", "c", "s", "t", "st", "eval", "serve")
+# the allocator's history kept for one traced run (t_fp32_mem)
+MEMORY_TRACE_ENTRIES = 400_000
+
+
+def _kind(run: str) -> str:
+    """A multi run's kind: ``a`` of ``a_bf16``, ``st`` of ``st_fp32``."""
+    return run.split("_")[0]
+
+
+def _multi_runs(world: int, timing_only: bool = False, kinds=MULTI_KINDS) -> tuple:
+    """The runs of ``phase_multi_gpu`` at ``world`` cards, of ``kinds``, in
+    order: (a), (a') and (b), which alone are timed with ``timing_only``;
+    (a) and (b) at fp32 and (c) otherwise; (s) and (t) at W >= 2, (st) at
+    W >= 4; the evaluation (not with ``timing_only``) and the server."""
+    runs = ("a_bf16", "a_ddp", "b_bf16") if timing_only else (
+        "a_bf16", "a_fp32", "a_ddp", "b_bf16", "b_fp32", "c_bf16")
+    if world >= MULTI_SPATIAL:
+        runs += ("s_bf16",) if timing_only else ("s_bf16", "s_fp32")
+    if world >= 2:
+        runs += ("t_bf16",) if timing_only else ("t_bf16", "t_fp32")
+    if world >= MULTI_ST["spatial"] * MULTI_ST["tensor"]:
+        runs += ("st_bf16",) if timing_only else ("st_bf16", "st_fp32")
+    runs += () if timing_only else ("eval",)
+    return tuple(run for run in runs + ("serve",) if _kind(run) in kinds)
 
 
 def _multi_configs(tmp: str, model_dir: str, world: int) -> dict:
@@ -4750,6 +4868,9 @@ def _multi_configs(tmp: str, model_dir: str, world: int) -> dict:
         cfg["intervention"]["intervention_interval"] = steps
 
     spatial = (("s_bf16", TRAINER_CONFIG, "bf16"), ("s_fp32", TRAINER_CONFIG, "no"))
+    tensor = tuple((run, TRAINER_CONFIG if run.startswith("st") else MULTI_TP_CONFIG,
+                    "bf16" if run.endswith("bf16") else "no")
+                   for run in _multi_runs(world, kinds=("t", "st")))
     for run, src, precision in (("a_bf16", MULTI_ZERO_CONFIG, "bf16"),
                                 ("a_fp32", MULTI_ZERO_CONFIG, "no"),
                                 ("a_ddp", MULTI_ZERO_CONFIG, "bf16"),
@@ -4757,11 +4878,12 @@ def _multi_configs(tmp: str, model_dir: str, world: int) -> dict:
                                 ("b_fp32", TRAINER_CONFIG, "no"),
                                 ("c_bf16", MULTI_FUSED_CONFIG, "bf16"),
                                 ("c_fp32", MULTI_FUSED_CONFIG, "no")) + (
-                                    spatial if world >= MULTI_SPATIAL else ()):
-        kind = run[0]
+                                    spatial if world >= MULTI_SPATIAL else ()) + tensor:
+        kind = _kind(run)
         steps = MULTI_STEPS[kind]
-        # the batch's shards: a spatial group reads one
-        shards = world // MULTI_SPATIAL if kind == "s" else world
+        # the batch's shards: a spatial or tensor group reads one
+        shards = {"s": world // MULTI_SPATIAL, "t": 1,
+                  "st": world // (MULTI_ST["spatial"] * MULTI_ST["tensor"])}.get(kind, world)
         paths = []
         for side in ("rank", "control"):
             cfg = load_config(os.path.join(root, src))
@@ -4778,11 +4900,20 @@ def _multi_configs(tmp: str, model_dir: str, world: int) -> dict:
             cfg.pop("profiling", None)
             if kind in MULTI_RESOLUTION:
                 cfg["data"]["resolution"] = MULTI_RESOLUTION[kind]
-            if kind == "a":
+            if kind in ("a", "t"):
                 cfg["model"]["kernel_impl"] = "pallas"
                 control_loop(cfg, steps)
-                if run == "a_ddp":
+                if run == "a_ddp" or (kind == "t" and side == "control"):
                     cfg["parallel"] = {}
+                elif kind == "t":
+                    cfg["parallel"] = {"tensor": world}
+            elif kind == "st":
+                # flash runs auto on a tensor mesh (JAX's warning); the
+                # control runs what it resolves to
+                cfg["model"].update(attention_impl="flash" if side == "rank" else "auto",
+                                    kernel_impl="pallas", remat="full")
+                control_loop(cfg, steps)
+                cfg["parallel"] = dict(MULTI_ST) if side == "rank" else {}
             elif kind in ("b", "s"):
                 cfg["model"].update(attention_impl="flash", kernel_impl="pallas", remat="full")
                 control_loop(cfg, steps)
@@ -4797,7 +4928,16 @@ def _multi_configs(tmp: str, model_dir: str, world: int) -> dict:
             with open(path, "w") as f:
                 yaml.safe_dump(cfg, f)
             paths.append(path)
-            if side == "rank" and run in ("a_bf16", "a_ddp", "s_bf16") and world > 1:
+            if run == "t_fp32":
+                # the same run traced for its peak memory (mem), and with
+                # cuDNN free to choose non-deterministic algorithms (free)
+                for extra in ("mem", "free"):
+                    cfg["run_name"] = f"{run}_{extra}_{side}"
+                    extra_path = os.path.join(tmp, f"multi_w{world}_{run}_{extra}_{side}.yaml")
+                    with open(extra_path, "w") as f:
+                        yaml.safe_dump(cfg, f)
+                    out[f"{run}_{extra}"] = out.get(f"{run}_{extra}", ()) + (extra_path,)
+            if side == "rank" and run in ("a_bf16", "a_ddp", "s_bf16", "t_bf16") and world > 1:
                 # the same run, profiled on every rank, apart from the timed one
                 cfg["run_name"] = f"{run}_prof"
                 cfg["data"]["max_samples"] = batch * shards * MULTI_PROFILE_STEP
@@ -4829,9 +4969,10 @@ def _multi_eval_argv(cfg_path: str, model_dir: str, out_dir: str, batch: int,
 def multi_gpu_rank(args_path: str) -> None:
     """One rank of ``phase_multi_gpu``: joins the NCCL group from torchrun's
     environment and runs every job through the CLIs, counting its kernels'
-    launches, its peak memory and its synchronised step times, and tracing
-    step ``profile_step`` of a job that names one; writes ``rank<r>.json``
-    (and the traces) beside ``args_path``."""
+    launches (and the GroupNorm kernels' input shapes), its peak memory, its
+    synchronised step times and its tensor-axis collectives a step, and
+    tracing step ``profile_step`` of a job that names one; writes
+    ``rank<r>.json`` (and the traces) beside ``args_path``."""
     import torch
 
     from vae_channel_dynamics_tpu_torch import evaluate
@@ -4839,6 +4980,7 @@ def multi_gpu_rank(args_path: str) -> None:
     from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
     from vae_channel_dynamics_tpu_torch.ops import fused_resnet as fr
     from vae_channel_dynamics_tpu_torch.ops import group_norm_kernel as gnk
+    from vae_channel_dynamics_tpu_torch.ops import tensor_parallel as tpar
     from vae_channel_dynamics_tpu_torch.parallel.mesh import initialize_distributed, shutdown
     from vae_channel_dynamics_tpu_torch.parallel.zero import replicate_leaf
     from vae_channel_dynamics_tpu_torch.training import loop
@@ -4847,9 +4989,17 @@ def multi_gpu_rank(args_path: str) -> None:
         args = json.load(f)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     axis = initialize_distributed(DEVICE)
-    ends, models = [], []
+    ends, models, step_collectives = [], [], []
     traced = {"step": 0, "path": ""}
     make_train_step = loop.make_train_step
+    gn_shapes = set()
+    gn_launch = gnk._launch
+
+    def shaped_launch(name, x, *a):
+        gn_shapes.add((name,) + tuple(x.shape))
+        return gn_launch(name, x, *a)
+
+    gnk._launch = shaped_launch
 
     def timed_make_train_step(*a, **kw):
         step_fn = make_train_step(*a, **kw)
@@ -4861,8 +5011,10 @@ def multi_gpu_rank(args_path: str) -> None:
                 prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
                 prof.__enter__()
+            before = sum(tpar.collectives.values())
             out = step_fn(state, *sa, **skw)
             sync()
+            step_collectives.append(sum(tpar.collectives.values()) - before)
             if prof is not None:
                 prof.__exit__(None, None, None)
                 os.makedirs(os.path.dirname(traced["path"]), exist_ok=True)
@@ -4884,24 +5036,31 @@ def multi_gpu_rank(args_path: str) -> None:
                 counts[k] = 0
         ends.clear()
         models.clear()
+        step_collectives.clear()
+        gn_shapes.clear()
         traced["step"] = job.get("profile_step", 0)
         traced["path"] = os.path.join(os.path.dirname(args_path), f"prof_{job['name']}",
                                       f"rank{axis.rank}.json")
-        torch.backends.cudnn.deterministic = job["name"].endswith("fp32")
+        torch.backends.cudnn.deterministic = job.get(
+            "deterministic", job["name"].endswith(("fp32", "mem")))
         sync()
         reset_peak()
+        memory: dict = {}
         t0 = time.perf_counter()
-        if job["kind"] == "train":
-            rc = train_cli.main(["--config_path", job["config"], "--device", DEVICE])
-        else:
-            rc = evaluate.main(job["argv"])
+        with _memory_trace(memory) if job.get("memory_trace") else contextlib.nullcontext():
+            if job["kind"] == "train":
+                rc = train_cli.main(["--config_path", job["config"], "--device", DEVICE])
+            else:
+                rc = evaluate.main(job["argv"])
         sync()
         wall = time.perf_counter() - t0
         check(rc == 0, f"rank {axis.rank}: {job['name']} returned {rc}")
         row = {"wall_s": wall, "peak_gb": peak_gb(),
                "step_ms": [1e3 * (b - a) for a, b in zip(ends, ends[1:])],
                "launches": {k: v for c in (fa.launches, gnk.launches, fr.launches)
-                            for k, v in c.items() if v}}
+                            for k, v in c.items() if v},
+               "gn_shapes": sorted(gn_shapes), "collectives": list(step_collectives),
+               "memory": memory}
         if models:
             # a bit-level checksum of the whole parameters, the same on
             # every rank after the nudges
@@ -4916,6 +5075,7 @@ def multi_gpu_rank(args_path: str) -> None:
     with open(os.path.join(os.path.dirname(args_path), f"rank{axis.rank}.json"), "w") as f:
         json.dump(results, f)
     loop.make_train_step = make_train_step
+    gnk._launch = gn_launch
     shutdown(axis)
 
 
@@ -4980,6 +5140,34 @@ def _spawn_ranks(tmp: str, world: int, jobs: list, tag: str = "",
     return out
 
 
+def _timed_train(argv: list) -> tuple:
+    """(train.main's return code, the ms of each step after the first) of a
+    Trainer run in this process, synchronised after each step."""
+    from vae_channel_dynamics_tpu_torch import train as train_cli
+    from vae_channel_dynamics_tpu_torch.training import loop
+
+    ends = []
+    make_train_step = loop.make_train_step
+
+    def timed_make_train_step(*a, **kw):
+        step_fn = make_train_step(*a, **kw)
+
+        def step(*sa, **skw):
+            out = step_fn(*sa, **skw)
+            sync()
+            ends.append(time.perf_counter())
+            return out
+
+        return step
+
+    loop.make_train_step = timed_make_train_step
+    try:
+        rc = train_cli.main(argv)
+    finally:
+        loop.make_train_step = make_train_step
+    return rc, [1e3 * (b - a) for a, b in zip(ends, ends[1:])]
+
+
 def _step_values(run_dir: str) -> dict:
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
@@ -5019,22 +5207,95 @@ def _params_rel(dir_a: str, dir_b: str) -> tuple:
     return math.sqrt(sq / norm), worst, name, equal
 
 
+def _frame_key(frames: list) -> str:
+    """Where an allocation was made: the innermost frame of the port (or
+    of this script), and the innermost frame of all when that is another."""
+    def fmt(f):
+        return f"{os.path.basename(f['filename'])}:{f['line']} {f['name']}"
+
+    if not frames:
+        return "(no Python frame)"
+    if frames[0].get("name") == "<module>":
+        frames = frames[::-1]  # innermost first
+    own = next((f for f in frames if "vae_channel_dynamics_tpu_torch" in f["filename"]
+                or f["filename"].endswith("chip_smoke.py")), None)
+    if own is None or own is frames[0]:
+        return fmt(frames[0])
+    return f"{fmt(own)} (in {fmt(frames[0])})"
+
+
+def _memory_peak(events: list, base: int) -> dict:
+    """The allocator's history of one device (``torch.cuda.memory
+    ._snapshot()``'s ``device_traces`` entry) replayed: the peak of the bytes
+    allocated (``base`` were allocated when the history started), the
+    allocation that reached it, the live bytes at the peak by where they were
+    allocated (:func:`_frame_key`) and the largest live blocks."""
+    total, peak, peak_i = base, base, -1
+    for i, e in enumerate(events):
+        if e["action"] == "alloc":
+            total += e["size"]
+            if total > peak:
+                peak, peak_i = total, i
+        elif e["action"] == "free_requested":
+            total -= e["size"]
+    live = {}
+    for e in events[:peak_i + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        elif e["action"] == "free_requested":
+            live.pop(e["addr"], None)
+    groups: dict = {}
+    for e in live.values():
+        key = _frame_key(e.get("frames", []))
+        groups[key] = groups.get(key, 0) + e["size"]
+    at = events[peak_i] if peak_i >= 0 else {"size": 0, "frames": []}
+    return {"peak_gb": peak / 1e9, "base_gb": base / 1e9,
+            "at": f"{at['size'] / 1e9:.3f} GB at {_frame_key(at.get('frames', []))}",
+            "by_site": [(k, v / 1e9) for k, v in sorted(groups.items(), key=lambda kv: -kv[1])[:6]],
+            "largest": [(_frame_key(e.get("frames", [])), e["size"] / 1e9) for e in
+                        sorted(live.values(), key=lambda e: -e["size"])[:5]]}
+
+
+@contextlib.contextmanager
+def _memory_trace(out: dict):
+    """Record the allocator's history on the card while the block runs
+    (Python stacks), then put :func:`_memory_peak`'s summary into ``out``;
+    nothing off the card."""
+    import torch
+
+    if DEVICE != "cuda":
+        yield
+        return
+    base = torch.cuda.memory_allocated()
+    torch.cuda.memory._record_memory_history(max_entries=MEMORY_TRACE_ENTRIES, stacks="python")
+    try:
+        yield
+    finally:
+        snapshot = torch.cuda.memory._snapshot()
+        torch.cuda.memory._record_memory_history(enabled=None)
+    out.update(_memory_peak(snapshot["device_traces"][torch.cuda.current_device()], base))
+    del snapshot
+
+
+def _memory_lines(where: str, summary: dict) -> str:
+    return (f"{where}: peak {summary['peak_gb']:.2f} GB ({summary['base_gb']:.2f} before the "
+            f"run), reached by {summary['at']}; live at the peak by site (GB) "
+            + "; ".join(f"{k} {v:.3f}" for k, v in summary["by_site"])
+            + "; largest blocks (GB) " + "; ".join(f"{k} {v:.3f}" for k, v in summary["largest"]))
+
+
 def phase_multi_gpu(tmp: str, model_dir: str, world: int = 0,
-                    timing_only: bool = False) -> dict:
-    """More than one GPU; see the comment above MULTI_ZERO_CONFIG. Returns
-    this world's numbers: img/s of (a) and (b), peak memory a rank with and
-    without the ZeRO stack, the NCCL share of a step and serving req/s.
-    ``timing_only`` runs the timed and profiled runs and the server, and
-    none of the controls."""
+                    timing_only: bool = False, kinds=MULTI_KINDS) -> dict:
+    """More than one GPU; see the comment above MULTI_ZERO_CONFIG. Runs
+    ``_multi_runs(world, timing_only, kinds)``. Returns this world's
+    numbers: img/s of (a) and (b), peak memory a rank with and without the
+    ZeRO stack, the NCCL share of a step, serving req/s and those of (s)
+    and (t), of the runs that ran. ``timing_only`` runs the timed and
+    profiled runs and the server, and none of the controls."""
     import numpy as np
     import torch
 
     from vae_channel_dynamics_tpu_torch import evaluate
-    from vae_channel_dynamics_tpu_torch import server as srv
-    from vae_channel_dynamics_tpu_torch import train as train_cli
-    from vae_channel_dynamics_tpu_torch.models import SDXLVAEWrapper
-    from vae_channel_dynamics_tpu_torch.models import io as model_io
-    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
 
     world = world or torch.cuda.device_count()
     t_phase = time.perf_counter()
@@ -5042,25 +5303,28 @@ def phase_multi_gpu(tmp: str, model_dir: str, world: int = 0,
     if not os.path.isdir(planted):
         write_planted_model_dir(planted)
     configs = _multi_configs(tmp, planted, world)
+    runs = _multi_runs(world, timing_only, kinds)
     eval_images = MULTI_EVAL_BATCH * MULTI_EVAL_BATCHES * world
-    rank_runs = (("a_bf16", "a_ddp", "b_bf16") if timing_only else
-                 ("a_bf16", "a_fp32", "a_ddp", "b_bf16", "b_fp32", "c_bf16"))
-    spatial_runs = (() if world < MULTI_SPATIAL else
-                    ("s_bf16",) if timing_only else ("s_bf16", "s_fp32"))
+    rank_runs = tuple(run for run in runs if _kind(run) in ("a", "b", "c"))
+    spatial_runs = tuple(run for run in runs if _kind(run) == "s")
+    tensor_runs = tuple(run for run in runs if _kind(run) in ("t", "st"))
     jobs = [{"name": run, "kind": "train", "config": configs[run][0]} for run in rank_runs]
-    profiled = [run for run in ("a_bf16", "a_ddp", "s_bf16") if f"{run}_prof" in configs]
+    profiled = [run for run in ("a_bf16", "a_ddp", "s_bf16", "t_bf16")
+                if run in runs and f"{run}_prof" in configs]
     jobs += [{"name": f"{run}_prof", "kind": "train", "config": configs[f"{run}_prof"][0],
-              "profile_step": MULTI_PROFILE_STEP} for run in profiled if run[0] != "s"]
-    if not timing_only:
+              "profile_step": MULTI_PROFILE_STEP} for run in profiled if _kind(run) == "a"]
+    if "eval" in runs:
         jobs.append({"name": "eval", "kind": "eval", "argv": _multi_eval_argv(
             configs["eval"], model_dir, os.path.join(tmp, f"multi_w{world}", "eval_rank"),
             MULTI_EVAL_BATCH, eval_images)})
     release()
-    t0 = time.perf_counter()
-    ranks = _spawn_ranks(tmp, world, jobs)
-    spawn_s = time.perf_counter() - t0
-    log(f"[multi] W = {world} ranks over NCCL {ranks[0]['nccl']} "
-        f"({', '.join(r['device'] for r in ranks)}): {len(jobs)} jobs in {spawn_s:.1f} s")
+    ranks = [{"runs": {}} for _ in range(world)]
+    if jobs:
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(tmp, world, jobs)
+        spawn_s = time.perf_counter() - t0
+        log(f"[multi] W = {world} ranks over NCCL {ranks[0]['nccl']} "
+            f"({', '.join(r['device'] for r in ranks)}): {len(jobs)} jobs in {spawn_s:.1f} s")
     if spatial_runs:
         # the spatial runs in a spawn of their own: the first collectives of
         # a new layout, under a shorter limit
@@ -5075,33 +5339,71 @@ def phase_multi_gpu(tmp: str, model_dir: str, world: int = 0,
             rank["runs"].update(sp_rank["runs"])
         log(f"[multi] W = {world}: {world // MULTI_SPATIAL} data x {MULTI_SPATIAL} spatial "
             f"ranks, {len(sp_jobs)} jobs in {time.perf_counter() - t0:.1f} s")
-    else:
+    elif "s" in kinds:
         log(f"[multi] W = {world}: no spatial ranks ran on {world} card(s): parallel.spatial "
             f"{MULTI_SPATIAL} needs {MULTI_SPATIAL} cards a group; the flash kernels at fewer "
             "queries than keys ran in phase_flash_split")
+    if tensor_runs:
+        # the tensor runs in a spawn of their own, as the spatial ones; at
+        # fp32 also traced for the peak memory, and with cuDNN's
+        # non-deterministic algorithms allowed
+        tp_jobs = [{"name": run, "kind": "train", "config": configs[run][0]}
+                   for run in tensor_runs]
+        if "t_fp32" in tensor_runs:
+            tp_jobs += [{"name": "t_fp32_mem", "kind": "train", "config": configs["t_fp32_mem"][0],
+                         "memory_trace": True},
+                        {"name": "t_fp32_free", "kind": "train",
+                         "config": configs["t_fp32_free"][0], "deterministic": False}]
+        tp_jobs += [{"name": "t_bf16_prof", "kind": "train",
+                     "config": configs["t_bf16_prof"][0], "profile_step": MULTI_PROFILE_STEP}]
+        t0 = time.perf_counter()
+        tp_ranks = _spawn_ranks(tmp, world, tp_jobs, tag="_tensor",
+                                timeout=MULTI_TENSOR_TIMEOUT)
+        for rank, tp_rank in zip(ranks, tp_ranks):
+            rank["runs"].update(tp_rank["runs"])
+        log(f"[multi] W = {world}: 1 data x {world} tensor ranks"
+            + (f", and {world // 4} data x 2 spatial x 2 tensor" if "st_bf16" in tensor_runs
+               else "") + f", {len(tp_jobs)} jobs in {time.perf_counter() - t0:.1f} s")
+    elif "t" in kinds:
+        log(f"[multi] W = {world}: no tensor rank ran on {world} card(s): parallel.tensor "
+            "needs 2 cards a group; the GroupNorm kernels on channel blocks run at W >= 2")
 
-    # the controls: the same configs in this process, no group, W x the batch
+    # the controls: the same configs in this process, no group, W x the
+    # batch, at bf16 and fp32 for each kind
     saved_tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    control_peak_gb, control_step_ms, control_memory = {}, {}, {}
+    controls = () if timing_only else tuple(dict.fromkeys(
+        f"{_kind(run)}_{p}" for run in rank_runs + spatial_runs + tensor_runs
+        for p in ("bf16", "fp32")))
+    if "t_fp32" in controls:
+        controls += ("t_fp32_mem", "t_fp32_free")
     try:
-        for run in () if timing_only else ("a_bf16", "a_fp32", "b_bf16", "b_fp32", "c_bf16",
-                                           "c_fp32") + spatial_runs:
-            torch.backends.cudnn.deterministic = run.endswith("fp32")
-            check(train_cli.main(["--config_path", configs[run][1], "--device", DEVICE]) == 0,
-                  f"[multi] control {run} failed")
+        for run in controls:
+            torch.backends.cudnn.deterministic = run.endswith(("fp32", "mem"))
+            reset_peak()
+            trace = (_memory_trace(control_memory) if run == "t_fp32_mem"
+                     else contextlib.nullcontext())
+            with trace:
+                rc, steps = _timed_train(["--config_path", configs[run][1], "--device", DEVICE])
+            check(rc == 0, f"[multi] control {run} failed")
+            control_peak_gb[run] = peak_gb()
+            # the steps after the warm-up, as the ranks' (step_ms below)
+            control_step_ms[run] = float(np.mean(steps[MULTI_WARMUP_STEPS - 1:]))
             release()
         torch.backends.cudnn.deterministic = False
-        check(timing_only or evaluate.main(_multi_eval_argv(
-            configs["eval"], model_dir, os.path.join(tmp, f"multi_w{world}", "eval_control"),
-            MULTI_EVAL_BATCH * world, eval_images)) == 0, "[multi] the control evaluation")
+        if "eval" in runs:
+            check(evaluate.main(_multi_eval_argv(
+                configs["eval"], model_dir, os.path.join(tmp, f"multi_w{world}", "eval_control"),
+                MULTI_EVAL_BATCH * world, eval_images)) == 0, "[multi] the control evaluation")
         release()
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved_tf32
     base = os.path.join(tmp, f"multi_w{world}")
 
     # every run against its control
-    for run in rank_runs + spatial_runs:
-        kind = run[0]
+    for run in rank_runs + spatial_runs + tensor_runs:
+        kind = _kind(run)
         control = "a_bf16" if run == "a_ddp" else run
         got = _step_values(os.path.join(base, f"{run}_rank"))
         check(len(got) == 3 * MULTI_STEPS[kind], f"[multi] {run}: steps {sorted(got)}")
@@ -5142,9 +5444,19 @@ def phase_multi_gpu(tmp: str, model_dir: str, world: int = 0,
                           for n in MULTI_KERNELS[kind])
             check(all(launched.get(n, 0) > 0 for n in names),
                   f"[multi] {run}: rank {r} launched {launched}, want each of {names}")
+            if kind in ("t", "st"):
+                # every GroupNorm launch on a channel block, the full-resolution
+                # 128-channel norms at 128 / T channels
+                t = world if kind == "t" else MULTI_ST["tensor"]
+                shapes = [tuple(sh[1:]) for sh in rank["runs"][run]["gn_shapes"]]
+                check(shapes and all(sh[1] in (128 // t, 256 // t, 512 // t) for sh in shapes),
+                      f"[multi] {run}: rank {r} launched GroupNorm kernels at {shapes}")
+                full = max(sh[2] for sh in shapes)
+                check(any(sh[1] == 128 // t and sh[2] == full for sh in shapes),
+                      f"[multi] {run}: rank {r} no 128/{t}-channel block at {full} rows")
         sums = {rank["runs"][run].get("checksum") for rank in ranks}
         check(len(sums) == 1, f"[multi] {run}: the ranks' parameters differ: {sums}")
-        if kind in ("a", "b", "s") and not timing_only:
+        if kind in ("a", "b", "s", "t", "st") and not timing_only:
             with open(os.path.join(base, f"{run}_rank", "intervention_history.csv")) as f:
                 rows = f.read().split()
             with open(os.path.join(base, f"{control}_control",
@@ -5157,10 +5469,15 @@ def phase_multi_gpu(tmp: str, model_dir: str, world: int = 0,
             + ", ".join(f"{rank['runs'][run]['peak_gb']:.2f}" for rank in ranks)
             + "; step ms (after the first) " + "; ".join(
                 ", ".join(f"{t:.1f}" for t in s) for s in steps)
-            + f"; rank 0 launches {ranks[0]['runs'][run]['launches']}")
+            + f"; rank 0 launches {ranks[0]['runs'][run]['launches']}"
+            + (f"; rank 0 GroupNorm shapes {sorted({tuple(sh[1:]) for sh in ranks[0]['runs'][run]['gn_shapes']})}"
+               f", collectives a step {ranks[0]['runs'][run]['collectives']}; one process's "
+               f"peak {control_peak_gb.get(run, float('nan')):.2f} GB, step "
+               f"{control_step_ms.get(run, float('nan')):.1f} ms"
+               if kind in ("t", "st") else ""))
 
     # the evaluation
-    if not timing_only:
+    if "eval" in runs:
         with open(os.path.join(base, "eval_rank", "eval_metrics.json")) as f:
             got = json.load(f)
         with open(os.path.join(base, "eval_control", "eval_metrics.json")) as f:
@@ -5185,24 +5502,59 @@ def phase_multi_gpu(tmp: str, model_dir: str, world: int = 0,
         return max(np.mean(rank["runs"][run]["step_ms"][MULTI_WARMUP_STEPS - 1:])
                    for rank in ranks)
 
-    numbers = {
-        "a_step_ms": step_ms("a_bf16"), "a_ddp_step_ms": step_ms("a_ddp"),
-        "b_step_ms": step_ms("b_bf16"),
-        "a_img_s": world * 16e3 / step_ms("a_bf16"),
-        "a_ddp_img_s": world * 16e3 / step_ms("a_ddp"),
-        "b_img_s": world * 1e3 / step_ms("b_bf16"),
-        "peak_gb_zero": max(r["runs"]["a_bf16"]["peak_gb"] for r in ranks),
-        "peak_gb_ddp": max(r["runs"]["a_ddp"]["peak_gb"] for r in ranks),
-        "peak_gb_b": max(r["runs"]["b_bf16"]["peak_gb"] for r in ranks),
-    }
+    numbers = {}
+    if {"a_bf16", "a_ddp", "b_bf16"} <= set(runs):
+        numbers.update({
+            "a_step_ms": step_ms("a_bf16"), "a_ddp_step_ms": step_ms("a_ddp"),
+            "b_step_ms": step_ms("b_bf16"),
+            "a_img_s": world * 16e3 / step_ms("a_bf16"),
+            "a_ddp_img_s": world * 16e3 / step_ms("a_ddp"),
+            "b_img_s": world * 1e3 / step_ms("b_bf16"),
+            "peak_gb_zero": max(r["runs"]["a_bf16"]["peak_gb"] for r in ranks),
+            "peak_gb_ddp": max(r["runs"]["a_ddp"]["peak_gb"] for r in ranks),
+            "peak_gb_b": max(r["runs"]["b_bf16"]["peak_gb"] for r in ranks),
+        })
     if spatial_runs:
         numbers.update(s_step_ms=step_ms("s_bf16"),
                        s_img_s=world // MULTI_SPATIAL * 1e3 / step_ms("s_bf16"),
                        peak_gb_spatial=max(r["runs"]["s_bf16"]["peak_gb"] for r in ranks))
+    if tensor_runs:
+        numbers.update(t_step_ms=step_ms("t_bf16"), t_img_s=16e3 / step_ms("t_bf16"),
+                       peak_gb_tensor=max(r["runs"]["t_bf16"]["peak_gb"] for r in ranks),
+                       t_collectives=float(max(max(r["runs"]["t_bf16"]["collectives"])
+                                               for r in ranks)))
+        if "t_bf16" in control_peak_gb:
+            numbers.update(peak_gb_tensor_control=control_peak_gb["t_bf16"],
+                           t_control_step_ms=control_step_ms["t_bf16"],
+                           t_fp32_step_ms=step_ms("t_fp32"),
+                           t_fp32_control_step_ms=control_step_ms["t_fp32"],
+                           peak_gb_tensor_fp32=max(r["runs"]["t_fp32"]["peak_gb"]
+                                                   for r in ranks),
+                           peak_gb_tensor_fp32_control=control_peak_gb["t_fp32"],
+                           peak_gb_tensor_fp32_free=max(r["runs"]["t_fp32_free"]["peak_gb"]
+                                                        for r in ranks),
+                           peak_gb_tensor_fp32_free_control=control_peak_gb["t_fp32_free"])
+            # where the fp32 peak of a rank and of one process lies
+            for r, rank in enumerate(ranks[:1]):
+                if rank["runs"]["t_fp32_mem"].get("memory"):
+                    log(f"[multi] W = {world} t_fp32 memory, " + _memory_lines(
+                        f"rank {r} (deterministic cuDNN)", rank["runs"]["t_fp32_mem"]["memory"]))
+            if control_memory:
+                log(f"[multi] W = {world} t_fp32 memory, "
+                    + _memory_lines("one process (deterministic cuDNN)", control_memory))
+            log(f"[multi] W = {world} t_fp32 peak a rank, deterministic cuDNN / not: "
+                + ", ".join(f"{r['runs']['t_fp32']['peak_gb']:.2f} / "
+                            f"{r['runs']['t_fp32_free']['peak_gb']:.2f}" for r in ranks)
+                + f" GB; one process {control_peak_gb['t_fp32']:.2f} / "
+                  f"{control_peak_gb['t_fp32_free']:.2f} GB")
+        if "st_bf16" in tensor_runs:
+            numbers.update(st_step_ms=step_ms("st_bf16"),
+                           peak_gb_st=max(r["runs"]["st_bf16"]["peak_gb"] for r in ranks))
     for run in profiled:
         # each rank's NCCL time in its profiled step (the least waits least
         # for the other ranks), beside how far the profiler stretched it
-        work = os.path.join(tmp, f"ranks_w{world}" + ("_spatial" if run[0] == "s" else ""))
+        work = os.path.join(tmp, f"ranks_w{world}" + {"s": "_spatial", "t": "_tensor"}.get(
+            _kind(run), ""))
         per_rank = [_nccl_ms(os.path.join(work, f"prof_{run}_prof", f"rank{r}.json"))
                     for r in range(world)]
         traced_ms = max(rank["runs"][run + "_prof"]["step_ms"][-1] for rank in ranks)
@@ -5213,7 +5565,26 @@ def phase_multi_gpu(tmp: str, model_dir: str, world: int = 0,
             + f"; the profiled step {traced_ms:.1f} ms, {traced_ms / step_ms(run):.2f}x the "
               f"unprofiled {step_ms(run):.1f} ms")
 
-    # (e) the server, one replica a card
+    if "serve" in runs:
+        numbers.update(_multi_serve(model_dir, world, timing_only))
+    shutil.rmtree(base, ignore_errors=True)
+    log(f"[multi] W = {world}: " + ", ".join(f"{k} {v:.4g}" for k, v in numbers.items())
+        + f"; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return numbers
+
+
+def _multi_serve(model_dir: str, world: int, timing_only: bool) -> dict:
+    """(e) the server, one replica a card (and one replica alone); returns
+    req/s by replica count."""
+    import numpy as np
+    import torch
+
+    from vae_channel_dynamics_tpu_torch import server as srv
+    from vae_channel_dynamics_tpu_torch.models import SDXLVAEWrapper
+    from vae_channel_dynamics_tpu_torch.models import io as model_io
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+
+    numbers = {}
     config, state_dict = model_io.load_model_dir(model_dir)
     wrapper = SDXLVAEWrapper(config=config, state_dict=state_dict, dtype=torch.bfloat16,
                              attn_impl=srv.resolve_serving_attention_impl(
@@ -5273,21 +5644,21 @@ def phase_multi_gpu(tmp: str, model_dir: str, world: int = 0,
             thread.join(timeout=30)
     del wrapper
     release()
-    shutil.rmtree(base, ignore_errors=True)
-    log(f"[multi] W = {world}: " + ", ".join(f"{k} {v:.4g}" for k, v in numbers.items())
-        + f"; the phase took {time.perf_counter() - t_phase:.1f} s")
     return numbers
 
 
-def multi_gpu_main(timing_only: bool = False) -> int:
-    """``phase_multi_gpu`` alone, at W = 1 and at every card of the machine,
-    with the device and build phases it needs: ``python -c "import
+def multi_gpu_main(timing_only: bool = False, kinds=MULTI_KINDS) -> int:
+    """``phase_multi_gpu`` alone, at the fewest cards its ``kinds`` run on
+    (W = 1, or 2 for (s), (t) and (st) alone) and at every card of the
+    machine, with the device and build phases it needs: ``python -c "import
     chip_smoke; chip_smoke.multi_gpu_main()"`` (``timing_only=True``: the
-    timed, profiled and serving runs only)."""
+    timed, profiled and serving runs only; ``kinds=("t", "st")``: the tensor
+    runs alone, at W = 2 and at every card)."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+    least = 1 if set(kinds) - {"s", "t", "st"} else 2
+    if not torch.cuda.is_available() or torch.cuda.device_count() < least:
+        print(f"chip_smoke: these runs need {least} NVIDIA GPU(s)", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     name, smi = phase_device()
@@ -5295,11 +5666,12 @@ def multi_gpu_main(timing_only: bool = False) -> int:
     with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
         model_dir = os.path.join(tmp, "sdxl_seeded")
         write_seeded_model_dir(model_dir)
-        worlds = sorted({1, torch.cuda.device_count()})
-        numbers = {w: phase_multi_gpu(tmp, model_dir, world=w, timing_only=timing_only)
-                   for w in worlds}
+        worlds = sorted({least, torch.cuda.device_count()})
+        numbers = {w: phase_multi_gpu(tmp, model_dir, world=w, timing_only=timing_only,
+                                      kinds=kinds) for w in worlds}
     top = worlds[-1]
-    if top > 1:
+    one = numbers.get(1, {})
+    if top > 1 and "a_img_s" in one and f"serve_rps_{top}" in numbers[top]:
         log(f"[multi] W = {top} against W = 1 on {smi}: " + ", ".join(
             f"{k} x{numbers[top][k] / numbers[1][k]:.3f}" for k in
             ("a_img_s", "a_ddp_img_s", "b_img_s")) + "; ms a step across cards "
@@ -5307,17 +5679,191 @@ def multi_gpu_main(timing_only: bool = False) -> int:
                         ("a_step_ms", "a_ddp_step_ms", "b_step_ms")) + f"; serving req/s "
             f"x{numbers[top][f'serve_rps_{top}'] / numbers[top]['serve_rps_1']:.3f} "
             "(one replica and one a card, in the same phase)")
-        if "s_step_ms" in numbers[top]:
-            log(f"[multi] spatial: the 1024px Trainer at W = {top} ({top // MULTI_SPATIAL} data "
-                f"x {MULTI_SPATIAL} spatial) {numbers[top]['s_step_ms']:.1f} ms a step, "
-                f"{numbers[top]['s_img_s']:.3f} img/s, peak a rank "
-                f"{numbers[top]['peak_gb_spatial']:.2f} GB, against one card (b_bf16 at W = 1) "
-                f"{numbers[1]['b_step_ms']:.1f} ms, {numbers[1]['b_img_s']:.3f} img/s, "
-                f"{numbers[1]['peak_gb_b']:.2f} GB"
-                + (f"; NCCL kernels in a profiled spatial step {numbers[top]['s_bf16_nccl_ms']:.2f}"
-                   " ms (the least over the ranks)" if "s_bf16_nccl_ms" in numbers[top] else ""))
+    if top > 1 and "t_step_ms" in numbers[top]:
+        log(f"[multi] tensor: configs/bench_tp.yaml at W = {top} (1 data x {top} tensor) "
+            f"{numbers[top]['t_step_ms']:.1f} ms a step, {numbers[top]['t_img_s']:.3f} "
+            f"img/s, peak a rank {numbers[top]['peak_gb_tensor']:.2f} GB"
+            + (f" (one process {numbers[top]['peak_gb_tensor_control']:.2f} GB)"
+               if "peak_gb_tensor_control" in numbers[top] else "")
+            + f", {numbers[top]['t_collectives']:.0f} collectives a step"
+            + (f"; NCCL kernels in a profiled tensor step "
+               f"{numbers[top]['t_bf16_nccl_ms']:.2f} ms (the least over the ranks)"
+               if "t_bf16_nccl_ms" in numbers[top] else ""))
+    if top > 1 and "s_step_ms" in numbers[top] and "b_step_ms" in one:
+        log(f"[multi] spatial: the 1024px Trainer at W = {top} ({top // MULTI_SPATIAL} data "
+            f"x {MULTI_SPATIAL} spatial) {numbers[top]['s_step_ms']:.1f} ms a step, "
+            f"{numbers[top]['s_img_s']:.3f} img/s, peak a rank "
+            f"{numbers[top]['peak_gb_spatial']:.2f} GB, against one card (b_bf16 at W = 1) "
+            f"{numbers[1]['b_step_ms']:.1f} ms, {numbers[1]['b_img_s']:.3f} img/s, "
+            f"{numbers[1]['peak_gb_b']:.2f} GB"
+            + (f"; NCCL kernels in a profiled spatial step {numbers[top]['s_bf16_nccl_ms']:.2f}"
+               " ms (the least over the ranks)" if "s_bf16_nccl_ms" in numbers[top] else ""))
     print(smi, flush=True)
     print(json.dumps({"multi_gpu": {str(w): n for w, n in numbers.items()}}), flush=True)
+    return 0
+
+
+# cuDNN's workspace for the convs a tensor rank runs: every conv of the
+# SDXL VAE at configs/bench_tp.yaml's shape (CONV_WS_BATCH, CONV_WS_RES)
+# with its output channels cut to O / T (a column conv on the whole input;
+# conv_out, whose O is 3, cut on its input channels), fp32 with TF32 off, as
+# ops/tensor_parallel.py calls it: the forward and the backward's bytes
+# allocated beyond their inputs and outputs (the workspace) and their ms,
+# with the algorithm PyTorch picks; where a workspace passes CONV_WS_LARGE_GB,
+# the same conv in channels_last, with TF32 on, and in a process of its own
+# under CUDNN_CONV_WSCAP_DBG (MiB). `conv_workspace_main()`.
+CONV_WS_TENSORS = (1, 2, 4)
+CONV_WS_BATCH, CONV_WS_RES = 16, 256
+CONV_WS_LARGE_GB = 2.0
+CONV_WS_CAP_MIB = 2048
+
+
+def _conv_layers(batch: int, res: int) -> list:
+    """(x shape, weight shape, stride, pad (l, r, t, b)) of every distinct
+    conv of the SDXL VAE at ``res``, in order of first use (one bf16
+    forward under hooks)."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.models import AutoencoderKL, VAEConfig
+    from vae_channel_dynamics_tpu_torch.models.vae import Conv2d
+
+    model = AutoencoderKL(VAEConfig.sdxl(), device=DEVICE, dtype=torch.bfloat16)
+    model.init_weights(torch.Generator(device=DEVICE).manual_seed(SEED))
+    layers = {}
+
+    def hook(module, args):
+        pad = module.pad if module.pad is not None else (module.padding,) * 4
+        key = ((batch,) + tuple(args[0].shape[1:]), tuple(module.weight.shape),
+               module.stride, tuple(pad))
+        layers.setdefault(key, None)
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, Conv2d)]
+    with torch.no_grad():
+        model(torch.zeros(1, 3, res, res, device=DEVICE))
+    for h in handles:
+        h.remove()
+    del model
+    release()
+    return list(layers)
+
+
+def _conv_workspace(x_shape, w_shape, stride, pad, channels_last=False,
+                    port=False) -> dict:
+    """The forward's and the backward's workspace (GB) and ms of one conv
+    as ``F.conv2d`` and ``convolution_backward`` run it on
+    ``ops/tensor_parallel.py``'s operands; ``port``: the forward alone, as
+    that module's column conv runs it (on a whole input, no collective)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vae_channel_dynamics_tpu_torch.ops import tensor_parallel as tpar
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    first, own = tpar._conv_padding(pad)
+    x = torch.randn(x_shape, generator=gen, device=DEVICE).contiguous(memory_format=fmt)
+    whole = x
+    x = F.pad(x, first) if any(first) else x
+    w = (0.01 * torch.randn(w_shape, generator=gen, device=DEVICE)).contiguous(memory_format=fmt)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def measured(fn):
+        sync()
+        reset_peak()
+        base = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+        out = fn()
+        sync()
+        extra = (torch.cuda.max_memory_allocated() - base if DEVICE == "cuda" else 0)
+        return out, (extra - nbytes(*out)) / 1e9, cuda_ms(fn, 3) if DEVICE == "cuda" else 0.0
+
+    def fwd():
+        if port:
+            with torch.no_grad():
+                return (tpar.column_conv(whole, w, None, stride, pad, x_shape[1],
+                                         tpar.TensorGroup(group=None, size=2, index=0)),)
+        return (F.conv2d(x, w, None, stride, own),)
+
+    (y,), fwd_gb, fwd_ms = measured(fwd)
+    if port:
+        del y, x, w, whole
+        release()
+        return {"fwd_gb": fwd_gb, "fwd_ms": fwd_ms}
+    g = torch.randn(y.shape, generator=gen, device=DEVICE).contiguous(memory_format=fmt)
+    del y
+
+    def bwd():
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            g, x, w, None, [stride] * 2, list(own), [1, 1], False, [0, 0], 1,
+            [True, True, False])
+        return dx, dw
+
+    _grads, bwd_gb, bwd_ms = measured(bwd)
+    del _grads, x, w, g
+    release()
+    return {"fwd_gb": fwd_gb, "fwd_ms": fwd_ms, "bwd_gb": bwd_gb, "bwd_ms": bwd_ms}
+
+
+def conv_workspace_main(cap_child: str = "") -> int:
+    """``python -c "import sys, chip_smoke; sys.exit(chip_smoke
+    .conv_workspace_main())"``: see the comment above CONV_WS_TENSORS.
+    ``cap_child`` (a JSON list of convs) measures those convs only, in a
+    process started with CUDNN_CONV_WSCAP_DBG set."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    if cap_child:
+        for conv in json.loads(cap_child):
+            print(json.dumps([conv, _conv_workspace(*conv)]), flush=True)
+        return 0
+    name, smi = phase_device()
+    large = []
+    for x_shape, w_shape, stride, pad in _conv_layers(CONV_WS_BATCH, CONV_WS_RES):
+        for t in CONV_WS_TENSORS:
+            if w_shape[0] % t == 0:  # a column conv: the O / T block, the whole input
+                conv = (x_shape, (w_shape[0] // t,) + w_shape[1:], stride, pad)
+            else:  # conv_out: the I / T block of the input and the weight
+                conv = ((x_shape[0], x_shape[1] // t) + x_shape[2:],
+                        (w_shape[0], w_shape[1] // t) + w_shape[2:], stride, pad)
+            r = _conv_workspace(*conv)
+            log(f"[conv-ws] T = {t} x {conv[0]} w {conv[1]} stride {stride}: workspace GB "
+                f"fwd {r['fwd_gb']:.3f}, bwd {r['bwd_gb']:.3f}; ms fwd {r['fwd_ms']:.3f}, bwd "
+                f"{r['bwd_ms']:.3f}")
+            if max(r["fwd_gb"], r["bwd_gb"]) > CONV_WS_LARGE_GB:
+                large.append(list(conv))
+    for conv in large:
+        cl = _conv_workspace(*conv, channels_last=True)
+        torch.backends.cudnn.allow_tf32 = True
+        tf32 = _conv_workspace(*conv)
+        torch.backends.cudnn.allow_tf32 = False
+        port = _conv_workspace(*conv, port=True)
+        log(f"[conv-ws] x {conv[0]} w {conv[1]}: channels_last workspace GB fwd "
+            f"{cl['fwd_gb']:.3f}, bwd {cl['bwd_gb']:.3f}, ms fwd {cl['fwd_ms']:.3f}, bwd "
+            f"{cl['bwd_ms']:.3f}; TF32 on GB fwd {tf32['fwd_gb']:.3f}, bwd {tf32['bwd_gb']:.3f}, "
+            f"ms fwd {tf32['fwd_ms']:.3f}, bwd {tf32['bwd_ms']:.3f}; the port's column conv "
+            f"forward (FP32_CONV_SLICE slices) GB {port['fwd_gb']:.3f}, ms {port['fwd_ms']:.3f}")
+        check(port["fwd_gb"] <= CONV_WS_LARGE_GB,
+              f"[conv-ws] the port's column conv forward at {conv} takes {port['fwd_gb']} GB")
+    if large:
+        root = os.path.dirname(os.path.abspath(__file__))
+        out = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke"
+             f".conv_workspace_main({json.dumps(json.dumps(large))}))"],
+            cwd=root, env=dict(os.environ, CUDNN_CONV_WSCAP_DBG=str(CONV_WS_CAP_MIB)),
+            capture_output=True, text=True, timeout=600)
+        for line in out.stdout.splitlines():
+            conv, r = json.loads(line)
+            log(f"[conv-ws] x {conv[0]} w {conv[1]} under CUDNN_CONV_WSCAP_DBG="
+                f"{CONV_WS_CAP_MIB}: workspace GB fwd {r['fwd_gb']:.3f}, bwd {r['bwd_gb']:.3f}, "
+                f"ms fwd {r['fwd_ms']:.3f}, bwd {r['bwd_ms']:.3f}")
+        check(out.returncode == 0, f"[conv-ws] the capped process: {out.stderr[-2000:]}")
+    log(f"[conv-ws] {len(large)} conv(s) over {CONV_WS_LARGE_GB} GB of workspace on {smi}")
     return 0
 
 

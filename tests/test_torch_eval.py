@@ -22,6 +22,7 @@ The Trainer's lens tree against the JAX Trainer's is in
 import json
 import logging
 import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -285,7 +286,7 @@ def test_lens_seeded_init_is_fixed(tmp_path):
             assert not torch.equal(p, r)
 
 
-def test_drawn_arrays():
+def test_drawn_arrays(tmp_path):
     import matplotlib
 
     arr = np.random.default_rng(1).standard_normal((2, 3, 5, 4)).astype(np.float32)
@@ -300,10 +301,29 @@ def test_drawn_arrays():
     np.testing.assert_array_equal(ll.colorize(values), want)
     row = ll.side_by_side([np.zeros((4, 3, 3), np.uint8), np.ones((2, 5, 3), np.uint8)])
     assert row.shape == (8, 14, 3)
-    with pytest.raises(ValueError, match="ROADMAP"):
+    # any other colormap is matplotlib's own table
+    for name in ("magma", "gray", "tab10"):
+        want = matplotlib.colormaps[name](values, bytes=True)[..., :3]
+        np.testing.assert_array_equal(ll.colorize(values, name), want, err_msg=name)
+    assert ll.VAELogitLens({"colormap": "magma"}, main_experiment_output_dir=str(
+        tmp_path)).colormap == "magma"
+    with pytest.raises(ValueError, match="not one of matplotlib's"):
+        ll.colorize(values, "no_such_map")
+
+
+def test_colormaps_without_matplotlib_raise_naming_it(monkeypatch):
+    """Where matplotlib does not import, viridis still draws from the
+    carried table and any other colormap raises an error that names
+    matplotlib; nothing swaps to another colormap."""
+    values = np.linspace(0, 1, 17, dtype=np.float32)
+    viridis = ll.colorize(values)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.setattr(ll, "COLORMAPS", {"viridis": ll.VIRIDIS})
+    np.testing.assert_array_equal(ll.colorize(values), viridis)
+    with pytest.raises(ValueError, match="needs matplotlib"):
         ll.colorize(values, "magma")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ll.VAELogitLens({"colormap": "magma"}, main_experiment_output_dir="/nonexistent")
+    with pytest.raises(ValueError, match="needs matplotlib"):
+        ll.VAELogitLens({"colormap": "cividis"}, main_experiment_output_dir="/nonexistent")
 
 
 def _files(root):

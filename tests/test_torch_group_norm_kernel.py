@@ -540,26 +540,21 @@ def _nchw_grad_eff(x, g, a, off):
 # a renumbering of the queue leaves true
 # --------------------------------------------------------------------------- #
 def _refusals():
-    from vae_channel_dynamics_tpu_torch.analysis import logit_lens
     from vae_channel_dynamics_tpu_torch.models.vae import remat_mode
     from vae_channel_dynamics_tpu_torch.ops import fused_resnet
     from vae_channel_dynamics_tpu_torch.training import loop
 
     return {
-        "parallel": (lambda: loop._refuse_unported({"parallel": {"tensor": 2}}),
-                     "Q1", "Tensor parallelism"),
         "parallel slices": (lambda: loop._refuse_unported({"parallel": {"slices": 2}}),
                             "Q1", "Do not port"),
         "remat offload": (lambda: remat_mode("offload"), "Q1", "Do not port"),
-        "colormap": (lambda: logit_lens.colorize(np.zeros(4, np.float32), "magma"),
-                     "Q1", "Plots"),
         "fused fp32": (lambda: fused_resnet._check_bf16("fused_gn_silu_conv3x3", "x",
                                                         torch.zeros(1)),
                        "Q2", "#9-#11 at fp32"),
     }
 
 
-REFUSALS = ["parallel", "parallel slices", "remat offload", "colormap", "fused fp32"]
+REFUSALS = ["parallel slices", "remat offload", "fused fp32"]
 
 
 @pytest.mark.parametrize("case", REFUSALS)

@@ -28,7 +28,7 @@ from vae_channel_dynamics_tpu_torch.parallel import (
     pad_batch_to_multiple,
     refuse_unported_axes,
 )
-from vae_channel_dynamics_tpu_torch.parallel.mesh import spatial_conv_choice, with_spatial
+from vae_channel_dynamics_tpu_torch.parallel.mesh import spatial_conv_choice, with_layout
 from vae_channel_dynamics_tpu_torch.parallel.zero import (
     _best_axis,
     _channel_axis,
@@ -129,8 +129,7 @@ def test_chunks_are_torch_chunk(n, world):
         assert chunk_span(n, r, world)[1] == want.shape[0]
 
 
-@pytest.mark.parametrize("axis,name", [("tensor", "Tensor parallelism"),
-                                       ("slices", "Do not port")])
+@pytest.mark.parametrize("axis,name", [("slices", "Do not port")])
 def test_unported_axes_are_refused(axis, name):
     with pytest.raises(NotImplementedError, match=name):
         refuse_unported_axes({axis: 2})
@@ -148,9 +147,9 @@ def test_spatial_axis_is_ported(value):
     assert spatial_conv_choice(parallel) == (value or "gspmd")
     with pytest.raises(ValueError, match="must be 'gspmd' or 'shard_map'"):
         spatial_conv_choice({"spatial_conv": "xla"})
-    assert with_spatial(None, 1) is None
+    assert with_layout(None, 1) is None
     with pytest.raises(ValueError, match="not divisible by slices=1 x spatial=2"):
-        with_spatial(None, 2)
+        with_layout(None, 2)
 
 
 @pytest.mark.parametrize("geometry,halo", [((3, 1, (1, 1)), (1, 1)), ((3, 2, (0, 1)), (0, 1)),

@@ -2,7 +2,7 @@
 
 - ``report`` and ``compare_runs`` on the run-directory fixture of
   ``tests/test_tools_reports.py`` write what the JAX tools write (the
-  comparison's plot waits for ROADMAP Q1, Plots, and says so), and
+  comparison's activity plot under the JAX tool's name too), and
   ``report`` reads a run of the port's Trainer;
 - ``serving_bench`` drives a live CPU server and reports its latencies and
   rate;
@@ -98,8 +98,12 @@ def test_compare_runs_matches_the_jax_table_and_names_plots(tmp_path, capsys):
     assert text == jax_compare_runs.compare(str(base), str(treat))
     assert "| final train loss | 0.025 | 0.02 | -0.005 |" in text
     assert "| eval PSNR (dB) | 25 | 25 | +0 |" in text
-    assert "WARNING" in capsys.readouterr().out.split("ROADMAP Q1, Plots")[0].splitlines()[-1]
-    assert not (tmp_path / "comparison_activity.png").exists()
+    # the activity overlay under the JAX tool's name, its series from both
+    # runs' tracked_activation_stats.csv
+    assert (tmp_path / "comparison_activity.png").stat().st_size > 0
+    jax_compare_runs.plot_activation_comparison(str(base), str(treat),
+                                                str(tmp_path / "jax_activity.png"))
+    assert (tmp_path / "jax_activity.png").exists()
 
 
 @pytest.fixture(scope="module")

@@ -263,7 +263,6 @@ def test_gradient_accumulation_and_ema(tmp_path):
 
 
 @pytest.mark.parametrize("section,key,value", [
-    ("parallel", "tensor", 2),
     ("parallel", "slices", 2),
 ])
 def test_unported_options_raise(tmp_path, section, key, value):

@@ -128,11 +128,16 @@ def scenario_step(axis, args) -> None:
     the metrics, the stats, the whole parameters and EMA, and every rank
     its state bytes and what it may keep whole. With ``spatial`` S > 1 the
     ranks form spatial groups of S: each takes its data rank's block, and
-    the step its rows."""
+    the step its rows. A variant's ``tensor`` T > 1 forms tensor groups of
+    T: the model keeps its channel blocks (``shard_tensor_``), and each
+    rank writes whether its parameters, moments and EMA hold the blocks
+    the layout names, and the gradient norm of a planted gradient that only
+    a leaf the tensor axis leaves whole carries."""
     import torch
 
+    from vae_channel_dynamics_tpu_torch.ops.tensor_parallel import TensorGroup, whole_taps
     from vae_channel_dynamics_tpu_torch.parallel import local_block
-    from vae_channel_dynamics_tpu_torch.parallel.mesh import with_spatial
+    from vae_channel_dynamics_tpu_torch.parallel.mesh import with_layout
     from vae_channel_dynamics_tpu_torch.parallel.zero import (
         ZeroLayout, fully_shard_model, replicate_leaf, state_bytes)
     from vae_channel_dynamics_tpu_torch.tracking import ActivityMonitor
@@ -140,12 +145,16 @@ def scenario_step(axis, args) -> None:
     from vae_channel_dynamics_tpu_torch.training.checkpoint import state_dict_of
     from vae_channel_dynamics_tpu_torch.training.step import make_train_step
 
-    axis = with_spatial(axis, args.get("spatial", 1))
+    world_axis = axis
     data = np.load(args["data"])
     out = {}
     for variant in args["variants"]:
+        tensor = variant.get("tensor", 1)
+        axis = with_layout(world_axis, args.get("spatial", 1), tensor)
         monitor = ActivityMonitor(args["tracking"])
         model = _narrow_model(args["state"], monitor.scalar_capture_table)
+        if tensor > 1:
+            model.shard_tensor_(TensorGroup.of(axis))
         flags = variant["flags"]
         tx, _ = build_optimizer(args["lr"], args["warmup"], args["max_steps"],
                                 adam_weight_decay=args["wd"], adam_epsilon=args["eps"],
@@ -157,10 +166,11 @@ def scenario_step(axis, args) -> None:
             fully_shard_model(model, axis)
             forward = model
         else:
-            forward = torch.nn.parallel.DistributedDataParallel(model)
+            forward = torch.nn.parallel.DistributedDataParallel(
+                model, process_group=axis.replica_group)
         layout = (ZeroLayout(axis, model, bool(flags.get("shard_optimizer")),
                              bool(flags.get("shard_ema")), bool(flags.get("shard_params")))
-                  if any(flags.values()) else None)
+                  if any(flags.values()) or tensor > 1 else None)
         state = TrainState.create(model, tx, stats_acc=monitor.init_acc(model),
                                   ema=True, layout=layout)
         step = make_train_step(model, tx, args["kl_weight"],
@@ -183,7 +193,7 @@ def scenario_step(axis, args) -> None:
             out[f"{name}/param/{k}"] = v.numpy()
         for k, v in whole["ema_params"].items():
             out[f"{name}/ema/{k}"] = v.numpy()
-        for k, v in state.stats_acc.items():
+        for k, v in whole_taps(state.stats_acc, model).items():
             out[f"{name}/stats/{k}"] = v.numpy()
         allowance = _kept_allowance(whole, axis.data_world, not flags.get("shard_params"))
         out[f"{name}/bytes"] = np.array([sliced, kept])
@@ -196,8 +206,62 @@ def scenario_step(axis, args) -> None:
         all_bytes = [None] * axis.world
         torch.distributed.all_gather_object(all_bytes, [sliced, kept, allowance])
         out[f"{name}/rank_bytes"] = np.array(all_bytes)
+        if tensor > 1:
+            blocks = [None] * axis.world
+            torch.distributed.all_gather_object(blocks, _tensor_blocks_held(state, whole))
+            out[f"{name}/tensor_blocks"] = np.array(json.dumps(blocks))
+            out[f"{name}/planted_norm"] = np.array(_planted_norm(state))
     if axis.is_main:
         np.savez(args["out"], **out)
+
+
+def _tensor_blocks_held(state, whole) -> list:
+    """[parameters the tensor axis cuts, those of them whose parameter,
+    moments or EMA on this rank hold other than their share of the whole
+    leaf (1/T, and the rank's ``torch.chunk`` block along a data-sliced
+    axis)]."""
+    import math
+
+    from vae_channel_dynamics_tpu_torch.parallel.zero import chunk_span
+
+    layout = state.layout
+    cut, wrong = 0, []
+    for i, (name, p) in enumerate(state.model.named_parameters()):
+        if layout.t_axes[i] is None:
+            continue
+        cut += 1
+        t_axis = layout.t_axes[i]
+        assert whole["params"][name].shape[t_axis] == layout.tp.size * layout.full_shapes[i][t_axis]
+
+        def share(field):
+            shape = list(layout.full_shapes[i])
+            a = layout.leaf_axis(field, i)
+            if a is not None:
+                shape[a] = chunk_span(shape[a], layout.rank, layout.world)[1]
+            return math.prod(shape)
+
+        local = p.to_local() if hasattr(p, "to_local") else p
+        ok = (local.numel() == share("param")
+              and state.opt_state.mu[i].numel() == share("mu")
+              and state.opt_state.nu[i].numel() == share("nu")
+              and list(state.ema_params.values())[i].numel() == share("ema"))
+        if not ok:
+            wrong.append(name)
+    return [cut, wrong]
+
+
+def _planted_norm(state) -> float:
+    """The global gradient norm the layout gives a gradient that is zero
+    but for the decoder's conv_out bias, (3, 4, 0) on every rank: 5 when
+    that leaf, which no tensor axis cuts, is counted once."""
+    import torch
+
+    layout = state.layout
+    grads = [torch.zeros_like(g) for g in layout.opt_grads(state.model).values()]
+    names = [n for n, _ in state.model.named_parameters()]
+    i = names.index("decoder.conv_out.bias")
+    grads[i].copy_(layout.scatter("mu", i, torch.tensor([3.0, 4.0, 0.0])))
+    return float(layout.global_norm(grads))
 
 
 def scenario_runs(axis, args) -> None:
@@ -264,9 +328,9 @@ def scenario_spatial_ops(axis, args) -> None:
         group_norm_silu_with_stats)
     from vae_channel_dynamics_tpu_torch.ops.spatial_conv import (
         SpatialGroup, gather_rows, halo_conv, row_block, spatial_conv_scope)
-    from vae_channel_dynamics_tpu_torch.parallel.mesh import with_spatial
+    from vae_channel_dynamics_tpu_torch.parallel.mesh import with_layout
 
-    axis = with_spatial(axis, axis.world)
+    axis = with_layout(axis, axis.world)
     sp = SpatialGroup.of(axis)
     data = np.load(args["data"])
     out = {}
@@ -356,7 +420,57 @@ def scenario_spatial_ops(axis, args) -> None:
         np.savez(args["out"], **out)
 
 
-SCENARIOS = {"step": scenario_step, "runs": scenario_runs, "spatial_ops": scenario_spatial_ops}
+def saved_activation_bytes(model, x, noise, tp=None):
+    """(bytes the forward leaves allocated for the backward, peak bytes of
+    the forward and backward) of one training forward of ``model`` on the
+    card, under ``tp``'s tensor scope."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.ops.tensor_parallel import tensor_scope
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with tensor_scope(tp):
+        out = model(x, noise=noise)
+        loss = out["reconstruction"].float().square().mean() + out["latent_dist"].kl().mean()
+        torch.cuda.synchronize()
+        saved = torch.cuda.memory_allocated() - before
+        loss.backward()
+    torch.cuda.synchronize()
+    return saved, torch.cuda.max_memory_allocated() - before
+
+
+def scenario_tensor_memory(axis, args) -> None:
+    """One training forward and backward (``dtype`` bf16 or fp32) of the
+    seeded SDXL VAE with its channels over every rank (a tensor group of the
+    world): rank 0 writes each rank's bytes saved for the backward and peak
+    bytes."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from vae_channel_dynamics_tpu_torch.ops.tensor_parallel import TensorGroup
+    from vae_channel_dynamics_tpu_torch.parallel.mesh import with_layout
+
+    axis = with_layout(axis, 1, axis.world)
+    model = AutoencoderKL(VAEConfig.sdxl(), device=axis.device, impl="pallas",
+                          dtype=getattr(torch, args["dtype"]))
+    model.init_weights(torch.Generator(device=axis.device).manual_seed(0))
+    model.shard_tensor_(TensorGroup.of(axis))
+    gen = torch.Generator(device=axis.device).manual_seed(1)
+    res, batch = args["resolution"], args["batch"]
+    x = torch.randn(batch, 3, res, res, generator=gen, device=axis.device)
+    noise = torch.randn(batch, 4, res // 8, res // 8, generator=gen, device=axis.device)
+    got = [None] * axis.world
+    torch.distributed.all_gather_object(
+        got, list(saved_activation_bytes(model, x, noise, TensorGroup.of(axis))))
+    if axis.is_main:
+        with open(args["out"], "w") as f:
+            json.dump(got, f)
+
+
+SCENARIOS = {"step": scenario_step, "runs": scenario_runs, "spatial_ops": scenario_spatial_ops,
+             "tensor_memory": scenario_tensor_memory}
 
 
 def _main() -> None:

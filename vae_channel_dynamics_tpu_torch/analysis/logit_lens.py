@@ -1,5 +1,5 @@
 """Logit lens for VAEs: per-channel activation maps and their projection
-through a fixed random mini-decoder, drawn without matplotlib.
+through a fixed random mini-decoder, drawn with PIL.
 
 Counterpart of ``vae_channel_dynamics_tpu/analysis/logit_lens.py``: the
 same mini-decoder ``ConvTranspose(C_in, 16, k3, s2) -> ReLU ->
@@ -12,9 +12,11 @@ names, so tooling finds the same artifact tree.
 Rendering: the card's machine has no matplotlib, so the images are drawn
 with PIL. The numeric part is split from the drawing and is the tested
 contract: :func:`normalized_tiles` (per-tile min-max normalisation, the JAX
-package's ``imshow`` input), :func:`colorize` (a 256-entry viridis table
-carried as a constant, the only colormap the repository's configs name; any
-other raises), and the projections. The drawing puts the images side by
+package's ``imshow`` input), :func:`colorize` (a colormap's table:
+viridis, the one the repository's configs name, carried as a constant so
+that it needs no matplotlib; any other is matplotlib's own table, and where
+matplotlib does not import the call raises an error that names it, never
+drawing with another colormap), and the projections. The drawing puts the images side by
 side on a white 2-pixel gap; the JAX package's figure chrome (titles, axes,
 figure size) is not reproduced.
 
@@ -63,12 +65,21 @@ COLORMAPS = {"viridis": VIRIDIS}
 
 
 def _colormap(name: str) -> np.ndarray:
+    """The (N, 3) uint8 table of a colormap: the carried viridis, or
+    matplotlib's (kept once read)."""
     if name not in COLORMAPS:
-        raise ValueError(
-            f"colormap {name!r} is not carried by the PyTorch port, which draws without "
-            f"matplotlib; it has {sorted(COLORMAPS)} (other colormaps and the plots: "
-            "ROADMAP Q1, Plots)"
-        )
+        try:
+            import matplotlib
+        except ImportError as e:
+            raise ValueError(
+                f"colormap {name!r} needs matplotlib, which is not importable here ({e}); "
+                f"the port carries {sorted(COLORMAPS)} without it"
+            ) from e
+        try:
+            cmap = matplotlib.colormaps[name]
+        except KeyError as e:
+            raise ValueError(f"colormap {name!r} is not one of matplotlib's") from e
+        COLORMAPS[name] = cmap(np.arange(cmap.N), bytes=True)[:, :3]
     return COLORMAPS[name]
 
 
@@ -85,10 +96,11 @@ def normalized_tiles(arr: np.ndarray, sample: int, num_channels: int) -> np.ndar
 
 def colorize(values: np.ndarray, colormap: str = "viridis") -> np.ndarray:
     """Values in [0, 1] as uint8 RGB (``values.shape + (3,)``) through the
-    colormap's 256 entries: entry ``min(floor(v * 256), 255)``, matplotlib's
-    lookup."""
+    colormap's N entries (256 for viridis): entry ``min(floor(v * N),
+    N - 1)``, matplotlib's lookup."""
     lut = _colormap(colormap)
-    idx = np.clip((np.asarray(values, dtype=np.float32) * 256.0).astype(np.int64), 0, 255)
+    n = len(lut)
+    idx = np.clip((np.asarray(values, dtype=np.float32) * float(n)).astype(np.int64), 0, n - 1)
     return lut[idx]
 
 

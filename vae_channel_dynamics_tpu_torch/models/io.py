@@ -10,6 +10,12 @@ The safetensors format is read and written here on numpy alone, since the
 ``safetensors`` package is not promised where the port runs: an 8-byte
 little-endian header length, a JSON header mapping each name to its dtype,
 shape and byte range, then the raw little-endian buffers.
+
+:func:`tensor_blocks` cuts a whole state dict to a tensor rank's channel
+blocks (``parallel.tensor``; ``AutoencoderKL.shard_tensor_`` cuts the
+model's parameters with it), so weights from either package enter a
+tensor rank; ``parallel/zero.py::replicate_leaf`` gathers a block whole
+again.
 """
 
 from __future__ import annotations
@@ -225,3 +231,16 @@ def state_dict_from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Ten
         name = f"{_torch_module_name(tuple(mod_path))}.{torch_leaf}"
         out[name] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
     return out
+
+
+def tensor_blocks(state_dict: Mapping[str, torch.Tensor], index: int,
+                  size: int) -> Dict[str, torch.Tensor]:
+    """Tensor rank ``index``'s block of every parameter of a whole state
+    dict over ``size`` ranks: each cut along the axis JAX ``_channel_axis``
+    picks on its JAX layout (``parallel.zero.tensor_axis``), a parameter no
+    axis of which ``size`` divides kept whole."""
+    from ..parallel.zero import local_chunk, tensor_axis
+
+    return {k: local_chunk(v, tensor_axis(tuple(v.shape), size), index, size).contiguous()
+            for k, v in state_dict.items()}
+

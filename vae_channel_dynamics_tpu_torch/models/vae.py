@@ -57,6 +57,20 @@ collectives in the recompute as every other rank, so there the
 checkpoint's early stop is off and the whole body runs again. The fused
 resnet kernels exchange no halo: the gate refuses a block under the scope.
 
+Channels sharded over a tensor group (``parallel.tensor``, JAX's GSPMD
+channel sharding): :meth:`AutoencoderKL.shard_tensor_` keeps each rank's
+block of every parameter ``_channel_axis`` shards (``models/io.py``'s
+``tensor_blocks``), and under ``ops.tensor_parallel.tensor_scope`` each
+conv and linear runs column- or row-parallel by the axis its weight was
+cut on, each GroupNorm runs on the rank's channel block (its groups whole,
+the kernels' eligibility judged on the whole layer), the attention block
+gathers Q and K over channels and keeps V and its output sharded, and the
+encoder's moments are gathered whole before the posterior. A layer tells
+a block from a whole tensor by its channel count. Under a spatial and a
+tensor axis together a conv exchanges the halo rows of its channel block,
+then gathers the channels. The fused resnet kernels take whole channels:
+the gate refuses a block under a tensor group.
+
 Not in this port: ``remat: offload`` (not to be ported).
 """
 
@@ -76,8 +90,10 @@ from ..ops import fused_resnet
 from ..ops.attention import chunked_attention, naive_attention, resolve_impl
 from ..ops import group_norm_kernel
 from ..ops.group_norm import group_norm, silu
-from ..ops.spatial_conv import active_spatial_group, gather_rows, halo_conv
+from ..ops import tensor_parallel as tpar
+from ..ops.spatial_conv import active_spatial_group, gather_rows, halo_conv, halo_rows
 from ..ops.stats import channel_stats
+from ..ops.tensor_parallel import TensorGroup, active_tensor_group
 from .distributions import DiagonalGaussianDistribution
 
 # (layer_name, capture_point, metrics), layer_name without the "vae." prefix
@@ -154,6 +170,10 @@ class TapModule(nn.Module):
     def _specs_for(self, point: str) -> Tuple[CaptureSpec, ...]:
         return self._specs.get(point, ())
 
+    def tap_channels(self, point: str) -> int:
+        """The whole layer's channel count at a capture point."""
+        raise NotImplementedError
+
     def emit(self, key: str, value: torch.Tensor) -> None:
         if self._sink is not None:
             self._sink[key] = value
@@ -162,7 +182,8 @@ class TapModule(nn.Module):
         if self._sink is None:
             return
         for layer_name, pt, metrics in self._specs_for(point):
-            for metric, value in channel_stats(x, tuple(metrics)).items():
+            for metric, value in channel_stats(x, tuple(metrics),
+                                               self.tap_channels(point)).items():
                 self.emit(f"{layer_name}.{pt}.{metric}", value)
 
 
@@ -173,12 +194,18 @@ class Conv2d(TapModule):
     bottom)`` zero pad applied after the input tap, so that the tap sees the
     unpadded input as in the JAX model. The conv computes in
     ``compute_dtype`` when set, else in its weight's dtype. Under a spatial
-    group it is :func:`ops.spatial_conv.halo_conv` on this rank's rows."""
+    group it is :func:`ops.spatial_conv.halo_conv` on this rank's rows;
+    under a tensor group it is column-parallel (``tensor_axis`` 0, the
+    weight's O block), row-parallel (1, its I block) or whole on every rank
+    (None)."""
+
+    tensor_axis: Optional[int] = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  stride: int = 1, padding: Union[int, Tuple[int, int, int, int]] = 1,
                  device=None):
         super().__init__()
+        self.in_channels, self.out_channels = in_channels, out_channels
         self.stride = stride
         self.pad = padding if isinstance(padding, tuple) else None
         self.padding = 0 if self.pad is not None else padding
@@ -194,12 +221,33 @@ class Conv2d(TapModule):
         self.weight.uniform_(-bound, bound, generator=generator)
         self.bias.uniform_(-bound, bound, generator=generator)
 
+    def tap_channels(self, point: str) -> int:
+        return self.in_channels if point == "input" else self.out_channels
+
+    def _tensor_parallel(self, x: torch.Tensor, dt: torch.dtype, tp: TensorGroup
+                         ) -> torch.Tensor:
+        pad = self.pad if self.pad is not None else (self.padding,) * 4
+        sp = active_spatial_group()
+        if sp is not None:
+            # each rank's channel block exchanges its halo rows first
+            x, pad = halo_rows(x, self.weight.shape[2], self.stride, pad, sp)
+        w, b = self.weight.to(dt), self.bias.to(dt)
+        if self.tensor_axis == 0:
+            return tpar.column_conv(x, w, b, self.stride, pad, self.in_channels, tp)
+        if self.tensor_axis == 1:
+            return tpar.row_conv(x, w, b, self.stride, pad, self.in_channels, tp)
+        x = tpar.replicated_input(x, 1, self.in_channels, tp)
+        return F.conv2d(F.pad(x, pad) if any(pad) else x, w, b, self.stride)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         self.tap(x, "input")
         dt = self.compute_dtype or self.weight.dtype
         x = x.to(dt)
         sp = active_spatial_group()
-        if sp is not None:
+        tp = active_tensor_group()
+        if tp is not None:
+            y = self._tensor_parallel(x, dt, tp)
+        elif sp is not None:
             pad = self.pad if self.pad is not None else (self.padding,) * 4
             y = halo_conv(x, self.weight.to(dt), self.bias.to(dt), self.stride, pad, sp)
         else:
@@ -212,10 +260,16 @@ class Conv2d(TapModule):
 
 class Linear(TapModule):
     """Linear layer ((out, in) weight) with input and output taps, computing
-    in ``compute_dtype`` when set, else in its weight's dtype."""
+    in ``compute_dtype`` when set, else in its weight's dtype. Under a
+    tensor group it is column-parallel (``tensor_axis`` 0) or whole on every
+    rank (None), over the last axis: the model's linears are square, so an
+    axis T divides is always the output's."""
+
+    tensor_axis: Optional[int] = None
 
     def __init__(self, in_features: int, out_features: int, device=None):
         super().__init__()
+        self.in_channels, self.out_channels = in_features, out_features
         self.compute_dtype: Optional[torch.dtype] = None
         self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device))
         self.bias = nn.Parameter(torch.empty(out_features, device=device))
@@ -225,10 +279,20 @@ class Linear(TapModule):
         self.weight.uniform_(-bound, bound, generator=generator)
         self.bias.uniform_(-bound, bound, generator=generator)
 
+    def tap_channels(self, point: str) -> int:
+        return self.in_channels if point == "input" else self.out_channels
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         self.tap(x, "input")
         dt = self.compute_dtype or self.weight.dtype
-        y = F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        x, w, b = x.to(dt), self.weight.to(dt), self.bias.to(dt)
+        tp = active_tensor_group()
+        if tp is None:
+            y = F.linear(x, w, b)
+        elif self.tensor_axis == 0:
+            y = tpar.column_linear(x, w, b, self.in_channels, tp)
+        else:
+            y = F.linear(tpar.replicated_input(x, -1, self.in_channels, tp), w, b)
         self.tap(y, "output")
         return y
 
@@ -240,11 +304,16 @@ class GroupNorm(TapModule):
     318-362``): with no output tap, the norm and SiLU in one op; with
     ``impl="pallas"`` and only ``mean_abs_activation_per_channel`` output
     taps, the kernel's own |z| side output, SiLU still fused; otherwise the
-    norm, the tap on its output, then a separate SiLU."""
+    norm, the tap on its output, then a separate SiLU.
+
+    Under a tensor group the norm runs on the rank's channel block with its
+    ``num_groups / T`` whole groups; the kernels' eligibility is judged on
+    the whole layer, so the same layers take the kernels as on one card."""
 
     def __init__(self, num_groups: int, channels: int, eps: float = 1e-6,
                  fuse_silu: bool = False, impl: str = "auto", device=None):
         super().__init__()
+        self.channels = channels
         self.num_groups = num_groups
         self.eps = eps
         self.fuse_silu = fuse_silu
@@ -256,29 +325,42 @@ class GroupNorm(TapModule):
         nn.init.ones_(self.weight)
         nn.init.zeros_(self.bias)
 
-    def _kernel_stats_ok(self, x: torch.Tensor, out_specs) -> bool:
+    def tap_channels(self, point: str) -> int:
+        return self.channels
+
+    def _kernel_stats_ok(self, x: torch.Tensor, out_specs, shards: int = 1) -> bool:
         if self.impl != "pallas" or not out_specs:
             return False
         if any(set(m) != {"mean_abs_activation_per_channel"} for _, _, m in out_specs):
             return False
-        return group_norm_kernel.eligible(x, self.num_groups)
+        return group_norm_kernel.eligible(x, self.num_groups // shards, shards)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tp = active_tensor_group()
+        shards = 1
+        if tp is not None:
+            if self.num_groups % tp.size:
+                raise ValueError(f"{self.full_name}: {self.num_groups} GroupNorm groups do not "
+                                 f"split over {tp.size} tensor ranks")
+            if x.shape[1] == self.channels:
+                x = tpar.to_block(x, 1, tp)
+            shards = tp.size
+        groups = self.num_groups // shards
         self.tap(x, "input")
         out_specs = self._specs_for("output")
         if self.fuse_silu and not out_specs:
-            return group_norm(x, self.weight, self.bias, self.num_groups, self.eps,
-                              fuse_silu=True, impl=self.impl)
-        if self._kernel_stats_ok(x, out_specs):
+            return group_norm(x, self.weight, self.bias, groups, self.eps,
+                              fuse_silu=True, impl=self.impl, shards=shards)
+        if self._kernel_stats_ok(x, out_specs, shards):
             y, mean_abs = group_norm_kernel.group_norm_silu_with_stats(
-                x, self.weight, self.bias, self.num_groups, self.eps,
+                x, self.weight, self.bias, groups, self.eps,
                 fuse_silu=self.fuse_silu,
             )
             self.emit(f"{self.full_name}.output.mean_abs_activation_per_channel",
                       mean_abs)
             return y
-        y = group_norm(x, self.weight, self.bias, self.num_groups, self.eps,
-                       fuse_silu=False, impl=self.impl)
+        y = group_norm(x, self.weight, self.bias, groups, self.eps,
+                       fuse_silu=False, impl=self.impl, shards=shards)
         self.tap(y, "output")
         return silu(y) if self.fuse_silu else y
 
@@ -392,8 +474,9 @@ class ResnetBlock2D(nn.Module):
         to _FUSED_MAX_HW, both convs eligible, every capture servable."""
         if self.impl != "fused" or self.compute_dtype != torch.bfloat16:
             return False
-        if active_spatial_group() is not None:
-            # the fused kernels' convs exchange no halo rows
+        if active_spatial_group() is not None or active_tensor_group() is not None:
+            # the fused kernels' convs exchange no halo rows and take whole
+            # channels
             return False
         n, _c, h, w = x.shape
         if h * w > self._FUSED_MAX_HW:
@@ -502,7 +585,7 @@ class ResnetBlock2D(nn.Module):
             return body(inp)
 
         # the body draws no random numbers, so no RNG state is stashed
-        if active_spatial_group() is None:
+        if active_spatial_group() is None and active_tensor_group() is None:
             return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
         # the recompute must run every collective the forward ran, on every
         # rank: no early stop
@@ -520,11 +603,18 @@ class AttentionBlock(nn.Module):
     (``ops/flash_attention.py``). Under a spatial group the queries are this
     rank's rows and K and V every shard's, gathered in order (JAX's
     sequence parallelism, for every impl); the policy reads the whole
-    image's token count."""
+    image's token count. Under a tensor group q, k and v are the rank's
+    channel blocks (column-parallel): Q and K are gathered over channels
+    (at 1024px N = 16384, so an all-reduce of partial logits would move
+    N^2 fp32 a image, 1 GB, where Q and K are N x C each) while V and the
+    output stay blocks, P V of a block of V being that block of the output;
+    ``flash`` raises there, since its kernels take q, k and v of one width
+    (the Trainer resolves it to ``auto`` first, with JAX's warning)."""
 
     def __init__(self, channels: int, num_groups: int, eps: float,
                  attn_impl: str = "auto", device=None):
         super().__init__()
+        self.channels = channels
         self.attn_impl = attn_impl
         self.group_norm = GroupNorm(num_groups, channels, eps, device=device)
         self.to_q = Linear(channels, channels, device=device)
@@ -533,14 +623,25 @@ class AttentionBlock(nn.Module):
         self.to_out = nn.ModuleList([Linear(channels, channels, device=device)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, c, hh, ww = x.shape
-        h = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
+        c = self.channels
+        h = self.group_norm(x)
+        b, c_local, hh, ww = h.shape
+        h = h.permute(0, 2, 3, 1).reshape(b, hh * ww, c_local)
         q, k, v = self.to_q(h), self.to_k(h), self.to_v(h)
         scale = 1.0 / math.sqrt(c)
+        tp = active_tensor_group()
+        if tp is not None:
+            q = tpar.gather_channels(q, -1, tp, partial_grads=True)
+            k = tpar.gather_channels(k, -1, tp, partial_grads=True)
         sp = active_spatial_group()
         if sp is not None:
             k, v = gather_rows(k, 1, sp), gather_rows(v, 1, sp)
         impl = resolve_impl(self.attn_impl, k.shape[1], c, batch=b)
+        if impl == "flash" and tp is not None:
+            # the flash kernels take q, k and v of one width; the Trainer
+            # resolves flash to auto on a tensor mesh, with JAX's warning
+            raise ValueError("attention_impl 'flash' does not run under a tensor group "
+                             "(its kernels take q, k and v of one width); use 'auto'")
         if impl == "flash" and not (flash_ops.eligible(hh * ww, c)
                                     and flash_ops.eligible(k.shape[1], c)):
             impl = "chunked"
@@ -551,7 +652,7 @@ class AttentionBlock(nn.Module):
         else:
             h = naive_attention(q, k, v, scale=scale, out_dtype=q.dtype)
         h = self.to_out[0](h)
-        return x + h.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
+        return x + h.reshape(b, hh, ww, h.shape[-1]).permute(0, 3, 1, 2)
 
 
 class Downsample2D(nn.Module):
@@ -707,7 +808,11 @@ class AutoencoderKL(nn.Module):
     (None: their weights' dtype), ``capture``
     the tap table, ``remat`` the resnets' rematerialisation
     (:func:`remat_mode`); :meth:`set_impl`, :meth:`set_compute_dtype`,
-    :meth:`set_capture` and :meth:`set_remat` change them on a built model."""
+    :meth:`set_capture` and :meth:`set_remat` change them on a built model.
+    :meth:`shard_tensor_` keeps a tensor rank's channel blocks (``tensor``
+    is then its group)."""
+
+    tensor: Optional[TensorGroup] = None
 
     def __init__(self, config: Optional[VAEConfig] = None, attn_impl: str = "auto",
                  device=None, impl: str = "auto", dtype: Optional[torch.dtype] = None,
@@ -750,6 +855,41 @@ class AutoencoderKL(nn.Module):
                 module.impl = impl
         return self
 
+    def set_attn_impl(self, attn_impl: str) -> "AutoencoderKL":
+        """The attention impl of every attention block."""
+        for module in self.modules():
+            if isinstance(module, AttentionBlock):
+                module.attn_impl = attn_impl
+        return self
+
+    @torch.no_grad()
+    def shard_tensor_(self, tp: TensorGroup) -> "AutoencoderKL":
+        """Keep this rank's block of every parameter ``_channel_axis`` shards
+        over ``tp``'s ``size`` ranks (``models/io.py``'s ``tensor_blocks``),
+        in place, and set each conv's and linear's ``tensor_axis``. Each
+        sharded parameter carries ``tensor_shard`` (its axis and whole
+        length, and ``tp``), which ``parallel/zero.py`` reads to gather it
+        whole and to write its block."""
+        from ..parallel.zero import TensorShard, tensor_axis
+        from .io import tensor_blocks
+
+        if self.tensor is not None:
+            raise ValueError("the model is sharded over a tensor group already")
+        blocks = tensor_blocks(dict(self.named_parameters()), tp.index, tp.size)
+        for prefix, module in self.named_modules():
+            for name, p in list(module.named_parameters(recurse=False)):
+                a = tensor_axis(tuple(p.shape), tp.size)
+                if isinstance(module, (Conv2d, Linear)) and name == "weight":
+                    module.tensor_axis = a
+                if a is None:
+                    continue
+                block = nn.Parameter(blocks[f"{prefix}.{name}" if prefix else name].clone(),
+                                     requires_grad=p.requires_grad)
+                block.tensor_shard = TensorShard(a, p.shape[a], tp)
+                setattr(module, name, block)
+        self.tensor = tp
+        return self
+
     def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> "AutoencoderKL":
         """The dtype every conv and linear layer computes in; the fp32
         parameters are cast at use. None computes in the weights' dtype."""
@@ -789,8 +929,12 @@ class AutoencoderKL(nn.Module):
         return self
 
     def encode(self, x: torch.Tensor) -> DiagonalGaussianDistribution:
-        return DiagonalGaussianDistribution.from_moments(
-            self.quant_conv(self.encoder(x)), dim=1)
+        moments = self.quant_conv(self.encoder(x))
+        tp = active_tensor_group()
+        if tp is not None:
+            # the posterior reads every moment: whole on every rank
+            moments = tpar.replicated_input(moments, 1, 2 * self.config.latent_channels, tp)
+        return DiagonalGaussianDistribution.from_moments(moments, dim=1)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.post_quant_conv(z))

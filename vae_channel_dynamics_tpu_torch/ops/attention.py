@@ -62,7 +62,7 @@ def chunked_attention(
 
     ``chunk`` is clamped to the key count; keys are zero-padded to a
     multiple of it and the padding is masked, so any token count works."""
-    b, nq, c = q.shape
+    b, nq, _c = q.shape
     nk = k.shape[1]
     chunk = max(1, min(chunk, nk))
     pad = (-nk) % chunk
@@ -72,7 +72,8 @@ def chunked_attention(
     qf = q.float()
     m = torch.full((b, nq, 1), _MASKED, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, nq, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, nq, c), dtype=torch.float32, device=q.device)
+    # v may hold a block of the channels (a tensor group): the output's
+    acc = torch.zeros((b, nq, v.shape[-1]), dtype=torch.float32, device=q.device)
     for start in range(0, nk + pad, chunk):
         kb = k[:, start:start + chunk]
         vb = v[:, start:start + chunk]

@@ -24,6 +24,9 @@ Under a spatial group (``ops/spatial_conv.py``) each rank holds a block of
 the image's rows: both routes add their per-(sample, group) sums over the
 group's ranks before the mean and the variance, which JAX gets from GSPMD's
 partial sums, and count the whole image's H*W.
+
+Under a tensor group (``ops/tensor_parallel.py``) each rank normalises its
+block of the channels, whose groups are whole on it: no collective.
 """
 
 from __future__ import annotations
@@ -79,15 +82,20 @@ def group_norm(
     eps: float = 1e-6,
     fuse_silu: bool = False,
     impl: str = "auto",
+    shards: int = 1,
 ) -> torch.Tensor:
     """GroupNorm over an NCHW tensor, optionally fused with SiLU; ``impl``
     is ``auto``, ``xla``, ``pallas`` or ``fused`` (see the module
-    docstring)."""
+    docstring). ``x`` may be one of ``shards`` channel blocks of a tensor
+    group, holding ``num_groups`` whole groups: the kernels' rule is judged
+    on the whole layer."""
     if impl == "pallas":
-        if not group_norm_kernel.eligible(x, num_groups):
+        if not group_norm_kernel.eligible(x, num_groups, shards):
             raise RuntimeError(
                 "group_norm impl 'pallas' requested for an ineligible shape "
-                f"{tuple(x.shape)} with {num_groups} groups: the kernels take "
+                f"{tuple(x.shape)} with {num_groups} groups"
+                + (f" (one of {shards} channel blocks)" if shards > 1 else "")
+                + ": the kernels take "
                 f"channels that are a multiple of {group_norm_kernel.CHANNEL_MULTIPLE} "
                 f"and of the group count, and H*W a multiple of "
                 f"{group_norm_kernel.HW_MULTIPLE} (the JAX kernels' rule)"

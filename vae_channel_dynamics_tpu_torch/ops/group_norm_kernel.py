@@ -50,6 +50,13 @@ all-reduced over the group between the kernels, the group statistics and
 the backward's coefficients count the whole image, and dgamma, dbeta come
 from this rank's own sums (the gradient all-reduce adds the ranks'). The
 split heuristics read the local H*W.
+
+Under a tensor group (``ops/tensor_parallel.py``) they run on the rank's
+C/T channels with its G/T whole groups, and need no collective: every
+statistic is per (sample, group). The host checks and the split rules take
+any plane count (B x C/T planes), so the 64- and 32-channel blocks of a
+128-channel layer launch as they are; :func:`eligible` reads the whole
+layer's channels.
 """
 
 from __future__ import annotations
@@ -91,16 +98,20 @@ _SIGNATURES = {
 }
 
 
-def eligible(x: torch.Tensor, num_groups: int) -> bool:
+def eligible(x: torch.Tensor, num_groups: int, shards: int = 1) -> bool:
     """The shapes the kernels take, the JAX kernels' own rule
     (pallas_group_norm.py:43-57 with ``impl="pallas"``): a 4-D tensor whose
     channels are a multiple of 128 and of ``num_groups``, with H*W a multiple
-    of 8."""
+    of 8. ``x`` with ``num_groups`` groups may be one of ``shards`` channel
+    blocks of a tensor group: the rule is judged on the whole layer, as the
+    JAX kernel sees the global shape, and the kernels then run on the
+    block (they work a (sample, channel) plane at a time)."""
     if x.dim() != 4:
         return False
-    c = x.shape[1]
+    c = x.shape[1] * shards
     hw = x.shape[2] * x.shape[3]
-    return c % CHANNEL_MULTIPLE == 0 and c % num_groups == 0 and hw % HW_MULTIPLE == 0
+    return (c % CHANNEL_MULTIPLE == 0 and c % (num_groups * shards) == 0
+            and hw % HW_MULTIPLE == 0)
 
 
 def split_chunk(hw: int, splits: int) -> int:

@@ -33,6 +33,19 @@ every activation's rows, and with a mask installed each linear metric is
 this rank's share of the whole image's mean (divided by the group's size
 too), which the step adds over every rank; ``std_activation`` counts the
 whole image, and ``full_activation_map`` gathers its rows over the group.
+
+Under a tensor group (``ops/tensor_parallel.py``) an activation is the
+rank's block of its channels or whole on every rank, which
+:func:`channel_stats` tells apart by the layer's channel count. A
+per-channel metric is the rank's block of the vector either way (cut from
+the whole vector for a whole tensor), so the train step's running sums stay
+blocks on the device, summed over the data and spatial ranks only, and are
+gathered whole at the monitor's interval (``tracking/monitor.py``). A
+scalar metric summed over the ranks is 1/T of the rank's value, so that the
+sum over the tensor ranks is the one-card value whether the rank held a
+block or the whole; ``std_activation`` adds a block's sums over every rank
+and a whole tensor's over the ranks of its tensor index; the full map is
+gathered whole.
 """
 
 from __future__ import annotations
@@ -45,6 +58,7 @@ import torch
 import torch.distributed as dist
 
 from .spatial_conv import active_spatial_group
+from .tensor_parallel import active_tensor_group, channel_block, gather_channels
 
 _TAP_MASK: Optional[torch.Tensor] = None
 _TAP_COUNT: Optional[torch.Tensor] = None
@@ -133,23 +147,25 @@ def mean_activation(x: torch.Tensor) -> torch.Tensor:
     return (per_sample * m).sum() / (mask_count(m) * _row_shards())
 
 
-def std_activation(x: torch.Tensor) -> torch.Tensor:
+def std_activation(x: torch.Tensor, channel_shards: int = 1, group=None) -> torch.Tensor:
+    """``channel_shards``: how many channel blocks ``x`` is one of; the
+    sums are added over ``group`` (the whole world by default)."""
     xf = x.detach().float()
     m = mask_for(x)
     if m is None:
         return xf.std(correction=1)
     # masked unbiased std over every element of the valid samples, in two
     # passes: E[x^2] - E[x]^2 cancels in fp32 when |mean| dominates the std
-    per_elem = math.prod(x.shape[1:]) * _row_shards()
+    per_elem = math.prod(x.shape[1:]) * _row_shards() * channel_shards
     w = m.reshape((-1,) + (1,) * (x.dim() - 1))
     n = (m.sum() if _TAP_COUNT is None else _TAP_COUNT.to(m.device)) * float(per_elem)
     total = (xf * w).sum()
     if _TAP_REDUCE:
-        dist.all_reduce(total)
+        dist.all_reduce(total, group=group)
     mean = total / n.clamp_min(1.0)
     dev = ((xf - mean).square() * w).sum()
     if _TAP_REDUCE:
-        dist.all_reduce(dev)
+        dist.all_reduce(dev, group=group)
     var = dev / (n - 1.0).clamp_min(1.0)
     return var.sqrt()
 
@@ -183,14 +199,34 @@ METRIC_FNS = {
 }
 
 
-def channel_stats(x: torch.Tensor, metrics: Tuple[str, ...]) -> Dict[str, torch.Tensor]:
+def channel_stats(x: torch.Tensor, metrics: Tuple[str, ...],
+                  channels: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The requested metrics of one activation tensor; unknown names are
-    skipped, as in the JAX package."""
+    skipped, as in the JAX package. ``channels`` is the layer's whole
+    channel count, which tells a tensor group's block from a whole tensor
+    (module docstring)."""
+    tp = active_tensor_group() if channels is not None else None
+    sharded = tp is not None and x.shape[_channel_dim(x)] != channels
     out: Dict[str, torch.Tensor] = {}
     for name in metrics:
         fn = METRIC_FNS.get(name)
-        if fn is not None:
+        if fn is None:
+            continue
+        if tp is None:
             out[name] = fn(x)
+        elif name == "std_activation":
+            out[name] = (std_activation(x, tp.size) if sharded
+                         else std_activation(x, group=tp.replicas))
+        elif name == "full_activation_map":
+            value = fn(x)
+            out[name] = gather_channels(value, _channel_dim(value), tp) if sharded else value
+        else:
+            value = fn(x)
+            if value.dim() == 1 and not sharded:
+                value = channel_block(value, 0, tp)
+            elif value.dim() == 0 and _TAP_REDUCE:
+                value = value / float(tp.size)
+            out[name] = value
     return out
 
 

@@ -1,5 +1,5 @@
-"""The ``data`` and ``spatial`` axes across GPUs: the process groups, the
-mesh and the batch layout.
+"""The ``data``, ``spatial`` and ``tensor`` axes across GPUs: the process
+groups, the mesh and the batch layout.
 
 Counterpart of ``vae_channel_dynamics_tpu/parallel/mesh.py``. The JAX
 package runs one SPMD program over a device mesh; the port runs one process
@@ -24,9 +24,19 @@ the ranks' batch t is the one-process batch t either way.
 ``parallel.spatial`` = S > 1 lays the ranks out as JAX ``make_mesh`` does:
 ``data`` outer and ``spatial`` inner, so rank ``r`` is data rank ``r // S``
 and spatial rank ``r % S``, and a spatial group is a block of neighbouring
-ranks (:func:`with_spatial`). Every rank of a spatial group reads the same
+ranks (:func:`with_layout`). Every rank of a spatial group reads the same
 images and keeps its block of their rows (``ops/spatial_conv.py``); the
 batch, its pad rows and its validity mask follow the data axis only.
+
+``parallel.tensor`` = T > 1 adds JAX's innermost ``tensor`` axis: the mesh
+is ``("data", "spatial", "tensor")`` (trivial axes dropped, ``data`` kept),
+so rank ``r`` is tensor rank ``r % T``, spatial rank ``(r // T) % S`` and
+data rank ``r // (S T)``, and a tensor group is a block of T neighbouring
+ranks. Every rank of a tensor group reads the same images and rows and
+keeps its block of every sharded parameter's channels
+(``ops/tensor_parallel.py``). T must divide 32, the SDXL GroupNorm's group
+count, so that every group lies whole on one rank; JAX accepts any T that
+divides the device count.
 """
 
 from __future__ import annotations
@@ -44,6 +54,9 @@ logger = logging.getLogger(__name__)
 
 DATA_AXIS = "data"
 SPATIAL_AXIS = "spatial"
+TENSOR_AXIS = "tensor"
+# the GroupNorm group count a tensor axis must divide
+TENSOR_GROUPS = 32
 
 _ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
@@ -51,12 +64,16 @@ _ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 @dataclasses.dataclass
 class DataAxis:
     """This process's place on the mesh: its rank, the world size, its
-    device and the ``DeviceMesh``: 1-D named ``data``, or 2-D named
-    ``("data", "spatial")`` with ``spatial`` ranks a spatial group.
+    device and the ``DeviceMesh``: 1-D named ``data``, else named
+    ``("data", "spatial", "tensor")`` without the trivial ones.
     ``data_group`` is the process group of the ranks that hold the same
-    rows of other images (None: the whole world, at ``spatial`` 1);
-    ``spatial_group`` that of the ranks that hold the rows of the same
-    images (None at ``spatial`` 1)."""
+    rows and channels of other images (None: the whole world, at
+    ``spatial`` and ``tensor`` 1); ``spatial_group`` that of the ranks that
+    hold the rows of the same images (None at ``spatial`` 1);
+    ``tensor_group`` that of the ranks that hold the channels of the same
+    rows (None at ``tensor`` 1); ``replica_group`` that of the ranks that
+    hold the same channel block, over which the gradient is summed (None:
+    the whole world, at ``tensor`` 1)."""
 
     rank: int
     world: int
@@ -68,6 +85,9 @@ class DataAxis:
     spatial: int = 1
     data_group: Any = None
     spatial_group: Any = None
+    tensor: int = 1
+    tensor_group: Any = None
+    replica_group: Any = None
 
     @property
     def is_main(self) -> bool:
@@ -75,16 +95,27 @@ class DataAxis:
 
     @property
     def data_world(self) -> int:
-        """The number of batch shards: the world over ``spatial``."""
-        return self.world // self.spatial
+        """The number of batch shards: the world over ``spatial`` x
+        ``tensor``."""
+        return self.world // (self.spatial * self.tensor)
 
     @property
     def data_rank(self) -> int:
-        return self.rank // self.spatial
+        return self.rank // (self.spatial * self.tensor)
 
     @property
     def spatial_rank(self) -> int:
-        return self.rank % self.spatial
+        return (self.rank // self.tensor) % self.spatial
+
+    @property
+    def tensor_rank(self) -> int:
+        return self.rank % self.tensor
+
+    @property
+    def replica_world(self) -> int:
+        """The ranks that hold this rank's channel block: the world over
+        ``tensor``."""
+        return self.world // self.tensor
 
     @property
     def backend(self) -> str:
@@ -92,17 +123,11 @@ class DataAxis:
 
 
 def refuse_unported_axes(parallel: Optional[Dict[str, Any]]) -> None:
-    """``parallel.tensor`` above 1 is the next slice of the multi-GPU work;
-    ``parallel.slices`` (the TPU pod's DCN axis) has no counterpart on a GPU
-    host. The data and spatial axes are ported, and ``spatial_conv`` takes
-    both of JAX's values (:func:`spatial_conv_choice`)."""
+    """``parallel.slices`` (the TPU pod's DCN axis) has no counterpart on a
+    GPU host. The data, spatial and tensor axes are ported, and
+    ``spatial_conv`` takes both of JAX's values (:func:`spatial_conv_choice`),
+    with or without a tensor axis."""
     parallel = parallel or {}
-    if int(parallel.get("tensor") or 1) > 1:
-        raise NotImplementedError(
-            "parallel.tensor > 1 is not ported to PyTorch yet (ROADMAP Q1, "
-            "Tensor parallelism); the data and spatial axes are: launch one "
-            "process per card with torchrun"
-        )
     if int(parallel.get("slices") or 1) > 1:
         raise NotImplementedError(
             "parallel.slices > 1: the multi-slice DCN axis is a TPU pod layout "
@@ -169,11 +194,27 @@ def initialize_distributed(device: Any = "cuda") -> Optional[DataAxis]:
     return axis
 
 
+def check_tensor(tensor: int) -> int:
+    """``parallel.tensor`` checked: at least 1, and a divisor of
+    :data:`TENSOR_GROUPS`, so that the GroupNorm groups of a rank's channel
+    block are whole (JAX accepts any T that divides the device count)."""
+    tensor = 1 if tensor is None else int(tensor)
+    if tensor < 1:
+        raise ValueError(f"parallel.tensor must be >= 1, got {tensor}")
+    if TENSOR_GROUPS % tensor:
+        raise ValueError(
+            f"parallel.tensor={tensor} must divide {TENSOR_GROUPS}, the GroupNorm group "
+            "count, so that every group lies whole on one rank's channel block"
+        )
+    return tensor
+
+
 def make_mesh(device: torch.device, rank: Optional[int] = None, world: Optional[int] = None,
-              local_rank: int = 0, spatial: int = 1) -> DataAxis:
+              local_rank: int = 0, spatial: int = 1, tensor: int = 1) -> DataAxis:
     """The ``DeviceMesh`` over every rank of the group: 1-D named ``data``
-    at ``spatial`` 1, else 2-D ``("data", "spatial")`` of shape (world / S,
-    S) with its process groups (a collective: every rank calls it)."""
+    at ``spatial`` and ``tensor`` 1, else ``("data", "spatial", "tensor")``
+    of shape (world / (S T), S, T) without its trivial axes, with its
+    process groups (a collective: every rank calls it)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     world = dist.get_world_size() if world is None else world
@@ -181,46 +222,76 @@ def make_mesh(device: torch.device, rank: Optional[int] = None, world: Optional[
     spatial = int(spatial or 1)
     if spatial < 1:
         raise ValueError(f"parallel.spatial must be >= 1, got {spatial}")
-    if world % spatial != 0:
+    tensor = check_tensor(tensor)
+    if world % (spatial * tensor) != 0:
         raise ValueError(
-            f"{world} devices not divisible by slices=1 x spatial={spatial} x tensor=1"
+            f"{world} devices not divisible by slices=1 x spatial={spatial} x tensor={tensor}"
         )
-    if spatial == 1:
+    if spatial == 1 and tensor == 1:
         mesh = init_device_mesh(device.type, (world,), mesh_dim_names=(DATA_AXIS,))
         return DataAxis(rank=rank, world=world, local_rank=local_rank, device=device,
                         mesh=mesh)
-    mesh = init_device_mesh(device.type, (world // spatial, spatial),
-                            mesh_dim_names=(DATA_AXIS, SPATIAL_AXIS))
+    dims = [(DATA_AXIS, world // (spatial * tensor)), (SPATIAL_AXIS, spatial),
+            (TENSOR_AXIS, tensor)]
+    dims = [(n, k) for n, k in dims if n == DATA_AXIS or k > 1]
+    mesh = init_device_mesh(device.type, tuple(k for _, k in dims),
+                            mesh_dim_names=tuple(n for n, _ in dims))
+    replicas = None
+    if tensor > 1:
+        # the ranks of each tensor index (every rank creates every group)
+        for t in range(tensor):
+            g = dist.new_group(list(range(t, world, tensor)))
+            if t == rank % tensor:
+                replicas = g
     return DataAxis(rank=rank, world=world, local_rank=local_rank, device=device, mesh=mesh,
                     spatial=spatial, data_group=mesh.get_group(DATA_AXIS),
-                    spatial_group=mesh.get_group(SPATIAL_AXIS))
+                    spatial_group=mesh.get_group(SPATIAL_AXIS) if spatial > 1 else None,
+                    tensor=tensor,
+                    tensor_group=mesh.get_group(TENSOR_AXIS) if tensor > 1 else None,
+                    replica_group=replicas)
 
 
-_LAYOUTS: Dict[Tuple[str, int, int], DataAxis] = {}
+_LAYOUTS: Dict[Tuple[str, int, int, int], DataAxis] = {}
 
 
-def with_spatial(axis: Optional[DataAxis], spatial: int) -> Optional[DataAxis]:
-    """``axis`` laid out with ``spatial`` ranks a spatial group (the 2-D
-    mesh and its groups, made once a process for each layout; a collective
-    the first time). Without a group (``axis`` None) only ``spatial`` 1
-    runs: one device does not divide into spatial shards."""
-    spatial = int(spatial or 1)
+def with_layout(axis: Optional[DataAxis], spatial: int = 1,
+                tensor: int = 1) -> Optional[DataAxis]:
+    """``axis`` laid out with ``spatial`` ranks a spatial group and
+    ``tensor`` ranks a tensor group (the mesh and its groups, made once a
+    process for each layout; a collective the first time). Without a group
+    (``axis`` None) only 1 and 1 run: one device does not divide into
+    shards."""
+    spatial, tensor = int(spatial or 1), check_tensor(tensor)
     if axis is None:
-        if spatial > 1:
+        if spatial > 1 or tensor > 1:
             raise ValueError(
-                f"1 devices not divisible by slices=1 x spatial={spatial} x tensor=1: "
+                f"1 devices not divisible by slices=1 x spatial={spatial} x tensor={tensor}: "
                 "launch one process per card with torchrun"
             )
         return None
-    if axis.spatial == spatial:
+    if axis.spatial == spatial and axis.tensor == tensor:
         return axis
-    key = (str(axis.device), axis.world, spatial)
+    key = (str(axis.device), axis.world, spatial, tensor)
     if key not in _LAYOUTS:
         _LAYOUTS[key] = make_mesh(axis.device, rank=axis.rank, world=axis.world,
-                                  local_rank=axis.local_rank, spatial=spatial)
+                                  local_rank=axis.local_rank, spatial=spatial, tensor=tensor)
     out = dataclasses.replace(_LAYOUTS[key], owned=axis.owned)
-    logger.info("mesh: %d data x %d spatial ranks (rank %d: data rank %d, rows block %d)",
-                out.data_world, spatial, out.rank, out.data_rank, out.spatial_rank)
+    logger.info("mesh: %d data x %d spatial x %d tensor ranks (rank %d: data rank %d, rows "
+                "block %d, channel block %d)", out.data_world, spatial, tensor, out.rank,
+                out.data_rank, out.spatial_rank, out.tensor_rank)
+    return out
+
+
+def mesh_shape(axis: Optional[DataAxis]) -> Dict[str, int]:
+    """The mesh's axes as JAX names them in its warnings: ``data`` always,
+    ``spatial`` and ``tensor`` when above 1."""
+    if axis is None:
+        return {DATA_AXIS: 1}
+    out = {DATA_AXIS: axis.data_world}
+    if axis.spatial > 1:
+        out[SPATIAL_AXIS] = axis.spatial
+    if axis.tensor > 1:
+        out[TENSOR_AXIS] = axis.tensor
     return out
 
 
@@ -235,8 +306,8 @@ def shutdown(axis: Optional[DataAxis]) -> None:
 
 
 def data_axis_size(axis: Optional[DataAxis]) -> int:
-    """Number of batch shards: the world size over ``spatial``, 1 without a
-    group."""
+    """Number of batch shards: the world size over ``spatial`` x
+    ``tensor``, 1 without a group."""
     return 1 if axis is None else axis.data_world
 
 
@@ -295,17 +366,21 @@ def all_gather_rows(t: torch.Tensor, world: int, group: Any = None) -> torch.Ten
 __all__ = [
     "DATA_AXIS",
     "SPATIAL_AXIS",
+    "TENSOR_AXIS",
+    "TENSOR_GROUPS",
     "DataAxis",
     "all_gather_rows",
     "block_rows",
+    "check_tensor",
     "data_axis_size",
     "initialize_distributed",
     "launched_by_torchrun",
     "local_block",
     "make_mesh",
+    "mesh_shape",
     "pad_batch_to_multiple",
     "refuse_unported_axes",
     "shutdown",
     "spatial_conv_choice",
-    "with_spatial",
+    "with_layout",
 ]

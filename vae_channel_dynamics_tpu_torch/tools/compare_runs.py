@@ -9,9 +9,9 @@ Usage:
 
 Reads each run's metrics.jsonl, eval_metrics.txt (if evaluation was run
 against its final_model) and intervention history, and writes a
-side-by-side markdown table. The JAX tool's comparison plot of the tracked
-per-channel activation means is not drawn yet (ROADMAP Q1, Plots): a
-warning says so.
+side-by-side markdown table, and ``<output>_activity.png``, the JAX
+tool's overlay of both runs' tracked per-channel activation means; where
+matplotlib does not import, a warning says that the plot is not drawn.
 """
 
 from __future__ import annotations
@@ -106,6 +106,43 @@ def compare(baseline_dir: str, treatment_dir: str) -> str:
     return "\n".join(lines) + "\n"
 
 
+def plot_activation_comparison(baseline_dir: str, treatment_dir: str, out_png: str) -> None:
+    """Overlay the per-channel mean-|act| trajectories of both runs."""
+    import pandas as pd
+
+    from ..utils.plotting import pyplot
+
+    plt = pyplot(os.path.basename(out_png))
+    if plt is None:
+        return
+    fig, ax = plt.subplots(figsize=(12, 6))
+    plotted = False
+    for run_dir, style, label in ((baseline_dir, "--", "baseline"),
+                                  (treatment_dir, "-", "treatment")):
+        csv = os.path.join(run_dir, "tracked_activation_stats.csv")
+        if not os.path.exists(csv):
+            continue
+        df = pd.read_csv(csv)
+        sub = df[df["metric_type"] == "per_channel_overall_mean"]
+        for layer, g in sub.groupby("layer_identifier"):
+            g = g.sort_values("global_step")
+            ax.plot(g["global_step"], g["metric_value"], style, label=f"{label}: {layer}",
+                    marker=".")
+            plotted = True
+    if not plotted:
+        plt.close(fig)
+        return
+    ax.set_xlabel("Global Step")
+    ax.set_ylabel("mean |activation| per channel (overall mean)")
+    ax.set_title("Channel activity: baseline vs treatment")
+    ax.legend(fontsize="small")
+    ax.grid(True, linestyle="--", alpha=0.5)
+    plt.tight_layout()
+    fig.savefig(out_png, bbox_inches="tight")
+    plt.close(fig)
+    logger.info("Comparison plot saved to %s", out_png)
+
+
 def main(argv=None) -> int:
     from ..utils.logging_utils import setup_logging
 
@@ -118,8 +155,8 @@ def main(argv=None) -> int:
     report = compare(args.baseline, args.treatment)
     with open(args.output, "w") as f:
         f.write(report)
-    logger.warning("The activation comparison plot is not drawn by the PyTorch port yet "
-                   "(ROADMAP Q1, Plots); the table is in %s", args.output)
+    plot_activation_comparison(args.baseline, args.treatment,
+                               os.path.splitext(args.output)[0] + "_activity.png")
     print(report)
     return 0
 

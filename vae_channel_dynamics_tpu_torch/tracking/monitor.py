@@ -53,13 +53,13 @@ class MapSummary:
         }
 
 
-def _tap_channels(module: nn.Module, point: str) -> int:
-    """The channel count of a tap module's input or output."""
-    if isinstance(module, (Conv2d, Linear)):
-        return module.weight.shape[1 if point == "input" else 0]
-    if isinstance(module, GroupNorm):
-        return module.weight.shape[0]
-    raise ValueError(f"{type(module).__name__} has no activation taps")
+def _tap_channels(module: nn.Module, point: str, tp=None) -> int:
+    """The channel count of a tap module's input or output: the whole
+    layer's, or the length of a tensor rank's block of it under ``tp``."""
+    if not isinstance(module, (Conv2d, Linear, GroupNorm)):
+        raise ValueError(f"{type(module).__name__} has no activation taps")
+    n = module.tap_channels(point)
+    return n if tp is None else tp.block(n)[1]
 
 
 class ActivityMonitor:
@@ -142,8 +142,10 @@ class ActivityMonitor:
     def init_acc(self, model: nn.Module) -> Dict[str, torch.Tensor]:
         """Zero accumulators of the scalar stats' shapes on the model's
         device: (C,) for the per-channel metrics, with C the tapped module's
-        channel count at that point, and () for the scalar ones. No forward
-        runs (the JAX monitor derives the shapes with eval_shape)."""
+        channel count at that point (the length of the rank's block of it on
+        a model a tensor group shards: ``ops.tensor_parallel.whole_taps``
+        gathers them at the interval), and () for the scalar ones. No
+        forward runs (the JAX monitor derives the shapes with eval_shape)."""
         if not self.enabled or not self._scalar_table:
             return {}
         device = next(model.parameters()).device
@@ -155,7 +157,7 @@ class ActivityMonitor:
                 logger.warning("No module named %s in the model; its taps stay empty", name)
                 continue
             for metric in metrics:
-                shape = ((_tap_channels(module, point),)
+                shape = ((_tap_channels(module, point, getattr(model, "tensor", None)),)
                          if metric in _PER_CHANNEL_METRICS else ())
                 acc[f"{name}.{point}.{metric}"] = torch.zeros(
                     shape, dtype=torch.float32, device=device)

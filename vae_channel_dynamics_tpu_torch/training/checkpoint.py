@@ -16,7 +16,10 @@ Across ranks the file is the same as one process writes: a state whose
 leaves are sliced (``state.layout``, ``parallel/zero.py``) is gathered
 whole on every rank (a collective every rank calls), rank 0 writes it, and
 a restore copies each rank's slice out of the whole leaves, so a run saved
-at one world size resumes at any other.
+at one world size resumes at any other. Under a tensor axis the channel
+blocks are gathered too, the taps' per-channel running sums included
+(``ops/tensor_parallel.py``, ``whole_taps``), so the file is the one-card
+file.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..ops.tensor_parallel import tap_blocks, whole_taps
 from ..parallel.zero import write_leaf
 from .state import TrainState
 
@@ -69,7 +73,8 @@ def state_dict_of(state: TrainState, copy=lambda t: t.detach().cpu()) -> Dict[st
                    for i, (k, p) in enumerate(state.model.named_parameters())},
         "opt": _opt_dict(state.opt_state, copy, whole),
         "step": int(state.step),
-        "stats_acc": {k: copy(v) for k, v in state.stats_acc.items()},
+        "stats_acc": {k: copy(v) for k, v in whole_taps(state.stats_acc,
+                                                        state.model).items()},
         "stats_count": copy(state.stats_count),
         "ema_params": (None if state.ema_params is None
                        else {k: copy(whole("ema", i, v))
@@ -238,8 +243,9 @@ def restore_train_state(path: str, state: TrainState) -> TrainState:
     state.step = int(saved["step"])
     if set(saved["stats_acc"]) != set(state.stats_acc):
         raise ValueError(f"checkpoint {path}: stats accumulators do not match the tracking config")
+    kept_acc = tap_blocks(saved["stats_acc"], state.model)
     for k, v in state.stats_acc.items():
-        v.copy_(saved["stats_acc"][k])
+        v.copy_(kept_acc[k])
     state.stats_count.copy_(saved["stats_count"])
     if (state.ema_params is None) != (saved["ema_params"] is None):
         raise ValueError(f"checkpoint {path}: EMA presence differs from training.ema_decay")

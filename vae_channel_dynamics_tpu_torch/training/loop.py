@@ -49,10 +49,24 @@ loop and ``final_model`` are as on the data axis. ``kernel_impl: fused`` on
 a spatial mesh runs ``auto`` with JAX's warning: the fused kernels exchange
 no halo.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-skipped: ``parallel.tensor`` above 1 (ROADMAP Q1, Tensor parallelism) and
-``parallel.slices`` (Do not port). The matplotlib plots are not drawn
-(ROADMAP Q1, Plots); the CSV and JSONL files they read are written.
+``parallel.tensor`` = T > 1 shards every parameter's channels over tensor
+groups of T neighbouring ranks (``parallel/mesh.py``,
+``ops/tensor_parallel.py``): the model keeps the rank's blocks
+(``AutoencoderKL.shard_tensor_``) before DDP or FSDP2 wraps it over the
+ranks of its tensor index, the moments and the EMA keep the same blocks
+(``parallel/zero.py``), and the train and validation steps run under the
+tensor scope. The monitor gathers the taps' per-channel blocks at its
+interval, the nudger reads γ whole and writes its block, the dead-weight
+tracker reads whole parameters, and checkpoints and ``final_model`` are
+gathered whole, in the one-card format; a resume slices them again. As in
+JAX (``loop.py:236-289``), ``kernel_impl: fused`` runs ``auto`` and
+``attention_impl: flash`` runs ``auto`` on a tensor mesh, each with JAX's
+warning; the GroupNorm kernels (``pallas``) run on the channel blocks.
+
+Refused with ``NotImplementedError`` rather than skipped:
+``parallel.slices`` (Do not port). The end-of-run plots
+(``utils/plotting.py``) are drawn where matplotlib imports and skipped with
+one warning each where it does not.
 """
 
 from __future__ import annotations
@@ -75,16 +89,19 @@ from ..intervention import InterventionHandler
 from ..models import io as model_io
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..models.wrapper import resolve_device
+from ..ops.tensor_parallel import TensorGroup, whole_taps
 from ..parallel.mesh import (
     initialize_distributed,
     launched_by_torchrun,
+    mesh_shape,
     refuse_unported_axes,
     spatial_conv_choice,
-    with_spatial,
+    with_layout,
 )
 from ..parallel.zero import ZeroLayout, fully_shard_model
 from ..tracking import ActivityMonitor, DeadNeuronTracker
 from ..utils.config_utils import as_float, as_int
+from ..utils.plotting import ActivityPlotter, DeadNeuronPlotter, plot_dead_vs_nudge
 from ..utils.profiling import TraceCapture
 from ..utils.reporting import build_reporter
 from .checkpoint import (
@@ -172,7 +189,9 @@ def _wrap_data_parallel(model: AutoencoderKL, axis, parallel: Dict[str, Any]):
     """(the module the step runs forward through, the ZeRO layout or None)
     for this rank: FSDP2 under ``shard_params`` (kept whole, with a
     warning, under ``kernel_impl: fused``: its kernels take whole
-    parameters, JAX ``loop.py:477-486``), DDP otherwise."""
+    parameters, JAX ``loop.py:477-486``), DDP otherwise, each over the
+    ranks of this rank's tensor index. A tensor axis always has a layout:
+    the moments and the EMA follow the parameters' blocks."""
     shard_opt = bool(parallel.get("shard_optimizer", False))
     shard_ema = bool(parallel.get("shard_ema", False))
     shard_par = bool(parallel.get("shard_params", False))
@@ -187,9 +206,10 @@ def _wrap_data_parallel(model: AutoencoderKL, axis, parallel: Dict[str, Any]):
                     "(ZeRO-3, FSDP2)", axis.data_world)
     else:
         ids = [axis.device.index] if axis.device.type == "cuda" else None
-        forward_module = torch.nn.parallel.DistributedDataParallel(model, device_ids=ids)
+        forward_module = torch.nn.parallel.DistributedDataParallel(
+            model, device_ids=ids, process_group=axis.replica_group)
     layout = None
-    if shard_opt or shard_ema or shard_par:
+    if shard_opt or shard_ema or shard_par or axis.tensor > 1:
         layout = ZeroLayout(axis, model, shard_opt, shard_ema, fsdp=shard_par)
         if shard_opt:
             logger.info("parallel.shard_optimizer: optimizer state sharded over the %d-way "
@@ -240,8 +260,9 @@ class Trainer:
         _refuse_unported(config)
         parallel = config.get("parallel", {}) or {}
         spatial = as_int(parallel.get("spatial"), 1)
+        tensor = as_int(parallel.get("tensor"), 1)
         spatial_conv = spatial_conv_choice(parallel)
-        self.axis = with_spatial(self.axis, spatial)
+        self.axis = with_layout(self.axis, spatial, tensor)
         device = self.device
         axis, is_main = self.axis, self.is_main
         # the batch's shards: the data axis (each spatial group reads one)
@@ -253,6 +274,9 @@ class Trainer:
             logger.info("parallel.spatial: image rows over %d-way spatial groups, %d data "
                         "ranks; parallel.spatial_conv: %s (both values run the manual halo "
                         "exchange, ops/spatial_conv.py)", spatial, world, spatial_conv)
+        if tensor > 1:
+            logger.info("parallel.tensor: parameters' channels over %d-way tensor groups "
+                        "(ops/tensor_parallel.py), %d data ranks", tensor, world)
         os.makedirs(self.output_dir, exist_ok=True)
         if is_main:
             with open(os.path.join(self.output_dir, "config.yaml"), "w") as f:
@@ -275,14 +299,24 @@ class Trainer:
         else:
             dtype = torch.float32
         model = resolve_model(config.get("model", {}), dtype, device)
-        if model.impl == "fused" and spatial > 1:
-            # a sharded H axis would need the conv halo exchange the fused
-            # kernels do not implement (JAX loop.py:238-258)
+        if model.impl == "fused" and (spatial > 1 or tensor > 1):
+            # a sharded H axis would need the conv halo exchange, and a
+            # sharded C axis the channel gathers, that the fused kernels do
+            # not implement (JAX loop.py:238-258)
             logger.warning(
                 "model.kernel_impl='fused' only supports pure data-parallel meshes, not "
-                "%s — falling back to kernel_impl='auto'.",
-                {"data": world, "spatial": spatial})
+                "%s — falling back to kernel_impl='auto'.", mesh_shape(axis))
             model.set_impl("auto")
+        attn_impls = {m.attn_impl for m in model.modules() if hasattr(m, "attn_impl")}
+        if tensor > 1 and "flash" in attn_impls:
+            # the flash kernels take q, k and v of one width; JAX's shard_map
+            # wrapper partitions data and spatial axes only (JAX loop.py:261-288)
+            logger.warning(
+                "model.attention_impl='flash' supports data/spatial meshes, not %s — "
+                "falling back to attention_impl='auto'.", mesh_shape(axis))
+            model.set_attn_impl("auto")
+        if tensor > 1:
+            model.shard_tensor_(TensorGroup.of(axis))
         self.model = model
         vae_config = model.config
         forward_module, layout = model, None
@@ -582,8 +616,10 @@ class Trainer:
                     activity_metrics: Dict[str, float] = {}
                     if monitor.enabled and track_interval > 0 and (
                             global_step % track_interval == 0):
-                        activity_metrics = monitor.step(global_step, state.stats_acc,
-                                                        state.stats_count, maps)
+                        # a tensor rank's per-channel blocks, gathered whole
+                        activity_metrics = monitor.step(
+                            global_step, whole_taps(state.stats_acc, model),
+                            state.stats_count, maps)
                         state.reset_stats()
                         if classifier is not None:
                             tracked = monitor.get_data_for_step(global_step)
@@ -767,7 +803,7 @@ class Trainer:
                         images_seen=images_seen, preempted=True)
 
         summary = self._finalize(state, vae_config, monitor, dead_tracker, reporter,
-                                 final_meta=_resume_meta())
+                                 final_meta=_resume_meta(), handler=handler)
         summary.update(global_step=global_step,
                        images_per_sec=images_seen / max(elapsed, 1e-6),
                        images_seen=images_seen, preempted=preempted)
@@ -805,11 +841,13 @@ class Trainer:
 
     # ------------------------------------------------------------------ #
     def _finalize(self, state, vae_config, monitor, dead_tracker, reporter,
-                  final_meta=None) -> Dict[str, Any]:
+                  final_meta=None, handler=None) -> Dict[str, Any]:
         """The final artifacts: final_model/ (a resumable state),
         final_model/vae/ (the model dir both packages load), vae_ema/, the
-        activation-stats CSV and the dead-weight history CSV. The JAX
-        Trainer's plots are not drawn (ROADMAP Q1, Plots)."""
+        activation-stats CSV, the dead-weight history CSV, and the JAX
+        Trainer's plots (``utils/plotting.py``: the dead-weight history and
+        weight snapshots, the activity evolution, dead vs nudge), each
+        skipped with a warning where matplotlib does not import."""
         import pandas as pd
 
         summary: Dict[str, Any] = {}
@@ -848,6 +886,7 @@ class Trainer:
             logger.info("torch.export deployment artifacts in %s", export_dir)
             summary["export_dir"] = export_dir
 
+        activity_csv = None
         if monitor.enabled:
             records = monitor.export_all_processed_data_to_records()
             if records:
@@ -860,15 +899,21 @@ class Trainer:
                 reporter.log_artifact(activity_csv, art_name, artifact_type="dataset")
 
         if dead_tracker is not None:
-            records = [{"step": step, "layer": layer, "percentage": pct}
-                       for layer, hist in dead_tracker.percent_history.items()
-                       for step, pct in hist]
-            if records:
-                pd.DataFrame(records).to_csv(
-                    os.path.join(self.output_dir, "dead_neuron_percentage_history.csv"),
-                    index=False)
-        logger.info("Plots are not drawn by the PyTorch Trainer (ROADMAP Q1, Plots); "
-                    "their CSV and JSONL inputs are in %s", self.output_dir)
+            # dead_neuron_percentage_history.csv, and its plot
+            DeadNeuronPlotter(threshold=self.threshold_dn, output_dir=self.output_dir).plot_all(
+                percent_history=dead_tracker.percent_history,
+                weights_history=dead_tracker.weights_history)
+        if activity_csv:
+            ActivityPlotter(output_dir=os.path.join(self.output_dir, "activity_plots")
+                            ).plot_activation_stats_evolution(
+                csv_path=activity_csv,
+                target_metric_substring="mean_abs_activation_per_channel",
+                target_metric_type="per_channel_overall_mean")
+        if handler is not None and handler.num_nudges_applied > 0:
+            plot_dead_vs_nudge(
+                csv_path=os.path.join(self.output_dir, "intervention_history.csv"),
+                out_png=os.path.join(self.output_dir, "dead_vs_nudge.png"),
+                nudge_factor=handler.nudge_factor)
         reporter.finish()
         return summary
 

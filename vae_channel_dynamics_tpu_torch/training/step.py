@@ -51,6 +51,7 @@ import torch.distributed as dist
 from ..models.wrapper import forward_with_stats
 from ..ops.spatial_conv import SpatialGroup, gather_rows, row_block, spatial_conv_scope
 from ..ops.stats import tap_mask
+from ..ops.tensor_parallel import TensorGroup, tensor_scope
 from ..parallel.mesh import all_gather_rows
 from .state import TrainState
 
@@ -175,7 +176,7 @@ class _Optimizer:
         return [torch.zeros_like(p) for p in ps]
 
     def _shape(self, i: int, p: torch.Tensor) -> Tuple[int, ...]:
-        return tuple(p.shape) if self.shards is None else self.shards.full_shapes[i]
+        return tuple(p.shape) if self.shards is None else self.shards.whole_shapes[i]
 
     def _norms(self, ts: List[torch.Tensor]) -> List[torch.Tensor]:
         if self.shards is None:
@@ -524,18 +525,32 @@ def make_train_step(
     reads (before it, this rank's part): a micro-step's own global norm
     would need the collective that ``no_sync`` saves.
 
+    Over the ``tensor`` axis (T ranks a tensor group, ``parallel.tensor``)
+    every rank of a group gets the same images and rows and holds its block
+    of the channels (``AutoencoderKL.shard_tensor_``); the forward and the
+    backward run under ``ops.tensor_parallel.tensor_scope``. The
+    reconstruction and the posterior are whole on every rank of the group,
+    so the losses are; the gradient all-reduce (DDP or FSDP2) runs over the
+    ranks of this rank's tensor index only, and its 1/(D S) is undone. The
+    losses and the per-channel tap blocks are summed over those ranks, the
+    scalar taps' shares over every rank. The gradient norm adds the sharded
+    leaves' squares over the tensor group (``ZeroLayout.norms``), so every
+    rank clips as one card does.
+
     ``state.layout`` (``parallel.zero.ZeroLayout``) gives the slices that
-    the optimizer and the EMA update under the ZeRO flags; the slices the
-    optimizer updated are all-gathered after it (ZeRO-1)."""
+    the optimizer and the EMA update under the ZeRO flags and the tensor
+    axis; the slices the optimizer updated are all-gathered after it
+    (ZeRO-1)."""
     from ..ops.stats import SUMMED_METRICS
 
     accumulate = stats_accumulate or default_stats_accumulate
     device = _device_of(model) if axis is None else axis.device
     # the gradient's ranks, and the batch's shards and this rank's shard
-    world = 1 if axis is None else axis.world
+    world = 1 if axis is None else axis.replica_world
     data_world, data_rank = (1, 0) if axis is None else (axis.data_world, axis.data_rank)
     data_group = None if axis is None else axis.data_group
     sp = SpatialGroup.of(axis)
+    tp = TensorGroup.of(axis)
     shards = 1 if sp is None else sp.size
     summed = axis is not None and tx.every_k > 1
     if summed and not tx.summed_grads:
@@ -553,7 +568,7 @@ def make_train_step(
         mask_t = torch.as_tensor(mask, dtype=torch.float32).to(device, non_blocking=True)
         if noise is not None:
             noise_t = row_block(torch.as_tensor(noise).to(device), sp, dim=1).permute(0, 3, 1, 2)
-        elif world > 1:
+        elif axis is not None and axis.world > 1:
             cfg = model.config
             down = 2 ** (len(cfg.block_out_channels) - 1)
             shape = (x.shape[0] * data_world, cfg.latent_channels,
@@ -581,7 +596,7 @@ def make_train_step(
         # the taps weight per-sample contributions by the mask while the
         # forward runs, so pad rows carry zero weight
         with quiet, tap_mask(mask_t, count=count, reduce=axis is not None), \
-                spatial_conv_scope(sp):
+                spatial_conv_scope(sp), tensor_scope(tp):
             out, stats = forward_with_stats(forward_module, x, True, generator=rng,
                                             noise=noise_t)
             rec_loss, kl_loss = _losses(out, x, mask_t, count, shards)
@@ -593,7 +608,9 @@ def make_train_step(
             summed_keys = [k for k in stats if k.rsplit(".", 1)[-1] in SUMMED_METRICS]
             flat = torch.cat([torch.stack([rec_loss, kl_loss]).detach()]
                              + [stats[k].reshape(-1) for k in summed_keys])
-            dist.all_reduce(flat)
+            # over the ranks of this tensor index: the losses are whole on
+            # every rank of a tensor group, the per-channel taps its blocks
+            dist.all_reduce(flat, group=None if tp is None else tp.replicas)
             rec_loss, kl_loss = flat[0], flat[1]
             loss = rec_loss + kl_weight * kl_loss
             off = 2
@@ -601,6 +618,12 @@ def make_train_step(
                 size = stats[k].numel()
                 stats[k] = flat[off:off + size].view(stats[k].shape)
                 off += size
+            scalars = [k for k in summed_keys if stats[k].dim() == 0]
+            if tp is not None and scalars:
+                # a scalar tap is each tensor rank's share too
+                shares = torch.stack([stats[k] for k in scalars])
+                dist.all_reduce(shares, group=tp.group)
+                stats.update(zip(scalars, shares.unbind()))
             for k, v in maps.items():
                 # the data ranks' rows (each map whole over the image's rows
                 # already), back in the one-process batch's order
@@ -656,15 +679,22 @@ def make_eval_step(model: torch.nn.Module, axis=None):
     rows of the images under the scope: its sums are its rows' shares, which
     add up over the group, ``num_samples`` counts on the group's first rank
     only, so that a sum over every rank counts each image once, and the
-    reconstruction is gathered over the rows, whole on every rank."""
+    reconstruction is gathered over the rows, whole on every rank.
+
+    Over a tensor group each rank runs its channel blocks under the scope
+    (the model's parameters are its blocks); the outputs are whole on every
+    rank of the group, so its sums count on the group's first rank only,
+    so that a sum over every rank counts each image once."""
     device = _device_of(model)
     sp = SpatialGroup.of(axis)
+    tp = TensorGroup.of(axis)
+    counted = 1.0 if tp is None or tp.index == 0 else 0.0
 
     @torch.no_grad()
     def eval_fn(batch, mask):
         x = _nchw_pixels(batch, device, sp)
-        mask_t = torch.as_tensor(mask, dtype=torch.float32).to(device)
-        with spatial_conv_scope(sp):
+        mask_t = torch.as_tensor(mask, dtype=torch.float32).to(device) * counted
+        with spatial_conv_scope(sp), tensor_scope(tp):
             out, _stats = forward_with_stats(model, x, sample_posterior=False)
         recon = out["reconstruction"].float()
         per_sample_sq_sum = (recon - x.float()).square().sum(dim=(1, 2, 3))

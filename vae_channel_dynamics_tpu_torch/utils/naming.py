@@ -29,7 +29,8 @@ def groupnorm_channel_map(model: nn.Module) -> Dict[str, Tuple[str, int]]:
     for mod_name, module in model.named_modules():
         if not isinstance(module, GroupNorm):
             continue
-        entry = (f"{mod_name}.weight", int(module.weight.shape[0]))
+        # the whole layer's channels (a tensor rank holds a block of them)
+        entry = (f"{mod_name}.weight", int(module.channels))
         mapping[f"{mod_name}.output"] = entry
         if not mod_name.startswith("vae."):
             mapping[f"vae.{mod_name}.output"] = entry
