@@ -14,11 +14,12 @@ failure exits non-zero without the final ``ok`` line:
    nvcc each, started together), the seconds each took, and ptxas's
    registers and spills (none, and no stack frame, in the fp32 flash
    forward, the two bf16 backward kernels and the fp32 backward; no more
-   than SPILL_LIMITS pins in the bf16 forward), and the backward's cluster
-   size at each width; for the kernels on wgmma/TMA through
-   ``csrc/sm90_wgmma.cuh`` (the bf16 and fp32 flash forwards, the bf16 and
-   fp32 dK/dV and dQ kernels, #9, #10 and #12 on the shared loop of
-   ``csrc/sm90_conv3x3.cuh``, #11), the HGMMA, UTMALDG and HMMA
+   than SPILL_LIMITS pins in the bf16 forward and the fp32 fused resnet
+   kernels), and the backward's cluster size at each width; for the kernels
+   on wgmma/TMA through ``csrc/sm90_wgmma.cuh`` (the bf16 and fp32 flash
+   forwards, the bf16 and fp32 dK/dV and dQ kernels, #9, #10 and #12 on the
+   shared loop of ``csrc/sm90_conv3x3.cuh``, #9 and #10 at fp32 on its
+   3xTF32 loop, #11 in bf16 and fp32), the HGMMA, UTMALDG and HMMA
    instructions in their SASS (cuobjdump): HGMMA and UTMALDG present, no
    HMMA; and the fp32 backward's shared memory at each width; then
    ``tools/doctor.py --device cuda`` in-process, every check passing;
@@ -74,18 +75,25 @@ failure exits non-zero without the final ``ok`` line:
    SiLU bit-equal to plain, their sums' bound rejecting the last split's
    partial left out and dx's bound the last split's chunk left unwritten;
    forward and backward times from CUDA events;
-5'. the fused resnet kernels vs plain, bf16, at the 256px fused path's
-   (16, 512, 32, 32) -> 512 and at (16, 256, 64, 64) -> 512: #9 with and
-   without the residual, with the |z| tap and the moments (also bit-equal
-   run to run), #10 on the flipped weight (also bit-equal run to run), #11
-   (also bit-equal run to run), each bound shown to reject a planted fault
-   (the border mask skipped, the halo rows tapped, the moments before the
-   residual, the weight not flipped, dy's last 64-channel K chunk left out,
-   the last pixel chunk left out); kernel, plain, bound and cuDNN times, and
-   #10's device time by kernel (torch.profiler: its NHWC copy of dy, its
-   loop); then the whole fused op against the unfused sequence (pallas
-   GroupNorm, cuDNN conv, add), forward and forward+backward, at 32x32,
-   64x64 and 128x128;
+5'. the fused resnet kernels vs plain, in bf16 and in fp32 (the ``_f32``
+   kernels, 3xTF32), at the 256px fused path's (16, 512, 32, 32) -> 512 and
+   at (16, 256, 64, 64) -> 512: #9 with and without the residual, with the
+   |z| tap and the moments (also bit-equal run to run), #10 on the flipped
+   weight (also bit-equal run to run), #11 (also bit-equal run to run), each
+   bound shown to reject a planted fault (the border mask skipped, the halo
+   rows tapped, the moments before the residual, the weight not flipped,
+   dy's last 64-channel K chunk left out, the last pixel chunk left out; at
+   fp32 also the lo products left out); at fp32 y, ds and dW within relative
+   L2 1e-5 of the plain version in fp64; kernel, plain, bound and cuDNN
+   times (TF32 off at fp32), and #10's device time by kernel
+   (torch.profiler: its NHWC copy of dy, its loop); then the op at fp32,
+   this slice's path: ``gn_silu_conv3x3`` forward and backward at
+   (16, 512, 32, 32), every launch counter reset before and read after
+   (one launch of each ``_f32`` kernel, #1, #4 and #5), against plain
+   autograd in fp64 (every gradient within 1e-5); then the whole fused op
+   against the unfused sequence (pallas GroupNorm, cuDNN conv, add),
+   forward and forward+backward, at 32x32, 64x64 and 128x128 in bf16 and at
+   32x32 in fp32;
 6. training slice: the full-width SDXL VAE (seeded fp32 master weights, bf16
    compute, GroupNorm ``impl="pallas"``) trains 30 steps at 256px, batch 16,
    on seeded uint8 batches, with bench.py's four norm1 taps, AdamW as
@@ -528,6 +536,21 @@ FUSED_SHAPES = (((16, 512, 32, 32), 512), ((16, 256, 64, 64), 512))
 FUSED_ULPS = 4
 FUSED_REL_L2 = 1e-2
 FUSED_SUM_REL = 1e-3
+# The same kernels at fp32 (the _f32 kernels, 3xTF32), at FUSED_SHAPES: y, ds
+# and dW within relative L2 FUSED_F32_REL_L2 of the plain version evaluated in
+# fp64 (cuDNN's fp32 weight gradient with TF32 off is itself about 1.2e-5 from
+# fp64 at (16, 256, 64, 64) -> 512, which the kernel is not), the fp32 sums
+# within FUSED_F32_SUM_REL of max|plain|; faults as bf16, plus the lo products
+# left out (1xTF32). The path of this slice: the op's entry at fp32, forward
+# and backward at FUSED_OP_SHAPES[0], against plain autograd in fp64, its
+# launches the kernels line's. The model fuses bf16 only (the JAX gate), so
+# no Trainer run launches these.
+FUSED_F32_REL_L2 = 1e-5
+FUSED_F32_SUM_REL = 1e-4
+FUSED_F32_REPLACES = {name + "_f32": where + " (fp32)" for name, where in FUSED_REPLACES.items()}
+FUSED_F32_NOTE = ("3xTF32 on wgmma/TMA, every accumulation short (see PERF.md section 6); "
+                  "launched by the op's entry at fp32 (the model fuses bf16 only); bound: 3 x "
+                  "its FLOPs at the TF32 rate")
 FUSED_ITERS = 10
 # the whole fused op against the unfused sequence (the pallas GroupNorm
 # kernels, cuDNN's conv, the residual add), C -> C channels
@@ -756,19 +779,21 @@ _MANGLED_ARG = r"f|13__nv_bfloat16|L[ib](\d+)E"
 
 def kernel_label(mangled: str) -> str:
     """``name<args>`` of a mangled ``*_kernel`` entry point (its name is the
-    ``<length><name>`` whose name ends in ``_kernel``; its template arguments
-    fp32, bf16, ints and bools), else the mangled name."""
+    last ``<length><name>`` whose name ends in ``_kernel``: the anonymous
+    namespace's hash before it, which changes with the source's path, can
+    read as such a pair too; its template arguments fp32, bf16, ints and
+    bools), else the mangled name."""
+    label = mangled
     for m in re.finditer(r"(?=(\d+)([a-z_]\w*))", mangled):
         size, rest = int(m.group(1)), m.group(2)
         name = rest[:size]
         if len(name) == size and name.endswith("_kernel"):
             args = re.match(rf"I((?:{_MANGLED_ARG})+)", rest[size:])
-            if not args:
-                return name
             types = {"f": "fp32", "13__nv_bfloat16": "bf16"}
-            return name + "<" + ",".join(types.get(a.group(0), a.group(1)) for a in
-                                         re.finditer(_MANGLED_ARG, args.group(1))) + ">"
-    return mangled
+            label = name if not args else name + "<" + ",".join(
+                types.get(a.group(0), a.group(1))
+                for a in re.finditer(_MANGLED_ARG, args.group(1))) + ">"
+    return label
 
 
 # The kernels redesigned on wgmma/TMA (csrc/sm90_wgmma.cuh): their SASS must
@@ -776,6 +801,9 @@ def kernel_label(mangled: str) -> str:
 WGMMA_KERNELS = {"conv3x3_nhwc_kernel": "conv_nhwc", "conv3x3_dw_kernel": "fused_resnet",
                  "fused_gn_silu_conv3x3_kernel": "fused_resnet",
                  "conv3x3_nchw_kernel": "fused_resnet",
+                 "fused_gn_silu_conv3x3_f32_kernel": "fused_resnet",
+                 "conv3x3_nchw_f32_kernel": "fused_resnet",
+                 "conv3x3_dw_f32_kernel": "fused_resnet",
                  "flash_fwd_f32_kernel": "flash_attention_fwd",
                  "flash_fwd_kernel": "flash_attention_fwd",
                  "flash_bwd_dkv_kernel": "flash_attention_bwd",
@@ -789,7 +817,10 @@ NO_STACK = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
 # were built: the bf16 forward's consumers hold O, 128 fp32 a thread at
 # C = 512, in the 232 registers the producer warpgroup hands them
 SPILL_LIMITS = {"flash_fwd_kernel<512>": 24, "flash_fwd_kernel<384>": 0,
-                "flash_fwd_kernel<256>": 0, "flash_fwd_kernel<128>": 0}
+                "flash_fwd_kernel<256>": 0, "flash_fwd_kernel<128>": 0,
+                # the fp32 fused resnet kernels: 168 registers a thread, no spills
+                "fused_gn_silu_conv3x3_f32_kernel": 0, "conv3x3_nchw_f32_kernel": 0,
+                "conv3x3_dw_f32_kernel<32>": 0, "conv3x3_dw_f32_kernel<16>": 0}
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 
 
@@ -855,8 +886,9 @@ def phase_build():
         log(f"[build] {source}: nvcc {_cuda_build.build_seconds.get(lib, 0.0):.2f} s; "
             f"ptxas per instantiation: {entries}")
     # (a library found already built prints no ptxas report)
-    check(not _cuda_build.build_logs.get(flash_attention.FWD_LIBRARY)
-          or pinned == set(SPILL_LIMITS), f"no ptxas report for {set(SPILL_LIMITS) - pinned}")
+    unreported = {kernel for kernel in set(SPILL_LIMITS) - pinned
+                  if _cuda_build.build_logs.get(WGMMA_KERNELS[kernel.split("<")[0]])}
+    check(not unreported, f"no ptxas report for {unreported}")
     # the fp32 backward's dynamic shared memory a CTA, dK/dV and dQ, by width
     smem = _cuda_build.load(flash_attention.BWD_F32_LIBRARY).vcd_flash_attention_bwd_f32_smem
     smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
@@ -2312,26 +2344,31 @@ def _halo_tap(x, a, o, tap):
     return tap + z.abs().sum(dim=(2, 3))
 
 
-def _dw_splits(n, cin, cout, h, w) -> int:
-    """conv3x3_dw's split count as its wrapper chooses it: from the clusters
-    this card holds at once (the default model off the card)."""
+def _dw_splits(n, cin, cout, h, w, f32: bool = False) -> int:
+    """conv3x3_dw's (``_f32``'s with ``f32``) split count as its wrapper
+    chooses it: from the clusters this card holds at once (the default
+    model off the card)."""
     from vae_channel_dynamics_tpu_torch.ops import fused_resnet as fr
 
-    on_card = (lambda k: fr.dw_max_clusters(w, k)) if DEVICE == "cuda" else None
-    return fr.dw_splits(n, cin, cout, h, w, on_card)
+    on_card = (lambda k: fr.dw_max_clusters(w, k, f32=f32)) if DEVICE == "cuda" else None
+    return fr.dw_splits(n, cin, cout, h, w, on_card, f32=f32)
 
 
 def _last_chunk_dropped(dy, n, cin, cout, h, w):
     """dy with the pixels of conv3x3_dw's last pixel chunk zeroed: what a
     kernel that left out its last split would sum (the planted fault of
     #11). Chunk k covers units [k*U//S, (k+1)*U//S) of the U = dw_units
-    rows x cols pixel units, in order of (sample, unit row, unit column)."""
+    rows x cols pixel units, in order of (sample, unit row, unit column);
+    at fp32 the ``_f32`` kernel's units and splits."""
+    import torch
+
     from vae_channel_dynamics_tpu_torch.ops import fused_resnet as fr
 
-    rows, cols = fr.dw_unit(w)
-    units = fr.dw_units(n, h, w)
+    f32 = dy.dtype == torch.float32
+    rows, cols = fr.dw_unit(w, f32)
+    units = fr.dw_units(n, h, w, f32)
     per_image, units_w = units // n, w // cols
-    splits = _dw_splits(n, cin, cout, h, w)
+    splits = _dw_splits(n, cin, cout, h, w, f32)
     out = dy.clone()
     for g in range((splits - 1) * units // splits, units):
         nn_, u = divmod(g, per_image)
@@ -2340,18 +2377,22 @@ def _last_chunk_dropped(dy, n, cin, cout, h, w):
     return out
 
 
-def fused_bounds(n, cin, cout, h, w) -> dict:
-    """Each fused kernel's bound: 2 N H W 9 Cin Cout FLOPs, and the bytes of
-    its bf16 activations and weight and fp32 vectors, each read or written
-    once (#9 with the residual and the tap, as the path's conv2 runs it)."""
-    flops = 2 * n * h * w * 9 * cin * cout
-    act_in, act_out, wbytes = 2 * n * cin * h * w, 2 * n * cout * h * w, 2 * 9 * cin * cout
-    vec = 4 * n * cin
+def fused_bounds(n, cin, cout, h, w, f32: bool = False) -> dict:
+    """Each fused kernel's bound: 2 N H W 9 Cin Cout FLOPs (three times that
+    at the TF32 rate at fp32, 3xTF32), and the bytes of its activations and
+    weight (bf16, or fp32) and fp32 vectors, each read or written once (#9
+    with the residual and the tap, as the path's conv2 runs it)."""
+    size, scale, rate = (4, 3, PEAK_TF32_FLOPS) if f32 else (2, 1, PEAK_BF16_FLOPS)
+    flops = scale * 2 * n * h * w * 9 * cin * cout
+    act_in, act_out = size * n * cin * h * w, size * n * cout * h * w
+    wbytes, vec = size * 9 * cin * cout, 4 * n * cin
+    dw_bytes = 4 * 9 * cin * cout
+    sfx = "_f32" if f32 else ""
     return {
-        "fused_gn_silu_conv3x3": roofline(flops, act_in + 2 * act_out + wbytes + 3 * vec
-                                          + 4 * cout),
-        "conv3x3": roofline(flops, act_out + act_in + wbytes),
-        "conv3x3_dw": roofline(flops, act_in + act_out + 2 * vec + 2 * wbytes),
+        "fused_gn_silu_conv3x3" + sfx: roofline(flops, act_in + 2 * act_out + wbytes + 3 * vec
+                                                + 4 * cout, rate),
+        "conv3x3" + sfx: roofline(flops, act_out + act_in + wbytes, rate),
+        "conv3x3_dw" + sfx: roofline(flops, act_in + act_out + 2 * vec + dw_bytes, rate),
     }
 
 
@@ -2387,11 +2428,22 @@ def _self_device_us(evt) -> float:
     return getattr(evt, "self_cuda_time_total", 0.0) if us is None else us
 
 
+def f64_errors(out, ref64) -> tuple[float, float]:
+    """Max abs and relative L2 error of an fp32 ``out`` against an fp64
+    reference."""
+    d = out.double() - ref64
+    return d.abs().max().item(), (d.norm() / ref64.norm()).item()
+
+
+def _f64(*tensors):
+    return [None if t is None else t.double() for t in tensors]
+
+
 def phase_fused_kernels():
     """The three fused resnet kernels against their plain versions at
-    FUSED_SHAPES, with planted faults, CUDA-event times beside their bound
-    and cuDNN's yardstick; then the whole fused op against the unfused
-    sequence, forward and forward+backward, at FUSED_OP_SHAPES."""
+    FUSED_SHAPES, in bf16 and in fp32 (the ``_f32`` kernels), with planted
+    faults, CUDA-event times beside their bound and cuDNN's yardstick; then
+    the whole fused op (``phase_fused_op``)."""
     import torch
     import torch.nn.functional as F
 
@@ -2399,206 +2451,322 @@ def phase_fused_kernels():
     from vae_channel_dynamics_tpu_torch.ops import group_norm_kernel as gnk
 
     torch.backends.cudnn.allow_tf32 = False
-    bf16 = torch.bfloat16
+    torch.backends.cuda.matmul.allow_tf32 = False
     results = {name: {"max_abs_err": 0.0} for name in fr.KERNELS}
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=DEVICE)
 
-    for shape, cout in FUSED_SHAPES:
-        n, cin, h, w = shape
-        x = (randn(*shape) * 2.0 + 0.5).to(bf16)
-        gamma, beta = 1.0 + 0.1 * randn(cin), 0.1 * randn(cin)
-        wt = (randn(cout, cin, 3, 3) / math.sqrt(9 * cin)).to(bf16)
-        bias = 0.1 * randn(cout)
-        res, dy = randn(n, cout, h, w).to(bf16), randn(n, cout, h, w).to(bf16)
-        sums, sqs = gnk.fwd_reduce_reference(x)
-        mean, rstd = gnk._group_stats(sums, sqs, h * w, GN_GROUPS, GN_EPS)
-        a, o = gnk._affine_coeffs(mean, rstd, gamma, beta, GN_GROUPS)
-        lines = []
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        sfx, tag = ("_f32", "fp32") if f32 else ("", "bf16")
+        for shape, cout in FUSED_SHAPES:
+            n, cin, h, w = shape
+            x = (randn(*shape) * 2.0 + 0.5).to(dtype)
+            gamma, beta = 1.0 + 0.1 * randn(cin), 0.1 * randn(cin)
+            wt = (randn(cout, cin, 3, 3) / math.sqrt(9 * cin)).to(dtype)
+            bias = 0.1 * randn(cout)
+            res, dy = randn(n, cout, h, w).to(dtype), randn(n, cout, h, w).to(dtype)
+            sums, sqs = gnk.fwd_reduce_reference(x)
+            mean, rstd = gnk._group_stats(sums, sqs, h * w, GN_GROUPS, GN_EPS)
+            a, o = gnk._affine_coeffs(mean, rstd, gamma, beta, GN_GROUPS)
+            lines = []
 
-        def held_bf16(name, what, out, ref, fault):
-            err, rel = kernel_errors(out, ref)
-            bound = FUSED_ULPS * bf16_ulp(ref.float().abs().max().item())
-            fault_err, fault_rel = kernel_errors(fault, ref)
-            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
-            lines.append(f"{what}: max abs {err:.4g} (bound {bound:.4g}), rel L2 {rel:.3g} "
-                         f"(bound {FUSED_REL_L2}); planted fault max abs {fault_err:.4g}, "
-                         f"rel L2 {fault_rel:.3g}")
-            check(err <= bound and rel <= FUSED_REL_L2,
-                  f"{what} disagrees with plain at {shape} -> {cout}: {err}, {rel}")
-            check(fault_err > bound or fault_rel > FUSED_REL_L2,
-                  f"the {what} bound at {shape} -> {cout} does not reject its planted fault")
+            def held_out(name, what, out, plain, faults):
+                """bf16: to plain within FUSED_ULPS bf16 ulps and FUSED_REL_L2;
+                fp32: to ``plain`` evaluated in fp64 within FUSED_F32_REL_L2
+                (and the fp32 plain's own distance from fp64 logged). Every
+                planted fault must break the bound."""
+                name += sfx
+                if f32:
+                    ref64 = plain(_f64)
+                    err, rel = f64_errors(out, ref64)
+                    bound_abs, bound_rel = math.inf, FUSED_F32_REL_L2
+                    plain32 = plain(lambda *t: t)
+                    note = (f" (fp32 plain: rel L2 {f64_errors(plain32, ref64)[1]:.3g} from "
+                            f"fp64, the kernel {kernel_errors(out, plain32)[1]:.3g} from it)")
+                    del plain32
+                    fault_errs = [f64_errors(f, ref64) for _fname, f in faults]
+                else:
+                    ref = plain(lambda *t: t)
+                    err, rel = kernel_errors(out, ref)
+                    bound_abs = FUSED_ULPS * bf16_ulp(ref.float().abs().max().item())
+                    bound_rel, note = FUSED_REL_L2, ""
+                    fault_errs = [kernel_errors(f, ref) for _fname, f in faults]
+                results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+                lines.append(f"{what}: max abs {err:.4g}, rel L2 {rel:.3g} (bound {bound_rel})"
+                             + note + "; planted faults " + ", ".join(
+                                 f"{fname} rel L2 {fe[1]:.3g}"
+                                 for (fname, _f), fe in zip(faults, fault_errs)))
+                check(err <= bound_abs and rel <= bound_rel,
+                      f"{what} disagrees with plain at {shape} -> {cout} {tag}: {err}, {rel}")
+                for (fname, _f), (fe, fr_) in zip(faults, fault_errs):
+                    check(fe > bound_abs or fr_ > bound_rel,
+                          f"the {what} bound at {shape} -> {cout} {tag} does not reject {fname}")
 
-        def held_sum(name, what, out, ref, fault):
-            err, fault_err = sum_rel_err(out, ref), sum_rel_err(fault, ref)
-            results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
-                                               max_abs_err(out, ref))
-            lines.append(f"{what}: rel {err:.3g} (bound {FUSED_SUM_REL}); planted fault "
-                         f"{fault_err:.3g}")
-            check(err <= FUSED_SUM_REL, f"{what} disagrees with plain at {shape}: {err}")
-            check(fault_err > FUSED_SUM_REL,
-                  f"the {what} bound at {shape} does not reject its planted fault")
+            sum_bound = FUSED_F32_SUM_REL if f32 else FUSED_SUM_REL
 
-        # 9: without the residual (conv1), then with it, the tap and the moments
-        y0, _, _ = fr.fused_fwd(x, a, o, wt, bias)
-        y, tap, (ysum, ysq) = fr.fused_fwd(x, a, o, wt, bias, res, True, True)
-        y2, tap2, (ysum2, ysq2) = fr.fused_fwd(x, a, o, wt, bias, res, True, True)
-        sync()
-        check(all(torch.equal(u, w2) for u, w2 in ((y, y2), (tap, tap2), (ysum, ysum2),
-                                                    (ysq, ysq2))),
-              f"#9 differs between two runs at {shape} -> {cout}")
-        del y2, tap2, ysum2, ysq2
-        py0, _, _ = fr.fused_fwd_reference(x, a, o, wt, bias)
-        held_bf16("fused_gn_silu_conv3x3", "#9 y", y0, py0,
-                  _fused_fwd_unmasked(x, a, o, wt, bias, torch.zeros_like(res)))
-        del y0, py0
-        py, ptap, (psum, psq) = fr.fused_fwd_reference(x, a, o, wt, bias, res, True, True)
-        held_bf16("fused_gn_silu_conv3x3", "#9 y + residual", y, py,
-                  _fused_fwd_unmasked(x, a, o, wt, bias, res))
-        held_sum("fused_gn_silu_conv3x3", "#9 sum |z| tap", tap, ptap, _halo_tap(x, a, o, ptap))
-        _, _, (fsum, fsq) = fr.fused_fwd_reference(x, a, o, wt, bias, None, False, True)
-        held_sum("fused_gn_silu_conv3x3", "#9 sum y", ysum, psum, fsum)
-        held_sum("fused_gn_silu_conv3x3", "#9 sum y^2", ysq, psq, fsq)
-        del y, tap, ysum, ysq, py, ptap, psum, psq, fsum, fsq
-        # 10: the backward's ds = conv3x3(dy, w flipped and channel-swapped)
-        # (faults: the weight not flipped; dy's last 64-channel K chunk left out)
-        wf = fr.flipped_weight(wt)
-        ds = fr.conv3x3(dy, wf)
-        ds2 = fr.conv3x3(dy, wf)
-        sync()
-        check(torch.equal(ds, ds2), f"#10 ds differs between two runs at {shape} -> {cout}")
-        pds = fr.conv3x3_reference(dy, wf)
-        held_bf16("conv3x3", "#10 ds", ds, pds, fr.conv3x3_reference(dy, wt.transpose(0, 1)))
-        dy_short = dy.clone()
-        dy_short[:, -64:] = 0
-        held_bf16("conv3x3", "#10 ds (fault: the last K chunk)", ds, pds,
-                  fr.conv3x3_reference(dy_short, wf))
-        del ds, ds2, pds, dy_short
-        # 11: dW, s recomputed from x
-        dw = fr.conv_dw(x, a, o, dy)
-        dw2 = fr.conv_dw(x, a, o, dy)
-        sync()
-        check(torch.equal(dw, dw2), f"#11 dW differs between two runs at {shape}")
-        held_sum("conv3x3_dw", "#11 dW", dw, fr.conv_dw_reference(x, a, o, dy),
-                 fr.conv_dw_reference(x, a, o, _last_chunk_dropped(dy, n, cin, cout, h, w)))
-        del dw, dw2
-        release()
+            def held_sum(name, what, out, ref, fault):
+                name += sfx
+                err, fault_err = sum_rel_err(out, ref), sum_rel_err(fault, ref)
+                results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                                   max_abs_err(out, ref))
+                lines.append(f"{what}: rel {err:.3g} (bound {sum_bound}); planted fault "
+                             f"{fault_err:.3g}")
+                check(err <= sum_bound, f"{what} disagrees with plain at {shape} {tag}: {err}")
+                check(fault_err > sum_bound,
+                      f"the {what} bound at {shape} {tag} does not reject its planted fault")
 
-        # times, in turns: plain, kernel, kernel, plain; the library yardsticks
-        # on the pre-normalised input s
-        z = x.float() * a[:, :, None, None] + o[:, :, None, None]
-        s = (z * torch.sigmoid(z)).to(bf16)
-        del z
-        bias16 = bias.to(bf16)
-        times = {
-            "fused_gn_silu_conv3x3": timed_pair(
-                lambda: fr.fused_fwd(x, a, o, wt, bias, res, True),
-                lambda: fr.fused_fwd_reference(x, a, o, wt, bias, res, True), FUSED_ITERS),
-            "conv3x3": timed_pair(lambda: fr.conv3x3(dy, wf),
-                                  lambda: fr.conv3x3_reference(dy, wf), FUSED_ITERS),
-            "conv3x3_dw": timed_pair(lambda: fr.conv_dw(x, a, o, dy),
-                                     lambda: fr.conv_dw_reference(x, a, o, dy), FUSED_ITERS),
-        }
-        library = {
-            "fused_gn_silu_conv3x3": (
-                cuda_ms(lambda: F.conv2d(s, wt, bias16, padding=1), FUSED_ITERS),
-                "F.conv2d on the pre-normalised input (the conv alone)"),
-            "conv3x3": (cuda_ms(lambda: torch.nn.grad.conv2d_input(x.shape, wt, dy, padding=1),
-                                FUSED_ITERS), "torch.nn.grad.conv2d_input"),
-            "conv3x3_dw": (cuda_ms(lambda: torch.nn.grad.conv2d_weight(s, wt.shape, dy,
+            def hi_only(*tensors):
+                """The operands of the tensor-core products rounded to their
+                TF32 hi, in fp64: the 1xTF32 fault of the fp32 kernels."""
+                return [tf32_hi(t).double() for t in tensors]
+
+            # 9: without the residual (conv1), then with it, the tap and the moments
+            y0, _, _ = fr.fused_fwd(x, a, o, wt, bias)
+            y, tap, (ysum, ysq) = fr.fused_fwd(x, a, o, wt, bias, res, True, True)
+            y2, tap2, (ysum2, ysq2) = fr.fused_fwd(x, a, o, wt, bias, res, True, True)
+            sync()
+            check(all(torch.equal(u, w2) for u, w2 in ((y, y2), (tap, tap2), (ysum, ysum2),
+                                                        (ysq, ysq2))),
+                  f"#9 differs between two runs at {shape} -> {cout} {tag}")
+            del y2, tap2, ysum2, ysq2
+            z = x.float() * a[:, :, None, None] + o[:, :, None, None]
+            s = (z * torch.sigmoid(z)).to(dtype)
+            del z
+
+            def hi_fwd(resid):
+                sh, wh = hi_only(s, wt)
+                out = F.conv2d(sh, wh, padding=1) + bias.double()[None, :, None, None]
+                return out if resid is None else out + resid.double()
+
+            faults0 = [("the border mask skipped",
+                        _fused_fwd_unmasked(x, a, o, wt, bias, torch.zeros_like(res)))]
+            faults = [("the border mask skipped", _fused_fwd_unmasked(x, a, o, wt, bias, res))]
+            if f32:
+                faults0.append(("1xTF32", hi_fwd(None)))
+                faults.append(("1xTF32", hi_fwd(res)))
+            held_out("fused_gn_silu_conv3x3", "#9 y", y0,
+                     lambda cast: fr.fused_fwd_reference(*cast(x, a, o, wt, bias))[0], faults0)
+            held_out("fused_gn_silu_conv3x3", "#9 y + residual", y,
+                     lambda cast: fr.fused_fwd_reference(*cast(x, a, o, wt, bias, res))[0],
+                     faults)
+            del y0, faults0, faults
+            _py, ptap, (psum, psq) = fr.fused_fwd_reference(x, a, o, wt, bias, res, True, True)
+            held_sum("fused_gn_silu_conv3x3", "#9 sum |z| tap", tap, ptap,
+                     _halo_tap(x, a, o, ptap))
+            _, _, (fsum, fsq) = fr.fused_fwd_reference(x, a, o, wt, bias, None, False, True)
+            held_sum("fused_gn_silu_conv3x3", "#9 sum y", ysum, psum, fsum)
+            held_sum("fused_gn_silu_conv3x3", "#9 sum y^2", ysq, psq, fsq)
+            del y, tap, ysum, ysq, _py, ptap, psum, psq, fsum, fsq
+            # 10: the backward's ds = conv3x3(dy, w flipped and channel-swapped)
+            # (faults: the weight not flipped; dy's last 64-channel K chunk left
+            # out; at fp32 the lo products left out)
+            wf = fr.flipped_weight(wt)
+            ds = fr.conv3x3(dy, wf)
+            ds2 = fr.conv3x3(dy, wf)
+            sync()
+            check(torch.equal(ds, ds2), f"#10 ds differs between two runs at {shape} {tag}")
+            dy_short = dy.clone()
+            dy_short[:, -64:] = 0
+            faults = [("the weight not flipped", fr.conv3x3_reference(dy, wt.transpose(0, 1))),
+                      ("the last K chunk", fr.conv3x3_reference(dy_short, wf))]
+            if f32:
+                faults.append(("1xTF32", F.conv2d(*hi_only(dy, wf), padding=1)))
+            held_out("conv3x3", "#10 ds", ds, lambda cast: fr.conv3x3_reference(*cast(dy, wf)),
+                     faults)
+            del ds, ds2, dy_short, faults
+            # 11: dW, s recomputed from x
+            dw = fr.conv_dw(x, a, o, dy)
+            dw2 = fr.conv_dw(x, a, o, dy)
+            sync()
+            check(torch.equal(dw, dw2), f"#11 dW differs between two runs at {shape} {tag}")
+            faults = [("the last pixel chunk", fr.conv_dw_reference(
+                x, a, o, _last_chunk_dropped(dy, n, cin, cout, h, w)))]
+            if f32:
+                faults.append(("1xTF32", torch.nn.grad.conv2d_weight(
+                    hi_only(s)[0], tuple(wt.shape), hi_only(dy)[0], padding=1)))
+                held_out("conv3x3_dw", "#11 dW", dw,
+                         lambda cast: fr.conv_dw_reference(*cast(x, a, o, dy)), faults)
+            else:
+                held_sum("conv3x3_dw", "#11 dW", dw, fr.conv_dw_reference(x, a, o, dy),
+                         faults[0][1])
+            del dw, dw2, faults
+            release()
+
+            # times, in turns: plain, kernel, kernel, plain; the library
+            # yardsticks (cuDNN, TF32 off at fp32) on the pre-normalised input s
+            bias_t = bias.to(dtype)
+            times = {
+                "fused_gn_silu_conv3x3": timed_pair(
+                    lambda: fr.fused_fwd(x, a, o, wt, bias, res, True),
+                    lambda: fr.fused_fwd_reference(x, a, o, wt, bias, res, True), FUSED_ITERS),
+                "conv3x3": timed_pair(lambda: fr.conv3x3(dy, wf),
+                                      lambda: fr.conv3x3_reference(dy, wf), FUSED_ITERS),
+                "conv3x3_dw": timed_pair(lambda: fr.conv_dw(x, a, o, dy),
+                                         lambda: fr.conv_dw_reference(x, a, o, dy),
+                                         FUSED_ITERS),
+            }
+            library = {
+                "fused_gn_silu_conv3x3": (
+                    cuda_ms(lambda: F.conv2d(s, wt, bias_t, padding=1), FUSED_ITERS),
+                    "F.conv2d on the pre-normalised input (the conv alone)"),
+                "conv3x3": (cuda_ms(lambda: torch.nn.grad.conv2d_input(x.shape, wt, dy,
                                                                        padding=1),
-                                   FUSED_ITERS),
-                           "torch.nn.grad.conv2d_weight on the pre-normalised input"),
-        }
-        # where #10's time goes: the weight copies, the NHWC copy of dy (the
-        # pre-pass in its identity mode) and the loop
-        by_kernel = device_ms_by_kernel(lambda: fr.conv3x3(dy, wf), FUSED_ITERS)
-        lines.append("#10 device ms a call by kernel (torch.profiler): " + (", ".join(
-            f"{k[:60]} {v:.4f}" for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1]))
-            or "not measured off the card"))
-        bounds = fused_bounds(n, cin, cout, h, w)
-        if (shape, cout) == FUSED_SHAPES[0]:
-            for name in fr.KERNELS:
-                results[name].update(
-                    shape=[*shape, cout], ms=times[name][0], plain_ms=times[name][1],
-                    bound_ms=bounds[name][0], bound_by=bounds[name][1],
-                    library_ms=library[name][0], library_covers=library[name][1])
-        held = ([fr.dw_max_clusters(w, k) for k in range(1, fr.DW_MAX_SPLITS + 1)]
-                if DEVICE == "cuda" else "not queried off the card")
-        lines.append("#9, #10 and #11 bit-equal run to run")
-        lines.append(f"#11 splits {_dw_splits(n, cin, cout, h, w)} (clusters of 1-"
-                     f"{fr.DW_MAX_SPLITS} blocks the card holds at once: {held})")
-        log(f"[fused] {shape} -> {cout} bf16: " + "; ".join(lines))
-        log(f"[fused] {shape} -> {cout} ms kernel/plain/bound/library (CUDA events, "
-            f"{FUSED_ITERS} calls, in turns): " + ", ".join(
-                f"{name} {times[name][0]:.4f}/{times[name][1]:.4f}/{bounds[name][0]:.4f}/"
-                f"{library[name][0]:.4f} ({100 * bounds[name][0] / times[name][0]:.1f}% of "
-                f"bound, {bounds[name][1]})" for name in fr.KERNELS))
-        del x, res, dy, s, wf, a, o
-        release()
-    phase_fused_op()
+                                    FUSED_ITERS), "torch.nn.grad.conv2d_input"),
+                "conv3x3_dw": (cuda_ms(lambda: torch.nn.grad.conv2d_weight(s, wt.shape, dy,
+                                                                           padding=1),
+                                       FUSED_ITERS),
+                               "torch.nn.grad.conv2d_weight on the pre-normalised input"),
+            }
+            if f32:
+                for name, (ms, covers) in library.items():
+                    library[name] = (ms, covers + ", fp32 with TF32 off")
+            # where #10's time goes: the weight copies, the NHWC copy of dy (the
+            # pre-pass in its identity mode) and the loop
+            by_kernel = device_ms_by_kernel(lambda: fr.conv3x3(dy, wf), FUSED_ITERS)
+            lines.append("#10 device ms a call by kernel (torch.profiler): " + (", ".join(
+                f"{k[:60]} {v:.4f}" for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1]))
+                or "not measured off the card"))
+            bounds = fused_bounds(n, cin, cout, h, w, f32)
+            if (shape, cout) == FUSED_SHAPES[0]:
+                for name in fr.BF16_KERNELS:
+                    results[name + sfx].update(
+                        shape=[*shape, cout], ms=times[name][0], plain_ms=times[name][1],
+                        bound_ms=bounds[name + sfx][0], bound_by=bounds[name + sfx][1],
+                        library_ms=library[name][0], library_covers=library[name][1])
+            held = ([fr.dw_max_clusters(w, k, f32=f32) for k in range(1, fr.DW_MAX_SPLITS + 1)]
+                    if DEVICE == "cuda" else "not queried off the card")
+            lines.append("#9, #10 and #11 bit-equal run to run")
+            lines.append(f"#11 splits {_dw_splits(n, cin, cout, h, w, f32)} (clusters of 1-"
+                         f"{fr.DW_MAX_SPLITS} blocks the card holds at once: {held})")
+            log(f"[fused] {shape} -> {cout} {tag}: " + "; ".join(lines))
+            log(f"[fused] {shape} -> {cout} {tag} ms kernel/plain/bound/library (CUDA events, "
+                f"{FUSED_ITERS} calls, in turns): " + ", ".join(
+                    f"{name}{sfx} {times[name][0]:.4f}/{times[name][1]:.4f}/"
+                    f"{bounds[name + sfx][0]:.4f}/{library[name][0]:.4f} "
+                    f"({100 * bounds[name + sfx][0] / times[name][0]:.1f}% of bound, "
+                    f"{bounds[name + sfx][1]})" for name in fr.BF16_KERNELS))
+            del x, res, dy, s, wf, a, o
+            release()
+    f32_launches = phase_fused_op()
+    for name, count in f32_launches.items():
+        results[name]["launches"] = count
     return results
 
 
-def phase_fused_op():
-    """The fused op (kernel #1, then #9; backward #10, #11, #4, #5) against
-    the unfused sequence it replaces (the pallas GroupNorm kernels with
-    SiLU, cuDNN's conv, the residual add), forward and forward+backward, at
-    FUSED_OP_SHAPES, C -> C channels."""
+def _plain_op64(x, gamma, beta, w, bias, res):
+    """conv3x3(silu(group_norm(x))) + bias + res in fp64: the fp32 op's
+    reference."""
     import torch
     import torch.nn.functional as F
 
+    z = F.group_norm(x, GN_GROUPS, gamma, beta, GN_EPS)
+    return F.conv2d(z * torch.sigmoid(z), w, padding=1) + bias[None, :, None, None] + res
+
+
+def phase_fused_op() -> dict:
+    """The fused op (kernel #1, then #9; backward #10, #11, #4, #5): in fp32
+    first, this slice's path (the op's entry at the 256px fused path's
+    shape, forward and backward, every launch counter reset before and read
+    after), against plain autograd in fp64; then in bf16 and in fp32 against
+    the unfused sequence it replaces (the pallas GroupNorm kernels with
+    SiLU, cuDNN's conv, the residual add), forward and forward+backward, at
+    FUSED_OP_SHAPES (fp32 at the first), C -> C channels. Returns the fp32
+    kernels' launches on the path."""
+    import torch
+    import torch.nn.functional as F
+
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
     from vae_channel_dynamics_tpu_torch.ops import fused_resnet as fr
     from vae_channel_dynamics_tpu_torch.ops import group_norm_kernel as gnk
 
-    bf16 = torch.bfloat16
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
-    rows = []
-    for shape in FUSED_OP_SHAPES:
+
+    def make(shape, dtype):
         c = shape[1]
-        x = torch.randn(shape, generator=gen, device=DEVICE).to(bf16)
-        res = torch.randn(shape, generator=gen, device=DEVICE).to(bf16)
-        dy = torch.randn(shape, generator=gen, device=DEVICE).to(bf16)
+        x = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+        res = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+        dy = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
         gamma = 1.0 + 0.1 * torch.randn(c, generator=gen, device=DEVICE)
         beta = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
         wt = torch.randn((c, c, 3, 3), generator=gen, device=DEVICE) / math.sqrt(9 * c)
         bias = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
-        leaves = [t.detach().requires_grad_(True) for t in (x, gamma, beta, wt, bias, res)]
+        return (x, gamma, beta, wt, bias, res), dy
 
-        def fused(xx, gg, bb, ww, bi, rr):
-            return fr.gn_silu_conv3x3(xx, gg, bb, ww, bi, num_groups=GN_GROUPS, eps=GN_EPS,
-                                      residual=rr)[0]
+    def fused(xx, gg, bb, ww, bi, rr):
+        return fr.gn_silu_conv3x3(xx, gg, bb, ww, bi, num_groups=GN_GROUPS, eps=GN_EPS,
+                                  residual=rr)[0]
 
-        def unfused(xx, gg, bb, ww, bi, rr):
-            s = gnk.group_norm_silu(xx, gg, bb, GN_GROUPS, GN_EPS, True)
-            return F.conv2d(s, ww.to(bf16), bi.to(bf16), padding=1) + rr
+    # ---- the path: the op at fp32, counts reset, the run, counts read ----
+    (x, gamma, beta, wt, bias, res), dy = make(FUSED_OP_SHAPES[0], torch.float32)
+    leaves = [t.detach().requires_grad_(True) for t in (x, gamma, beta, wt, bias, res)]
+    sync()
+    for counts in (fa.launches, gnk.launches, fr.launches):
+        for name in counts:
+            counts[name] = 0
+    y = fused(*leaves)
+    got = [y.detach()] + list(torch.autograd.grad(y, leaves, dy))
+    sync()
+    launches = {**fa.launches, **gnk.launches, **fr.launches}
+    f32_names = [name + "_f32" for name in fr.BF16_KERNELS]
+    want = {name: int(name in f32_names) for name in (*fa.launches, *fr.launches)}
+    want.update({"gn_fwd_reduce": 1, "gn_fwd_normalize": 0, "gn_bwd_reduce": 1, "gn_bwd_dx": 1})
+    log(f"[fused-op] fp32 path {FUSED_OP_SHAPES[0]}: launches {launches}")
+    check(launches == want, f"the fp32 op launched {launches}, want {want}")
+    leaves64 = [t.detach().double().requires_grad_(True) for t in leaves]
+    y64 = _plain_op64(*leaves64)
+    want_grads = [y64.detach()] + list(torch.autograd.grad(y64, leaves64, dy.double()))
+    rows = []
+    for name, g, p in zip(("y", "dx", "dgamma", "dbeta", "dW", "db", "dres"), got, want_grads):
+        err, rel = f64_errors(g, p)
+        rows.append(f"{name} rel L2 {rel:.3g}")
+        check(g.dtype == torch.float32 and rel <= FUSED_F32_REL_L2,
+              f"the fp32 op's {name} is {rel} (rel L2) from plain autograd in fp64")
+    log("[fused-op] fp32 op against plain autograd in fp64 (bound "
+        f"{FUSED_F32_REL_L2}): " + ", ".join(rows))
+    del x, res, dy, leaves, leaves64, y, y64, got, want_grads
+    release()
 
-        with torch.no_grad():
-            yf, yu = fused(*leaves), unfused(*leaves)
-        _err, rel = kernel_errors(yf, yu)
-        check(rel <= FUSED_REL_L2, f"the fused op is {rel} (rel L2) from the unfused at {shape}")
+    # ---- against the unfused sequence, timed ----
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in FUSED_OP_SHAPES[:1] if dtype == torch.float32 else FUSED_OP_SHAPES:
+            (x, gamma, beta, wt, bias, res), dy = make(shape, dtype)
+            leaves = [t.detach().requires_grad_(True) for t in (x, gamma, beta, wt, bias, res)]
 
-        def forward(op):
-            def run():
-                with torch.no_grad():
-                    op(*leaves)
-            return run
+            def unfused(xx, gg, bb, ww, bi, rr):
+                s = gnk.group_norm_silu(xx, gg, bb, GN_GROUPS, GN_EPS, True)
+                return F.conv2d(s, ww.to(xx.dtype), bi.to(xx.dtype), padding=1) + rr
 
-        def forward_backward(op):
-            return lambda: torch.autograd.grad(op(*leaves), leaves, dy)
+            with torch.no_grad():
+                yf, yu = fused(*leaves), unfused(*leaves)
+            _err, rel = kernel_errors(yf, yu)
+            bound = FUSED_REL_L2 if dtype == torch.bfloat16 else FUSED_F32_REL_L2
+            check(rel <= bound, f"the fused op is {rel} (rel L2) from the unfused at {shape}")
 
-        fwd = timed_pair(forward(fused), forward(unfused), FUSED_ITERS)
-        both = timed_pair(forward_backward(fused), forward_backward(unfused), FUSED_ITERS)
-        rows.append(f"{shape}: forward {fwd[0]:.4f} vs {fwd[1]:.4f} "
-                    f"({fwd[1] / fwd[0]:.2f}x), forward+backward {both[0]:.4f} vs "
-                    f"{both[1]:.4f} ({both[1] / both[0]:.2f}x); rel L2 {rel:.3g}")
-        del x, res, dy, leaves, yf, yu
-        release()
+            def forward(op):
+                def run():
+                    with torch.no_grad():
+                        op(*leaves)
+                return run
+
+            def forward_backward(op):
+                return lambda: torch.autograd.grad(op(*leaves), leaves, dy)
+
+            fwd = timed_pair(forward(fused), forward(unfused), FUSED_ITERS)
+            both = timed_pair(forward_backward(fused), forward_backward(unfused), FUSED_ITERS)
+            rows.append(f"{shape} {'bf16' if dtype == torch.bfloat16 else 'fp32'}: forward "
+                        f"{fwd[0]:.4f} vs {fwd[1]:.4f} ({fwd[1] / fwd[0]:.2f}x), "
+                        f"forward+backward {both[0]:.4f} vs {both[1]:.4f} "
+                        f"({both[1] / both[0]:.2f}x); rel L2 {rel:.3g}")
+            del x, res, dy, leaves, yf, yu
+            release()
     log(f"[fused-op] C -> C channels with the residual, ms fused vs unfused "
-        f"(pallas GroupNorm + SiLU, cuDNN conv, add; CUDA events, {FUSED_ITERS} calls, in "
-        "turns): " + "; ".join(rows))
+        f"(pallas GroupNorm + SiLU, cuDNN conv with TF32 off, add; CUDA events, "
+        f"{FUSED_ITERS} calls, in turns): " + "; ".join(rows))
+    return {name: launches[name] for name in f32_names}
 
 
 def _train_setup():
@@ -3090,7 +3258,7 @@ def phase_fused_trainer(tmp: str):
     release()
 
     fused_convs = 2 * SDXL_FUSED_AT_256
-    want = {name: fused_convs for name in fr.KERNELS}
+    want = {name: fused_convs * (name in fr.BF16_KERNELS) for name in fr.KERNELS}
     want.update({"gn_fwd_reduce": fused_convs, "gn_fwd_normalize": 0,
                  "gn_bwd_reduce": fused_convs, "gn_bwd_dx": fused_convs,
                  **{name: 0 for name in fa.launches}})
@@ -4261,7 +4429,7 @@ def _audit_want(kind: str, precision: str, kernel: str, attention: str, fused: i
     if kernel == "fused":
         # two fused convs a fused resnet, each with the reduce and, in the
         # backward, the backward reduce and dx of its norm
-        want.update({name: 2 * fused for name in (*fr.KERNELS, "gn_fwd_reduce",
+        want.update({name: 2 * fused for name in (*fr.BF16_KERNELS, "gn_fwd_reduce",
                                                   "gn_bwd_reduce", "gn_bwd_dx")})
     return want
 
@@ -5971,12 +6139,14 @@ def main() -> int:
                     **{k: trainer_f32["launches"][k] for k in F32_NOTES},
                     flash_attention_fwd_f32=f32_result["launches"],
                     conv3x3_nhwc=conv_result["launches"],
-                    **{k: fused_trainer["launches"][k] for k in FUSED_REPLACES})
+                    **{k: fused_trainer["launches"][k] for k in FUSED_REPLACES},
+                    **{k: fused_results[k]["launches"] for k in FUSED_F32_REPLACES})
     sources = dict(FLASH_SOURCES, flash_attention_fwd_f32=FLASH_FWD_SOURCE,
                    conv3x3_nhwc=CONV_SOURCE, **{k: GN_SOURCE for k in GN_REPLACES},
-                   **{k: FUSED_SOURCE for k in FUSED_REPLACES})
+                   **{k: FUSED_SOURCE for k in (*FUSED_REPLACES, *FUSED_F32_REPLACES)})
     replaces = dict(FLASH_REPLACES, flash_attention_fwd_f32=FLASH_F32_REPLACES,
-                    conv3x3_nhwc=CONV_REPLACES, **GN_REPLACES, **FUSED_REPLACES)
+                    conv3x3_nhwc=CONV_REPLACES, **GN_REPLACES, **FUSED_REPLACES,
+                    **FUSED_F32_REPLACES)
     kernels = [{
         "name": kname,
         "route": "cuda",
@@ -5993,6 +6163,7 @@ def main() -> int:
         "shape": r["shape"],
         **({"note": REDESIGNED[kname]} if kname in REDESIGNED else {}),
         **({"note": F32_NOTES[kname]} if kname in F32_NOTES else {}),
+        **({"note": FUSED_F32_NOTE} if kname in FUSED_F32_REPLACES else {}),
         # the same kernel at fewer queries than keys (the spatial axis)
         **({"split": split_results[kname]} if kname in split_results else {}),
     } for kname, r in rows.items()]

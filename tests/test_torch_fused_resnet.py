@@ -26,6 +26,7 @@ the largest output; the fp32 sums (tap, moments, dW) 1e-4 of their largest
 entry.
 """
 
+import contextlib
 import math
 
 import jax
@@ -358,3 +359,116 @@ def test_wrappers_refuse_other_devices():
     w = torch.empty(128, 128, 3, 3, device="meta")
     with pytest.raises(RuntimeError, match="unsupported device"):
         fr.conv3x3(x, w)
+
+
+@pytest.fixture
+def one_thread():
+    """Small elementwise ops on one intra-op thread, so that they do not
+    contend with the other test workers' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_weight_kmajor_split_is_the_permuted_rounded_weight(one_thread):
+    """The fp32 #9 and #10 read the weight K-major, (3, 3, Cout, Cin), split
+    into TF32 hi and lo: (2, 3, 3, Cout, Cin), contiguous."""
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy(rng.standard_normal((256, 128, 3, 3)).astype(np.float32))
+    split = fr.weight_kmajor_split(w)
+    assert split.shape == (2, 3, 3, 256, 128) and split.is_contiguous()
+    assert split.dtype == torch.float32
+    kmajor = w.permute(2, 3, 0, 1).double()
+    assert bool(((split[0].double() + split[1].double() - kmajor).abs()
+                 <= kmajor.abs() * 2.0 ** -21).all())
+    assert torch.equal(split[0, 1, 2, 7, 5], fr.tf32_split(w[7, 5, 1, 2])[0])  # tap, out, in
+    # hi keeps TF32's 10 mantissa bits, lo the next ones
+    bits = split.view(torch.int32)
+    assert bool(((bits & 0x1FFF) == 0).all())
+    assert bool((split[1].abs() <= split[0].abs() * 2.0 ** -11).all())
+
+
+def _record_launches(monkeypatch):
+    """The wrappers' kernel branch on CPU tensors, each launch recorded
+    instead of made (and #11's cluster query answered as an H100's)."""
+    calls = []
+    monkeypatch.setattr(fr, "_on_cpu", lambda x, name: False)
+    monkeypatch.setattr(fr, "_launch", lambda name, x, *args: calls.append((name, args)))
+    monkeypatch.setattr(fr, "dw_max_clusters", lambda w, s, f32=False: fr.DW_TARGET_BLOCKS // s)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    return calls
+
+
+@pytest.mark.parametrize("kernel", ["fused_gn_silu_conv3x3", "conv3x3", "conv3x3_dw"])
+def test_fp32_calls_hand_the_f32_kernel_its_operands(monkeypatch, one_thread, kernel):
+    """On fp32 x each wrapper launches the ``_f32`` symbol, with the K-major
+    split weight (#9, #10) beside the split NHWC scratch (2, N, H, W, Cin),
+    or (#11) the NCHW s scratch and dy split, and #11's fp32 split count."""
+    n, cin, h, wd, cout = 2, 128, 12, 32, 256
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((n, cin, h, wd)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((cout, cin, 3, 3)).astype(np.float32))
+    a, o = torch.ones(n, cin), torch.zeros(n, cin)
+    dy = torch.from_numpy(rng.standard_normal((n, cout, h, wd)).astype(np.float32))
+    handed = []
+    split = fr.weight_kmajor_split
+    monkeypatch.setattr(fr, "weight_kmajor_split", lambda t: handed.append(split(t)) or handed[-1])
+    made = []
+    empty = torch.empty
+    monkeypatch.setattr(fr.torch, "empty",
+                        lambda *shape, **kw: made.append(empty(*shape, **kw)) or made[-1])
+    calls = _record_launches(monkeypatch)
+    if kernel == "fused_gn_silu_conv3x3":
+        fr.fused_fwd(x, a, o, w, torch.zeros(cout), dy, True, True)
+    elif kernel == "conv3x3":
+        fr.conv3x3(x, w)
+    else:
+        fr.conv_dw(x, a, o, dy)
+    (name, args), = calls
+    assert name == kernel + "_f32" and len(args) == len(fr._SIGNATURES[name]) - 1
+    by_ptr = {t.data_ptr(): t for t in made + handed}
+    if kernel == "conv3x3_dw":
+        s, dy_split, dw = (by_ptr[p] for p in args[4:7])
+        assert s.shape == (n, cin, h, wd) and dy_split.shape == (2, n, cout, h, wd)
+        assert dw.shape == (cout, cin, 3, 3) and dw.dtype == torch.float32
+        assert args[7:] == (n, cin, cout, h, wd, fr.dw_splits(n, cin, cout, h, wd, f32=True))
+        return
+    w_ptr = args[3] if kernel == "fused_gn_silu_conv3x3" else args[1]
+    s_ptr = args[7] if kernel == "fused_gn_silu_conv3x3" else args[4]
+    (got,) = handed
+    assert w_ptr == got.data_ptr() and torch.equal(got, split(w))
+    assert by_ptr[s_ptr].shape == (2, n, h, wd, cin) and by_ptr[s_ptr].dtype == torch.float32
+
+
+@pytest.mark.parametrize("case", ["w bf16", "x fp16", "dy bf16", "residual bf16"])
+def test_mixed_or_other_dtypes_raise(monkeypatch, case):
+    """x, w, residual and dy of one call are all bf16 or all fp32: anything
+    else raises before a launch."""
+    calls = _record_launches(monkeypatch)
+    x = torch.zeros(1, 128, 8, 16, dtype=torch.float16 if case == "x fp16" else torch.float32)
+    w = torch.zeros(128, 128, 3, 3, dtype=x.dtype)
+    a, o = torch.zeros(1, 128), torch.zeros(1, 128)
+    with pytest.raises(NotImplementedError, match="all bf16 or all fp32"):
+        if case == "w bf16":
+            fr.conv3x3(x, w.bfloat16())
+        elif case == "x fp16":
+            fr.conv3x3(x, w)
+        elif case == "dy bf16":
+            fr.conv_dw(x, a, o, torch.zeros(1, 128, 8, 16, dtype=torch.bfloat16))
+        else:
+            fr.fused_fwd(x, a, o, w, None, torch.zeros(1, 128, 8, 16, dtype=torch.bfloat16))
+    assert calls == []
+
+
+@pytest.mark.parametrize("n,cin,cout,h,w,unit,splits", [
+    (16, 512, 512, 32, 32, (4, 32), 1),   # the 256px fused shape: 128 blocks of 64 x 32
+    (16, 256, 512, 64, 64, (4, 32), 2),   # 64 blocks
+    (1, 128, 256, 16, 16, (8, 16), 2),    # capped by its two units
+    (2, 128, 128, 6, 48, (8, 16), 6),     # 16-column units of a 48-wide image, one a split
+])
+def test_dw_f32_units_and_splits(n, cin, cout, h, w, unit, splits):
+    """conv3x3_dw_f32's pixel unit (32 or 16 columns of 128 pixels) and its
+    split count over its 64 x 32 channel blocks."""
+    assert fr.dw_unit(w, f32=True) == unit
+    assert fr.dw_splits(n, cin, cout, h, w, f32=True) == splits

@@ -5,7 +5,8 @@ without jax it runs without the repository's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_fused_resnet_cuda.py -q
 
 Each of the three kernels (``fused_gn_silu_conv3x3``, ``conv3x3``,
-``conv3x3_dw``) gets the same bf16 inputs as its plain version: at the 256px
+``conv3x3_dw``) gets the same inputs as its plain version, in bf16 and in
+fp32 (the ``_f32`` kernels): at the 256px
 step's fused shape (16, 512, 32, 32) -> 512, at an asymmetric one
 (16, 256, 64, 64) -> 512, and at small odd ones (batch 1, 128 -> 256, H not a
 multiple of the pixel rectangle's rows of #9 and #10, W = 48 under 64-column
@@ -21,7 +22,11 @@ at most 1e-2. The fp32 sums (the |z| tap, the moments, dW) at most 1e-3 of
 max|plain|: the order of fp32 additions differs. The autograd op: plain
 autograd keeps ds in fp32 where the kernels round it to bf16 (as the JAX
 VJP does), so every gradient is held to relative L2 1e-2 and 2^-5 of
-max|plain|.
+max|plain|. At fp32 (3xTF32) y, ds, dW and every gradient of the op are
+held to relative L2 1e-5 of the plain version evaluated in fp64, and the
+tap and the moments to 1e-4 of max|plain| at fp32: cuDNN's own fp32 weight
+gradient (TF32 off) is 1.2e-5 from fp64 at (16, 256, 64, 64) -> 512, which
+the kernel is not (tests/test_torch_fused_tf32x3.py models its sums).
 """
 
 import math
@@ -37,6 +42,8 @@ pytestmark = pytest.mark.cuda
 
 GROUPS, EPS = 32, 1e-6
 BF16 = torch.bfloat16
+DTYPES = {"bf16": BF16, "fp32": torch.float32}
+F32_REL_L2 = 1e-5
 # (N, Cin, H, W), Cout
 SHAPES = [
     ((16, 512, 32, 32), 512),  # the 256px step's fused resnets
@@ -61,17 +68,17 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(shape, cout, device, seed=0):
+def _inputs(shape, cout, device, seed=0, dtype=BF16):
     gen = torch.Generator(device=device).manual_seed(seed)
     n, cin, h, w = shape
-    x = (torch.randn(shape, generator=gen, device=device) * 2.0 + 0.5).to(BF16)
+    x = (torch.randn(shape, generator=gen, device=device) * 2.0 + 0.5).to(dtype)
     gamma = 1.0 + 0.1 * torch.randn(cin, generator=gen, device=device)
     beta = 0.1 * torch.randn(cin, generator=gen, device=device)
     wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=device)
-          / math.sqrt(9 * cin)).to(BF16)
+          / math.sqrt(9 * cin)).to(dtype)
     bias = 0.1 * torch.randn(cout, generator=gen, device=device)
-    res = torch.randn((n, cout, h, w), generator=gen, device=device).to(BF16)
-    dy = torch.randn((n, cout, h, w), generator=gen, device=device).to(BF16)
+    res = torch.randn((n, cout, h, w), generator=gen, device=device).to(dtype)
+    dy = torch.randn((n, cout, h, w), generator=gen, device=device).to(dtype)
     sums, sqs = gnk.fwd_reduce_reference(x)
     mean, rstd = gnk._group_stats(sums, sqs, h * w, GROUPS, EPS)
     a, o = gnk._affine_coeffs(mean, rstd, gamma, beta, GROUPS)
@@ -92,47 +99,75 @@ def _assert_sums(out, ref, rel=1e-3):
     assert ((out - ref).abs().max() / ref.abs().max()).item() <= rel
 
 
+def _f64(*tensors):
+    return [None if t is None else t.double() for t in tensors]
+
+
+def _assert_f32(out, ref64):
+    """An fp32 kernel's output against its plain version in fp64."""
+    assert out.dtype == torch.float32 and out.shape == ref64.shape
+    assert torch.isfinite(out).all()
+    assert ((out.double() - ref64).norm() / ref64.norm()).item() <= F32_REL_L2
+
+
+def _held(out, plain, dtype):
+    """bf16: to plain's bounds; fp32: ``plain`` called on fp64 tensors."""
+    if dtype == BF16:
+        _assert_bf16(out, plain(lambda *t: t))
+    else:
+        _assert_f32(out, plain(_f64))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,cout", SHAPES, ids=IDS)
 @pytest.mark.parametrize("with_residual", [False, True])
-def test_fused_forward_matches_plain(cuda, shape, cout, with_residual):
-    x, _g, _b, wt, bias, res, _dy, a, o = _inputs(shape, cout, cuda)
+def test_fused_forward_matches_plain(cuda, shape, cout, with_residual, dtype):
+    dt = DTYPES[dtype]
+    x, _g, _b, wt, bias, res, _dy, a, o = _inputs(shape, cout, cuda, dtype=dt)
     res = res if with_residual else None
-    before = fr.launches["fused_gn_silu_conv3x3"]
+    name = fr._by_dtype("fused_gn_silu_conv3x3", x)
+    before = fr.launches[name]
     y, tap, (ysum, ysq) = fr.fused_fwd(x, a, o, wt, bias, res, True, True)
     torch.cuda.synchronize()
-    assert fr.launches["fused_gn_silu_conv3x3"] == before + 1
+    assert fr.launches[name] == before + 1
     py, ptap, (psum, psq) = fr.fused_fwd_reference(x, a, o, wt, bias, res, True, True)
-    _assert_bf16(y, py)
-    _assert_sums(tap, ptap)
-    _assert_sums(ysum, psum)
-    _assert_sums(ysq, psq)
+    _held(y, lambda cast: fr.fused_fwd_reference(*cast(x, a, o, wt, bias, res))[0], dt)
+    rel = 1e-3 if dt == BF16 else 1e-4
+    _assert_sums(tap, ptap, rel)
+    _assert_sums(ysum, psum, rel)
+    _assert_sums(ysq, psq, rel)
     # without the side outputs: the same y, and no tap or moments
     y2, tap2, mom2 = fr.fused_fwd(x, a, o, wt, bias, res)
     assert tap2 is None and mom2 is None
     assert torch.equal(y2, y)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,cout", SHAPES, ids=IDS)
-def test_conv3x3_matches_plain(cuda, shape, cout):
+def test_conv3x3_matches_plain(cuda, shape, cout, dtype):
     # the backward's use: dy (N, Cout, H, W) back to Cin channels through the
     # flipped, channel-swapped weight
-    _x, _g, _b, wt, _bias, _res, dy, _a, _o = _inputs(shape, cout, cuda, seed=1)
+    dt = DTYPES[dtype]
+    _x, _g, _b, wt, _bias, _res, dy, _a, _o = _inputs(shape, cout, cuda, seed=1, dtype=dt)
     wf = fr.flipped_weight(wt)
-    before = fr.launches["conv3x3"]
+    name = fr._by_dtype("conv3x3", dy)
+    before = fr.launches[name]
     ds = fr.conv3x3(dy, wf)
     torch.cuda.synchronize()
-    assert fr.launches["conv3x3"] == before + 1
-    _assert_bf16(ds, fr.conv3x3_reference(dy, wf))
+    assert fr.launches[name] == before + 1
+    _held(ds, lambda cast: fr.conv3x3_reference(*cast(dy, wf)), dt)
     # the forward direction with a bias
-    x = _inputs(shape, cout, cuda, seed=5)[0]
+    x = _inputs(shape, cout, cuda, seed=5, dtype=dt)[0]
     bias = torch.linspace(-1.0, 1.0, wt.shape[0], device=cuda)
-    _assert_bf16(fr.conv3x3(x, wt, bias), fr.conv3x3_reference(x, wt, bias))
+    _held(fr.conv3x3(x, wt, bias), lambda cast: fr.conv3x3_reference(*cast(x, wt, bias)), dt)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,cout", SHAPES, ids=IDS)
-def test_conv3x3_is_deterministic(cuda, shape, cout):
+def test_conv3x3_is_deterministic(cuda, shape, cout, dtype):
     """#10 writes each output once, with no atomics: the same bits twice."""
-    _x, _g, _b, wt, _bias, _res, dy, _a, _o = _inputs(shape, cout, cuda, seed=7)
+    _x, _g, _b, wt, _bias, _res, dy, _a, _o = _inputs(shape, cout, cuda, seed=7,
+                                                      dtype=DTYPES[dtype])
     wf = fr.flipped_weight(wt)
     first = fr.conv3x3(dy, wf)
     assert torch.equal(fr.conv3x3(dy, wf), first)
@@ -161,23 +196,31 @@ def test_conv3x3_entry_refuses_what_the_loop_does_not_take(cuda, what, cin, cout
     assert bool((y == 7.0).all()), what  # nothing was written
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,cout", DW_SHAPES, ids=DW_IDS)
-def test_conv_dw_matches_plain(cuda, shape, cout):
-    x, _g, _b, _wt, _bias, _res, dy, a, o = _inputs(shape, cout, cuda, seed=2)
-    before = fr.launches["conv3x3_dw"]
+def test_conv_dw_matches_plain(cuda, shape, cout, dtype):
+    dt = DTYPES[dtype]
+    x, _g, _b, _wt, _bias, _res, dy, a, o = _inputs(shape, cout, cuda, seed=2, dtype=dt)
+    name = fr._by_dtype("conv3x3_dw", x)
+    before = fr.launches[name]
     dw = fr.conv_dw(x, a, o, dy)
     torch.cuda.synchronize()
-    assert fr.launches["conv3x3_dw"] == before + 1
+    assert fr.launches[name] == before + 1
+    if dt == torch.float32:
+        _assert_f32(dw, fr.conv_dw_reference(*_f64(x, a, o, dy)))
+        return
     ref = fr.conv_dw_reference(x, a, o, dy)
     _assert_sums(dw, ref)
     assert ((dw - ref).norm() / ref.norm()).item() <= 1e-3
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,cout", SHAPES[:2], ids=IDS[:2])
-def test_fused_forward_is_deterministic(cuda, shape, cout):
+def test_fused_forward_is_deterministic(cuda, shape, cout, dtype):
     """y, the tap and the moments: per-tile partials added in a fixed order,
     no atomics."""
-    x, _g, _b, wt, bias, res, _dy, a, o = _inputs(shape, cout, cuda, seed=4)
+    x, _g, _b, wt, bias, res, _dy, a, o = _inputs(shape, cout, cuda, seed=4,
+                                                  dtype=DTYPES[dtype])
     first = fr.fused_fwd(x, a, o, wt, bias, res, True, True)
     for _ in range(3):
         y, tap, (ysum, ysq) = fr.fused_fwd(x, a, o, wt, bias, res, True, True)
@@ -218,9 +261,11 @@ def test_fused_refuses_partials_of_another_size(cuda, monkeypatch, helper, delta
     assert fr.launches["fused_gn_silu_conv3x3"] == before
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,cout", SHAPES[:2], ids=IDS[:2])
-def test_conv_dw_is_deterministic(cuda, shape, cout):
-    x, _g, _b, _wt, _bias, _res, dy, a, o = _inputs(shape, cout, cuda, seed=3)
+def test_conv_dw_is_deterministic(cuda, shape, cout, dtype):
+    x, _g, _b, _wt, _bias, _res, dy, a, o = _inputs(shape, cout, cuda, seed=3,
+                                                    dtype=DTYPES[dtype])
     first = fr.conv_dw(x, a, o, dy)
     for _ in range(3):
         assert torch.equal(fr.conv_dw(x, a, o, dy), first)
@@ -228,7 +273,12 @@ def test_conv_dw_is_deterministic(cuda, shape, cout):
 
 def _plain_op(x, gamma, beta, wt, bias, res):
     """conv3x3(silu(group_norm(x))) + bias + res with the kernels' rounding
-    points in the forward (s and w in bf16, fp32 sums, y rounded once)."""
+    points in the forward (s and w in bf16, fp32 sums, y rounded once); on
+    fp64 tensors (the fp32 kernels' reference) all of it in fp64."""
+    if x.dtype == torch.float64:
+        z = torch.nn.functional.group_norm(x, GROUPS, gamma, beta, EPS)
+        y = torch.nn.functional.conv2d(z * torch.sigmoid(z), wt, padding=1)
+        return y + bias[None, :, None, None] + res
     z = group_norm_reference(x.float(), gamma, beta, GROUPS, EPS, False)
     s = (z *torch.sigmoid(z)).to(BF16).float()
     y = torch.nn.functional.conv2d(s, wt.to(BF16).float(), padding=1)
@@ -236,17 +286,19 @@ def _plain_op(x, gamma, beta, wt, bias, res):
     return y.to(BF16)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,cout", [SHAPES[0], SHAPES[2], SHAPES[3]],
                          ids=[IDS[0], IDS[2], IDS[3]])
-def test_autograd_op_matches_plain_autograd(cuda, shape, cout):
-    x, gamma, beta, wt, bias, res, dy, _a, _o = _inputs(shape, cout, cuda, seed=4)
+def test_autograd_op_matches_plain_autograd(cuda, shape, cout, dtype):
+    dt = DTYPES[dtype]
+    x, gamma, beta, wt, bias, res, dy, _a, _o = _inputs(shape, cout, cuda, seed=4, dtype=dt)
     wt32 = wt.float()
 
-    def grads(fn):
-        leaves = [t.detach().clone().requires_grad_(True)
+    def grads(fn, cast=lambda t: t):
+        leaves = [cast(t).detach().clone().requires_grad_(True)
                   for t in (x, gamma, beta, wt32, bias, res)]
         y = fn(*leaves)
-        return [y.detach()] + list(torch.autograd.grad(y, leaves, dy))
+        return [y.detach()] + list(torch.autograd.grad(y, leaves, cast(dy)))
 
     def kernel_op(xx, gg, bb, ww, bi, rr):
         return fr.gn_silu_conv3x3(xx, gg, bb, ww, bi, num_groups=GROUPS, eps=EPS,
@@ -255,25 +307,34 @@ def test_autograd_op_matches_plain_autograd(cuda, shape, cout):
     before = dict(fr.launches)
     got = grads(kernel_op)
     torch.cuda.synchronize()
+    names = fr.BF16_KERNELS if dt == BF16 else tuple(f"{k}_f32" for k in fr.BF16_KERNELS)
     assert {k: fr.launches[k] - before[k] for k in fr.KERNELS} == {
-        "fused_gn_silu_conv3x3": 1, "conv3x3": 1, "conv3x3_dw": 1}
-    want = grads(_plain_op)
+        k: int(k in names) for k in fr.KERNELS}
+    want = grads(_plain_op, (lambda t: t) if dt == BF16 else (lambda t: t.double()))
     for name, g, p in zip(("y", "x", "gamma", "beta", "w", "bias", "residual"), got, want):
-        assert g.dtype == p.dtype and g.shape == p.shape, name
-        d = (g.float() - p.float())
+        assert g.shape == p.shape, name
+        d = (g.double() - p.double())
+        if dt == torch.float32:
+            assert g.dtype == torch.float32, name
+            assert (d.norm() / p.double().norm()).item() <= F32_REL_L2, name
+            continue
+        assert g.dtype == p.dtype, name
         top = p.float().abs().max().item()
         assert d.abs().max().item() <= 2.0 ** -5 * top, name
-        assert (d.norm() / p.float().norm()).item() <= 1e-2, name
+        assert (d.norm() / p.double().norm()).item() <= 1e-2, name
 
 
-def test_fp32_input_raises(cuda):
-    x, _g, _b, wt, bias, _res, dy, a, o = _inputs(*SHAPES[2], cuda)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fr.fused_fwd(x.float(), a, o, wt, bias)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fr.conv3x3(dy.float(), fr.flipped_weight(wt))
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fr.conv_dw(x, a, o, dy.float())
+@pytest.mark.parametrize("case", ["w bf16", "x fp16", "dy bf16"])
+def test_mixed_or_other_dtypes_raise_on_the_card(cuda, case):
+    """x, w, residual and dy of one call are all bf16 or all fp32."""
+    x, _g, _b, wt, bias, _res, dy, a, o = _inputs(*SHAPES[2], cuda, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="all bf16 or all fp32"):
+        if case == "w bf16":
+            fr.conv3x3(dy, fr.flipped_weight(wt).to(BF16))
+        elif case == "x fp16":
+            fr.fused_fwd(x.half(), a, o, wt.half(), bias)
+        else:
+            fr.conv_dw(x, a, o, dy.to(BF16))
 
 
 @pytest.mark.parametrize("shape,cout,match", [

@@ -541,20 +541,16 @@ def _nchw_grad_eff(x, g, a, off):
 # --------------------------------------------------------------------------- #
 def _refusals():
     from vae_channel_dynamics_tpu_torch.models.vae import remat_mode
-    from vae_channel_dynamics_tpu_torch.ops import fused_resnet
     from vae_channel_dynamics_tpu_torch.training import loop
 
     return {
         "parallel slices": (lambda: loop._refuse_unported({"parallel": {"slices": 2}}),
                             "Q1", "Do not port"),
         "remat offload": (lambda: remat_mode("offload"), "Q1", "Do not port"),
-        "fused fp32": (lambda: fused_resnet._check_bf16("fused_gn_silu_conv3x3", "x",
-                                                        torch.zeros(1)),
-                       "Q2", "#9-#11 at fp32"),
     }
 
 
-REFUSALS = ["parallel slices", "remat offload", "fused fp32"]
+REFUSALS = ["parallel slices", "remat offload"]
 
 
 @pytest.mark.parametrize("case", REFUSALS)

@@ -290,6 +290,10 @@ def test_cli_reads_the_newest_trace(tmp_path, capsys):
 
 @pytest.mark.parametrize("name,want", [
     ("void conv3x3_dw_kernel<64>(...)", "fused resnet kernels (#9-#11)"),
+    ("void conv3x3_dw_f32_kernel<32>(...)", "fused resnet kernels (#9-#11)"),
+    ("fused_gn_silu_conv3x3_f32_kernel(CUtensorMap_st, ...)", "fused resnet kernels (#9-#11)"),
+    ("void split_nhwc_f32_kernel<true>(...)", "fused resnet kernels (#9-#11)"),
+    ("void flash_fwd_f32_kernel<512>(...)", "flash attention kernels (flash_*)"),
     ("void sum_splits_kernel<float>(...)", ps.GROUPNORM),
     ("void flash_fwd_kernel<512>(...)", "flash attention kernels (flash_*)"),
     ("sm90_xmma_dgrad_implicit_gemm", ps.CUDNN_CONVS),

@@ -78,9 +78,28 @@
 //      memory in order of the split and writes dW (OIHW fp32). No partials
 //      in device memory, no atomics: two runs give the same bits.
 //
+// At fp32 each of the three has an _f32 entry of its own (the op runs on the
+// card in bf16 and fp32; the model fuses bf16 only). Every fp32 product is
+// three TF32 products on wgmma (3xTF32: hi hi + hi lo + lo hi, hi = tf32(v),
+// lo = tf32(v - hi), rounded to nearest), about 2^-22 of each product
+// against the 2^-11 of one TF32 product. tf32 wgmma takes K-major operands
+// only, and the tensor cores truncate each fp32 accumulation, so:
+//   - #9 and #10 run the fp32 loop of sm90_conv3x3.cuh on operands split
+//     before it: split_nhwc_f32_kernel writes s (or x) as hi and lo NHWC
+//     planes, and the wrapper the weight K-major, (2, 3, 3, Cout, Cin); each
+//     tap's 64 channels go into fresh accumulators added to the sum in fp32,
+//     and the epilogue writes fp32 y, residual and moments as in bf16;
+//   - #11 takes s (unsplit, NCHW fp32, nchw_f32_kernel) as register A with
+//     the tap's shift, split in registers, and dy split into hi and lo NCHW
+//     planes as the K-major B: M = 64 input channels, N = 32 output
+//     channels, each 128-pixel unit into fresh accumulators, the splits of a
+//     cluster added in order (conv3x3_dw_f32_kernel has the design).
+// What bounds them: 3 x 77.3 GFLOP at the 495 TFLOP/s TF32 rate, 0.469 ms at
+// the 256px step's shape (the fp32 SIMT rate's bound would be 1.154 ms).
+//
 // Plain C interface for ctypes: pointers and the stream are void*; every
-// activation is bf16 NCHW (the scratch s NHWC), a and o fp32 (N, Cin), bias
-// fp32 or null. Each
+// activation is bf16 NCHW (fp32 for the _f32 entries; the scratch s NHWC),
+// a and o fp32 (N, Cin), bias fp32 or null. Each
 // function returns cudaGetLastError() after its launches; it launches on the
 // caller's stream, allocates nothing and does not synchronise.
 
@@ -187,17 +206,47 @@ cudaError_t silu_nhwc(const void* x, const void* a, const void* o, void* s, void
 }
 
 // ---- fused_gn_silu_conv3x3 --------------------------------------------------- //
-// #9's epilogue on #12's loop: y (N, Cout, H, W) = acc + bias (+ residual), in
-// fp32, rounded once; per-tile sum y and sum y^2 of that fp32 y into mom_part
-// (2, N, tiles, Cout). acc + bias is staged [channel][pixel] in the free ring
-// (rows of 128 + 4 floats: the fragment's stores hit 32 banks), then each
-// consumer thread takes 8 pixels of one channel's row of the rectangle: a
-// 16-byte residual load and y store, masked to the image. bias and residual
-// are read with __ldg, so that they need not wait for the stores to y.
+// 8 consecutive values of a bf16 or fp32 row as fp32 (through the read-only
+// path), and back.
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
+  const bf16* rb = reinterpret_cast<const bf16*>(&r);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(rb[e]);
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+__device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
+  uint4 out;
+  bf16* ob = reinterpret_cast<bf16*>(&out);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) ob[e] = __float2bfloat16(v[e]);
+  *reinterpret_cast<uint4*>(p) = out;
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// #9's epilogue on #12's loop (and on the fp32 loop, with T = float): y (N,
+// Cout, H, W) = acc + bias (+ residual), in fp32, rounded once to T; per-tile
+// sum y and sum y^2 of that fp32 y into mom_part (2, N, tiles, Cout). acc +
+// bias is staged [channel][pixel] in the free ring (rows of 128 + 4 floats:
+// the fragment's stores hit 32 banks), then each consumer thread takes 8
+// pixels of one channel's row of the rectangle: a 16- (or 32-) byte residual
+// load and y store, masked to the image. bias and residual are read with
+// __ldg, so that they need not wait for the stores to y.
+template <class T>
 struct NchwEpilogue {
   const float* bias;
-  const bf16* residual;
-  bf16* y;
+  const T* residual;
+  T* y;
   float* mom_part;
   int h, wd, cout;
 
@@ -234,20 +283,17 @@ struct NchwEpilogue {
       if (ph < h && pw < wd) {
         const size_t off = (static_cast<size_t>(t.n * cout + t.co0 + c) * h + ph) * wd + pw;
         if (residual != nullptr) {
-          const uint4 r = __ldg(reinterpret_cast<const uint4*>(residual + off));
-          const bf16* rb = reinterpret_cast<const bf16*>(&r);
+          float r[8];
+          load8(residual + off, r);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] += __bfloat162float(rb[e]);
+          for (int e = 0; e < 8; ++e) v[e] += r[e];
         }
-        uint4 out;
-        bf16* ob = reinterpret_cast<bf16*>(&out);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           sum += v[e];
           sq += v[e] * v[e];
-          ob[e] = __float2bfloat16(v[e]);
         }
-        *reinterpret_cast<uint4*>(y + off) = out;
+        store8(y + off, v);
       }
       if (mom_part != nullptr) {
         // the channel's 16 segments are lanes 16q .. 16q + 15: a fixed order
@@ -269,7 +315,7 @@ struct NchwEpilogue {
 __global__ void __launch_bounds__(c3::THREADS, 2)
     fused_gn_silu_conv3x3_kernel(const __grid_constant__ CUtensorMap smap,
                                  const __grid_constant__ CUtensorMap wmap,
-                                 const NchwEpilogue epi, int wd, int cin, int bw) {
+                                 const NchwEpilogue<bf16> epi, int wd, int cin, int bw) {
   c3::conv3x3_wgmma<64>(&smap, &wmap, wd, cin, bw, epi);
 }
 
@@ -277,7 +323,7 @@ __global__ void __launch_bounds__(c3::THREADS, 2)
 // neither residual nor moments.
 __global__ void __launch_bounds__(c3::THREADS, 2)
     conv3x3_nchw_kernel(const __grid_constant__ CUtensorMap smap,
-                        const __grid_constant__ CUtensorMap wmap, const NchwEpilogue epi,
+                        const __grid_constant__ CUtensorMap wmap, const NchwEpilogue<bf16> epi,
                         int wd, int cin, int bw) {
   c3::conv3x3_wgmma<64>(&smap, &wmap, wd, cin, bw, epi);
 }
@@ -458,28 +504,44 @@ __global__ void __launch_bounds__(DW_THREADS, 1)
 // that divides W (a multiple of 16); the unit is 128 / cols rows tall.
 int dw_cols(int w) { return w % 64 == 0 ? 64 : w % 32 == 0 ? 32 : 16; }
 
-// How many clusters of `splits` conv3x3_dw blocks the card runs at once
-// (each block holds an SM; a cluster's blocks share one GPC, so fewer than
-// 132 / splits where a GPC's SMs do not divide by it), or -(CUDA error).
+// A launch configuration of conv3x3_dw's grid (ci blocks, co blocks,
+// splits), the splits of a channel block one cluster.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute cluster;
+
+  ClusterLaunch(dim3 grid, int threads, int smem, int splits, cudaStream_t stream) {
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = 1;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = splits;
+    cfg.attrs = &cluster;
+    cfg.numAttrs = 1;
+  }
+};
+
+// How many clusters of `splits` blocks of `kernel` (conv3x3_dw's, at
+// `threads` threads and `smem` bytes) the card runs at once (each block
+// holds an SM; a cluster's blocks share one GPC, so fewer than 132 / splits
+// where a GPC's SMs do not divide by it), or -(CUDA error).
+template <class Kernel>
+int max_clusters(Kernel kernel, int threads, int smem, int splits) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const ClusterLaunch launch(dim3(1, 1, splits), threads, smem, splits, nullptr);
+  int count = 0;
+  err = cudaOccupancyMaxActiveClusters(&count, kernel, &launch.cfg);
+  return err == cudaSuccess ? count : -static_cast<int>(err);
+}
+
 template <int BW>
 int dw_max_clusters(int splits) {
-  cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_dw_kernel<BW>, cudaFuncAttributeMaxDynamicSharedMemorySize, DwTile<BW>::SMEM);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(1, 1, splits);
-  cfg.blockDim = dim3(DW_THREADS);
-  cfg.dynamicSmemBytes = DwTile<BW>::SMEM;
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = 1;
-  cluster.val.clusterDim.y = 1;
-  cluster.val.clusterDim.z = splits;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
-  int count = 0;
-  err = cudaOccupancyMaxActiveClusters(&count, conv3x3_dw_kernel<BW>, &cfg);
-  return err == cudaSuccess ? count : -static_cast<int>(err);
+  return max_clusters(conv3x3_dw_kernel<BW>, DW_THREADS, DwTile<BW>::SMEM, splits);
 }
 
 template <int BW>
@@ -506,20 +568,10 @@ cudaError_t launch_dw(const void* x, const void* a, const void* o, const void* d
   err = cudaFuncSetAttribute(conv3x3_dw_kernel<BW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              T::SMEM);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cin / DW_CI, cout / DW_CO, splits);
-  cfg.blockDim = dim3(DW_THREADS);
-  cfg.dynamicSmemBytes = T::SMEM;
-  cfg.stream = stream;
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = 1;
-  cluster.val.clusterDim.y = 1;
-  cluster.val.clusterDim.z = splits;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, conv3x3_dw_kernel<BW>, smap, dymap, static_cast<float*>(dw), n,
-                           cin, cout, h, w);
+  const ClusterLaunch launch(dim3(cin / DW_CI, cout / DW_CO, splits), DW_THREADS, T::SMEM,
+                             splits, stream);
+  err = cudaLaunchKernelEx(&launch.cfg, conv3x3_dw_kernel<BW>, smap, dymap,
+                           static_cast<float*>(dw), n, cin, cout, h, w);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -551,8 +603,8 @@ cudaError_t launch_conv(const void* x, const void* w, const void* bias, void* y,
   err = cudaFuncSetAttribute(conv3x3_nchw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              c3::SMEM);
   if (err != cudaSuccess) return err;
-  const NchwEpilogue epi = {static_cast<const float*>(bias), nullptr, static_cast<bf16*>(y),
-                            nullptr, h, wd, cout};
+  const NchwEpilogue<bf16> epi = {static_cast<const float*>(bias), nullptr,
+                                  static_cast<bf16*>(y), nullptr, h, wd, cout};
   conv3x3_nchw_kernel<<<c3::grid(n, h, wd, cout, bw), c3::THREADS, c3::SMEM, stream>>>(
       smap, wmap, epi, wd, cin, bw);
   return cudaGetLastError();
@@ -570,11 +622,442 @@ cudaError_t launch_fused(const void* x, const void* a, const void* o, const void
   err = cudaFuncSetAttribute(fused_gn_silu_conv3x3_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, c3::SMEM);
   if (err != cudaSuccess) return err;
-  const NchwEpilogue epi = {static_cast<const float*>(bias), static_cast<const bf16*>(residual),
-                            static_cast<bf16*>(y), static_cast<float*>(mom_part), h, wd, cout};
+  const NchwEpilogue<bf16> epi = {static_cast<const float*>(bias),
+                                  static_cast<const bf16*>(residual), static_cast<bf16*>(y),
+                                  static_cast<float*>(mom_part), h, wd, cout};
   fused_gn_silu_conv3x3_kernel<<<c3::grid(n, h, wd, cout, bw), c3::THREADS, c3::SMEM, stream>>>(
       smap, wmap, epi, wd, cin, bw);
   return cudaGetLastError();
+}
+
+// ---- fp32: #9, #10 and #11 in 3xTF32 ---------------------------------------- //
+// fp32 hi = tf32(v) and lo = tf32(v - hi), four at a time.
+__device__ __forceinline__ float4 tf32_hi4(float4 v) {
+  return make_float4(to_tf32(v.x), to_tf32(v.y), to_tf32(v.z), to_tf32(v.w));
+}
+
+__device__ __forceinline__ float4 tf32_lo4(float4 v, float4 hi) {
+  return make_float4(to_tf32(v.x - hi.x), to_tf32(v.y - hi.y), to_tf32(v.z - hi.z),
+                     to_tf32(v.w - hi.w));
+}
+
+// The NHWC pre-pass at fp32 (#9 and #10): s = silu(a*x + o) in fp32, not
+// rounded (with IDENTITY, x), split into hi and lo, s (2, N, H, W, Cin): the
+// hi images, then the lo ones, the fp32 loop's A. As silu_nhwc_kernel
+// otherwise: 64 channels x 64 pixels a block through shared memory, the |z|
+// partials the same, in the same order.
+template <bool IDENTITY>
+__global__ void __launch_bounds__(256)
+    split_nhwc_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
+                          const float* __restrict__ o, float* __restrict__ s,
+                          float* __restrict__ tap_part, int cin, int hw) {
+  __shared__ __align__(16) float tile[64][64 + 4];
+  const int p0 = blockIdx.x * SILU_PIXELS, c0 = blockIdx.y * 64, n = blockIdx.z;
+  for (int i = threadIdx.x; i < 64 * 8; i += 256) {  // two rounds, every thread in both
+    const int c = i / 8, pv = (i % 8) * 8;
+    const int plane = n * cin + c0 + c;
+    float tap = 0.0f;
+    if (p0 + pv < hw) {
+      const float4* src = reinterpret_cast<const float4*>(x + static_cast<size_t>(plane) * hw +
+                                                          p0 + pv);
+      const float4 v0 = src[0], v1 = src[1];
+      const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+      if (IDENTITY) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) tile[pv + j][c] = v[j];
+      } else {
+        const float ap = a[plane], op = o[plane];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float z = affine(v[j], ap, op);
+          tap += fabsf(z);
+          tile[pv + j][c] = z * sigmoid(z);
+        }
+      }
+    }
+    if (!IDENTITY && tap_part != nullptr) {
+      tap += __shfl_xor_sync(0xffffffffu, tap, 1);
+      tap += __shfl_xor_sync(0xffffffffu, tap, 2);
+      tap += __shfl_xor_sync(0xffffffffu, tap, 4);
+      if (i % 8 == 0)
+        tap_part[(static_cast<size_t>(n) * gridDim.x + blockIdx.x) * cin + c0 + c] = tap;
+    }
+  }
+  __syncthreads();
+  const size_t lo = static_cast<size_t>(gridDim.z) * hw * cin;
+  for (int i = threadIdx.x; i < 64 * 16; i += 256) {
+    const int p = i / 16, cv = (i % 16) * 4;
+    if (p0 + p >= hw) continue;
+    const float4 v = *reinterpret_cast<const float4*>(&tile[p][cv]);
+    const float4 hi = tf32_hi4(v);
+    const size_t off = (static_cast<size_t>(n) * hw + p0 + p) * cin + c0 + cv;
+    *reinterpret_cast<float4*>(s + off) = hi;
+    *reinterpret_cast<float4*>(s + lo + off) = tf32_lo4(v, hi);
+  }
+}
+
+template <bool IDENTITY>
+cudaError_t split_nhwc_f32(const void* x, const void* a, const void* o, void* s, void* tap_part,
+                           int n, int cin, int hw, cudaStream_t stream) {
+  split_nhwc_f32_kernel<IDENTITY><<<dim3(silu_chunks(hw), cin / 64, n), 256, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(a), static_cast<const float*>(o),
+      static_cast<float*>(s), static_cast<float*>(tap_part), cin, hw);
+  return cudaGetLastError();
+}
+
+// The NCHW pre-pass at fp32 (#11), four elements a thread: with SILU, out =
+// silu(a*x + o) in fp32 over x (N, C, H, W); else x split, out (2, N, C, H,
+// W) = (hi, lo). H*W is a multiple of 16, so four never straddle a plane.
+template <bool SILU>
+__global__ void __launch_bounds__(256)
+    nchw_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
+                    const float* __restrict__ o, float* __restrict__ out, int hw,
+                    long long quads) {
+  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= quads) return;
+  const float4 v = reinterpret_cast<const float4*>(x)[i];
+  float4* dst = reinterpret_cast<float4*>(out);
+  if (SILU) {
+    const int plane = static_cast<int>(i * 4 / hw);
+    const float ap = a[plane], op = o[plane];
+    const float z0 = affine(v.x, ap, op), z1 = affine(v.y, ap, op);
+    const float z2 = affine(v.z, ap, op), z3 = affine(v.w, ap, op);
+    dst[i] = make_float4(z0 * sigmoid(z0), z1 * sigmoid(z1), z2 * sigmoid(z2), z3 * sigmoid(z3));
+  } else {
+    const float4 hi = tf32_hi4(v);
+    dst[i] = hi;
+    dst[quads + i] = tf32_lo4(v, hi);
+  }
+}
+
+template <bool SILU>
+cudaError_t nchw_f32(const void* x, const void* a, const void* o, void* out, int n, int c,
+                     int hw, cudaStream_t stream) {
+  const long long quads = static_cast<long long>(n) * c * hw / 4;
+  nchw_f32_kernel<SILU><<<static_cast<unsigned>((quads + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(a), static_cast<const float*>(o),
+      static_cast<float*>(out), hw, quads);
+  return cudaGetLastError();
+}
+
+// #9 and #10 at fp32: the fp32 loop (sm90_conv3x3.cuh) on the split s and
+// the split K-major weight, then #9's epilogue writing fp32. One block an SM.
+__global__ void __launch_bounds__(c3::THREADS, 1)
+    fused_gn_silu_conv3x3_f32_kernel(const __grid_constant__ CUtensorMap smap,
+                                     const __grid_constant__ CUtensorMap wmap,
+                                     const NchwEpilogue<float> epi, int n, int wd, int cin,
+                                     int bw) {
+  c3::conv3x3_tf32x3(&smap, &wmap, n, wd, cin, bw, epi);
+}
+
+__global__ void __launch_bounds__(c3::THREADS, 1)
+    conv3x3_nchw_f32_kernel(const __grid_constant__ CUtensorMap smap,
+                            const __grid_constant__ CUtensorMap wmap,
+                            const NchwEpilogue<float> epi, int n, int wd, int cin, int bw) {
+  c3::conv3x3_tf32x3(&smap, &wmap, n, wd, cin, bw, epi);
+}
+
+template <bool FUSED>
+cudaError_t launch_conv_f32(const void* x, const void* a, const void* o, const void* w,
+                            const void* bias, const void* residual, void* y, void* s,
+                            void* tap_part, void* mom_part, int n, int cin, int cout, int h,
+                            int wd, int bw, cudaStream_t stream) {
+  cudaError_t err = split_nhwc_f32<!FUSED>(x, a, o, s, tap_part, n, cin, h * wd, stream);
+  if (err != cudaSuccess) return err;
+  CUtensorMap smap, wmap;
+  err = c3::make_maps_f32(&smap, &wmap, s, w, n, h, wd, cin, cout, bw);
+  if (err != cudaSuccess) return err;
+  auto kernel = FUSED ? fused_gn_silu_conv3x3_f32_kernel : conv3x3_nchw_f32_kernel;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, c3::F32_SMEM);
+  if (err != cudaSuccess) return err;
+  const NchwEpilogue<float> epi = {static_cast<const float*>(bias),
+                                   static_cast<const float*>(residual), static_cast<float*>(y),
+                                   static_cast<float*>(mom_part), h, wd, cout};
+  kernel<<<c3::grid(n, h, wd, cout, bw), c3::THREADS, c3::F32_SMEM, stream>>>(smap, wmap, epi, n,
+                                                                            wd, cin, bw);
+  return cudaGetLastError();
+}
+
+// #11 at fp32. dW^T[ci][co] per tap = sum over pixels of s[ci][p + shift] *
+// dy[co][p], K = pixels, on wgmma m64n32k8 tf32: M = 64 input channels, N =
+// 32 output channels (a 64-wide N would need 3 x 32 fresh and 3 x 32 summed
+// accumulators a thread, more than 384 threads hold). tf32 wgmma's B must be
+// K-major: dy is NCHW, pixels contiguous, and the NCHW pre-pass splits it
+// into hi and lo planes, (2, N, Cout, H, W). The tap shifts are arbitrary
+// pixel offsets that no descriptor expresses, so A comes from registers, as
+// in the bf16 kernel: the pre-pass writes s = silu(a*x + o) NCHW in fp32
+// (unsplit), thread 0 loads per unit one unswizzled TMA box of it, 64
+// channels x WR rows x WW columns at (w0 - 4, h0 - 1) (TMA takes an inner
+// coordinate of whole 16 bytes only), zero-filled outside the image (the
+// conv's padding); each thread loads its four elements of a
+// 64 x 8 fragment with plain shared loads at the tap's shift and splits them
+// into hi and lo in registers (cvt.rna). Per k-step and tap: lo hi, hi lo,
+// hi hi. Warpgroup g owns the taps of kernel row g. Each unit (128 pixels,
+// 16 k-steps of 3 products) goes into fresh accumulators, added to the
+// split's sums in fp32 (the tensor cores truncate their accumulation); the
+// splits of a cluster add their sums in order of the split, as the bf16
+// kernel does. Grid (Cin / 64, Cout / 32, splits), clusters (1, 1, splits).
+constexpr int DWF_CI = 64;  // input channels per block: wgmma's M, from registers
+constexpr int DWF_CO = 32;  // output channels per block: wgmma's N
+constexpr int DWF_STAGES = 2;
+
+template <int BW>
+struct DwF32Tile {
+  static constexpr int RS = DW_PIX / BW;       // rows per unit
+  // window columns from w0 - 4: the BW + 2 the taps read from w0 - 1, and
+  // the rest pad the plane; window rows RS + 2, and one to pad the plane
+  static constexpr int WW = BW + 12;
+  static constexpr int WR = RS + 3;
+  static constexpr int PLANE = WR * WW;        // one channel of the window, floats
+  static constexpr int WIN_BYTES = DWF_CI * PLANE * 4;
+  static constexpr int WIN_ALIGNED = (WIN_BYTES + 1023) / 1024 * 1024;
+  static constexpr int SUB_BYTES = DWF_CO * BW * 4;  // dy, one row, hi or lo: [co][BW pixels]
+  static constexpr int STAGE = WIN_ALIGNED + 2 * RS * SUB_BYTES;
+  static constexpr int SMEM = DWF_STAGES * STAGE + 1024 + 2 * DWF_STAGES * 8;
+  static_assert(DWF_STAGES * STAGE >= 9 * DWF_CI * DWF_CO * 4, "the ring holds the split's sums");
+  // a fragment's 8 channels x 4 columns fall on 32 banks: the plane is an
+  // odd multiple of 4 banks on
+  static_assert(PLANE % 8 == 4, "the fragment loads are free of bank conflicts");
+  static_assert(SMEM <= 232448, "a block's shared memory");
+};
+
+// The columns of one pixel unit of conv3x3_dw_f32: 32 where they divide W,
+// else 16 (W is a multiple of 16).
+int dw_f32_cols(int w) { return w % 32 == 0 ? 32 : 16; }
+
+// v's hi and lo as tf32 bits.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  const float h = to_tf32(v);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(to_tf32(v - h));
+}
+
+template <int BW>
+__global__ void __launch_bounds__(DW_THREADS, 1)
+    conv3x3_dw_f32_kernel(const __grid_constant__ CUtensorMap smap,
+                          const __grid_constant__ CUtensorMap dymap, float* __restrict__ dw,
+                          int n_batch, int cin, int cout, int h, int w) {
+  using T = DwF32Tile<BW>;
+  constexpr int KPR = BW / 8;           // k-steps of 8 pixels a unit row
+  constexpr int STEPS = T::RS * KPR;    // k-steps a unit: 16
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + DWF_STAGES * T::STAGE);
+  uint64_t* empty = full + DWF_STAGES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ci0 = blockIdx.x * DWF_CI, co0 = blockIdx.y * DWF_CO;
+  const int units_w = w / BW, units_img = ((h + T::RS - 1) / T::RS) * units_w;
+  const long long total = static_cast<long long>(n_batch) * units_img;
+  const int g_begin = static_cast<int>(blockIdx.z * total / gridDim.z);
+  const int g_end = static_cast<int>((blockIdx.z + 1) * total / gridDim.z);
+
+  if (tid == 0) {
+    for (int s = 0; s < DWF_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 12);  // one arrival per warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // thread 0 is also the producer, as in the bf16 kernel
+  auto issue = [&](int g) {
+    const int k = g - g_begin, s = k % DWF_STAGES;
+    const int nn = g / units_img, u = g % units_img;
+    const int h0 = (u / units_w) * T::RS, w0 = (u % units_w) * BW;
+    uint8_t* st = smem + s * T::STAGE;
+    mbar_arrive_expect_tx(&full[s], T::WIN_BYTES + 2 * T::RS * T::SUB_BYTES);
+    tma_load_4d(st, &smap, &full[s], w0 - 4, h0 - 1, ci0, nn);
+    for (int r = 0; r < T::RS; ++r) {
+      uint8_t* sub = st + T::WIN_ALIGNED + r * T::SUB_BYTES;
+      tma_load_4d(sub, &dymap, &full[s], w0, h0 + r, co0, nn);                        // hi
+      tma_load_4d(sub + T::RS * T::SUB_BYTES, &dymap, &full[s], w0, h0 + r, co0,
+                  nn + n_batch);                                                       // lo
+    }
+  };
+  if (tid == 0)
+    for (int g = g_begin; g < g_end && g < g_begin + DWF_STAGES; ++g) issue(g);
+
+  // ---- the consumer warpgroups: M = 64 input channels, N = 32 outputs ----
+  const int wg = warp / 4, wq = warp % 4, gid = lane / 4, tig = lane % 4;
+  // this thread's fragment elements: channels wq*16 + gid (+ 8), columns tig
+  // (+ 4) of the k-step, at the window row of kernel row wg; pixel column c
+  // at tap column dx is window column c + dx + 3
+  const int a_off = ((wq * 16 + gid) * T::WR + wg) * T::WW + tig + 3;
+  constexpr int CH8 = 8 * T::PLANE;
+  float acc[3][16], sum[3][16];
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[dx][i] = sum[dx][i] = 0.0f;
+  uint32_t ahi[2][3][4], alo[2][3][4];
+
+  for (int g = g_begin; g < g_end; ++g) {
+    const int k = g - g_begin, s = k % DWF_STAGES;
+    mbar_wait(&full[s], (k / DWF_STAGES) & 1);
+    const float* win = reinterpret_cast<const float*>(smem + s * T::STAGE) + a_off;
+    const uint8_t* dys = smem + s * T::STAGE + T::WIN_ALIGNED;
+#pragma unroll
+    for (int t = 0; t < STEPS; ++t) {
+      const int r = t / KPR, kk = t % KPR, b = t & 1;
+      const uint64_t dh = make_desc(dys + r * T::SUB_BYTES, BW * 4) + 2 * kk;
+      const uint64_t dl = make_desc(dys + (T::RS + r) * T::SUB_BYTES, BW * 4) + 2 * kk;
+      const float* p = win + r * T::WW + kk * 8;
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        split_tf32(p[dx], ahi[b][dx][0], alo[b][dx][0]);
+        split_tf32(p[dx + CH8], ahi[b][dx][1], alo[b][dx][1]);
+        split_tf32(p[dx + 4], ahi[b][dx][2], alo[b][dx][2]);
+        split_tf32(p[dx + CH8 + 4], ahi[b][dx][3], alo[b][dx][3]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        wgmma_tf32_rs_m64n32k8(acc[dx], alo[b][dx], dh, t == 0 ? 0 : 1);
+        wgmma_tf32_rs_m64n32k8(acc[dx], ahi[b][dx], dl);
+        wgmma_tf32_rs_m64n32k8(acc[dx], ahi[b][dx], dh);
+      }
+      wgmma_commit();
+      // step t - 1's products are done: its fragments may be loaded again
+      wgmma_wait<1>();
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        fence_regs(ahi[b ^ 1][dx]);
+        fence_regs(alo[b ^ 1][dx]);
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      fence_regs(acc[dx]);
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        fence_regs(ahi[b][dx]);
+        fence_regs(alo[b][dx]);
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) sum[dx][i] += acc[dx][i];
+    }
+    if (lane == 0) mbar_arrive(&empty[s]);  // the stage goes back to the producer
+    if (tid == 0 && g + DWF_STAGES < g_end) {
+      mbar_wait(&empty[s], (k / DWF_STAGES) & 1);
+      issue(g + DWF_STAGES);
+    }
+    __syncwarp();
+  }
+
+  // the splits' sums added in order of the split, as in conv3x3_dw_kernel
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int splits = static_cast<int>(cluster.num_blocks());
+  float* red = reinterpret_cast<float*>(smem);  // [tap][ci 64][co 32]
+  auto at = [&](int dx, int j, int e) {
+    return ((wg * 3 + dx) * DWF_CI + wq * 16 + gid + (e >> 1) * 8) * DWF_CO + 8 * j + 2 * tig +
+           (e & 1);
+  };
+  __syncthreads();
+  if (rank != 0) {
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[at(dx, j, e)] = sum[dx][4 * j + e];
+  }
+  cluster.sync();
+  if (rank == 0) {
+    for (int r = 1; r < splits; ++r) {
+      const float* remote = cluster.map_shared_rank(red, r);
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sum[dx][4 * j + e] += remote[at(dx, j, e)];
+    }
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ci = ci0 + wq * 16 + gid + (e >> 1) * 8;
+          const int co = co0 + 8 * j + 2 * tig + (e & 1);
+          dw[(static_cast<size_t>(co) * cin + ci) * 9 + wg * 3 + dx] = sum[dx][4 * j + e];
+        }
+  }
+  cluster.sync();  // the other splits keep their shared memory until it is read
+}
+
+template <int BW>
+int dw_f32_max_clusters(int splits) {
+  return max_clusters(conv3x3_dw_f32_kernel<BW>, DW_THREADS, DwF32Tile<BW>::SMEM, splits);
+}
+
+template <int BW>
+cudaError_t launch_dw_f32(const void* x, const void* a, const void* o, const void* dy, void* s,
+                          void* dy_split, void* dw, int n, int cin, int cout, int h, int w,
+                          int splits, cudaStream_t stream) {
+  using T = DwF32Tile<BW>;
+  const int hw = h * w;
+  cudaError_t err = nchw_f32<true>(x, a, o, s, n, cin, hw, stream);
+  if (err != cudaSuccess) return err;
+  err = nchw_f32<false>(dy, nullptr, nullptr, dy_split, n, cout, hw, stream);
+  if (err != cudaSuccess) return err;
+  CUtensorMap smap, dymap;
+  const uint64_t sdims[4] = {static_cast<uint64_t>(w), static_cast<uint64_t>(h),
+                             static_cast<uint64_t>(cin), static_cast<uint64_t>(n)};
+  const uint64_t sstrides[3] = {4ull * w, 4ull * hw, 4ull * hw * cin};
+  const uint32_t sbox[4] = {T::WW, T::WR, DWF_CI, 1};
+  err = make_tensor_map(&smap, s, 4, sdims, sstrides, sbox, 0, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (err != cudaSuccess) return err;
+  const uint64_t ddims[4] = {static_cast<uint64_t>(w), static_cast<uint64_t>(h),
+                             static_cast<uint64_t>(cout), 2ull * n};
+  const uint64_t dstrides[3] = {4ull * w, 4ull * hw, 4ull * hw * cout};
+  const uint32_t dbox[4] = {BW, 1, DWF_CO, 1};
+  err = make_tensor_map(&dymap, dy_split, 4, ddims, dstrides, dbox, BW * 4,
+                        CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(conv3x3_dw_f32_kernel<BW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return err;
+  const ClusterLaunch launch(dim3(cin / DWF_CI, cout / DWF_CO, splits), DW_THREADS, T::SMEM,
+                             splits, stream);
+  err = cudaLaunchKernelEx(&launch.cfg, conv3x3_dw_f32_kernel<BW>, smap, dymap,
+                           static_cast<float*>(dw), n, cin, cout, h, w);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// #9's partial counts are the kernels' own: chunks = ceil(h*w / 64) for the
+// tap, tiles = the loop's pixel tiles for the moments.
+bool partials_ok(const void* tap_part, const void* mom_part, int n, int cout, int h, int wd,
+                 int bw, int chunks, int tiles) {
+  return (tap_part == nullptr || chunks == silu_chunks(h * wd)) &&
+         (mom_part == nullptr || tiles == static_cast<int>(c3::grid(n, h, wd, cout, bw).x));
+}
+
+// #9's second pass: the tap and the moments from their partials, each added
+// in a fixed order by sum_tiles_kernel.
+cudaError_t sum_partials(const void* tap_part, void* tap, const void* mom_part, void* ysum,
+                         void* ysq, int n, int cin, int cout, int chunks, int tiles,
+                         cudaStream_t st) {
+  cudaError_t err = cudaSuccess;
+  if (tap_part != nullptr) {
+    err = sum_tiles(static_cast<const float*>(tap_part), static_cast<float*>(tap), n, chunks, cin,
+                    st);
+    if (err != cudaSuccess) return err;
+  }
+  if (mom_part != nullptr) {
+    const float* mp = static_cast<const float*>(mom_part);
+    const size_t one = static_cast<size_t>(n) * tiles * cout;
+    err = sum_tiles(mp, static_cast<float*>(ysum), n, tiles, cout, st);
+    if (err != cudaSuccess) return err;
+    err = sum_tiles(mp + one, static_cast<float*>(ysq), n, tiles, cout, st);
+  }
+  return err;
 }
 
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
@@ -598,27 +1081,34 @@ int vcd_fused_gn_silu_conv3x3(const void* x, const void* a, const void* o, const
                               void* tap_part, void* tap, void* mom_part, void* ysum, void* ysq,
                               int n, int cin, int cout, int h, int wd, int bw, int chunks,
                               int tiles, void* stream) {
-  if (!loop_shape_ok(n, cin, cout, h, wd, bw)) return kInvalid;
-  if ((tap_part != nullptr && chunks != silu_chunks(h * wd)) ||
-      (mom_part != nullptr && tiles != static_cast<int>(c3::grid(n, h, wd, cout, bw).x)))
+  if (!loop_shape_ok(n, cin, cout, h, wd, bw) || !partials_ok(tap_part, mom_part, n, cout, h,
+                                                               wd, bw, chunks, tiles))
     return kInvalid;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch_fused(x, a, o, w, bias, residual, y, s, tap_part, mom_part, n, cin,
                                  cout, h, wd, bw, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (tap_part != nullptr) {
-    err = sum_tiles(static_cast<const float*>(tap_part), static_cast<float*>(tap), n, chunks, cin,
-                    st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (mom_part != nullptr) {
-    const float* mp = static_cast<const float*>(mom_part);
-    const size_t one = static_cast<size_t>(n) * tiles * cout;
-    err = sum_tiles(mp, static_cast<float*>(ysum), n, tiles, cout, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = sum_tiles(mp + one, static_cast<float*>(ysq), n, tiles, cout, st);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(
+      sum_partials(tap_part, tap, mom_part, ysum, ysq, n, cin, cout, chunks, tiles, st));
+}
+
+// The same at fp32: x, residual and y fp32; w (2, 3, 3, cout, cin) fp32,
+// the K-major weight split into hi, then lo; s (2, n, h, w, cin) fp32
+// scratch. The same shapes and partial counts.
+int vcd_fused_gn_silu_conv3x3_f32(const void* x, const void* a, const void* o, const void* w,
+                                  const void* bias, const void* residual, void* y, void* s,
+                                  void* tap_part, void* tap, void* mom_part, void* ysum,
+                                  void* ysq, int n, int cin, int cout, int h, int wd, int bw,
+                                  int chunks, int tiles, void* stream) {
+  if (!loop_shape_ok(n, cin, cout, h, wd, bw) || !partials_ok(tap_part, mom_part, n, cout, h,
+                                                               wd, bw, chunks, tiles))
+    return kInvalid;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_conv_f32<true>(x, a, o, w, bias, residual, y, s, tap_part, mom_part,
+                                          n, cin, cout, h, wd, bw, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      sum_partials(tap_part, tap, mom_part, ysum, ysq, n, cin, cout, chunks, tiles, st));
 }
 
 // y (n, cout, h, w) bf16 = conv3x3(x (n, cin, h, w) bf16) + bias; w (3, 3,
@@ -631,6 +1121,16 @@ int vcd_conv3x3(const void* x, const void* w, const void* bias, void* y, void* s
   if (!loop_shape_ok(n, cin, cout, h, wd, bw)) return kInvalid;
   return static_cast<int>(launch_conv(x, w, bias, y, s, n, cin, cout, h, wd, bw,
                                       static_cast<cudaStream_t>(stream)));
+}
+
+// The same at fp32: x and y fp32; w (2, 3, 3, cout, cin) fp32, the K-major
+// weight split into hi, then lo; s (2, n, h, w, cin) fp32 scratch, x split.
+int vcd_conv3x3_f32(const void* x, const void* w, const void* bias, void* y, void* s, int n,
+                    int cin, int cout, int h, int wd, int bw, void* stream) {
+  if (!loop_shape_ok(n, cin, cout, h, wd, bw)) return kInvalid;
+  return static_cast<int>(launch_conv_f32<false>(x, nullptr, nullptr, w, bias, nullptr, y, s,
+                                                 nullptr, nullptr, n, cin, cout, h, wd, bw,
+                                                 static_cast<cudaStream_t>(stream)));
 }
 
 // dw (cout, cin, 3, 3) fp32 = sum over n, h, w of dy (n, cout, h, w) bf16
@@ -662,6 +1162,35 @@ int vcd_conv3x3_dw_max_clusters(int w, int splits) {
   return cols == 64 ? dw_max_clusters<64>(splits)
          : cols == 32 ? dw_max_clusters<32>(splits)
                       : dw_max_clusters<16>(splits);
+}
+
+// dw (cout, cin, 3, 3) fp32 = sum over n, h, w of dy (n, cout, h, w) fp32
+// times silu(a*x + o) shifted, x (n, cin, h, w) fp32; s (n, cin, h, w) fp32
+// and dy_split (2, n, cout, h, w) fp32 scratch; cin a multiple of 64, cout
+// of 32, w of 16; 1 <= splits <= DW_MAX_SPLITS and <= the pixel units, n *
+// ceil(h / (128 / cols)) * (w / cols) with cols = dw_f32_cols(w).
+int vcd_conv3x3_dw_f32(const void* x, const void* a, const void* o, const void* dy, void* s,
+                       void* dy_split, void* dw, int n, int cin, int cout, int h, int w,
+                       int splits, void* stream) {
+  if (n < 1 || cin < DWF_CI || cin % DWF_CI != 0 || cout < DWF_CO || cout % DWF_CO != 0 ||
+      h < 1 || w < 16 || w % 16 != 0)
+    return kInvalid;
+  const int cols = dw_f32_cols(w), rows = DW_PIX / cols;
+  const long long units = static_cast<long long>(n) * ((h + rows - 1) / rows) * (w / cols);
+  if (splits < 1 || splits > units || splits > DW_MAX_SPLITS) return kInvalid;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      cols == 32 ? launch_dw_f32<32>(x, a, o, dy, s, dy_split, dw, n, cin, cout, h, w, splits, st)
+                 : launch_dw_f32<16>(x, a, o, dy, s, dy_split, dw, n, cin, cout, h, w, splits,
+                                     st);
+  return static_cast<int>(err);
+}
+
+// How many clusters of `splits` (1-8) blocks conv3x3_dw_f32 runs at once on
+// the current card at width w, or -(CUDA error).
+int vcd_conv3x3_dw_f32_max_clusters(int w, int splits) {
+  if (w < 16 || w % 16 != 0 || splits < 1 || splits > DW_MAX_SPLITS) return -kInvalid;
+  return dw_f32_cols(w) == 32 ? dw_f32_max_clusters<32>(splits) : dw_f32_max_clusters<16>(splits);
 }
 
 const char* vcd_fused_error_string(int err) {

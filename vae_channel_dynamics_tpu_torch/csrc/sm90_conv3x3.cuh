@@ -1,7 +1,8 @@
 // The 3x3 convolution's implicit GEMM on Hopper (sm_90a), shared by kernel
-// #12 (conv_nhwc.cu, NHWC y plus bias) and kernel #9 (fused_resnet.cu, NCHW y
-// plus bias and residual, with moments): the loop below is the same for
-// both, and each kernel passes its own epilogue.
+// #12 (conv_nhwc.cu, NHWC y plus bias) and kernels #9 and #10
+// (fused_resnet.cu, NCHW y plus bias and residual, with moments): the loop
+// below is the same for all, and each kernel passes its own epilogue. The
+// fp32 loop (3xTF32) further down serves #9 and #10 at fp32.
 //
 // Input x (N, H, W, Cin) bf16 (for #9 the pre-pass's s), weight HWIO (3, 3,
 // Cin, Cout) bf16; fp32 accumulation. M = 128 output pixels, N = 128 output
@@ -132,6 +133,136 @@ __device__ __forceinline__ void conv3x3_wgmma(const CUtensorMap* xmap, const CUt
   wgmma_wait<0>();
   fence_regs(acc);
   epi(acc, smem, tile, wg, warp, lane);
+}
+
+// ---- the fp32 loop (3xTF32) ------------------------------------------------ //
+// The same implicit GEMM in fp32 for #9 and #10 at fp32: every product x*w
+// is three TF32 products, hi hi + hi lo + lo hi, with hi = tf32(v) and lo =
+// tf32(v - hi) rounded to nearest (sm90_wgmma.cuh's to_tf32), on wgmma
+// m64n128k8 with fp32 accumulation. tf32 wgmma takes K-major operands only,
+// so the weight comes K-major too: (3, 3, Cout, Cin), rows of Cin. Both
+// operands arrive split: x as two NHWC planes (hi, then lo: 2N images of
+// (H, W, Cin) fp32, the pre-pass's work) and the weight as (2, 3, 3, Cout,
+// Cin) (hi, then lo: 18 taps), so a stage is four TMA boxes of 32 channels,
+// one 128-byte swizzled row a pixel or an output channel: A hi, A lo, B hi,
+// B lo, 16 KB each. The tensor cores truncate each fp32 accumulation (round
+// toward zero), so no accumulation is long: each group of F32_GROUP chunks
+// (one tap's 64 channels, 8 k-steps of 3 products) goes into a fresh
+// accumulator, added to the running sum in fp32 registers once the group
+// is done; the sum is what the epilogue gets. One block an SM (64 KB
+// stages), F32_STAGES stages.
+constexpr int F32_KC = 32;                         // fp32 channels a chunk: a 128-byte row
+constexpr int F32_GROUP = 2;                       // chunks a fresh accumulation
+constexpr int F32_STAGES = 3;
+constexpr int F32_TILE = BM * F32_KC * 4;          // A or B, hi or lo: 16 KB
+constexpr int F32_STAGE = 4 * F32_TILE;
+constexpr int F32_RING = F32_STAGES * F32_STAGE;   // free for the epilogue after the loop
+constexpr int F32_SMEM = F32_RING + 1024 + 2 * F32_STAGES * 8;
+static_assert(BM == BN, "A and B tiles are the same size");
+static_assert(BN * (BM + 4) * 4 <= F32_RING, "an epilogue's staging fits the fp32 ring");
+
+// The fp32 loop, then epi on the consumer threads, as conv3x3_wgmma. x holds
+// 2 * n_batch images (hi, then lo); grid, THREADS as the bf16 loop,
+// F32_SMEM bytes of dynamic shared memory. cin a multiple of 64.
+template <class Epilogue>
+__device__ __forceinline__ void conv3x3_tf32x3(const CUtensorMap* xmap, const CUtensorMap* wmap,
+                                               int n_batch, int wd, int cin, int bw,
+                                               const Epilogue& epi) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + F32_RING);
+  uint64_t* empty = full + F32_STAGES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = BM / bw, tiles_w = (wd + bw - 1) / bw;
+  const Tile tile = {static_cast<int>(blockIdx.z), static_cast<int>(blockIdx.x / tiles_w) * bh,
+                     static_cast<int>(blockIdx.x % tiles_w) * bw,
+                     static_cast<int>(blockIdx.y) * BN, bw};
+  const int chunks_per_tap = cin / F32_KC, nchunks = 9 * chunks_per_tap;
+
+  if (tid == 0) {
+    for (int s = 0; s < F32_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS * 4) {
+    // ---- the producer warp: one thread keeps the ring full ----
+    if (lane == 0) {
+      for (int k = 0; k < nchunks; ++k) {
+        const int s = k % F32_STAGES;
+        if (k >= F32_STAGES) mbar_wait(&empty[s], ((k / F32_STAGES) - 1) & 1);
+        const int tap = k / chunks_per_tap, ci0 = (k % chunks_per_tap) * F32_KC;
+        const int x0 = tile.w0 + tap % 3 - 1, y0 = tile.h0 + tap / 3 - 1;
+        uint8_t* st = smem + s * F32_STAGE;
+        mbar_arrive_expect_tx(&full[s], F32_STAGE);
+        tma_load_4d(st, xmap, &full[s], ci0, x0, y0, tile.n);
+        tma_load_4d(st + F32_TILE, xmap, &full[s], ci0, x0, y0, tile.n + n_batch);
+        tma_load_3d(st + 2 * F32_TILE, wmap, &full[s], ci0, tile.co0, tap);
+        tma_load_3d(st + 3 * F32_TILE, wmap, &full[s], ci0, tile.co0, tap + 9);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups ----
+  const int wg = warp / 4;
+  float acc[64], sum[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = sum[i] = 0.0f;
+
+  for (int k = 0; k < nchunks; ++k) {
+    const int s = k % F32_STAGES;
+    mbar_wait(&full[s], (k / F32_STAGES) & 1);
+    const uint8_t* st = smem + s * F32_STAGE;
+    const uint64_t ahi = make_desc(st + wg * 64 * 128, 128);
+    const uint64_t alo = make_desc(st + F32_TILE + wg * 64 * 128, 128);
+    const uint64_t bhi = make_desc(st + 2 * F32_TILE, 128);
+    const uint64_t blo = make_desc(st + 3 * F32_TILE, 128);
+    const int fresh = k % F32_GROUP == 0;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < F32_KC / 8; ++kk) {  // 32 bytes on in both operands' K
+      wgmma_tf32<128>(acc, alo + 2 * kk, bhi + 2 * kk, fresh && kk == 0 ? 0 : 1);
+      wgmma_tf32<128>(acc, ahi + 2 * kk, blo + 2 * kk);
+      wgmma_tf32<128>(acc, ahi + 2 * kk, bhi + 2 * kk);
+    }
+    wgmma_commit();
+    if (k % F32_GROUP == F32_GROUP - 1) {
+      // the group is done: into the sum in fp32, and its stages go back
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sum[i] += acc[i];
+      if (lane == 0)
+        for (int j = k - F32_GROUP + 1; j <= k; ++j) mbar_arrive(&empty[j % F32_STAGES]);
+    }
+  }
+  epi(sum, smem, tile, wg, warp, lane);
+}
+
+// The tensor maps of the fp32 loop: x (2n, h, wd, cin) fp32 (hi images, then
+// lo) in boxes of 32 channels x bw x 128 / bw pixels; the K-major weight (18,
+// cout, cin) fp32 (hi taps, then lo) in boxes of 32 x 128 output channels;
+// both 128-byte swizzled.
+inline cudaError_t make_maps_f32(CUtensorMap* xmap, CUtensorMap* wmap, const void* x,
+                                 const void* w, int n, int h, int wd, int cin, int cout,
+                                 int bw) {
+  const uint64_t xdims[4] = {static_cast<uint64_t>(cin), static_cast<uint64_t>(wd),
+                             static_cast<uint64_t>(h), 2ull * n};
+  const uint64_t xstrides[3] = {4ull * cin, 4ull * cin * wd, 4ull * cin * wd * h};
+  const uint32_t xbox[4] = {F32_KC, static_cast<uint32_t>(bw), static_cast<uint32_t>(BM / bw),
+                            1};
+  cudaError_t err = make_tensor_map(xmap, x, 4, xdims, xstrides, xbox, 128,
+                                    CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (err != cudaSuccess) return err;
+  const uint64_t wdims[3] = {static_cast<uint64_t>(cin), static_cast<uint64_t>(cout), 18};
+  const uint64_t wstrides[2] = {4ull * cin, 4ull * cin * cout};
+  const uint32_t wbox[3] = {F32_KC, BN, 1};
+  return make_tensor_map(wmap, w, 3, wdims, wstrides, wbox, 128, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
 // The tensor maps of the loop: x (n, h, wd, cin) bf16 in boxes of KC

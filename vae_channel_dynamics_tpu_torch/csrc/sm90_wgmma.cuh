@@ -22,7 +22,10 @@
 // a kernel takes the map by value as a `const __grid_constant__ CUtensorMap`.
 // TMA's tiled mode takes signed coordinates and fills every element of the
 // box that lies outside the tensor with zeros: the kernels' halos and ragged
-// edges.
+// edges. The innermost coordinate must fall on whole 16 bytes (an fp32 box
+// started one element before a row, at -1, stops the kernel with an illegal
+// instruction): a halo one element wide is taken from a box started 16 bytes
+// early.
 
 #pragma once
 

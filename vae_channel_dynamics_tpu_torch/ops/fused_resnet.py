@@ -31,6 +31,18 @@ that the wrapper allocates, and #10 its input x unchanged. All three are tensor-
 the H100 (implicit GEMMs with K = 9 * channels); the source's header has the
 design.
 
+Each kernel takes bf16 or fp32; the wrapper picks it by x's dtype (the
+counters ``fused_gn_silu_conv3x3_f32``, ``conv3x3_f32`` and
+``conv3x3_dw_f32`` for fp32), and x, w, residual and dy of one call share
+that dtype, or the call raises. The fp32 kernels take every product as three
+TF32 products on the tensor cores (3xTF32: hi hi + hi lo + lo hi, hi and lo
+the operand rounded to TF32 and its rounded remainder), keep every tensor-
+core accumulation short and add the partial sums in fp32. #9 and #10 read
+the weight K-major and split, (2, 3, 3, Cout, Cin) (:func:`weight_kmajor_split`),
+and their pre-pass writes the NHWC scratch as hi and lo planes, (2, N, H,
+W, Cin); #11's pre-passes write s NCHW in fp32, (N, Cin, H, W), and dy split,
+(2, N, Cout, H, W).
+
 :func:`gn_silu_conv3x3` is the op the model calls: a
 ``torch.autograd.Function`` with the JAX custom VJP (pallas_resnet.py:
 550-628). Its forward takes the GroupNorm statistics with the GroupNorm
@@ -40,17 +52,18 @@ with the affine into per-(sample, channel) a, o; its backward runs
 and the GroupNorm+SiLU backward on ds (kernels #4 and #5, through
 ``group_norm_kernel._bwd``). The tap and the moments are non-differentiable;
 d(residual) = dy, db = sum dy, and dW comes back in the weight's dtype, from
-which autograd carries it to the fp32 master.
+which autograd carries it to the fp32 master. It runs on the card in bf16
+and in fp32; the model fuses only bf16 compute (JAX ``models/vae.py:538``:
+fp32 parity there asks for HIGHEST-precision convs), so its fp32 paths run
+the plain convs.
 
 Each kernel has its plain PyTorch version beside it (``*_reference``), with
 the kernel's arithmetic: s rounded to x's dtype, the conv accumulated in fp32
 on the rounded s and w, bias and residual added in fp32, y rounded once. A
 wrapper runs its plain version only for a tensor on the CPU; a CUDA tensor
-goes to the kernel or the call raises. The kernels take bf16 only and raise
-on fp32, as the model fuses only bf16 compute (JAX ``models/vae.py:538``).
-On a CUDA tensor the plain versions' fp32 convolutions need TF32 off
-(``torch.backends.cudnn.allow_tf32 = False``) to be the reference.
-``launches`` counts kernel launches per kernel.
+goes to the kernel or the call raises. On a CUDA tensor the plain versions'
+fp32 convolutions need TF32 off (``torch.backends.cudnn.allow_tf32 =
+False``) to be the reference. ``launches`` counts kernel launches per kernel.
 """
 
 from __future__ import annotations
@@ -68,11 +81,14 @@ from .conv_nhwc import pixel_tile
 from .stats import mask_count, mask_for
 
 LIBRARY = "fused_resnet"
-KERNELS = ("fused_gn_silu_conv3x3", "conv3x3", "conv3x3_dw")
+BF16_KERNELS = ("fused_gn_silu_conv3x3", "conv3x3", "conv3x3_dw")
+# each kernel at fp32 (3xTF32), picked by x's dtype (:func:`_by_dtype`)
+KERNELS = BF16_KERNELS + tuple(f"{name}_f32" for name in BF16_KERNELS)
 LANE = 128  # the JAX kernels' channel multiple (pallas_group_norm.py:40)
 W_MULTIPLE = 16  # the JAX kernels' W rule; here also the 16-byte NCHW stores' width
 SILU_PIXELS = 64  # pixels of one block of the NHWC pre-pass (#9's tap partials)
 DW_BLOCK_CHANNELS = (64, 64)  # conv3x3_dw's (out, in) channels per block
+DW_F32_BLOCK_CHANNELS = (32, 64)  # conv3x3_dw_f32's: 3 x (32 fresh + 32 summed) fp32 a thread
 DW_UNIT_PIXELS = 128  # conv3x3_dw's pixel unit: rows x cols of one image
 DW_TARGET_BLOCKS = 132  # the H100's SMs: conv3x3_dw holds one block on each
 DW_MAX_SPLITS = 8  # the splits of a channel block form one thread-block cluster
@@ -87,6 +103,10 @@ _SIGNATURES = {
     "conv3x3": [_P] * 5 + [_I] * 6 + [_P],
     "conv3x3_dw": [_P] * 6 + [_I] * 6 + [_P],
     "conv3x3_dw_max_clusters": [_I, _I],
+    "fused_gn_silu_conv3x3_f32": [_P] * 13 + [_I] * 8 + [_P],
+    "conv3x3_f32": [_P] * 5 + [_I] * 6 + [_P],
+    "conv3x3_dw_f32": [_P] * 7 + [_I] * 6 + [_P],
+    "conv3x3_dw_f32_max_clusters": [_I, _I],
 }
 _fns: Dict[str, object] = {}  # ctypes functions, bound at first launch
 
@@ -138,14 +158,21 @@ def eligible(x, cout: int, num_groups: int) -> bool:
 # --------------------------------------------------------------------------- #
 # Plain versions: the kernels' functions in PyTorch, used for CPU tensors and
 # as the card's reference. x (N, Cin, H, W); a, o (N, Cin) fp32; w (Cout, Cin,
-# 3, 3); bias (Cout,) fp32 or None; residual and dy (N, Cout, H, W).
+# 3, 3); bias (Cout,) fp32 or None; residual and dy (N, Cout, H, W). Their sums
+# are fp32, or fp64 where x is fp64: the fp32 kernels' fp64 reference.
 # --------------------------------------------------------------------------- #
+def _acc(x: torch.Tensor) -> torch.dtype:
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def _silu_rounded(x: torch.Tensor, a: torch.Tensor, o: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """z = a*x + o in fp32, and s = silu(z) rounded to x's dtype (returned in
-    fp32). The conv's zero padding is the kernels' mask after the affine."""
-    z = x.float() * a[:, :, None, None] + o[:, :, None, None]
-    return z, (z * torch.sigmoid(z)).to(x.dtype).float()
+    fp32; both in fp64 for fp64 x). The conv's zero padding is the kernels'
+    mask after the affine."""
+    acc = _acc(x)
+    z = x.to(acc) * a.to(acc)[:, :, None, None] + o.to(acc)[:, :, None, None]
+    return z, (z * torch.sigmoid(z)).to(x.dtype).to(acc)
 
 
 def fused_fwd_reference(
@@ -156,14 +183,15 @@ def fused_fwd_reference(
     """``(y, tap, moments)``: y = conv3x3(silu(a*x + o)) + bias (+ residual)
     in x's dtype; tap the fp32 (N, Cin) sum |z|; moments the fp32 (N, Cout)
     sum y and sum y^2 of the fp32 y."""
+    acc = _acc(x)
     z, s = _silu_rounded(x, a, o)
     tap = z.abs().sum(dim=(2, 3)) if emit_tap else None
     del z
-    y = F.conv2d(s, w.to(x.dtype).float(), padding=1)
+    y = F.conv2d(s, w.to(x.dtype).to(acc), padding=1)
     if bias is not None:
-        y = y + bias.float()[None, :, None, None]
+        y = y + bias.to(acc)[None, :, None, None]
     if residual is not None:
-        y = y + residual.float()
+        y = y + residual.to(acc)
     moments = (y.sum(dim=(2, 3)), y.square().sum(dim=(2, 3))) if emit_moments else None
     return y.to(x.dtype), tap, moments
 
@@ -171,19 +199,21 @@ def fused_fwd_reference(
 def conv3x3_reference(x: torch.Tensor, w: torch.Tensor,
                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """conv3x3(x) + bias, fp32 accumulation, in x's dtype."""
-    y = F.conv2d(x.float(), w.to(x.dtype).float(), padding=1)
+    acc = _acc(x)
+    y = F.conv2d(x.to(acc), w.to(x.dtype).to(acc), padding=1)
     if bias is not None:
-        y = y + bias.float()[None, :, None, None]
+        y = y + bias.to(acc)[None, :, None, None]
     return y.to(x.dtype)
 
 
 def conv_dw_reference(x: torch.Tensor, a: torch.Tensor, o: torch.Tensor,
                       dy: torch.Tensor) -> torch.Tensor:
-    """dW (Cout, Cin, 3, 3) fp32: the weight gradient of conv3x3 at input
-    s = silu(a*x + o) (rounded to x's dtype) and output gradient dy."""
+    """dW (Cout, Cin, 3, 3) fp32 (fp64 for fp64 x): the weight gradient of
+    conv3x3 at input s = silu(a*x + o) (rounded to x's dtype) and output
+    gradient dy."""
     _z, s = _silu_rounded(x, a, o)
     w_shape = (dy.shape[1], x.shape[1], 3, 3)
-    return torch.nn.grad.conv2d_weight(s, w_shape, dy.float(), padding=1)
+    return torch.nn.grad.conv2d_weight(s, w_shape, dy.to(s.dtype), padding=1)
 
 
 def flipped_weight(w: torch.Tensor) -> torch.Tensor:
@@ -223,18 +253,23 @@ def _on_cpu(x: torch.Tensor, name: str) -> bool:
     return False
 
 
-def _check_bf16(name: str, what: str, t: torch.Tensor) -> None:
-    if t.dtype != torch.bfloat16:
+def _check_dtype(name: str, what: str, t: torch.Tensor, dtype: torch.dtype) -> None:
+    """x, w, residual and dy of one call share x's dtype, bf16 or fp32."""
+    if t.dtype != dtype or dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(
-            f"{name}: the CUDA fused-resnet kernels take bf16 ({what} is {t.dtype}); "
-            "the model fuses only bf16 compute, and fp32 kernels are not ported yet "
-            "(ROADMAP Q2, #9-#11 at fp32)"
+            f"{name}: the CUDA fused-resnet kernels take x, w, residual and dy all bf16 or "
+            f"all fp32, got {what} {t.dtype} with x {dtype}"
         )
 
 
+def _by_dtype(name: str, x: torch.Tensor) -> str:
+    """The kernel ``name`` for x's dtype: ``name`` on bf16, ``name_f32`` on fp32."""
+    return f"{name}_f32" if x.dtype == torch.float32 else name
+
+
 def _check_act(name: str, what: str, t: torch.Tensor, shape: Tuple[int, ...],
-               device: torch.device) -> None:
-    _check_bf16(name, what, t)
+               device: torch.device, dtype: torch.dtype) -> None:
+    _check_dtype(name, what, t, dtype)
     if tuple(t.shape) != shape or t.device != device:
         raise ValueError(f"{name}: {what} must be {shape} on {device}, got "
                          f"{tuple(t.shape)} on {t.device}")
@@ -253,7 +288,7 @@ def _check_vec(name: str, what: str, v: torch.Tensor, shape: Tuple[int, ...],
 def _check_x(name: str, x: torch.Tensor) -> Tuple[int, int, int, int]:
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be NCHW, got shape {tuple(x.shape)}")
-    _check_act(name, "x", x, tuple(x.shape), x.device)
+    _check_act(name, "x", x, tuple(x.shape), x.device, x.dtype)
     return tuple(x.shape)
 
 
@@ -272,7 +307,7 @@ def _check_weight(name: str, w: torch.Tensor, x: torch.Tensor) -> None:
     if w.dim() != 4 or tuple(w.shape[1:]) != (x.shape[1], 3, 3) or w.device != x.device:
         raise ValueError(f"{name}: w must be an OIHW 3x3 weight over x's {x.shape[1]} "
                          f"channels on {x.device}, got {tuple(w.shape)} on {w.device}")
-    _check_bf16(name, "w", w)
+    _check_dtype(name, "w", w, x.dtype)
 
 
 def weight_hwio(w: torch.Tensor) -> torch.Tensor:
@@ -280,6 +315,29 @@ def weight_hwio(w: torch.Tensor) -> torch.Tensor:
     contiguous: the weight of ``fused_gn_silu_conv3x3`` and ``conv3x3``,
     read by kernel #12's loop as its MN-major B."""
     return w.permute(2, 3, 1, 0).contiguous()
+
+
+def tf32_split(v: torch.Tensor) -> torch.Tensor:
+    """fp32 ``v`` as ``(hi, lo)`` stacked on a new first axis: hi = v rounded
+    to TF32 (10 mantissa bits) to nearest, ties away from zero, lo = v - hi
+    rounded the same; the kernels' ``cvt.rna.tf32.f32``, by integer
+    arithmetic on the bits (add half of TF32's last place to the magnitude,
+    clear the 13 bits TF32 drops)."""
+
+    def rna(t: torch.Tensor) -> torch.Tensor:
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = rna(v)
+    return torch.stack((hi, rna(v - hi)))
+
+
+def weight_kmajor_split(w: torch.Tensor) -> torch.Tensor:
+    """The fp32 OIHW (Cout, Cin, 3, 3) weight as the K-major (3, 3, Cout,
+    Cin), split by :func:`tf32_split` into (2, 3, 3, Cout, Cin), contiguous:
+    the weight of the fp32 ``fused_gn_silu_conv3x3`` and ``conv3x3``, whose
+    tf32 wgmma takes K-major operands only."""
+    return tf32_split(w.permute(2, 3, 0, 1))
 
 
 def tap_chunks(h: int, w: int) -> int:
@@ -298,23 +356,26 @@ def fused_tiles(h: int, w: int) -> int:
     return -(-h // rows) * -(-w // cols)
 
 
-def dw_unit(w: int) -> Tuple[int, int]:
+def dw_unit(w: int, f32: bool = False) -> Tuple[int, int]:
     """``conv3x3_dw``'s pixel unit ``(rows, cols)`` for width ``w`` (a
-    multiple of 16): cols the widest of 64, 32, 16 that divides it, rows *
-    cols = 128."""
-    cols = 64 if w % 64 == 0 else 32 if w % 32 == 0 else 16
+    multiple of 16): cols the widest of 64, 32, 16 that divides it (of 32,
+    16 for ``conv3x3_dw_f32``, whose dy rows are 128-byte swizzled fp32),
+    rows * cols = 128."""
+    widths = (32, 16) if f32 else (64, 32, 16)
+    cols = next(c for c in widths if w % c == 0)
     return DW_UNIT_PIXELS // cols, cols
 
 
-def dw_units(n: int, h: int, w: int) -> int:
-    """The pixel units of ``conv3x3_dw`` over N images, in order of (sample,
-    unit row, unit column); the last unit row may lie partly below H."""
-    rows, cols = dw_unit(w)
+def dw_units(n: int, h: int, w: int, f32: bool = False) -> int:
+    """The pixel units of ``conv3x3_dw`` (``_f32`` with ``f32``) over N
+    images, in order of (sample, unit row, unit column); the last unit row
+    may lie partly below H."""
+    rows, cols = dw_unit(w, f32)
     return n * -(-h // rows) * (w // cols)
 
 
 def dw_splits(n: int, cin: int, cout: int, h: int, w: int,
-              max_clusters: Optional[Callable[[int], int]] = None) -> int:
+              max_clusters: Optional[Callable[[int], int]] = None, f32: bool = False) -> int:
     """How many pixel chunks ``conv3x3_dw`` splits its units into. The S
     splits of a channel block form one cluster of S blocks, each holding an
     SM; ``max_clusters(S)`` is how many such clusters the card runs at once
@@ -322,9 +383,10 @@ def dw_splits(n: int, cin: int, cout: int, h: int, w: int,
     whose every GPC divides by S, when not given). S, at most 8 and at most
     one chunk per unit, minimises waves x units per block, the smaller S on
     a tie. Chunk k covers units [k*U//S, (k+1)*U//S) of the U =
-    :func:`dw_units`."""
-    out_blocks = (cout // DW_BLOCK_CHANNELS[0]) * (cin // DW_BLOCK_CHANNELS[1])
-    units = dw_units(n, h, w)
+    :func:`dw_units`. With ``f32``, ``conv3x3_dw_f32``'s blocks and units."""
+    co, ci = DW_F32_BLOCK_CHANNELS if f32 else DW_BLOCK_CHANNELS
+    out_blocks = (cout // co) * (cin // ci)
+    units = dw_units(n, h, w, f32)
     active = max_clusters or (lambda s: DW_TARGET_BLOCKS // s)
     best, best_cost = 1, None
     for s in range(1, min(units, DW_MAX_SPLITS) + 1):
@@ -338,10 +400,11 @@ def dw_splits(n: int, cin: int, cout: int, h: int, w: int,
 
 
 @functools.lru_cache(maxsize=None)
-def dw_max_clusters(w: int, splits: int) -> int:
-    """How many clusters of ``splits`` ``conv3x3_dw`` blocks the current card
-    runs at once at width ``w`` (``cudaOccupancyMaxActiveClusters``)."""
-    count = _fn("conv3x3_dw_max_clusters")(w, splits)
+def dw_max_clusters(w: int, splits: int, f32: bool = False) -> int:
+    """How many clusters of ``splits`` ``conv3x3_dw`` (``_f32`` with
+    ``f32``) blocks the current card runs at once at width ``w``
+    (``cudaOccupancyMaxActiveClusters``)."""
+    count = _fn("conv3x3_dw_f32_max_clusters" if f32 else "conv3x3_dw_max_clusters")(w, splits)
     if count < 0:
         msg = _cuda_build.load(LIBRARY).vcd_fused_error_string(-count)
         raise RuntimeError(f"conv3x3_dw cluster query failed: CUDA error {-count} "
@@ -367,13 +430,24 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _loop_operands(x: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The weight and the NHWC scratch of #9 and #10 for x's dtype: bf16,
+    :func:`weight_hwio` and (N, H, W, Cin); fp32, :func:`weight_kmajor_split`
+    and the hi and lo planes (2, N, H, W, Cin)."""
+    n, cin, h, wd = x.shape
+    if x.dtype == torch.float32:
+        return weight_kmajor_split(w), torch.empty((2, n, h, wd, cin), dtype=x.dtype,
+                                                   device=x.device)
+    return weight_hwio(w), torch.empty((n, h, wd, cin), dtype=x.dtype, device=x.device)
+
+
 def fused_fwd(
     x: torch.Tensor, a: torch.Tensor, o: torch.Tensor, w: torch.Tensor,
     bias: Optional[torch.Tensor], residual: Optional[torch.Tensor] = None,
     emit_tap: bool = False, emit_moments: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """``(y, tap, moments)`` of :func:`fused_fwd_reference` from the
-    ``fused_gn_silu_conv3x3`` kernel."""
+    ``fused_gn_silu_conv3x3`` kernel (``_f32`` on fp32 x)."""
     name = "fused_gn_silu_conv3x3"
     if _on_cpu(x, name):
         return fused_fwd_reference(x, a, o, w, bias, residual, emit_tap, emit_moments)
@@ -387,10 +461,9 @@ def fused_fwd(
     if bias is not None:
         _check_vec(name, "bias", bias, (cout,), dev)
     if residual is not None:
-        _check_act(name, "residual", residual, (n, cout, h, wd), dev)
-    w_hwio = weight_hwio(w)
+        _check_act(name, "residual", residual, (n, cout, h, wd), dev, x.dtype)
     y = torch.empty((n, cout, h, wd), dtype=x.dtype, device=dev)
-    s = torch.empty((n, h, wd, cin), dtype=x.dtype, device=dev)  # silu(a*x + o), NHWC
+    wk, s = _loop_operands(x, w)  # s: silu(a*x + o), NHWC
     f32 = dict(dtype=torch.float32, device=dev)
     # the partial counts the kernel is held to: it refuses other sizes
     chunks, tiles = tap_chunks(h, wd), fused_tiles(h, wd)
@@ -400,17 +473,17 @@ def fused_fwd(
     ysum = torch.empty((n, cout), **f32) if emit_moments else None
     ysq = torch.empty((n, cout), **f32) if emit_moments else None
     _rows, cols = pixel_tile(h, wd)
-    _launch(name, x, x.data_ptr(), a.data_ptr(), o.data_ptr(), w_hwio.data_ptr(), _ptr(bias),
-            _ptr(residual), y.data_ptr(), s.data_ptr(), _ptr(tap_part), _ptr(tap),
+    _launch(_by_dtype(name, x), x, x.data_ptr(), a.data_ptr(), o.data_ptr(), wk.data_ptr(),
+            _ptr(bias), _ptr(residual), y.data_ptr(), s.data_ptr(), _ptr(tap_part), _ptr(tap),
             _ptr(mom_part), _ptr(ysum), _ptr(ysq), n, cin, cout, h, wd, cols, chunks, tiles)
     return y, tap, (ysum, ysq) if emit_moments else None
 
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor,
             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """conv3x3(x) + bias from the ``conv3x3`` kernel (see
+    """conv3x3(x) + bias from the ``conv3x3`` kernel (``_f32`` on fp32 x; see
     :func:`conv3x3_reference`); ``w`` OIHW, handed to the kernel as
-    :func:`weight_hwio`."""
+    :func:`weight_hwio` (:func:`weight_kmajor_split` at fp32)."""
     name = "conv3x3"
     if _on_cpu(x, name):
         return conv3x3_reference(x, w, bias)
@@ -420,19 +493,18 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
     _check_rule(name, x, cout)
     if bias is not None:
         _check_vec(name, "bias", bias, (cout,), x.device)
-    w_hwio = weight_hwio(w)
     y = torch.empty((n, cout, h, wd), dtype=x.dtype, device=x.device)
-    s = torch.empty((n, h, wd, cin), dtype=x.dtype, device=x.device)  # x, NHWC
+    wk, s = _loop_operands(x, w)  # s: x, NHWC
     _rows, cols = pixel_tile(h, wd)
-    _launch(name, x, x.data_ptr(), w_hwio.data_ptr(), _ptr(bias), y.data_ptr(), s.data_ptr(),
-            n, cin, cout, h, wd, cols)
+    _launch(_by_dtype(name, x), x, x.data_ptr(), wk.data_ptr(), _ptr(bias), y.data_ptr(),
+            s.data_ptr(), n, cin, cout, h, wd, cols)
     return y
 
 
 def conv_dw(x: torch.Tensor, a: torch.Tensor, o: torch.Tensor,
             dy: torch.Tensor) -> torch.Tensor:
-    """dW (Cout, Cin, 3, 3) fp32 from the ``conv3x3_dw`` kernel (see
-    :func:`conv_dw_reference`)."""
+    """dW (Cout, Cin, 3, 3) fp32 from the ``conv3x3_dw`` kernel (``_f32`` on
+    fp32 x; see :func:`conv_dw_reference`)."""
     name = "conv3x3_dw"
     if _on_cpu(x, name):
         return conv_dw_reference(x, a, o, dy)
@@ -441,16 +513,24 @@ def conv_dw(x: torch.Tensor, a: torch.Tensor, o: torch.Tensor,
         raise ValueError(f"{name}: dy must be NCHW, got shape {tuple(dy.shape)}")
     cout = dy.shape[1]
     dev = x.device
-    _check_act(name, "dy", dy, (n, cout, h, wd), dev)
+    _check_act(name, "dy", dy, (n, cout, h, wd), dev, x.dtype)
     _check_rule(name, x, cout)
     _check_vec(name, "a", a, (n, cin), dev)
     _check_vec(name, "o", o, (n, cin), dev)
+    f32 = x.dtype == torch.float32
     with torch.cuda.device(dev):
-        splits = dw_splits(n, cin, cout, h, wd, functools.partial(dw_max_clusters, wd))
-    s = torch.empty((n, h, wd, cin), dtype=x.dtype, device=dev)  # silu(a*x + o), NHWC
+        held = functools.partial(dw_max_clusters, wd, f32=f32)
+        splits = dw_splits(n, cin, cout, h, wd, held, f32=f32)
     dw = torch.empty((cout, cin, 3, 3), dtype=torch.float32, device=dev)
-    _launch(name, x, x.data_ptr(), a.data_ptr(), o.data_ptr(), dy.data_ptr(), s.data_ptr(),
-            dw.data_ptr(), n, cin, cout, h, wd, splits)
+    if f32:
+        s = torch.empty((n, cin, h, wd), dtype=x.dtype, device=dev)  # silu(a*x + o), NCHW
+        dy_split = torch.empty((2, n, cout, h, wd), dtype=x.dtype, device=dev)
+        _launch(_by_dtype(name, x), x, x.data_ptr(), a.data_ptr(), o.data_ptr(), dy.data_ptr(),
+                s.data_ptr(), dy_split.data_ptr(), dw.data_ptr(), n, cin, cout, h, wd, splits)
+    else:
+        s = torch.empty((n, h, wd, cin), dtype=x.dtype, device=dev)  # silu(a*x + o), NHWC
+        _launch(name, x, x.data_ptr(), a.data_ptr(), o.data_ptr(), dy.data_ptr(), s.data_ptr(),
+                dw.data_ptr(), n, cin, cout, h, wd, splits)
     return dw
 
 
@@ -532,6 +612,7 @@ def mean_abs_from_tap(tap: torch.Tensor, hw: int) -> torch.Tensor:
 
 
 __all__ = [
+    "BF16_KERNELS",
     "KERNELS",
     "build",
     "conv3x3",
@@ -551,5 +632,7 @@ __all__ = [
     "launches",
     "mean_abs_from_tap",
     "tap_chunks",
+    "tf32_split",
     "weight_hwio",
+    "weight_kmajor_split",
 ]

@@ -32,7 +32,9 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 FAMILIES: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     ("fused resnet kernels (#9-#11)", ("conv3x3_kernel", "conv3x3_dw_kernel",
                                        "conv3x3_nchw_kernel", "silu_nhwc_kernel",
-                                       "sum_tiles_kernel")),
+                                       "sum_tiles_kernel", "conv3x3_f32_kernel",
+                                       "conv3x3_nchw_f32_kernel", "conv3x3_dw_f32_kernel",
+                                       "split_nhwc_f32_kernel", "nchw_f32_kernel")),
     ("flash attention kernels (flash_*)", ("flash_fwd", "flash_bwd")),
     ("GroupNorm kernels (gn_*)", ("gn_fwd_", "gn_bwd_", "sum_splits_kernel")),
     ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
