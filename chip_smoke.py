@@ -14,14 +14,16 @@ failure exits non-zero without the final ``ok`` line:
    nvcc each, started together), the seconds each took, and ptxas's
    registers and spills (none, and no stack frame, in the fp32 flash
    forward, the two bf16 backward kernels and the fp32 backward; no more
-   than SPILL_LIMITS pins in the bf16 forward and the fp32 fused resnet
-   kernels), and the backward's cluster size at each width; for the kernels
+   than SPILL_LIMITS pins in the bf16 forward, the bf16 dK/dV at C = 768
+   and the fp32 fused resnet kernels), and the flash kernels' clusters and
+   shared memory a CTA at each width (the libraries' own bytes, held to the
+   Python mirrors of their layouts); for the kernels
    on wgmma/TMA through ``csrc/sm90_wgmma.cuh`` (the bf16 and fp32 flash
    forwards, the bf16 and fp32 dK/dV and dQ kernels, #9, #10 and #12 on the
    shared loop of ``csrc/sm90_conv3x3.cuh``, #9 and #10 at fp32 on its
    3xTF32 loop, #11 in bf16 and fp32), the HGMMA, UTMALDG and HMMA
    instructions in their SASS (cuobjdump): HGMMA and UTMALDG present, no
-   HMMA; and the fp32 backward's shared memory at each width; then
+   HMMA; then
    ``tools/doctor.py --device cuda`` in-process, every check passing;
 3. flash kernel vs plain: bf16 q/k/v from a seed at the serving shapes, the
    kernel's max abs and relative L2 error against
@@ -55,6 +57,11 @@ failure exits non-zero without the final ``ok`` line:
    against all N keys): the serving and LSE forwards, dK/dV and dQ, bf16
    and fp32, against their plain versions with planted faults, bit-equal
    run to run, timed beside their bounds and SDPA at the same (nq, nk);
+3'''. the flash kernels at heads of 640-1024 channels (``phase_flash_wide``,
+   see the comment above WIDE_WIDTHS): every entry, bf16 and fp32, against
+   plain with a rank's partial left out and 1xTF32 rejected, bit-equal,
+   timed at 768 and 1024 beside plain, bound and SDPA; the AttentionBlock
+   at 1024 and 768 under explicit flash against naive, chunked never run;
 4. serving slice: a full-width SDXL VAE with seeded random weights is written
    with the port's ``save_model_dir`` and served by the port's server at 512px
    (``attention_impl=auto``, ``max_batch`` 4, an ephemeral port). A
@@ -818,6 +825,14 @@ NO_STACK = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
 # C = 512, in the 232 registers the producer warpgroup hands them
 SPILL_LIMITS = {"flash_fwd_kernel<512>": 24, "flash_fwd_kernel<384>": 0,
                 "flash_fwd_kernel<256>": 0, "flash_fwd_kernel<128>": 0,
+                # past 512 a CTA of the forward's cluster holds a slice of
+                # 384 (640, 768) or 512 (896, 1024) channels, as at C = 384
+                # and 512, and the cluster's exchange
+                "flash_fwd_kernel<640>": 0, "flash_fwd_kernel<768>": 0,
+                "flash_fwd_kernel<896>": 20, "flash_fwd_kernel<1024>": 20,
+                # dK/dV at a cluster of six, whose ranks own 3 or 2 of the 16
+                # pairs a thread (a run length known only at run time)
+                "flash_bwd_dkv_kernel<768>": 12,
                 # the fp32 fused resnet kernels: 168 registers a thread, no spills
                 "fused_gn_silu_conv3x3_f32_kernel": 0, "conv3x3_nchw_f32_kernel": 0,
                 "conv3x3_dw_f32_kernel<32>": 0, "conv3x3_dw_f32_kernel<16>": 0}
@@ -876,8 +891,8 @@ def phase_build():
             elif "Used" in line and "registers" in line:
                 regs = line.split("Used", 1)[1].split(",")[0].strip()
                 entries.append(f"{kernel}: {regs}, {spills}")
-                check(kernel.split("<")[0] not in NO_STACK_KERNELS or spills == NO_STACK,
-                      f"{kernel} has a stack frame or spills: {spills}")
+                check(kernel in SPILL_LIMITS or kernel.split("<")[0] not in NO_STACK_KERNELS
+                      or spills == NO_STACK, f"{kernel} has a stack frame or spills: {spills}")
                 if kernel in SPILL_LIMITS:
                     pinned.add(kernel)
                     spilled = max(int(m) for m in re.findall(r"(\d+) bytes spill", spills))
@@ -889,14 +904,34 @@ def phase_build():
     unreported = {kernel for kernel in set(SPILL_LIMITS) - pinned
                   if _cuda_build.build_logs.get(WGMMA_KERNELS[kernel.split("<")[0]])}
     check(not unreported, f"no ptxas report for {unreported}")
-    # the fp32 backward's dynamic shared memory a CTA, dK/dV and dQ, by width
-    smem = _cuda_build.load(flash_attention.BWD_F32_LIBRARY).vcd_flash_attention_bwd_f32_smem
-    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    # the flash kernels' clusters and dynamic shared memory a CTA by width,
+    # from the built libraries, held to the Python mirrors of their layouts
+    fa = flash_attention
+    smem = {}
+    for lib, fn in ((fa.FWD_LIBRARY, "vcd_flash_attention_fwd_smem"),
+                    (fa.BWD_LIBRARY, "vcd_flash_attention_bwd_smem"),
+                    (fa.BWD_F32_LIBRARY, "vcd_flash_attention_bwd_f32_smem")):
+        smem[fn] = getattr(_cuda_build.load(lib), fn)
+        smem[fn].argtypes, smem[fn].restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    layout = {}
+    for c in fa.SUPPORTED_CHANNELS:
+        got = {"fwd (bf16, fp32)": (smem["vcd_flash_attention_fwd_smem"](c, 0),
+                                    smem["vcd_flash_attention_fwd_smem"](c, 1)),
+               "bwd (dK/dV, dQ)": (smem["vcd_flash_attention_bwd_smem"](c, 1),
+                                   smem["vcd_flash_attention_bwd_smem"](c, 0)),
+               "bwd fp32 (dK/dV, dQ)": (smem["vcd_flash_attention_bwd_f32_smem"](c, 1),
+                                        smem["vcd_flash_attention_bwd_f32_smem"](c, 0))}
+        want = {"fwd (bf16, fp32)": (fa.fwd_smem_bytes(c), fa.fwd_smem_bytes(c, True)),
+                "bwd (dK/dV, dQ)": (fa.bwd_smem_bytes(c, True), fa.bwd_smem_bytes(c, False)),
+                "bwd fp32 (dK/dV, dQ)": (fa.bwd_smem_bytes(c, True, True),
+                                         fa.bwd_smem_bytes(c, False, True))}
+        check(got == want, f"the flash layouts at C={c}: the libraries give {got}, the Python "
+                           f"mirrors {want}")
+        layout[c] = {"fwd cluster": f"{fa.fwd_cluster_size(c)} x {fa.fwd_slice(c)}",
+                     "bwd cluster": f"{fa.bwd_cluster_size(c)} x {fa.BWD_SLICE}", **got}
     log(f"[build] {len(builds)} libraries built and loaded in {wall:.2f} s; the flash "
-        "backward's thread-block cluster, CTAs by width (bf16 and fp32): "
-        + str({c: flash_attention.bwd_cluster_size(c) for c in flash_attention.SUPPORTED_CHANNELS})
-        + "; the fp32 backward's shared memory a CTA, bytes (dK/dV, dQ): "
-        + str({c: (smem(c, 1), smem(c, 0)) for c in flash_attention.SUPPORTED_CHANNELS}))
+        "kernels by width: clusters (CTAs x channels), dynamic shared memory a CTA (bytes): "
+        + str(layout))
     seen = set()
     for library in sorted(set(WGMMA_KERNELS.values())):
         for label, ops in sass_counts(library).items():
@@ -1175,8 +1210,8 @@ def sdpa_times(q, k, v, do, scale: float, iters: int) -> tuple[str, dict]:
 
 
 def sdpa_f32_times(q, k, v, do, scale: float, iters: int) -> tuple[str, dict]:
-    """The first SDPA backend that runs an fp32 forward and backward at head
-    dim 512 (the memory-efficient one where it takes it; each refusal
+    """The first SDPA backend that runs an fp32 forward and backward at q's
+    head dim (the memory-efficient one where it takes it; each refusal
     logged), and its CUDA-event ms on (B, N, C) as one head: the forward
     that keeps what its backward needs, and that backward (dQ, dK, dV). The
     yardstick only; the port never calls it."""
@@ -1195,8 +1230,8 @@ def sdpa_f32_times(q, k, v, do, scale: float, iters: int) -> tuple[str, dict]:
                 torch.autograd.grad(o, leaves, g)
                 sync()
         except RuntimeError as e:
-            log(f"[sdpa] {backend.name} refuses an fp32 forward and backward at head dim 512: "
-                f"{str(e).splitlines()[0][:120]}")
+            log(f"[sdpa] {backend.name} refuses an fp32 forward and backward at head dim "
+                f"{q.shape[-1]}: {str(e).splitlines()[0][:120]}")
             continue
         with sdpa_kernel([backend]):
             out = {"fwd_grad": cuda_ms(
@@ -1206,7 +1241,8 @@ def sdpa_f32_times(q, k, v, do, scale: float, iters: int) -> tuple[str, dict]:
                                  iters)
         del o, leaves
         return backend.name, out
-    raise SmokeFailure("no SDPA backend runs an fp32 forward and backward at head dim 512")
+    raise SmokeFailure("no SDPA backend runs an fp32 forward and backward at head dim "
+                       f"{q.shape[-1]}")
 
 
 def rel_errors(out, ref) -> tuple[float, float, float]:
@@ -1695,6 +1731,321 @@ def phase_flash_split() -> dict:
             del q, k, v, do, o, lse, serving, delta, dq, dk, dv
             release()
     return results
+
+
+# Flash heads wider than 512 channels (phase_flash_wide): every entry, bf16
+# and fp32, at each of WIDE_WIDTHS on WIDE_CHECK_SHAPES ((B, nq, nk): nq ==
+# nk and nq = nk / 2), held to its plain version with the bounds of
+# phase_flash_bwd and phase_flash_split, bit-equal over two runs, rejecting
+# the designs' own faults: a rank's partial left out of S (the forwards'
+# second CTA of two, the backward's last of C / 128), and at fp32 1xTF32 in
+# place of 3xTF32 (the forward: plain with TF32 on; the backward:
+# bwd_lo_left_out). At WIDE_TIMED_WIDTHS the kernels are timed at the
+# table's path shapes, (4, 4096, C) serving and (1, 16384, C) training,
+# beside plain, their bound and SDPA (phase_flash_split's backends,
+# named). Then the model's AttentionBlock at WIDE_BLOCK_WIDTHS under
+# explicit flash: forward at N = 4096 and forward+backward at N = 16384,
+# bf16 and fp32, against the naive block (bf16 within the naive block's own
+# bf16-vs-fp32 difference, fp32 within STEP_F32_REL), its launches counted:
+# the flash kernels ran and chunked did not.
+WIDE_WIDTHS = (640, 768, 896, 1024)
+WIDE_CHECK_SHAPES = ((2, 256, 256), (2, 128, 256))
+WIDE_TIMED_WIDTHS = (768, 1024)
+WIDE_SERVING_SHAPE = (4, 4096)
+WIDE_TRAIN_SHAPE = (1, 16384)
+WIDE_ITERS = 3
+WIDE_BLOCK_WIDTHS = (1024, 768)
+WIDE_BLOCK_SIDES = {"forward": 64, "forward+backward": 128}  # N = side^2 tokens
+
+
+def fwd_rank_left_out(q, k, v, scale: float, dtype):
+    """The plain forward with the forwards' last cluster rank's channels
+    (from ``fwd_slice(C)`` on) left out of the logits, every channel of V
+    kept: what a cluster that dropped the other CTA's partial would give."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+
+    cs = fa.fwd_slice(q.shape[-1])
+    p = torch.softmax(torch.matmul(q[..., :cs].float(), k[..., :cs].float().transpose(1, 2))
+                      * scale, dim=-1).to(q.dtype)
+    return torch.matmul(p, v).to(dtype)
+
+
+def phase_flash_wide() -> dict:
+    """The flash kernels at heads of 640-1024 channels (see the comment above
+    WIDE_WIDTHS). Returns {kernel name (with _f32 at fp32): {C: its numbers
+    at the path shape}} for WIDE_TIMED_WIDTHS."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    results: dict = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        suffix, tag = ("_f32", "fp32") if f32 else ("", "bf16")
+        for c in WIDE_WIDTHS:
+            lines = []
+            for b, nq, nk in WIDE_CHECK_SHAPES:
+                q, do = (torch.randn((b, nq, c), generator=gen, device=DEVICE).to(dtype)
+                         for _ in range(2))
+                k, v = (torch.randn((b, nk, c), generator=gen, device=DEVICE).to(dtype)
+                        for _ in range(2))
+                scale = c ** -0.5
+
+                def kernels():
+                    o, lse = fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=dtype)
+                    serving = fa.flash_attention_fwd(q, k, v, scale=scale, out_dtype=dtype)
+                    delta = (do.float() * o.float()).sum(-1)
+                    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=scale)
+                    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale)
+                    return o, lse, serving, delta, dq, dk, dv
+
+                first, again = kernels(), kernels()
+                sync()
+                check(all(torch.equal(x, y) for x, y in zip(first, again)),
+                      f"[flash-wide] the kernels are not bit-equal run to run at "
+                      f"{(b, nq, nk, c)} {tag}")
+                o, lse, serving, delta, dq, dk, dv = first
+                check(torch.equal(serving, o), f"[flash-wide] the serving forward's o is not "
+                                               f"the LSE forward's at {(b, nq, nk, c)} {tag}")
+                po, plse = fa.flash_attention_fwd_lse_reference(q, k, v, scale, dtype)
+                pdq, pdk, pdv = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
+                rank_o = fwd_rank_left_out(q, k, v, scale, dtype)
+                rank_dq, rank_dk, rank_dv = bwd_rank_left_out(q, k, v, do, lse, delta, scale,
+                                                              fa.bwd_cluster_size(c) - 1)
+                faults = {"o": {"a rank left out": rank_o}, "dQ": {"a rank left out": rank_dq},
+                          "dK": {"a rank left out": rank_dk},
+                          "dV": {"a rank left out": rank_dv}}
+                if f32:
+                    torch.backends.cuda.matmul.allow_tf32 = True
+                    try:
+                        faults["o"]["1xTF32"] = fa.flash_attention_reference(q, k, v, scale,
+                                                                             dtype)
+                    finally:
+                        torch.backends.cuda.matmul.allow_tf32 = False
+                    for what, f in zip(("dQ", "dK", "dV"),
+                                       bwd_lo_left_out(q, k, v, do, lse, delta, scale)):
+                        faults[what]["1xTF32"] = f
+                bounds = ((math.inf, FLASH_F32_REL_L2) if f32 else (GRAD_MAX_REL, KERNEL_REL_L2))
+                row = []
+                for what, got, ref in (("lse", lse, plse), ("o", o, po), ("dQ", dq, pdq),
+                                       ("dK", dk, pdk), ("dV", dv, pdv)):
+                    if what == "lse":
+                        bound = (LSE_MAX_REL, LSE_MAX_REL)
+                    elif what == "o" and not f32:
+                        # the forward's bound: KERNEL_ULPS bf16 ulps of max|plain|
+                        bound = (KERNEL_ULPS * bf16_ulp(ref.float().abs().max().item())
+                                 / ref.float().abs().max().item(), KERNEL_REL_L2)
+                    else:
+                        bound = bounds
+                    max_rel, rel_l2, _abs = rel_errors(got, ref)
+                    check(bool(torch.isfinite(got).all()) and max_rel <= bound[0]
+                          and rel_l2 <= bound[1],
+                          f"[flash-wide] {what} disagrees with plain at {(b, nq, nk, c)} {tag}: "
+                          f"max rel {max_rel:.3g}, rel L2 {rel_l2:.3g}")
+                    rejected = []
+                    for fault, f in faults.get(what, {}).items():
+                        fm, fl, _ = rel_errors(f, ref)
+                        check(fm > bound[0] or fl > bound[1],
+                              f"[flash-wide] the {what} bound at {(b, nq, nk, c)} {tag} does not "
+                              f"reject {fault}")
+                        rejected.append(f"{fault} {fl:.3g}")
+                    row.append(f"{what} {max_rel:.3g}/{rel_l2:.3g}"
+                               + (f" (rejects {', '.join(rejected)})" if rejected else ""))
+                lines.append(f"(B={b}, nq={nq}, nk={nk}): " + ", ".join(row))
+                del first, again, po, plse, pdq, pdk, pdv, faults, rank_o
+                del q, k, v, do, o, lse, serving, delta, dq, dk, dv
+                release()
+            log(f"[flash-wide] C={c} {tag}, clusters fwd {fa.fwd_cluster_size(c)} x "
+                f"{fa.fwd_slice(c)} channels, bwd {fa.bwd_cluster_size(c)} x {fa.BWD_SLICE}; "
+                "max rel/rel L2 against plain; bit-equal run to run: " + "; ".join(lines))
+        for c in WIDE_TIMED_WIDTHS:
+            scale = c ** -0.5
+            b, n = WIDE_SERVING_SHAPE
+            q, k, v = (torch.randn((b, n, c), generator=gen, device=DEVICE).to(dtype)
+                       for _ in range(3))
+            serve = timed_pair(lambda: fa.flash_attention_fwd(q, k, v, scale=scale,
+                                                              out_dtype=dtype),
+                               lambda: fa.flash_attention_reference(q, k, v, scale, dtype),
+                               WIDE_ITERS)
+            serve_err = rel_errors(fa.flash_attention_fwd(q, k, v, scale=scale, out_dtype=dtype),
+                                   fa.flash_attention_reference(q, k, v, scale, dtype))[2]
+            if f32:
+                backend_s, serve_lib = sdpa_fp32_ms(q, k, v, scale, WIDE_ITERS)
+            else:
+                backend_s, serve_lib = sdpa_times(q, k, v, None, scale, WIDE_ITERS)
+                serve_lib = serve_lib["fwd"]
+            intake_tbs = fwd_intake_bytes(b, n, c) / serve[0] / 1e9
+            serve_bound = flash_bounds(b, n, c)["flash_attention_fwd" + suffix]
+            del q, k, v
+            release()
+            b, n = WIDE_TRAIN_SHAPE
+            q, k, v, do = (torch.randn((b, n, c), generator=gen, device=DEVICE).to(dtype)
+                           for _ in range(4))
+            o, lse = fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=dtype)
+            delta = (do.float() * o.float()).sum(-1)
+            times = {
+                "flash_attention_fwd": serve,
+                "flash_attention_fwd_lse": timed_pair(
+                    lambda: fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=dtype),
+                    lambda: fa.flash_attention_fwd_lse_reference(q, k, v, scale, dtype),
+                    WIDE_ITERS),
+                "flash_attention_bwd_dkv": timed_pair(
+                    lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=scale),
+                    lambda: fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale),
+                    WIDE_ITERS),
+                "flash_attention_bwd_dq": timed_pair(
+                    lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale),
+                    lambda: fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, scale),
+                    WIDE_ITERS),
+            }
+            po, plse = fa.flash_attention_fwd_lse_reference(q, k, v, scale, dtype)
+            refs = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=scale)
+            dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale)
+            errs = {"flash_attention_fwd": serve_err,
+                    "flash_attention_fwd_lse": rel_errors(o, po)[2],
+                    "flash_attention_bwd_dkv": max(rel_errors(dk, refs[1])[2],
+                                                   rel_errors(dv, refs[2])[2]),
+                    "flash_attention_bwd_dq": rel_errors(dq, refs[0])[2]}
+            del po, plse, refs, dk, dv, dq
+            release()
+            backend_t, lib_t = (sdpa_f32_times if f32 else sdpa_times)(q, k, v, do, scale,
+                                                                       WIDE_ITERS)
+            library = {"flash_attention_fwd": (serve_lib, backend_s, "forward"),
+                       "flash_attention_fwd_lse": (lib_t["fwd_grad"], backend_t,
+                                                   "forward for backward"),
+                       "flash_attention_bwd_dkv": (lib_t["bwd"], backend_t, "backward, #7+#8"),
+                       "flash_attention_bwd_dq": (lib_t["bwd"], backend_t, "backward, #7+#8")}
+            bounds = flash_bounds(b, n, c)
+            bounds["flash_attention_fwd" + suffix] = serve_bound
+            row = []
+            for name in SPLIT_KERNELS:
+                key = name + suffix
+                shape = ([*WIDE_SERVING_SHAPE, c] if name == "flash_attention_fwd"
+                         else [*WIDE_TRAIN_SHAPE, c])
+                bound_ms, bound_by = bounds[key]
+                lib_ms, backend, covers = library[name]
+                results.setdefault(key, {})[c] = {
+                    "shape": shape, "ms": times[name][0], "plain_ms": times[name][1],
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                    "library_covers": f"scaled_dot_product_attention {covers} ({backend})",
+                    "max_abs_err": errs[name]}
+                row.append(f"{key} {tuple(shape)} {times[name][0]:.4f}/{times[name][1]:.4f}/"
+                           f"{bound_ms:.4f}/{lib_ms:.4f} ({100 * bound_ms / times[name][0]:.1f}%"
+                           " of bound)")
+            log(f"[flash-wide] C={c} {tag} ms kernel/plain/bound/SDPA (CUDA events, "
+                f"{WIDE_ITERS} calls, in turns; SDPA {backend_s} serving, {backend_t} "
+                f"training): " + "; ".join(row) + f"; the serving forward's K and V from L2 "
+                f"into the SMs at {intake_tbs:.2f} TB/s ({intake_tbs / SMS * 1e3:.1f} GB/s an "
+                f"SM; a CTA reads its {fa.fwd_slice(c)}-channel slice)")
+            del q, k, v, do, o, lse, delta
+            release()
+    phase_wide_block()
+    return results
+
+
+def phase_wide_block() -> None:
+    """The model's AttentionBlock at WIDE_BLOCK_WIDTHS under explicit flash
+    against the naive block: forward at N = 4096 and forward+backward at N =
+    16384, bf16 and fp32; the flash kernels launched, chunked never."""
+    import torch
+
+    from vae_channel_dynamics_tpu_torch.models import vae as vae_mod
+    from vae_channel_dynamics_tpu_torch.models.vae import AttentionBlock, Linear
+    from vae_channel_dynamics_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    chunked_calls = []
+    real_chunked = vae_mod.chunked_attention
+
+    def counted_chunked(*a, **kw):
+        chunked_calls.append(a[0].shape)
+        return real_chunked(*a, **kw)
+
+    vae_mod.chunked_attention = counted_chunked
+    try:
+        for c in WIDE_BLOCK_WIDTHS:
+            blk = AttentionBlock(c, 32, 1e-6, device=DEVICE)
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED + 22 + c)
+            with torch.no_grad():
+                for module in blk.modules():
+                    if hasattr(module, "init_weights"):
+                        module.init_weights(gen)
+                blk.group_norm.weight.add_(0.1 * torch.randn(c, generator=gen, device=DEVICE))
+            for what, side in WIDE_BLOCK_SIDES.items():
+                grad = what == "forward+backward"
+                x = torch.randn(1, c, side, side, generator=gen, device=DEVICE)
+                g = torch.randn(x.shape, generator=gen, device=DEVICE)
+
+                def run(impl, dtype):
+                    blk.attn_impl = impl
+                    for module in blk.modules():
+                        if isinstance(module, Linear):
+                            module.compute_dtype = dtype
+                    blk.zero_grad(set_to_none=True)
+                    xx = x.to(dtype).detach().requires_grad_(grad)
+                    with torch.set_grad_enabled(grad):
+                        out = blk(xx)
+                        if grad:
+                            out.backward(g.to(out.dtype))
+                    sync()
+                    res = {"out": out.detach().float()}
+                    if grad:
+                        res.update({name: p.grad.float().clone()
+                                    for name, p in blk.named_parameters()})
+                        res["input"] = xx.grad.float()
+                    return res
+
+                fp32_naive = run("naive", torch.float32)
+                rows, launched = [], {}
+                for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+                    before, calls = dict(fa.launches), len(chunked_calls)
+                    flash = run("flash", dtype)
+                    counts = {k: fa.launches[k] - before[k] for k in fa.launches}
+                    want = (("flash_attention_fwd_lse", "flash_attention_bwd_dkv",
+                             "flash_attention_bwd_dq") if grad else ("flash_attention_fwd",))
+                    suffix = "_f32" if dtype == torch.float32 else ""
+                    check(counts == {k: int(k in {w + suffix for w in want}) for k in fa.KERNELS}
+                          and len(chunked_calls) == calls,
+                          f"[flash-wide] the C={c} block's flash {what} {tag} launched {counts}, "
+                          f"chunked {len(chunked_calls) - calls} times")
+                    launched[tag] = {k: n for k, n in counts.items() if n}
+                    naive = run("naive", dtype) if dtype == torch.bfloat16 else fp32_naive
+                    for name in flash:
+                        d = ((flash[name] - naive[name]).norm() / naive[name].norm()).item()
+                        check(flash[name].abs().max().item() > 0,
+                              f"[flash-wide] the C={c} block's {name} is zero ({what}, {tag})")
+                        if dtype == torch.bfloat16:
+                            control = ((naive[name] - fp32_naive[name]).norm()
+                                       / fp32_naive[name].norm()).item()
+                            bound = BLOCK_CONTROL_RATIO * control + BLOCK_FLOOR
+                        else:
+                            control, bound = None, STEP_F32_REL
+                            if name == "to_k.bias":
+                                # it shifts a row's logits by one amount, which
+                                # the softmax cancels: its gradient is rounding
+                                # in both, held against to_k.weight's
+                                d = ((flash[name] - naive[name]).norm()
+                                     / naive["to_k.weight"].norm()).item()
+                        check(d <= bound, f"[flash-wide] the C={c} block's {name} ({what}, {tag}) "
+                                          f"is {d} from naive, bound {bound}")
+                        rows.append(f"{tag} {name} {d:.3g}"
+                                    + (f" (control {control:.3g})" if control is not None else ""))
+                    del flash, naive
+                log(f"[flash-wide] AttentionBlock C={c} (1, {c}, {side}, {side}), N = {side ** 2}, "
+                    f"explicit flash {what} vs naive, rel L2 (bf16 bound {BLOCK_CONTROL_RATIO} x "
+                    f"naive bf16 vs fp32 + {BLOCK_FLOOR}; fp32 bound {STEP_F32_REL}); launches "
+                    f"{launched}, chunked 0: " + ", ".join(rows))
+                del fp32_naive, x, g
+                release()
+            del blk
+            release()
+    finally:
+        vae_mod.chunked_attention = real_chunked
 
 
 def large_logits_f32():
@@ -4111,7 +4462,7 @@ def phase_conv_nhwc():
 
 
 def sdpa_fp32_ms(q, k, v, scale: float, iters: int) -> tuple[str, float]:
-    """The first SDPA backend that runs an fp32 forward at head dim 512, and
+    """The first SDPA backend that runs an fp32 forward at q's head dim, and
     its CUDA-event ms on (B, N, C) as one head (the yardstick only)."""
     import torch
     import torch.nn.functional as F
@@ -4126,13 +4477,13 @@ def sdpa_fp32_ms(q, k, v, scale: float, iters: int) -> tuple[str, float]:
                 F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
                 sync()
         except RuntimeError as e:
-            log(f"[sdpa] {backend.name} refuses fp32 at head dim 512: "
+            log(f"[sdpa] {backend.name} refuses fp32 at head dim {q.shape[-1]}: "
                 f"{str(e).splitlines()[0][:120]}")
             continue
         with sdpa_kernel([backend]), torch.no_grad():
             return backend.name, cuda_ms(
                 lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale), iters)
-    raise SmokeFailure("no SDPA backend runs fp32 at head dim 512")
+    raise SmokeFailure(f"no SDPA backend runs fp32 at head dim {q.shape[-1]}")
 
 
 def phase_flash_f32():
@@ -5974,6 +6325,32 @@ def _conv_workspace(x_shape, w_shape, stride, pad, channels_last=False,
     return {"fwd_gb": fwd_gb, "fwd_ms": fwd_ms, "bwd_gb": bwd_gb, "bwd_ms": bwd_ms}
 
 
+def flash_wide_main() -> int:
+    """``python -c "import sys, chip_smoke; sys.exit(chip_smoke
+    .flash_wide_main())"``: the device, the build and ``phase_flash_wide``
+    alone (the flash kernels at heads of 640-1024 channels; see the comment
+    above WIDE_WIDTHS), then their numbers as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        _name, smi = phase_device()
+        timed_phase(phase_build)
+        wide = timed_phase(phase_flash_wide)
+    except Exception as e:  # noqa: BLE001 — a phase failure fails the run
+        import traceback
+
+        traceback.print_exc()
+        print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps({"wide": wide}), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
 def conv_workspace_main(cap_child: str = "") -> int:
     """``python -c "import sys, chip_smoke; sys.exit(chip_smoke
     .conv_workspace_main())"``: see the comment above CONV_WS_TENSORS.
@@ -6057,6 +6434,15 @@ def release() -> None:
         torch.cuda.empty_cache()
 
 
+def timed_phase(fn, *args):
+    """``fn(*args)``, then a line with the seconds it took."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        log(f"[time] {fn.__name__} {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -6072,47 +6458,48 @@ def main() -> int:
     sys.path.insert(0, root)
     try:
         name, smi = phase_device()
-        phase_build()
-        phase_doctor()
-        kernel_results = phase_kernel()
-        flash_results = phase_flash_bwd()
-        split_results = phase_flash_split()
-        gn_results = phase_gn_kernels()
-        fused_results = phase_fused_kernels()
-        conv_result = phase_conv_nhwc()
-        f32_result = phase_flash_f32()
+        timed_phase(phase_build)
+        timed_phase(phase_doctor)
+        kernel_results = timed_phase(phase_kernel)
+        flash_results = timed_phase(phase_flash_bwd)
+        split_results = timed_phase(phase_flash_split)
+        wide_results = timed_phase(phase_flash_wide)
+        gn_results = timed_phase(phase_gn_kernels)
+        fused_results = timed_phase(phase_fused_kernels)
+        conv_result = timed_phase(phase_conv_nhwc)
+        f32_result = timed_phase(phase_flash_f32)
         with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
-            serve_launches = phase_slice(tmp)
+            serve_launches = timed_phase(phase_slice, tmp)
         release()
         with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
             model_dir = os.path.join(tmp, "sdxl_seeded")
             write_seeded_model_dir(model_dir)
-            f32_result["launches"] = phase_eval(tmp, model_dir)
-            phase_tiling(tmp, model_dir)
-            phase_cli_audit(tmp, model_dir)
-            phase_export(tmp, model_dir)
-            phase_multi_gpu(tmp, model_dir)
+            f32_result["launches"] = timed_phase(phase_eval, tmp, model_dir)
+            timed_phase(phase_tiling, tmp, model_dir)
+            timed_phase(phase_cli_audit, tmp, model_dir)
+            timed_phase(phase_export, tmp, model_dir)
+            timed_phase(phase_multi_gpu, tmp, model_dir)
         release()
-        bundle = phase_train()
-        phase_step_compare(bundle)
-        phase_step_times(bundle)
-        phase_fused_step(bundle)
+        bundle = timed_phase(phase_train)
+        timed_phase(phase_step_compare, bundle)
+        timed_phase(phase_step_times, bundle)
+        timed_phase(phase_fused_step, bundle)
         del bundle
         release()
         with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
-            fused_trainer = phase_fused_trainer(tmp)
+            fused_trainer = timed_phase(phase_fused_trainer, tmp)
         release()
         with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
-            phase_adafactor_trainer(tmp)
+            timed_phase(phase_adafactor_trainer, tmp)
         release()
-        phase_native_loader()
+        timed_phase(phase_native_loader)
         with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
-            phase_realloader_trainer(tmp)
+            timed_phase(phase_realloader_trainer, tmp)
         release()
         with tempfile.TemporaryDirectory(prefix="vcd_chip_smoke_") as tmp:
-            trainer = phase_trainer_1024(tmp)
-            trainer_f32 = phase_trainer_1024_f32(tmp, trainer["model_dir"])
-            phase_flash_step_1024(trainer["model_dir"])
+            trainer = timed_phase(phase_trainer_1024, tmp)
+            trainer_f32 = timed_phase(phase_trainer_1024_f32, tmp, trainer["model_dir"])
+            timed_phase(phase_flash_step_1024, trainer["model_dir"])
         check("jax" not in sys.modules, "jax was imported")
     except Exception as e:  # noqa: BLE001 — every phase failure fails the run
         import traceback
@@ -6166,6 +6553,8 @@ def main() -> int:
         **({"note": FUSED_F32_NOTE} if kname in FUSED_F32_REPLACES else {}),
         # the same kernel at fewer queries than keys (the spatial axis)
         **({"split": split_results[kname]} if kname in split_results else {}),
+        # the same kernel at heads of 768 and 1024 channels
+        **({"wide": wide_results[kname]} if kname in wide_results else {}),
     } for kname, r in rows.items()]
     log(f"[total] every phase in {time.perf_counter() - t_start:.1f} s, the kernels' build "
         "included")

@@ -73,6 +73,9 @@ SLICE = 128   # channels a CTA owns
 TILE = 32     # streamed rows a tile, both kernels
 KEY_TILE = 64  # the forward's keys a tile
 SHAPES = [(1, 256, 128), (2, 256, 256), (1, 384, 512)]
+# the backward alone at a cluster of five, where one rank owns no k-step
+BWD_SHAPES = SHAPES + [(1, 256, 640)]
+KSTEPS = TILE // 8  # k-steps of a tile's products: two logit pairs each
 
 
 def fma_chain(a, b) -> torch.Tensor:
@@ -211,7 +214,28 @@ def _rel(out, ref) -> float:
     return float(np.linalg.norm(out - ref) / np.linalg.norm(ref))
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("ranks", range(1, 9))
+def test_ksteps_have_one_owner_and_the_outbox_fits(ranks):
+    """The fp32 kernels' Split: k-step j of a tile (pairs 2j, 2j + 1)
+    belongs to rank floor(j R / 4), contiguous runs [ceil(4r / R), ceil(4(r
+    + 1) / R)); from R = 5 some ranks own none and each owner's run of
+    partials, 4 KB a k-step, sits in that owner's k-steps of the B tiles (8
+    KB a k-step for dK/dV, 4 KB for dQ) instead of an outbox."""
+    owners = [j * ranks // KSTEPS for j in range(KSTEPS)]
+    for r in range(ranks):
+        run = [j for j in range(KSTEPS) if owners[j] == r]
+        first = -(-KSTEPS * r // ranks)
+        assert run == list(range(first, -(-KSTEPS * (r + 1) // ranks)))
+    assert owners == sorted(owners) and all(0 <= o < ranks for o in owners)
+    assert (len(set(owners)) < ranks) == (ranks > KSTEPS)
+    run_bytes = 2 * 128 * 16                # a k-step's two pairs, a float4 a thread
+    for nb in (4, 2):                       # B tiles: P hi, lo, dS hi, lo (dQ: dS)
+        assert run_bytes <= nb * 2 * 1024
+    for dkv in (True, False):
+        assert fa.bwd_smem_bytes(128 * ranks, dkv, f32=True) <= fa.SMEM_CTA
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
 def test_emulation_matches_jax_and_plain(shape, one_thread):
     """The kernels' order on 3xTF32: within 1e-5 of the JAX kernels and of
     the plain version."""
@@ -225,7 +249,7 @@ def test_emulation_matches_jax_and_plain(shape, one_thread):
         assert _rel(g.numpy(), j) <= REL_L2, (name, _rel(g.numpy(), j))
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", BWD_SHAPES)
 def test_one_rank_left_out_is_rejected(shape, one_thread):
     """The cluster without the last rank's partial in the logits' sums (at
     C = 128, the only one): dQ, dK and dV all leave the bound."""

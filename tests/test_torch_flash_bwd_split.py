@@ -3,9 +3,10 @@ split over a thread-block cluster, emulated on the CPU and held to the JAX
 Pallas kernels.
 
 ``flash_bwd_dkv_kernel`` and ``flash_bwd_dq_kernel``
-(``csrc/flash_attention_bwd.cu``) run as clusters of R = C / 128 CTAs: CTA r
-owns channels [128 r, 128 r + 128) of a block of 64 rows (keys for dK/dV,
-queries for dQ). Per streamed tile (64 queries for dK/dV, 32 keys for dQ)
+(``csrc/flash_attention_bwd.cu``) run as clusters of R = C / 128 CTAs (1 to
+8): CTA r owns channels [128 r, 128 r + 128) of a block of 64 rows (keys for
+dK/dV, queries for dQ). Per streamed tile (64 queries for dK/dV, 32 at R =
+7; 32 keys for dQ)
 it forms its partial S and dP over its own channels, in fp32; the cluster
 adds the R partials in rank order (((S_0 + S_1) + S_2) + S_3), the sum is
 scaled, P = exp(S - lse) and dS = P (dP - delta) scale are rounded to bf16,
@@ -14,7 +15,11 @@ channels into fp32 accumulators, which are written in bf16 at the end.
 :func:`emulated_bwd` takes those steps in that order. Each pair of a
 thread's logits belongs to one rank, which forms its P and dS for every
 rank: :func:`owner` is the rule and :func:`first` the runs of the kernel's
-``Split``, and :func:`pair_element` its accumulator layout.
+``Split``, and :func:`pair_element` its accumulator layout. Each CTA's
+exchange buffer holds its R slots of the pairs it owns and its outbox of
+the others' pairs, sized for the rank that owns the most;
+``fa.bwd_smem_bytes`` mirrors the kernels' ``Layout`` and is held to the
+shared memory a CTA may have at every width.
 
 Bounds: those of the kernels on the card (``tests/test_torch_flash_kernel_
 cuda.py``, ``chip_smoke.py``): max|out - ref| <= 2^-6 max|ref| and relative
@@ -38,7 +43,8 @@ SLICE = 128     # channels a CTA owns
 ROWS = 64       # the CTA's keys (dK/dV) or queries (dQ)
 DKV_TILE = 64   # queries a streamed tile of the dK/dV kernel
 DQ_TILE = 32    # keys a streamed tile of the dQ kernel
-SHAPES = [(2, 256, 128), (1, 384, 256), (1, 256, 384), (1, 512, 512)]
+SHAPES = [(2, 256, 128), (1, 384, 256), (1, 256, 384), (1, 512, 512), (1, 256, 640),
+          (1, 256, 1024)]
 
 
 def owner(p: int, r: int, pairs: int) -> int:
@@ -92,8 +98,9 @@ def emulated_bwd(q, k, v, do, lse, delta, scale: float, drop=None):
     dk = torch.zeros(bsz, n, c)
     dv = torch.zeros(bsz, n, c)
     # every block of 64 rows accumulates its streamed tiles in order, in fp32
-    for t in range(0, n, DKV_TILE):
-        rows = slice(t, t + DKV_TILE)
+    dkv_tile = fa.bwd_tile(c, dkv=True)
+    for t in range(0, n, dkv_tile):
+        rows = slice(t, t + dkv_tile)
         dv = dv + torch.matmul(p[:, rows].transpose(1, 2), dof[:, rows])
         dk = dk + torch.matmul(ds[:, rows].transpose(1, 2), qf[:, rows])
     for t in range(0, n, DQ_TILE):
@@ -135,7 +142,7 @@ def _within(out, ref) -> bool:
 
 
 @pytest.mark.parametrize("tile", [DKV_TILE, DQ_TILE])
-@pytest.mark.parametrize("ranks", [1, 2, 3, 4])
+@pytest.mark.parametrize("ranks", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_pairs_have_one_owner_and_cover_the_tile(ranks, tile):
     """Split: each rank owns a contiguous run of pairs, each pair one rank,
     at most ceil(pairs / R) a rank; the pairs of the 128 threads cover the
@@ -160,6 +167,28 @@ def test_pairs_have_one_owner_and_cover_the_tile(ranks, tile):
     assert (seen == 1).all()
 
 
+@pytest.mark.parametrize("c", range(128, 1025, 128))
+def test_layout_fits_the_shared_memory_at_every_width(c):
+    """The kernels' Layout (``fa.bwd_smem_bytes``, which chip_smoke.py holds
+    to the built library's own): dK/dV one CTA an SM, at most 232,448
+    bytes; dQ two CTAs an SM, at most 115,712 each; the exchange buffer is
+    what the rank that owns the most pairs needs, R slots of its own pairs
+    and the other ranks' pairs. The fp32 kernels (``flash_attention_bwd_f32
+    .cu``, one CTA an SM) as well."""
+    ranks = fa.bwd_cluster_size(c)
+    assert ranks == c // SLICE and 1 <= ranks <= 8
+    assert fa.bwd_smem_bytes(c, dkv=True) <= fa.SMEM_CTA
+    assert fa.bwd_smem_bytes(c, dkv=False) <= fa.SMEM_HALF_SM
+    for dkv in (True, False):
+        assert fa.bwd_smem_bytes(c, dkv, f32=True) <= fa.SMEM_CTA
+        pairs = fa.bwd_tile(c, dkv) // 4
+        owned = [[owner(p, ranks, pairs) for p in range(pairs)].count(r) for r in range(ranks)]
+        held = max(ranks * o + pairs - o for o in owned)
+        assert held == (ranks - 1) * -(-pairs // ranks) + pairs
+    # dK/dV streams 64 queries a tile but at R = 7, whose buffer would not fit
+    assert fa.bwd_tile(c, dkv=True) == (32 if ranks == 7 else 64)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_emulation_matches_jax_and_plain(shape):
     q, k, v, do, lse, delta, scale = _inputs(shape, seed=sum(shape))
@@ -175,7 +204,8 @@ def test_emulation_matches_jax_and_plain(shape):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_one_rank_left_out_is_rejected(shape):
     """The cluster without the last rank's partial in the logits' sum (at
-    C = 128, the only one): dQ, dK and dV all leave the bounds."""
+    C = 128, the only one; at 1024, one of eight): dQ, dK and dV all leave
+    the bounds."""
     q, k, v, do, lse, delta, scale = _inputs(shape, seed=sum(shape) + 1)
     ranks = shape[-1] // SLICE
     refs = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)

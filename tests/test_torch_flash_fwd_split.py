@@ -14,6 +14,14 @@ correction, and the last tile's P V is issued after the loop.
 of one 64-key x 64-channel box of each half, in the order the loop consumes
 them (:func:`stream_unit`, the producer's order).
 
+Past 512 channels both forwards (bf16 and fp32) split the channels over a
+thread-block cluster of two CTAs (``FwdSplit``; ``fa.fwd_cluster_size``):
+rank r owns the slice [r CS, (r + 1) CS) of CS = ``fa.fwd_slice(C)``
+channels, zero past C (640 and 896), each CTA's partial S is the sum of its
+two warpgroups', and the two partials are added (T_0 + T_1, the same bits in
+both CTAs). :func:`emulated_fwd` takes that split too, and a fault: one
+rank's partial left out of S.
+
 Bounds. In fp32 (P kept in fp32, as JAX with fp32 inputs at
 ``Precision.HIGHEST``), the emulation and JAX ``_flash_forward`` in Pallas
 interpret mode differ only by the order of fp32 sums and the tile on which
@@ -41,6 +49,8 @@ F32_REL_L2 = 1e-5
 LSE_MAX_REL = 1e-5
 RTOL, ATOL, REL_L2 = 1.6e-2, 1e-2, 1e-2
 SHAPES = [(2, 256, 128), (1, 384, 256), (1, 256, 384), (1, 384, 512)]
+# past 512 channels: a cluster of two, with padding (640) and without (1024)
+WIDE_SHAPES = [(1, 256, 640), (1, 256, 1024)]
 
 
 def stream_unit(k: int, nt: int, nch: int):
@@ -51,12 +61,35 @@ def stream_unit(k: int, nt: int, nch: int):
     return is_v, tile, chunk
 
 
-def emulated_fwd(q, k, v, scale: float, drop_half=None, skip_last_pv=False):
+def partial_logits(qf, kf, c: int, drop_half=None, drop_rank=None):
+    """Q K^T (unscaled, fp32) as the forwards sum it at width c: each CTA of
+    the cluster (``fa.fwd_cluster_size``) over its slice of
+    ``fa.fwd_slice(c)`` channels, zero-filled past c, its two warpgroups'
+    halves added; then the CTAs' partials added. ``drop_half`` leaves that
+    warpgroup's partial out of every CTA's sum, ``drop_rank`` that CTA's."""
+    ranks, cs = fa.fwd_cluster_size(c), fa.fwd_slice(c)
+    pad = ranks * cs - c
+    if pad:
+        qf = torch.nn.functional.pad(qf, (0, pad))
+        kf = torch.nn.functional.pad(kf, (0, pad))
+    total = None
+    for r in range(ranks):
+        halves = [torch.matmul(qf[..., r * cs + g * cs // 2:r * cs + (g + 1) * cs // 2],
+                               kf[..., r * cs + g * cs // 2:r * cs + (g + 1) * cs // 2]
+                               .transpose(-1, -2))
+                  for g in range(2) if g != drop_half]
+        part = halves[0] + halves[1] if len(halves) == 2 else halves[0]
+        if r != drop_rank:
+            total = part if total is None else total + part
+    return total
+
+
+def emulated_fwd(q, k, v, scale: float, drop_half=None, skip_last_pv=False, drop_rank=None):
     """(o, lse) as the kernel forms them, on (B, N, C) q, k, v: o in q's
     dtype, lse fp32 (B, N). ``drop_half`` leaves that warpgroup's partial S
-    out; ``skip_last_pv`` leaves the last tile's P V out of O."""
+    out, ``drop_rank`` that CTA's (past 512 channels); ``skip_last_pv``
+    leaves the last tile's P V out of O."""
     bsz, n, c = q.shape
-    half = c // 2
     qf, kf, vf = (t.float() for t in (q, k, v))
     o = torch.zeros(bsz, n, c)
     lse = torch.zeros(bsz, n)
@@ -69,10 +102,7 @@ def emulated_fwd(q, k, v, scale: float, drop_half=None, skip_last_pv=False):
         p_prev = None
         for t in range(nt):
             keys = slice(t * TILE, (t + 1) * TILE)
-            parts = [torch.matmul(qf[:, rows, g * half:(g + 1) * half],
-                                  kf[:, keys, g * half:(g + 1) * half].transpose(1, 2))
-                     for g in range(2) if g != drop_half]
-            s = (parts[0] + parts[1] if len(parts) == 2 else parts[0]) * scale
+            s = partial_logits(qf[:, rows], kf[:, keys], c, drop_half, drop_rank) * scale
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             corr = torch.exp(m - m_new)
             p = torch.exp(s - m_new)
@@ -149,6 +179,44 @@ def test_fp32_emulation_matches_jax(shape):
     jo, jlse = _jax_fwd(q, k, v, scale, torch.float32)
     assert _rel_l2(o.numpy(), jo) <= F32_REL_L2
     assert np.abs(lse.numpy() - jlse).max() <= LSE_MAX_REL * np.abs(jlse).max()
+
+
+@pytest.mark.parametrize("c", [640, 768, 896, 1024])
+def test_cluster_slices_cover_the_channels_once(c):
+    """Past 512 channels two CTAs of fa.fwd_slice(c) channels (a multiple of
+    128, at most 512: one CTA's kernel at C = 384 or 512) cover the C
+    channels, the padding less than one slice's 128-channel chunk, and the
+    shared memory a CTA (the Python mirror of Layout and F32Units) fits."""
+    cs = fa.fwd_slice(c)
+    assert fa.fwd_cluster_size(c) == 2 and cs % 128 == 0 and cs <= 512
+    assert c <= 2 * cs < c + 256
+    for f32 in (False, True):
+        assert fa.fwd_smem_bytes(c, f32) <= fa.SMEM_CTA
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_cluster_emulation_matches_jax_and_rejects_a_rank_left_out(shape):
+    """The cluster's order at 640 (padded) and 1024 channels: fp32 within
+    the fp32 bounds of JAX ``_flash_forward`` (interpret mode), bf16 within
+    the card's bounds of it and of the plain version; one rank's partial
+    left out of S is rejected."""
+    scale = shape[-1] ** -0.5
+    q, k, v = _inputs(shape, sum(shape) + 2, torch.float32)
+    o, lse = emulated_fwd(q, k, v, scale)
+    jo, jlse = _jax_fwd(q, k, v, scale, torch.float32)
+    assert _rel_l2(o.numpy(), jo) <= F32_REL_L2
+    assert np.abs(lse.numpy() - jlse).max() <= LSE_MAX_REL * np.abs(jlse).max()
+    dropped, _ = emulated_fwd(q, k, v, scale, drop_rank=1)
+    assert _rel_l2(dropped.numpy(), jo) > F32_REL_L2
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    ob, _ = emulated_fwd(qb, kb, vb, scale)
+    ref, _ = fa.flash_attention_fwd_lse_reference(qb, kb, vb, scale, torch.bfloat16)
+    jb, _ = _jax_fwd(qb, kb, vb, scale, torch.bfloat16)
+    assert _within_bf16(ob, ref)
+    assert _within_bf16(ob, torch.from_numpy(jb).to(torch.bfloat16))
+    for rank in (0, 1):
+        dropped, _ = emulated_fwd(qb, kb, vb, scale, drop_rank=rank)
+        assert not _within_bf16(dropped, ref)
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -273,7 +273,7 @@ def test_backward_over_many_tiles_after_the_arming_repair(cuda, shape):
         assert max_rel <= GRAD_MAX_REL and rel_l2 <= REL_L2, (name, max_rel, rel_l2)
 
 
-@pytest.mark.parametrize("b, n, c", [(1, 128, 640), (1, 128, 96), (1, 100, 128),
+@pytest.mark.parametrize("b, n, c", [(1, 128, 1152), (1, 128, 96), (1, 100, 128),
                                      (1, 64, 128), (0, 128, 128), (70000, 128, 128)])
 def test_backward_entries_refuse_other_shapes(cuda, b, n, c):
     """The C entries return cudaErrorInvalidValue (1) for a width, token
@@ -445,7 +445,7 @@ def test_fp32_training_kernels_match_plain(cuda, shape):
 
 @pytest.mark.parametrize("c", fa.SUPPORTED_CHANNELS)
 def test_fp32_training_kernels_are_deterministic(cuda, c):
-    """Every width (clusters of one to four CTAs), two runs bit-equal."""
+    """Every width (clusters of one to eight CTAs), two runs bit-equal."""
     q, k, v, do = _qkv((2, 1024, c), cuda, seed=c + 1, dtype=torch.float32, n=4)
     first = _f32_training(q, k, v, do, c ** -0.5)
     second = _f32_training(q, k, v, do, c ** -0.5)
@@ -491,7 +491,7 @@ def test_fp32_autograd_function_matches_plain_autograd(cuda, shape):
         assert _rel(a, b)[1] <= F32_REL_L2, (name, _rel(a, b))
 
 
-@pytest.mark.parametrize("b, n, c", [(1, 128, 640), (1, 128, 96), (1, 100, 128),
+@pytest.mark.parametrize("b, n, c", [(1, 128, 1152), (1, 128, 96), (1, 100, 128),
                                      (1, 64, 128), (0, 128, 128), (70000, 128, 128)])
 def test_fp32_backward_entries_refuse_other_shapes(cuda, b, n, c):
     """The fp32 backward's C entries return cudaErrorInvalidValue (1) for a
@@ -512,7 +512,7 @@ def test_fp32_backward_entries_refuse_other_shapes(cuda, b, n, c):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("shape", [(1, 100, 128), (1, 128, 640), (1, 128, 96)])
+@pytest.mark.parametrize("shape", [(1, 100, 128), (1, 128, 200), (1, 128, 96)])
 def test_ineligible_shape_raises(cuda, shape):
     q, k, v = _qkv(shape, cuda)
     with pytest.raises(ValueError, match="not eligible"):
@@ -615,3 +615,119 @@ def test_query_blocks_do_not_depend_on_the_query_count(cuda, shape, dtype):
         torch.cuda.synchronize()
         assert torch.equal(o_s, o[:, :nq]) and torch.equal(lse_s, lse[:, :nq]), nq
         assert torch.equal(dq_s, dq[:, :nq]), nq
+
+
+# Heads of 640-1024 channels: the forwards on a cluster of two CTAs, the
+# backward on clusters of five to eight; the bounds of the widths below.
+WIDE_SHAPES = [(2, 256, 256, 640), (2, 128, 256, 640), (2, 256, 256, 1024),
+               (2, 128, 256, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_every_entry_at_wide_heads_matches_plain(cuda, shape, dtype):
+    """The serving and LSE forwards, dK/dV and dQ at (B, nq, nk, C), each
+    launched once, against their plain versions (bf16: the forward's rtol
+    and atol, the backward's 2^-6 and 1e-2; fp32: relative L2 1e-5, TF32
+    off), bit-equal over two runs, and rejecting the designs' own fault:
+    one rank's partial left out of the logits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, nq, nk, c = shape
+    q, do = _qkv((b, nq, c), cuda, seed=c + nq, dtype=dtype, n=2)
+    k, v = _qkv((b, nk, c), cuda, seed=c + nk + 1, dtype=dtype, n=2)
+    scale = c ** -0.5
+    suffix = "_f32" if dtype == torch.float32 else ""
+    runs = []
+    for _ in range(2):
+        before = dict(fa.launches)
+        serving = fa.flash_attention_fwd(q, k, v, scale=scale, out_dtype=dtype)
+        o, lse = fa.flash_attention_fwd_lse(q, k, v, scale=scale, out_dtype=dtype)
+        delta = (do.float() * o.float()).sum(-1)
+        dq, dk, dv = _bwd(q, k, v, do, lse, delta, scale)
+        torch.cuda.synchronize()
+        for name in ("flash_attention_fwd", *KERNELS_TRAINING):
+            assert fa.launches[name + suffix] == before[name + suffix] + 1, name
+        runs.append((serving, o, lse, dq, dk, dv))
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    serving, o, lse, dq, dk, dv = runs[0]
+    assert torch.equal(serving, o)
+    ref_o, ref_lse = fa.flash_attention_fwd_lse_reference(q, k, v, scale, dtype)
+    assert _rel(lse, ref_lse)[0] <= LSE_MAX_REL
+    refs = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
+    faults = bwd_rank_left_out(q, k, v, do, lse, delta, scale, fa.bwd_cluster_size(c) - 1)
+    if dtype == torch.float32:
+        for got, ref in zip((o, dq, dk, dv), (ref_o, *refs)):
+            assert _rel(got, ref)[1] <= F32_REL_L2
+        for fault, ref in zip(faults, refs):
+            assert _rel(fault, ref)[1] > F32_REL_L2
+        return
+    torch.testing.assert_close(o.float(), ref_o.float(), rtol=RTOL, atol=ATOL)
+    assert _rel(o, ref_o)[1] <= REL_L2
+    for got, ref in zip((dq, dk, dv), refs):
+        max_rel, rel_l2 = _rel(got, ref)
+        assert max_rel <= GRAD_MAX_REL and rel_l2 <= REL_L2
+    for fault, ref in zip(faults, refs):
+        max_rel, rel_l2 = _rel(fault, ref)
+        assert max_rel > GRAD_MAX_REL or rel_l2 > REL_L2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_autograd_function_at_768_matches_plain_autograd(cuda, dtype):
+    """Gradients through flash_attention at (1, 1024, 768) (the LSE forward
+    on a cluster of two, the backward on clusters of six) against autograd
+    of the plain forward, in bf16 (the bounds of the 512-channel test) and
+    fp32 (relative L2 1e-5)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, g = _qkv((1, 1024, 768), cuda, seed=21, dtype=dtype, n=4)
+    scale = 768 ** -0.5
+
+    def grads(fn):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves)
+        return (out.detach(), *torch.autograd.grad(out, leaves, g))
+
+    got = grads(lambda a, b, c: fa.flash_attention(a, b, c, scale=scale, out_dtype=dtype))
+    want = grads(lambda a, b, c: fa.flash_attention_reference(a, b, c, scale, dtype))
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        max_rel, rel_l2 = _rel(a, b)
+        if dtype == torch.float32:
+            assert rel_l2 <= F32_REL_L2, (name, rel_l2)
+        else:
+            assert max_rel <= 2 * GRAD_MAX_REL and rel_l2 <= 2 * REL_L2, (name, max_rel, rel_l2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_heads_past_1024_raise_naming_the_roadmap_item(cuda, dtype):
+    """Past 1024 channels every entry raises NotImplementedError naming its
+    ROADMAP item, before any launch."""
+    q, k, v = _qkv((1, 128, 1152), cuda, dtype=dtype)
+    lse = torch.zeros(1, 128, device=cuda)
+    before = dict(fa.launches)
+    for call in (lambda: fa.flash_attention_fwd(q, k, v, scale=1.0, out_dtype=dtype),
+                 lambda: fa.flash_attention_fwd_lse(q, k, v, scale=1.0, out_dtype=dtype),
+                 lambda: fa.flash_attention_bwd_dkv(q, k, v, q, lse, lse, scale=1.0),
+                 lambda: fa.flash_attention_bwd_dq(q, k, v, q, lse, lse, scale=1.0)):
+        with pytest.raises(NotImplementedError, match=fa.WIDE_HEADS):
+            call()
+    assert fa.launches == before
+
+
+def test_layouts_are_the_python_mirrors(cuda):
+    """Each library's dynamic shared memory a CTA at every width equals the
+    Python mirror of its layout (``fwd_smem_bytes``, ``bwd_smem_bytes``)."""
+    fa.build_forward()
+    fa.build_backward()
+    fa.build_backward_f32()
+    for lib, fn, mirror in (
+            (fa.FWD_LIBRARY, "vcd_flash_attention_fwd_smem",
+             lambda c, a: fa.fwd_smem_bytes(c, bool(a))),
+            (fa.BWD_LIBRARY, "vcd_flash_attention_bwd_smem",
+             lambda c, a: fa.bwd_smem_bytes(c, bool(a))),
+            (fa.BWD_F32_LIBRARY, "vcd_flash_attention_bwd_f32_smem",
+             lambda c, a: fa.bwd_smem_bytes(c, bool(a), True))):
+        f = getattr(_cuda_build.load(lib), fn)
+        f.argtypes, f.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        for c in fa.SUPPORTED_CHANNELS:
+            for a in (0, 1):
+                assert f(c, a) == mirror(c, a), (fn, c, a)
+        assert f(1152, 0) == -1

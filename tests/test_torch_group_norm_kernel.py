@@ -547,10 +547,22 @@ def _refusals():
         "parallel slices": (lambda: loop._refuse_unported({"parallel": {"slices": 2}}),
                             "Q1", "Do not port"),
         "remat offload": (lambda: remat_mode("offload"), "Q1", "Do not port"),
+        "flash past 1024 channels": (_flash_past_1024, "Q2",
+                                     "#6-#8 at heads wider than 1024 channels"),
     }
 
 
-REFUSALS = ["parallel slices", "remat offload"]
+def _flash_past_1024():
+    """The model's explicit flash at a 1152-channel head, which the JAX
+    kernels take and the CUDA kernels do not."""
+    from vae_channel_dynamics_tpu_torch.models.vae import AttentionBlock
+
+    block = AttentionBlock(1152, 32, 1e-6, attn_impl="flash", device="cpu")
+    with torch.no_grad():
+        block(torch.zeros(1, 1152, 16, 16))
+
+
+REFUSALS = ["parallel slices", "remat offload", "flash past 1024 channels"]
 
 
 @pytest.mark.parametrize("case", REFUSALS)

@@ -116,7 +116,9 @@ def test_flash_reference_bf16_matches_jax_pallas_interpret():
 
 @pytest.mark.parametrize("n,c,expect", [
     (4096, 512, True), (16384, 512, True), (128, 128, True), (256, 384, True),
-    (4096, 640, False),   # wider than the kernel's register accumulator
+    (4096, 640, True),    # a cluster of two CTAs in the forwards, five in the backward
+    (16384, 1024, True),  # the widest: clusters of two and eight
+    (4096, 1152, False),  # past the kernels' 1024 channels
     (4000, 512, False),   # tokens not a multiple of 128
     (4096, 96, False),
 ])
@@ -135,8 +137,8 @@ def test_resolvers_match_jax_policy(impl, tokens):
 
 
 def test_resolver_takes_chunked_where_the_kernel_cannot():
-    # C=640 is within the JAX kernel's rule but past the CUDA kernel's
-    assert tattn.resolve_serving_impl("auto", 4096, 640) == "naive"
-    assert tattn.resolve_serving_impl("auto", 16384, 640) == "chunked"
+    # C=1152 is within the JAX kernel's rule but past the CUDA kernels'
+    assert tattn.resolve_serving_impl("auto", 4096, 1152) == "naive"
+    assert tattn.resolve_serving_impl("auto", 16384, 1152) == "chunked"
     with pytest.raises(ValueError):
         tattn.resolve_impl("typo", 16)

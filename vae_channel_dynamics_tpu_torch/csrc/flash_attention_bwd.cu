@@ -24,14 +24,15 @@
 // the bound.
 //
 // The design: the channels, not the rows, are split. A cluster of R = C/128
-// CTAs (4 at C = 512; 1, 2, 3 at 128, 256, 384) shares one block of 64 rows
-// (keys for dK/dV, queries for dQ), and CTA r owns channels [128r, 128r +
-// 128): it loads only that slice of every operand, and its dK and dV (or dQ)
-// of 64 rows x 128 channels are one wgmma accumulator each, 64 fp32 a
-// thread in one warpgroup. Each CTA then streams N x 128 x 2 x 2 bytes, a
-// quarter of a full-width block's, for 4x the rows.
+// CTAs (4 at the mid block's C = 512; 1 to 8 at C = 128 .. 1024, 8 the
+// largest portable cluster) shares one block of 64 rows (keys for dK/dV,
+// queries for dQ), and CTA r owns channels [128r, 128r + 128): it loads
+// only that slice of every operand, and its dK and dV (or dQ) of 64 rows x
+// 128 channels are one wgmma accumulator each, 64 fp32 a thread in one
+// warpgroup. Each CTA then streams N x 128 x 2 x 2 bytes, a quarter of a
+// full-width block's at C = 512, for 4x the rows.
 //
-// Per streamed tile (64 queries for dK/dV, 32 keys for dQ):
+// Per streamed tile (64 queries for dK/dV, 32 at R = 7; 32 keys for dQ):
 //   1. TMA brings the tile's slice (Q and dO, or K and V; dK/dV also lse and
 //      delta) into a ring of stages; each warp's lane 0 issues a quarter of
 //      a refill (one thread issuing all of them held up the warpgroup);
@@ -47,10 +48,15 @@
 //      counted by the owner's mbarrier (a reduce-scatter); the owner adds
 //      the R slots in rank order, forms P and dS in bf16, and copies its run
 //      of pairs the same way into every other rank's gather buffer (an
-//      all-gather). 36 bytes cross between SMs a logit for dK/dV (30 for dQ,
-//      which gathers dS only), against 96 for a full exchange of the fp32
-//      partials. Every CTA so holds the same bits of P and dS; no atomics,
-//      no fences (each barrier counts the bytes it waits for);
+//      all-gather). At R = 4, 36 bytes cross between SMs a logit for dK/dV
+//      (30 for dQ, which gathers dS only), against 96 for a full exchange of
+//      the fp32 partials; at R = 8, 84 (70) against 448. Every CTA so holds
+//      the same bits of P and dS; no atomics, no fences (each barrier counts
+//      the bytes it waits for). A CTA's exchange buffer holds its R slots of
+//      the pairs it owns and its outbox of the other ranks' pairs, sized
+//      for the rank that owns the most ((R - 1) ceil(P / R) + P pairs of
+//      2 KB, Split::PAIRS_HELD): from R = 5 a buffer of R slots of the
+//      largest run and an outbox of R - 1 such runs would not fit;
 //   4. the gathered P and dS, in the accumulator's own layout, are wgmma's
 //      register A: dV += P^T dO and dK += dS^T Q (M = keys, K = queries), or
 //      dQ += dS K (M = queries, K = keys), with dO, Q or K read from the
@@ -63,14 +69,21 @@
 // to fill the wait, while the card's 50 MB L2 keeps every streamed slice.
 // Two chains an SM hide one's waits behind the other's work, and shared
 // memory sets how:
-//   - dK/dV (64-query tiles, 3 stages, two gather buffers, 195-223 KB for
-//     R = 1-4, one CTA an SM, 253-255 registers, no spills) pipelines
-//     itself by a tile: tile t - 1's products run while the cluster
-//     exchanges tile t;
-//   - dQ (32-key tiles, 2 stages, one gather buffer, 85-99 KB, 122-128
-//     registers) runs two CTAs an SM, one's exchange beside the other's
-//     products; its smaller tiles double the exchanges, which dK/dV, that
-//     gathers P as well, did not recover when it was built that way.
+//   - dK/dV (64-query tiles, 3 stages, two gather buffers, 199,216-231,984
+//     bytes for R = 1-6 and 8, one CTA an SM, 219-255 registers, no spills
+//     but 12 bytes at R = 6) pipelines itself by a tile: tile t - 1's
+//     products run while the cluster exchanges tile t. At R = 7 its
+//     64-query tiles would need 236,080 bytes, so it streams 32-query tiles
+//     there (141,104 bytes, still one CTA an SM): twice the exchanges a
+//     query;
+//   - dQ (32-key tiles, 2 stages, one gather buffer, 87,080-111,656 bytes
+//     for R = 1-8, 122-139 registers) runs two CTAs an SM at every R, one's
+//     exchange beside the other's products; its smaller tiles double the
+//     exchanges, which dK/dV, that gathers P as well, did not recover when
+//     it was built that way.
+// A cluster of R CTAs needs R SMs of one GPC at once: from R = 5 a GPC of
+// 16 to 18 SMs leaves some idle (it holds three clusters of 5, two or three
+// of 6, two of 7 or 8).
 // C = 128, a cluster of one with no traffic between SMs, prices the
 // exchange: chip_smoke.py logs it beside C = 512.
 //
@@ -103,24 +116,35 @@ constexpr int RESIDENT = 2 * RES_BOX;  // a resident 64-row slice of 128 channel
 
 // Pair p of every thread (of its 2 P logits of a tile) belongs to rank
 // floor(p R / P): ranks own contiguous runs of pairs, [first(r), first(r + 1)).
+// A CTA's exchange buffer is sized by what its rank owns: its R slots of its
+// own pairs ([rank][pair][thread] float4), then its outbox, the other ranks'
+// pairs in pair order.
 template <int R, int P>
 struct Split {
-  static constexpr int MAXP = (P + R - 1) / R;     // pairs a rank owns, at most
-  static constexpr int RUN = MAXP * THREADS * 16;  // one rank's run of partials, bytes
+  static constexpr int MAXP = (P + R - 1) / R;  // pairs a rank owns, at most
   __host__ __device__ static constexpr int first(int r) { return (P * r + R - 1) / R; }
-  // the outbox keeps a run for every other rank: o's at o, or o - 1 past this rank
-  __device__ static int outbox_run(int o, int rank) { return o < rank ? o : o - 1; }
+  // (MAXP for every rank where R divides P: a constant, as the rank is not)
+  __host__ __device__ static constexpr int own(int r) {
+    return P % R == 0 ? MAXP : first(r + 1) - first(r);
+  }
+  // the largest exchange buffer of any rank, in pairs: R own + P - own
+  static constexpr int PAIRS_HELD = (R - 1) * MAXP + P;
+  // pairs before rank o's run in the outbox of rank `rank`
+  __device__ static int outbox_at(int o, int rank) {
+    return o < rank ? first(o) : first(o) - own(rank);
+  }
 };
 
 // Each kernel's tiling and byte offsets into its 1024-aligned dynamic shared
-// memory. DKV, the dK/dV kernel: streamed tiles of 64 queries, 3 stages,
+// memory. DKV, the dK/dV kernel: streamed tiles of 64 queries (32 at R = 7,
+// whose exchange buffer for 64 would not fit: 34 pairs of 2 KB), 3 stages,
 // its products pipelined by a tile (two gather buffers), one CTA an SM.
 // Else dQ: tiles of 32 keys, 2 stages, one gather buffer, small enough for
-// two CTAs an SM. DKV gathers P and dS and streams lse and delta; dQ
-// gathers dS only.
+// two CTAs an SM at every R. DKV gathers P and dS and streams lse and delta;
+// dQ gathers dS only.
 template <int R, bool DKV>
 struct Layout {
-  static constexpr int TILE = DKV ? 64 : 32;             // rows of a streamed tile
+  static constexpr int TILE = DKV && R != 7 ? 64 : 32;  // rows of a streamed tile
   static constexpr int STAGES = DKV ? 3 : 2;
   static constexpr int GATHERS = DKV ? 2 : 1;
   static constexpr int CTAS = DKV ? 1 : 2;                // an SM
@@ -131,9 +155,8 @@ struct Layout {
   using X = Split<R, PAIRS>;
   static constexpr int RES = 0;                                  // two resident slices
   static constexpr int RING = RES + 2 * RESIDENT;                // STAGES x two streamed
-  static constexpr int SLOTS = RING + STAGES * 2 * STREAMED;     // [rank][pair][thread] float4
-  static constexpr int OUTBOX = SLOTS + R * X::RUN;              // [other rank][pair][thread]
-  static constexpr int GATHER = OUTBOX + (R - 1) * X::RUN;       // [buffer][pair][thread]
+  static constexpr int EXCH = RING + STAGES * 2 * STREAMED;      // slots, outbox (Split)
+  static constexpr int GATHER = EXCH + X::PAIRS_HELD * THREADS * 16;  // [buffer][pair][thread]
   static constexpr int GATHER_BYTES = PAIRS * THREADS * G;
   static constexpr int ROWVEC = GATHER + GATHERS * GATHER_BYTES;  // DKV: [stage][lse, delta]
   static constexpr int BARS = ROWVEC + (DKV ? STAGES * 2 * TILE * 4 : 0);
@@ -179,19 +202,20 @@ __device__ __forceinline__ void partial_logits(float (&s)[TILE / 2], float (&dp)
 }
 
 // Step 3, first half: this thread's pairs of S and dP partials, as float4,
-// into this CTA's own slot (the pairs it owns) or its outbox run for their
-// owner; once every thread has written, lane 0 of warp o sends the run of
-// rank o to its slot for this rank in one bulk copy, counted by the owner's
-// slots barrier.
+// into this CTA's own slot (the pairs it owns) or into the outbox run of
+// their owner; once every thread has written, lane 0 of warp w sends the
+// runs of ranks w, w + 4, ... each to its slot for this rank in one bulk
+// copy, counted by the owner's slots barrier.
 template <int R, int P>
 __device__ __forceinline__ void push_partials(const float (&s)[2 * P], const float (&dp)[2 * P],
-                                              float4* slots, float4* outbox,
-                                              uint64_t* slots_full, int rank, int wt) {
+                                              float4* exch, uint64_t* slots_full, int rank,
+                                              int wt) {
   using X = Split<R, P>;
-  constexpr int RUN = X::MAXP * THREADS;  // float4s
+  float4* outbox = exch + R * X::own(rank) * THREADS;
 #pragma unroll
   for (int o = 0; o < R; ++o) {
-    float4* dst = o == rank ? slots + rank * RUN : outbox + X::outbox_run(o, rank) * RUN;
+    float4* dst = o == rank ? exch + rank * X::own(o) * THREADS
+                            : outbox + X::outbox_at(o, rank) * THREADS;
 #pragma unroll
     for (int p = X::first(o); p < X::first(o + 1); ++p)
       dst[(p - X::first(o)) * THREADS + wt] =
@@ -199,21 +223,25 @@ __device__ __forceinline__ void push_partials(const float (&s)[2 * P], const flo
   }
   fence_proxy_async();
   __syncthreads();
-  const int o = wt / 32;  // lane 0 of warp o sends to rank o
-  if (wt % 32 == 0 && o < R && o != rank)
-    bulk_copy_cluster(cluster_addr(slots + rank * RUN, o), outbox + X::outbox_run(o, rank) * RUN,
-                      (X::first(o + 1) - X::first(o)) * THREADS * 16, cluster_addr(slots_full, o));
+#pragma unroll
+  for (int i = 0; i < (R + 3) / 4; ++i) {
+    const int o = wt / 32 + 4 * i;
+    if (wt % 32 == 0 && o < R && o != rank)
+      bulk_copy_cluster(cluster_addr(exch + rank * X::own(o) * THREADS, o),
+                        outbox + X::outbox_at(o, rank) * THREADS, X::own(o) * THREADS * 16,
+                        cluster_addr(slots_full, o));
+  }
 }
 
 // Step 3, second half, on the owner: once every rank's partials have landed,
 // add the slots of each owned pair in rank order, form P and dS and store
 // them (DKV: uint2 {P, dS}; else uint32 dS, bf16 pairs) at the pair's place
-// in this CTA's gather buffer; lane 0 of warp r then copies the owned run
-// of pairs to the same place in rank r's gather buffer, counted by that
-// rank's gather barrier. rowvec, rows: the pair's row vector entries. DKV:
-// per column, from this stage's lse and delta (col(p) = 8 (p / 2) + 2 (lane
-// % 4)); else per row, this thread's rows row0 (even p) and row0 + 8 (odd
-// p), {lse, lse, delta, delta}.
+// in this CTA's gather buffer; lane 0 of warp w then copies the owned run
+// of pairs to the same place in the gather buffers of ranks w, w + 4, ...,
+// each counted by that rank's gather barrier. rowvec, rows: the pair's row
+// vector entries. DKV: per column, from this stage's lse and delta (col(p)
+// = 8 (p / 2) + 2 (lane % 4)); else per row, this thread's rows row0 (even
+// p) and row0 + 8 (odd p), {lse, lse, delta, delta}.
 template <int R, bool DKV>
 __device__ __forceinline__ void reduce_and_gather(const float4* slots, uint8_t* gather,
                                                   uint64_t* slots_full, uint64_t* gather_full,
@@ -224,7 +252,7 @@ __device__ __forceinline__ void reduce_and_gather(const float4* slots, uint8_t* 
   using X = typename L::X;
   constexpr int G = L::G;
   mbar_wait(slots_full, parity);
-  const int lo = X::first(rank), hi = X::first(rank + 1), tig = wt % 4;
+  const int lo = X::first(rank), hi = X::first(rank + 1), own = X::own(rank), tig = wt % 4;
 #pragma unroll
   for (int i = 0; i < X::MAXP; ++i) {
     const int p = lo + i;
@@ -232,7 +260,7 @@ __device__ __forceinline__ void reduce_and_gather(const float4* slots, uint8_t* 
       float4 a = slots[i * THREADS + wt];
 #pragma unroll
       for (int r = 1; r < R; ++r) {
-        const float4 b = slots[(r * X::MAXP + i) * THREADS + wt];
+        const float4 b = slots[(r * own + i) * THREADS + wt];
         a.x += b.x;
         a.y += b.y;
         a.z += b.z;
@@ -263,10 +291,13 @@ __device__ __forceinline__ void reduce_and_gather(const float4* slots, uint8_t* 
   }
   fence_proxy_async();
   __syncthreads();
-  const int r = wt / 32;  // lane 0 of warp r sends to rank r
-  if (wt % 32 == 0 && r < R && r != rank)
-    bulk_copy_cluster(cluster_addr(gather + lo * THREADS * G, r), gather + lo * THREADS * G,
-                      (hi - lo) * THREADS * G, cluster_addr(gather_full, r));
+#pragma unroll
+  for (int i = 0; i < (R + 3) / 4; ++i) {
+    const int r = wt / 32 + 4 * i;
+    if (wt % 32 == 0 && r < R && r != rank)
+      bulk_copy_cluster(cluster_addr(gather + lo * THREADS * G, r), gather + lo * THREADS * G,
+                        own * THREADS * G, cluster_addr(gather_full, r));
+  }
 }
 
 // d (64 x 128) += A (the gathered 64 x TILE bf16 tile, TILE / 4 pairs a
@@ -372,8 +403,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const Bars bars = init_bars<STAGES>(smem + L::BARS, tid);
   uint8_t* sK = smem + L::RES;
   uint8_t* sV = sK + RESIDENT;
-  float4* slots = reinterpret_cast<float4*>(smem + L::SLOTS);
-  float4* outbox = reinterpret_cast<float4*>(smem + L::OUTBOX);
+  float4* slots = reinterpret_cast<float4*>(smem + L::EXCH);
   auto stage = [&](int t) { return smem + L::RING + (t % STAGES) * 2 * L::STREAMED; };  // Q, dO
   auto gather = [&](int t) { return smem + L::GATHER + (t & 1) * L::GATHER_BYTES; };
   auto rowvec = [&](int t) {  // lse, delta
@@ -432,7 +462,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     {
       float sacc[TILE / 2], dpacc[TILE / 2];
       partial_logits<TILE>(sacc, dpacc, sK, stage(t), sV, stage(t) + L::STREAMED);
-      push_partials<R, PAIRS>(sacc, dpacc, slots, outbox, bars.slots_full, rank, tid);
+      push_partials<R, PAIRS>(sacc, dpacc, slots, bars.slots_full, rank, tid);
     }
     arm<R, true>(bars, rank, tid);
     if (lane == 0 && t >= 2 && t - 2 + STAGES < nt) issue(t - 2 + STAGES, warp);
@@ -483,8 +513,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   const Bars bars = init_bars<STAGES>(smem + L::BARS, tid);
   uint8_t* sQ = smem + L::RES;
   uint8_t* sdO = sQ + RESIDENT;
-  float4* slots = reinterpret_cast<float4*>(smem + L::SLOTS);
-  float4* outbox = reinterpret_cast<float4*>(smem + L::OUTBOX);
+  float4* slots = reinterpret_cast<float4*>(smem + L::EXCH);
   uint8_t* gather = smem + L::GATHER;
   auto stage = [&](int t) { return smem + L::RING + (t % STAGES) * 2 * L::STREAMED; };  // K, V
 
@@ -520,7 +549,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     {
       float sacc[TILE / 2], dpacc[TILE / 2];
       partial_logits<TILE>(sacc, dpacc, sQ, stage(t), sdO, stage(t) + L::STREAMED);
-      push_partials<R, PAIRS>(sacc, dpacc, slots, outbox, bars.slots_full, rank, tid);
+      push_partials<R, PAIRS>(sacc, dpacc, slots, bars.slots_full, rank, tid);
     }
     arm<R, false>(bars, rank, tid);
     // every warp has finished tile t - 1: its stage takes tile t + 1
@@ -641,7 +670,7 @@ extern "C" {
 
 // q, dout: contiguous (b, nq, c) bf16; k, v, dk, dv: contiguous (b, nk, c)
 // bf16; lse, delta: contiguous (b, nq) fp32; all on the current device. nq
-// and nk must be multiples of 128 and c one of 128, 256, 384, 512.
+// and nk must be multiples of 128 and c a multiple of 128 up to 1024.
 int vcd_flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse, const void* delta,
                                      void* dk, void* dv, int b, int nq, int nk, int c,
@@ -653,6 +682,10 @@ int vcd_flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v
     case 256: return static_cast<int>(launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, b, nq, nk, scale, s));
     case 384: return static_cast<int>(launch_dkv<384>(q, k, v, dout, lse, delta, dk, dv, b, nq, nk, scale, s));
     case 512: return static_cast<int>(launch_dkv<512>(q, k, v, dout, lse, delta, dk, dv, b, nq, nk, scale, s));
+    case 640: return static_cast<int>(launch_dkv<640>(q, k, v, dout, lse, delta, dk, dv, b, nq, nk, scale, s));
+    case 768: return static_cast<int>(launch_dkv<768>(q, k, v, dout, lse, delta, dk, dv, b, nq, nk, scale, s));
+    case 896: return static_cast<int>(launch_dkv<896>(q, k, v, dout, lse, delta, dk, dv, b, nq, nk, scale, s));
+    case 1024: return static_cast<int>(launch_dkv<1024>(q, k, v, dout, lse, delta, dk, dv, b, nq, nk, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -669,7 +702,27 @@ int vcd_flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
     case 256: return static_cast<int>(launch_dq<256>(q, k, v, dout, lse, delta, dq, b, nq, nk, scale, s));
     case 384: return static_cast<int>(launch_dq<384>(q, k, v, dout, lse, delta, dq, b, nq, nk, scale, s));
     case 512: return static_cast<int>(launch_dq<512>(q, k, v, dout, lse, delta, dq, b, nq, nk, scale, s));
+    case 640: return static_cast<int>(launch_dq<640>(q, k, v, dout, lse, delta, dq, b, nq, nk, scale, s));
+    case 768: return static_cast<int>(launch_dq<768>(q, k, v, dout, lse, delta, dq, b, nq, nk, scale, s));
+    case 896: return static_cast<int>(launch_dq<896>(q, k, v, dout, lse, delta, dq, b, nq, nk, scale, s));
+    case 1024: return static_cast<int>(launch_dq<1024>(q, k, v, dout, lse, delta, dq, b, nq, nk, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The dynamic shared memory a CTA of the dK/dV (dkv != 0) or dQ kernel takes
+// at width c, in bytes; -1 for a width it does not take.
+int vcd_flash_attention_bwd_smem(int c, int dkv) {
+  switch (c) {
+    case 128: return dkv ? Layout<1, true>::BYTES : Layout<1, false>::BYTES;
+    case 256: return dkv ? Layout<2, true>::BYTES : Layout<2, false>::BYTES;
+    case 384: return dkv ? Layout<3, true>::BYTES : Layout<3, false>::BYTES;
+    case 512: return dkv ? Layout<4, true>::BYTES : Layout<4, false>::BYTES;
+    case 640: return dkv ? Layout<5, true>::BYTES : Layout<5, false>::BYTES;
+    case 768: return dkv ? Layout<6, true>::BYTES : Layout<6, false>::BYTES;
+    case 896: return dkv ? Layout<7, true>::BYTES : Layout<7, false>::BYTES;
+    case 1024: return dkv ? Layout<8, true>::BYTES : Layout<8, false>::BYTES;
+    default: return -1;
   }
 }
 

@@ -42,9 +42,10 @@
 // the cluster exchanges.
 //
 // The split: the channels, not the rows, as in the bf16 backward
-// (flash_attention_bwd.cu). A cluster of R = C/128 CTAs (4 at C = 512; 1, 2,
-// 3 at 128, 256, 384) shares one block of 64 rows (keys for dK/dV, queries
-// for dQ), and CTA r owns channels [128r, 128r + 128). Two warpgroups a CTA.
+// (flash_attention_bwd.cu). A cluster of R = C/128 CTAs (4 at C = 512; 1 to
+// 8 at C = 128 .. 1024) shares one block of 64 rows (keys for dK/dV,
+// queries for dQ), and CTA r owns channels [128r, 128r + 128). Two
+// warpgroups a CTA.
 //
 // tf32 wgmma takes K-major operands only (no transpose flag), and every
 // output product sums over the streamed rows, its operands' outer dimension.
@@ -77,7 +78,10 @@
 //      lo at their places in the B tiles and bulk-copies its run into every
 //      other rank's (an all-gather). Every CTA so holds the same bits of P
 //      and dS. Bytes a tile at R = 4: 12 KB of partials out of and into each
-//      CTA, and 8 KB (dQ 4 KB) of hi/lo tiles to each of the three others;
+//      CTA, and 8 KB (dQ 4 KB) of hi/lo tiles to each of the three others.
+//      A tile has four k-steps, so from R = 5 only four ranks own one each
+//      and the others own none: they send all their partials, gather all
+//      four runs, and add nothing;
 //   4. warpgroup 0 adds dK^T (both 64-channel halves) and warpgroup 1 dV^T;
 //      for dQ warpgroup g adds dQ^T over channels [64g, 64g + 64):
 //      m64n64k8, each tile's products into fresh accumulators (4 k-steps of
@@ -110,8 +114,11 @@
 // Shared memory at R = 4 (dK/dV): 64 KB resident (two 64-row slices), 64 KB
 // of stages, 32 KB of split buffer, 32 KB of B tiles, 28 KB of partial
 // slots and outbox = 226,856 bytes with the barriers and the alignment (R =
-// 3, whose ranks own 2, 1 and 1 k-steps: 230,952); dQ 16 KB less. One CTA
-// an SM. No atomics; each output element is written once, by one thread:
+// 3, whose ranks own 2, 1 and 1 k-steps: 230,952); dQ 16 KB less. At R =
+// 6-8 the slots and an outbox would take 36-44 KB (235,048 bytes and more),
+// so from R = 5 each outbox run sits in the B tiles, in its owner's k-steps
+// (Split): the slots take 2R pairs of 2 KB, 218,664-230,952 bytes for R =
+// 5-8. One CTA an SM. No atomics; each output element is written once, by one thread:
 // two runs give the same bits. One kernel template serves both: DKV picks
 // the roles of the operands, lse and delta by column (dK/dV) or by row
 // (dQ), and the outputs.
@@ -149,14 +156,21 @@ constexpr int DP_BUFS = 3;                 // dP's groups of A registers, loaded
 
 // The k-steps of a tile's logits, and so their pairs 2j and 2j + 1, belong
 // to rank floor(j R / KSTEPS): ranks own contiguous runs [first(r),
-// first(r + 1)). A CTA's partial slots are compact: its own R runs of its
-// pairs ([rank][pair][thread] float4), then its outbox, a run for every
-// other rank in rank order.
+// first(r + 1)); from R = 5 up some ranks own none. A CTA's partial slots
+// are compact: its own R runs of its pairs ([rank][pair][thread] float4),
+// then, up to R = 4, its outbox, a run for every other rank in rank order.
+// From R = 5 the outbox runs sit in the B tiles instead, each in the k-steps
+// of its owner (a run of partials, 4 KB a k-step, fits the k-step's 8 KB, or
+// dQ's 4 KB, of B tiles): the owner's gather writes there only once the run
+// has reached it, and the products of the tile before have read them
+// (push_partials). The slots then take at most 2R pairs, 32 KB at R = 8,
+// where slots and outbox would take 44 KB.
 template <int R>
 struct Split {
+  static constexpr bool OUTBOX_IN_BT = R > 4;
   __host__ __device__ static constexpr int first(int r) { return (KSTEPS * r + R - 1) / R; }
   __host__ __device__ static constexpr int pairs(int r) { return 2 * (first(r + 1) - first(r)); }
-  // float4s before rank o's run in the outbox of rank `rank`
+  // float4s before rank o's run in the outbox of rank `rank` (up to R = 4)
   __device__ static int outbox_at(int o, int rank) {
     int at = 0;
 #pragma unroll
@@ -168,7 +182,7 @@ struct Split {
   static constexpr int bytes() {
     int most = 0;
     for (int r = 0; r < R; ++r) {
-      const int b = ((R - 1) * pairs(r) + PAIRS) * WG * 16;
+      const int b = (OUTBOX_IN_BT ? R * pairs(r) : (R - 1) * pairs(r) + PAIRS) * WG * 16;
       most = b > most ? b : most;
     }
     return most;
@@ -356,22 +370,32 @@ __device__ __forceinline__ void partial_dp(float (&d)[16], const uint8_t* a,
 }
 
 // Step 3, first half: this thread's partials into this CTA's own slot (the
-// pairs it owns) or its outbox run for their owner, float4 (S pair, dP
+// pairs it owns) or the outbox run of their owner, float4 (S pair, dP
 // pair) at [pair][accumulator thread]: warpgroup 1's dP pairs as its
 // accumulator holds them, warpgroup 0's 4 x 4 logits of S scattered to the
 // places of the accumulator layout (x holds either); once every thread has
 // written, lane 0 of warp o sends the run of rank o to its slot for this
-// rank in one bulk copy, counted by the owner's slots barrier.
-template <int R>
-__device__ __forceinline__ void push_partials(const float (&x)[16], float2* slots,
+// rank in one bulk copy, counted by the owner's slots barrier (a rank that
+// owns no pair gets none). From R = 5 the outbox runs sit in the B tiles
+// (Split), once both warpgroups' products of the tile before are done.
+template <int R, int KSTEP_BYTES>
+__device__ __forceinline__ void push_partials(const float (&x)[16], float2* slots, uint8_t* bt,
                                               uint64_t* slots_full, int rank, int tid) {
   using X = Split<R>;
   const int g = tid / WG, wt = tid % WG;
   const int mine = X::pairs(rank);
   float2* outbox = slots + R * mine * WG * 2;
+  // the outbox run of rank o
+  auto run = [&](int o) {
+    if constexpr (X::OUTBOX_IN_BT)
+      return reinterpret_cast<float2*>(bt + X::first(o) * KSTEP_BYTES);
+    else
+      return outbox + X::outbox_at(o, rank) * 2;
+  };
+  if constexpr (X::OUTBOX_IN_BT) __syncthreads();
 #pragma unroll
   for (int o = 0; o < R; ++o) {
-    float2* dst = o == rank ? slots + rank * mine * WG * 2 : outbox + X::outbox_at(o, rank) * 2;
+    float2* dst = o == rank ? slots + rank * mine * WG * 2 : run(o);
     if (g == 1) {
 #pragma unroll
       for (int p = 2 * X::first(o); p < 2 * X::first(o + 1); ++p)
@@ -392,17 +416,17 @@ __device__ __forceinline__ void push_partials(const float (&x)[16], float2* slot
   fence_proxy_async();
   __syncthreads();
   const int o = tid / 32;  // lane 0 of warp o sends to rank o
-  if (tid % 32 == 0 && o < R && o != rank)
-    bulk_copy_cluster(cluster_addr(slots + rank * X::pairs(o) * WG * 2, o),
-                      outbox + X::outbox_at(o, rank) * 2, X::pairs(o) * WG * 16,
-                      cluster_addr(slots_full, o));
+  if (tid % 32 == 0 && o < R && o != rank && X::pairs(o) > 0)
+    bulk_copy_cluster(cluster_addr(slots + rank * X::pairs(o) * WG * 2, o), run(o),
+                      X::pairs(o) * WG * 16, cluster_addr(slots_full, o));
 }
 
 // Step 3, second half, on the owner, by warpgroup 1 alone: once every
 // rank's partials have landed, add the slots of each owned pair in rank
 // order, form P and dS, split them into hi and lo at the pair's place in the
-// B tiles; lane 0 of warpgroup 1's warp r then copies the owned run to the
-// same place in rank r's B tiles, counted by that rank's gather barrier, and
+// B tiles; lane 0 of warpgroup 1's warp w then copies the owned run to the
+// same place in the B tiles of ranks w, w + 4, ..., each counted by that
+// rank's gather barrier (a rank that owns no pair sends none), and
 // the warpgroup arrives at named barrier 3, where warpgroup 0 waits before
 // its products read the owned run. vec: DKV, the tile's lse and delta by
 // column; else the block's by row.
@@ -462,11 +486,14 @@ __device__ __forceinline__ void reduce_and_gather(const float4* slots, uint8_t* 
   fence_proxy_async();
   named_barrier(2, WG);
   named_barrier_arrive(3, THREADS);
-  const int r = wt / 32;  // lane 0 of warpgroup 1's warp r sends to rank r
   const int run = X::first(rank) * L::KSTEP_BYTES;
-  if (wt % 32 == 0 && r < R && r != rank)
-    bulk_copy_cluster(cluster_addr(bt + run, r), bt + run, mine / 2 * L::KSTEP_BYTES,
-                      cluster_addr(gather_full, r));
+#pragma unroll
+  for (int i = 0; i < (R + 3) / 4; ++i) {
+    const int r = wt / 32 + 4 * i;
+    if (wt % 32 == 0 && mine > 0 && r < R && r != rank)
+      bulk_copy_cluster(cluster_addr(bt + run, r), bt + run, mine / 2 * L::KSTEP_BYTES,
+                        cluster_addr(gather_full, r));
+  }
 }
 
 // Step 1, warpgroup 1: the streamed slice `st` split into hi at `split`
@@ -680,7 +707,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     // read) ----
     float frag[MB][KSTEPS][4];
     load_frags<MB>(frag, stage(t) + op * STREAMED, mb0, wt);
-    push_partials<R>(x, reinterpret_cast<float2*>(smem + L::SLOTS), slots_full, rank, tid);
+    push_partials<R, L::KSTEP_BYTES>(x, reinterpret_cast<float2*>(smem + L::SLOTS), bt,
+                                     slots_full, rank, tid);
     // then arm tile t's exchange barriers: the other ranks' partials of this
     // rank's pairs, and the other owners' runs of the B tiles. Armed only
     // once push_partials' barrier has seen every thread past tile t - 1's
@@ -803,6 +831,10 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout, cons
     case 256: return static_cast<int>(launch<256, DKV>(q, k, v, dout, lse, delta, out1, out2, b, nq, nk, scale, s));
     case 384: return static_cast<int>(launch<384, DKV>(q, k, v, dout, lse, delta, out1, out2, b, nq, nk, scale, s));
     case 512: return static_cast<int>(launch<512, DKV>(q, k, v, dout, lse, delta, out1, out2, b, nq, nk, scale, s));
+    case 640: return static_cast<int>(launch<640, DKV>(q, k, v, dout, lse, delta, out1, out2, b, nq, nk, scale, s));
+    case 768: return static_cast<int>(launch<768, DKV>(q, k, v, dout, lse, delta, out1, out2, b, nq, nk, scale, s));
+    case 896: return static_cast<int>(launch<896, DKV>(q, k, v, dout, lse, delta, out1, out2, b, nq, nk, scale, s));
+    case 1024: return static_cast<int>(launch<1024, DKV>(q, k, v, dout, lse, delta, out1, out2, b, nq, nk, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -814,6 +846,10 @@ int smem_bytes(int c) {
     case 256: return Layout<2, DKV>::BYTES;
     case 384: return Layout<3, DKV>::BYTES;
     case 512: return Layout<4, DKV>::BYTES;
+    case 640: return Layout<5, DKV>::BYTES;
+    case 768: return Layout<6, DKV>::BYTES;
+    case 896: return Layout<7, DKV>::BYTES;
+    case 1024: return Layout<8, DKV>::BYTES;
     default: return -1;
   }
 }
@@ -824,8 +860,8 @@ extern "C" {
 
 // q, dout: contiguous (b, nq, c) fp32; k, v, dk, dv: contiguous (b, nk, c)
 // fp32; lse, delta: contiguous (b, nq) fp32; all 16-byte aligned, on the
-// current device. nq and nk must be multiples of 128 and c one of 128, 256,
-// 384, 512.
+// current device. nq and nk must be multiples of 128 and c a multiple of 128
+// up to 1024.
 int vcd_flash_attention_bwd_dkv_f32(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
                                     void* dk, void* dv, int b, int nq, int nk, int c,

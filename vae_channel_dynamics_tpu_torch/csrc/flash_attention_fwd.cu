@@ -122,11 +122,47 @@
 // + 64 KB (split buffers) + 32 KB (P) = 197,728 bytes with the barriers and
 // the alignment.
 //
+// Heads wider than 512 channels (C = 640 .. 1024, FwdSplit), both kernels.
+// O for 64 rows of a 1024-channel head is 256 fp32 a consumer thread, past
+// the register file, and 1024 channels of resident Q and a ring that holds
+// a tile's K and V would not fit a CTA's shared memory. So the channels are
+// split again, over a thread-block cluster of R = 2 CTAs that share one
+// block of 64 query rows: rank r owns the slice [r CS, (r + 1) CS) of Q, K,
+// V and O, CS = 128 ceil(C / 256), and each CTA runs the kernel above at
+// width CS (its two warpgroups half the slice each: the C = 384 kernel at
+// 640 and 768, the C = 512 one at 896 and 1024). Why two slices of up to
+// 512, and not one per 128 channels as the backward: O's accumulators are
+// what bounds the forward, and two CTAs are the fewest that hold them, so
+// each CTA keeps the products of the narrower kernel, and the cluster adds
+// only one exchange of S a tile. At 640 and 896 rank 1's slice ends 128
+// channels past C: its Q, K and V boxes there are zero-filled by TMA (they
+// add exact zeros to S) and its O is not stored, 20% and 14% more
+// products than the head needs, against a second instantiation for an
+// uneven split. Per tile, each CTA sums its warpgroups' partials as above
+// (S_r = S_r0 + S_r1, the same bits in both warpgroups), writes S_r into a
+// slot of the other CTA by remote stores to distributed shared memory
+// (st.shared::cluster, two slots by tile parity, an mbarrier each way:
+// xfull counts the writer's 256 stores, xempty the reader's 256 reads),
+// and adds the other's: S = S_0 + S_1 in rank 0 and S_1 + S_0 in rank 1,
+// the same bits (fp32 addition commutes), so both CTAs hold the same S, m,
+// l and P and each scales its own slice of O. The bf16 kernel issues the
+// previous tile's P V before it waits for the other CTA's partial. Each CTA
+// loads only its slice of K and V (the 3-D view (C, n, b), two 64 x 64
+// boxes a unit), so the SM intake a 64-key tile is 96 KB at 640 and 768 and
+// 128 KB at 896 and 1024, the C = 512 kernel's, for the same products a
+// CTA. Only rank 0 writes lse. Shared memory: the slice's kernel's, plus
+// the two 16 KB slots (214,272 and 230,656 bytes bf16, 230,656 fp32). The
+// 3xTF32 kernel keeps its fresh accumulators within each warpgroup as
+// above; the cluster's sum is one fp32 add. No atomics: two runs give the
+// same bits.
+//
 // Plain C interface for ctypes: pointers and the stream are void*, the
 // function returns cudaGetLastError() after the launch (cudaErrorInvalidValue
 // for a shape it does not take). It launches on the
 // caller's stream, allocates nothing and does not synchronise.
 
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
@@ -135,10 +171,72 @@
 namespace {
 
 using namespace vcd::sm90;
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
 constexpr int BK = 64;                // keys per tile
 constexpr float MASKED = -1e30f;      // finite stand-in for -inf, as in the TPU kernel
+
+// The split of the channels at width C, both forwards (see the header): one
+// CTA up to 512 channels, else a cluster of R = 2 CTAs, rank r owning the
+// slice [r CS, (r + 1) CS) of CS = 128 ceil(C / 256) channels. At 640 and
+// 896 the last 128 channels of rank 1's slice lie past C: TMA fills their
+// boxes with zeros, which add nothing to S, and their O is not stored.
+template <int C>
+struct FwdSplit {
+  static_assert(C % 128 == 0 && C <= 1024, "a multiple of 128 channels up to 1024");
+  static constexpr int R = C <= 512 ? 1 : 2;
+  static constexpr int CS = R == 1 ? C : (C + 255) / 256 * 128;
+};
+
+constexpr int XCH = 64 * 64 * 4;      // a 64 x 64 fp32 tile of S: one CTA's partial
+
+// The cluster's exchange of S (R = 2), each CTA's partial the sum of its two
+// warpgroups', the same bits in both. A CTA's shared memory holds two slots
+// of XCH bytes, by tile parity, into which the other CTA writes its partial
+// (remote stores, [j][thread] float4), and barriers xfull[2] (its 256
+// consumer threads arrive once the stores are done) and xempty[2] (this
+// CTA's 256 arrive on the other's once they have read the slot).
+//
+// Sends this CTA's partial s of tile t to the other CTA's slot t % 2,
+// warpgroup g its float4s j = 4g .. 4g + 3, once the other CTA has read that
+// slot's tile t - 2.
+__device__ __forceinline__ void send_partial(const float (&s)[32], float4* xslot,
+                                             uint64_t* xfull, uint64_t* xempty, int t, int g,
+                                             int wt, uint32_t peer) {
+  const int slot = t & 1;
+  if (t >= 2) mbar_wait_cluster(&xempty[slot], ((t >> 1) - 1) & 1);
+  const uint32_t dst = cluster_addr(xslot + slot * (XCH / 16), peer);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // s indexed by constants only: an index that depends on g would put s
+    // in local memory
+    const float4 lo = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+    const float4 hi = make_float4(s[4 * i + 16], s[4 * i + 17], s[4 * i + 18], s[4 * i + 19]);
+    st_cluster(dst + ((4 * g + i) * 128 + wt) * 16, g == 0 ? lo : hi);
+  }
+  mbar_arrive_cluster(cluster_addr(&xfull[slot], peer));
+}
+
+// S = (s + the other CTA's partial) * scale, the same bits in both CTAs (fp32
+// addition commutes: rank 0 adds 0 + 1, rank 1 adds 1 + 0), once tile t's
+// partial has landed in slot t % 2; then frees the slot for tile t + 2.
+__device__ __forceinline__ void add_peer_partial(float (&s)[32], const float4* xslot,
+                                                 uint64_t* xfull, uint64_t* xempty, int t,
+                                                 int wt, uint32_t peer, float scale) {
+  const int slot = t & 1;
+  mbar_wait_cluster(&xfull[slot], (t >> 1) & 1);
+  const float4* x = xslot + slot * (XCH / 16);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 v = x[j * 128 + wt];
+    s[4 * j] = (s[4 * j] + v.x) * scale;
+    s[4 * j + 1] = (s[4 * j + 1] + v.y) * scale;
+    s[4 * j + 2] = (s[4 * j + 2] + v.z) * scale;
+    s[4 * j + 3] = (s[4 * j + 3] + v.w) * scale;
+  }
+  mbar_arrive_cluster(cluster_addr(&xempty[slot], peer));
+}
 
 // ---------------------------------------------------------------------------
 // bf16 forward: wgmma/TMA, a producer warpgroup and two consumers (see the header)
@@ -153,23 +251,26 @@ constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 constexpr int BOX = 64 * 128;         // 64 rows x 64 channels of bf16, 128-byte swizzled
 constexpr int UNIT = 2 * BOX;         // a ring stage: one box of each warpgroup's half
-constexpr int XCH = BQ * BK * 4;      // one warpgroup's partial S, fp32
 constexpr int SMEM_MAX = 232448;      // the dynamic shared memory a CTA may have
 constexpr int STAGES = 8;             // of the K/V ring (see the header)
 
 template <int C>
 struct Layout {
-  static constexpr int H = C / 2;                      // channels of a warpgroup
+  static constexpr int R = FwdSplit<C>::R, CS = FwdSplit<C>::CS;
+  static constexpr int H = CS / 2;                     // channels of a warpgroup
   static constexpr int NCH = H / 64;                   // units of K (or V) a tile
   // From two K units a tile up, the partial S are exchanged in the tile's
   // own K stages once S is formed (warpgroup g in its boxes of the first
   // two): the ring keeps the 32 KB of two slots of their own, which C = 128
   // uses.
   static constexpr bool XIN_RING = NCH >= 2;
-  static constexpr int XCHG = C * 128;                 // after the C/64 boxes of Q
+  static constexpr int XCHG = CS * 128;                // after the CS/64 boxes of Q
   static constexpr int RING = XCHG + (XIN_RING ? 0 : 2 * XCH);
-  static constexpr int BARS = RING + STAGES * UNIT;    // full[STAGES], empty[STAGES], q
-  static constexpr int BYTES = BARS + (2 * STAGES + 1) * 8 + 1024;  // + the alignment pad
+  // full[STAGES], empty[STAGES], q; a cluster's xfull[2], xempty[2]
+  static constexpr int BARS = RING + STAGES * UNIT;
+  static constexpr int XSLOT = BARS + 256;             // a cluster's two slots of XCH
+  static constexpr int BYTES =
+      (R == 1 ? BARS + (2 * STAGES + 1) * 8 : XSLOT + 2 * XCH) + 1024;  // + the alignment pad
   static_assert(H % 64 == 0 && STAGES >= 2 * NCH, "a tile's K and V units fit the ring");
   static_assert(BYTES <= SMEM_MAX, "too much shared memory");
 };
@@ -191,7 +292,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // O (B, N, C) bf16 = softmax(Q K^T * scale) V, and with lse non-null the
 // fp32 (B, Nq) lse = m + log(l), over bf16 q (B, Nq, C) and k, v (B, Nk, C).
-// Grid (Nq / 64, B); a producer warpgroup and two consumers.
+// Grid (R Nq / 64, B) in clusters of R (FwdSplit); a producer warpgroup and
+// two consumers.
 template <int C>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -199,16 +301,21 @@ __global__ void __launch_bounds__(THREADS, 1)
                      const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o,
                      float* __restrict__ lse, int nq, int nk, float scale) {
   using L = Layout<C>;
-  constexpr int H = L::H, NCH = L::NCH;
+  constexpr int R = L::R, CS = L::CS, H = L::H, NCH = L::NCH;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* ring = smem + L::RING;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
   uint64_t* empty = full + STAGES;
   uint64_t* qbar = empty + STAGES;
+  uint64_t* xfull = qbar + 1;  // R = 2 only
+  uint64_t* xempty = xfull + 2;
+  float4* xslot = reinterpret_cast<float4*>(smem + L::XSLOT);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * BQ, b = blockIdx.y, nt = nk / BK;
+  int rank = 0;
+  if constexpr (R > 1) rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int q0 = (blockIdx.x / R) * BQ, b = blockIdx.y, nt = nk / BK, c0 = rank * CS;
   const int units = 2 * nt * NCH;
   const float scale_log2 = scale * LOG2E;
 
@@ -218,21 +325,34 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(&empty[s], CONSUMER_WARPS);  // every consumer warp
     }
     mbar_init(qbar, 1);
+    if constexpr (R > 1)
+      for (int s = 0; s < 2; ++s) {
+        mbar_init(&xfull[s], THREADS - 128);  // the other CTA's consumer threads
+        mbar_init(&xempty[s], THREADS - 128);
+      }
     mbar_init_fence();
   }
-  __syncthreads();
+  // in a cluster, every CTA's barriers are initialised before the other
+  // arrives on them
+  if constexpr (R > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
 
   if (warp < 4) {
     // ---- the producer warpgroup: its thread 0 keeps the ring full ----
     set_max_regs_dec<PRODUCER_REGS>();
     if (tid == 0) {
-      mbar_arrive_expect_tx(qbar, C * 128);
-      for (int j = 0; j < C / 64; ++j) tma_load_3d(smem + j * BOX, &qmap, qbar, 64 * j, q0, b);
+      mbar_arrive_expect_tx(qbar, CS * 128);
+      for (int j = 0; j < CS / 64; ++j)
+        tma_load_3d(smem + j * BOX, &qmap, qbar, c0 + 64 * j, q0, b);
       // Unit k of the stream: group k / NCH is K_0, then K_t and V_(t-1) for
       // t >= 1, then V_(nt-1), the order the consumers read them; chunk k %
       // NCH. A unit is one box of the 4-D view (H channels, n rows, 2
-      // halves, b) of K or V: 64 channels x 64 rows x both halves. Unit k
-      // goes in once every consumer warp has released unit k - STAGES.
+      // halves, b) of K or V: 64 channels x 64 rows x both halves (in a
+      // cluster, two boxes of the 3-D view (C, n, b), one of each half of
+      // the slice). Unit k goes in once every consumer warp has released
+      // unit k - STAGES.
       for (int k = 0; k < units; ++k) {
         const int grp = k / NCH, chunk = k % NCH, s = k % STAGES;
         const bool is_v = grp == 2 * nt - 1 || (grp > 0 && grp % 2 == 0);
@@ -241,7 +361,11 @@ __global__ void __launch_bounds__(THREADS, 1)
         uint8_t* st = ring + s * UNIT;
         if (k >= STAGES) mbar_wait(&empty[s], (k / STAGES - 1) & 1);
         mbar_arrive_expect_tx(&full[s], UNIT);
-        tma_load_4d(st, map, &full[s], chunk * 64, tile * BK, 0, b);
+        if constexpr (R == 1)
+          tma_load_4d(st, map, &full[s], chunk * 64, tile * BK, 0, b);
+        else
+          for (int h = 0; h < 2; ++h)
+            tma_load_3d(st + h * BOX, map, &full[s], c0 + h * H + chunk * 64, tile * BK, b);
       }
     }
   } else {
@@ -328,7 +452,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     // which the ring hands out only once every warp has released them; in
     // slots of their own, a slot is written again only once the other
     // warpgroup has read it (barrier 2 + g: the reader arrives, the writer
-    // waits).
+    // waits). In a cluster, S_0 + S_1 is this CTA's partial: it is sent to
+    // the other CTA, unscaled, and add_peer_partial scales the sum.
     auto exchange = [&](float (&sacc)[32], int t, int first) {
       if (!L::XIN_RING && t > 0) named_barrier(2 + g, 256);
 #pragma unroll
@@ -339,14 +464,22 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float4 x = *slot(1 - g, j, first);
-        sacc[4 * j] = (sacc[4 * j] + x.x) * scale_log2;
-        sacc[4 * j + 1] = (sacc[4 * j + 1] + x.y) * scale_log2;
-        sacc[4 * j + 2] = (sacc[4 * j + 2] + x.z) * scale_log2;
-        sacc[4 * j + 3] = (sacc[4 * j + 3] + x.w) * scale_log2;
+        if constexpr (R == 1) {
+          sacc[4 * j] = (sacc[4 * j] + x.x) * scale_log2;
+          sacc[4 * j + 1] = (sacc[4 * j + 1] + x.y) * scale_log2;
+          sacc[4 * j + 2] = (sacc[4 * j + 2] + x.z) * scale_log2;
+          sacc[4 * j + 3] = (sacc[4 * j + 3] + x.w) * scale_log2;
+        } else {
+          sacc[4 * j] += x.x;
+          sacc[4 * j + 1] += x.y;
+          sacc[4 * j + 2] += x.z;
+          sacc[4 * j + 3] += x.w;
+        }
       }
       if (!L::XIN_RING && t + 1 < nt) named_barrier_arrive(3 - g, 256);
       // these generic-proxy accesses come before the TMA refill of the stages
       if constexpr (L::XIN_RING) fence_proxy_async();
+      if constexpr (R > 1) send_partial(sacc, xslot, xfull, xempty, t, g, wt, rank ^ 1);
     };
 
     // The online softmax of the tile's rows row0, row0 + 8 over its 64
@@ -385,7 +518,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     };
 
     // Tile t: S_t, the exchange, then P V of tile t - 1 (when `pv`) beside
-    // tile t's softmax, O rescaled once P V is done; P_t into pfrag. The
+    // tile t's softmax, O rescaled once P V is done; P_t into pfrag. In a
+    // cluster the other CTA's partial is added once P V is issued. The
     // first tile, which has no P V, is its own instantiation: a wgmma under
     // a branch makes ptxas serialise the wgmmas.
     auto step = [&](int t, auto pv) {
@@ -405,6 +539,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_fence();
         issue_pv(vfirst);
       }
+      if constexpr (R > 1)
+        add_peer_partial(sacc, xslot, xfull, xempty, t, wt, rank ^ 1, scale_log2);
       softmax(sacc, corr);
       if constexpr (decltype(pv)::value) {
         wgmma_wait<0>();
@@ -442,22 +578,56 @@ __global__ void __launch_bounds__(THREADS, 1)
       l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
       l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     }
-    if (lse != nullptr && g == 0 && tig == 0) {
+    // both warpgroups (and in a cluster both CTAs) hold the same m and l
+    if (lse != nullptr && g == 0 && tig == 0 && rank == 0) {
       lse[static_cast<size_t>(b) * nq + q0 + row0] = m_run[0] * LN2 + logf(l_run[0]);
       lse[static_cast<size_t>(b) * nq + q0 + row0 + 8] = m_run[1] * LN2 + logf(l_run[1]);
     }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      bf16* orow = o + (static_cast<size_t>(b) * nq + q0 + row0 + 8 * half) * C + g * H;
+      bf16* orow = o + (static_cast<size_t>(b) * nq + q0 + row0 + 8 * half) * C + c0 + g * H;
 #pragma unroll
-      for (int u = 0; u < NCH; ++u)
+      for (int u = 0; u < NCH; ++u) {
+        if (R > 1 && c0 + g * H + 64 * u >= C) continue;  // a slice's padding is not stored
 #pragma unroll
         for (int j = 0; j < 8; ++j)
           *reinterpret_cast<__nv_bfloat162*>(orow + 64 * u + 8 * j + 2 * tig) =
               __floats2bfloat162_rn(oacc[u][4 * j + 2 * half] / l_run[half],
                                     oacc[u][4 * j + 2 * half + 1] / l_run[half]);
+      }
     }
   }
+  // no CTA of a cluster leaves while the other may still reach its shared memory
+  if constexpr (R > 1) cg::this_cluster().sync();
+}
+
+// Launches `kernel` over grid (R x blocks, b) in clusters of R CTAs (R = 1:
+// an ordinary launch) with `bytes` of dynamic shared memory.
+template <class Kernel, class... Args>
+cudaError_t launch_split(Kernel kernel, int r, int blocks, int b, int threads, int bytes,
+                         cudaStream_t stream, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  if (r == 1) {
+    kernel<<<dim3(blocks, b), threads, bytes, stream>>>(args...);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(r * blocks, b);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = r;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <int C>
@@ -469,22 +639,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   const uint64_t strides[2] = {2ull * C, 2ull * C * nq};
   const uint32_t qbox[3] = {64, BQ, 1};
   // K and V as (C/2 channels, nk rows, 2 halves, b): a unit's box lands as
-  // one 64-row box of each half (see the producer)
+  // one 64-row box of each half (see the producer); in a cluster as Q's
+  // (C, nk, b), two boxes a unit
+  constexpr int R = FwdSplit<C>::R;
   const uint64_t kvdims[4] = {static_cast<uint64_t>(C / 2), static_cast<uint64_t>(nk), 2,
                               static_cast<uint64_t>(b)};
   const uint64_t kvstrides[3] = {2ull * C, 1ull * C, 2ull * C * nk};
   const uint32_t kvbox[4] = {64, 64, 2, 1};
+  const uint64_t kvdims3[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(nk),
+                               static_cast<uint64_t>(b)};
+  const uint64_t kvstrides3[2] = {2ull * C, 2ull * C * nk};
+  const uint32_t kvbox3[3] = {64, BK, 1};
   cudaError_t err = make_tensor_map(&qmap, q, 3, dims, strides, qbox, 128);
-  if (err == cudaSuccess) err = make_tensor_map(&kmap, k, 4, kvdims, kvstrides, kvbox, 128);
-  if (err == cudaSuccess) err = make_tensor_map(&vmap, v, 4, kvdims, kvstrides, kvbox, 128);
+  for (int i = 0; i < 2 && err == cudaSuccess; ++i)
+    err = R == 1 ? make_tensor_map(i ? &vmap : &kmap, i ? v : k, 4, kvdims, kvstrides, kvbox, 128)
+                 : make_tensor_map(i ? &vmap : &kmap, i ? v : k, 3, kvdims3, kvstrides3, kvbox3,
+                                   128);
   if (err != cudaSuccess) return err;
-  constexpr int bytes = Layout<C>::BYTES;
-  err = cudaFuncSetAttribute(flash_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err != cudaSuccess) return err;
-  flash_fwd_kernel<C><<<dim3(nq / BQ, b), THREADS, bytes, stream>>>(
-      qmap, kmap, vmap, static_cast<bf16*>(o), lse, nq, nk, scale);
-  return cudaGetLastError();
+  return launch_split(flash_fwd_kernel<C>, R, nq / BQ, b, THREADS, Layout<C>::BYTES, stream,
+                      qmap, kmap, vmap, static_cast<bf16*>(o), lse, nq, nk, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -503,11 +676,16 @@ constexpr int F32_RING = F32_STAGES * F32_UNIT;
 constexpr int F32_SPLIT = F32_RING;                    // 2 warpgroups x 2 buffers
 constexpr int F32_PTILE = F32_SPLIT + 4 * F32_UNIT;    // P hi, then P lo
 constexpr int F32_BARS = F32_PTILE + 2 * F32_P;
-constexpr int F32_SMEM = F32_BARS + 2 * F32_STAGES * 8 + 1024;
+constexpr int F32_XSLOT = F32_BARS + 256;              // a cluster's two slots of XCH
 
 template <int C>
 struct F32Units {
-  static constexpr int H = C / 2;                        // channels of one warpgroup
+  static constexpr int R = FwdSplit<C>::R, CS = FwdSplit<C>::CS;
+  // full[STAGES], empty[STAGES]; a cluster's xfull[2], xempty[2], then its slots
+  static constexpr int SMEM =
+      (R == 1 ? F32_BARS + 2 * F32_STAGES * 8 : F32_XSLOT + 2 * XCH) + 1024;
+  static_assert(SMEM <= SMEM_MAX, "too much shared memory");
+  static constexpr int H = CS / 2;                       // channels of one warpgroup
   static constexpr int NS = H / F32_KC;                  // S units per key tile
   // O's channels per pass: a tile's P V goes into fresh accumulators of OC
   // channels, then into O by an fp32 add (see the header)
@@ -532,7 +710,8 @@ __device__ __forceinline__ float4 tf32_lo(float4 x, float4 hi) {
 
 // O (B, Nq, C) fp32 = softmax(Q K^T * scale) V over fp32 q (B, Nq, C) and
 // k, v (B, Nk, C), and with lse non-null the fp32 (B, Nq) lse = m + log(l).
-// Grid (Nq / 64, B); two warpgroups, thread 0 also the producer.
+// Grid (R Nq / 64, B) in clusters of R (FwdSplit); two warpgroups, thread 0
+// also the producer.
 template <int C>
 __global__ void __launch_bounds__(F32_THREADS, 1)
     flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -540,15 +719,20 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
                          const __grid_constant__ CUtensorMap vmap, float* __restrict__ o,
                          float* __restrict__ lse, int nq, int nk, float scale) {
   using U = F32Units<C>;
-  constexpr int H = U::H, OC = U::OC;
+  constexpr int R = U::R, H = U::H, OC = U::OC;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* ring = smem;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + F32_BARS);
   uint64_t* empty = full + F32_STAGES;
+  uint64_t* xfull = empty + F32_STAGES;  // R = 2 only
+  uint64_t* xempty = xfull + 2;
+  float4* xslot = reinterpret_cast<float4*>(smem + F32_XSLOT);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * F32_BQ, b = blockIdx.y;
+  int rank = 0;
+  if constexpr (R > 1) rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int q0 = (blockIdx.x / R) * F32_BQ, b = blockIdx.y, c0 = rank * U::CS;
   const int units = (nk / F32_BK) * U::UNITS;
 
   // Unit k of the stream, into its stage: per key tile, NS units of Q and K
@@ -561,15 +745,15 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
     if (u < U::NS) {
       mbar_arrive_expect_tx(&full[s], U::S_BYTES);
       for (int g = 0; g < 2; ++g) {
-        tma_load_3d(st + g * F32_TILE, &qmap, &full[s], g * H + u * F32_KC, q0, b);
-        tma_load_3d(st + (2 + g) * F32_TILE, &kmap, &full[s], g * H + u * F32_KC, t * F32_BK,
-                    b);
+        tma_load_3d(st + g * F32_TILE, &qmap, &full[s], c0 + g * H + u * F32_KC, q0, b);
+        tma_load_3d(st + (2 + g) * F32_TILE, &kmap, &full[s], c0 + g * H + u * F32_KC,
+                    t * F32_BK, b);
       }
     } else {
       const int p = (u - U::NS) / U::NV, key = t * F32_BK + ((u - U::NS) % U::NV) * F32_VK;
       mbar_arrive_expect_tx(&full[s], 2 * U::V_HALF);
       for (int g = 0; g < 2; ++g)
-        tma_load_3d(st + g * U::V_HALF, &vmap, &full[s], g * H + p * OC, key, b);
+        tma_load_3d(st + g * U::V_HALF, &vmap, &full[s], c0 + g * H + p * OC, key, b);
     }
   };
 
@@ -578,10 +762,18 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], F32_THREADS / 32);  // one arrival per warp
     }
+    if constexpr (R > 1)
+      for (int s = 0; s < 2; ++s) {
+        mbar_init(&xfull[s], F32_THREADS);  // the other CTA's threads
+        mbar_init(&xempty[s], F32_THREADS);
+      }
     mbar_init_fence();
     for (int k = 0; k < units && k < F32_STAGES; ++k) issue(k);
   }
-  __syncthreads();
+  if constexpr (R > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
 
   // Warpgroup g owns channels [g H, (g + 1) H) of S's sum and of O.
   const int g = warp / 4, wt = tid % 128, gid = lane / 4, tig = lane % 4;
@@ -657,14 +849,22 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
     for (int i = 0; i < 32; ++i) sacc[i] += sacc2[i];
 
     // ---- S = S_0 + S_1, through shared memory; both warpgroups then hold
-    // the same S, m, l and P, bit for bit ----
+    // the same S, m, l and P, bit for bit; in a cluster S_0 + S_1 is this
+    // CTA's partial, and the other CTA's is added the same way ----
     float* xmine = reinterpret_cast<float*>(mine);
     const float* xtheirs = reinterpret_cast<const float*>(theirs);
 #pragma unroll
     for (int i = 0; i < 32; ++i) xmine[i * 128 + wt] = sacc[i];
     named_barrier(3, F32_THREADS);
+    if constexpr (R == 1) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) sacc[i] = (sacc[i] + xtheirs[i * 128 + wt]) * scale;
+      for (int i = 0; i < 32; ++i) sacc[i] = (sacc[i] + xtheirs[i * 128 + wt]) * scale;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sacc[i] += xtheirs[i * 128 + wt];
+      send_partial(sacc, xslot, xfull, xempty, t, g, wt, rank ^ 1);
+      add_peer_partial(sacc, xslot, xfull, xempty, t, wt, rank ^ 1, scale);
+    }
 
     // ---- online softmax over the tile's 64 logits of rows row0, row0 + 8 ----
     float mx[2] = {MASKED, MASKED};
@@ -766,20 +966,24 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
-  // both warpgroups hold the same m and l: warpgroup 0 writes the rows' lse
-  if (lse != nullptr && g == 0 && tig == 0) {
+  // both warpgroups (and in a cluster both CTAs) hold the same m and l:
+  // warpgroup 0 (of rank 0) writes the rows' lse
+  if (lse != nullptr && g == 0 && tig == 0 && rank == 0) {
     lse[static_cast<size_t>(b) * nq + q0 + row0] = m_run[0] + logf(l_run[0]);
     lse[static_cast<size_t>(b) * nq + q0 + row0 + 8] = m_run[1] + logf(l_run[1]);
   }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    float* orow = o + (static_cast<size_t>(b) * nq + q0 + row0 + 8 * half) * C + g * H;
+    float* orow = o + (static_cast<size_t>(b) * nq + q0 + row0 + 8 * half) * C + c0 + g * H;
 #pragma unroll
     for (int j = 0; j < H / 8; ++j)
-      *reinterpret_cast<float2*>(orow + 8 * j + 2 * tig) =
-          make_float2(oacc[4 * j + 2 * half] / l_run[half],
-                      oacc[4 * j + 2 * half + 1] / l_run[half]);
+      if (R == 1 || c0 + g * H + 8 * j < C)  // a slice's padding is not stored
+        *reinterpret_cast<float2*>(orow + 8 * j + 2 * tig) =
+            make_float2(oacc[4 * j + 2 * half] / l_run[half],
+                        oacc[4 * j + 2 * half + 1] / l_run[half]);
   }
+  // no CTA of a cluster leaves while the other may still reach its shared memory
+  if constexpr (R > 1) cg::this_cluster().sync();
 }
 
 template <int C>
@@ -799,12 +1003,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, flo
   if (err == cudaSuccess) err = make_tensor_map(&kmap, k, 3, kvdims, kvstrides, qkbox, 64, f32);
   if (err == cudaSuccess) err = make_tensor_map(&vmap, v, 3, kvdims, kvstrides, vbox, 0, f32);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_fwd_f32_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             F32_SMEM);
-  if (err != cudaSuccess) return err;
-  flash_fwd_f32_kernel<C><<<dim3(nq / F32_BQ, b), F32_THREADS, F32_SMEM, stream>>>(
-      qmap, kmap, vmap, static_cast<float*>(o), lse, nq, nk, scale);
-  return cudaGetLastError();
+  return launch_split(flash_fwd_f32_kernel<C>, F32Units<C>::R, nq / F32_BQ, b, F32_THREADS,
+                      F32Units<C>::SMEM, stream, qmap, kmap, vmap, static_cast<float*>(o), lse,
+                      nq, nk, scale);
 }
 
 // The shapes both forwards take: 1 <= b <= 65535 (grid y), nq and nk
@@ -823,6 +1024,10 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
     case 256: return static_cast<int>(launch<256>(q, k, v, o, lse, b, nq, nk, scale, s));
     case 384: return static_cast<int>(launch<384>(q, k, v, o, lse, b, nq, nk, scale, s));
     case 512: return static_cast<int>(launch<512>(q, k, v, o, lse, b, nq, nk, scale, s));
+    case 640: return static_cast<int>(launch<640>(q, k, v, o, lse, b, nq, nk, scale, s));
+    case 768: return static_cast<int>(launch<768>(q, k, v, o, lse, b, nq, nk, scale, s));
+    case 896: return static_cast<int>(launch<896>(q, k, v, o, lse, b, nq, nk, scale, s));
+    case 1024: return static_cast<int>(launch<1024>(q, k, v, o, lse, b, nq, nk, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -837,6 +1042,10 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o, float* ls
     case 256: return static_cast<int>(launch_f32<256>(q, k, v, o, lse, b, nq, nk, scale, s));
     case 384: return static_cast<int>(launch_f32<384>(q, k, v, o, lse, b, nq, nk, scale, s));
     case 512: return static_cast<int>(launch_f32<512>(q, k, v, o, lse, b, nq, nk, scale, s));
+    case 640: return static_cast<int>(launch_f32<640>(q, k, v, o, lse, b, nq, nk, scale, s));
+    case 768: return static_cast<int>(launch_f32<768>(q, k, v, o, lse, b, nq, nk, scale, s));
+    case 896: return static_cast<int>(launch_f32<896>(q, k, v, o, lse, b, nq, nk, scale, s));
+    case 1024: return static_cast<int>(launch_f32<1024>(q, k, v, o, lse, b, nq, nk, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -847,7 +1056,7 @@ extern "C" {
 
 // q, o: contiguous (b, nq, c) bf16, k, v: contiguous (b, nk, c) bf16, on
 // the current device. nq and nk must be multiples of 64 (the query block,
-// the key tile) and c one of 128, 256, 384, 512.
+// the key tile) and c a multiple of 128 up to 1024.
 int vcd_flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o, int b,
                                  int nq, int nk, int c, float scale, void* stream) {
   return dispatch(q, k, v, o, nullptr, b, nq, nk, c, scale, stream);
@@ -861,7 +1070,7 @@ int vcd_flash_attention_fwd_lse_bf16(const void* q, const void* k, const void* v
 }
 
 // The fp32 serving forward: q, o contiguous (b, nq, c) fp32, k, v (b, nk, c)
-// fp32; nq and nk multiples of 64 and c one of 128, 256, 384, 512, as above.
+// fp32; nq and nk multiples of 64 and c a multiple of 128 up to 1024, as above.
 int vcd_flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, int b,
                                 int nq, int nk, int c, float scale, void* stream) {
   return dispatch_f32(q, k, v, o, nullptr, b, nq, nk, c, scale, stream);
@@ -872,6 +1081,22 @@ int vcd_flash_attention_fwd_lse_f32(const void* q, const void* k, const void* v,
                                     void* lse, int b, int nq, int nk, int c, float scale,
                                     void* stream) {
   return dispatch_f32(q, k, v, o, static_cast<float*>(lse), b, nq, nk, c, scale, stream);
+}
+
+// The dynamic shared memory a CTA of the bf16 (f32 == 0) or fp32 forward
+// takes at width c, in bytes; -1 for a width it does not take.
+int vcd_flash_attention_fwd_smem(int c, int f32) {
+  switch (c) {
+    case 128: return f32 ? F32Units<128>::SMEM : Layout<128>::BYTES;
+    case 256: return f32 ? F32Units<256>::SMEM : Layout<256>::BYTES;
+    case 384: return f32 ? F32Units<384>::SMEM : Layout<384>::BYTES;
+    case 512: return f32 ? F32Units<512>::SMEM : Layout<512>::BYTES;
+    case 640: return f32 ? F32Units<640>::SMEM : Layout<640>::BYTES;
+    case 768: return f32 ? F32Units<768>::SMEM : Layout<768>::BYTES;
+    case 896: return f32 ? F32Units<896>::SMEM : Layout<896>::BYTES;
+    case 1024: return f32 ? F32Units<1024>::SMEM : Layout<1024>::BYTES;
+    default: return -1;
+  }
 }
 
 const char* vcd_cuda_error_string(int err) {

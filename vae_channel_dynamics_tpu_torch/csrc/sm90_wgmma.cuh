@@ -96,6 +96,39 @@ __device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
   return r;
 }
 
+// One arrival on the mbarrier at `bar`, a shared::cluster address
+// (cluster_addr) in this CTA or another of the cluster, releasing this
+// thread's earlier memory accesses at cluster scope: a waiter that
+// mbar_wait_cluster()s on the phase sees them.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// mbar_wait, acquiring at cluster scope what the arrivals released.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// 16 bytes to `addr`, a shared::cluster address in another CTA of the cluster.
+__device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
 // Copies `bytes` (a multiple of 16) from `src` in this CTA's shared memory
 // to `dst` in the shared memory of a CTA of the cluster (this CTA's own
 // too), one bulk transfer counted as transactions of the mbarrier at `bar` in

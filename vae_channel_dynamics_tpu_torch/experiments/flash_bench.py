@@ -6,10 +6,11 @@
 Times ``ops.flash_attention.flash_attention_fwd`` on fp32 q, k, v of
 (8, 4096, 512), the fp32 evaluation's shape (batch 8 at 512px), TF32 off;
 where the checkout has the fp32 training kernels, also the fp32 LSE forward,
-dK/dV and dQ at (1, 16384, 512), the 1024px mid block; and the bf16 dK/dV
-(#7) and dQ (#8) at (1, 16384, 512) (a cluster of four CTAs) and at (1,
-16384, 128) (a cluster of one), checking that two calls of each are
-bit-equal. Each time is from CUDA events over ``--iters`` calls after one
+dK/dV and dQ at (1, 16384, 512), the 1024px mid block; the bf16 serving
+forward (#6) at (4, 4096, 512) and LSE forward (#6') at (1, 16384, 512);
+and the bf16 dK/dV (#7) and dQ (#8) at (1, 16384, 512) (a cluster of four
+CTAs) and at (1, 16384, 128) (a cluster of one), checking that two calls of
+each are bit-equal. Each time is from CUDA events over ``--iters`` calls after one
 warm-up call. It prints one JSON line: the checkout, ms per call of each,
 the card's name and nvidia-smi's name and power limit. ``--root`` imports
 the package of another checkout of this repository (an older commit
@@ -33,6 +34,7 @@ import sys
 
 SHAPE = (8, 4096, 512)
 TRAIN_SHAPE = (1, 16384, 512)
+SERVING_SHAPE = (4, 4096, 512)
 BF16_BWD_SHAPES = ((1, 16384, 512), (1, 16384, 128))
 DIGEST_SHAPES = ((1, 16384, 512), (4, 4096, 512), (2, 1024, 128), (1, 1024, 384))
 
@@ -123,6 +125,13 @@ def main(argv=None) -> int:
             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=scale))
         times["flash_attention_bwd_dq_f32"] = cuda_ms(
             lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale))
+    for name, shape in (("flash_attention_fwd", SERVING_SHAPE),
+                        ("flash_attention_fwd_lse", TRAIN_SHAPE)):
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        entry = getattr(fa, name)
+        times[f"{name}@{'x'.join(map(str, shape))}"] = cuda_ms(
+            lambda: entry(q, k, v, scale=shape[-1] ** -0.5, out_dtype=torch.bfloat16))
     bit_equal = {}
     for shape in BF16_BWD_SHAPES:
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)

@@ -597,9 +597,11 @@ class AttentionBlock(nn.Module):
     """Single-head self-attention over spatial positions (diffusers Attention
     in the VAE mid block): group_norm -> q/k/v -> softmax -> to_out ->
     residual. ``attn_impl`` is resolved per call by ``ops.attention
-    .resolve_impl``; ``flash`` that the kernels cannot take runs ``chunked``,
-    as in the JAX model. ``flash`` is differentiable: with autograd recording
-    it runs the LSE forward and the backward kernels
+    .resolve_impl``; ``flash`` at a shape the JAX kernels refuse runs
+    ``chunked``, as in the JAX model, and at a head wider than the CUDA
+    kernels' 1024 channels raises (``flash_attention.refuse_wider_heads``).
+    ``flash`` is differentiable: with autograd recording it runs the LSE
+    forward and the backward kernels
     (``ops/flash_attention.py``). Under a spatial group the queries are this
     rank's rows and K and V every shard's, gathered in order (JAX's
     sequence parallelism, for every impl); the policy reads the whole
@@ -644,6 +646,10 @@ class AttentionBlock(nn.Module):
                              "(its kernels take q, k and v of one width); use 'auto'")
         if impl == "flash" and not (flash_ops.eligible(hh * ww, c)
                                     and flash_ops.eligible(k.shape[1], c)):
+            # a shape the JAX kernels refuse runs chunked, as the JAX block
+            # does; a head past the CUDA kernels' 1024 channels, which the
+            # JAX kernels take, raises and names its ROADMAP item
+            flash_ops.refuse_wider_heads(hh * ww, c, k.shape[1])
             impl = "chunked"
         if impl == "flash":
             h = flash_ops.flash_attention(q, k, v, scale=scale, out_dtype=q.dtype)

@@ -35,6 +35,10 @@ CUDA kernel (count key)          replaces
 ``flash_attention_bwd_dq_f32``   ``_flash_bwd_dq_kernel`` in fp32 (same file)
 ===============================  ==============================================
 
+Every kernel takes C from 128 to 1024 channels in steps of 128
+(:data:`SUPPORTED_CHANNELS`), as the JAX kernels take any multiple of 128;
+past 1024 a CUDA call raises, naming its ROADMAP item (:data:`WIDE_HEADS`).
+
 What bounds them on the H100, and what the design does about it: at the mid
 block's C = 512 the forward does ``4*B*N^2*C`` FLOPs, dK/dV ``8*B*N^2*C``
 and dQ ``6*B*N^2*C``, against a few ``B*N*C`` bytes of device-memory
@@ -45,13 +49,18 @@ the model uses (N = 4096 at 512px, 16384 at 1024px). Each keeps
 its logits tile and fp32 accumulators on chip, so no O(N^2) buffer exists.
 The bf16 forward (serving, and with the LSE) runs on ``wgmma`` with TMA
 loads: a CTA owns 64 query rows, two consumer warpgroups half the channels
-each, fed by a producer warpgroup. The fp32 forward runs
+each, fed by a producer warpgroup. Both forwards keep O in registers, so
+past 512 channels (:func:`fwd_cluster_size`) a thread-block cluster of two
+CTAs shares the 64 rows, each owning a slice of :func:`fwd_slice` channels
+of Q, K, V and O, and the two add their partial logits through distributed
+shared memory, so both hold the same S, m, l and P. The fp32 forward runs
 each fp32 product as three TF32 ones (hi·hi + hi·lo + lo·hi, hi and lo the
 rounded split of each operand; one TF32 product keeps too few bits) on
 ``wgmma`` with TMA loads, bound by the TF32 rate over three. The bf16
 backward kernels run on ``wgmma`` with TMA loads, as clusters of
-:func:`bwd_cluster_size` CTAs that own :data:`BWD_SLICE` channels each and
-add their partial logits in rank order through distributed shared memory.
+:func:`bwd_cluster_size` CTAs (1 to 8) that own :data:`BWD_SLICE` channels
+each and add their partial logits in rank order through distributed shared
+memory.
 The fp32 backward keeps that split and takes dP and the outputs as 3xTF32
 on ``wgmma``, the outputs transposed (dK^T = Q^T dS, dV^T = dO^T P, dQ^T =
 K^T dS^T: tf32 ``wgmma`` takes K-major operands only), P and dS fp32 until
@@ -101,13 +110,23 @@ BWD_F32_LIBRARY = "flash_attention_bwd_f32"
 KERNELS = ("flash_attention_fwd", "flash_attention_fwd_f32", "flash_attention_fwd_lse",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "flash_attention_fwd_lse_f32",
            "flash_attention_bwd_dkv_f32", "flash_attention_bwd_dq_f32")
-# The kernels' channel widths, each a compiled instantiation: the forwards'
-# accumulators live in registers, split over two warpgroups by channels, and
-# 512 (the SDXL/SD mid block) is the widest that keeps them at 128 fp32 a
-# thread; the backward's cluster has one CTA per BWD_SLICE channels, at most 4.
-SUPPORTED_CHANNELS = (128, 256, 384, 512)
+# The kernels' channel widths, each a compiled instantiation: every multiple
+# of 128 up to 1024. The forwards' accumulators live in registers, split over
+# two warpgroups by channels, and 512 (the SDXL/SD mid block) is the widest
+# one CTA holds at 128 fp32 a thread; wider heads split over a cluster of two
+# CTAs. The backward's cluster has one CTA per BWD_SLICE channels, at most 8,
+# the largest portable cluster.
+MAX_CHANNELS = 1024
+SUPPORTED_CHANNELS = tuple(range(128, MAX_CHANNELS + 1, 128))
 TOKEN_MULTIPLE = 128
 BWD_SLICE = 128
+# the ROADMAP item that a head wider than MAX_CHANNELS waits on
+WIDE_HEADS = "ROADMAP Q2, #6-#8 at heads wider than 1024 channels"
+# shared memory a CTA may have, bytes: one CTA an SM (227 KB), and each of
+# two CTAs an SM (the bf16 dQ kernel: half of the SM's 228 KB, less 1 KB a
+# CTA that the system keeps)
+SMEM_CTA = 232448
+SMEM_HALF_SM = 228 * 1024 // 2 - 1024
 
 # kernel launches in this process, per kernel; only the CUDA branches below
 # add to them
@@ -141,9 +160,10 @@ def eligible(num_tokens: int, channels: int, num_keys: Optional[int] = None) -> 
     """Shapes the CUDA kernels take: queries (``num_tokens``) and keys
     (``num_keys``, the queries' count by default) each a multiple of 128
     (the JAX kernels' smallest block; the CUDA kernels tile by 32 and 64)
-    and channels in :data:`SUPPORTED_CHANNELS`. The JAX kernels take any
-    multiple of 128 channels; the register-resident accumulators limit these
-    to 512, and wider heads resolve to ``chunked``."""
+    and channels in :data:`SUPPORTED_CHANNELS`, every multiple of 128 up to
+    1024: the JAX ``eligible`` (unmeshed) up to that width. The JAX kernels
+    take wider heads too; here they wait on :data:`WIDE_HEADS`, and
+    :func:`refuse_wider_heads` raises where the JAX kernels would run."""
     num_keys = num_tokens if num_keys is None else num_keys
     return (
         min(num_tokens, num_keys) > 0
@@ -153,10 +173,90 @@ def eligible(num_tokens: int, channels: int, num_keys: Optional[int] = None) -> 
     )
 
 
+def refuse_wider_heads(num_tokens: int, channels: int, num_keys: Optional[int] = None) -> None:
+    """Raise ``NotImplementedError`` naming :data:`WIDE_HEADS` where the JAX
+    kernels would take the shape (tokens a multiple of 128, channels a
+    multiple of 128) but the channels are past :data:`MAX_CHANNELS`."""
+    num_keys = num_tokens if num_keys is None else num_keys
+    if (channels > MAX_CHANNELS and channels % BWD_SLICE == 0
+            and eligible(num_tokens, BWD_SLICE, num_keys)):
+        raise NotImplementedError(
+            f"flash attention at {channels} channels: the CUDA kernels take heads of up to "
+            f"{MAX_CHANNELS} channels (a backward cluster of 8 CTAs); {WIDE_HEADS}"
+        )
+
+
+def fwd_cluster_size(channels: int) -> int:
+    """CTAs in a thread-block cluster of the forward kernels at this width
+    (``FwdSplit`` in ``csrc/flash_attention_fwd.cu``): one up to 512
+    channels, two past it."""
+    return 1 if channels <= 512 else 2
+
+
+def fwd_slice(channels: int) -> int:
+    """Channels of one CTA of the forwards' cluster: all of them up to 512,
+    else ``128 * ceil(C / 256)``; at 640 and 896 the second slice ends 128
+    channels past C (zero-filled, not stored)."""
+    return channels if channels <= 512 else -(-channels // 256) * 128
+
+
 def bwd_cluster_size(channels: int) -> int:
     """CTAs in a thread-block cluster of the backward kernels at this width:
     one per :data:`BWD_SLICE` channels."""
     return channels // BWD_SLICE
+
+
+def fwd_smem_bytes(channels: int, f32: bool = False) -> int:
+    """Dynamic shared memory a CTA of the forward takes at this width
+    (``Layout`` and ``F32Units`` in ``csrc/flash_attention_fwd.cu``): Q
+    resident and a ring of 8 stages of 16 KB (bf16), or a ring of 6 stages,
+    the split buffers and P (fp32); a cluster adds two 16 KB slots of the
+    other CTA's partial logits; the barriers and the 1024-byte alignment."""
+    xch, barriers, pad = 64 * 64 * 4, 256, 1024
+    if f32:
+        base = 6 * 16384 + 4 * 16384 + 2 * xch
+        return base + (2 * 6 * 8 if fwd_cluster_size(channels) == 1
+                       else barriers + 2 * xch) + pad
+    cs, stages = fwd_slice(channels), 8
+    ring = cs * 128 + (0 if cs >= 256 else 2 * xch)
+    base = ring + stages * 2 * 64 * 128
+    return base + ((2 * stages + 1) * 8 if fwd_cluster_size(channels) == 1
+                   else barriers + 2 * xch) + pad
+
+
+def bwd_tile(channels: int, dkv: bool) -> int:
+    """Streamed rows a tile of the bf16 backward: 64 queries for dK/dV (32
+    at a cluster of 7, whose exchange buffer for 64 would not fit), 32 keys
+    for dQ (``Layout`` in ``csrc/flash_attention_bwd.cu``)."""
+    return 64 if dkv and bwd_cluster_size(channels) != 7 else 32
+
+
+def bwd_smem_bytes(channels: int, dkv: bool, f32: bool = False) -> int:
+    """Dynamic shared memory a CTA of the backward takes at this width
+    (``Layout`` in ``csrc/flash_attention_bwd.cu`` and
+    ``csrc/flash_attention_bwd_f32.cu``). bf16: two resident 64-row slices,
+    the ring, the exchange buffer (each rank's R slots of its own pairs and
+    its outbox of the others', sized for the rank that owns the most), the
+    gather buffers, dK/dV's lse and delta; fp32: the resident slices, two
+    stages, the split buffer, the B tiles, the partial slots (from R = 5 the
+    outbox lives in the B tiles), the row vectors."""
+    r, pair = bwd_cluster_size(channels), 128 * 16
+    if f32:
+        tile, ksteps = 32, 4
+        nb = 4 if dkv else 2
+        owned = [len([j for j in range(ksteps) if j * r // ksteps == q]) * 2 for q in range(r)]
+        slots = max((r * o if r > 4 else (r - 1) * o + tile // 4) for o in owned) * pair
+        vec = (2 * 2 * tile if dkv else 2 * 64) * 4
+        body = 2 * 4 * 64 * 128 + 2 * 2 * 4 * tile * 128 + 2 * 4 * tile * 128
+        body += ksteps * nb * 2 * 1024 + slots + vec
+        return body + (2 + 3) * 8 + 1024
+    tile = bwd_tile(channels, dkv)
+    stages, gathers, g = (3, 2, 8) if dkv else (2, 1, 4)
+    pairs = tile // 4
+    held = (r - 1) * -(-pairs // r) + pairs
+    body = 2 * 2 * 64 * 128 + stages * 2 * 2 * tile * 128 + held * pair
+    body += gathers * pairs * 128 * g + (stages * 2 * tile * 4 if dkv else 0)
+    return body + (stages + 3) * 8 + 1024
 
 
 # --------------------------------------------------------------------------- #
@@ -304,11 +404,12 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *rest: torch.
         raise ValueError("flash attention: operands must be contiguous")
     b, nq, c = q.shape
     nk = k.shape[1]
+    refuse_wider_heads(nq, c, nk)
     if not eligible(nq, c, nk):
         raise ValueError(
             f"flash attention: shape (B={b}, nq={nq}, nk={nk}, C={c}) is not eligible: "
-            f"nq and nk must be multiples of {TOKEN_MULTIPLE} and C one of "
-            f"{SUPPORTED_CHANNELS}"
+            f"nq and nk must be multiples of {TOKEN_MULTIPLE} and C a multiple of "
+            f"{BWD_SLICE} up to {MAX_CHANNELS}"
         )
 
 
@@ -505,6 +606,7 @@ def flash_attention(
 
 __all__ = [
     "bwd_cluster_size",
+    "bwd_smem_bytes",
     "eligible",
     "flash_attention",
     "flash_attention_bwd_dkv",
@@ -516,4 +618,8 @@ __all__ = [
     "flash_attention_fwd_lse",
     "flash_attention_fwd_lse_reference",
     "flash_attention_reference",
+    "fwd_cluster_size",
+    "fwd_slice",
+    "fwd_smem_bytes",
+    "refuse_wider_heads",
 ]
