@@ -655,6 +655,11 @@ REDESIGNED = {
                               "a cluster of C/128 CTAs, 64 queries a CTA, wgmma/TMA, the logits "
                               "summed in rank order through distributed shared memory; was "
                               "mma.sync, 16 queries a block)",
+    "conv3x3_dw_f32": "redesigned for Hopper, see PERF.md section 6 (64 x 64 channels a block "
+                      "on m64n64k8, a warpgroup's three taps in turn through one fresh "
+                      "accumulator, 64-pixel units, integer hi/lo splits, the splits "
+                      "independent blocks whose partials a second pass adds in order; was "
+                      "64 x 32 on m64n32k8, 128-pixel units, cvt splits, splits a cluster)",
 }
 # Tiled inference at full width: a 2048px image through the wrapper with
 # enable_tiling(512, 0.25), bf16: 25 encoder and 25 decoder tiles, the flash
@@ -833,9 +838,14 @@ SPILL_LIMITS = {"flash_fwd_kernel<512>": 24, "flash_fwd_kernel<384>": 0,
                 # dK/dV at a cluster of six, whose ranks own 3 or 2 of the 16
                 # pairs a thread (a run length known only at run time)
                 "flash_bwd_dkv_kernel<768>": 12,
-                # the fp32 fused resnet kernels: 168 registers a thread, no spills
+                # the fp32 fused resnet kernels: 168 registers a thread, no
+                # spills; fp32 #11 at 32- and 16-column units, holding 3 x 32
+                # summed and 32 fresh accumulators a thread
                 "fused_gn_silu_conv3x3_f32_kernel": 0, "conv3x3_nchw_f32_kernel": 0,
                 "conv3x3_dw_f32_kernel<32>": 0, "conv3x3_dw_f32_kernel<16>": 0}
+# fp32 #11's layout by unit width (W 16, 32: units of 16 and 32 columns), the
+# built library's bytes held to the Python mirror
+DW_F32_LAYOUT_WIDTHS = (16, 32)
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 
 
@@ -932,6 +942,14 @@ def phase_build():
     log(f"[build] {len(builds)} libraries built and loaded in {wall:.2f} s; the flash "
         "kernels by width: clusters (CTAs x channels), dynamic shared memory a CTA (bytes): "
         + str(layout))
+    dw_smem = {w: (fr._fn("conv3x3_dw_f32_smem")(w), fr.dw_f32_smem_bytes(w))
+               for w in DW_F32_LAYOUT_WIDTHS}
+    check(all(got == want for got, want in dw_smem.values()),
+          f"conv3x3_dw_f32's layout: the library gives, the Python mirror wants {dw_smem}")
+    log("[build] conv3x3_dw_f32 by width: unit (rows, cols), window (rows, cols), dynamic "
+        "shared memory a block (bytes): " + str({
+            w: (fr.dw_unit(w, True), fr.dw_f32_window(w), got)
+            for w, (got, _want) in dw_smem.items()}))
     seen = set()
     for library in sorted(set(WGMMA_KERNELS.values())):
         for label, ops in sass_counts(library).items():
@@ -2697,11 +2715,12 @@ def _halo_tap(x, a, o, tap):
 
 def _dw_splits(n, cin, cout, h, w, f32: bool = False) -> int:
     """conv3x3_dw's (``_f32``'s with ``f32``) split count as its wrapper
-    chooses it: from the clusters this card holds at once (the default
-    model off the card)."""
+    chooses it: in bf16 from the clusters this card holds at once (the
+    default model off the card); at fp32, whose splits are no cluster, from
+    the blocks an H100 holds."""
     from vae_channel_dynamics_tpu_torch.ops import fused_resnet as fr
 
-    on_card = (lambda k: fr.dw_max_clusters(w, k, f32=f32)) if DEVICE == "cuda" else None
+    on_card = (lambda k: fr.dw_max_clusters(w, k)) if DEVICE == "cuda" and not f32 else None
     return fr.dw_splits(n, cin, cout, h, w, on_card, f32=f32)
 
 
@@ -2975,11 +2994,14 @@ def phase_fused_kernels():
                 for name, (ms, covers) in library.items():
                     library[name] = (ms, covers + ", fp32 with TF32 off")
             # where #10's time goes: the weight copies, the NHWC copy of dy (the
-            # pre-pass in its identity mode) and the loop
-            by_kernel = device_ms_by_kernel(lambda: fr.conv3x3(dy, wf), FUSED_ITERS)
-            lines.append("#10 device ms a call by kernel (torch.profiler): " + (", ".join(
-                f"{k[:60]} {v:.4f}" for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1]))
-                or "not measured off the card"))
+            # pre-pass in its identity mode) and the loop; and #11's: its
+            # pre-passes (s, and dy's split at fp32) against its loop
+            for what, call in (("#10", lambda: fr.conv3x3(dy, wf)),
+                               ("#11", lambda: fr.conv_dw(x, a, o, dy))):
+                by_kernel = device_ms_by_kernel(call, FUSED_ITERS)
+                lines.append(f"{what} device ms a call by kernel (torch.profiler): " + (
+                    ", ".join(f"{k[:60]} {v:.4f}" for k, v in sorted(
+                        by_kernel.items(), key=lambda kv: -kv[1])) or "not measured off the card"))
             bounds = fused_bounds(n, cin, cout, h, w, f32)
             if (shape, cout) == FUSED_SHAPES[0]:
                 for name in fr.BF16_KERNELS:
@@ -2987,11 +3009,15 @@ def phase_fused_kernels():
                         shape=[*shape, cout], ms=times[name][0], plain_ms=times[name][1],
                         bound_ms=bounds[name + sfx][0], bound_by=bounds[name + sfx][1],
                         library_ms=library[name][0], library_covers=library[name][1])
-            held = ([fr.dw_max_clusters(w, k, f32=f32) for k in range(1, fr.DW_MAX_SPLITS + 1)]
-                    if DEVICE == "cuda" else "not queried off the card")
             lines.append("#9, #10 and #11 bit-equal run to run")
-            lines.append(f"#11 splits {_dw_splits(n, cin, cout, h, w, f32)} (clusters of 1-"
-                         f"{fr.DW_MAX_SPLITS} blocks the card holds at once: {held})")
+            splits = _dw_splits(n, cin, cout, h, w, f32)
+            if f32:
+                how = "independent blocks, their partials added in order"
+            else:
+                held = ([fr.dw_max_clusters(w, k) for k in range(1, fr.DW_MAX_SPLITS + 1)]
+                        if DEVICE == "cuda" else "not queried off the card")
+                how = f"clusters of 1-{fr.DW_MAX_SPLITS} blocks the card holds at once: {held}"
+            lines.append(f"#11 splits {splits}, grid {fr.dw_grid(cin, cout, splits, f32)} ({how})")
             log(f"[fused] {shape} -> {cout} {tag}: " + "; ".join(lines))
             log(f"[fused] {shape} -> {cout} {tag} ms kernel/plain/bound/library (CUDA events, "
                 f"{FUSED_ITERS} calls, in turns): " + ", ".join(
@@ -6550,7 +6576,8 @@ def main() -> int:
         "shape": r["shape"],
         **({"note": REDESIGNED[kname]} if kname in REDESIGNED else {}),
         **({"note": F32_NOTES[kname]} if kname in F32_NOTES else {}),
-        **({"note": FUSED_F32_NOTE} if kname in FUSED_F32_REPLACES else {}),
+        **({"note": FUSED_F32_NOTE + ("; " + REDESIGNED[kname] if kname in REDESIGNED else "")}
+           if kname in FUSED_F32_REPLACES else {}),
         # the same kernel at fewer queries than keys (the spatial axis)
         **({"split": split_results[kname]} if kname in split_results else {}),
         # the same kernel at heads of 768 and 1024 channels

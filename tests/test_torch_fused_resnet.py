@@ -429,10 +429,16 @@ def test_fp32_calls_hand_the_f32_kernel_its_operands(monkeypatch, one_thread, ke
     assert name == kernel + "_f32" and len(args) == len(fr._SIGNATURES[name]) - 1
     by_ptr = {t.data_ptr(): t for t in made + handed}
     if kernel == "conv3x3_dw":
-        s, dy_split, dw = (by_ptr[p] for p in args[4:7])
+        s, dy_split, dw_part, dw = (by_ptr[p] for p in args[4:8])
         assert s.shape == (n, cin, h, wd) and dy_split.shape == (2, n, cout, h, wd)
         assert dw.shape == (cout, cin, 3, 3) and dw.dtype == torch.float32
-        assert args[7:] == (n, cin, cout, h, wd, fr.dw_splits(n, cin, cout, h, wd, f32=True))
+        # the split count of the 64 x 64 channel blocks' grid over 64-pixel
+        # units, each split's dW partial added in order by the second pass
+        splits = fr.dw_splits(n, cin, cout, h, wd, f32=True)
+        assert args[8:] == (n, cin, cout, h, wd, splits) and splits > 1
+        assert dw_part.shape == (splits, cout, cin, 3, 3) and dw_part.dtype == torch.float32
+        assert fr.dw_grid(cin, cout, splits, f32=True) == (2, 4, splits)
+        assert splits <= fr.dw_units(n, h, wd, f32=True) == 2 * 6
         return
     w_ptr = args[3] if kernel == "fused_gn_silu_conv3x3" else args[1]
     s_ptr = args[7] if kernel == "fused_gn_silu_conv3x3" else args[4]
@@ -462,13 +468,50 @@ def test_mixed_or_other_dtypes_raise(monkeypatch, case):
 
 
 @pytest.mark.parametrize("n,cin,cout,h,w,unit,splits", [
-    (16, 512, 512, 32, 32, (4, 32), 1),   # the 256px fused shape: 128 blocks of 64 x 32
-    (16, 256, 512, 64, 64, (4, 32), 2),   # 64 blocks
-    (1, 128, 256, 16, 16, (8, 16), 2),    # capped by its two units
-    (2, 128, 128, 6, 48, (8, 16), 6),     # 16-column units of a 48-wide image, one a split
+    (16, 512, 512, 32, 32, (2, 32), 2),   # the 256px fused shape: 64 blocks of 64 x 64, 2 splits
+    (16, 256, 512, 64, 64, (2, 32), 4),   # 32 blocks
+    (1, 128, 256, 16, 16, (4, 16), 4),    # capped by its four units
+    (2, 128, 128, 6, 48, (4, 16), 6),     # 16-column units of a 48-wide image, two a split
 ])
 def test_dw_f32_units_and_splits(n, cin, cout, h, w, unit, splits):
-    """conv3x3_dw_f32's pixel unit (32 or 16 columns of 128 pixels) and its
-    split count over its 64 x 32 channel blocks."""
+    """conv3x3_dw_f32's pixel unit (32 or 16 columns of 64 pixels) and its
+    split count over its 64 x 64 channel blocks."""
     assert fr.dw_unit(w, f32=True) == unit
     assert fr.dw_splits(n, cin, cout, h, w, f32=True) == splits
+
+
+# (W, unit cols, window rows x cols, bytes): the window of s is 64 channels
+# of (unit rows + 3) x (44 or 28) fp32 (to whole KB), dy's hi and lo rows
+# 2 x rows x [64][cols] fp32; two such units, 1 KB of alignment, 4 barriers
+DW_F32_LAYOUTS = [
+    (16, 16, (7, 28), 2 * (64 * 7 * 28 * 4 + 2 * 4 * 64 * 16 * 4) + 1024 + 32),
+    (32, 32, (5, 44), 2 * (64 * 5 * 44 * 4 + 2 * 2 * 64 * 32 * 4) + 1024 + 32),
+    (48, 16, (7, 28), 2 * (64 * 7 * 28 * 4 + 2 * 4 * 64 * 16 * 4) + 1024 + 32),
+    (64, 32, (5, 44), 2 * (64 * 5 * 44 * 4 + 2 * 2 * 64 * 32 * 4) + 1024 + 32),
+    (96, 32, (5, 44), 2 * (64 * 5 * 44 * 4 + 2 * 2 * 64 * 32 * 4) + 1024 + 32),
+]
+
+
+@pytest.mark.parametrize("w,cols,window,smem", DW_F32_LAYOUTS,
+                         ids=[f"W{row[0]}" for row in DW_F32_LAYOUTS])
+def test_dw_f32_shared_memory_and_grid(w, cols, window, smem):
+    """conv3x3_dw_f32's layout at every unit width, as the kernel lays it
+    out (``dw_f32_smem_bytes`` mirrors it; the card's build phase holds the
+    library's ``vcd_conv3x3_dw_f32_smem`` to it): the window holds the
+    unit's rows and halo from a 16-byte column, a channel's plane is an odd
+    multiple of 4 floats (its fragment loads fall on 32 banks), the ring of
+    two units fits a block and holds its 64 x (64 x 9 + 1) fp32 sums staged
+    for the store; the grid is (Cin / 64, Cout / 64, splits)."""
+    rows, got_cols = fr.dw_unit(w, f32=True)
+    assert got_cols == cols and rows * cols == fr.DW_F32_UNIT_PIXELS
+    assert fr.dw_f32_window(w) == window
+    win_rows, win_cols = window
+    assert win_rows >= rows + 2 and win_cols >= cols + 5 and win_cols % 4 == 0
+    assert (win_rows * win_cols) % 8 == 4
+    assert fr.dw_f32_smem_bytes(w) == smem <= 232_448
+    assert (smem - 1024 - 32) >= 64 * (64 * 9 + 1) * 4
+    n, cin, cout, h = 16, 512, 512, 32
+    splits = fr.dw_splits(n, cin, cout, h, w, f32=True)
+    grid = fr.dw_grid(cin, cout, splits, f32=True)
+    assert grid == (8, 8, splits) and 1 <= splits <= fr.DW_MAX_SPLITS
+    assert grid[0] * grid[1] * grid[2] <= fr.DW_TARGET_BLOCKS

@@ -54,8 +54,10 @@ SHAPES = [
     ((2, 128, 20, 16), 128),   # #9's 8 x 16 pixel rectangle: the last one half outside
 ]
 IDS = [f"{s}->{c}" for s, c in SHAPES]
-# conv3x3_dw also at H = 12 under its 4-row units of 32 columns, 128 -> 256
-DW_SHAPES = SHAPES + [((2, 128, 12, 32), 256)]
+# conv3x3_dw also at H = 12 under its units of 32 columns, 128 -> 256, and
+# at Cin = 384 with H = 10 under 48-wide images' units of 16 columns (fp32:
+# 4 rows, the last unit row half below the image)
+DW_SHAPES = SHAPES + [((2, 128, 12, 32), 256), ((2, 384, 10, 48), 128)]
 DW_IDS = [f"{s}->{c}" for s, c in DW_SHAPES]
 
 
@@ -269,6 +271,46 @@ def test_conv_dw_is_deterministic(cuda, shape, cout, dtype):
     first = fr.conv_dw(x, a, o, dy)
     for _ in range(3):
         assert torch.equal(fr.conv_dw(x, a, o, dy), first)
+
+
+def _last_chunk_dropped(dy, n, cin, cout, h, w):
+    """dy with the pixels of conv3x3_dw_f32's last split zeroed: what a
+    kernel that left its last split out would sum. Split k covers units
+    [k*U//S, (k+1)*U//S) of the U units, in order of (sample, unit row,
+    unit column)."""
+    rows, cols = fr.dw_unit(w, f32=True)
+    units = fr.dw_units(n, h, w, f32=True)
+    per_image, units_w = units // n, w // cols
+    splits = fr.dw_splits(n, cin, cout, h, w, f32=True)
+    out = dy.clone()
+    for g in range((splits - 1) * units // splits, units):
+        nn, u = divmod(g, per_image)
+        r0, c0 = (u // units_w) * rows, (u % units_w) * cols
+        out[nn, :, r0:r0 + rows, c0:c0 + cols] = 0
+    return out
+
+
+@pytest.mark.parametrize("shape,cout", SHAPES[:2], ids=IDS[:2])
+def test_conv_dw_f32_bound_rejects_planted_faults(cuda, shape, cout):
+    """fp32 #11 within relative L2 1e-5 of plain in fp64, where what a
+    kernel with a planted fault sums is not: its last split's pixels left
+    out, or 1xTF32 (s and dy rounded to their TF32 hi)."""
+    n, cin, h, w = shape
+    x, _g, _b, wt, _bias, _res, dy, a, o = _inputs(shape, cout, cuda, seed=7,
+                                                   dtype=torch.float32)
+    dw = fr.conv_dw(x, a, o, dy)
+    ref64 = fr.conv_dw_reference(*_f64(x, a, o, dy))
+    _assert_f32(dw, ref64)
+    _z, s = fr._silu_rounded(x, a, o)
+    faults = {
+        "the last split": fr.conv_dw_reference(*_f64(x, a, o, _last_chunk_dropped(
+            dy, n, cin, cout, h, w))),
+        "1xTF32": torch.nn.grad.conv2d_weight(fr.tf32_split(s)[0].double(), tuple(wt.shape),
+                                              fr.tf32_split(dy)[0].double(), padding=1),
+    }
+    for what, fault in faults.items():
+        rel = ((fault - ref64).norm() / ref64.norm()).item()
+        assert rel > F32_REL_L2, what
 
 
 def _plain_op(x, gamma, beta, wt, bias, res):

@@ -14,10 +14,13 @@ truncated (the model of ``tests/test_torch_flash_tf32x3.py``, whose
   running sum in fp32, tap by tap, 64 channels by 64; then + bias, then +
   residual, in fp32;
 - #11 (``conv3x3_dw_f32_kernel``, ``csrc/fused_resnet.cu``): K = pixels, in
-  units of 128 (``fused_resnet.dw_unit(w, f32=True)``) taken in order of
-  (sample, unit row, unit column); each unit's 16 k-steps go into a fresh
-  accumulator added to the split's sum in fp32, and the splits of a cluster
-  (``dw_splits(..., f32=True)``) are added in order of the split.
+  units of 64 (``fused_resnet.dw_unit(w, f32=True)``: 2 rows of 32 columns
+  or 4 of 16) taken in order of (sample, unit row, unit column); a
+  warpgroup runs its kernel row's three taps one after the other through
+  one fresh accumulator, so each tap's 8 k-steps of a unit go into a fresh
+  accumulator added to that tap's sum of the split in fp32, and the splits'
+  partials (``dw_splits(..., f32=True)``) are added in order of the split.
+  Its hi and lo come from integer rounding, which is ``rna_tf32``.
 
 The JAX side runs its Pallas kernels in interpret mode at fp32, as
 ``tests/test_pallas_resnet.py`` does. The bound is the kernels' own on the
@@ -84,11 +87,14 @@ def emulated_conv(s: torch.Tensor, w: torch.Tensor, terms: int = 3,
 def emulated_dw(s: torch.Tensor, dy: torch.Tensor, terms: int = 3, fresh: bool = True,
                 splits: int = 0) -> torch.Tensor:
     """dW (Cout, Cin, 3, 3) of conv3x3 at input s and output gradient dy
-    (NCHW fp32) as ``conv3x3_dw_f32_kernel`` sums it: per split (its own
-    count, or ``splits``), per pixel unit a fresh accumulator added to the
-    split's sum in fp32 (``fresh``; else one accumulator over the split's
-    units), then the splits added in order. Unit rows below H add exact
-    zeros, which leave a truncating accumulator as it is: they are cut."""
+    (NCHW fp32) as ``conv3x3_dw_f32_kernel`` sums it: per tap, per split (its
+    own count, or ``splits``), per 64-pixel unit a fresh accumulator added to
+    the tap's sum of the split in fp32 (``fresh``; else one accumulator over
+    the split's units), then the splits added in order. The kernel takes a
+    unit's taps one after the other through one fresh accumulator; each
+    tap's sums stay apart, so the order of the taps does not enter. Unit
+    rows below H add exact zeros, which leave a truncating accumulator as it
+    is: they are cut."""
     n, cin, h, w = s.shape
     cout = dy.shape[1]
     rows, cols = fr.dw_unit(w, f32=True)
@@ -193,7 +199,7 @@ def test_one_tf32_product_is_rejected(kernel, cout):
 @pytest.mark.parametrize("kernel,shape,cout", [
     ("fused", (2, 256, 8, 16), 128),  # K = 9 x 256
     ("conv", (2, 128, 8, 16), 256),   # ds from dy's 256 channels: K = 9 x 256
-    ("dw", (2, 64, 32, 32), 32),      # K = 2048 pixels in one split, one block
+    ("dw", (2, 64, 32, 32), 32),      # K = 2048 pixels in one split
 ])
 def test_long_accumulation_is_rejected(kernel, shape, cout):
     """One truncating accumulator over the whole K exceeds the bound; the

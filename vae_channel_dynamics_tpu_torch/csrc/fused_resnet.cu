@@ -90,10 +90,17 @@
 //     tap's 64 channels go into fresh accumulators added to the sum in fp32,
 //     and the epilogue writes fp32 y, residual and moments as in bf16;
 //   - #11 takes s (unsplit, NCHW fp32, nchw_f32_kernel) as register A with
-//     the tap's shift, split in registers, and dy split into hi and lo NCHW
-//     planes as the K-major B: M = 64 input channels, N = 32 output
-//     channels, each 128-pixel unit into fresh accumulators, the splits of a
-//     cluster added in order (conv3x3_dw_f32_kernel has the design).
+//     the tap's shift, split in registers by integer rounding, and dy split
+//     into hi and lo NCHW planes as the K-major B: M = 64 input channels, N
+//     = 64 output channels, all 9 taps a block, a warpgroup's three taps in
+//     turn through one fresh accumulator over each 64-pixel unit, the
+//     splits' partials added in order by a second pass
+//     (conv3x3_dw_f32_kernel has the design).
+//     Redesigned from M 64 x N 32 (three fresh and three summed accumulators
+//     a thread, 128-pixel units, cvt.rna splits): on the H100 its m64n32k8
+//     products alone, without the loads and splits, took 0.738 ms of the
+//     loop's 1.025 at the 256px step's shape, 63% of the bound; at N = 64
+//     a MAC takes half the wgmma instructions and half the A splits.
 // What bounds them: 3 x 77.3 GFLOP at the 495 TFLOP/s TF32 rate, 0.469 ms at
 // the 256px step's shape (the fp32 SIMT rate's bound would be 1.154 ms).
 //
@@ -779,34 +786,41 @@ cudaError_t launch_conv_f32(const void* x, const void* a, const void* o, const v
 }
 
 // #11 at fp32. dW^T[ci][co] per tap = sum over pixels of s[ci][p + shift] *
-// dy[co][p], K = pixels, on wgmma m64n32k8 tf32: M = 64 input channels, N =
-// 32 output channels (a 64-wide N would need 3 x 32 fresh and 3 x 32 summed
-// accumulators a thread, more than 384 threads hold). tf32 wgmma's B must be
-// K-major: dy is NCHW, pixels contiguous, and the NCHW pre-pass splits it
-// into hi and lo planes, (2, N, Cout, H, W). The tap shifts are arbitrary
-// pixel offsets that no descriptor expresses, so A comes from registers, as
-// in the bf16 kernel: the pre-pass writes s = silu(a*x + o) NCHW in fp32
-// (unsplit), thread 0 loads per unit one unswizzled TMA box of it, 64
-// channels x WR rows x WW columns at (w0 - 4, h0 - 1) (TMA takes an inner
-// coordinate of whole 16 bytes only), zero-filled outside the image (the
-// conv's padding); each thread loads its four elements of a
-// 64 x 8 fragment with plain shared loads at the tap's shift and splits them
-// into hi and lo in registers (cvt.rna). Per k-step and tap: lo hi, hi lo,
-// hi hi. Warpgroup g owns the taps of kernel row g. Each unit (128 pixels,
-// 16 k-steps of 3 products) goes into fresh accumulators, added to the
-// split's sums in fp32 (the tensor cores truncate their accumulation); the
-// splits of a cluster add their sums in order of the split, as the bf16
-// kernel does. Grid (Cin / 64, Cout / 32, splits), clusters (1, 1, splits).
-constexpr int DWF_CI = 64;  // input channels per block: wgmma's M, from registers
-constexpr int DWF_CO = 32;  // output channels per block: wgmma's N
+// dy[co][p], K = pixels, on wgmma m64n64k8 tf32: M = 64 input channels, N =
+// 64 output channels, all 9 taps a block. tf32 wgmma's B must be K-major: dy
+// is NCHW, pixels contiguous, and the NCHW pre-pass splits it into hi and lo
+// planes, (2, N, Cout, H, W). The tap shifts are arbitrary pixel offsets that
+// no descriptor expresses, so A comes from registers: the pre-pass writes s =
+// silu(a*x + o) NCHW in fp32 (unsplit), thread 0 loads per unit one
+// unswizzled TMA box of it, 64 channels x WR rows x WW columns at (w0 - 4,
+// h0 - 1) (TMA takes an inner coordinate of whole 16 bytes only), zero-filled
+// outside the image (the conv's padding); each thread loads its four elements
+// of a 64 x 8 fragment with plain shared loads at the tap's shift and splits
+// them into hi and lo in registers by integer rounding (split_rna, bit-equal
+// to cvt.rna). Per k-step and tap: lo hi, hi lo, hi hi.
+//
+// Warpgroup g owns the taps of kernel row g. A thread holds one summed
+// accumulator a tap (3 x 32 fp32) and one fresh accumulator (32 fp32) that
+// the taps take in turn: per unit (64 pixels, 8 k-steps), tap dx = 0 runs its
+// 8 k-steps of 3 products into the fresh accumulator (the tensor cores
+// truncate their accumulation, so it stays short), which is added to the
+// tap's sum in fp32; then dx = 1, then dx = 2. The splits of a channel block
+// are independent blocks, not a cluster (a cluster's blocks share a GPC, and
+// the H100 holds only 30 clusters of 4 one-SM blocks at once): each writes
+// its sums, staged in shared memory, as whole rows of its partial, and
+// sum_tiles_kernel adds the partials in order of the split. Grid (Cin / 64,
+// Cout / 64, splits).
+constexpr int DWF_CI = 64;    // input channels per block: wgmma's M, from registers
+constexpr int DWF_CO = 64;    // output channels per block: wgmma's N
+constexpr int DWF_PIX = 64;   // pixels per unit: RS rows x BW columns
 constexpr int DWF_STAGES = 2;
 
 template <int BW>
 struct DwF32Tile {
-  static constexpr int RS = DW_PIX / BW;       // rows per unit
+  static constexpr int RS = DWF_PIX / BW;      // rows per unit
   // window columns from w0 - 4: the BW + 2 the taps read from w0 - 1, and
   // the rest pad the plane; window rows RS + 2, and one to pad the plane
-  static constexpr int WW = BW + 12;
+  static constexpr int WW = BW == 32 ? 44 : 28;
   static constexpr int WR = RS + 3;
   static constexpr int PLANE = WR * WW;        // one channel of the window, floats
   static constexpr int WIN_BYTES = DWF_CI * PLANE * 4;
@@ -814,7 +828,9 @@ struct DwF32Tile {
   static constexpr int SUB_BYTES = DWF_CO * BW * 4;  // dy, one row, hi or lo: [co][BW pixels]
   static constexpr int STAGE = WIN_ALIGNED + 2 * RS * SUB_BYTES;
   static constexpr int SMEM = DWF_STAGES * STAGE + 1024 + 2 * DWF_STAGES * 8;
-  static_assert(DWF_STAGES * STAGE >= 9 * DWF_CI * DWF_CO * 4, "the ring holds the split's sums");
+  static_assert(WW >= BW + 5 && WW % 4 == 0, "the window holds the halo in 16-byte rows");
+  static_assert(DWF_STAGES * STAGE >= DWF_CO * (9 * DWF_CI + 1) * 4,
+                "the ring holds the block's sums");
   // a fragment's 8 channels x 4 columns fall on 32 banks: the plane is an
   // odd multiple of 4 banks on
   static_assert(PLANE % 8 == 4, "the fragment loads are free of bank conflicts");
@@ -825,21 +841,28 @@ struct DwF32Tile {
 // else 16 (W is a multiple of 16).
 int dw_f32_cols(int w) { return w % 32 == 0 ? 32 : 16; }
 
-// v's hi and lo as tf32 bits.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  const float h = to_tf32(v);
-  hi = __float_as_uint(h);
-  lo = __float_as_uint(to_tf32(v - h));
+// v's hi and lo as tf32 bits, rounded to nearest with ties away from zero by
+// integer arithmetic on the bits (add half of TF32's last place to the
+// magnitude, clear the 13 bits TF32 drops): cvt.rna.tf32.f32's result for
+// every finite value, in two integer operations, where ptxas expands the
+// conversion into compares and selects.
+__device__ __forceinline__ uint32_t rna_tf32_bits(uint32_t bits) {
+  return (bits + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void split_rna(float v, uint32_t& hi, uint32_t& lo) {
+  hi = rna_tf32_bits(__float_as_uint(v));
+  lo = rna_tf32_bits(__float_as_uint(v - __uint_as_float(hi)));
 }
 
 template <int BW>
 __global__ void __launch_bounds__(DW_THREADS, 1)
     conv3x3_dw_f32_kernel(const __grid_constant__ CUtensorMap smap,
-                          const __grid_constant__ CUtensorMap dymap, float* __restrict__ dw,
+                          const __grid_constant__ CUtensorMap dymap, float* __restrict__ out,
                           int n_batch, int cin, int cout, int h, int w) {
   using T = DwF32Tile<BW>;
   constexpr int KPR = BW / 8;           // k-steps of 8 pixels a unit row
-  constexpr int STEPS = T::RS * KPR;    // k-steps a unit: 16
+  constexpr int STEPS = T::RS * KPR;    // k-steps a unit: 8
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + DWF_STAGES * T::STAGE);
@@ -879,19 +902,19 @@ __global__ void __launch_bounds__(DW_THREADS, 1)
   if (tid == 0)
     for (int g = g_begin; g < g_end && g < g_begin + DWF_STAGES; ++g) issue(g);
 
-  // ---- the consumer warpgroups: M = 64 input channels, N = 32 outputs ----
+  // ---- the consumer warpgroups: M = 64 input channels, N = 64 outputs ----
   const int wg = warp / 4, wq = warp % 4, gid = lane / 4, tig = lane % 4;
   // this thread's fragment elements: channels wq*16 + gid (+ 8), columns tig
   // (+ 4) of the k-step, at the window row of kernel row wg; pixel column c
   // at tap column dx is window column c + dx + 3
   const int a_off = ((wq * 16 + gid) * T::WR + wg) * T::WW + tig + 3;
   constexpr int CH8 = 8 * T::PLANE;
-  float acc[3][16], sum[3][16];
+  float acc[32], sum[3][32];
 #pragma unroll
   for (int dx = 0; dx < 3; ++dx)
 #pragma unroll
-    for (int i = 0; i < 16; ++i) acc[dx][i] = sum[dx][i] = 0.0f;
-  uint32_t ahi[2][3][4], alo[2][3][4];
+    for (int i = 0; i < 32; ++i) sum[dx][i] = 0.0f;
+  uint32_t ahi[2][4], alo[2][4];
 
   for (int g = g_begin; g < g_end; ++g) {
     const int k = g - g_begin, s = k % DWF_STAGES;
@@ -899,45 +922,36 @@ __global__ void __launch_bounds__(DW_THREADS, 1)
     const float* win = reinterpret_cast<const float*>(smem + s * T::STAGE) + a_off;
     const uint8_t* dys = smem + s * T::STAGE + T::WIN_ALIGNED;
 #pragma unroll
-    for (int t = 0; t < STEPS; ++t) {
-      const int r = t / KPR, kk = t % KPR, b = t & 1;
-      const uint64_t dh = make_desc(dys + r * T::SUB_BYTES, BW * 4) + 2 * kk;
-      const uint64_t dl = make_desc(dys + (T::RS + r) * T::SUB_BYTES, BW * 4) + 2 * kk;
-      const float* p = win + r * T::WW + kk * 8;
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        split_tf32(p[dx], ahi[b][dx][0], alo[b][dx][0]);
-        split_tf32(p[dx + CH8], ahi[b][dx][1], alo[b][dx][1]);
-        split_tf32(p[dx + 4], ahi[b][dx][2], alo[b][dx][2]);
-        split_tf32(p[dx + CH8 + 4], ahi[b][dx][3], alo[b][dx][3]);
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        wgmma_tf32_rs_m64n32k8(acc[dx], alo[b][dx], dh, t == 0 ? 0 : 1);
-        wgmma_tf32_rs_m64n32k8(acc[dx], ahi[b][dx], dl);
-        wgmma_tf32_rs_m64n32k8(acc[dx], ahi[b][dx], dh);
-      }
-      wgmma_commit();
-      // step t - 1's products are done: its fragments may be loaded again
-      wgmma_wait<1>();
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        fence_regs(ahi[b ^ 1][dx]);
-        fence_regs(alo[b ^ 1][dx]);
-      }
-    }
-    wgmma_wait<0>();
-#pragma unroll
     for (int dx = 0; dx < 3; ++dx) {
-      fence_regs(acc[dx]);
 #pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        fence_regs(ahi[b][dx]);
-        fence_regs(alo[b][dx]);
+      for (int t = 0; t < STEPS; ++t) {
+        const int r = t / KPR, kk = t % KPR, b = t & 1;
+        const uint64_t dh = make_desc(dys + r * T::SUB_BYTES, BW * 4) + 2 * kk;
+        const uint64_t dl = make_desc(dys + (T::RS + r) * T::SUB_BYTES, BW * 4) + 2 * kk;
+        const float* p = win + r * T::WW + kk * 8 + dx;
+        split_rna(p[0], ahi[b][0], alo[b][0]);
+        split_rna(p[CH8], ahi[b][1], alo[b][1]);
+        split_rna(p[4], ahi[b][2], alo[b][2]);
+        split_rna(p[CH8 + 4], ahi[b][3], alo[b][3]);
+        wgmma_fence();
+        wgmma_tf32_rs_m64n64k8(acc, alo[b], dh, t == 0 ? 0 : 1);
+        wgmma_tf32_rs_m64n64k8(acc, ahi[b], dl);
+        wgmma_tf32_rs_m64n64k8(acc, ahi[b], dh);
+        wgmma_commit();
+        // step t - 1's products are done: its fragments may be loaded again
+        wgmma_wait<1>();
+        fence_regs(ahi[b ^ 1]);
+        fence_regs(alo[b ^ 1]);
       }
+      // the tap's fresh sum is done: into its summed accumulator, in fp32
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(ahi[0]);
+      fence_regs(alo[0]);
+      fence_regs(ahi[1]);
+      fence_regs(alo[1]);
 #pragma unroll
-      for (int i = 0; i < 16; ++i) sum[dx][i] += acc[dx][i];
+      for (int i = 0; i < 32; ++i) sum[dx][i] += acc[i];
     }
     if (lane == 0) mbar_arrive(&empty[s]);  // the stage goes back to the producer
     if (tid == 0 && g + DWF_STAGES < g_end) {
@@ -947,59 +961,32 @@ __global__ void __launch_bounds__(DW_THREADS, 1)
     __syncwarp();
   }
 
-  // the splits' sums added in order of the split, as in conv3x3_dw_kernel
-  namespace cg = cooperative_groups;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int splits = static_cast<int>(cluster.num_blocks());
-  float* red = reinterpret_cast<float*>(smem);  // [tap][ci 64][co 32]
-  auto at = [&](int dx, int j, int e) {
-    return ((wg * 3 + dx) * DWF_CI + wq * 16 + gid + (e >> 1) * 8) * DWF_CO + 8 * j + 2 * tig +
-           (e & 1);
-  };
+  // The block's sums, staged in the free ring as [co][ci][tap] (rows of
+  // 64 x 9 floats a co, and one to pad), then written as 64 runs of 576
+  // floats, one a co: into dW, or (more than one split) into the split's
+  // partial, which sum_tiles_kernel adds in order of the split. No atomics:
+  // two runs give the same bits.
+  constexpr int RUN = DWF_CI * 9, ROW = RUN + 1;
+  float* staged = reinterpret_cast<float*>(smem);
+  __syncthreads();  // every warpgroup is done with the ring
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        staged[(8 * j + 2 * tig + (e & 1)) * ROW + (wq * 16 + gid + (e >> 1) * 8) * 9 + wg * 3 +
+               dx] = sum[dx][4 * j + e];
   __syncthreads();
-  if (rank != 0) {
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) red[at(dx, j, e)] = sum[dx][4 * j + e];
-  }
-  cluster.sync();
-  if (rank == 0) {
-    for (int r = 1; r < splits; ++r) {
-      const float* remote = cluster.map_shared_rank(red, r);
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sum[dx][4 * j + e] += remote[at(dx, j, e)];
-    }
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ci = ci0 + wq * 16 + gid + (e >> 1) * 8;
-          const int co = co0 + 8 * j + 2 * tig + (e & 1);
-          dw[(static_cast<size_t>(co) * cin + ci) * 9 + wg * 3 + dx] = sum[dx][4 * j + e];
-        }
-  }
-  cluster.sync();  // the other splits keep their shared memory until it is read
-}
-
-template <int BW>
-int dw_f32_max_clusters(int splits) {
-  return max_clusters(conv3x3_dw_f32_kernel<BW>, DW_THREADS, DwF32Tile<BW>::SMEM, splits);
+  float* dst = out + (static_cast<size_t>(blockIdx.z) * cout + co0) * cin * 9 + ci0 * 9;
+  for (int i = tid; i < DWF_CO * RUN; i += DW_THREADS)
+    dst[static_cast<size_t>(i / RUN) * cin * 9 + i % RUN] = staged[(i / RUN) * ROW + i % RUN];
 }
 
 template <int BW>
 cudaError_t launch_dw_f32(const void* x, const void* a, const void* o, const void* dy, void* s,
-                          void* dy_split, void* dw, int n, int cin, int cout, int h, int w,
-                          int splits, cudaStream_t stream) {
+                          void* dy_split, void* dw_part, void* dw, int n, int cin, int cout,
+                          int h, int w, int splits, cudaStream_t stream) {
   using T = DwF32Tile<BW>;
   const int hw = h * w;
   cudaError_t err = nchw_f32<true>(x, a, o, s, n, cin, hw, stream);
@@ -1023,12 +1010,12 @@ cudaError_t launch_dw_f32(const void* x, const void* a, const void* o, const voi
   err = cudaFuncSetAttribute(conv3x3_dw_f32_kernel<BW>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return err;
-  const ClusterLaunch launch(dim3(cin / DWF_CI, cout / DWF_CO, splits), DW_THREADS, T::SMEM,
-                             splits, stream);
-  err = cudaLaunchKernelEx(&launch.cfg, conv3x3_dw_f32_kernel<BW>, smap, dymap,
-                           static_cast<float*>(dw), n, cin, cout, h, w);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  float* out = static_cast<float*>(splits == 1 ? dw : dw_part);
+  conv3x3_dw_f32_kernel<BW><<<dim3(cin / DWF_CI, cout / DWF_CO, splits), DW_THREADS, T::SMEM,
+                              stream>>>(smap, dymap, out, n, cin, cout, h, w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return sum_tiles(out, static_cast<float*>(dw), 1, splits, cout * cin * 9, stream);
 }
 
 // #9's partial counts are the kernels' own: chunks = ceil(h*w / 64) for the
@@ -1166,31 +1153,36 @@ int vcd_conv3x3_dw_max_clusters(int w, int splits) {
 
 // dw (cout, cin, 3, 3) fp32 = sum over n, h, w of dy (n, cout, h, w) fp32
 // times silu(a*x + o) shifted, x (n, cin, h, w) fp32; s (n, cin, h, w) fp32
-// and dy_split (2, n, cout, h, w) fp32 scratch; cin a multiple of 64, cout
-// of 32, w of 16; 1 <= splits <= DW_MAX_SPLITS and <= the pixel units, n *
-// ceil(h / (128 / cols)) * (w / cols) with cols = dw_f32_cols(w).
+// and dy_split (2, n, cout, h, w) fp32 scratch; dw_part (splits, cout, cin,
+// 3, 3) fp32 scratch for more than one split, else null; cin and cout
+// multiples of 64, w of 16; 1 <= splits <= DW_MAX_SPLITS and <= the pixel
+// units, n * ceil(h / (64 / cols)) * (w / cols) with cols = dw_f32_cols(w).
 int vcd_conv3x3_dw_f32(const void* x, const void* a, const void* o, const void* dy, void* s,
-                       void* dy_split, void* dw, int n, int cin, int cout, int h, int w,
-                       int splits, void* stream) {
+                       void* dy_split, void* dw_part, void* dw, int n, int cin, int cout, int h,
+                       int w, int splits, void* stream) {
   if (n < 1 || cin < DWF_CI || cin % DWF_CI != 0 || cout < DWF_CO || cout % DWF_CO != 0 ||
       h < 1 || w < 16 || w % 16 != 0)
     return kInvalid;
-  const int cols = dw_f32_cols(w), rows = DW_PIX / cols;
+  const int cols = dw_f32_cols(w), rows = DWF_PIX / cols;
   const long long units = static_cast<long long>(n) * ((h + rows - 1) / rows) * (w / cols);
-  if (splits < 1 || splits > units || splits > DW_MAX_SPLITS) return kInvalid;
+  if (splits < 1 || splits > units || splits > DW_MAX_SPLITS ||
+      (splits > 1) != (dw_part != nullptr))
+    return kInvalid;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      cols == 32 ? launch_dw_f32<32>(x, a, o, dy, s, dy_split, dw, n, cin, cout, h, w, splits, st)
-                 : launch_dw_f32<16>(x, a, o, dy, s, dy_split, dw, n, cin, cout, h, w, splits,
-                                     st);
+      cols == 32 ? launch_dw_f32<32>(x, a, o, dy, s, dy_split, dw_part, dw, n, cin, cout, h, w,
+                                     splits, st)
+                 : launch_dw_f32<16>(x, a, o, dy, s, dy_split, dw_part, dw, n, cin, cout, h, w,
+                                     splits, st);
   return static_cast<int>(err);
 }
 
-// How many clusters of `splits` (1-8) blocks conv3x3_dw_f32 runs at once on
-// the current card at width w, or -(CUDA error).
-int vcd_conv3x3_dw_f32_max_clusters(int w, int splits) {
-  if (w < 16 || w % 16 != 0 || splits < 1 || splits > DW_MAX_SPLITS) return -kInvalid;
-  return dw_f32_cols(w) == 32 ? dw_f32_max_clusters<32>(splits) : dw_f32_max_clusters<16>(splits);
+// conv3x3_dw_f32's dynamic shared memory a block at width w (a multiple of
+// 16), bytes: the ring of two units (the window and dy's hi and lo rows), the
+// 1024-byte alignment and the barriers; or -1 for another width.
+int vcd_conv3x3_dw_f32_smem(int w) {
+  if (w < 16 || w % 16 != 0) return -1;
+  return dw_f32_cols(w) == 32 ? DwF32Tile<32>::SMEM : DwF32Tile<16>::SMEM;
 }
 
 const char* vcd_fused_error_string(int err) {

@@ -41,7 +41,8 @@ core accumulation short and add the partial sums in fp32. #9 and #10 read
 the weight K-major and split, (2, 3, 3, Cout, Cin) (:func:`weight_kmajor_split`),
 and their pre-pass writes the NHWC scratch as hi and lo planes, (2, N, H,
 W, Cin); #11's pre-passes write s NCHW in fp32, (N, Cin, H, W), and dy split,
-(2, N, Cout, H, W).
+(2, N, Cout, H, W), and its splits write their dW partials, (S, Cout, Cin,
+3, 3), which a second pass adds in order of the split.
 
 :func:`gn_silu_conv3x3` is the op the model calls: a
 ``torch.autograd.Function`` with the JAX custom VJP (pallas_resnet.py:
@@ -88,10 +89,12 @@ LANE = 128  # the JAX kernels' channel multiple (pallas_group_norm.py:40)
 W_MULTIPLE = 16  # the JAX kernels' W rule; here also the 16-byte NCHW stores' width
 SILU_PIXELS = 64  # pixels of one block of the NHWC pre-pass (#9's tap partials)
 DW_BLOCK_CHANNELS = (64, 64)  # conv3x3_dw's (out, in) channels per block
-DW_F32_BLOCK_CHANNELS = (32, 64)  # conv3x3_dw_f32's: 3 x (32 fresh + 32 summed) fp32 a thread
+DW_F32_BLOCK_CHANNELS = (64, 64)  # conv3x3_dw_f32's: 3 x 32 summed + 32 fresh fp32 a thread
 DW_UNIT_PIXELS = 128  # conv3x3_dw's pixel unit: rows x cols of one image
+DW_F32_UNIT_PIXELS = 64  # conv3x3_dw_f32's: each tap's fresh accumulation
+DW_F32_STAGES = 2  # conv3x3_dw_f32's ring of units in shared memory
 DW_TARGET_BLOCKS = 132  # the H100's SMs: conv3x3_dw holds one block on each
-DW_MAX_SPLITS = 8  # the splits of a channel block form one thread-block cluster
+DW_MAX_SPLITS = 8  # in bf16 the splits of a channel block form one thread-block cluster
 
 # kernel launches in this process, per kernel; only the CUDA branches below
 # add to them
@@ -105,8 +108,8 @@ _SIGNATURES = {
     "conv3x3_dw_max_clusters": [_I, _I],
     "fused_gn_silu_conv3x3_f32": [_P] * 13 + [_I] * 8 + [_P],
     "conv3x3_f32": [_P] * 5 + [_I] * 6 + [_P],
-    "conv3x3_dw_f32": [_P] * 7 + [_I] * 6 + [_P],
-    "conv3x3_dw_f32_max_clusters": [_I, _I],
+    "conv3x3_dw_f32": [_P] * 8 + [_I] * 6 + [_P],
+    "conv3x3_dw_f32_smem": [_I],
 }
 _fns: Dict[str, object] = {}  # ctypes functions, bound at first launch
 
@@ -358,12 +361,47 @@ def fused_tiles(h: int, w: int) -> int:
 
 def dw_unit(w: int, f32: bool = False) -> Tuple[int, int]:
     """``conv3x3_dw``'s pixel unit ``(rows, cols)`` for width ``w`` (a
-    multiple of 16): cols the widest of 64, 32, 16 that divides it (of 32,
-    16 for ``conv3x3_dw_f32``, whose dy rows are 128-byte swizzled fp32),
-    rows * cols = 128."""
+    multiple of 16): cols the widest of 64, 32, 16 that divides it, rows *
+    cols = 128; for ``conv3x3_dw_f32`` (``f32``), whose dy rows are 128-byte
+    swizzled fp32, the widest of 32, 16, rows * cols = 64."""
     widths = (32, 16) if f32 else (64, 32, 16)
     cols = next(c for c in widths if w % c == 0)
-    return DW_UNIT_PIXELS // cols, cols
+    return (DW_F32_UNIT_PIXELS if f32 else DW_UNIT_PIXELS) // cols, cols
+
+
+def dw_f32_window(w: int) -> Tuple[int, int]:
+    """``conv3x3_dw_f32``'s window of s a unit, ``(rows, cols)`` of each of
+    its 64 channels, at width ``w``: from one row and four columns before
+    the unit (TMA starts a row on whole 16 bytes), the unit's rows plus its
+    halo and one row more, 44 columns at 32-column units and 28 at 16, so
+    that a channel's plane is an odd multiple of 4 floats (a fragment's 8
+    channels x 4 columns fall on 32 banks)."""
+    rows, cols = dw_unit(w, True)
+    return rows + 3, 44 if cols == 32 else 28
+
+
+def dw_f32_smem_bytes(w: int) -> int:
+    """``conv3x3_dw_f32``'s dynamic shared memory a block at width ``w``: a
+    ring of ``DW_F32_STAGES`` units, each the window of s (64 channels, fp32,
+    to whole KB) and the unit's rows of dy's hi and lo ([64 channels][cols]
+    fp32 each), then 1 KB for the alignment and the ring's barriers. After
+    the loop the ring stages the block's sums, [64 co][64 ci x 9 + 1] fp32.
+    The C entry ``vcd_conv3x3_dw_f32_smem`` gives the built kernel's bytes."""
+    rows, cols = dw_unit(w, True)
+    win_rows, win_cols = dw_f32_window(w)
+    co, ci = DW_F32_BLOCK_CHANNELS
+    window = -(-(ci * win_rows * win_cols * 4) // 1024) * 1024
+    stage = window + 2 * rows * co * cols * 4
+    return DW_F32_STAGES * stage + 1024 + 2 * DW_F32_STAGES * 8
+
+
+def dw_grid(cin: int, cout: int, splits: int, f32: bool = False) -> Tuple[int, int, int]:
+    """``conv3x3_dw``'s grid (``_f32``'s with ``f32``): (Cin / ci, Cout /
+    co, splits) blocks of ``DW_BLOCK_CHANNELS`` (``DW_F32_BLOCK_CHANNELS``)
+    channels; in bf16 the splits of a channel block are one cluster, at
+    fp32 independent blocks."""
+    co, ci = DW_F32_BLOCK_CHANNELS if f32 else DW_BLOCK_CHANNELS
+    return cin // ci, cout // co, splits
 
 
 def dw_units(n: int, h: int, w: int, f32: bool = False) -> int:
@@ -383,7 +421,9 @@ def dw_splits(n: int, cin: int, cout: int, h: int, w: int,
     whose every GPC divides by S, when not given). S, at most 8 and at most
     one chunk per unit, minimises waves x units per block, the smaller S on
     a tie. Chunk k covers units [k*U//S, (k+1)*U//S) of the U =
-    :func:`dw_units`. With ``f32``, ``conv3x3_dw_f32``'s blocks and units."""
+    :func:`dw_units`. With ``f32``, ``conv3x3_dw_f32``'s blocks and units:
+    its splits are independent blocks (no cluster), so ``DW_TARGET_BLOCKS //
+    S`` groups of S run at once and ``max_clusters`` is not given."""
     co, ci = DW_F32_BLOCK_CHANNELS if f32 else DW_BLOCK_CHANNELS
     out_blocks = (cout // co) * (cin // ci)
     units = dw_units(n, h, w, f32)
@@ -400,11 +440,10 @@ def dw_splits(n: int, cin: int, cout: int, h: int, w: int,
 
 
 @functools.lru_cache(maxsize=None)
-def dw_max_clusters(w: int, splits: int, f32: bool = False) -> int:
-    """How many clusters of ``splits`` ``conv3x3_dw`` (``_f32`` with
-    ``f32``) blocks the current card runs at once at width ``w``
-    (``cudaOccupancyMaxActiveClusters``)."""
-    count = _fn("conv3x3_dw_f32_max_clusters" if f32 else "conv3x3_dw_max_clusters")(w, splits)
+def dw_max_clusters(w: int, splits: int) -> int:
+    """How many clusters of ``splits`` ``conv3x3_dw`` blocks the current
+    card runs at once at width ``w`` (``cudaOccupancyMaxActiveClusters``)."""
+    count = _fn("conv3x3_dw_max_clusters")(w, splits)
     if count < 0:
         msg = _cuda_build.load(LIBRARY).vcd_fused_error_string(-count)
         raise RuntimeError(f"conv3x3_dw cluster query failed: CUDA error {-count} "
@@ -517,17 +556,20 @@ def conv_dw(x: torch.Tensor, a: torch.Tensor, o: torch.Tensor,
     _check_rule(name, x, cout)
     _check_vec(name, "a", a, (n, cin), dev)
     _check_vec(name, "o", o, (n, cin), dev)
-    f32 = x.dtype == torch.float32
-    with torch.cuda.device(dev):
-        held = functools.partial(dw_max_clusters, wd, f32=f32)
-        splits = dw_splits(n, cin, cout, h, wd, held, f32=f32)
     dw = torch.empty((cout, cin, 3, 3), dtype=torch.float32, device=dev)
-    if f32:
+    if x.dtype == torch.float32:
+        splits = dw_splits(n, cin, cout, h, wd, f32=True)
         s = torch.empty((n, cin, h, wd), dtype=x.dtype, device=dev)  # silu(a*x + o), NCHW
         dy_split = torch.empty((2, n, cout, h, wd), dtype=x.dtype, device=dev)
+        # each split's dW, added in order of the split by the kernel's second pass
+        dw_part = (torch.empty((splits, cout, cin, 3, 3), dtype=torch.float32, device=dev)
+                   if splits > 1 else None)
         _launch(_by_dtype(name, x), x, x.data_ptr(), a.data_ptr(), o.data_ptr(), dy.data_ptr(),
-                s.data_ptr(), dy_split.data_ptr(), dw.data_ptr(), n, cin, cout, h, wd, splits)
+                s.data_ptr(), dy_split.data_ptr(), _ptr(dw_part), dw.data_ptr(), n, cin, cout, h,
+                wd, splits)
     else:
+        with torch.cuda.device(dev):
+            splits = dw_splits(n, cin, cout, h, wd, functools.partial(dw_max_clusters, wd))
         s = torch.empty((n, h, wd, cin), dtype=x.dtype, device=dev)  # silu(a*x + o), NHWC
         _launch(name, x, x.data_ptr(), a.data_ptr(), o.data_ptr(), dy.data_ptr(), s.data_ptr(),
                 dw.data_ptr(), n, cin, cout, h, wd, splits)
@@ -619,6 +661,9 @@ __all__ = [
     "conv3x3_reference",
     "conv_dw",
     "conv_dw_reference",
+    "dw_f32_smem_bytes",
+    "dw_f32_window",
+    "dw_grid",
     "dw_max_clusters",
     "dw_splits",
     "dw_unit",
